@@ -1,0 +1,76 @@
+"""Launch wrapper of the CUDA paged decode attention
+(``csrc/paged_attention.cu``, replacing the Pallas ``_paged_kernel``).
+
+``paged_attention`` validates what the kernel takes, allocates the
+output, launches on PyTorch's current stream and counts the launch in
+``launches``. It never falls back: anything the kernel does not take
+raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+launches = 0   # kernel launches since the last reset (plain int)
+
+HEAD_DIMS = (32, 64, 128)
+GROUPS = (1, 2, 4, 8)
+
+
+def _check(q, k_pages, v_pages, block_table, seq_lens) -> None:
+    dev = q.device
+    tensors = (q, k_pages, v_pages, block_table, seq_lens)
+    if not q.is_cuda or any(t.device != dev for t in tensors):
+        raise ValueError("paged_attention kernel: all inputs must be on one CUDA device")
+    if q.dtype not in _build.DTYPE_CODE or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError(f"paged_attention kernel: dtype {q.dtype}/{k_pages.dtype} "
+                         f"(one of float32, bfloat16; int8 pools take the gather path)")
+    if block_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise ValueError("paged_attention kernel: block_table and seq_lens must be int32")
+    B, H, hd = q.shape
+    P, ps, KVH, hd_k = k_pages.shape
+    if hd != hd_k or v_pages.shape != k_pages.shape or H % KVH:
+        raise ValueError(f"paged_attention kernel: q{tuple(q.shape)} pools{tuple(k_pages.shape)}")
+    if block_table.dim() != 2 or block_table.shape[0] != B or tuple(seq_lens.shape) != (B,):
+        raise ValueError(f"paged_attention kernel: table{tuple(block_table.shape)} "
+                         f"lens{tuple(seq_lens.shape)} for {B} lanes")
+    if hd not in HEAD_DIMS or H // KVH not in GROUPS:
+        raise ValueError(f"paged_attention kernel: head_dim {hd} (one of {HEAD_DIMS}), "
+                         f"group {H // KVH} (one of {GROUPS})")
+    if not all(t.is_contiguous() for t in tensors) or any(
+        t.data_ptr() % 16 for t in (q, k_pages, v_pages)
+    ):
+        raise ValueError("paged_attention kernel: inputs must be contiguous and 16-byte aligned")
+
+
+def paged_attention(
+    q: torch.Tensor,            # (B, H, hd)
+    k_pages: torch.Tensor,      # (P, page_size, KVH, hd)
+    v_pages: torch.Tensor,      # (P, page_size, KVH, hd)
+    block_table: torch.Tensor,  # (B, max_blocks) int32
+    seq_lens: torch.Tensor,     # (B,) int32
+    *,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Returns (B, H, hd) in q's dtype."""
+    global launches
+    _check(q, k_pages, v_pages, block_table, seq_lens)
+    B, H, hd = q.shape
+    P, ps, KVH, _ = k_pages.shape
+    scale = sm_scale if sm_scale is not None else float(1.0 / np.sqrt(hd))
+    out = torch.empty_like(q)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.repro_paged_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            _build.DTYPE_CODE[q.dtype], B, H, KVH, hd, P, ps, block_table.shape[1],
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(err, "paged_attention")
+    launches += 1
+    return out

@@ -1,0 +1,316 @@
+"""Shared layers of the dense decoder (port of ``repro.models.layers``):
+f32-internal RMSNorm, split-half RoPE, SwiGLU MLP, the qkv projection
+with qk-norm, the plain ``masked`` blockwise attention used by prefill,
+and one-token attention against the shared paged KV pool.
+
+Tensors keep the reference's layouts: activations ``(B, S, d)``, heads
+``(B, S, H, hd)``, pools ``(P, page_size, KVH, hd)``. Unlike the JAX
+code, the paged write updates the pool in place (one pool buffer for the
+life of an engine, no copy per step).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.models import common
+from repro_torch.models.common import ParamSpec
+
+NEG_INF = -1e30  # large-negative for masking in f32 accumulation
+PAGE_SIZE = 16   # token positions per pool page; matches cache_len_for's x16
+
+
+# ---------------------------------------------------------------------------
+# Norms, RoPE, MLP
+# ---------------------------------------------------------------------------
+
+def rmsnorm_spec(dim: int, axis: str = "embed") -> Dict[str, ParamSpec]:
+    return {"scale": ParamSpec((dim,), (axis,), init="ones")}
+
+
+def rmsnorm(params: Dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in f32, output cast back to the input dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps) * params["scale"].float()
+    return y.to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freq(hd: int, theta: float, device: torch.device) -> torch.Tensor:
+    """Inverse frequencies, computed in numpy float32 exactly as the
+    reference does, uploaded once per device (a host-to-device copy per
+    call would stall the host until the card is idle)."""
+    freq = 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float32) / hd))
+    return torch.from_numpy(np.asarray(freq, np.float32)).to(device)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, split-half. x: (..., S, H, hd); positions: (..., S)."""
+    dtype = x.dtype
+    freq = _rope_freq(x.shape[-1], float(theta), x.device)
+    angles = positions[..., None].float() * freq          # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return y.to(dtype)
+
+
+def mlp_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    if not cfg.gated_mlp:
+        raise NotImplementedError("repro_torch: only the gated (SwiGLU) MLP is ported")
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wi_gate": ParamSpec((d, f), ("embed", "ffn")),
+        "wi_up": ParamSpec((d, f), ("embed", "ffn")),
+        "wo": ParamSpec((f, d), ("ffn", "embed")),
+    }
+
+
+def mlp(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """SwiGLU: wo(silu(x wi_gate) * x wi_up)."""
+    if cfg.mlp_activation != "silu":
+        raise NotImplementedError(f"repro_torch: activation {cfg.mlp_activation!r}")
+    ct = cfg.dtype
+    g = common.dense(x, params["wi_gate"], ct)
+    u = common.dense(x, params["wi_up"], ct)
+    return common.dense(F.silu(g) * u, params["wo"], ct)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def attention_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    if cfg.qkv_bias:
+        raise NotImplementedError("repro_torch: qkv bias is not ported yet")
+    d = cfg.d_model
+    qd, kd = cfg.q_dim, cfg.kv_dim
+    spec: Dict[str, ParamSpec] = {
+        "wq": ParamSpec((d, qd), ("embed", "q_dim")),
+        "wk": ParamSpec((d, kd), ("embed", "kv_dim")),
+        "wv": ParamSpec((d, kd), ("embed", "kv_dim")),
+        "wo": ParamSpec((qd, d), ("q_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = ParamSpec((cfg.resolved_head_dim,), ("head_dim",), init="ones")
+        spec["k_norm"] = ParamSpec((cfg.resolved_head_dim,), ("head_dim",), init="ones")
+    return spec
+
+
+def _project_qkv(
+    params: Dict, x: torch.Tensor, cfg: ModelConfig
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B,S,d) -> q (B,S,H,hd), k/v (B,S,KVH,hd), with qk-norm."""
+    ct = cfg.dtype
+    hd = cfg.resolved_head_dim
+    q = common.dense(x, params["wq"], ct)
+    k = common.dense(x, params["wk"], ct)
+    v = common.dense(x, params["wv"], ct)
+    q = q.reshape(*q.shape[:-1], cfg.num_heads, hd)
+    k = k.reshape(*k.shape[:-1], cfg.num_kv_heads, hd)
+    v = v.reshape(*v.shape[:-1], cfg.num_kv_heads, hd)
+    if "q_norm" in params:
+        q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
+        k = rmsnorm({"scale": params["k_norm"]}, k, cfg.norm_eps)
+    return q, k, v
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """q (B,Sq,KVH,G,hd) x k (B,T,KVH,hd) -> (B,KVH,G,Sq,T) f32; products of
+    bf16 inputs are exact in f32, as with ``preferred_element_type``."""
+    return torch.einsum("bqhgd,bthd->bhgqt", q.float(), k.float()) * scale
+
+
+def _sdpa(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    mask: Optional[torch.Tensor], scale: float,
+) -> torch.Tensor:
+    """Plain softmax attention of one (q-block x kv-block) pair.
+
+    q: (B, Sq, KVH, G, hd)  k/v: (B, T, KVH, hd)  mask: (B, Sq, T) or None.
+    ``p`` is cast to the input dtype before the PV product, as the
+    reference does.
+    """
+    s = _scores(q, k, scale)
+    if mask is not None:
+        s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhgqt,bthd->bqhgd", p, v)
+
+
+def _online_block(carry, q, k, v, mask, scale):
+    """One online-softmax accumulation step over a kv chunk.
+
+    carry: acc (B,Sq,KVH,G,hd) f32, m (B,KVH,G,Sq) f32, l (B,KVH,G,Sq) f32.
+    """
+    acc, m, l = carry
+    s = _scores(q, k, scale)
+    if mask is not None:
+        s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bhgqt,bthd->bqhgd", p.to(q.dtype), v).float()
+    acc_new = acc * corr.movedim(-1, 1)[..., None] + pv
+    return acc_new, m_new, l_new
+
+
+def blockwise_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+    kv_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """The reference's ``masked`` blockwise attention: every q chunk scans
+    every kv chunk under the mask. q: (B,Sq,H,hd); k/v: (B,T,KVH,hd).
+    Returns (B,Sq,H,hd). ``kv_valid``: kv rows at or past it are padding.
+    Full attention only: the sliding-window band comes with the SWA families.
+    """
+    B, Sq, H, hd = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = float(1.0 / np.sqrt(hd))
+    qg = q.reshape(B, Sq, KVH, G, hd)
+    dev = q.device
+
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, T)
+    if Sq <= q_chunk and T <= kv_chunk:
+        q_pos = q_offset + torch.arange(Sq, device=dev)
+        kv_pos = torch.arange(T, device=dev)
+        mask = torch.ones((Sq, T), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos[:, None] >= kv_pos[None, :]
+        if kv_valid is not None and kv_valid < T:
+            mask &= (kv_pos < kv_valid)[None, :]
+        out = _sdpa(qg, k, v, mask.expand(B, Sq, T), scale)
+        return out.reshape(B, Sq, H, hd)
+
+    # ragged lengths: pad to the chunk grid, mask padded kv rows, drop padded q rows
+    pad_q = (-Sq) % q_chunk
+    pad_kv = (-T) % kv_chunk
+    if pad_q or pad_kv:
+        q_p = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        k_p = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v_p = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
+        out = blockwise_attention(
+            q_p, k_p, v_p, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            q_offset=q_offset, kv_valid=T,
+        )
+        return out[:, :Sq]
+
+    outs = []
+    for i in range(Sq // q_chunk):
+        qc = qg[:, i * q_chunk:(i + 1) * q_chunk]
+        q_pos = q_offset + i * q_chunk + torch.arange(q_chunk, device=dev)
+        acc = torch.zeros((B, q_chunk, KVH, G, hd), dtype=torch.float32, device=dev)
+        m = torch.full((B, KVH, G, q_chunk), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, KVH, G, q_chunk), dtype=torch.float32, device=dev)
+        for j in range(T // kv_chunk):
+            kv_pos = j * kv_chunk + torch.arange(kv_chunk, device=dev)
+            mask = None
+            if causal:
+                mask = q_pos[:, None] >= kv_pos[None, :]
+            if kv_valid is not None and kv_valid < T:
+                bound = (kv_pos < kv_valid)[None, :]
+                mask = bound if mask is None else mask & bound
+            if mask is not None:
+                mask = mask.expand(B, q_chunk, kv_chunk)
+            sl = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            acc, m, l = _online_block((acc, m, l), qc, k[:, sl], v[:, sl], mask, scale)
+        out = acc / torch.clamp(l.movedim(-1, 1)[..., None], min=1e-37)
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (serving decode)
+# ---------------------------------------------------------------------------
+
+def make_paged_cache_specs(
+    cfg: ModelConfig, num_pages: int, page_size: int = PAGE_SIZE,
+) -> Dict[str, ParamSpec]:
+    """Paged-KV pool entry for ONE layer (stacked by the caller).
+
+    ``num_pages`` blocks of ``page_size`` consecutive token positions,
+    shared by every sequence through per-lane block tables. The LAST page
+    is the trash page: dead decode lanes write there and it is never
+    allocated or attended to.
+    """
+    hd = cfg.resolved_head_dim
+    shape = (num_pages, page_size, cfg.num_kv_heads, hd)
+    axes = (None, None, "kv_heads", "head_dim")
+    return {
+        "k_pages": ParamSpec(shape, axes, init="zeros", dtype=cfg.dtype),
+        "v_pages": ParamSpec(shape, axes, init="zeros", dtype=cfg.dtype),
+    }
+
+
+def _paged_write(pages: torch.Tensor, new: torch.Tensor, rows: torch.Tensor) -> None:
+    """Scatter one token per sequence into the flattened pool, in place.
+
+    pages: (P, ps, ...); new: (B, ...); rows: (B,) flattened pool rows.
+    Live rows are unique by construction; only trash-page rows may
+    collide, and those are never read back.
+    """
+    P, ps = pages.shape[:2]
+    flat = pages.view(P * ps, *pages.shape[2:])
+    flat[rows.long()] = new.to(pages.dtype)
+
+
+def decode_attention_paged(
+    params: Dict,
+    cache: Dict,
+    x: torch.Tensor,
+    seq_lens: torch.Tensor,     # (B,) int32: tokens already cached per lane
+    block_table: torch.Tensor,  # (B, max_blocks) int32; -1 = unassigned
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """One-token attention against the shared paged pool; writes this
+    token's k/v into ``cache`` in place and returns the attention output
+    projected by ``wo``, (B, 1, d).
+
+    ``seq_lens[b]`` is both the number of cached tokens and the absolute
+    position of lane b's token. A dead lane (unassigned page at its write
+    index) writes to the trash page and attends over zero positions.
+    Attention goes through ``ops.paged_decode_attention``: the CUDA kernel
+    on a GPU tensor, the plain ``paged_attention_ref`` on the CPU.
+    """
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    k_pages, v_pages = cache["k_pages"], cache["v_pages"]
+    P, ps = k_pages.shape[:2]
+
+    pos = seq_lens.to(torch.int32)
+    q, k_new, v_new = _project_qkv(params, x, cfg)
+    q = rope(q, pos[:, None].float(), cfg.rope_theta)
+    k_new = rope(k_new, pos[:, None].float(), cfg.rope_theta)
+
+    pidx = torch.clamp(pos // ps, 0, block_table.shape[1] - 1)
+    page = torch.gather(block_table, 1, pidx[:, None].long())[:, 0]
+    live = page >= 0
+    dest = torch.where(live, page, P - 1)  # trash page for dead lanes
+    rows = dest * ps + pos % ps
+    _paged_write(k_pages, k_new[:, 0], rows)
+    _paged_write(v_pages, v_new[:, 0], rows)
+
+    lens_att = torch.where(live, pos + 1, 0).to(torch.int32)
+    out = paged_decode_attention(q[:, 0], k_pages, v_pages, block_table, lens_att)
+    out = out.reshape(B, 1, cfg.num_heads * hd)
+    return common.dense(out, params["wo"], cfg.dtype)
