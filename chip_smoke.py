@@ -8,24 +8,37 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build: compile ``src/repro_torch/csrc/*.cu`` for sm_90a (``kernels/_build.py``);
-3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, on the reference's test shapes and at the main path's shapes,
-   with times (CUDA events, L2 flushed between launches) beside the bound;
+3. kernels: each hand-written kernel (flash forward, paged decode, the two
+   flash backward kernels) against its plain PyTorch version on the card,
+   on the reference's test shapes and at the main paths' shapes, with
+   times (CUDA events, L2 flushed between launches) beside the bound;
 4. serving: full-width qwen3-4b (random bf16 weights from a seeded
    generator) through ``DecodeEngine`` on 16 requests; launch counters
    prove prefill went through the flash kernel (36 launches per prefill)
    and decode through the paged kernel (36 per step); the flash prefill's
    logits agree with the plain masked path; a reduced model's f32 streams
-   on the card equal the plain CPU engine's.
+   on the card equal the plain CPU engine's;
+5. training: full-width qwen3-4b (f32 params from a seeded generator,
+   AdamW, seq 4096, global batch 2 in 2 microbatches, remat per layer)
+   through ``run_segment`` for 4 steps: finite losses and grad norms, no
+   param change at step 0 (learning rate 0) and a change after step 1,
+   and launch counters of 144 flash forwards and 72 of each backward
+   kernel per step; then a reduced f32 model's 5 steps on the card match
+   the plain CPU trainer's losses and grad norms (rtol 1e-4) and params
+   (atol 1e-5).
 
-The last two lines of stdout are the per-kernel JSON record and
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+A kernel's ``launches_by_path`` in the JSON record holds its count on
+each path (``serve``, ``train``), each counted from 0 just before that
+path's run and read just after; ``launches`` is their sum. The
+last three lines of stdout are the card's name and power limit, the
+per-kernel JSON record and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside this file, the script prints no result and exits 2.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 from pathlib import Path
 import re
@@ -70,6 +83,23 @@ F32_TOL = dict(atol=2e-5, rtol=2e-5)
 # last page gave 3.7e-2 and 1.3e-1.
 FLASH_MAIN_BF16_TOL = dict(atol=4e-3, rtol=1e-2)
 PAGED_MAIN_BF16_TOL = dict(atol=1e-3, rtol=1e-2)
+# Backward main path, bf16 at S=4096: the largest |dq|, |dk|, |dv| there are
+# ~3.5, 5.3 and 10. rtol 1e-2 covers one bf16 ulp of the output (at most
+# 2^-7 |g|); atol the values near 0. Largest errors on an H100: dk 3.9e-3,
+# dv 2.0e-3, dq 9.8e-4.
+FLASH_BWD_MAIN_BF16_TOL = dict(atol=2e-3, rtol=1e-2)
+# (B, S, H, KVH, hd, window): tests/test_kernels.py FLASH_BWD_CASES, f32
+FLASH_BWD_CASES = [
+    (1, 128, 2, 2, 32, 0),
+    (1, 128, 4, 2, 32, 0),
+    (1, 128, 4, 1, 64, 32),
+    (1, 192, 2, 2, 32, 0),
+]
+# the JAX test's own tolerance for the backward kernels
+FLASH_BWD_F32_TOL = dict(atol=1e-4, rtol=1e-4)
+# The forward's lse (f32, natural log, ~5-10 here) is computed from the same
+# rounded inputs on both sides at every dtype, so the f32 tolerance holds.
+LSE_TOL = F32_TOL
 
 
 def tol(dtype) -> dict:
@@ -123,9 +153,20 @@ def bound(flops: float, nbytes: float, peak_flops: float) -> tuple:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def hold_fwd(name: str, o, lse, q, k, v, kw: dict, t: dict) -> float:
+    """The forward kernel's o (at ``t``) and lse (at ``LSE_TOL``) against
+    ``attention_fwd_ref``; returns o's max abs error."""
+    from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
+
+    ro, rlse = attention_fwd_ref(q, k, v, **kw)
+    err = hold(name, o, ro, t)
+    hold(f"{name} lse", lse, rlse, LSE_TOL)
+    return err
+
+
 def check_flash(gen: torch.Generator, flush: torch.Tensor) -> dict:
     from repro_torch.kernels.flash_attention import kernel
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
 
     def case(name, B, Sq, Skv, H, KVH, hd, causal, window, q_offset, dtype, t=None):
         q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
@@ -134,11 +175,9 @@ def check_flash(gen: torch.Generator, flush: torch.Tensor) -> dict:
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
-        if not torch.isfinite(lse).all():
-            raise AssertionError(f"{name}: non-finite lse")
-        return (q, k, v, kw), hold(name, o, attention_ref(q, k, v, **kw), t or tol(dtype))
+        return (q, k, v, kw), hold_fwd(name, o, lse, q, k, v, kw, t or tol(dtype))
 
-    log("[kernels] flash_attention vs attention_ref")
+    log("[kernels] flash_attention vs attention_fwd_ref (o and lse)")
     for B, S, H, KVH, hd, causal, window, dtype in FLASH_CASES:
         case(f"flash B{B} S{S} H{H}/{KVH} hd{hd} w{window} {str(dtype)[6:]}",
              B, S, S, H, KVH, hd, causal, window, 0, dtype)
@@ -146,11 +185,10 @@ def check_flash(gen: torch.Generator, flush: torch.Tensor) -> dict:
     case("flash non-causal ragged S100", 2, 100, 100, 4, 2, 64, False, 0, 0, torch.float32)
     case("flash main-path S1000 H32/8 hd128 f32", 1, 1000, 1000, 32, 8, 128, True, 0, 0,
          torch.float32)
-    main = None
-    for S in (129, 1000, 2000):
-        main = case(f"flash main-path S{S} H32/8 hd128 bf16",
+    main = {S: case(f"flash main-path S{S} H32/8 hd128 bf16",
                     1, S, S, 32, 8, 128, True, 0, 0, torch.bfloat16, FLASH_MAIN_BF16_TOL)
-    (q, k, v, kw), err = main
+            for S in (129, 1000, 2000, 4096)}       # 2000: serving's longest; 4096: training
+    (q, k, v, kw), err = main[2000]
     B, S, H, hd = q.shape
     KVH = k.shape[2]
     pairs = S * (S + 1) // 2                     # causal (q, k) pairs this input needs
@@ -158,11 +196,11 @@ def check_flash(gen: torch.Generator, flush: torch.Tensor) -> dict:
     nbytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KVH * hd) + 4.0 * B * H * S
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     ms = time_ms(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush)
-    plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), flush)
+    plain_ms = time_ms(lambda: attention_fwd_ref(q, k, v, **kw), flush)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), flush)
-    log(f"  flash main path (B1 S{S} H32/8 hd128 bf16): kernel {ms:.4f} ms, plain "
+    log(f"  flash main path (B1 S{S} H32/8 hd128 bf16): kernel {ms:.4f} ms, plain (o, lse) "
         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
         f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
     return dict(name="flash_attention", route="cuda",
@@ -170,6 +208,113 @@ def check_flash(gen: torch.Generator, flush: torch.Tensor) -> dict:
                 replaces="src/repro/kernels/flash_attention/kernel.py:33",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
+
+
+def check_flash_bwd(gen: torch.Generator, flush: torch.Tensor) -> list:
+    """Both backward kernels against ``attention_bwd_ref`` on the same
+    (q, k, v, o, lse, do, delta); o and lse from the forward kernel, held
+    first against ``attention_fwd_ref``."""
+    from repro_torch.kernels.flash_attention import kernel, kernel_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    def case(name, B, Sq, Skv, H, KVH, hd, causal, window, q_offset, dtype, t):
+        q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, Skv, KVH, hd), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, Skv, KVH, hd), generator=gen, device="cuda").to(dtype)
+        do = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
+        hold_fwd(f"{name} fwd", o, lse, q, k, v, kw,
+                 F32_TOL if dtype == torch.float32 else FLASH_MAIN_BF16_TOL)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = kernel_bwd.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+        dq = kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        rq, rk, rv = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        log(f"  {name}: max |ref| dq {float(rq.float().abs().max()):.3e} dk "
+            f"{float(rk.float().abs().max()):.3e} dv {float(rv.float().abs().max()):.3e}")
+        errs = {"dkdv": max(hold(f"{name} dk", dk, rk, t), hold(f"{name} dv", dv, rv, t)),
+                "dq": hold(f"{name} dq", dq, rq, t)}
+        return (q, k, v, do, lse, delta, kw), errs
+
+    log("[kernels] flash_attention_bwd (dkdv, dq) vs attention_bwd_ref")
+    for B, S, H, KVH, hd, window in FLASH_BWD_CASES:
+        case(f"bwd B{B} S{S} H{H}/{KVH} hd{hd} w{window} f32",
+             B, S, S, H, KVH, hd, True, window, 0, torch.float32, FLASH_BWD_F32_TOL)
+    case("bwd B1 S256 H4/2 hd64 bf16", 1, 256, 256, 4, 2, 64, True, 0, 0, torch.bfloat16,
+         tol(torch.bfloat16))
+    case("bwd q_offset=128 Sq64 Skv192", 1, 64, 192, 4, 2, 64, True, 0, 128, torch.float32,
+         FLASH_BWD_F32_TOL)
+    case("bwd non-causal ragged S100", 2, 100, 100, 4, 2, 64, False, 0, 0, torch.float32,
+         FLASH_BWD_F32_TOL)
+    case("bwd main-path S1000 H32/8 hd128 f32", 1, 1000, 1000, 32, 8, 128, True, 0, 0,
+         torch.float32, FLASH_BWD_F32_TOL)
+    (q, k, v, do, lse, delta, kw), errs = case(
+        "bwd main-path S4096 H32/8 hd128 bf16", 1, 4096, 4096, 32, 8, 128, True, 0, 0,
+        torch.bfloat16, FLASH_BWD_MAIN_BF16_TOL)
+
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    pairs = S * (S + 1) // 2                     # causal (q, k) pairs this input needs
+    prod = 2.0 * pairs * hd * H * B              # one (S x S x hd) causal product, in flops
+    in_bytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KVH * hd) + 2 * 4.0 * B * H * S
+    # The function's least work: 5 products (s, dp, dv, dk, dq), each input
+    # read once, each output written once. It is split over the two rows so
+    # that their bounds add up to it: dkdv carries s, dp, dv, dk, the inputs
+    # and dk, dv; dq its own product and dq. That dq computes s and dp again
+    # (7 products in all, no atomics) is the design's overhead, in its ms.
+    work = {"dkdv": (4 * prod, in_bytes + 2.0 * 2 * B * S * KVH * hd),
+            "dq": (prod, 2.0 * B * S * H * hd)}
+    fns = {"dkdv": lambda: kernel_bwd.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw),
+           "dq": lambda: kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)}
+    o, _ = kernel.flash_attention_fwd(q, k, v, **kw)
+    plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw), flush, reps=3)
+    lib_ms = sdpa_backward_ms(q, k, v, do, flush)
+    fused_ms, fused_by = bound(5 * prod, sum(w[1] for w in work.values()), PEAK_BF16_FLOPS)
+    log(f"  flash backward main path (B1 S{S} H32/8 hd128 bf16): plain attention_bwd_ref "
+        f"{plain_ms:.4f} ms; SDPA flash backward {lib_ms:.4f} ms (autograd fwd+bwd minus fwd, "
+        f"k/v repeated to {H} heads); bound of the whole backward (5 products) "
+        f"{fused_ms:.4f} ms ({fused_by})")
+    records = []
+    for which in ("dkdv", "dq"):
+        flops, nbytes = work[which]
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        ms = time_ms(fns[which], flush)
+        log(f"  {which} main path: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved")
+        line = {"dkdv": 55, "dq": 111}[which]
+        records.append(dict(
+            name=f"flash_attention_bwd_{which}", route="cuda",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"src/repro/kernels/flash_attention/kernel_bwd.py:{line}",
+            max_abs_err=errs[which], ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
+    return records
+
+
+def sdpa_backward_ms(q, k, v, do, flush) -> float:
+    """PyTorch's flash SDPA backward at the same shapes: autograd through
+    ``scaled_dot_product_attention`` (fwd + bwd) minus its forward alone,
+    with k and v repeated to H heads (no GQA in that backend)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).detach().requires_grad_()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).detach().requires_grad_()
+    dot = do.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd_bwd():
+        for t in (qt, kt, vt):
+            t.grad = None
+        sdpa(qt, kt, vt, is_causal=True).backward(dot)
+
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        both = time_ms(fwd_bwd, flush)
+        with torch.no_grad():
+            fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
+    return both - fwd
 
 
 def _paged_inputs(gen, B, H, KVH, hd, ps, mb, lens, dtype, seed):
@@ -404,6 +549,152 @@ def serve_reduced_matches_cpu() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: full-width training
+# ---------------------------------------------------------------------------
+
+def _recording(step_fn, out: list):
+    """``step_fn`` that also keeps each step's metrics as floats."""
+    def step(state, batch):
+        state, metrics = step_fn(state, batch)
+        out.append({k: float(v) for k, v in metrics.items()})
+        return state, metrics
+    return step
+
+
+def _probe(state) -> list:
+    """Small slices of four leaves, to see whether an update moved them."""
+    p = state.params
+    return [t.detach().clone() for t in (p["embed"][:4, :8], p["lm_head"][:8, :4],
+                                         p["blocks"]["attn"]["wq"][0, :8, :4],
+                                         p["blocks"]["mlp"]["wo"][-1, :8, :4])]
+
+
+def train_full_width() -> dict:
+    """qwen3-4b at full width and depth, f32 params + AdamW, seq 4096,
+    global batch 2 in 2 microbatches, through ``run_segment`` for 4 steps."""
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import kernel_bwd
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import make_step, run_segment
+    from repro_torch.train.steps import init_train_state
+
+    cfg = get_arch("qwen3-4b")
+    model = build_model(cfg)
+    seq, batch, n_steps = 4096, 2, 4
+    tc = TrainConfig(total_steps=n_steps, warmup_steps=1, microbatches=2)
+    layout = ShardingLayout(attn_impl="flash")
+    ds = SyntheticLM(cfg.vocab_size, seq, batch, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers (no depth cut), d_model {cfg.d_model}, "
+        f"{model.param_count() / 1e9:.3f} B f32 params; params + AdamW moments "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; seq {seq}, global batch {batch} in "
+        f"{tc.microbatches} microbatches, remat {layout.remat}, fused CE chunk {layout.ce_chunk}")
+
+    metrics: list = []
+    step_fn = _recording(make_step(model, tc, layout), metrics)
+    before = _probe(state)
+    fa_kernel.launches = kernel_bwd.launches_dkdv = kernel_bwd.launches_dq = 0
+    res0 = run_segment(model, state, ds, "cuda", tc, layout, num_steps=1, jitted=step_fn)
+    if not all(torch.equal(a, b) for a, b in zip(before, _probe(res0.state))):
+        raise AssertionError("params moved at step 0, where the learning rate is 0")
+    res1 = run_segment(model, res0.state, ds, "cuda", tc, layout, num_steps=n_steps - 1,
+                       start_step=1, jitted=step_fn)
+    launches = {"flash_attention": fa_kernel.launches,
+                "flash_attention_bwd_dkdv": kernel_bwd.launches_dkdv,
+                "flash_attention_bwd_dq": kernel_bwd.launches_dq}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = [float((a - b).abs().max()) for a, b in zip(before, _probe(res1.state))]
+
+    per_mb = cfg.num_layers * tc.microbatches * n_steps
+    want = {"flash_attention": 2 * per_mb, "flash_attention_bwd_dkdv": per_mb,
+            "flash_attention_bwd_dq": per_mb}
+    secs = res0.step_seconds + res1.step_seconds
+    for i, (m, dt) in enumerate(zip(metrics, secs)):
+        log(f"[train] step {i}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+            f"lr {m['lr']:.3e}, {dt * 1e3:.1f} ms, {batch * seq / dt:.1f} tokens/s")
+    log(f"[train] peak memory {peak_gb:.2f} GB; largest change of the probed params after "
+        f"step 1: {max(moved):.3e}; launches {launches}, expected {want}")
+    if len(metrics) != n_steps or not all(
+            np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
+        raise AssertionError(f"non-finite or missing training metrics: {metrics}")
+    if not min(moved) > 0:
+        raise AssertionError("a probed param did not move after step 1")
+    if launches != want:
+        raise AssertionError("the training path did not go through the kernels as expected")
+    profile_training(model, step_fn, res1.state, ds)
+    return launches
+
+
+def profile_training(model, step_fn, state, ds) -> None:
+    """Where the time goes: one more full-width step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in ds.batch(state.step).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    log(f"[profile] one training step, seq 4096, 2 microbatches:\n"
+        f"{_device_breakdown(prof, wall, top=12)}")
+
+
+def _copy_state(state, device):
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import OptState
+    from repro_torch.train.steps import TrainState
+
+    to = lambda tree: tree_map(lambda t: t.to(device), tree)
+    return TrainState(to(state.params), OptState(to(state.opt.m), to(state.opt.v),
+                                                 state.opt.count), state.step)
+
+
+def train_reduced_matches_cpu() -> None:
+    """A reduced f32 model: 5 training steps on the card (the three flash
+    kernels) against the plain CPU trainer, from the same state and data."""
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.loop import make_step, run_segment
+    from repro_torch.train.steps import init_train_state
+
+    cfg = dataclasses.replace(get_arch("qwen3-4b").reduced(), dtype="float32")
+    model = build_model(cfg)
+    tc = TrainConfig(total_steps=10, warmup_steps=2, microbatches=2)
+    layout = ShardingLayout(attn_impl="flash")
+    ds = SyntheticLM(cfg.vocab_size, 100, 4, seed=0)   # 100: ragged against 64-row tiles
+    state_cpu = init_train_state(model, torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for device, state in (("cuda", _copy_state(state_cpu, "cuda")), ("cpu", state_cpu)):
+        metrics: list = []
+        step_fn = _recording(make_step(model, tc, layout), metrics)
+        res = run_segment(model, state, ds, device, tc, layout, num_steps=5, jitted=step_fn)
+        runs[device] = (metrics, res.state)
+    (m_gpu, s_gpu), (m_cpu, s_cpu) = runs["cuda"], runs["cpu"]
+    for key in ("loss", "grad_norm"):
+        a = np.array([m[key] for m in m_gpu])
+        b = np.array([m[key] for m in m_cpu])
+        log(f"[train] reduced f32 {key}, card {a.tolist()} vs CPU {b.tolist()}; "
+            f"largest relative difference {float(np.max(np.abs(a - b) / np.abs(b))):.3e}")
+        if not np.allclose(a, b, rtol=1e-4, atol=0):
+            raise AssertionError(f"reduced training {key} on the card differs from the CPU's")
+    err = max(float((a.cpu() - b).abs().max())
+              for a, b in zip(tree_leaves(s_gpu.params), tree_leaves(s_cpu.params)))
+    log(f"[train] reduced f32 params after 5 steps, card vs CPU: max abs diff {err:.3e} "
+        f"(atol 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError("reduced training params on the card differ from the CPU's")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -441,19 +732,24 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    records = [check_flash(gen, flush), check_paged(gen, flush)]
+    records = [check_flash(gen, flush), check_paged(gen, flush), *check_flash_bwd(gen, flush)]
     del flush
     if args.kernels_only:
         log(json.dumps({"kernels": records}))
         log("chip_smoke: --kernels-only, stopped before serving")
         return 0
 
-    launches = serve_full_width()
+    serve = serve_full_width()
     serve_reduced_matches_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_full_width()
+    train_reduced_matches_cpu()
     for r in records:
-        r["launches"] = launches[r["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+        r["launches_by_path"] = {"serve": serve.get(r["name"], 0), "train": train.get(r["name"], 0)}
+        r["launches"] = sum(r["launches_by_path"].values())
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi_line)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

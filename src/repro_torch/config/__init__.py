@@ -7,8 +7,9 @@ from repro_torch.config.base import (
     MoEConfig,
     ShardingLayout,
     SSMConfig,
+    TrainConfig,
 )
-from repro_torch.config.registry import get_arch, register_arch
+from repro_torch.config.registry import get_arch, list_archs, register_arch
 
 __all__ = [
     "AttentionKind",
@@ -17,6 +18,8 @@ __all__ = [
     "MoEConfig",
     "SSMConfig",
     "ShardingLayout",
+    "TrainConfig",
     "get_arch",
+    "list_archs",
     "register_arch",
 ]

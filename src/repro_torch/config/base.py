@@ -1,8 +1,8 @@
 """Core config dataclasses: the port's own copy of ``repro.config.base``.
 
-Only the pieces the serving slice reads are kept: ``ModelConfig`` (with
-the family sub-configs its fields name), ``AttentionKind``, ``BlockKind``
-and ``ShardingLayout``. Field names, defaults and ``reduced()`` are the
+Only the pieces the port reads are kept: ``ModelConfig`` (with the family
+sub-configs its fields name), ``AttentionKind``, ``BlockKind``,
+``ShardingLayout`` and ``TrainConfig``. Field names, defaults and ``reduced()`` are the
 reference's, so a config built here compares field for field with the
 JAX package's.
 """
@@ -128,8 +128,10 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ShardingLayout:
     """Named layout preset. The port reads ``attn_impl``, ``q_chunk``,
-    ``kv_chunk`` and ``int8_kv_cache``; the other fields are the
-    reference's mesh knobs, kept so a layout compares field for field."""
+    ``kv_chunk``, ``int8_kv_cache``, ``fused_ce``, ``ce_chunk``,
+    ``gradient_allreduce_dtype`` and ``remat``; the other fields are the
+    reference's mesh and scan knobs, kept so a layout compares field for
+    field."""
 
     name: str = "baseline"
     param_rules: str = "baseline"
@@ -146,3 +148,18 @@ class ShardingLayout:
     kv_chunk: int = 1024
     decode_unroll: bool = False
     int8_kv_cache: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    microbatches: int = 1             # gradient accumulation factor
+    seed: int = 0
+    label_smoothing: float = 0.0

@@ -32,3 +32,8 @@ def get_arch(name: str) -> ModelConfig:
     except KeyError:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(_ARCHS)}") from None
 
+
+
+def list_archs() -> list:
+    _ensure_loaded()
+    return sorted(_ARCHS)

@@ -46,6 +46,18 @@ SIGNATURES = {
         _L, _L, _L, _L, _L, _L,          # v strides, o strides
         _I, _I, _I, _F, _P,              # causal, window, q_offset, sm_scale, stream
     ],
+    "repro_flash_attention_bwd_dkdv": [
+        _P, _P, _P, _P, _P, _P, _P, _P,  # q, k, v, do, lse, delta, dk, dv
+        _I, _I, _I, _I, _I, _I, _I,      # dtype, B, Sq, Skv, H, KVH, hd
+        _P,                              # 21 strides (b, s, h) of q, k, v, do, dq, dk, dv
+        _I, _I, _I, _F, _P,              # causal, window, q_offset, sm_scale, stream
+    ],
+    "repro_flash_attention_bwd_dq": [
+        _P, _P, _P, _P, _P, _P, _P,      # q, k, v, do, lse, delta, dq
+        _I, _I, _I, _I, _I, _I, _I,      # dtype, B, Sq, Skv, H, KVH, hd
+        _P,                              # 21 strides, as for dkdv
+        _I, _I, _I, _F, _P,              # causal, window, q_offset, sm_scale, stream
+    ],
     "repro_paged_attention": [
         _P, _P, _P, _P, _P, _P,          # q, k_pages, v_pages, block_table, seq_lens, out
         _I, _I, _I, _I, _I, _I, _I, _I,  # dtype, B, H, KVH, hd, P, page_size, max_blocks

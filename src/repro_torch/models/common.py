@@ -46,9 +46,12 @@ class ParamSpec:
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
-    """Map over the leaves of a nested-dict tree (specs or tensors)."""
+    """Map over the leaves of a tree of nested dicts and lists (specs or
+    tensors)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -56,6 +59,36 @@ def tree_leaves(tree: Any) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_flatten(tree: Any) -> Tuple[list, Callable[[list], Any]]:
+    """(leaves in the reference's ``jax.tree_util`` order, a function that
+    rebuilds the tree from such a leaf list). Dicts flatten by sorted key
+    and rebuild in their own key order; tuples (named or not) and lists
+    flatten in order; everything else is a leaf."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k]) for k in keys]
+    elif isinstance(tree, (tuple, list)):
+        keys = None
+        parts = [tree_flatten(t) for t in tree]
+    else:
+        return [tree], lambda leaves: leaves[0]
+    sizes = [len(leaves) for leaves, _ in parts]
+
+    def unflatten(leaves: list) -> Any:
+        out, i = [], 0
+        for (_, rebuild), n in zip(parts, sizes):
+            out.append(rebuild(leaves[i:i + n]))
+            i += n
+        if keys is not None:
+            by_key = dict(zip(keys, out))
+            return {k: by_key[k] for k in tree}
+        if hasattr(tree, "_fields"):
+            return type(tree)(*out)
+        return type(tree)(out)
+
+    return [leaf for leaves, _ in parts for leaf in leaves], unflatten
 
 
 def stacked(tree: Any, n: int, axis_name: str = "layers") -> Any:

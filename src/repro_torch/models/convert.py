@@ -1,4 +1,5 @@
-"""Carry parameters between the JAX package and the port through numpy.
+"""Carry parameters and train states between the JAX package and the
+port through numpy.
 
 The JAX package's param tree is nested dicts with a stacked leading
 ``layers`` axis (``repro.models.common.stacked``); the port keeps the same
@@ -16,6 +17,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import common, transformer
+from repro_torch.optim import OptState
+from repro_torch.train.steps import TrainState
 
 
 def _zip_specs(fn, specs: Any, tree: Any) -> Any:
@@ -49,3 +52,34 @@ def params_to_numpy(params: Any) -> Any:
     """The port's params -> numpy tree in the JAX layout (f32 leaves stay
     bit-exact, so ``params_to_numpy(params_from_jax(t))`` equals ``t``)."""
     return common.tree_map(lambda t: t.detach().cpu().float().numpy(), params)
+
+
+def train_state_from_jax(state: Any, cfg: ModelConfig, device):
+    """A JAX ``TrainState`` whose arrays are numpy (``jax.tree_util.tree_map(
+    np.asarray, state)``) -> the port's ``TrainState`` on ``device``:
+    params, ``m`` and ``v`` leaf for leaf (f32, bit-exact), ``count`` and
+    ``step`` as ints."""
+    return TrainState(
+        params=params_from_jax(state.params, cfg, device),
+        opt=OptState(
+            m=params_from_jax(state.opt.m, cfg, device),
+            v=params_from_jax(state.opt.v, cfg, device),
+            count=int(state.opt.count),
+        ),
+        step=int(state.step),
+    )
+
+
+def train_state_to_numpy(state: Any):
+    """The port's ``TrainState`` -> the same structure with numpy leaves in
+    the JAX layout (``count`` and ``step`` as int32 scalars), ready for
+    ``repro.train.steps.TrainState(params, OptState(m, v, count), step)``."""
+    return TrainState(
+        params=params_to_numpy(state.params),
+        opt=OptState(
+            m=params_to_numpy(state.opt.m),
+            v=params_to_numpy(state.opt.v),
+            count=np.asarray(state.opt.count, np.int32),
+        ),
+        step=np.asarray(state.step, np.int32),
+    )

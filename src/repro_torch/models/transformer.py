@@ -1,4 +1,6 @@
 """The dense decoder's drivers (port of ``repro.models.transformer``):
+``forward_hidden`` / ``forward_train`` (full-sequence training forward,
+each layer under ``torch.utils.checkpoint`` when ``remat="full"``),
 ``prefill`` (full-sequence forward that builds the dense KV cache) and
 ``decode_step_paged`` (one continuous-batching token per lane against the
 paged pool). The layer loop is a Python loop over per-layer views of the
@@ -10,9 +12,10 @@ families raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.config.base import AttentionKind, BlockKind, ModelConfig
 from repro_torch.models import common, layers
@@ -27,6 +30,7 @@ class RunOpts:
     attn_impl: str = "masked"      # masked | flash
     q_chunk: int = 512
     kv_chunk: int = 1024
+    remat: str = "full"            # none | full ("dots" is not ported)
     int8_kv_cache: bool = False
 
 
@@ -43,6 +47,8 @@ def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
             raise NotImplementedError("repro_torch: the int8 KV cache is not ported yet")
         if opts.attn_impl not in ("masked", "flash"):
             raise NotImplementedError(f"repro_torch: attn_impl {opts.attn_impl!r}")
+        if opts.remat not in ("none", "full"):
+            raise NotImplementedError(f"repro_torch: remat {opts.remat!r} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +103,21 @@ def init_paged_cache(
 def layer_slice(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i`` of a stacked tree: views, so in-place writes land in it."""
     return common.tree_map(lambda t: t[i], tree)
+
+
+def per_layer(params: Dict[str, Any], n: int, fn: Callable = lambda t: t) -> Dict[str, Any]:
+    """``params`` with ``fn`` applied to each top-level leaf and to each
+    layer slice of the stacked ``blocks``, which become a list of n trees.
+
+    The train step differentiates ``per_layer(params, n, lambda t:
+    t.detach().requires_grad_())``: leaves that share the stacked storage,
+    each with its own ``.grad``. Differentiating through ``layer_slice`` of
+    a stacked leaf instead would add a zero-filled gradient of the WHOLE
+    leaf for every layer.
+    """
+    out = {k: common.tree_map(fn, v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = [common.tree_map(fn, layer_slice(params["blocks"], i)) for i in range(n)]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -159,9 +180,56 @@ def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return common.dense(x, params["lm_head"], cfg.dtype)
 
 
+def _maybe_remat(fn, opts: RunOpts):
+    """``remat="full"``: keep only each call's inputs and recompute the
+    rest in backward (``jax.checkpoint``'s counterpart)."""
+    if opts.remat == "none":
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 # ---------------------------------------------------------------------------
 # Drivers
 # ---------------------------------------------------------------------------
+
+def forward_hidden(params, batch, cfg: ModelConfig, opts: RunOpts):
+    """Full-sequence forward up to (but excluding) the LM head.
+
+    Returns (normed hidden states (B, S, d), aux_loss) — the fused
+    cross-entropy in ``train/steps.py`` consumes this and never materializes
+    the full (B, S, vocab) logits. ``params["blocks"]`` is the stacked tree
+    or, to differentiate, a list of per-layer trees (see ``per_layer``).
+    """
+    _check_supported(cfg, opts)
+    blocks = params["blocks"]
+    if not isinstance(blocks, list):
+        blocks = [layer_slice(blocks, i) for i in range(cfg.num_layers)]
+    x, positions = _embed_inputs(params, batch, cfg)
+
+    def body(xx, p):
+        h = layers.rmsnorm(p["ln1"], xx, cfg.norm_eps)
+        attn_out, _ = _attn_full(p["attn"], h, positions, cfg, opts)
+        xx = xx + attn_out
+        h = layers.rmsnorm(p["ln2"], xx, cfg.norm_eps)
+        return xx + layers.mlp(p["mlp"], h, cfg)
+
+    body = _maybe_remat(body, opts)
+    for p in blocks:
+        x = body(x, p)
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def unembed_weight(params, cfg: ModelConfig) -> torch.Tensor:
+    """(d, vocab) projection (tied embeddings come with a later slice)."""
+    return params["lm_head"]
+
+
+def forward_train(params, batch, cfg: ModelConfig, opts: RunOpts):
+    """Full-sequence forward. Returns (logits (B, S, V), aux_loss)."""
+    x, aux = forward_hidden(params, batch, cfg, opts)
+    return common.dense(x, unembed_weight(params, cfg), cfg.dtype), aux
+
 
 def prefill(params, batch, cfg: ModelConfig, opts: RunOpts, cache_seq_len: int):
     """Forward + dense cache build. ``batch["tokens"]``: (B, S) int.

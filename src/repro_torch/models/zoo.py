@@ -26,6 +26,15 @@ class Model:
         scales stay f32."""
         return common.init_params(self.specs, generator, resolve_device(device), dtype)
 
+    def forward(self, params, batch, opts: Optional[RunOpts] = None):
+        return transformer.forward_train(params, batch, self.cfg, opts or RunOpts())
+
+    def forward_hidden(self, params, batch, opts: Optional[RunOpts] = None):
+        return transformer.forward_hidden(params, batch, self.cfg, opts or RunOpts())
+
+    def unembed_weight(self, params):
+        return transformer.unembed_weight(params, self.cfg)
+
     def prefill(self, params, batch, cache_seq_len: int, opts: Optional[RunOpts] = None):
         return transformer.prefill(params, batch, self.cfg, opts or RunOpts(), cache_seq_len)
 

@@ -1,1 +1,1 @@
-"""Step builders of the port (serving steps only in this slice)."""
+"""Step builders, the segment loop and the straggler watchdog of the port."""

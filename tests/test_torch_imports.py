@@ -39,7 +39,11 @@ def test_port_imports_with_jax_and_repro_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch.serve.engine, repro_torch.models\n"
         "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.flash_attention.kernel_bwd\n"
         "import repro_torch.kernels.paged_attention.ops\n"
+        "import repro_torch.train.loop, repro_torch.train.steps, repro_torch.launch.train\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.ckpt\n"
+        "import repro_torch.models.convert\n"
         "from repro_torch.kernels import _build\n"
         "assert _build._lib is None and not _build.last_build\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules\n"
