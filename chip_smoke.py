@@ -7,18 +7,28 @@
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
-2. build: compile ``src/repro_torch/csrc/*.cu`` for sm_90a (``kernels/_build.py``);
+2. build: compile ``src/repro_torch/csrc/*.cu`` for sm_90a (``kernels/_build.py``),
+   one nvcc per source, all in parallel;
 3. kernels: each hand-written kernel (flash forward, paged decode, the two
-   flash backward kernels) against its plain PyTorch version on the card,
-   on the reference's test shapes and at the main paths' shapes, with
-   times (CUDA events, L2 flushed between launches) beside the bound;
+   flash backward kernels, the selective scan) against its plain PyTorch
+   version on the card, on the reference's test shapes and at the main
+   paths' shapes, with times (CUDA events, L2 flushed between launches)
+   beside the bound;
 4. serving: full-width qwen3-4b (random bf16 weights from a seeded
    generator) through ``DecodeEngine`` on 16 requests; launch counters
    prove prefill went through the flash kernel (36 launches per prefill)
    and decode through the paged kernel (36 per step); the flash prefill's
    logits agree with the plain masked path; a reduced model's f32 streams
    on the card equal the plain CPU engine's;
-5. training: full-width qwen3-4b (f32 params from a seeded generator,
+5. hybrid serving: full-width hymba-1.5b (random bf16 weights, the Mamba
+   block's f32 leaves kept f32) through the serve launcher's loop, 8
+   prompts x 4096 tokens and 32 new tokens each; launch counters prove
+   the prefill went through the flash kernel (32 launches) and every
+   prefill and decode step through the scan kernel (32 x 32); the kernel
+   path's prefill logits agree with the plain path's (masked attention,
+   sequential scan); a reduced model's f32 streams on the card equal the
+   CPU's;
+6. training: full-width qwen3-4b (f32 params from a seeded generator,
    AdamW, seq 4096, global batch 2 in 2 microbatches, remat per layer)
    through ``run_segment`` for 4 steps: finite losses and grad norms, no
    param change at step 0 (learning rate 0) and a change after step 1,
@@ -28,7 +38,7 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    (atol 1e-5).
 
 A kernel's ``launches_by_path`` in the JSON record holds its count on
-each path (``serve``, ``train``), each counted from 0 just before that
+each path (``serve``, ``hybrid``, ``train``), each counted from 0 just before that
 path's run and read just after; ``launches`` is their sum. The
 last three lines of stdout are the card's name and power limit, the
 per-kernel JSON record and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -54,6 +64,7 @@ SRC = REPO / "src"
 
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # (B, S, H, KVH, hd, causal, window, dtype): tests/test_kernels.py FLASH_CASES
@@ -75,6 +86,10 @@ PAGED_CASES = [
 
 
 F32_TOL = dict(atol=2e-5, rtol=2e-5)
+# Reduced f32 serving, card (kernels) vs CPU (plain versions): the
+# repository's f32 model tolerance (XLA and torch, or cuBLAS and the CPU,
+# sum matmuls in different orders).
+REDUCED_LOGITS_TOL = dict(atol=1e-4, rtol=1e-4)
 # Main-path bf16 shapes: a typical |o| there is only ~0.03-0.05 (softmax over
 # ~1000 positions), so the repository's 2e-2 is most of a typical value.
 # rtol 1e-2 covers the bf16 output's rounding (at most one ulp, 2^-7 |o|);
@@ -97,6 +112,22 @@ FLASH_BWD_CASES = [
 ]
 # the JAX test's own tolerance for the backward kernels
 FLASH_BWD_F32_TOL = dict(atol=1e-4, rtol=1e-4)
+# (B, S, inner, N, dtype): tests/test_kernels.py SSM_CASES (the JAX test's
+# chunk column has no counterpart: the kernel walks S in one loop)
+SSM_CASES = [
+    (2, 128, 256, 16, torch.float32),
+    (1, 96, 128, 8, torch.float32),
+    (2, 64, 512, 16, torch.float32),
+    (1, 128, 256, 16, torch.bfloat16),
+]
+# the JAX test's tolerance for the scan's final state (y takes tol(dtype))
+SSM_H_TOL = dict(atol=1e-4, rtol=1e-4)
+# hymba's main-path shapes (u bf16, dt/B_/C_ f32), held tighter than the
+# JAX test's after a first H100 run showed the errors: y (bf16) up to
+# 3.1e-2 at |y| in [4, 8), one bf16 ulp, which rtol 1e-2 covers (an ulp is
+# at most 2^-7 |y|); h (f32) up to 7.7e-7, against 1e-5 here.
+SSM_MAIN_Y_TOL = dict(atol=1e-3, rtol=1e-2)
+SSM_MAIN_H_TOL = dict(atol=1e-5, rtol=1e-5)
 # The forward's lse (f32, natural log, ~5-10 here) is computed from the same
 # rounded inputs on both sides at every dtype, so the f32 tolerance holds.
 LSE_TOL = F32_TOL
@@ -149,6 +180,34 @@ def bound(flops: float, nbytes: float, peak_flops: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels.flash_attention import kernel, kernel_bwd
+    from repro_torch.kernels.paged_attention import kernel as paged
+    from repro_torch.kernels.ssm_scan import kernel as scan
+
+    kernel.launches = paged.launches = scan.launches = 0
+    kernel_bwd.launches_dkdv = kernel_bwd.launches_dq = 0
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count, by the name its JSON record carries."""
+    from repro_torch.kernels.flash_attention import kernel, kernel_bwd
+    from repro_torch.kernels.paged_attention import kernel as paged
+    from repro_torch.kernels.ssm_scan import kernel as scan
+
+    return {"flash_attention": kernel.launches, "paged_attention": paged.launches,
+            "flash_attention_bwd_dkdv": kernel_bwd.launches_dkdv,
+            "flash_attention_bwd_dq": kernel_bwd.launches_dq, "ssm_scan": scan.launches}
+
+
+def expect_launches(**counts) -> dict:
+    """The launch counts of a path: ``counts`` for the kernels named, 0 for the rest."""
+    want = dict.fromkeys(read_launches(), 0)
+    want.update(counts)
+    return want
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -188,6 +247,7 @@ def check_flash(gen: torch.Generator, flush: torch.Tensor) -> dict:
     main = {S: case(f"flash main-path S{S} H32/8 hd128 bf16",
                     1, S, S, 32, 8, 128, True, 0, 0, torch.bfloat16, FLASH_MAIN_BF16_TOL)
             for S in (129, 1000, 2000, 4096)}       # 2000: serving's longest; 4096: training
+    check_flash_hymba(gen, flush)
     (q, k, v, kw), err = main[2000]
     B, S, H, hd = q.shape
     KVH = k.shape[2]
@@ -208,6 +268,32 @@ def check_flash(gen: torch.Generator, flush: torch.Tensor) -> dict:
                 replaces="src/repro/kernels/flash_attention/kernel.py:33",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
+
+
+def check_flash_hymba(gen: torch.Generator, flush: torch.Tensor) -> None:
+    """The forward kernel at hymba-1.5b's prefill shape (B8 S4096 H25/5 hd64,
+    window 1024, bf16); the plain version runs one batch row at a time (its
+    S x S f32 scores are 1.7 GB a row)."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    B, S, H, KVH, hd, window = 8, 4096, 25, 5, 64, 1024
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((B, S, KVH, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, S, KVH, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    kw = dict(causal=True, window=window, q_offset=0)
+    o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = max(hold_fwd(f"flash hymba prefill S{S} H{H}/{KVH} hd{hd} w{window} bf16 row {b}",
+                       o[b:b + 1], lse[b:b + 1], q[b:b + 1], k[b:b + 1], v[b:b + 1], kw,
+                       FLASH_MAIN_BF16_TOL) for b in range(B))
+    pairs = window * (window + 1) // 2 + (S - window) * window   # (q, k) pairs in the band
+    flops = 4.0 * pairs * hd * H * B
+    nbytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KVH * hd) + 4.0 * B * H * S
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    ms = time_ms(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush)
+    log(f"  flash hymba prefill (B{B} S{S} H{H}/{KVH} hd{hd} w{window} bf16): kernel {ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s achieved; "
+        f"max abs err {err:.3e}")
 
 
 def check_flash_bwd(gen: torch.Generator, flush: torch.Tensor) -> list:
@@ -378,14 +464,74 @@ def check_paged(gen: torch.Generator, flush: torch.Tensor) -> dict:
                 library_ms=None)
 
 
+def _ssm_inputs(gen, B, S, inner, N, dtype, dt_dtype):
+    """The JAX test's distributions: u, B_, C_ normal; dt = 0.1 softplus(normal);
+    A = -exp(0.5 normal); D, h0 normal."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    u = rnd(B, S, inner).to(dtype)
+    dt = (torch.nn.functional.softplus(rnd(B, S, inner)) * 0.1).to(dt_dtype)
+    B_, C_ = rnd(B, S, N).to(dt_dtype), rnd(B, S, N).to(dt_dtype)
+    A = -torch.exp(rnd(inner, N) * 0.5)
+    return u, dt, B_, C_, A, rnd(inner), rnd(B, inner, N)
+
+
+def check_ssm_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """The selective scan against ``ssm_scan_ref`` on the JAX test's cases
+    and at hymba-1.5b's serving shapes (prefill and one decode step)."""
+    from repro_torch.kernels.ssm_scan import kernel, ops
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    def case(name, B, S, inner, N, dtype, dt_dtype, with_h0=True, tols=None):
+        args = _ssm_inputs(gen, B, S, inner, N, dtype, dt_dtype)[:7 if with_h0 else 6]
+        y, h = ops.ssm_scan(*args)
+        torch.cuda.synchronize()
+        yr, hr = ssm_scan_ref(*args)
+        if y.dtype != dtype or h.dtype != torch.float32:
+            raise AssertionError(f"{name}: y {y.dtype}, h {h.dtype}")
+        y_tol, h_tol = tols or (tol(dtype), SSM_H_TOL)
+        return args, max(hold(f"{name} y", y, yr, y_tol), hold(f"{name} h", h, hr, h_tol))
+
+    log("[kernels] ssm_scan vs ssm_scan_ref (y and h_final)")
+    for B, S, inner, N, dtype in SSM_CASES:
+        # as in the JAX test, dt, B_ and C_ have u's dtype (bf16 ones upcast in ops.py)
+        case(f"ssm B{B} S{S} inner{inner} N{N} {str(dtype)[6:]}", B, S, inner, N, dtype, dtype)
+    # no h0 (zeros), and ragged against both the 128-channel blocks and the 64-step tiles
+    case("ssm no h0 B2 S33 inner200 N8 f32", 2, 33, 200, 8, torch.float32, torch.float32,
+         with_h0=False)
+    # hymba-1.5b's main path: u in the compute dtype, dt/B_/C_ f32, a carried state
+    main = (SSM_MAIN_Y_TOL, SSM_MAIN_H_TOL)
+    _, err_dec = case("ssm main-path decode B8 S1 inner3200 N16 bf16", 8, 1, 3200, 16,
+                      torch.bfloat16, torch.float32, tols=main)
+    args, err = case("ssm main-path prefill B8 S4096 inner3200 N16 bf16", 8, 4096, 3200, 16,
+                     torch.bfloat16, torch.float32, tols=main)
+    u, dt, B_, C_, A, D, h0 = args
+    B, S, inner = u.shape
+    N = A.shape[1]
+    # each input read once, each output written once
+    nbytes = (u.numel() * u.element_size() * 2 + 4.0 * (dt.numel() + B_.numel() + C_.numel()
+              + A.numel() + D.numel() + 2 * h0.numel()))
+    # per (b, t, i, n): dt*A, exp, dt*B, da*h, db*u, +, h*C, + (8); per (b, t, i): D*u, +
+    flops = 8.0 * B * S * inner * N + 2.0 * B * S * inner
+    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    ms = time_ms(lambda: kernel.ssm_scan(*args), flush)
+    plain_ms = time_ms(lambda: ssm_scan_ref(*args), flush, reps=2, warmup=1)
+    dec = _ssm_inputs(gen, 8, 1, 3200, 16, torch.bfloat16, torch.float32)
+    dec_ms = time_ms(lambda: kernel.ssm_scan(*dec), flush)
+    log(f"  ssm_scan main path (B{B} S{S} inner{inner} N{N}, u bf16): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {nbytes / ms / 1e6:.1f} GB/s, "
+        f"{flops / ms / 1e9:.1f} GFLOP/s achieved; decode shape (S=1): kernel {dec_ms:.4f} ms")
+    return dict(name="ssm_scan", route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+                replaces="src/repro/kernels/ssm_scan/kernel.py:24",
+                max_abs_err=max(err, err_dec), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width serving
 # ---------------------------------------------------------------------------
 
 def serve_full_width() -> dict:
     from repro_torch.config import ShardingLayout, get_arch
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.models import RunOpts, build_model
     from repro_torch.serve import DecodeEngine, Request
 
@@ -409,12 +555,11 @@ def serve_full_width() -> dict:
     for r in reqs:
         eng.submit(r)
     torch.cuda.reset_peak_memory_stats()
-    fa_kernel.launches = 0
-    pa_kernel.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     done = eng.run(params)
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa_kernel.launches, "paged_attention": pa_kernel.launches}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     if sorted(c.rid for c in done) != list(range(len(reqs))):
@@ -425,13 +570,13 @@ def serve_full_width() -> dict:
         raise AssertionError("a generated token is outside the vocabulary")
     if eng.free_pages != num_pages - 1:
         raise AssertionError(f"pool did not drain: {eng.free_pages} free of {num_pages - 1}")
-    want = {"flash_attention": cfg.num_layers * eng.prefills,
-            "paged_attention": cfg.num_layers * eng.decode_steps}
+    want = expect_launches(flash_attention=cfg.num_layers * eng.prefills,
+                           paged_attention=cfg.num_layers * eng.decode_steps)
     log(f"[serve] {len(done)} requests x 32 tokens done in {wall:.2f} s; prompt lengths "
         f"{lens}; {eng.prefills} prefills, {eng.decode_steps} decode steps; pool back to "
         f"{eng.free_pages} free pages")
     log(f"[serve] launches {launches}, expected {want}")
-    if launches != want or min(launches.values()) <= 0:
+    if launches != want or min(launches["flash_attention"], launches["paged_attention"]) <= 0:
         raise AssertionError("the main path did not go through the kernels as expected")
     log(f"[serve] prefill {eng.prefilled_tokens / eng.prefill_seconds:.1f} tokens/s "
         f"({eng.prefilled_tokens} tokens in {eng.prefill_seconds:.3f} s); decode "
@@ -549,7 +694,151 @@ def serve_reduced_matches_cpu() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: full-width training
+# phase 5: full-width hybrid serving (hymba-1.5b)
+# ---------------------------------------------------------------------------
+
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW = 8, 4096, 32
+
+
+def serve_hybrid_full_width() -> dict:
+    """hymba-1.5b at full width and depth through the serve launcher's loop:
+    one batched prefill of 8 prompts x 4096 tokens (four windows), then 31
+    greedy decode steps against the 1024-slot ring-buffer cache."""
+    from unittest import mock
+
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.launch.serve import greedy_serve
+    from repro_torch.models import RunOpts, build_model, ssm
+
+    cfg = get_arch("hymba-1.5b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    mamba = params["blocks"]["mamba"]
+    kept = {k: mamba[k].dtype for k in ("A_log", "x_proj", "dt_proj")}
+    log(f"[hybrid] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.resolved_head_dim}, window "
+        f"{cfg.window}, ssm inner {cfg.ssm.expand * cfg.d_model} N {cfg.ssm.state_dim}; "
+        f"{model.param_count() / 1e9:.3f} B params (matrices bf16, {kept}), made on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    if any(d != torch.float32 for d in kept.values()):
+        raise AssertionError(f"f32 leaves stored in another dtype: {kept}")
+
+    B, S, new = HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    tokens = torch.as_tensor(prompts, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = greedy_serve(model, params, tokens, new)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    want = expect_launches(flash_attention=cfg.num_layers,
+                           ssm_scan=cfg.num_layers * (1 + res.decode_steps))
+    out = res.tokens
+    log(f"[hybrid] {B} prompts x {S} tokens, {new} new tokens each; first row "
+        f"{out[0].tolist()}")
+    log(f"[hybrid] launches {launches}, expected {want}")
+    if tuple(out.shape) != (B, new) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"generated tokens {tuple(out.shape)} outside the vocabulary")
+    if not all(bool(torch.isfinite(lg.float()).all()) for lg in res.logits):
+        raise AssertionError("non-finite logits")
+    if res.decode_steps != new - 1 or launches != want:
+        raise AssertionError("the hybrid path did not go through the kernels as expected")
+    log(f"[hybrid] prefill {B * S / res.prefill_seconds:.1f} tokens/s ({B * S} tokens in "
+        f"{res.prefill_seconds:.3f} s); decode {1e3 * res.decode_seconds / res.decode_steps:.2f} "
+        f"ms per step ({B * res.decode_steps / res.decode_seconds:.1f} tokens/s); peak memory "
+        f"{peak_gb:.2f} GB")
+
+    # the kernel path's prefill against the plain path (masked attention, the
+    # plain sequential scan) on one prompt longer than the window
+    row = tokens[:1]
+    kern, _ = model.prefill(params, {"tokens": row}, S, RunOpts(attn_impl="flash"))
+    before = read_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(ssm, "ssm_scan", ssm_scan_ref):
+        plain, _ = model.prefill(params, {"tokens": row}, S, RunOpts(attn_impl="masked"))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if read_launches() != before:
+        raise AssertionError("the plain path launched a kernel")
+    a, b = kern[0, -1].float(), plain[0, -1].float()
+    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    top_eq = int(a.argmax()) == int(b.argmax())
+    same_as_batch = float((res.logits[0][0].float() - a).abs().max())
+    log(f"[hybrid] kernel vs plain prefill logits (S={S}, plain path {plain_s:.1f} s): top-1 "
+        f"equal {top_eq}, correlation {corr:.6f}, max abs diff {float((a - b).abs().max()):.4f}; "
+        f"the batched prefill's row 0 differs from the single prompt's by {same_as_batch:.4f}")
+    if not (torch.isfinite(b).all() and top_eq and corr > 0.99):
+        raise AssertionError("kernel-path prefill logits disagree with the plain path")
+    profile_hybrid(model, params, tokens, res.cache)
+    return launches
+
+
+def profile_hybrid(model, params, tokens, cache) -> None:
+    """Where the time goes: one batched full-width prefill (8 x 4096) and
+    three decode steps of 8 rows against the ring cache, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import RunOpts
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    opts = RunOpts(attn_impl="flash")
+    S = tokens.shape[1]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, {"tokens": tokens}, S + HYBRID_NEW, opts)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    log(f"[profile] hybrid prefill, 8 x {S} tokens:\n{_device_breakdown(prof, wall)}")
+    del logits
+    tok = torch.zeros((tokens.shape[0], 1), dtype=torch.int32, device="cuda")
+    pos = S + HYBRID_NEW            # past the served tokens: the ring keeps going
+    model.decode_step(params, cache, tok, pos, opts)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(3):
+            model.decode_step(params, cache, tok, pos + 1 + i, opts)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    log(f"[profile] three hybrid decode steps, 8 rows, 1024-slot ring:\n"
+        f"{_device_breakdown(prof, wall)}")
+
+
+def serve_hybrid_reduced_matches_cpu() -> None:
+    """Reduced hymba at f32: the serve launcher's loop on the card (flash and
+    scan kernels) against the same loop on the CPU (plain versions)."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import greedy_serve
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+
+    cfg = dataclasses.replace(get_arch("hymba-1.5b").reduced(), dtype="float32")
+    model = build_model(cfg)
+    params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
+    # prompt 20 > the 16-slot ring; 16 new tokens wrap it
+    prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    runs = {}
+    for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+        runs[device] = greedy_serve(model, params, torch.as_tensor(prompt, device=device), 16)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(gpu.logits, cpu.logits))
+    ok = all(torch.allclose(a.cpu(), b, **REDUCED_LOGITS_TOL) for a, b in zip(gpu.logits, cpu.logits))
+    same = torch.equal(gpu.tokens, cpu.tokens)
+    log(f"[hybrid] reduced f32 streams, card vs CPU plain: {'identical' if same else 'DIFFERENT'}; "
+        f"logits max abs diff {err:.3e} (atol {REDUCED_LOGITS_TOL['atol']}, rtol "
+        f"{REDUCED_LOGITS_TOL['rtol']})")
+    if not (same and ok):
+        raise AssertionError(f"card {gpu.tokens.tolist()} != CPU {cpu.tokens.tolist()}, or logits")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: full-width training
 # ---------------------------------------------------------------------------
 
 def _recording(step_fn, out: list):
@@ -574,8 +863,6 @@ def train_full_width() -> dict:
     global batch 2 in 2 microbatches, through ``run_segment`` for 4 steps."""
     from repro_torch.config import ShardingLayout, TrainConfig, get_arch
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.flash_attention import kernel_bwd
     from repro_torch.models import build_model
     from repro_torch.train.loop import make_step, run_segment
     from repro_torch.train.steps import init_train_state
@@ -599,21 +886,19 @@ def train_full_width() -> dict:
     metrics: list = []
     step_fn = _recording(make_step(model, tc, layout), metrics)
     before = _probe(state)
-    fa_kernel.launches = kernel_bwd.launches_dkdv = kernel_bwd.launches_dq = 0
+    reset_launches()
     res0 = run_segment(model, state, ds, "cuda", tc, layout, num_steps=1, jitted=step_fn)
     if not all(torch.equal(a, b) for a, b in zip(before, _probe(res0.state))):
         raise AssertionError("params moved at step 0, where the learning rate is 0")
     res1 = run_segment(model, res0.state, ds, "cuda", tc, layout, num_steps=n_steps - 1,
                        start_step=1, jitted=step_fn)
-    launches = {"flash_attention": fa_kernel.launches,
-                "flash_attention_bwd_dkdv": kernel_bwd.launches_dkdv,
-                "flash_attention_bwd_dq": kernel_bwd.launches_dq}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     moved = [float((a - b).abs().max()) for a, b in zip(before, _probe(res1.state))]
 
     per_mb = cfg.num_layers * tc.microbatches * n_steps
-    want = {"flash_attention": 2 * per_mb, "flash_attention_bwd_dkdv": per_mb,
-            "flash_attention_bwd_dq": per_mb}
+    want = expect_launches(flash_attention=2 * per_mb, flash_attention_bwd_dkdv=per_mb,
+                           flash_attention_bwd_dq=per_mb)
     secs = res0.step_seconds + res1.step_seconds
     for i, (m, dt) in enumerate(zip(metrics, secs)):
         log(f"[train] step {i}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
@@ -732,21 +1017,26 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    records = [check_flash(gen, flush), check_paged(gen, flush), *check_flash_bwd(gen, flush)]
+    records = [check_flash(gen, flush), check_paged(gen, flush), *check_flash_bwd(gen, flush),
+               check_ssm_scan(gen, flush)]
     del flush
     if args.kernels_only:
         log(json.dumps({"kernels": records}))
         log("chip_smoke: --kernels-only, stopped before serving")
         return 0
 
-    serve = serve_full_width()
+    paths = {"serve": serve_full_width()}
     serve_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    train = train_full_width()
+    paths["hybrid"] = serve_hybrid_full_width()
+    serve_hybrid_reduced_matches_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train"] = train_full_width()
     train_reduced_matches_cpu()
     for r in records:
-        r["launches_by_path"] = {"serve": serve.get(r["name"], 0), "train": train.get(r["name"], 0)}
+        r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

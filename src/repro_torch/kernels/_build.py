@@ -63,6 +63,11 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I,  # dtype, B, H, KVH, hd, P, page_size, max_blocks
         _F, _P,                          # sm_scale, stream
     ],
+    "repro_ssm_scan": [
+        _P, _P, _P, _P, _P, _P, _P,      # u, dt, B_, C_, A, D, h0 (NULL = zeros)
+        _P, _P,                          # y, h_final
+        _I, _I, _I, _I, _I, _P,          # dtype, B, S, inner, N, stream
+    ],
 }
 
 _lib = None

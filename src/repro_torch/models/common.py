@@ -17,7 +17,7 @@ import torch
 
 SCAN_AXES = ("layers", "groups")
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.int32}
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -34,15 +34,18 @@ class ParamSpec:
     init: str = "normal"          # normal | zeros | ones | embed
     scale: float = 1.0            # multiplier on the init std
     dtype: str = "float32"
+    keep_f32: bool = False        # the model reads it in f32 (not in the reference's spec)
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
     @property
     def is_matrix(self) -> bool:
-        """Two or more non-stacking axes: a weight matrix (stored in the
-        compute dtype for serving), not a norm scale or bias."""
-        return sum(a not in SCAN_AXES for a in self.axes) >= 2
+        """A weight matrix that the model casts to the compute dtype at each
+        use, so serving may store it in that dtype: two or more non-stacking
+        axes, and not ``keep_f32`` (the Mamba block's ``x_proj``, ``dt_proj``
+        and ``A_log`` feed f32 arithmetic). Norm scales and biases are not."""
+        return not self.keep_f32 and sum(a not in SCAN_AXES for a in self.axes) >= 2
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -126,8 +129,9 @@ def init_params(specs: Any, generator: torch.Generator, device, dtype=None) -> A
     """Materialize a spec tree with the reference's recipes (fan-in-scaled
     normal, ``embed``, ``ones``, ``zeros``), drawing from ``generator`` in
     leaf order. The numbers differ from ``jax.random``'s by design.
-    ``dtype`` (e.g. ``torch.bfloat16``) stores weight matrices in that
-    type; norm scales keep their spec dtype (f32)."""
+    ``dtype`` (e.g. ``torch.bfloat16``) stores weight matrices
+    (``ParamSpec.is_matrix``) in that type; the other leaves keep their
+    spec dtype (f32)."""
     return tree_map(lambda s: _init_one(s, generator, device, dtype), specs)
 
 

@@ -1,5 +1,5 @@
-"""Carry parameters and train states between the JAX package and the
-port through numpy.
+"""Carry parameters, dense caches and train states between the JAX package
+and the port through numpy.
 
 The JAX package's param tree is nested dicts with a stacked leading
 ``layers`` axis (``repro.models.common.stacked``); the port keeps the same
@@ -32,9 +32,12 @@ def _zip_specs(fn, specs: Any, tree: Any) -> Any:
 def params_from_jax(tree: Any, cfg: ModelConfig, device, dtype: Optional[torch.dtype] = None):
     """numpy param tree (JAX layout) -> the port's tensors on ``device``.
 
-    ``dtype`` stores weight matrices in that type (``torch.bfloat16`` for
-    serving: one cast now gives the bits the JAX path's per-call cast
-    gives); norm scales always stay f32, as the reference reads them.
+    ``dtype`` stores the weight matrices that the model casts to the
+    compute dtype at each use (``ParamSpec.is_matrix``) in that type
+    (``torch.bfloat16`` for serving: one cast now gives the bits the JAX
+    path's per-call cast gives). Every other leaf stays f32, as the
+    reference reads it: norm scales, biases, and the Mamba block's
+    ``x_proj``, ``dt_proj`` and ``A_log``.
     """
     dev = resolve_device(device)
 
@@ -52,6 +55,35 @@ def params_to_numpy(params: Any) -> Any:
     """The port's params -> numpy tree in the JAX layout (f32 leaves stay
     bit-exact, so ``params_to_numpy(params_from_jax(t))`` equals ``t``)."""
     return common.tree_map(lambda t: t.detach().cpu().float().numpy(), params)
+
+
+def cache_from_jax(tree: Any, cfg: ModelConfig, batch: int, seq_len: int, device):
+    """numpy dense cache (JAX layout, from ``Model.prefill`` or
+    ``Model.init_cache``; the hybrid block's state nested under ``ssm``) ->
+    the port's tensors on ``device``, each in the dtype it arrives in (a
+    JAX bf16 leaf goes through f32, losslessly); shapes are checked against
+    ``cache_specs(cfg, batch, seq_len)``."""
+    dev = resolve_device(device)
+
+    def one(spec, arr):
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(spec.shape):
+            raise ValueError(f"shape {arr.shape} != spec {spec.shape}")
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.astype(np.float32)).to(dev, torch.bfloat16)
+        return torch.from_numpy(np.array(arr, copy=True)).to(dev)
+
+    return _zip_specs(one, transformer.cache_specs(cfg, batch, seq_len), tree)
+
+
+def cache_to_numpy(cache: Any) -> Any:
+    """The port's dense cache -> numpy tree in the JAX layout: int leaves
+    (``pos_ids``) as int32, float leaves as f32 (bf16 ones exactly)."""
+    def one(t):
+        t = t.detach().cpu()
+        return t.numpy() if not t.is_floating_point() else t.float().numpy()
+
+    return common.tree_map(one, cache)
 
 
 def train_state_from_jax(state: Any, cfg: ModelConfig, device):

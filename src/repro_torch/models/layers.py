@@ -1,12 +1,14 @@
-"""Shared layers of the dense decoder (port of ``repro.models.layers``):
+"""Shared layers of the decoders (port of ``repro.models.layers``):
 f32-internal RMSNorm, split-half RoPE, SwiGLU MLP, the qkv projection
-with qk-norm, the plain ``masked`` blockwise attention used by prefill,
-and one-token attention against the shared paged KV pool.
+with qk-norm, the plain ``masked`` blockwise attention used by prefill
+(full or sliding-window), one-token attention against a dense (ring-
+buffer) KV cache, and one-token attention against the shared paged pool.
 
 Tensors keep the reference's layouts: activations ``(B, S, d)``, heads
-``(B, S, H, hd)``, pools ``(P, page_size, KVH, hd)``. Unlike the JAX
-code, the paged write updates the pool in place (one pool buffer for the
-life of an engine, no copy per step).
+``(B, S, H, hd)``, dense caches ``(B, T, KVH, hd)``, pools
+``(P, page_size, KVH, hd)``. Unlike the JAX code, the decode writes update
+the cache or pool in place (one buffer for the life of a cache, no copy
+per step).
 """
 from __future__ import annotations
 
@@ -172,13 +174,15 @@ def blockwise_attention(
     causal: bool,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
+    window: int = 0,
     q_offset: int = 0,
     kv_valid: Optional[int] = None,
 ) -> torch.Tensor:
     """The reference's ``masked`` blockwise attention: every q chunk scans
     every kv chunk under the mask. q: (B,Sq,H,hd); k/v: (B,T,KVH,hd).
     Returns (B,Sq,H,hd). ``kv_valid``: kv rows at or past it are padding.
-    Full attention only: the sliding-window band comes with the SWA families.
+    With a sliding ``window``, each q chunk attends to a static band of
+    ``window + q_chunk`` kv rows instead (one fused block per chunk).
     """
     B, Sq, H, hd = q.shape
     T, KVH = k.shape[1], k.shape[2]
@@ -195,6 +199,8 @@ def blockwise_attention(
         mask = torch.ones((Sq, T), dtype=torch.bool, device=dev)
         if causal:
             mask &= q_pos[:, None] >= kv_pos[None, :]
+        if window:
+            mask &= q_pos[:, None] - kv_pos[None, :] < window
         if kv_valid is not None and kv_valid < T:
             mask &= (kv_pos < kv_valid)[None, :]
         out = _sdpa(qg, k, v, mask.expand(B, Sq, T), scale)
@@ -202,16 +208,34 @@ def blockwise_attention(
 
     # ragged lengths: pad to the chunk grid, mask padded kv rows, drop padded q rows
     pad_q = (-Sq) % q_chunk
-    pad_kv = (-T) % kv_chunk
+    pad_kv = (-T) % kv_chunk if window == 0 else 0
     if pad_q or pad_kv:
         q_p = F.pad(q, (0, 0, 0, 0, 0, pad_q))
         k_p = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
         v_p = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
         out = blockwise_attention(
-            q_p, k_p, v_p, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            q_p, k_p, v_p, causal=causal, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
             q_offset=q_offset, kv_valid=T,
         )
         return out[:, :Sq]
+
+    if window:
+        # per q chunk, the static band of kv rows that can reach it
+        band = min(window + q_chunk, T)
+        outs = []
+        for i in range(Sq // q_chunk):
+            qs = q_offset + i * q_chunk
+            start = min(max(qs + q_chunk - band, 0), T - band)
+            q_pos = qs + torch.arange(q_chunk, device=dev)
+            kv_pos = start + torch.arange(band, device=dev)
+            mask = q_pos[:, None] - kv_pos[None, :] < window
+            if causal:
+                mask &= q_pos[:, None] >= kv_pos[None, :]
+            if kv_valid is not None and kv_valid < T:
+                mask &= (kv_pos < kv_valid)[None, :]
+            outs.append(_sdpa(qg[:, i * q_chunk:(i + 1) * q_chunk], k[:, start:start + band],
+                              v[:, start:start + band], mask.expand(B, q_chunk, band), scale))
+        return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
 
     outs = []
     for i in range(Sq // q_chunk):
@@ -235,6 +259,68 @@ def blockwise_attention(
         out = acc / torch.clamp(l.movedim(-1, 1)[..., None], min=1e-37)
         outs.append(out.to(q.dtype))
     return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# Dense KV cache (lock-step decode)
+# ---------------------------------------------------------------------------
+
+def make_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, ParamSpec]:
+    """Dense KV-cache entry for ONE layer (stacked over layers by the
+    caller). ``pos_ids`` holds the absolute position in each slot (-1 =
+    empty), which serves full caches and ring-buffer window caches alike.
+    (The reference's int8 cache is not ported.)"""
+    hd = cfg.resolved_head_dim
+    shape = (batch, cache_len, cfg.num_kv_heads, hd)
+    axes = ("batch", "seq", "kv_heads", "head_dim")
+    return {
+        "k": ParamSpec(shape, axes, init="zeros", dtype=cfg.dtype),
+        "v": ParamSpec(shape, axes, init="zeros", dtype=cfg.dtype),
+        "pos_ids": ParamSpec((cache_len,), (None,), init="zeros", dtype="int32"),
+    }
+
+
+def decode_attention(
+    params: Dict,
+    cache: Dict,
+    x: torch.Tensor,
+    pos: int,
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Dict]:
+    """One-token attention against a (possibly ring-buffer) dense KV cache.
+
+    x: (B, 1, d); pos: the absolute position of this token. The token's
+    k/v and position go into slot ``pos % T`` of ``cache`` IN PLACE (the
+    reference returns an updated copy); a slot is attended to when it holds
+    a position at or before ``pos`` and, with a window, less than
+    ``cfg.window`` behind it. Returns (output projected by ``wo`` (B, 1, d),
+    cache).
+    """
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q, k_new, v_new = _project_qkv(params, x, cfg)
+    positions = torch.full((B, 1), float(pos), device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k_new = rope(k_new, positions, cfg.rope_theta)
+
+    k, v, pos_ids = cache["k"], cache["v"], cache["pos_ids"]
+    T = k.shape[1]
+    slot = pos % T
+    k[:, slot] = k_new[:, 0].to(k.dtype)
+    v[:, slot] = v_new[:, 0].to(v.dtype)
+    pos_ids[slot] = pos
+
+    valid = pos_ids >= 0
+    if cfg.window:
+        valid &= pos - pos_ids < cfg.window
+    valid &= pos_ids <= pos
+
+    KVH = cfg.num_kv_heads
+    qg = q.reshape(B, 1, KVH, cfg.num_heads // KVH, hd)
+    mask = valid[None, None, :].expand(B, 1, T)
+    out = _sdpa(qg, k.to(q.dtype), v.to(q.dtype), mask, float(1.0 / np.sqrt(hd)))
+    out = out.reshape(B, 1, cfg.num_heads * hd)
+    return common.dense(out, params["wo"], cfg.dtype), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,17 @@
-"""The dense decoder's drivers (port of ``repro.models.transformer``):
+"""The decoder's entry points (port of ``repro.models.transformer``):
 ``forward_hidden`` / ``forward_train`` (full-sequence training forward,
 each layer under ``torch.utils.checkpoint`` when ``remat="full"``),
-``prefill`` (full-sequence forward that builds the dense KV cache) and
-``decode_step_paged`` (one continuous-batching token per lane against the
-paged pool). The layer loop is a Python loop over per-layer views of the
-stacked parameters.
+``prefill`` (full-sequence forward that builds the dense KV cache, and
+the SSM state of hybrid blocks), ``decode_step`` (one lock-step token
+against that cache) and ``decode_step_paged`` (one continuous-batching
+token per lane against the paged pool). The layer loop is a Python loop
+over per-layer views of the stacked parameters.
 
-Only DENSE blocks with full attention are ported in this slice; the other
-families raise ``NotImplementedError``.
+Ported block families: DENSE with full attention (every entry point),
+and HYBRID_PARALLEL (Hymba: attention and a Mamba block side by side)
+with sliding-window attention, for serving only (``prefill``,
+``decode_step``): the selective-scan kernel has no gradient yet, so the
+training forwards refuse it. The other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.config.base import AttentionKind, BlockKind, ModelConfig
-from repro_torch.models import common, layers
+from repro_torch.models import common, layers, ssm
 from repro_torch.models.common import ParamSpec
 
 
@@ -34,11 +38,15 @@ class RunOpts:
     int8_kv_cache: bool = False
 
 
+_SERVED = {(BlockKind.DENSE, AttentionKind.FULL),
+           (BlockKind.HYBRID_PARALLEL, AttentionKind.SLIDING)}
+
+
 def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
-    if cfg.block != BlockKind.DENSE or cfg.attention != AttentionKind.FULL:
+    if (cfg.block, cfg.attention) not in _SERVED:
         raise NotImplementedError(
-            f"repro_torch serves DENSE full-attention models only, got "
-            f"{cfg.block.value}/{cfg.attention.value}"
+            f"repro_torch serves DENSE full-attention and HYBRID_PARALLEL sliding-window "
+            f"models only, got {cfg.block.value}/{cfg.attention.value}"
         )
     if cfg.tie_embeddings or cfg.embed_scale or cfg.vision_tokens or cfg.encoder_layers:
         raise NotImplementedError(f"repro_torch: {cfg.name} needs a later slice")
@@ -51,17 +59,30 @@ def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
             raise NotImplementedError(f"repro_torch: remat {opts.remat!r} is not ported yet")
 
 
+def _require_dense(cfg: ModelConfig, what: str) -> None:
+    """The training forwards and the paged decode take DENSE blocks only: a
+    hybrid training step would drop the Mamba branch's gradient (the scan
+    kernel has none yet), and the reference pages DENSE blocks only."""
+    if cfg.block != BlockKind.DENSE:
+        raise NotImplementedError(
+            f"repro_torch: {what} supports DENSE blocks only, got {cfg.block.value}")
+
+
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
 
 def block_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    return {
-        "ln1": layers.rmsnorm_spec(cfg.d_model),
-        "attn": layers.attention_spec(cfg),
-        "ln2": layers.rmsnorm_spec(cfg.d_model),
-        "mlp": layers.mlp_spec(cfg),
-    }
+    """Spec for ONE decoder block of this config's kind (unstacked)."""
+    spec: Dict[str, Any] = {"ln1": layers.rmsnorm_spec(cfg.d_model),
+                            "attn": layers.attention_spec(cfg)}
+    if cfg.block == BlockKind.HYBRID_PARALLEL:
+        spec["mamba"] = ssm.mamba_spec(cfg)
+        spec["fuse_attn"] = layers.rmsnorm_spec(cfg.d_model)
+        spec["fuse_ssm"] = layers.rmsnorm_spec(cfg.d_model)
+    spec["ln2"] = layers.rmsnorm_spec(cfg.d_model)
+    spec["mlp"] = layers.mlp_spec(cfg)
+    return spec
 
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -76,9 +97,34 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
-    """Dense cache length: the sequence rounded up to a multiple of 16
-    (full attention only; ring-buffer window caches come with SWA)."""
-    return -(-seq_len // 16) * 16
+    """Dense cache length: the sequence, or for sliding-window attention at
+    most the window (a ring buffer), rounded up to a multiple of 16."""
+    n = seq_len
+    if cfg.attention == AttentionKind.SLIDING and cfg.window:
+        n = min(n, cfg.window)
+    return -(-n // 16) * 16
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, int8: bool = False) -> Dict[str, Any]:
+    """Dense cache specs, stacked over layers: k, v, pos_ids, and the
+    hybrid block's SSM state under ``ssm``."""
+    _check_supported(cfg)
+    if int8:
+        raise NotImplementedError("repro_torch: the int8 KV cache is not ported yet")
+    one: Dict[str, Any] = layers.make_cache_specs(cfg, batch, cache_len_for(cfg, seq_len))
+    if cfg.block == BlockKind.HYBRID_PARALLEL:
+        one["ssm"] = ssm.init_state(cfg, batch)
+    return {"blocks": common.stacked(one, cfg.num_layers)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> Dict[str, Any]:
+    """An empty dense cache: zeros, and ``pos_ids = -1`` (no slot filled)."""
+    cache = common.tree_map(
+        lambda s: torch.zeros(s.shape, dtype=common.torch_dtype(s.dtype), device=device),
+        cache_specs(cfg, batch, seq_len),
+    )
+    cache["blocks"]["pos_ids"].fill_(-1)
+    return cache
 
 
 def paged_cache_specs(
@@ -86,6 +132,7 @@ def paged_cache_specs(
 ) -> Dict[str, Any]:
     """Paged KV pool specs, stacked over layers (serving decode engine)."""
     _check_supported(cfg)
+    _require_dense(cfg, "the paged KV cache")
     one = layers.make_paged_cache_specs(cfg, num_pages, page_size)
     return {"blocks": common.stacked(one, cfg.num_layers)}
 
@@ -129,14 +176,15 @@ def _attn_full(params, h, positions, cfg: ModelConfig, opts: RunOpts):
     q, k, v = layers._project_qkv(params, h, cfg)
     q = layers.rope(q, positions, cfg.rope_theta)
     k = layers.rope(k, positions, cfg.rope_theta)
+    window = cfg.window if cfg.attention == AttentionKind.SLIDING else 0
     if opts.attn_impl == "flash":
         # the CUDA flash kernel on a GPU tensor, its plain version on the CPU
         from repro_torch.kernels.flash_attention import flash_attention
 
-        out = flash_attention(q, k, v, True, 0, 0)
+        out = flash_attention(q, k, v, True, window, 0)
     else:
         out = layers.blockwise_attention(
-            q, k, v, causal=True, q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk,
+            q, k, v, causal=True, window=window, q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk,
         )
     B, S = h.shape[:2]
     out = out.reshape(B, S, cfg.q_dim)
@@ -161,6 +209,19 @@ def _kv_to_cache(kv, positions, cache_len: int) -> Dict[str, torch.Tensor]:
     ])
     return {"k": torch.nn.functional.pad(k, pad_kv),
             "v": torch.nn.functional.pad(v, pad_kv), "pos_ids": pos_ids}
+
+
+def _fuse(p, attn_out: torch.Tensor, ssm_out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Hymba's fusion of its parallel heads: the mean of the two normed outputs."""
+    return 0.5 * (layers.rmsnorm(p["fuse_attn"], attn_out, cfg.norm_eps)
+                  + layers.rmsnorm(p["fuse_ssm"], ssm_out, cfg.norm_eps))
+
+
+def _stack(trees: list) -> Any:
+    """Stack a list of equal trees (nested dicts of tensors) leaf by leaf."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -201,6 +262,7 @@ def forward_hidden(params, batch, cfg: ModelConfig, opts: RunOpts):
     or, to differentiate, a list of per-layer trees (see ``per_layer``).
     """
     _check_supported(cfg, opts)
+    _require_dense(cfg, "training")
     blocks = params["blocks"]
     if not isinstance(blocks, list):
         blocks = [layer_slice(blocks, i) for i in range(cfg.num_layers)]
@@ -232,8 +294,10 @@ def forward_train(params, batch, cfg: ModelConfig, opts: RunOpts):
 
 
 def prefill(params, batch, cfg: ModelConfig, opts: RunOpts, cache_seq_len: int):
-    """Forward + dense cache build. ``batch["tokens"]``: (B, S) int.
-    Returns (last-position logits (B, 1, V), cache)."""
+    """Forward + cache build. ``batch["tokens"]``: (B, S) int.
+    Returns (last-position logits (B, 1, V), cache): k/v of the last
+    ``cache_len_for(cfg, cache_seq_len)`` positions in ring-buffer slots,
+    ``pos_ids``, and for hybrid blocks the SSM state under ``ssm``."""
     _check_supported(cfg, opts)
     x, positions = _embed_inputs(params, batch, cfg)
     T = cache_len_for(cfg, cache_seq_len)
@@ -242,12 +306,44 @@ def prefill(params, batch, cfg: ModelConfig, opts: RunOpts, cache_seq_len: int):
         p = layer_slice(params["blocks"], i)
         h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
         attn_out, kv = _attn_full(p["attn"], h, positions, cfg, opts)
-        x = x + attn_out
+        c = _kv_to_cache(kv, positions, T)
+        if cfg.block == BlockKind.HYBRID_PARALLEL:
+            ssm_out, c["ssm"] = ssm.mamba_block(p["mamba"], h, cfg)
+            x = x + _fuse(p, attn_out, ssm_out, cfg)
+        else:
+            x = x + attn_out
         h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = x + layers.mlp(p["mlp"], h, cfg)
-        caches.append(_kv_to_cache(kv, positions, T))
-    cache = {"blocks": {key: torch.stack([c[key] for c in caches]) for key in caches[0]}}
-    return _unembed(params, x[:, -1:, :], cfg), cache
+        caches.append(c)
+    return _unembed(params, x[:, -1:, :], cfg), {"blocks": _stack(caches)}
+
+
+def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig, opts: RunOpts):
+    """One lock-step decode step against the dense cache.
+
+    tokens: (B, 1) int; pos: the absolute position of the new token (the
+    same for every row). Writes the token's k/v into its ring slot and the
+    new SSM state of hybrid blocks into ``cache`` IN PLACE (the reference
+    returns an updated copy). Returns (logits (B, 1, V), cache).
+    """
+    _check_supported(cfg, opts)
+    pos = int(pos)
+    x = _embed_tokens(params, tokens, cfg)
+    for i in range(cfg.num_layers):
+        p = layer_slice(params["blocks"], i)
+        c = layer_slice(cache["blocks"], i)
+        h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        attn_out, _ = layers.decode_attention(p["attn"], c, h, pos, cfg)
+        if cfg.block == BlockKind.HYBRID_PARALLEL:
+            ssm_out, state = ssm.mamba_decode_step(p["mamba"], h, c["ssm"], cfg)
+            for key, t in state.items():
+                c["ssm"][key].copy_(t)
+            x = x + _fuse(p, attn_out, ssm_out, cfg)
+        else:
+            x = x + attn_out
+        h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        x = x + layers.mlp(p["mlp"], h, cfg)
+    return _unembed(params, x, cfg), cache
 
 
 def decode_step_paged(
@@ -261,6 +357,7 @@ def decode_step_paged(
     place. Returns (logits (B, 1, V), cache).
     """
     _check_supported(cfg, opts)
+    _require_dense(cfg, "paged decode")
     x = _embed_tokens(params, tokens, cfg)
     seq_lens = seq_lens.to(torch.int32)
     block_table = block_table.to(torch.int32)

@@ -22,8 +22,9 @@ class Model:
 
     def init(self, generator: torch.Generator, device="cuda", dtype=None) -> Any:
         """Random params from ``generator`` (which must live on ``device``).
-        ``dtype`` stores weight matrices in that type (serving); norm
-        scales stay f32."""
+        ``dtype`` stores weight matrices in that type (serving); the leaves
+        the model reads in f32 (norm scales, biases, the Mamba block's
+        ``x_proj``, ``dt_proj``, ``A_log``) stay f32."""
         return common.init_params(self.specs, generator, resolve_device(device), dtype)
 
     def forward(self, params, batch, opts: Optional[RunOpts] = None):
@@ -37,6 +38,15 @@ class Model:
 
     def prefill(self, params, batch, cache_seq_len: int, opts: Optional[RunOpts] = None):
         return transformer.prefill(params, batch, self.cfg, opts or RunOpts(), cache_seq_len)
+
+    def decode_step(self, params, cache, tokens, pos: int, opts: Optional[RunOpts] = None):
+        return transformer.decode_step(params, cache, tokens, pos, self.cfg, opts or RunOpts())
+
+    def cache_specs(self, batch: int, seq_len: int, int8: bool = False):
+        return transformer.cache_specs(self.cfg, batch, seq_len, int8=int8)
+
+    def init_cache(self, batch: int, seq_len: int, device="cuda"):
+        return transformer.init_cache(self.cfg, batch, seq_len, resolve_device(device))
 
     def decode_step_paged(
         self, params, cache, tokens, seq_lens, block_table, opts: Optional[RunOpts] = None,

@@ -190,6 +190,17 @@ def build_prefill_step(model: zoo.Model, layout: ShardingLayout, cache_seq_len: 
     return prefill_step
 
 
+def build_decode_step(model: zoo.Model, layout: ShardingLayout):
+    """(params, cache, tokens (B,1), pos) -> (logits, cache); the dense
+    cache is updated in place."""
+    opts = run_opts_from_layout(layout)
+
+    def decode_step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos, opts)
+
+    return decode_step
+
+
 def build_paged_decode_step(model: zoo.Model, layout: ShardingLayout):
     """(params, cache, tokens (B,1), seq_lens (B,), block_table (B,nb))
     -> (logits, cache); the pool is updated in place."""
