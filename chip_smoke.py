@@ -10,10 +10,10 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
 2. build: compile ``src/repro_torch/csrc/*.cu`` for sm_90a (``kernels/_build.py``),
    one nvcc per source, all in parallel;
 3. kernels: each hand-written kernel (flash forward, paged decode, the two
-   flash backward kernels, the selective scan) against its plain PyTorch
-   version on the card, on the reference's test shapes and at the main
-   paths' shapes, with times (CUDA events, L2 flushed between launches)
-   beside the bound;
+   flash backward kernels, the selective scan, the chunkwise mLSTM) against
+   its plain PyTorch version on the card, on the reference's test shapes
+   and at the main paths' shapes, with times (CUDA events, L2 flushed
+   between launches) beside the bound;
 4. serving: full-width qwen3-4b (random bf16 weights from a seeded
    generator) through ``DecodeEngine`` on 16 requests; launch counters
    prove prefill went through the flash kernel (36 launches per prefill)
@@ -28,7 +28,18 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    path's prefill logits agree with the plain path's (masked attention,
    sequential scan); a reduced model's f32 streams on the card equal the
    CPU's;
-6. training: full-width qwen3-4b (f32 params from a seeded generator,
+6. xLSTM serving: full-width xlstm-350m (random bf16 weights, the
+   blocks' f32 leaves kept f32) through the serve launcher's loop, 8
+   prompts x 4096 tokens and 32 new tokens each; launch counters prove
+   every prefill and decode step went through the mLSTM kernel (20 x 32)
+   and nothing else; on one prompt, every mLSTM call of the bf16 prefill
+   gives the same h and state as the plain chunkwise form on its own
+   inputs, and the kernel path's prefill logits agree with the plain
+   path's in bf16 on the prompt's first tokens and in f32 on all 4096
+   (random-weight bf16 xLSTM is chaotic over longer prompts:
+   ``--xlstm-orders``); a reduced model's f32 streams on the card equal
+   the CPU's;
+7. training: full-width qwen3-4b (f32 params from a seeded generator,
    AdamW, seq 4096, global batch 2 in 2 microbatches, remat per layer)
    through ``run_segment`` for 4 steps: finite losses and grad norms, no
    param change at step 0 (learning rate 0) and a change after step 1,
@@ -38,9 +49,9 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    (atol 1e-5).
 
 A kernel's ``launches_by_path`` in the JSON record holds its count on
-each path (``serve``, ``hybrid``, ``train``), each counted from 0 just before that
-path's run and read just after; ``launches`` is their sum. The
-last three lines of stdout are the card's name and power limit, the
+each path (``serve``, ``hybrid``, ``xlstm``, ``train``), each counted from 0
+just before that path's run and read just after; ``launches`` is their
+sum. The last three lines of stdout are the card's name and power limit, the
 per-kernel JSON record and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside this file, the script prints no result and exits 2.
 """
@@ -120,6 +131,27 @@ SSM_CASES = [
     (2, 64, 512, 16, torch.float32),
     (1, 128, 256, 16, torch.bfloat16),
 ]
+# (B, H, S, hd, dtype): tests/test_kernels.py MLSTM_CASES (the JAX test's
+# chunk column has no counterpart: the kernel picks its own chunk of 32)
+MLSTM_CASES = [
+    (2, 2, 128, 64, torch.float32),
+    (1, 4, 64, 32, torch.float32),
+    (2, 1, 96, 128, torch.float32),
+    (1, 2, 128, 64, torch.bfloat16),
+]
+# the mLSTM kernel's stabiliser m (as the JAX test holds it) and its f32
+# state C, n (the CPU parity tests' state tolerance); h takes tol(dtype)
+MLSTM_M_TOL = dict(atol=1e-3, rtol=1e-3)
+MLSTM_STATE_TOL = dict(atol=1e-4, rtol=1e-4)
+# xlstm-350m's prefill shape (B8 S4096 H4 hd512, q/k/v bf16) against the
+# plain chunkwise form at the model's chunk 256: both see the same bf16
+# inputs and sum in f32 in other orders (chunk 32 vs 256), so h (bf16) may
+# differ by one bf16 ulp (rtol 1e-2 covers 2^-7 |h|) and the state by f32
+# rounding over 4096 steps.
+MLSTM_MAIN_H_TOL = dict(atol=1e-3, rtol=1e-2)
+MLSTM_MAIN_STATE_TOL = dict(atol=1e-4, rtol=1e-3)
+MLSTM_MAIN_TOLS = dict(h=MLSTM_MAIN_H_TOL, C=MLSTM_MAIN_STATE_TOL, n=MLSTM_MAIN_STATE_TOL,
+                       m=MLSTM_M_TOL)
 # the JAX test's tolerance for the scan's final state (y takes tol(dtype))
 SSM_H_TOL = dict(atol=1e-4, rtol=1e-4)
 # hymba's main-path shapes (u bf16, dt/B_/C_ f32), held tighter than the
@@ -142,14 +174,19 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def hold(name: str, out: torch.Tensor, ref: torch.Tensor, t: dict) -> float:
-    """Raise unless |out - ref| <= atol + rtol |ref| everywhere; return the
-    max abs error."""
+def within(out: torch.Tensor, ref: torch.Tensor, t: dict) -> tuple:
+    """(max abs error, whether out is finite and |out - ref| <= atol + rtol
+    |ref| everywhere)."""
     a, b = out.float(), ref.float()
-    if not torch.isfinite(a).all():
-        raise AssertionError(f"{name}: non-finite output")
     err = float((a - b).abs().max())
-    ok = bool(torch.all((a - b).abs() <= t["atol"] + t["rtol"] * b.abs()))
+    ok = bool(torch.isfinite(a).all() and torch.all((a - b).abs() <= t["atol"] + t["rtol"] * b.abs()))
+    return err, ok
+
+
+def hold(name: str, out: torch.Tensor, ref: torch.Tensor, t: dict) -> float:
+    """Raise unless out is finite and |out - ref| <= atol + rtol |ref|
+    everywhere; return the max abs error."""
+    err, ok = within(out, ref, t)
     log(f"  {name}: max_abs_err={err:.3e} (atol={t['atol']}, rtol={t['rtol']}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -186,7 +223,9 @@ def reset_launches() -> None:
     from repro_torch.kernels.paged_attention import kernel as paged
     from repro_torch.kernels.ssm_scan import kernel as scan
 
-    kernel.launches = paged.launches = scan.launches = 0
+    from repro_torch.kernels.mlstm import kernel as mlstm
+
+    kernel.launches = paged.launches = scan.launches = mlstm.launches = 0
     kernel_bwd.launches_dkdv = kernel_bwd.launches_dq = 0
 
 
@@ -195,10 +234,12 @@ def read_launches() -> dict:
     from repro_torch.kernels.flash_attention import kernel, kernel_bwd
     from repro_torch.kernels.paged_attention import kernel as paged
     from repro_torch.kernels.ssm_scan import kernel as scan
+    from repro_torch.kernels.mlstm import kernel as mlstm
 
     return {"flash_attention": kernel.launches, "paged_attention": paged.launches,
             "flash_attention_bwd_dkdv": kernel_bwd.launches_dkdv,
-            "flash_attention_bwd_dq": kernel_bwd.launches_dq, "ssm_scan": scan.launches}
+            "flash_attention_bwd_dq": kernel_bwd.launches_dq, "ssm_scan": scan.launches,
+            "mlstm": mlstm.launches}
 
 
 def expect_launches(**counts) -> dict:
@@ -526,6 +567,99 @@ def check_ssm_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
+def _mlstm_inputs(gen, B, S, H, hd, dtype, with_state=False):
+    """The JAX test's distributions in the model's layout: q, k, v normal
+    (B, S, H, hd); gates 2 x normal (B, S, 2H) f32; a state (C, n normal,
+    m = 0.5 x normal) when asked for."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    q, k, v = (rnd(B, S, H, hd).to(dtype) for _ in range(3))
+    gates = rnd(B, S, 2 * H) * 2.0
+    state = (rnd(B, H, hd, hd), rnd(B, H, hd), rnd(B, H) * 0.5) if with_state else None
+    return q, k, v, gates, state
+
+
+def _to_ref_layout(q, k, v, gates):
+    """(B, S, H, hd) and (B, S, 2H) -> the sequential oracle's (B, H, S, hd)
+    and (B, H, S, 2)."""
+    H = q.shape[2]
+    g = torch.stack([gates[..., :H], gates[..., H:]], dim=-1).transpose(1, 2)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), g
+
+
+def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """The chunkwise mLSTM against ``mlstm_ref`` (the sequential oracle) on
+    the JAX test's cases, a ragged S and a carried state, and against
+    ``mlstm_chunkwise_ref`` at xlstm-350m's prefill and decode shapes."""
+    from repro_torch.kernels.mlstm import kernel, ops
+    from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref, mlstm_ref
+
+    def against_oracle(name, B, S, H, hd, dtype, with_state=False, h_tol=None):
+        q, k, v, gates, state = _mlstm_inputs(gen, B, S, H, hd, dtype, with_state)
+        h, (C, n, m) = ops.mlstm(q, k, v, gates, state)
+        torch.cuda.synchronize()
+        hr, (Cr, nr, mr) = mlstm_ref(*_to_ref_layout(q, k, v, gates), state)
+        if h.dtype != dtype or {C.dtype, n.dtype, m.dtype} != {torch.float32}:
+            raise AssertionError(f"{name}: h {h.dtype}, state {C.dtype} {n.dtype} {m.dtype}")
+        errs = [hold(f"{name} h", h, hr.transpose(1, 2), h_tol or tol(dtype)),
+                hold(f"{name} C", C, Cr, MLSTM_STATE_TOL), hold(f"{name} n", n, nr, MLSTM_STATE_TOL)]
+        hold(f"{name} m", m, mr, MLSTM_M_TOL)
+        return max(errs)
+
+    log("[kernels] mlstm vs mlstm_ref (h, C, n, m) and mlstm_chunkwise_ref")
+    for B, H, S, hd, dtype in MLSTM_CASES:
+        against_oracle(f"mlstm B{B} H{H} S{S} hd{hd} {str(dtype)[6:]}", B, S, H, hd, dtype)
+    against_oracle("mlstm ragged S100 with state B2 H2 hd96 f32", 2, 100, 2, 96, torch.float32,
+                   with_state=True)
+    err_dec = against_oracle("mlstm main-path decode S1 with state B8 H4 hd512 bf16", 8, 1, 4,
+                             512, torch.bfloat16, with_state=True, h_tol=MLSTM_MAIN_H_TOL)
+
+    # two calls carrying the state compose into one call
+    q, k, v, gates, state = _mlstm_inputs(gen, 2, 77, 4, 64, torch.float32, with_state=True)
+    h_all, st_all = ops.mlstm(q, k, v, gates, state)
+    h1, st1 = ops.mlstm(q[:, :40], k[:, :40], v[:, :40], gates[:, :40], state)
+    h2, st2 = ops.mlstm(q[:, 40:], k[:, 40:], v[:, 40:], gates[:, 40:], st1)
+    torch.cuda.synchronize()
+    hold("mlstm two calls compose h", torch.cat([h1, h2], 1), h_all, F32_TOL)
+    for name, a, b in zip("Cnm", st2, st_all):
+        hold(f"mlstm two calls compose {name}", a, b, MLSTM_STATE_TOL)
+
+    # xlstm-350m's prefill shape, against the plain chunkwise form at chunk 256
+    B, S, H, hd, chunk = 8, 4096, 4, 512, 256
+    q, k, v, gates, _ = _mlstm_inputs(gen, B, S, H, hd, torch.bfloat16)
+    h, (C, n, m) = ops.mlstm(q, k, v, gates)
+    torch.cuda.synchronize()
+    hr, (Cr, nr, mr) = mlstm_chunkwise_ref(q, k, v, gates, None, chunk)
+    name = f"mlstm main-path prefill B{B} S{S} H{H} hd{hd} bf16"
+    err = max(hold(f"{name} h", h, hr, MLSTM_MAIN_H_TOL),
+              hold(f"{name} C", C, Cr, MLSTM_MAIN_STATE_TOL),
+              hold(f"{name} n", n, nr, MLSTM_MAIN_STATE_TOL))
+    hold(f"{name} m", m, mr, MLSTM_M_TOL)
+    del hr, Cr, nr, mr, C, n, m
+    # the work the function needs, per token and head: q C^T and the C
+    # update (2 hd^2 flop each), and at the kernel's chunk c the intra-chunk
+    # q K^T and (q K^T . D) V (2 c hd each)
+    c = kernel.CHUNK
+    flops = (4.0 * hd * hd + 4.0 * c * hd) * B * S * H
+    nbytes = 4.0 * B * S * H * hd * 2 + 4.0 * B * S * 2 * H + 4.0 * B * H * (hd * hd + hd + 1)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    ms = time_ms(lambda: kernel.mlstm(q, k, v, gates), flush)
+    plain_ms = time_ms(lambda: mlstm_chunkwise_ref(q, k, v, gates, None, chunk), flush, reps=3)
+    dq, dk, dv, dg, dstate = _mlstm_inputs(gen, B, 1, H, hd, torch.bfloat16, with_state=True)
+    dec_ms = time_ms(lambda: kernel.mlstm(dq, dk, dv, dg, dstate), flush)
+    dec_plain_ms = time_ms(lambda: mlstm_chunkwise_ref(dq, dk, dv, dg, dstate, chunk), flush)
+    dec_bytes = 4.0 * 2 * B * H * (hd * hd + hd + 1) + 2.0 * 4 * B * H * hd + 4.0 * B * 2 * H
+    dec_b_ms, dec_by = bound(4.0 * hd * hd * B * H, dec_bytes, PEAK_BF16_FLOPS)
+    log(f"  mlstm main path (B{B} S{S} H{H} hd{hd}, q/k/v bf16): kernel {ms:.4f} ms, plain "
+        f"(chunkwise, chunk {chunk}) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved; decode shape (S=1, "
+        f"state carried): kernel {dec_ms:.4f} ms, plain {dec_plain_ms:.4f} ms, bound "
+        f"{dec_b_ms:.4f} ms ({dec_by})")
+    return dict(name="mlstm", route="cuda", source="src/repro_torch/csrc/mlstm.cu",
+                replaces="src/repro/kernels/mlstm/kernel.py:31",
+                max_abs_err=max(err, err_dec), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width serving
 # ---------------------------------------------------------------------------
@@ -773,30 +907,31 @@ def serve_hybrid_full_width() -> dict:
         f"the batched prefill's row 0 differs from the single prompt's by {same_as_batch:.4f}")
     if not (torch.isfinite(b).all() and top_eq and corr > 0.99):
         raise AssertionError("kernel-path prefill logits disagree with the plain path")
-    profile_hybrid(model, params, tokens, res.cache)
+    profile_greedy("hybrid", model, params, tokens, res.cache, new)
     return launches
 
 
-def profile_hybrid(model, params, tokens, cache) -> None:
-    """Where the time goes: one batched full-width prefill (8 x 4096) and
-    three decode steps of 8 rows against the ring cache, under torch.profiler."""
+def profile_greedy(tag: str, model, params, tokens, cache, new: int) -> None:
+    """Where the time goes on a serve-launcher path: one batched full-width
+    prefill of ``tokens`` and three decode steps of its rows from ``cache``
+    (past the served tokens), under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import RunOpts
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     opts = RunOpts(attn_impl="flash")
-    S = tokens.shape[1]
+    B, S = tokens.shape
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        logits, _ = model.prefill(params, {"tokens": tokens}, S + HYBRID_NEW, opts)
+        logits, _ = model.prefill(params, {"tokens": tokens}, S + new, opts)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    log(f"[profile] hybrid prefill, 8 x {S} tokens:\n{_device_breakdown(prof, wall)}")
-    del logits
-    tok = torch.zeros((tokens.shape[0], 1), dtype=torch.int32, device="cuda")
-    pos = S + HYBRID_NEW            # past the served tokens: the ring keeps going
+    log(f"[profile] {tag} prefill, {B} x {S} tokens:\n{_device_breakdown(prof, wall)}")
+    del logits, prof
+    tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    pos = S + new
     model.decode_step(params, cache, tok, pos, opts)
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
@@ -805,23 +940,24 @@ def profile_hybrid(model, params, tokens, cache) -> None:
             model.decode_step(params, cache, tok, pos + 1 + i, opts)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    log(f"[profile] three hybrid decode steps, 8 rows, 1024-slot ring:\n"
-        f"{_device_breakdown(prof, wall)}")
+    log(f"[profile] three {tag} decode steps, {B} rows:\n{_device_breakdown(prof, wall)}")
 
 
-def serve_hybrid_reduced_matches_cpu() -> None:
-    """Reduced hymba at f32: the serve launcher's loop on the card (flash and
-    scan kernels) against the same loop on the CPU (plain versions)."""
+def greedy_reduced_matches_cpu(arch: str, tag: str) -> None:
+    """A reduced model at f32: the serve launcher's loop on the card (the
+    kernels) against the same loop on the CPU (their plain versions). The
+    prompt, 20 tokens, is longer than hymba's 16-slot ring (16 new tokens
+    wrap it) and ragged against the mLSTM's chunks (8 on the CPU, 32 in the
+    kernel)."""
     from repro_torch.config import get_arch
     from repro_torch.launch.serve import greedy_serve
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
 
-    cfg = dataclasses.replace(get_arch("hymba-1.5b").reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
     model = build_model(cfg)
     params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
     params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
-    # prompt 20 > the 16-slot ring; 16 new tokens wrap it
     prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 20)).astype(np.int32)
     runs = {}
     for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
@@ -830,7 +966,7 @@ def serve_hybrid_reduced_matches_cpu() -> None:
     err = max(float((a.cpu() - b).abs().max()) for a, b in zip(gpu.logits, cpu.logits))
     ok = all(torch.allclose(a.cpu(), b, **REDUCED_LOGITS_TOL) for a, b in zip(gpu.logits, cpu.logits))
     same = torch.equal(gpu.tokens, cpu.tokens)
-    log(f"[hybrid] reduced f32 streams, card vs CPU plain: {'identical' if same else 'DIFFERENT'}; "
+    log(f"[{tag}] reduced f32 streams, card vs CPU plain: {'identical' if same else 'DIFFERENT'}; "
         f"logits max abs diff {err:.3e} (atol {REDUCED_LOGITS_TOL['atol']}, rtol "
         f"{REDUCED_LOGITS_TOL['rtol']})")
     if not (same and ok):
@@ -838,7 +974,231 @@ def serve_hybrid_reduced_matches_cpu() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: full-width training
+# phase 6: full-width xLSTM serving (xlstm-350m)
+# ---------------------------------------------------------------------------
+
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW = 8, 4096, 32
+# the prompt length at which the check holds bf16 prefill logits end to
+# end: one kernel chunk. ``--xlstm-orders`` measures why no longer: past
+# 32 tokens, two plain orders of the same sums disagree (top-1) as well.
+XLSTM_BF16_LEN = 32
+
+
+def serve_xlstm_full_width() -> dict:
+    """xlstm-350m at full width and depth through the serve launcher's loop:
+    one batched prefill of 8 prompts x 4096 tokens, then 31 greedy decode
+    steps against the recurrent states."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import greedy_serve
+    from repro_torch.models import build_model, transformer, xlstm
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_arch("xlstm-350m")
+    model = build_model(cfg)
+    groups, m_per, has_s = transformer._xlstm_group_layout(cfg)
+    n_mlstm = groups * m_per
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    g = params["groups"]
+    kept = {k: g[blk]["block"][k].dtype for blk, k in (("mlstm", "w_if"), ("slstm", "w_gates"),
+                                                       ("slstm", "r_gates"))}
+    H, inner, hd = xlstm._mdims(cfg)
+    log(f"[xlstm] {cfg.name}: {cfg.num_layers} layers = {groups} groups x ({m_per} mLSTM + "
+        f"{has_s} sLSTM), d_model {cfg.d_model}, {H} heads x {hd} (inner {inner}), vocab "
+        f"{cfg.vocab_size}; {model.param_count()} params (matrices bf16, {kept}), made on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    if any(d != torch.float32 for d in kept.values()):
+        raise AssertionError(f"f32 leaves stored in another dtype: {kept}")
+
+    B, S, new = XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    tokens = torch.as_tensor(prompts, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = greedy_serve(model, params, tokens, new)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    want = expect_launches(mlstm=n_mlstm * (1 + res.decode_steps))
+    out = res.tokens
+    log(f"[xlstm] {B} prompts x {S} tokens, {new} new tokens each; first row "
+        f"{out[0].tolist()}")
+    log(f"[xlstm] launches {launches}, expected {want}")
+    if tuple(out.shape) != (B, new) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"generated tokens {tuple(out.shape)} outside the vocabulary")
+    if not all(bool(torch.isfinite(lg.float()).all()) for lg in res.logits):
+        raise AssertionError("non-finite logits")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(res.cache)):
+        raise AssertionError("non-finite recurrent state")
+    if res.decode_steps != new - 1 or launches != want:
+        raise AssertionError("the xLSTM path did not go through the kernel as expected")
+    log(f"[xlstm] prefill {B * S / res.prefill_seconds:.1f} tokens/s ({B * S} tokens in "
+        f"{res.prefill_seconds:.3f} s); decode {1e3 * res.decode_seconds / res.decode_steps:.2f} "
+        f"ms per step ({B * res.decode_steps / res.decode_seconds:.1f} tokens/s); peak memory "
+        f"{peak_gb:.2f} GB")
+
+    compare_xlstm_paths(model, params, tokens[:1])
+    profile_greedy("xlstm", model, params, tokens, res.cache, new)
+    return launches
+
+
+def _xlstm_prefill(model, params, row, chunk=None, held=None):
+    """Prefill ``row`` with the mLSTM kernel (``chunk`` None) or with the
+    plain chunkwise form at ``chunk``. With ``held`` (a dict), every
+    kernel call's h and final (C, n, m) are held against the plain form at
+    the model's chunk on that call's own inputs; ``held`` keeps the number
+    of calls, each quantity's max abs error and the failures. Returns the
+    last position's logits."""
+    from unittest import mock
+
+    from repro_torch.kernels.mlstm import ops
+    from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
+    from repro_torch.models import xlstm
+
+    def mlstm(q, k, v, gates, state, model_chunk):
+        if chunk is not None:
+            return mlstm_chunkwise_ref(q, k, v, gates, state, chunk)
+        out = ops.mlstm(q, k, v, gates, state, model_chunk)
+        if held is not None:
+            (h, st), (hr, st_r) = out, mlstm_chunkwise_ref(q, k, v, gates, state, model_chunk)
+            held["calls"] = held.get("calls", 0) + 1
+            for key, a, b in zip("hCnm", (h, *st), (hr, *st_r)):
+                err, ok = within(a, b, MLSTM_MAIN_TOLS[key])
+                held[key] = max(held.get(key, 0.0), err)
+                if not ok:
+                    held.setdefault("failed", []).append(f"call {held['calls']} {key}")
+        return out
+
+    before = read_launches()["mlstm"]
+    with mock.patch.object(xlstm, "mlstm", mlstm):
+        logits, _ = model.prefill(params, {"tokens": row}, row.shape[1])
+    torch.cuda.synchronize()
+    launched = read_launches()["mlstm"] - before
+    if launched != (_n_mlstm(model.cfg) if chunk is None else 0):
+        raise AssertionError(f"prefill launched the mLSTM kernel {launched} times")
+    return logits[0, -1].float()
+
+
+def _n_mlstm(cfg) -> int:
+    return cfg.num_layers - cfg.num_layers // cfg.slstm_every
+
+
+def _logit_agreement(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    return int(a.argmax()) == int(b.argmax()), corr, float((a - b).abs().max())
+
+
+def _hold_logits(name: str, kern: torch.Tensor, plain: torch.Tensor) -> None:
+    """Kernel-path against plain-path logits: top-1 equal, correlation > 0.99."""
+    top, corr, diff = _logit_agreement(kern, plain)
+    log(f"[xlstm] {name}, kernel vs plain chunk 256: top-1 equal {top}, correlation "
+        f"{corr:.6f}, max abs diff {diff:.4f}")
+    if not (torch.isfinite(kern).all() and top and corr > 0.99):
+        raise AssertionError(f"{name}: kernel-path logits disagree with the plain path")
+
+
+def compare_xlstm_paths(model, params, row) -> None:
+    """The kernel path against the plain path (the chunkwise form at the
+    model's chunk 256) on one prompt:
+
+    * bf16 (the served model), all 4096 tokens: every mLSTM call of the
+      kernel path's prefill (20 layers) holds h and the final (C, n, m)
+      against the plain form on the call's own inputs, at the kernel
+      phase's prefill-shape tolerances;
+    * bf16 prefill logits of the prompt's first ``XLSTM_BF16_LEN`` tokens:
+      top-1 equal, correlation > 0.99. Longer bf16 prompts are not
+      comparable end to end: with random weights the stack is chaotic,
+      and past this length two plain orders of the same sums (chunk 256
+      vs 32) stop agreeing too (``--xlstm-orders`` measures it);
+    * f32 (the same seed's weights in f32, f32 compute), all 4096 tokens:
+      top-1 equal, correlation > 0.99."""
+    from repro_torch.models import build_model
+
+    S = row.shape[1]
+    held: dict = {}
+    _xlstm_prefill(model, params, row, held=held)
+    log(f"[xlstm] bf16 prefill (S={S}), each of {held['calls']} mLSTM calls against the plain "
+        f"form on its own inputs, max abs err: " + ", ".join(
+            f"{key} {held[key]:.3e} (atol={MLSTM_MAIN_TOLS[key]['atol']}, "
+            f"rtol={MLSTM_MAIN_TOLS[key]['rtol']})"
+            for key in "hCnm") + f"; failures: {held.get('failed', 'none')}")
+    if held.get("failed") or held["calls"] != _n_mlstm(model.cfg):
+        raise AssertionError("an mLSTM call of the bf16 prefill disagrees with the plain form")
+
+    short = row[:, :XLSTM_BF16_LEN]
+    _hold_logits(f"bf16 prefill logits (S={XLSTM_BF16_LEN})",
+                 _xlstm_prefill(model, params, short), _xlstm_prefill(model, params, short, 256))
+
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    _hold_logits(f"f32 prefill logits (S={S})", _xlstm_prefill(model32, params32, row),
+                 _xlstm_prefill(model32, params32, row, 256))
+
+
+def _block_divergence(model, params, row, chunks) -> str:
+    """Two plain orders (the chunkwise form at ``chunks[0]`` vs
+    ``chunks[1]``) of one bf16 prefill, block by block: the relative
+    difference ||a - b|| / ||b|| of each block's input and of its output,
+    in the order the blocks run."""
+    from unittest import mock
+
+    from repro_torch.models import xlstm
+
+    runs = {}
+    for chunk in chunks:
+        seen = runs[chunk] = []
+
+        def wrap(block, kind):
+            def run(params, x, *args, **kw):
+                out = block(params, x, *args, **kw)
+                seen.append((kind, x.float(), out[0].float()))
+                return out
+            return run
+
+        with mock.patch.object(xlstm, "mlstm_block", wrap(xlstm.mlstm_block, "m")), \
+                mock.patch.object(xlstm, "slstm_block", wrap(xlstm.slstm_block, "s")):
+            _xlstm_prefill(model, params, row, chunk)
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    return " ".join(f"{kind}{i}:{rel(xa, xb):.1e}->{rel(ya, yb):.1e}"
+                    for i, ((kind, xa, ya), (_, xb, yb)) in enumerate(zip(*runs.values())))
+
+
+def xlstm_orders() -> None:
+    """bf16 full-width xlstm-350m prefill logits of single prompts at
+    growing lengths, each against the plain path (the chunkwise form at
+    chunk 256): the kernel path, and the plain path in two other orders of
+    the same sums (chunk 32, chunk 8). Shows up to which length bf16
+    logits are comparable end to end (``XLSTM_BF16_LEN``), and, for one
+    prompt, how two plain orders drift apart block by block."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch("xlstm-350m")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (XLSTM_BATCH, XLSTM_PROMPT))
+    for r in range(4):
+        for S in (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096):
+            row = torch.as_tensor(prompts[r:r + 1, :S].astype(np.int32), device="cuda")
+            plain = _xlstm_prefill(model, params, row, 256)
+            others = {"kernel": _xlstm_prefill(model, params, row),
+                      "plain 32": _xlstm_prefill(model, params, row, 32),
+                      "plain 8": _xlstm_prefill(model, params, row, 8)}
+            log(f"[xlstm-orders] prompt {r} S={S}, against plain 256 (top-1 equal, "
+                f"correlation): " + "; ".join(
+                    "{} {} {:.6f}".format(name, *_logit_agreement(x, plain)[:2])
+                    for name, x in others.items()))
+    for S, chunks in ((32, (256, 8)), (128, (256, 32))):
+        row = torch.as_tensor(prompts[:1, :S].astype(np.int32), device="cuda")
+        log(f"[xlstm-orders] prompt 0 S={S}, plain {chunks[0]} vs plain {chunks[1]}, each "
+            f"block's input -> output relative difference (m: mLSTM, s: sLSTM): "
+            f"{_block_divergence(model, params, row, chunks)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: full-width training
 # ---------------------------------------------------------------------------
 
 def _recording(step_fn, out: list):
@@ -985,6 +1345,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after building and checking the kernels")
+    ap.add_argument("--xlstm-orders", action="store_true",
+                    help="only build the kernels and report how bf16 xlstm prefill logits "
+                         "of the kernel path and two plain orders agree, by prompt length")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1007,18 +1370,24 @@ def main() -> int:
 
     _build.build()
     ptxas = _build.last_build["log"]
-    spills = [m.group(0) for m in re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                                              ptxas) if m.group(1) != "0" or m.group(2) != "0"]
-    regs = [int(n) for n in re.findall(r"Used (\d+) registers", ptxas)]
+    per_source = {}
+    for section in ptxas.split("== ")[1:]:        # one section per source (_build.build)
+        src, _, text = section.partition("\n")
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+        spill = sum(int(a) + int(b) for a, b in
+                    re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text))
+        per_source[src.strip()] = f"max {max(regs, default=0)} registers, {spill} spill bytes"
     log(f"[build] {len(_build.sources())} sources in {_build.last_build['seconds']:.1f} s "
-        f"-> {_build.last_build['path']}; max {max(regs, default=0)} registers/thread; "
-        f"spill lines: {spills or 'none'}")
+        f"-> {_build.last_build['path']}; ptxas per source (all instantiations): {per_source}")
     _build.load()
+    if args.xlstm_orders:
+        xlstm_orders()
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [check_flash(gen, flush), check_paged(gen, flush), *check_flash_bwd(gen, flush),
-               check_ssm_scan(gen, flush)]
+               check_ssm_scan(gen, flush), check_mlstm(gen, flush)]
     del flush
     if args.kernels_only:
         log(json.dumps({"kernels": records}))
@@ -1030,7 +1399,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["hybrid"] = serve_hybrid_full_width()
-    serve_hybrid_reduced_matches_cpu()
+    greedy_reduced_matches_cpu("hymba-1.5b", "hybrid")
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["xlstm"] = serve_xlstm_full_width()
+    greedy_reduced_matches_cpu("xlstm-350m", "xlstm")
     gc.collect()
     torch.cuda.empty_cache()
     paths["train"] = train_full_width()

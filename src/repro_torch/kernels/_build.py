@@ -68,6 +68,14 @@ SIGNATURES = {
         _P, _P,                          # y, h_final
         _I, _I, _I, _I, _I, _P,          # dtype, B, S, inner, N, stream
     ],
+    "repro_mlstm": [
+        _P, _P, _P, _P, _P, _P, _P,      # q, k, v, gates, C0, n0, m0 (NULL = zeros)
+        _P, _P, _P, _P,                  # h, C, n, m
+        _I, _I, _I, _I, _I,              # dtype, B, S, H, hd
+        _L, _L, _L, _L, _L, _L,          # q strides (b, s, h), k strides
+        _L, _L, _L, _L, _L, _L,          # v strides, h strides
+        _L, _L, _P,                      # gate strides (b, s), stream
+    ],
 }
 
 _lib = None

@@ -1,0 +1,4 @@
+from repro_torch.kernels.mlstm.ops import mlstm
+from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref, mlstm_ref
+
+__all__ = ["mlstm", "mlstm_chunkwise_ref", "mlstm_ref"]

@@ -6,11 +6,15 @@
 The counterpart of ``repro.launch.serve::host_main`` on one device
 (``cuda`` unless ``--device cpu``): one batched prefill over the prompts,
 then ``new_tokens - 1`` greedy ``decode_step`` calls against the dense
-cache, every row at the same position. Attention prefills through the
-flash kernel's entry point and hybrid blocks scan through the selective-
-scan kernel's: the CUDA kernels on the card, their plain versions on the
-CPU. ``--reduced`` (the default, as in the reference) serves the
-family-preserving tiny config, ``--no-reduced`` the full one.
+cache (or, for xLSTM, the recurrent states), every row at the same
+position. Attention prefills through the flash kernel's entry point,
+hybrid blocks scan through the selective-scan kernel's and mLSTM blocks
+through the chunkwise mLSTM kernel's, in prefill and in every decode
+step: the CUDA kernels on the card, their plain versions on the CPU.
+``--reduced`` (the default, as in the reference) serves the
+family-preserving tiny config, ``--no-reduced`` the full one: for example
+``--arch xlstm-350m --device cpu`` serves reduced xLSTM on the CPU, and
+``--arch xlstm-350m --no-reduced`` full-width xLSTM on the card.
 
 Params come from ``torch.Generator(device).manual_seed(seed)``, weight
 matrices stored in the config's compute dtype. The prompts are
@@ -44,7 +48,7 @@ from repro_torch.train.steps import build_decode_step, build_prefill_step
 class ServeResult:
     tokens: torch.Tensor          # (B, new_tokens) int32 greedy tokens, on the host
     logits: List[torch.Tensor]    # per generated token, the (B, V) logits it was taken from
-    cache: Any                    # the dense cache after the last decode step
+    cache: Any                    # the cache after the last decode step
     prefill_seconds: float        # prefill + first argmax, ended by a device sync
     decode_seconds: float         # all decode steps, ended by a device sync
 
@@ -62,7 +66,8 @@ def greedy_serve(model: Model, params, tokens: torch.Tensor, new_tokens: int,
                  layout: ShardingLayout = ShardingLayout(attn_impl="flash")) -> ServeResult:
     """Prefill ``tokens`` (B, S) in one batch, then greedy-decode until
     every row has ``new_tokens`` tokens; the cache holds S + new_tokens
-    positions (a ring buffer of the window for sliding attention)."""
+    positions (a ring buffer of the window for sliding attention; xLSTM
+    keeps only its constant-size recurrent states)."""
     device = tokens.device
     S = tokens.shape[1]
     prefill = build_prefill_step(model, layout, S + new_tokens)

@@ -1,5 +1,5 @@
-"""Model code of the port: the dense and hybrid (Hymba) decoders behind
-``build_model``."""
+"""Model code of the port: the dense, hybrid (Hymba) and xLSTM decoders
+behind ``build_model``."""
 from repro_torch.models.transformer import RunOpts
 from repro_torch.models.zoo import Model, build_model
 

@@ -44,7 +44,8 @@ class ParamSpec:
         """A weight matrix that the model casts to the compute dtype at each
         use, so serving may store it in that dtype: two or more non-stacking
         axes, and not ``keep_f32`` (the Mamba block's ``x_proj``, ``dt_proj``
-        and ``A_log`` feed f32 arithmetic). Norm scales and biases are not."""
+        and ``A_log``, the xLSTM blocks' ``w_if``, ``w_gates`` and
+        ``r_gates`` feed f32 arithmetic). Norm scales and biases are not."""
         return not self.keep_f32 and sum(a not in SCAN_AXES for a in self.axes) >= 2
 
 

@@ -36,8 +36,9 @@ def params_from_jax(tree: Any, cfg: ModelConfig, device, dtype: Optional[torch.d
     compute dtype at each use (``ParamSpec.is_matrix``) in that type
     (``torch.bfloat16`` for serving: one cast now gives the bits the JAX
     path's per-call cast gives). Every other leaf stays f32, as the
-    reference reads it: norm scales, biases, and the Mamba block's
-    ``x_proj``, ``dt_proj`` and ``A_log``.
+    reference reads it: norm scales, biases, the Mamba block's
+    ``x_proj``, ``dt_proj`` and ``A_log``, and the xLSTM blocks' ``w_if``,
+    ``w_gates`` and ``r_gates``.
     """
     dev = resolve_device(device)
 
@@ -58,8 +59,9 @@ def params_to_numpy(params: Any) -> Any:
 
 
 def cache_from_jax(tree: Any, cfg: ModelConfig, batch: int, seq_len: int, device):
-    """numpy dense cache (JAX layout, from ``Model.prefill`` or
-    ``Model.init_cache``; the hybrid block's state nested under ``ssm``) ->
+    """numpy cache (JAX layout, from ``Model.prefill`` or
+    ``Model.init_cache``; the hybrid block's state nested under ``ssm``, the
+    xLSTM states under ``groups``) ->
     the port's tensors on ``device``, each in the dtype it arrives in (a
     JAX bf16 leaf goes through f32, losslessly); shapes are checked against
     ``cache_specs(cfg, batch, seq_len)``."""
@@ -77,11 +79,12 @@ def cache_from_jax(tree: Any, cfg: ModelConfig, batch: int, seq_len: int, device
 
 
 def cache_to_numpy(cache: Any) -> Any:
-    """The port's dense cache -> numpy tree in the JAX layout: int leaves
-    (``pos_ids``) as int32, float leaves as f32 (bf16 ones exactly)."""
+    """The port's cache -> numpy tree in the JAX layout: int leaves
+    (``pos_ids``) as int32, float leaves as f32 (bf16 ones exactly). The
+    arrays are copies: decode updates the cache in place."""
     def one(t):
         t = t.detach().cpu()
-        return t.numpy() if not t.is_floating_point() else t.float().numpy()
+        return np.array(t.numpy() if not t.is_floating_point() else t.float().numpy())
 
     return common.tree_map(one, cache)
 

@@ -7,22 +7,24 @@ against that cache) and ``decode_step_paged`` (one continuous-batching
 token per lane against the paged pool). The layer loop is a Python loop
 over per-layer views of the stacked parameters.
 
-Ported block families: DENSE with full attention (every entry point),
-and HYBRID_PARALLEL (Hymba: attention and a Mamba block side by side)
-with sliding-window attention, for serving only (``prefill``,
-``decode_step``): the selective-scan kernel has no gradient yet, so the
-training forwards refuse it. The other families raise ``NotImplementedError``.
+Ported block families: DENSE with full attention (every entry point);
+for serving only (``prefill``, ``decode_step``), HYBRID_PARALLEL (Hymba:
+attention and a Mamba block side by side) with sliding-window attention,
+and MLSTM (xLSTM: ``groups`` of mLSTM blocks and one sLSTM, no attention).
+The selective-scan and mLSTM kernels have no gradient yet, so the
+training forwards refuse those. The other families raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.config.base import AttentionKind, BlockKind, ModelConfig
-from repro_torch.models import common, layers, ssm
+from repro_torch.models import common, layers, ssm, xlstm
 from repro_torch.models.common import ParamSpec
 
 
@@ -39,14 +41,15 @@ class RunOpts:
 
 
 _SERVED = {(BlockKind.DENSE, AttentionKind.FULL),
-           (BlockKind.HYBRID_PARALLEL, AttentionKind.SLIDING)}
+           (BlockKind.HYBRID_PARALLEL, AttentionKind.SLIDING),
+           (BlockKind.MLSTM, AttentionKind.NONE)}
 
 
 def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
     if (cfg.block, cfg.attention) not in _SERVED:
         raise NotImplementedError(
-            f"repro_torch serves DENSE full-attention and HYBRID_PARALLEL sliding-window "
-            f"models only, got {cfg.block.value}/{cfg.attention.value}"
+            f"repro_torch serves DENSE full-attention, HYBRID_PARALLEL sliding-window and "
+            f"MLSTM models only, got {cfg.block.value}/{cfg.attention.value}"
         )
     if cfg.tie_embeddings or cfg.embed_scale or cfg.vision_tokens or cfg.encoder_layers:
         raise NotImplementedError(f"repro_torch: {cfg.name} needs a later slice")
@@ -61,8 +64,9 @@ def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
 
 def _require_dense(cfg: ModelConfig, what: str) -> None:
     """The training forwards and the paged decode take DENSE blocks only: a
-    hybrid training step would drop the Mamba branch's gradient (the scan
-    kernel has none yet), and the reference pages DENSE blocks only."""
+    hybrid or xLSTM training step would need the scan's or the mLSTM's
+    gradient (their kernels have none yet), and the reference pages DENSE
+    blocks only."""
     if cfg.block != BlockKind.DENSE:
         raise NotImplementedError(
             f"repro_torch: {what} supports DENSE blocks only, got {cfg.block.value}")
@@ -85,15 +89,40 @@ def block_spec(cfg: ModelConfig) -> Dict[str, Any]:
     return spec
 
 
+def _xlstm_group_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_groups, mlstm_per_group, has_slstm)."""
+    if cfg.slstm_every:
+        per = cfg.slstm_every
+        if cfg.num_layers % per:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not groups of {per}")
+        return cfg.num_layers // per, per - 1, 1
+    return 1, cfg.num_layers, 0
+
+
+def _xlstm_groups(cfg: ModelConfig, mlstm_one: Any, slstm_one: Any) -> Dict[str, Any]:
+    """``groups`` x {``mlstm``: ``layers`` x mlstm_one, ``slstm``: slstm_one}."""
+    groups, m_per, has_s = _xlstm_group_layout(cfg)
+    g: Dict[str, Any] = {"mlstm": common.stacked(mlstm_one, m_per)}
+    if has_s:
+        g["slstm"] = slstm_one
+    return common.stacked(g, groups, axis_name="groups")
+
+
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     _check_supported(cfg)
     d = cfg.d_model
-    return {
+    spec: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, d), ("vocab", "embed"), init="embed"),
         "final_norm": layers.rmsnorm_spec(d),
         "lm_head": ParamSpec((d, cfg.vocab_size), ("embed", "vocab")),
-        "blocks": common.stacked(block_spec(cfg), cfg.num_layers),
     }
+    if cfg.block == BlockKind.MLSTM:
+        spec["groups"] = _xlstm_groups(
+            cfg, {"block": xlstm.mlstm_spec(cfg), "ln": layers.rmsnorm_spec(d)},
+            {"block": xlstm.slstm_spec(cfg), "ln": layers.rmsnorm_spec(d)})
+    else:
+        spec["blocks"] = common.stacked(block_spec(cfg), cfg.num_layers)
+    return spec
 
 
 def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
@@ -107,10 +136,14 @@ def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, int8: bool = False) -> Dict[str, Any]:
     """Dense cache specs, stacked over layers: k, v, pos_ids, and the
-    hybrid block's SSM state under ``ssm``."""
+    hybrid block's SSM state under ``ssm``; for xLSTM the recurrent states
+    under ``groups`` (``seq_len`` unused: the state is constant per token)."""
     _check_supported(cfg)
     if int8:
         raise NotImplementedError("repro_torch: the int8 KV cache is not ported yet")
+    if cfg.block == BlockKind.MLSTM:
+        return {"groups": _xlstm_groups(cfg, xlstm.mlstm_state_spec(cfg, batch),
+                                        xlstm.slstm_state_spec(cfg, batch))}
     one: Dict[str, Any] = layers.make_cache_specs(cfg, batch, cache_len_for(cfg, seq_len))
     if cfg.block == BlockKind.HYBRID_PARALLEL:
         one["ssm"] = ssm.init_state(cfg, batch)
@@ -118,12 +151,14 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, int8: bool = False) 
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> Dict[str, Any]:
-    """An empty dense cache: zeros, and ``pos_ids = -1`` (no slot filled)."""
+    """An empty cache: zeros, and ``pos_ids = -1`` (no slot filled) where
+    there is a KV cache."""
     cache = common.tree_map(
         lambda s: torch.zeros(s.shape, dtype=common.torch_dtype(s.dtype), device=device),
         cache_specs(cfg, batch, seq_len),
     )
-    cache["blocks"]["pos_ids"].fill_(-1)
+    if "blocks" in cache:
+        cache["blocks"]["pos_ids"].fill_(-1)
     return cache
 
 
@@ -224,6 +259,50 @@ def _stack(trees: list) -> Any:
     return torch.stack(trees)
 
 
+def _copy_into(dst: Any, src: Any) -> None:
+    """Write a tree of new states into a cache slice of the same tree, in place."""
+    if isinstance(dst, dict):
+        for key in dst:
+            _copy_into(dst[key], src[key])
+    else:
+        dst.copy_(src)
+
+
+def _xlstm_group(p, x: torch.Tensor, cfg: ModelConfig, cache=None):
+    """One xLSTM super-block: its mLSTM blocks, then its sLSTM block if it
+    has one, each added to the residual stream after an RMSNorm.
+
+    ``cache`` is the group's slice of the cache (decode: each block starts
+    from its state there, and its new state is written back IN PLACE), or
+    None (prefill: every block starts from zeros). Returns (x, the group's
+    new states stacked over its mLSTM blocks as the cache is; None in
+    decode, where they are in ``cache``)."""
+    new_m, new_s = [], None
+    for i in range(common.tree_leaves(p["mlstm"])[0].shape[0]):
+        pi = layer_slice(p["mlstm"], i)
+        st = None if cache is None else layer_slice(cache["mlstm"], i)
+        h, state = xlstm.mlstm_block(pi["block"], layers.rmsnorm(pi["ln"], x, cfg.norm_eps),
+                                     cfg, st)
+        x = x + h
+        if st is None:
+            new_m.append(state)
+        else:
+            _copy_into(st, state)
+    if "slstm" in p:
+        st = None if cache is None else cache["slstm"]
+        h, new_s = xlstm.slstm_block(
+            p["slstm"]["block"], layers.rmsnorm(p["slstm"]["ln"], x, cfg.norm_eps), cfg, st)
+        x = x + h
+        if st is not None:
+            _copy_into(st, new_s)
+    if cache is not None:
+        return x, None
+    out = {"mlstm": _stack(new_m)}
+    if new_s is not None:
+        out["slstm"] = new_s
+    return x, out
+
+
 def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"][tokens.long()].to(common.torch_dtype(cfg.dtype))
 
@@ -297,9 +376,16 @@ def prefill(params, batch, cfg: ModelConfig, opts: RunOpts, cache_seq_len: int):
     """Forward + cache build. ``batch["tokens"]``: (B, S) int.
     Returns (last-position logits (B, 1, V), cache): k/v of the last
     ``cache_len_for(cfg, cache_seq_len)`` positions in ring-buffer slots,
-    ``pos_ids``, and for hybrid blocks the SSM state under ``ssm``."""
+    ``pos_ids``, and for hybrid blocks the SSM state under ``ssm``; for
+    xLSTM the recurrent states under ``groups``."""
     _check_supported(cfg, opts)
     x, positions = _embed_inputs(params, batch, cfg)
+    if cfg.block == BlockKind.MLSTM:
+        states = []
+        for g in range(_xlstm_group_layout(cfg)[0]):
+            x, st = _xlstm_group(layer_slice(params["groups"], g), x, cfg)
+            states.append(st)
+        return _unembed(params, x[:, -1:, :], cfg), {"groups": _stack(states)}
     T = cache_len_for(cfg, cache_seq_len)
     caches = []
     for i in range(cfg.num_layers):
@@ -322,13 +408,19 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig, opts: RunOpts
     """One lock-step decode step against the dense cache.
 
     tokens: (B, 1) int; pos: the absolute position of the new token (the
-    same for every row). Writes the token's k/v into its ring slot and the
-    new SSM state of hybrid blocks into ``cache`` IN PLACE (the reference
-    returns an updated copy). Returns (logits (B, 1, V), cache).
+    same for every row). Writes the token's k/v into its ring slot, the
+    new SSM state of hybrid blocks and the new xLSTM states into ``cache``
+    IN PLACE (the reference returns an updated copy). Returns (logits
+    (B, 1, V), cache).
     """
     _check_supported(cfg, opts)
     pos = int(pos)
     x = _embed_tokens(params, tokens, cfg)
+    if cfg.block == BlockKind.MLSTM:
+        for g in range(_xlstm_group_layout(cfg)[0]):
+            x, _ = _xlstm_group(layer_slice(params["groups"], g), x, cfg,
+                                layer_slice(cache["groups"], g))
+        return _unembed(params, x, cfg), cache
     for i in range(cfg.num_layers):
         p = layer_slice(params["blocks"], i)
         c = layer_slice(cache["blocks"], i)
@@ -336,8 +428,7 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig, opts: RunOpts
         attn_out, _ = layers.decode_attention(p["attn"], c, h, pos, cfg)
         if cfg.block == BlockKind.HYBRID_PARALLEL:
             ssm_out, state = ssm.mamba_decode_step(p["mamba"], h, c["ssm"], cfg)
-            for key, t in state.items():
-                c["ssm"][key].copy_(t)
+            _copy_into(c["ssm"], state)
             x = x + _fuse(p, attn_out, ssm_out, cfg)
         else:
             x = x + attn_out

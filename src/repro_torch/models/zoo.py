@@ -24,7 +24,8 @@ class Model:
         """Random params from ``generator`` (which must live on ``device``).
         ``dtype`` stores weight matrices in that type (serving); the leaves
         the model reads in f32 (norm scales, biases, the Mamba block's
-        ``x_proj``, ``dt_proj``, ``A_log``) stay f32."""
+        ``x_proj``, ``dt_proj``, ``A_log``, the xLSTM blocks' ``w_if``,
+        ``w_gates``, ``r_gates``) stay f32."""
         return common.init_params(self.specs, generator, resolve_device(device), dtype)
 
     def forward(self, params, batch, opts: Optional[RunOpts] = None):
