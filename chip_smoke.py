@@ -13,7 +13,9 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    flash backward kernels, the selective scan, the chunkwise mLSTM) against
    its plain PyTorch version on the card, on the reference's test shapes
    and at the main paths' shapes, with times (CUDA events, L2 flushed
-   between launches) beside the bound;
+   between launches) beside the bound. The flash forward and dk/dv have
+   two variants each, by dtype: bf16 on tensor cores (wgmma fed by TMA),
+   f32 on FMAs; every feature case runs in both dtypes;
 4. serving: full-width qwen3-4b (random bf16 weights from a seeded
    generator) through ``DecodeEngine`` on 16 requests; launch counters
    prove prefill went through the flash kernel (36 launches per prefill)
@@ -48,10 +50,12 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    the plain CPU trainer's losses and grad norms (rtol 1e-4) and params
    (atol 1e-5).
 
-A kernel's ``launches_by_path`` in the JSON record holds its count on
-each path (``serve``, ``hybrid``, ``xlstm``, ``train``), each counted from 0
-just before that path's run and read just after; ``launches`` is their
-sum. The last three lines of stdout are the card's name and power limit, the
+A kernel variant's ``launches_by_path`` in the JSON record holds its count
+on each path (``serve``, ``hybrid``, ``xlstm``, ``train`` at full width in
+bf16, and the reduced f32 runs ``serve_f32``, ``hybrid_f32``, ``xlstm_f32``,
+``train_f32``), each counted from 0 just before that path's run and read
+just after; ``launches`` is their sum. The full-width paths launch only the
+tensor-core variants, the f32 runs only the FMA ones. The last three lines of stdout are the card's name and power limit, the
 per-kernel JSON record and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside this file, the script prints no result and exits 2.
 """
@@ -78,7 +82,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
 PEAK_BYTES = 3.35e12
 
-# (B, S, H, KVH, hd, causal, window, dtype): tests/test_kernels.py FLASH_CASES
+# (B, S, H, KVH, hd, causal, window, dtype): tests/test_torch_kernels.py
+# FLASH_CASES (tests/test_kernels.py's, then rows for each feature of the
+# bf16 tensor-core kernel: hd 32, a window, S not a multiple of 128)
 FLASH_CASES = [
     (2, 256, 4, 4, 64, True, 0, torch.float32),
     (1, 256, 8, 2, 64, True, 0, torch.float32),
@@ -86,6 +92,17 @@ FLASH_CASES = [
     (1, 384, 4, 4, 128, True, 0, torch.float32),
     (1, 256, 4, 2, 64, True, 0, torch.bfloat16),
     (2, 128, 2, 2, 128, True, 32, torch.bfloat16),
+    (2, 128, 4, 1, 32, True, 64, torch.bfloat16),
+    (1, 200, 4, 2, 32, True, 48, torch.float32),
+    (1, 200, 4, 2, 32, True, 48, torch.bfloat16),
+    (2, 333, 8, 2, 128, True, 0, torch.float32),
+    (2, 333, 8, 2, 128, True, 0, torch.bfloat16),
+]
+# (B, Sq, Skv, H, KVH, hd, causal, window, q_offset): tests/test_torch_kernels.py
+# FLASH_EXTRA_CASES, run in both dtypes by the forward and the backward checks
+FLASH_EXTRA_CASES = [
+    (1, 64, 192, 4, 2, 64, True, 0, 128),
+    (2, 100, 100, 4, 2, 64, False, 0, 0),
 ]
 # (B, H, KVH, hd, page_size, max_blocks, lens, dtype): tests/test_kernels.py PAGED_CASES
 PAGED_CASES = [
@@ -217,29 +234,32 @@ def bound(flops: float, nbytes: float, peak_flops: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+def _counters() -> dict:
+    """Every kernel variant's launch counter, as (module, attribute), by the
+    name its JSON record carries."""
     from repro_torch.kernels.flash_attention import kernel, kernel_bwd
+    from repro_torch.kernels.mlstm import kernel as mlstm
     from repro_torch.kernels.paged_attention import kernel as paged
     from repro_torch.kernels.ssm_scan import kernel as scan
 
-    from repro_torch.kernels.mlstm import kernel as mlstm
+    return {"flash_attention_tc": (kernel, "launches_tc"),
+            "flash_attention_fma": (kernel, "launches_fma"),
+            "paged_attention": (paged, "launches"),
+            "flash_attention_bwd_dkdv_tc": (kernel_bwd, "launches_dkdv_tc"),
+            "flash_attention_bwd_dkdv_fma": (kernel_bwd, "launches_dkdv_fma"),
+            "flash_attention_bwd_dq": (kernel_bwd, "launches_dq"),
+            "ssm_scan": (scan, "launches"), "mlstm": (mlstm, "launches")}
 
-    kernel.launches = paged.launches = scan.launches = mlstm.launches = 0
-    kernel_bwd.launches_dkdv = kernel_bwd.launches_dq = 0
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch counts to 0."""
+    for module, attr in _counters().values():
+        setattr(module, attr, 0)
 
 
 def read_launches() -> dict:
-    """Every kernel's launch count, by the name its JSON record carries."""
-    from repro_torch.kernels.flash_attention import kernel, kernel_bwd
-    from repro_torch.kernels.paged_attention import kernel as paged
-    from repro_torch.kernels.ssm_scan import kernel as scan
-    from repro_torch.kernels.mlstm import kernel as mlstm
-
-    return {"flash_attention": kernel.launches, "paged_attention": paged.launches,
-            "flash_attention_bwd_dkdv": kernel_bwd.launches_dkdv,
-            "flash_attention_bwd_dq": kernel_bwd.launches_dq, "ssm_scan": scan.launches,
-            "mlstm": mlstm.launches}
+    """Every kernel variant's launch count, by the name its JSON record carries."""
+    return {name: getattr(module, attr) for name, (module, attr) in _counters().items()}
 
 
 def expect_launches(**counts) -> dict:
@@ -247,6 +267,16 @@ def expect_launches(**counts) -> dict:
     want = dict.fromkeys(read_launches(), 0)
     want.update(counts)
     return want
+
+
+def hold_f32_launches(tag: str, launches: dict, *kernels: str) -> dict:
+    """A reduced f32 run on the card: each of ``kernels`` launched, and
+    the tensor-core variants (bf16 only) never."""
+    log(f"[{tag}] reduced f32 launches {launches}")
+    if launches["flash_attention_tc"] or launches["flash_attention_bwd_dkdv_tc"] or \
+            min(launches[k] for k in kernels) <= 0:
+        raise AssertionError(f"reduced f32 {tag}: not only the f32 variants of {kernels} ran")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +294,21 @@ def hold_fwd(name: str, o, lse, q, k, v, kw: dict, t: dict) -> float:
     return err
 
 
-def check_flash(gen: torch.Generator, flush: torch.Tensor) -> dict:
+def _flash_fwd_work(B, S, H, KVH, hd, window=0) -> tuple:
+    """(flop, bytes) the causal forward needs: QK^T and PV over the live
+    (q, k) pairs, 2 flops per multiply-add; q, k, v read and o written once
+    (bf16), lse written once (f32)."""
+    pairs = S * (S + 1) // 2 if not window else \
+        window * (window + 1) // 2 + (S - window) * window
+    return 4.0 * pairs * hd * H * B, 2.0 * (2 * B * S * H * hd + 2 * B * S * KVH * hd) + 4.0 * B * H * S
+
+
+def check_flash(gen: torch.Generator, flush: torch.Tensor) -> list:
+    """The forward's two variants (bf16: tensor cores; f32: FMAs) against
+    ``attention_fwd_ref`` on the reference's cases and each feature of the
+    kernels (head dims, window, q offset, ragged and non-causal lengths, S
+    not a multiple of 128) in both dtypes, and at the main paths' shapes;
+    one record per variant."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
 
@@ -278,44 +322,56 @@ def check_flash(gen: torch.Generator, flush: torch.Tensor) -> dict:
         return (q, k, v, kw), hold_fwd(name, o, lse, q, k, v, kw, t or tol(dtype))
 
     log("[kernels] flash_attention vs attention_fwd_ref (o and lse)")
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for B, S, H, KVH, hd, causal, window, dtype in FLASH_CASES:
-        case(f"flash B{B} S{S} H{H}/{KVH} hd{hd} w{window} {str(dtype)[6:]}",
-             B, S, S, H, KVH, hd, causal, window, 0, dtype)
-    case("flash q_offset=128 Sq64 Skv192", 1, 64, 192, 4, 2, 64, True, 0, 128, torch.float32)
-    case("flash non-causal ragged S100", 2, 100, 100, 4, 2, 64, False, 0, 0, torch.float32)
-    case("flash main-path S1000 H32/8 hd128 f32", 1, 1000, 1000, 32, 8, 128, True, 0, 0,
-         torch.float32)
+        _, e = case(f"flash B{B} S{S} H{H}/{KVH} hd{hd} w{window} {str(dtype)[6:]}",
+                    B, S, S, H, KVH, hd, causal, window, 0, dtype)
+        errs[dtype] = max(errs[dtype], e)
+    for dtype in (torch.float32, torch.bfloat16):
+        for args in FLASH_EXTRA_CASES:
+            _, e = case(f"flash (B, Sq, Skv, H, KVH, hd, causal, window, q_offset) = {args} "
+                        f"{str(dtype)[6:]}", *args, dtype)
+            errs[dtype] = max(errs[dtype], e)
+    (q32, k32, v32, kw32), e = case("flash main-path S1000 H32/8 hd128 f32", 1, 1000, 1000, 32,
+                                    8, 128, True, 0, 0, torch.float32)
+    errs[torch.float32] = max(errs[torch.float32], e)
     main = {S: case(f"flash main-path S{S} H32/8 hd128 bf16",
                     1, S, S, 32, 8, 128, True, 0, 0, torch.bfloat16, FLASH_MAIN_BF16_TOL)
             for S in (129, 1000, 2000, 4096)}       # 2000: serving's longest; 4096: training
-    check_flash_hymba(gen, flush)
-    (q, k, v, kw), err = main[2000]
-    B, S, H, hd = q.shape
-    KVH = k.shape[2]
-    pairs = S * (S + 1) // 2                     # causal (q, k) pairs this input needs
-    flops = 4.0 * pairs * hd * H * B             # QK^T and PV, 2 flops per multiply-add
-    nbytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KVH * hd) + 4.0 * B * H * S
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    ms = time_ms(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush)
-    plain_ms = time_ms(lambda: attention_fwd_ref(q, k, v, **kw), flush)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), flush)
-    log(f"  flash main path (B1 S{S} H32/8 hd128 bf16): kernel {ms:.4f} ms, plain (o, lse) "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-        f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:33",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+    errs[torch.bfloat16] = max([errs[torch.bfloat16], *(e for _, e in main.values())])
+    errs[torch.bfloat16] = max(errs[torch.bfloat16], check_flash_hymba(gen, flush))
+
+    def timed(args, peak, tag):
+        q, k, v, kw = args
+        B, S, H, hd = q.shape
+        flops, nbytes = _flash_fwd_work(B, S, H, k.shape[2], hd)
+        b_ms, b_by = bound(flops, nbytes, peak)
+        ms = time_ms(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush)
+        plain_ms = time_ms(lambda: attention_fwd_ref(q, k, v, **kw), flush)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+        log(f"  flash {tag} (B{B} S{S} H{H}/{k.shape[2]} hd{hd} {str(q.dtype)[6:]}): kernel "
+            f"{ms:.4f} ms, plain (o, lse) {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s achieved")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    timed(main[4096][0], PEAK_BF16_FLOPS, "training shape")
+    rec = dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention/kernel.py:33")
+    return [dict(rec, name="flash_attention_tc", max_abs_err=errs[torch.bfloat16],
+                 **timed(main[2000][0], PEAK_BF16_FLOPS, "main path")),
+            dict(rec, name="flash_attention_fma", max_abs_err=errs[torch.float32],
+                 **timed((q32, k32, v32, kw32), PEAK_F32_FLOPS, "f32 variant"))]
 
 
-def check_flash_hymba(gen: torch.Generator, flush: torch.Tensor) -> None:
+def check_flash_hymba(gen: torch.Generator, flush: torch.Tensor) -> float:
     """The forward kernel at hymba-1.5b's prefill shape (B8 S4096 H25/5 hd64,
     window 1024, bf16); the plain version runs one batch row at a time (its
-    S x S f32 scores are 1.7 GB a row)."""
+    S x S f32 scores are 1.7 GB a row). Beside it, one SDPA call with the
+    band as a boolean mask. Returns the largest error."""
     from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention.ref import _mask
 
     B, S, H, KVH, hd, window = 8, 4096, 25, 5, 64, 1024
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -327,20 +383,26 @@ def check_flash_hymba(gen: torch.Generator, flush: torch.Tensor) -> None:
     err = max(hold_fwd(f"flash hymba prefill S{S} H{H}/{KVH} hd{hd} w{window} bf16 row {b}",
                        o[b:b + 1], lse[b:b + 1], q[b:b + 1], k[b:b + 1], v[b:b + 1], kw,
                        FLASH_MAIN_BF16_TOL) for b in range(B))
-    pairs = window * (window + 1) // 2 + (S - window) * window   # (q, k) pairs in the band
-    flops = 4.0 * pairs * hd * H * B
-    nbytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KVH * hd) + 4.0 * B * H * S
+    del o, lse
+    flops, nbytes = _flash_fwd_work(B, S, H, KVH, hd, window)
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     ms = time_ms(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush)
+    band = _mask(S, S, True, window, 0, q.device)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band, enable_gqa=True), flush, reps=3, warmup=1)
     log(f"  flash hymba prefill (B{B} S{S} H{H}/{KVH} hd{hd} w{window} bf16): kernel {ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s achieved; "
-        f"max abs err {err:.3e}")
+        f"sdpa (boolean band mask, enable_gqa) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"{flops / ms / 1e9:.1f} TFLOP/s achieved; max abs err {err:.3e}")
+    return err
 
 
 def check_flash_bwd(gen: torch.Generator, flush: torch.Tensor) -> list:
     """Both backward kernels against ``attention_bwd_ref`` on the same
     (q, k, v, o, lse, do, delta); o and lse from the forward kernel, held
-    first against ``attention_fwd_ref``."""
+    first against ``attention_fwd_ref``. dk/dv runs the tensor-core
+    variant in bf16 and the FMA one in f32: every feature case runs in both
+    dtypes. One record per variant, and one for dq."""
     from repro_torch.kernels.flash_attention import kernel, kernel_bwd
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
@@ -360,69 +422,89 @@ def check_flash_bwd(gen: torch.Generator, flush: torch.Tensor) -> list:
         rq, rk, rv = attention_bwd_ref(q, k, v, o, lse, do, **kw)
         log(f"  {name}: max |ref| dq {float(rq.float().abs().max()):.3e} dk "
             f"{float(rk.float().abs().max()):.3e} dv {float(rv.float().abs().max()):.3e}")
-        errs = {"dkdv": max(hold(f"{name} dk", dk, rk, t), hold(f"{name} dv", dv, rv, t)),
-                "dq": hold(f"{name} dq", dq, rq, t)}
-        return (q, k, v, do, lse, delta, kw), errs
+        variant = "dkdv_tc" if dtype == torch.bfloat16 else "dkdv_fma"
+        errs[variant] = max(errs[variant], hold(f"{name} dk", dk, rk, t),
+                            hold(f"{name} dv", dv, rv, t))
+        errs["dq"] = max(errs["dq"], hold(f"{name} dq", dq, rq, t))
+        return q, k, v, do, lse, delta, kw
 
     log("[kernels] flash_attention_bwd (dkdv, dq) vs attention_bwd_ref")
+    errs = {"dkdv_tc": 0.0, "dkdv_fma": 0.0, "dq": 0.0}
     for B, S, H, KVH, hd, window in FLASH_BWD_CASES:
         case(f"bwd B{B} S{S} H{H}/{KVH} hd{hd} w{window} f32",
              B, S, S, H, KVH, hd, True, window, 0, torch.float32, FLASH_BWD_F32_TOL)
+        case(f"bwd B{B} S{S} H{H}/{KVH} hd{hd} w{window} bf16",
+             B, S, S, H, KVH, hd, True, window, 0, torch.bfloat16, tol(torch.bfloat16))
     case("bwd B1 S256 H4/2 hd64 bf16", 1, 256, 256, 4, 2, 64, True, 0, 0, torch.bfloat16,
          tol(torch.bfloat16))
-    case("bwd q_offset=128 Sq64 Skv192", 1, 64, 192, 4, 2, 64, True, 0, 128, torch.float32,
-         FLASH_BWD_F32_TOL)
-    case("bwd non-causal ragged S100", 2, 100, 100, 4, 2, 64, False, 0, 0, torch.float32,
-         FLASH_BWD_F32_TOL)
-    case("bwd main-path S1000 H32/8 hd128 f32", 1, 1000, 1000, 32, 8, 128, True, 0, 0,
-         torch.float32, FLASH_BWD_F32_TOL)
-    (q, k, v, do, lse, delta, kw), errs = case(
+    # tests/test_torch_flash_bwd.py BF16_CASES beyond the rows above, in both dtypes
+    for dtype, t in ((torch.float32, FLASH_BWD_F32_TOL), (torch.bfloat16, tol(torch.bfloat16))):
+        for args in FLASH_EXTRA_CASES + [(1, 200, 200, 4, 2, 32, True, 48, 0),
+                                         (2, 333, 333, 8, 2, 128, True, 0, 0)]:
+            case(f"bwd (B, Sq, Skv, H, KVH, hd, causal, window, q_offset) = {args} "
+                 f"{str(dtype)[6:]}", *args, dtype, t)
+    f32_args = case("bwd main-path S1000 H32/8 hd128 f32", 1, 1000, 1000, 32, 8, 128, True, 0,
+                    0, torch.float32, FLASH_BWD_F32_TOL)
+    q, k, v, do, lse, delta, kw = case(
         "bwd main-path S4096 H32/8 hd128 bf16", 1, 4096, 4096, 32, 8, 128, True, 0, 0,
         torch.bfloat16, FLASH_BWD_MAIN_BF16_TOL)
 
-    B, S, H, hd = q.shape
-    KVH = k.shape[2]
-    pairs = S * (S + 1) // 2                     # causal (q, k) pairs this input needs
-    prod = 2.0 * pairs * hd * H * B              # one (S x S x hd) causal product, in flops
-    in_bytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KVH * hd) + 2 * 4.0 * B * H * S
-    # The function's least work: 5 products (s, dp, dv, dk, dq), each input
-    # read once, each output written once. It is split over the two rows so
-    # that their bounds add up to it: dkdv carries s, dp, dv, dk, the inputs
-    # and dk, dv; dq its own product and dq. That dq computes s and dp again
-    # (7 products in all, no atomics) is the design's overhead, in its ms.
-    work = {"dkdv": (4 * prod, in_bytes + 2.0 * 2 * B * S * KVH * hd),
-            "dq": (prod, 2.0 * B * S * H * hd)}
-    fns = {"dkdv": lambda: kernel_bwd.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw),
-           "dq": lambda: kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)}
+    def work(q, k):
+        """The function's least work: 5 products (s, dp, dv, dk, dq), each
+        input read once, each output written once. It is split over the
+        dkdv and dq rows so that their bounds add up to it: dkdv carries s,
+        dp, dv, dk, the inputs and dk, dv; dq its own product and dq. That dq
+        computes s and dp again (7 products in all, no atomics), and that
+        the tensor-core dkdv multiplies hi and lo halves of p and ds, is
+        each design's overhead, in its ms."""
+        B, S, H, hd = q.shape
+        KVH, el = k.shape[2], q.element_size()
+        prod = 2.0 * S * (S + 1) // 2 * hd * H * B      # one causal (S x S x hd) product
+        in_bytes = el * (2 * B * S * H * hd + 2 * B * S * KVH * hd) + 2 * 4.0 * B * H * S
+        return {"dkdv": (4 * prod, in_bytes + el * 2 * B * S * KVH * hd),
+                "dq": (prod, el * B * S * H * hd)}
+
     o, _ = kernel.flash_attention_fwd(q, k, v, **kw)
     plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw), flush, reps=3)
     lib_ms = sdpa_backward_ms(q, k, v, do, flush)
-    fused_ms, fused_by = bound(5 * prod, sum(w[1] for w in work.values()), PEAK_BF16_FLOPS)
-    log(f"  flash backward main path (B1 S{S} H32/8 hd128 bf16): plain attention_bwd_ref "
+    w = work(q, k)
+    fused_ms, fused_by = bound(5 * w["dq"][0], w["dkdv"][1] + w["dq"][1], PEAK_BF16_FLOPS)
+    log(f"  flash backward main path (B1 S4096 H32/8 hd128 bf16): plain attention_bwd_ref "
         f"{plain_ms:.4f} ms; SDPA flash backward {lib_ms:.4f} ms (autograd fwd+bwd minus fwd, "
-        f"k/v repeated to {H} heads); bound of the whole backward (5 products) "
+        f"k/v repeated to 32 heads); bound of the whole backward (5 products) "
         f"{fused_ms:.4f} ms ({fused_by})")
+    q32, k32, v32, do32, lse32, delta32, kw32 = f32_args
+    o32, _ = kernel.flash_attention_fwd(q32, k32, v32, **kw32)
+    plain32_ms = time_ms(lambda: attention_bwd_ref(q32, k32, v32, o32, lse32, do32, **kw32),
+                         flush, reps=3)
+    lib32_ms = sdpa_backward_ms(q32, k32, v32, do32, flush)
+    runs = {"dkdv_tc": ((q, k, v, do, lse, delta, kw), "dkdv", PEAK_BF16_FLOPS, plain_ms, lib_ms),
+            "dq": ((q, k, v, do, lse, delta, kw), "dq", PEAK_BF16_FLOPS, plain_ms, lib_ms),
+            "dkdv_fma": (f32_args, "dkdv", PEAK_F32_FLOPS, plain32_ms, lib32_ms)}
+    fns = {"dkdv": kernel_bwd.flash_attention_bwd_dkdv, "dq": kernel_bwd.flash_attention_bwd_dq}
+    lines = {"dkdv": 55, "dq": 111}
     records = []
-    for which in ("dkdv", "dq"):
-        flops, nbytes = work[which]
-        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        ms = time_ms(fns[which], flush)
-        log(f"  {which} main path: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-            f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved")
-        line = {"dkdv": 55, "dq": 111}[which]
+    for name, (args, which, peak, p_ms, l_ms) in runs.items():
+        flops, nbytes = work(args[0], args[1])[which]
+        b_ms, b_by = bound(flops, nbytes, peak)
+        ms = time_ms(lambda: fns[which](*args[:6], **args[6]), flush)
+        log(f"  {name} (S{args[0].shape[1]} {str(args[0].dtype)[6:]}): kernel {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s of the function's work "
+            f"achieved; plain {p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms (whole backward)")
         records.append(dict(
-            name=f"flash_attention_bwd_{which}", route="cuda",
+            name=f"flash_attention_bwd_{name}", route="cuda",
             source="src/repro_torch/csrc/flash_attention_bwd.cu",
-            replaces=f"src/repro/kernels/flash_attention/kernel_bwd.py:{line}",
-            max_abs_err=errs[which], ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms))
+            replaces=f"src/repro/kernels/flash_attention/kernel_bwd.py:{lines[which]}",
+            max_abs_err=errs[name], ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=l_ms))
     return records
 
 
 def sdpa_backward_ms(q, k, v, do, flush) -> float:
-    """PyTorch's flash SDPA backward at the same shapes: autograd through
+    """PyTorch's SDPA backward at the same shapes: autograd through
     ``scaled_dot_product_attention`` (fwd + bwd) minus its forward alone,
-    with k and v repeated to H heads (no GQA in that backend)."""
+    with k and v repeated to H heads; the flash backend in bf16, the
+    memory-efficient one in f32 (flash takes no f32)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     G = q.shape[2] // k.shape[2]
@@ -431,13 +513,15 @@ def sdpa_backward_ms(q, k, v, do, flush) -> float:
     vt = v.repeat_interleave(G, dim=2).transpose(1, 2).detach().requires_grad_()
     dot = do.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    backend = (SDPBackend.FLASH_ATTENTION if q.dtype == torch.bfloat16
+               else SDPBackend.EFFICIENT_ATTENTION)
 
     def fwd_bwd():
         for t in (qt, kt, vt):
             t.grad = None
         sdpa(qt, kt, vt, is_causal=True).backward(dot)
 
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+    with sdpa_kernel(backend):
         both = time_ms(fwd_bwd, flush)
         with torch.no_grad():
             fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
@@ -704,13 +788,13 @@ def serve_full_width() -> dict:
         raise AssertionError("a generated token is outside the vocabulary")
     if eng.free_pages != num_pages - 1:
         raise AssertionError(f"pool did not drain: {eng.free_pages} free of {num_pages - 1}")
-    want = expect_launches(flash_attention=cfg.num_layers * eng.prefills,
+    want = expect_launches(flash_attention_tc=cfg.num_layers * eng.prefills,
                            paged_attention=cfg.num_layers * eng.decode_steps)
     log(f"[serve] {len(done)} requests x 32 tokens done in {wall:.2f} s; prompt lengths "
         f"{lens}; {eng.prefills} prefills, {eng.decode_steps} decode steps; pool back to "
         f"{eng.free_pages} free pages")
     log(f"[serve] launches {launches}, expected {want}")
-    if launches != want or min(launches["flash_attention"], launches["paged_attention"]) <= 0:
+    if launches != want or min(launches["flash_attention_tc"], launches["paged_attention"]) <= 0:
         raise AssertionError("the main path did not go through the kernels as expected")
     log(f"[serve] prefill {eng.prefilled_tokens / eng.prefill_seconds:.1f} tokens/s "
         f"({eng.prefilled_tokens} tokens in {eng.prefill_seconds:.3f} s); decode "
@@ -799,9 +883,10 @@ def profile_serving(model, params) -> None:
         f"{_device_breakdown(prof, wall)}")
 
 
-def serve_reduced_matches_cpu() -> None:
-    """A reduced f32 model: the engine on the card (both kernels) must give
-    the plain CPU engine's greedy streams token for token."""
+def serve_reduced_matches_cpu() -> dict:
+    """A reduced f32 model: the engine on the card (the f32 flash variant and
+    the paged kernel) must give the plain CPU engine's greedy streams token
+    for token. Returns the card run's launches."""
     from repro_torch.config import ShardingLayout, get_arch
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
@@ -820,11 +905,14 @@ def serve_reduced_matches_cpu() -> None:
                            lanes=2, num_pages=9, max_context=48)
         for r in reqs:
             eng.submit(r)
+        reset_launches()
         streams[device] = {c.rid: c.tokens for c in eng.run(params)}
+        launches = read_launches()
     log(f"[serve] reduced f32 streams, card vs CPU plain: "
         f"{'identical' if streams['cpu'] == streams['cuda'] else 'DIFFERENT'}")
     if streams["cpu"] != streams["cuda"]:
         raise AssertionError(f"card streams {streams['cuda']} != CPU {streams['cpu']}")
+    return hold_f32_launches("serve", launches, "flash_attention_fma", "paged_attention")
 
 
 # ---------------------------------------------------------------------------
@@ -869,7 +957,7 @@ def serve_hybrid_full_width() -> dict:
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    want = expect_launches(flash_attention=cfg.num_layers,
+    want = expect_launches(flash_attention_tc=cfg.num_layers,
                            ssm_scan=cfg.num_layers * (1 + res.decode_steps))
     out = res.tokens
     log(f"[hybrid] {B} prompts x {S} tokens, {new} new tokens each; first row "
@@ -943,12 +1031,13 @@ def profile_greedy(tag: str, model, params, tokens, cache, new: int) -> None:
     log(f"[profile] three {tag} decode steps, {B} rows:\n{_device_breakdown(prof, wall)}")
 
 
-def greedy_reduced_matches_cpu(arch: str, tag: str) -> None:
+def greedy_reduced_matches_cpu(arch: str, tag: str, *kernels: str) -> dict:
     """A reduced model at f32: the serve launcher's loop on the card (the
     kernels) against the same loop on the CPU (their plain versions). The
     prompt, 20 tokens, is longer than hymba's 16-slot ring (16 new tokens
     wrap it) and ragged against the mLSTM's chunks (8 on the CPU, 32 in the
-    kernel)."""
+    kernel). Returns the card run's launches, which must include
+    ``kernels``."""
     from repro_torch.config import get_arch
     from repro_torch.launch.serve import greedy_serve
     from repro_torch.models import build_model
@@ -961,7 +1050,10 @@ def greedy_reduced_matches_cpu(arch: str, tag: str) -> None:
     prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 20)).astype(np.int32)
     runs = {}
     for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+        reset_launches()
         runs[device] = greedy_serve(model, params, torch.as_tensor(prompt, device=device), 16)
+        if device == "cuda":
+            launches = read_launches()
     gpu, cpu = runs["cuda"], runs["cpu"]
     err = max(float((a.cpu() - b).abs().max()) for a, b in zip(gpu.logits, cpu.logits))
     ok = all(torch.allclose(a.cpu(), b, **REDUCED_LOGITS_TOL) for a, b in zip(gpu.logits, cpu.logits))
@@ -971,6 +1063,7 @@ def greedy_reduced_matches_cpu(arch: str, tag: str) -> None:
         f"{REDUCED_LOGITS_TOL['rtol']})")
     if not (same and ok):
         raise AssertionError(f"card {gpu.tokens.tolist()} != CPU {cpu.tokens.tolist()}, or logits")
+    return hold_f32_launches(tag, launches, *kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -1257,7 +1350,7 @@ def train_full_width() -> dict:
     moved = [float((a - b).abs().max()) for a, b in zip(before, _probe(res1.state))]
 
     per_mb = cfg.num_layers * tc.microbatches * n_steps
-    want = expect_launches(flash_attention=2 * per_mb, flash_attention_bwd_dkdv=per_mb,
+    want = expect_launches(flash_attention_tc=2 * per_mb, flash_attention_bwd_dkdv_tc=per_mb,
                            flash_attention_bwd_dq=per_mb)
     secs = res0.step_seconds + res1.step_seconds
     for i, (m, dt) in enumerate(zip(metrics, secs)):
@@ -1301,9 +1394,10 @@ def _copy_state(state, device):
                                                  state.opt.count), state.step)
 
 
-def train_reduced_matches_cpu() -> None:
-    """A reduced f32 model: 5 training steps on the card (the three flash
-    kernels) against the plain CPU trainer, from the same state and data."""
+def train_reduced_matches_cpu() -> dict:
+    """A reduced f32 model: 5 training steps on the card (the f32 variants
+    of the flash kernels) against the plain CPU trainer, from the same state
+    and data. Returns the card run's launches."""
     from repro_torch.config import ShardingLayout, TrainConfig, get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
@@ -1321,8 +1415,11 @@ def train_reduced_matches_cpu() -> None:
     for device, state in (("cuda", _copy_state(state_cpu, "cuda")), ("cpu", state_cpu)):
         metrics: list = []
         step_fn = _recording(make_step(model, tc, layout), metrics)
+        reset_launches()
         res = run_segment(model, state, ds, device, tc, layout, num_steps=5, jitted=step_fn)
         runs[device] = (metrics, res.state)
+        if device == "cuda":
+            launches = read_launches()
     (m_gpu, s_gpu), (m_cpu, s_cpu) = runs["cuda"], runs["cpu"]
     for key in ("loss", "grad_norm"):
         a = np.array([m[key] for m in m_gpu])
@@ -1337,6 +1434,8 @@ def train_reduced_matches_cpu() -> None:
         f"(atol 1e-5)")
     if not err <= 1e-5:
         raise AssertionError("reduced training params on the card differ from the CPU's")
+    return hold_f32_launches("train", launches, "flash_attention_fma",
+                             "flash_attention_bwd_dkdv_fma", "flash_attention_bwd_dq")
 
 
 # ---------------------------------------------------------------------------
@@ -1386,7 +1485,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    records = [check_flash(gen, flush), check_paged(gen, flush), *check_flash_bwd(gen, flush),
+    records = [*check_flash(gen, flush), check_paged(gen, flush), *check_flash_bwd(gen, flush),
                check_ssm_scan(gen, flush), check_mlstm(gen, flush)]
     del flush
     if args.kernels_only:
@@ -1395,19 +1494,20 @@ def main() -> int:
         return 0
 
     paths = {"serve": serve_full_width()}
-    serve_reduced_matches_cpu()
+    paths["serve_f32"] = serve_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
     paths["hybrid"] = serve_hybrid_full_width()
-    greedy_reduced_matches_cpu("hymba-1.5b", "hybrid")
+    paths["hybrid_f32"] = greedy_reduced_matches_cpu("hymba-1.5b", "hybrid",
+                                                     "flash_attention_fma", "ssm_scan")
     gc.collect()
     torch.cuda.empty_cache()
     paths["xlstm"] = serve_xlstm_full_width()
-    greedy_reduced_matches_cpu("xlstm-350m", "xlstm")
+    paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm")
     gc.collect()
     torch.cuda.empty_cache()
     paths["train"] = train_full_width()
-    train_reduced_matches_cpu()
+    paths["train_f32"] = train_reduced_matches_cpu()
     for r in records:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -6,27 +6,49 @@
 // returning o (in the input type) and the f32 log-sum-exp per query row.
 //
 // What bounds it: at prefill shapes (S in the thousands, hd 128) the work is
-// O(S^2 * hd) operations on O(S * hd) bytes, so it is bound by operations,
-// not memory. This first version does them with plain f32 FMAs out of shared
-// memory (no tensor cores yet: wgmma and TMA are later work), so its ceiling
-// is the card's f32 FMA rate, not the bf16 tensor-core rate of the bound.
+// O(S^2 * hd) operations on O(S * hd) bytes, so it is bound by operations:
+// the bf16 tensor cores' rate.
 //
-// Design:
-// * one block of 128 threads per (batch, head, 64-row q tile); a loop inside
-//   the block over 64-row kv tiles replaces the TPU's sequential grid axis;
-// * q, k and v are read in the model's (B, S, H, hd) layout through strides,
-//   converted to f32 once into shared memory (rows padded by one float so the
-//   column reads are free of bank conflicts); no transpose or pad copies;
-// * kv tiles that the causal mask or the window cover entirely are skipped;
-//   the ragged tail of Skv is masked per column instead of padded;
-// * each thread owns a 4 x 8 block of the score tile and a 4 x hd/8 block of
-//   the output accumulator; row max and row sum reduce over the 8 threads of
-//   a row with warp shuffles; p stays f32 for the PV product, as on the TPU
-//   (whose v is already f32 there);
-// * q tiles are issued last-first, so the longest causal rows start first.
+// Two kernels, chosen by the element type (a dispatch by dtype, not a
+// fallback: each dtype has exactly one kernel):
+//
+// * bf16, `flash_fwd_tc_kernel`, the tensor-core design (FA3's forward):
+//   - one block per (head, 128-row q tile, batch), heads fastest and q
+//     tiles last-first, so every head's longest causal rows start in the
+//     first wave;
+//   - a producer warp keeps TMA loads of 128-row K and V tiles in flight
+//     through a 2-stage mbarrier ring; two consumer warpgroups own 64 q rows
+//     each (setmaxnreg moves registers from the producer to them);
+//   - S = Q K^T is a wgmma m64n128k16 with both operands in shared memory,
+//     K-major; the online softmax runs on the accumulator fragment in
+//     registers (row max over the 4 threads of a row, exp2 with the scale
+//     folded in, the row sum l from the f32 p); O += P V is a wgmma
+//     m64n{hd}k16 with P as bf16 A operands from registers (two: see the
+//     last point) and V MN-major (the transpose bit, no copy of V);
+//   - kv tiles that the causal mask or the window cover entirely are
+//     skipped (the Pallas kernel's `run` predicate), for the block and, in
+//     compute, for each warpgroup's 64 rows; the elementwise mask runs only
+//     on tiles that cross the diagonal, the window's edge or the ragged end
+//     of Skv. Rows past Sq and Skv read as TMA's zero fill: each tensor is a
+//     4-D map (hd, H, S, B) over its strides, so a ragged tail never reads
+//     the next batch row;
+//   - P stays f32-accurate, as on the TPU: it is split into hi + lo bf16
+//     halves, each multiplied by V. Rounding P to bf16 once stayed within
+//     FLASH_MAIN_BF16_TOL at S = 2000, but moved full-width qwen3-4b's
+//     prefill logits off the plain masked path's enough to flip a near-tie
+//     top-1 (correlation 0.999681, max abs diff 0.1094, on an H100), where
+//     f32 P had kept it.
+// * f32, `flash_fwd_kernel`, plain f32 FMAs out of shared memory: f32
+//   callers (the reduced models, whose card-equals-CPU checks hold 1e-4)
+//   need f32 products, which TF32 tensor cores would not give. One block of
+//   128 threads per (batch, head, 64-row q tile); q, k and v converted to
+//   f32 once into shared memory (rows padded by one float); each thread owns
+//   a 4 x 8 block of the score tile and a 4 x hd/8 block of the output; row
+//   max and row sum reduce over the 8 threads of a row with warp shuffles.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -208,6 +230,239 @@ cudaError_t dispatch_hd(const FlashArgs& a, int hd, cudaStream_t stream) {
   }
 }
 
+// ---- bf16: the tensor-core kernel -------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+namespace hw = repro::hopper;
+
+constexpr int BQ = 128;                    // q rows per block (two warpgroups of 64)
+constexpr int BK = 128;                    // kv rows per tile
+constexpr int STAGES = 2;                  // K/V ring depth
+constexpr int CONSUMERS = 2;               // consumer warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+using hw::LOG2E;
+constexpr float LN2 = 0.6931471805599453f;
+
+struct Args {
+  bf16* o; float* lse;
+  int Sq, Skv, H, G, n_kv;
+  long long o_sb, o_ss, o_sh;
+  int causal, window, q_offset;
+  float scale_log2;                        // sm_scale * log2(e): p = exp2(s * this - m)
+};
+
+template <int HD>
+struct Layout {
+  static constexpr int SW = HD * 2 >= 128 ? 128 : 64;   // swizzle width, bytes
+  static constexpr int BOX = SW / 2;                    // columns per TMA box
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;
+  // Q | K[STAGES] | V[STAGES] | barriers, from a 1024-byte aligned base
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+// Whether rows [qlo, qhi] (absolute positions) see any key of the kv tile at k0.
+__device__ __forceinline__ bool live(const Args& a, int qlo, int qhi, int k0) {
+  if (a.causal && qhi < k0) return false;
+  if (a.window && k0 + BK - 1 <= qlo - a.window) return false;
+  return true;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv, const Args a) {
+  using L = Layout<HD>;
+  constexpr int SW = L::SW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - hw::smem_u32(smem_raw) % 1024) % 1024);
+  uint8_t* Qs = base;
+  uint8_t* Ks = Qs + L::Q_BYTES;                        // stage s at Ks + s * KV_BYTES
+  uint8_t* Vs = Ks + STAGES * L::KV_BYTES;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(Vs + STAGES * L::KV_BYTES);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;     // longest causal rows first
+  const int kvh = h / a.G;
+  const int qpos0 = a.q_offset + q0;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], CONSUMERS * 4);          // one arrival per consumer warp
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS * 128) {
+    // ---- producer warpgroup: one thread starts every load ----
+    hw::regs_dealloc<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      hw::mbar_arrive_expect_tx(bar_q, L::Q_BYTES);
+      for (int c = 0; c < HD / L::BOX; ++c)
+        hw::tma_load_4d(Qs + c * BQ * SW, &mq, bar_q, c * L::BOX, h, q0, b);
+      int stage = 0;
+      uint32_t parity = 1;                               // the ring starts empty
+      for (int kt = 0; kt < a.n_kv; ++kt) {
+        const int k0 = kt * BK;
+        if (!live(a, qpos0, qpos0 + BQ - 1, k0)) continue;
+        hw::mbar_wait(&empty[stage], parity);
+        hw::mbar_arrive_expect_tx(&full[stage], 2 * L::KV_BYTES);
+        uint8_t* kd = Ks + stage * L::KV_BYTES;
+        uint8_t* vd = Vs + stage * L::KV_BYTES;
+        for (int c = 0; c < HD / L::BOX; ++c) {
+          hw::tma_load_4d(kd + c * BK * SW, &mk, &full[stage], c * L::BOX, kvh, k0, b);
+          hw::tma_load_4d(vd + c * BK * SW, &mv, &full[stage], c * L::BOX, kvh, k0, b);
+        }
+        if (++stage == STAGES) { stage = 0; parity ^= 1; }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 q rows each ----
+    hw::regs_alloc<240>();
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int r0 = warp * 16 + lane / 4;                 // rows r0 and r0 + 8 of the 64
+    const int cq = 2 * (lane % 4);                       // columns cq, cq + 1 of each 8
+    const int qlo = qpos0 + wg * 64, qhi = qlo + 63;
+    const uint8_t* q_wg = Qs + wg * 64 * SW;
+
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {repro::NEG_INF, repro::NEG_INF}, l[2] = {0.f, 0.f};
+
+    hw::mbar_wait(bar_q, 0);
+    int stage = 0;
+    uint32_t parity = 0;
+    for (int kt = 0; kt < a.n_kv; ++kt) {
+      const int k0 = kt * BK;
+      if (!live(a, qpos0, qpos0 + BQ - 1, k0)) continue;
+      hw::mbar_wait(&full[stage], parity);
+      if (live(a, qlo, qhi, k0)) {
+        const uint8_t* kd = Ks + stage * L::KV_BYTES;
+        const uint8_t* vd = Vs + stage * L::KV_BYTES;
+        float s[BK / 2];
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int off = (kk * 16 / L::BOX) * BQ * SW + (kk * 16 % L::BOX) * 2;
+          const int koff = (kk * 16 / L::BOX) * BK * SW + (kk * 16 % L::BOX) * 2;
+          hw::wgmma_ss(s, hw::make_desc<SW>(q_wg + off, 0, 8 * SW),
+                       hw::make_desc<SW>(kd + koff, 0, 8 * SW), kk > 0);
+        }
+        hw::wgmma_commit();
+        hw::wgmma_wait();
+        hw::fence_regs(s);
+
+        const bool edge = k0 + BK > a.Skv || (a.causal && k0 + BK - 1 > qlo) ||
+                          (a.window && qhi - k0 >= a.window);
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int idx = 0; idx < BK / 2; ++idx) {
+          const int i = (idx / 2) % 2;
+          float x = s[idx] * a.scale_log2;
+          if (edge) {
+            const int kp = k0 + (idx / 4) * 8 + cq + idx % 2;
+            const int qp = qlo + r0 + 8 * i;
+            bool ok = kp < a.Skv;
+            if (a.causal) ok = ok && qp >= kp;
+            if (a.window) ok = ok && qp - kp < a.window;
+            x = ok ? x : repro::NEG_INF;
+          }
+          s[idx] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+        float corr[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(repro::FULL_MASK, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(repro::FULL_MASK, mx[i], 2));
+          corr[i] = exp2f(m[i] - mx[i]);
+          m[i] = mx[i];
+          l[i] *= corr[i];
+        }
+#pragma unroll
+        for (int idx = 0; idx < BK / 2; ++idx) {
+          s[idx] = exp2f(s[idx] - m[(idx / 2) % 2]);   // p, f32
+          l[(idx / 2) % 2] += s[idx];
+        }
+        uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];   // P as the m64k16 A fragments
+        hw::split_bf16(s, p_hi, p_lo);
+#pragma unroll
+        for (int idx = 0; idx < HD / 2; ++idx) o[idx] *= corr[(idx / 2) % 2];
+
+        hw::fence_regs(o);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t d_v = hw::make_desc<SW>(vd + kk * 16 * SW, BK * SW, 8 * SW);
+          hw::wgmma_rs_tb(o, p_hi[kk], d_v, 1);
+          hw::wgmma_rs_tb(o, p_lo[kk], d_v, 1);
+        }
+        hw::wgmma_commit();
+        hw::wgmma_wait();
+        hw::fence_regs(o);
+      }
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) { stage = 0; parity ^= 1; }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(repro::FULL_MASK, l[i], 1);
+      l[i] += __shfl_xor_sync(repro::FULL_MASK, l[i], 2);
+      const int row = q0 + wg * 64 + r0 + 8 * i;
+      if (row >= a.Sq) continue;
+      const float li = fmaxf(l[i], 1e-37f), inv = 1.f / li;
+      bf16* orow = a.o + b * a.o_sb + row * a.o_ss + h * a.o_sh;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n + cq) =
+            hw::pack_bf16(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+      if (lane % 4 == 0) a.lse[((long long)b * a.H + h) * a.Sq + row] = m[i] * LN2 + logf(li);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch(const FlashArgs& f, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t err;
+  if ((err = hw::make_map(&mq, f.q, f.B, f.Sq, f.H, HD, f.q_sb, f.q_ss, f.q_sh, BQ)) ||
+      (err = hw::make_map(&mk, f.k, f.B, f.Skv, f.KVH, HD, f.k_sb, f.k_ss, f.k_sh, BK)) ||
+      (err = hw::make_map(&mv, f.v, f.B, f.Skv, f.KVH, HD, f.v_sb, f.v_ss, f.v_sh, BK)))
+    return err;
+  const Args a{static_cast<bf16*>(f.o), f.lse, f.Sq, f.Skv, f.H, f.H / f.KVH,
+               (f.Skv + BK - 1) / BK, f.o_sb, f.o_ss, f.o_sh, f.causal, f.window, f.q_offset,
+               f.sm_scale * LOG2E};
+  constexpr int smem = Layout<HD>::SMEM;
+  err = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(f.H, (f.Sq + BQ - 1) / BQ, f.B);
+  flash_fwd_tc_kernel<HD><<<grid, THREADS, smem, stream>>>(mq, mk, mv, a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_hd(const FlashArgs& a, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch<32>(a, stream);
+    case 64: return launch<64>(a, stream);
+    case 128: return launch<128>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" int repro_flash_attention_fwd(
@@ -226,7 +481,7 @@ extern "C" int repro_flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kFloat32: return dispatch_hd<float>(a, hd, s);
-    case repro::kBFloat16: return dispatch_hd<__nv_bfloat16>(a, hd, s);
+    case repro::kBFloat16: return tc::dispatch_hd(a, hd, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -13,26 +13,49 @@
 //
 // What bounds it: at training shapes (S 4096, hd 128) both kernels do
 // O(S^2 * hd) operations on O(S * hd) bytes, so they are bound by
-// operations. This first version does them with plain f32 FMAs out of shared
-// memory, like the forward (no tensor cores yet: wgmma and TMA are later
-// work), so its ceiling is the card's f32 FMA rate.
+// operations: the bf16 tensor cores' rate.
 //
-// Design:
-// * on the TPU the grid runs in order and each kernel carries its sum in
-//   VMEM scratch across a sequential grid axis; on the card blocks run in any
-//   order, so each block OWNS its output tile and loops over that axis itself.
-//   No atomics: the gradients are the same bits from run to run;
+// On the TPU the grid runs in order and each kernel carries its sum in VMEM
+// scratch across a sequential grid axis; on the card blocks run in any
+// order, so each block OWNS its output tile and loops over that axis
+// itself. No atomics: the gradients are the same bits from run to run.
+//
+// dk/dv, bf16: `flash_bwd_dkdv_tc_kernel`, the tensor-core design (FA3's
+// backward without its dq atomics):
+// * one block per (kv head, 128-row kv tile, batch); two consumer
+//   warpgroups own 64 kv rows each and keep K and V in shared memory for the
+//   whole walk; a producer warp streams 64-row Q and dO tiles (TMA) with
+//   their lse and delta rows through a 2-stage mbarrier ring, over the G
+//   query heads of the kv head and their live q tiles;
+// * s^T = K Q^T and dp^T = V dO^T are wgmma m64n64k16 with both operands in
+//   shared memory, K-major; p^T = exp2(s^T scale log2e - lse log2e) and
+//   ds^T = p^T (dp^T - delta) scale are computed in registers;
+// * dv += p^T dO and dk += ds^T Q are wgmma m64n{hd}k16 with p^T and ds^T as
+//   bf16 A operands from registers and dO, Q MN-major (the transpose bit).
+//   Rounding p and ds to bf16 once misses FLASH_BWD_MAIN_BF16_TOL at
+//   S = 4096 (measured on the CPU: ~1 element in 10^4 over it), so each is
+//   split into hi + lo bf16 halves and multiplied twice: 6 products a tile
+//   instead of 4, at f32-like accuracy;
+// * setmaxnreg gives each consumer thread 240 registers (dk and dv are 128
+//   f32 accumulators at hd 128) and the producer 24;
+// * tiles that the causal mask or the window cover entirely are skipped;
+//   the elementwise mask runs only on tiles that cross the diagonal, the
+//   window's edge or a ragged end; rows past Sq and Skv read as TMA's zero
+//   fill of 4-D maps over the (B, S, H, hd) strides.
+//
+// dk/dv, f32, and dq (both dtypes): `flash_bwd_dkdv_kernel` and
+// `flash_bwd_dq_kernel`, plain f32 FMAs out of shared memory. f32 callers
+// (the reduced models, whose card-equals-CPU checks hold 1e-4) need f32
+// products, which TF32 tensor cores would not give; dq's redesign is queued.
 // * dkdv: one block of 256 threads per (batch, kv head, 64-row kv tile); it
 //   loads its k and v tile once, then walks the G query heads of that kv head
 //   and, for each, the live 64-row q tiles, accumulating dk and dv in
 //   registers and writing each once;
 // * dq: one block per (batch, head, 64-row q tile); it loads q, do, lse and
 //   delta once and walks the live kv tiles, accumulating dq in registers;
-// * tiles that the causal mask or the window cover entirely are skipped, as
-//   `_tile_live` skips them; the ragged tails of Sq and Skv are masked per row
-//   and column instead of padded; every tensor is read in the model's
-//   (B, S, H, hd) layout through strides, so there are no transpose or pad
-//   copies;
+// * ragged tails of Sq and Skv are masked per row and column instead of
+//   padded; every tensor is read in the model's (B, S, H, hd) layout through
+//   strides, so there are no transpose or pad copies;
 // * the scores and dp of a tile are computed together: each thread owns a
 //   2 x 8 block of the 64 x 64 tile; p and ds go through shared memory (rows
 //   padded by one float, as every f32 tile here, so column reads are free of
@@ -40,6 +63,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -331,12 +355,271 @@ cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- bf16 dk/dv: the tensor-core kernel -------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+namespace hw = repro::hopper;
+
+constexpr int BKV = 128;                   // kv rows per block (two warpgroups of 64)
+constexpr int BQT = 64;                    // q rows per streamed tile
+constexpr int STAGES = 2;                  // Q/dO ring depth
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+using hw::LOG2E;
+
+struct Args {
+  const float* lse; const float* delta;    // (B, H, Sq) f32
+  bf16* dk; bf16* dv;
+  int Sq, Skv, H, G, n_q;
+  long long dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
+  int causal, window, q_offset;
+  float sm_scale, scale_log2;              // scale_log2 = sm_scale * log2(e)
+};
+
+template <int HD>
+struct Layout {
+  static constexpr int SW = HD * 2 >= 128 ? 128 : 64;
+  static constexpr int BOX = SW / 2;
+  static constexpr int KV_BYTES = BKV * HD * 2;   // K, and V
+  static constexpr int Q_BYTES = BQT * HD * 2;    // each stage's Q, and dO
+  // K | V | Q[STAGES] | dO[STAGES] | lse[STAGES][BQT] | delta[STAGES][BQT] | barriers
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES + 2 * STAGES * Q_BYTES +
+                              2 * STAGES * BQT * 4 + 8 * (1 + 2 * STAGES);
+};
+
+// Whether q rows [qlo, qlo + BQT) (absolute positions) see any of kv rows [klo, khi].
+__device__ __forceinline__ bool live(const Args& a, int qlo, int klo, int khi) {
+  if (a.causal && qlo + BQT - 1 < klo) return false;
+  if (a.window && khi <= qlo - a.window) return false;
+  return true;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const __grid_constant__ CUtensorMap mdo, const Args a) {
+  using L = Layout<HD>;
+  constexpr int SW = L::SW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - hw::smem_u32(smem_raw) % 1024) % 1024);
+  uint8_t* Ks = base;
+  uint8_t* Vs = Ks + L::KV_BYTES;
+  uint8_t* Qs = Vs + L::KV_BYTES;                        // stage s at Qs + s * Q_BYTES
+  uint8_t* dOs = Qs + STAGES * L::Q_BYTES;
+  float* lse_s = reinterpret_cast<float*>(dOs + STAGES * L::Q_BYTES);   // [STAGES][BQT]
+  float* delta_s = lse_s + STAGES * BQT;
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(delta_s + STAGES * BQT);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int kvh = blockIdx.x, b = blockIdx.z;
+  const int k0 = blockIdx.y * BKV;                       // the longest causal columns first
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hw::mbar_init(&full[s], 32);                      // the producer warp's 32 lanes
+      hw::mbar_init(&empty[s], CONSUMERS * 4);          // one arrival per consumer warp
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS * 128) {
+    // ---- producer warpgroup: its first warp streams (Q, dO, lse, delta) ----
+    hw::regs_dealloc<24>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < CONSUMERS * 128 + 32) {
+      if (lane == 0) {
+        hw::mbar_arrive_expect_tx(bar_kv, 2 * L::KV_BYTES);
+        for (int c = 0; c < HD / L::BOX; ++c) {
+          hw::tma_load_4d(Ks + c * BKV * SW, &mk, bar_kv, c * L::BOX, kvh, k0, b);
+          hw::tma_load_4d(Vs + c * BKV * SW, &mv, bar_kv, c * L::BOX, kvh, k0, b);
+        }
+      }
+      int stage = 0;
+      uint32_t parity = 1;                               // the ring starts empty
+      for (int g = 0; g < a.G; ++g) {
+        const int h = kvh * a.G + g;
+        for (int qt = 0; qt < a.n_q; ++qt) {
+          const int q0 = qt * BQT;
+          if (!live(a, a.q_offset + q0, k0, k0 + BKV - 1)) continue;
+          hw::mbar_wait(&empty[stage], parity);
+          for (int r = lane; r < BQT; r += 32) {
+            const int row = q0 + r;
+            const long long idx = ((long long)b * a.H + h) * a.Sq + row;
+            lse_s[stage * BQT + r] = row < a.Sq ? a.lse[idx] * LOG2E : 0.f;
+            delta_s[stage * BQT + r] = row < a.Sq ? a.delta[idx] : 0.f;
+          }
+          if (lane == 0) {
+            hw::mbar_arrive_expect_tx(&full[stage], 2 * L::Q_BYTES);
+            uint8_t* qd = Qs + stage * L::Q_BYTES;
+            uint8_t* dd = dOs + stage * L::Q_BYTES;
+            for (int c = 0; c < HD / L::BOX; ++c) {
+              hw::tma_load_4d(qd + c * BQT * SW, &mq, &full[stage], c * L::BOX, h, q0, b);
+              hw::tma_load_4d(dd + c * BQT * SW, &mdo, &full[stage], c * L::BOX, h, q0, b);
+            }
+          } else {
+            hw::mbar_arrive(&full[stage]);
+          }
+          if (++stage == STAGES) { stage = 0; parity ^= 1; }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 kv rows each ----
+    hw::regs_alloc<240>();
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int r0 = warp * 16 + lane / 4;                 // kv rows r0 and r0 + 8 of the 64
+    const int cq = 2 * (lane % 4);                       // q columns cq, cq + 1 of each 8
+    const int klo = k0 + wg * 64, khi = klo + 63;
+    const uint8_t* k_wg = Ks + wg * 64 * SW;
+    const uint8_t* v_wg = Vs + wg * 64 * SW;
+
+    float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    hw::mbar_wait(bar_kv, 0);
+    int stage = 0;
+    uint32_t parity = 0;
+    for (int g = 0; g < a.G; ++g) {
+      for (int qt = 0; qt < a.n_q; ++qt) {
+        const int q0 = qt * BQT;
+        const int qlo = a.q_offset + q0;
+        if (!live(a, qlo, k0, k0 + BKV - 1)) continue;
+        hw::mbar_wait(&full[stage], parity);
+        if (live(a, qlo, klo, khi)) {
+          const uint8_t* qd = Qs + stage * L::Q_BYTES;
+          const uint8_t* dd = dOs + stage * L::Q_BYTES;
+          const float* lse_t = lse_s + stage * BQT;
+          const float* delta_t = delta_s + stage * BQT;
+          float s[BQT / 2], dp[BQT / 2];
+          hw::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {       // s^T = K Q^T
+            const int col = (kk * 16 % L::BOX) * 2, box = kk * 16 / L::BOX;
+            hw::wgmma_ss(s, hw::make_desc<SW>(k_wg + box * BKV * SW + col, 0, 8 * SW),
+                         hw::make_desc<SW>(qd + box * BQT * SW + col, 0, 8 * SW), kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {       // dp^T = V dO^T
+            const int col = (kk * 16 % L::BOX) * 2, box = kk * 16 / L::BOX;
+            hw::wgmma_ss(dp, hw::make_desc<SW>(v_wg + box * BKV * SW + col, 0, 8 * SW),
+                         hw::make_desc<SW>(dd + box * BQT * SW + col, 0, 8 * SW), kk > 0);
+          }
+          hw::wgmma_commit();
+          hw::wgmma_wait();
+          hw::fence_regs(s);
+          hw::fence_regs(dp);
+
+          const bool edge = q0 + BQT > a.Sq || khi >= a.Skv || (a.causal && khi > qlo) ||
+                            (a.window && qlo + BQT - 1 - klo >= a.window);
+#pragma unroll
+          for (int idx = 0; idx < BQT / 2; ++idx) {
+            const int c = (idx / 4) * 8 + cq + idx % 2;  // q row within the tile
+            float p = exp2f(s[idx] * a.scale_log2 - lse_t[c]);
+            if (edge) {
+              const int kp = klo + r0 + 8 * ((idx / 2) % 2);
+              const int qp = qlo + c;
+              bool ok = q0 + c < a.Sq && kp < a.Skv;
+              if (a.causal) ok = ok && qp >= kp;
+              if (a.window) ok = ok && qp - kp < a.window;
+              p = ok ? p : 0.f;
+            }
+            s[idx] = p;
+            dp[idx] = p * (dp[idx] - delta_t[c]) * a.sm_scale;
+          }
+          uint32_t p_hi[BQT / 16][4], p_lo[BQT / 16][4], ds_hi[BQT / 16][4], ds_lo[BQT / 16][4];
+          hw::split_bf16(s, p_hi, p_lo);
+          hw::split_bf16(dp, ds_hi, ds_lo);
+
+          hw::fence_regs(dv);
+          hw::fence_regs(dk);
+          hw::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQT / 16; ++kk) {      // dv += p^T dO, dk += ds^T Q
+            const uint64_t d_do = hw::make_desc<SW>(dd + kk * 16 * SW, BQT * SW, 8 * SW);
+            const uint64_t d_q = hw::make_desc<SW>(qd + kk * 16 * SW, BQT * SW, 8 * SW);
+            hw::wgmma_rs_tb(dv, p_hi[kk], d_do, 1);
+            hw::wgmma_rs_tb(dv, p_lo[kk], d_do, 1);
+            hw::wgmma_rs_tb(dk, ds_hi[kk], d_q, 1);
+            hw::wgmma_rs_tb(dk, ds_lo[kk], d_q, 1);
+          }
+          hw::wgmma_commit();
+          hw::wgmma_wait();
+          hw::fence_regs(dv);
+          hw::fence_regs(dk);
+        }
+        __syncwarp();
+        if (lane == 0) hw::mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) { stage = 0; parity ^= 1; }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = klo + r0 + 8 * i;
+      if (row >= a.Skv) continue;
+      bf16* dkrow = a.dk + b * a.dk_sb + row * a.dk_ss + kvh * a.dk_sh;
+      bf16* dvrow = a.dv + b * a.dv_sb + row * a.dv_ss + kvh * a.dv_sh;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(dkrow + 8 * n + cq) =
+            hw::pack_bf16(dk[4 * n + 2 * i], dk[4 * n + 2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dvrow + 8 * n + cq) =
+            hw::pack_bf16(dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_dkdv(const BwdArgs& f, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err;
+  if ((err = hw::make_map(&mq, f.q, f.B, f.Sq, f.H, HD, f.q_sb, f.q_ss, f.q_sh, BQT)) ||
+      (err = hw::make_map(&mdo, f.dout, f.B, f.Sq, f.H, HD, f.do_sb, f.do_ss, f.do_sh, BQT)) ||
+      (err = hw::make_map(&mk, f.k, f.B, f.Skv, f.KVH, HD, f.k_sb, f.k_ss, f.k_sh, BKV)) ||
+      (err = hw::make_map(&mv, f.v, f.B, f.Skv, f.KVH, HD, f.v_sb, f.v_ss, f.v_sh, BKV)))
+    return err;
+  const Args a{f.lse, f.delta, static_cast<bf16*>(f.dk), static_cast<bf16*>(f.dv),
+               f.Sq, f.Skv, f.H, f.H / f.KVH, (f.Sq + BQT - 1) / BQT,
+               f.dk_sb, f.dk_ss, f.dk_sh, f.dv_sb, f.dv_ss, f.dv_sh,
+               f.causal, f.window, f.q_offset, f.sm_scale, f.sm_scale * LOG2E};
+  constexpr int smem = Layout<HD>::SMEM;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_tc_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(f.KVH, (f.Skv + BKV - 1) / BKV, f.B);
+  flash_bwd_dkdv_tc_kernel<HD><<<grid, THREADS, smem, stream>>>(mq, mk, mv, mdo, a);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T>
-cudaError_t dispatch(const BwdArgs& a, int hd, bool dkdv, cudaStream_t s) {
+cudaError_t dispatch_dq(const BwdArgs& a, int hd, cudaStream_t s) {
   switch (hd) {
-    case 32: return dkdv ? launch_dkdv<T, 32>(a, s) : launch_dq<T, 32>(a, s);
-    case 64: return dkdv ? launch_dkdv<T, 64>(a, s) : launch_dq<T, 64>(a, s);
-    case 128: return dkdv ? launch_dkdv<T, 128>(a, s) : launch_dq<T, 128>(a, s);
+    case 32: return launch_dq<T, 32>(a, s);
+    case 64: return launch_dq<T, 64>(a, s);
+    case 128: return launch_dq<T, 128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// dk/dv by dtype: f32 on the FMA kernel, bf16 on the tensor-core kernel.
+cudaError_t dispatch_dkdv(const BwdArgs& a, int dtype, int hd, cudaStream_t s) {
+  const bool f32 = dtype == repro::kFloat32;
+  switch (hd) {
+    case 32: return f32 ? launch_dkdv<float, 32>(a, s) : tc::launch_dkdv<32>(a, s);
+    case 64: return f32 ? launch_dkdv<float, 64>(a, s) : tc::launch_dkdv<64>(a, s);
+    case 128: return f32 ? launch_dkdv<float, 128>(a, s) : tc::launch_dkdv<128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -355,11 +638,10 @@ int run(bool dkdv, const void* q, const void* k, const void* v, const void* dout
             st[18], st[19], st[20],
             causal, window, q_offset, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case repro::kFloat32: return dispatch<float>(a, hd, dkdv, s);
-    case repro::kBFloat16: return dispatch<__nv_bfloat16>(a, hd, dkdv, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (dtype != repro::kFloat32 && dtype != repro::kBFloat16) return cudaErrorInvalidValue;
+  if (dkdv) return dispatch_dkdv(a, dtype, hd, s);
+  return dtype == repro::kFloat32 ? dispatch_dq<float>(a, hd, s)
+                                  : dispatch_dq<__nv_bfloat16>(a, hd, s);
 }
 
 }  // namespace

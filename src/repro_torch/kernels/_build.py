@@ -28,6 +28,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the link adds no library: the TMA kernels fetch libcuda's tensor-map
+# encoder through the CUDA runtime (csrc/hopper.cuh), so there is no -lcuda
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -98,7 +101,9 @@ def sources() -> list:
 
 
 def _digest() -> str:
+    """Hash of every compile and link flag and every source and header."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(b"\0" + " ".join(LINK_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -132,7 +137,7 @@ def build() -> Path:
             raise RuntimeError(f"repro_torch: nvcc failed for {failed}:\n{log}")
         tmp_so = Path(tmp) / out.name
         link = subprocess.run(
-            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_so), *(str(o) for _, o, _ in procs)],
+            [nvcc, *LINK_FLAGS, "-o", str(tmp_so), *(str(o) for _, o, _ in procs)],
             capture_output=True, text=True,
         )
         if link.returncode != 0:

@@ -1,10 +1,11 @@
 """Launch wrapper of the CUDA flash-attention forward
 (``csrc/flash_attention.cu``, replacing the Pallas ``_flash_kernel``).
 
-``flash_attention_fwd`` validates what the kernel takes, allocates the
-outputs, launches on PyTorch's current stream and counts the launch in
-``launches``. It never falls back: anything the kernel does not take
-raises.
+``flash_attention_fwd`` validates what the kernels take, allocates the
+outputs, launches on PyTorch's current stream and counts the launch by
+variant: bf16 runs the tensor-core kernel (``launches_tc``), f32 the FMA
+kernel (``launches_fma``). It never falls back: anything the kernels do
+not take raises.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0   # kernel launches since the last reset (plain int)
+# kernel launches since the last reset, by variant (plain ints)
+launches_tc = 0    # bf16: wgmma + TMA
+launches_fma = 0   # f32: f32 FMAs
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -52,7 +55,7 @@ def flash_attention_fwd(
     sm_scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns o (B, Sq, H, hd) in q's dtype and lse (B, H, Sq, 1) f32."""
-    global launches
+    global launches_tc, launches_fma
     _check(q, k, v)
     B, Sq, H, hd = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
@@ -69,5 +72,8 @@ def flash_attention_fwd(
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "flash_attention")
-    launches += 1
+    if q.dtype == torch.bfloat16:
+        launches_tc += 1
+    else:
+        launches_fma += 1
     return o, lse

@@ -5,9 +5,10 @@ and ``_dq_kernel`` of ``repro/kernels/flash_attention/kernel_bwd.py``).
 ``flash_attention_bwd`` validates what the kernels take, computes
 ``delta = sum(do * o)`` per row (a torch reduction, as the JAX package
 computes it outside both kernels), allocates the gradients, launches both
-kernels on PyTorch's current stream and counts each launch in
-``launches_dkdv`` / ``launches_dq``. It never falls back: anything the
-kernels do not take raises.
+kernels on PyTorch's current stream and counts each launch: dk/dv by
+variant (bf16 on the tensor-core kernel, ``launches_dkdv_tc``; f32 on the
+FMA kernel, ``launches_dkdv_fma``), dq in ``launches_dq``. It never falls
+back: anything the kernels do not take raises.
 """
 from __future__ import annotations
 
@@ -20,8 +21,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel
 
-launches_dkdv = 0   # kernel launches since the last reset (plain ints)
-launches_dq = 0
+# kernel launches since the last reset (plain ints)
+launches_dkdv_tc = 0    # bf16 dk/dv: wgmma + TMA
+launches_dkdv_fma = 0   # f32 dk/dv: f32 FMAs
+launches_dq = 0         # dq, both dtypes: f32 FMAs
 
 
 def _rows_ok(t: torch.Tensor) -> bool:
@@ -72,12 +75,15 @@ def _launch(what, q, k, v, do, lse, delta, outs, causal, window, q_offset, sm_sc
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True, window=0, q_offset=0,
                              sm_scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk, dv (B, Skv, KVH, hd) in k's dtype: the ``_dkdv_kernel`` port."""
-    global launches_dkdv
+    global launches_dkdv_tc, launches_dkdv_fma
     outs = {"dk": torch.empty(k.shape, dtype=k.dtype, device=k.device),
             "dv": torch.empty(v.shape, dtype=v.dtype, device=v.device)}
     _launch("flash_attention_bwd_dkdv", q, k, v, do, lse, delta, outs,
             causal, window, q_offset, sm_scale)
-    launches_dkdv += 1
+    if k.dtype == torch.bfloat16:
+        launches_dkdv_tc += 1
+    else:
+        launches_dkdv_fma += 1
     return outs["dk"], outs["dv"]
 
 

@@ -9,11 +9,13 @@ them against ``attention_bwd_ref`` on the card. Inputs are made with numpy
 from a seed and handed to both stacks. Tolerance: f32 atol=rtol=1e-4 (the
 JAX test's own, for sums taken in different orders).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention.kernel_bwd import flash_attention_bwd as jax_bwd
 from repro_torch.kernels.flash_attention import (
     attention_bwd_ref,
@@ -39,6 +41,22 @@ FUNCTION_CASES = [
     (1, 64, 192, 4, 2, 64, True, 0, 128),    # q rows after a prefix
     (2, 100, 100, 4, 2, 64, False, 0, 0),    # non-causal, ragged length
 ]
+
+
+# B, Sq, Skv, H, KVH, hd, causal, window, q_offset: the cases that hold the
+# bf16 tensor-core dk/dv kernel to each of its features on the card
+# (chip_smoke.py runs the same shapes): hd 32, 64 and 128, a window, GQA,
+# q_offset, non-causal ragged S, S not a multiple of 128
+BF16_CASES = [
+    (1, 128, 128, 4, 2, 32, True, 0, 0),
+    (1, 128, 128, 4, 1, 64, True, 32, 0),
+    (1, 256, 256, 4, 2, 64, True, 0, 0),
+    (1, 64, 192, 4, 2, 64, True, 0, 128),
+    (2, 100, 100, 4, 2, 64, False, 0, 0),
+    (1, 200, 200, 4, 2, 32, True, 48, 0),
+    (2, 333, 333, 8, 2, 128, True, 0, 0),
+]
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # the repository's bf16 kernel tolerance
 
 
 def _inputs(B, Sq, Skv, H, KVH, hd, seed=0):
@@ -87,10 +105,28 @@ def test_function_cpu_path_matches_autograd_of_attention_ref(B, Sq, Skv, H, KVH,
                                                              window, q_offset):
     q, k, v, do = _inputs(B, Sq, Skv, H, KVH, hd, seed=2)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    before = (kernel_bwd.launches_dkdv, kernel_bwd.launches_dq)
+    counts = lambda: (kernel_bwd.launches_dkdv_tc, kernel_bwd.launches_dkdv_fma,
+                      kernel_bwd.launches_dq)
+    before = counts()
     got = _autograd(q, k, v, do, lambda *t, **a: flash_attention(*t, causal, window, q_offset))
     _close(got, _autograd(q, k, v, do, attention_ref, **kw))
-    assert (kernel_bwd.launches_dkdv, kernel_bwd.launches_dq) == before
+    assert counts() == before
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,hd,causal,window,q_offset", BF16_CASES)
+def test_bwd_plain_matches_jax_autograd_bf16(B, Sq, Skv, H, KVH, hd, causal, window, q_offset):
+    """bf16 inputs: ``attention_bwd_ref`` (f32 math, bf16 gradients) against
+    JAX's vjp of its ``attention_ref`` on the same bits."""
+    q, k, v, do = (t.to(torch.bfloat16) for t in _inputs(B, Sq, Skv, H, KVH, hd, seed=3))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = attention_fwd_ref(q, k, v, **kw)
+    to_jax = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16)
+    _, vjp = jax.vjp(lambda *a: jax_attention_ref(*a, **kw), to_jax(q), to_jax(k), to_jax(v))
+    want = vjp(to_jax(do))
+    got = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32), **BF16_TOL)
 
 
 def test_bwd_kernel_wrapper_refuses_cpu_tensors():

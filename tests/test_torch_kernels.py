@@ -45,7 +45,10 @@ def close(jax_out, torch_out, dtype):
 # flash attention
 # ---------------------------------------------------------------------------
 
-# tests/test_kernels.py FLASH_CASES: B, S, H, KVH, hd, causal, window, dtype
+# tests/test_kernels.py FLASH_CASES: B, S, H, KVH, hd, causal, window, dtype;
+# then the rows that hold the bf16 tensor-core kernel to each of its features
+# (hd 32, a window, S not a multiple of 128), in both dtypes where the JAX
+# table has only one. chip_smoke.py holds the kernels to the same table.
 FLASH_CASES = [
     (2, 256, 4, 4, 64, True, 0, F32),
     (1, 256, 8, 2, 64, True, 0, F32),
@@ -53,6 +56,17 @@ FLASH_CASES = [
     (1, 384, 4, 4, 128, True, 0, F32),
     (1, 256, 4, 2, 64, True, 0, BF16),
     (2, 128, 2, 2, 128, True, 32, BF16),
+    (2, 128, 4, 1, 32, True, 64, BF16),      # hd 32 (64-byte swizzle) with a window
+    (1, 200, 4, 2, 32, True, 48, F32),       # ragged against 128-row tiles, window
+    (1, 200, 4, 2, 32, True, 48, BF16),
+    (2, 333, 8, 2, 128, True, 0, F32),       # ragged, GQA 4:1
+    (2, 333, 8, 2, 128, True, 0, BF16),
+]
+# B, Sq, Skv, H, KVH, hd, causal, window, q_offset: cases beyond the square
+# causal ones, run in both dtypes
+FLASH_EXTRA_CASES = [
+    (1, 64, 192, 4, 2, 64, True, 0, 128),    # q_offset: q rows after a prefix
+    (2, 100, 100, 4, 2, 64, False, 0, 0),    # non-causal, ragged length
 ]
 
 
@@ -67,10 +81,7 @@ def _flash_inputs(B, Sq, Skv, H, KVH, hd, dtype, seed=0):
 @pytest.mark.parametrize(
     "B,Sq,Skv,H,KVH,hd,causal,window,q_offset,dtype",
     [(B, S, S, H, KVH, hd, c, w, 0, dt) for B, S, H, KVH, hd, c, w, dt in FLASH_CASES]
-    + [
-        (1, 64, 192, 4, 2, 64, True, 0, 128, F32),    # q_offset: q rows after a prefix
-        (2, 100, 100, 4, 2, 64, False, 0, 0, F32),    # non-causal, ragged length
-    ],
+    + [(*case, dt) for dt in (F32, BF16) for case in FLASH_EXTRA_CASES],
 )
 def test_flash_plain_matches_jax_ref(B, Sq, Skv, H, KVH, hd, causal, window, q_offset, dtype):
     (qj, qt), (kj, kt), (vj, vt) = _flash_inputs(B, Sq, Skv, H, KVH, hd, dtype)
@@ -152,10 +163,11 @@ def test_paged_dead_lane_is_zero_and_isolated():
 
 def test_flash_ops_cpu_dispatch_runs_plain_version():
     _, tx = _split(_flash_inputs(1, 40, 40, 4, 2, 32, F32))
-    before = flash_kernel.launches
+    counts = lambda: (flash_kernel.launches_tc, flash_kernel.launches_fma)
+    before = counts()
     out = flash_attention(*tx, True, 0, 0)
     assert torch.equal(out, attention_ref(*tx, causal=True))
-    assert flash_kernel.launches == before
+    assert counts() == before
     with pytest.raises(ValueError, match="CUDA"):
         flash_kernel.flash_attention_fwd(*tx)
 
