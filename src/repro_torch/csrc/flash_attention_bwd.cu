@@ -43,10 +43,26 @@
 //   window's edge or a ragged end; rows past Sq and Skv read as TMA's zero
 //   fill of 4-D maps over the (B, S, H, hd) strides.
 //
-// dk/dv, f32, and dq (both dtypes): `flash_bwd_dkdv_kernel` and
-// `flash_bwd_dq_kernel`, plain f32 FMAs out of shared memory. f32 callers
-// (the reduced models, whose card-equals-CPU checks hold 1e-4) need f32
-// products, which TF32 tensor cores would not give; dq's redesign is queued.
+// dq, bf16: `flash_bwd_dq_tc_kernel`, the same design turned around (FA3
+// computes dq with atomics inside its dk/dv kernel; here a block owns its dq
+// tile and writes it once):
+// * one block per (head, 128-row q tile, batch), q tiles last-first (the
+//   longest causal rows first); two consumer warpgroups own 64 q rows each
+//   and keep Q and dO (one TMA load each) in shared memory and lse log2e and
+//   delta of their rows in registers; a producer warp streams 64-row K and
+//   V tiles through a 2-stage mbarrier ring over the live kv tiles only
+//   (it stops at the causal edge and skips tiles below the window);
+// * s = Q K^T and dp = dO V^T are wgmma m64n64k16 with both operands in
+//   shared memory, K-major; p and ds = p (dp - delta) scale in registers;
+// * dq += ds K is a wgmma m64n{hd}k16 with ds as bf16 A operands from
+//   registers (hi + lo halves, as in dk/dv: 4 products a tile where the
+//   bound counts 1) and K MN-major from the tile that fed s (the transpose
+//   bit); setmaxnreg as in dk/dv; the elementwise mask only on edge tiles.
+//
+// dk/dv and dq, f32: `flash_bwd_dkdv_kernel` and `flash_bwd_dq_kernel`,
+// plain f32 FMAs out of shared memory. f32 callers (the reduced models,
+// whose card-equals-CPU checks hold 1e-4) need f32 products, which TF32
+// tensor cores would not give.
 // * dkdv: one block of 256 threads per (batch, kv head, 64-row kv tile); it
 //   loads its k and v tile once, then walks the G query heads of that kv head
 //   and, for each, the live 64-row q tiles, accumulating dk and dv in
@@ -601,14 +617,228 @@ cudaError_t launch_dkdv(const BwdArgs& f, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- bf16 dq: the tensor-core kernel ----------------------------------------
+
+constexpr int DQ_BQ = 128;                 // q rows per block (two warpgroups of 64)
+constexpr int DQ_BK = 64;                  // kv rows per streamed tile
+
+struct DqArgs {
+  const float* lse; const float* delta;    // (B, H, Sq) f32
+  bf16* dq;
+  int Sq, Skv, H, G, n_kv;
+  long long dq_sb, dq_ss, dq_sh;
+  int causal, window, q_offset;
+  float sm_scale, scale_log2;              // scale_log2 = sm_scale * log2(e)
+};
+
+template <int HD>
+struct DqLayout {
+  static constexpr int SW = HD * 2 >= 128 ? 128 : 64;
+  static constexpr int BOX = SW / 2;
+  static constexpr int Q_BYTES = DQ_BQ * HD * 2;   // Q, and dO
+  static constexpr int KV_BYTES = DQ_BK * HD * 2;  // each stage's K, and V
+  // Q | dO | K[STAGES] | V[STAGES] | barriers
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+// Whether q rows [qlo, qhi] (absolute positions) see any key of the kv tile at k0.
+__device__ __forceinline__ bool live_kv(const DqArgs& a, int qlo, int qhi, int k0) {
+  if (a.causal && qhi < k0) return false;
+  if (a.window && k0 + DQ_BK - 1 <= qlo - a.window) return false;
+  return true;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       const __grid_constant__ CUtensorMap mdo, const DqArgs a) {
+  using L = DqLayout<HD>;
+  constexpr int SW = L::SW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - hw::smem_u32(smem_raw) % 1024) % 1024);
+  uint8_t* Qs = base;
+  uint8_t* dOs = Qs + L::Q_BYTES;
+  uint8_t* Ks = dOs + L::Q_BYTES;                        // stage s at Ks + s * KV_BYTES
+  uint8_t* Vs = Ks + STAGES * L::KV_BYTES;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(Vs + STAGES * L::KV_BYTES);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_BQ;  // longest causal rows first
+  const int kvh = h / a.G;
+  const int qpos0 = a.q_offset + q0, qpos1 = qpos0 + DQ_BQ - 1;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], CONSUMERS * 4);          // one arrival per consumer warp
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS * 128) {
+    // ---- producer warpgroup: one thread starts every load ----
+    hw::regs_dealloc<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      hw::mbar_arrive_expect_tx(bar_q, 2 * L::Q_BYTES);
+      for (int c = 0; c < HD / L::BOX; ++c) {
+        hw::tma_load_4d(Qs + c * DQ_BQ * SW, &mq, bar_q, c * L::BOX, h, q0, b);
+        hw::tma_load_4d(dOs + c * DQ_BQ * SW, &mdo, bar_q, c * L::BOX, h, q0, b);
+      }
+      int stage = 0;
+      uint32_t parity = 1;                               // the ring starts empty
+      for (int kt = 0; kt < a.n_kv; ++kt) {
+        const int k0 = kt * DQ_BK;
+        if (a.causal && k0 > qpos1) break;               // this and later tiles masked
+        if (!live_kv(a, qpos0, qpos1, k0)) continue;
+        hw::mbar_wait(&empty[stage], parity);
+        hw::mbar_arrive_expect_tx(&full[stage], 2 * L::KV_BYTES);
+        uint8_t* kd = Ks + stage * L::KV_BYTES;
+        uint8_t* vd = Vs + stage * L::KV_BYTES;
+        for (int c = 0; c < HD / L::BOX; ++c) {
+          hw::tma_load_4d(kd + c * DQ_BK * SW, &mk, &full[stage], c * L::BOX, kvh, k0, b);
+          hw::tma_load_4d(vd + c * DQ_BK * SW, &mv, &full[stage], c * L::BOX, kvh, k0, b);
+        }
+        if (++stage == STAGES) { stage = 0; parity ^= 1; }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 q rows each ----
+    hw::regs_alloc<240>();
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int r0 = warp * 16 + lane / 4;                 // q rows r0 and r0 + 8 of the 64
+    const int cq = 2 * (lane % 4);                       // columns cq, cq + 1 of each 8
+    const int qlo = qpos0 + wg * 64, qhi = qlo + 63;
+    const uint8_t* q_wg = Qs + wg * 64 * SW;
+    const uint8_t* do_wg = dOs + wg * 64 * SW;
+
+    float lse2[2], dlt[2];                               // lse log2e and delta of both rows
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + wg * 64 + r0 + 8 * i;
+      const long long idx = ((long long)b * a.H + h) * a.Sq + row;
+      lse2[i] = row < a.Sq ? a.lse[idx] * LOG2E : 0.f;
+      dlt[i] = row < a.Sq ? a.delta[idx] : 0.f;
+    }
+    float dq[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+    hw::mbar_wait(bar_q, 0);
+    int stage = 0;
+    uint32_t parity = 0;
+    for (int kt = 0; kt < a.n_kv; ++kt) {
+      const int k0 = kt * DQ_BK;
+      if (a.causal && k0 > qpos1) break;
+      if (!live_kv(a, qpos0, qpos1, k0)) continue;
+      hw::mbar_wait(&full[stage], parity);
+      if (live_kv(a, qlo, qhi, k0)) {
+        const uint8_t* kd = Ks + stage * L::KV_BYTES;
+        const uint8_t* vd = Vs + stage * L::KV_BYTES;
+        float s[DQ_BK / 2], dp[DQ_BK / 2];
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {         // s = Q K^T
+          const int col = (kk * 16 % L::BOX) * 2, box = kk * 16 / L::BOX;
+          hw::wgmma_ss(s, hw::make_desc<SW>(q_wg + box * DQ_BQ * SW + col, 0, 8 * SW),
+                       hw::make_desc<SW>(kd + box * DQ_BK * SW + col, 0, 8 * SW), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {         // dp = dO V^T
+          const int col = (kk * 16 % L::BOX) * 2, box = kk * 16 / L::BOX;
+          hw::wgmma_ss(dp, hw::make_desc<SW>(do_wg + box * DQ_BQ * SW + col, 0, 8 * SW),
+                       hw::make_desc<SW>(vd + box * DQ_BK * SW + col, 0, 8 * SW), kk > 0);
+        }
+        hw::wgmma_commit();
+        hw::wgmma_wait();
+        hw::fence_regs(s);
+        hw::fence_regs(dp);
+
+        const bool edge = k0 + DQ_BK > a.Skv || (a.causal && k0 + DQ_BK - 1 > qlo) ||
+                          (a.window && qhi - k0 >= a.window);
+#pragma unroll
+        for (int idx = 0; idx < DQ_BK / 2; ++idx) {
+          const int i = (idx / 2) % 2;
+          float p = exp2f(s[idx] * a.scale_log2 - lse2[i]);
+          if (edge) {
+            const int kp = k0 + (idx / 4) * 8 + cq + idx % 2;
+            const int qp = qlo + r0 + 8 * i;
+            bool ok = kp < a.Skv;
+            if (a.causal) ok = ok && qp >= kp;
+            if (a.window) ok = ok && qp - kp < a.window;
+            p = ok ? p : 0.f;
+          }
+          dp[idx] = p * (dp[idx] - dlt[i]) * a.sm_scale;
+        }
+        uint32_t ds_hi[DQ_BK / 16][4], ds_lo[DQ_BK / 16][4];
+        hw::split_bf16(dp, ds_hi, ds_lo);
+
+        hw::fence_regs(dq);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DQ_BK / 16; ++kk) {      // dq += ds K
+          const uint64_t d_k = hw::make_desc<SW>(kd + kk * 16 * SW, DQ_BK * SW, 8 * SW);
+          hw::wgmma_rs_tb(dq, ds_hi[kk], d_k, 1);
+          hw::wgmma_rs_tb(dq, ds_lo[kk], d_k, 1);
+        }
+        hw::wgmma_commit();
+        hw::wgmma_wait();
+        hw::fence_regs(dq);
+      }
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) { stage = 0; parity ^= 1; }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + wg * 64 + r0 + 8 * i;
+      if (row >= a.Sq) continue;
+      bf16* dqrow = a.dq + b * a.dq_sb + row * a.dq_ss + h * a.dq_sh;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dqrow + 8 * n + cq) =
+            hw::pack_bf16(dq[4 * n + 2 * i], dq[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_dq(const BwdArgs& f, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err;
+  if ((err = hw::make_map(&mq, f.q, f.B, f.Sq, f.H, HD, f.q_sb, f.q_ss, f.q_sh, DQ_BQ)) ||
+      (err = hw::make_map(&mdo, f.dout, f.B, f.Sq, f.H, HD, f.do_sb, f.do_ss, f.do_sh, DQ_BQ)) ||
+      (err = hw::make_map(&mk, f.k, f.B, f.Skv, f.KVH, HD, f.k_sb, f.k_ss, f.k_sh, DQ_BK)) ||
+      (err = hw::make_map(&mv, f.v, f.B, f.Skv, f.KVH, HD, f.v_sb, f.v_ss, f.v_sh, DQ_BK)))
+    return err;
+  const DqArgs a{f.lse, f.delta, static_cast<bf16*>(f.dq), f.Sq, f.Skv, f.H, f.H / f.KVH,
+                 (f.Skv + DQ_BK - 1) / DQ_BK, f.dq_sb, f.dq_ss, f.dq_sh,
+                 f.causal, f.window, f.q_offset, f.sm_scale, f.sm_scale * LOG2E};
+  constexpr int smem = DqLayout<HD>::SMEM;
+  err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(f.H, (f.Sq + DQ_BQ - 1) / DQ_BQ, f.B);
+  flash_bwd_dq_tc_kernel<HD><<<grid, THREADS, smem, stream>>>(mq, mk, mv, mdo, a);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
-template <typename T>
-cudaError_t dispatch_dq(const BwdArgs& a, int hd, cudaStream_t s) {
+// dq by dtype: f32 on the FMA kernel, bf16 on the tensor-core kernel.
+cudaError_t dispatch_dq(const BwdArgs& a, int dtype, int hd, cudaStream_t s) {
+  const bool f32 = dtype == repro::kFloat32;
   switch (hd) {
-    case 32: return launch_dq<T, 32>(a, s);
-    case 64: return launch_dq<T, 64>(a, s);
-    case 128: return launch_dq<T, 128>(a, s);
+    case 32: return f32 ? launch_dq<float, 32>(a, s) : tc::launch_dq<32>(a, s);
+    case 64: return f32 ? launch_dq<float, 64>(a, s) : tc::launch_dq<64>(a, s);
+    case 128: return f32 ? launch_dq<float, 128>(a, s) : tc::launch_dq<128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -639,9 +869,7 @@ int run(bool dkdv, const void* q, const void* k, const void* v, const void* dout
             causal, window, q_offset, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != repro::kFloat32 && dtype != repro::kBFloat16) return cudaErrorInvalidValue;
-  if (dkdv) return dispatch_dkdv(a, dtype, hd, s);
-  return dtype == repro::kFloat32 ? dispatch_dq<float>(a, hd, s)
-                                  : dispatch_dq<__nv_bfloat16>(a, hd, s);
+  return dkdv ? dispatch_dkdv(a, dtype, hd, s) : dispatch_dq(a, dtype, hd, s);
 }
 
 }  // namespace

@@ -5,10 +5,10 @@ and ``_dq_kernel`` of ``repro/kernels/flash_attention/kernel_bwd.py``).
 ``flash_attention_bwd`` validates what the kernels take, computes
 ``delta = sum(do * o)`` per row (a torch reduction, as the JAX package
 computes it outside both kernels), allocates the gradients, launches both
-kernels on PyTorch's current stream and counts each launch: dk/dv by
-variant (bf16 on the tensor-core kernel, ``launches_dkdv_tc``; f32 on the
-FMA kernel, ``launches_dkdv_fma``), dq in ``launches_dq``. It never falls
-back: anything the kernels do not take raises.
+kernels on PyTorch's current stream and counts each launch by variant:
+bf16 runs the tensor-core kernels (``launches_dkdv_tc``, ``launches_dq_tc``),
+f32 the FMA kernels (``launches_dkdv_fma``, ``launches_dq_fma``). It never
+falls back: anything the kernels do not take raises.
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ from repro_torch.kernels.flash_attention import kernel
 # kernel launches since the last reset (plain ints)
 launches_dkdv_tc = 0    # bf16 dk/dv: wgmma + TMA
 launches_dkdv_fma = 0   # f32 dk/dv: f32 FMAs
-launches_dq = 0         # dq, both dtypes: f32 FMAs
+launches_dq_tc = 0      # bf16 dq: wgmma + TMA
+launches_dq_fma = 0     # f32 dq: f32 FMAs
 
 
 def _rows_ok(t: torch.Tensor) -> bool:
@@ -90,11 +91,14 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True, window=0, 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True, window=0, q_offset=0,
                            sm_scale=None) -> torch.Tensor:
     """dq (B, Sq, H, hd) in q's dtype: the ``_dq_kernel`` port."""
-    global launches_dq
+    global launches_dq_tc, launches_dq_fma
     outs = {"dq": torch.empty(q.shape, dtype=q.dtype, device=q.device)}
     _launch("flash_attention_bwd_dq", q, k, v, do, lse, delta, outs,
             causal, window, q_offset, sm_scale)
-    launches_dq += 1
+    if q.dtype == torch.bfloat16:
+        launches_dq_tc += 1
+    else:
+        launches_dq_fma += 1
     return outs["dq"]
 
 

@@ -106,7 +106,7 @@ def test_function_cpu_path_matches_autograd_of_attention_ref(B, Sq, Skv, H, KVH,
     q, k, v, do = _inputs(B, Sq, Skv, H, KVH, hd, seed=2)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     counts = lambda: (kernel_bwd.launches_dkdv_tc, kernel_bwd.launches_dkdv_fma,
-                      kernel_bwd.launches_dq)
+                      kernel_bwd.launches_dq_tc, kernel_bwd.launches_dq_fma)
     before = counts()
     got = _autograd(q, k, v, do, lambda *t, **a: flash_attention(*t, causal, window, q_offset))
     _close(got, _autograd(q, k, v, do, attention_ref, **kw))
