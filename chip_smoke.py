@@ -15,8 +15,14 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    and at the main paths' shapes, with times (CUDA events, L2 flushed
    between launches) beside the bound. The flash forward, dk/dv and dq
    have two variants each, by dtype: bf16 on tensor cores (wgmma fed by
-   TMA), f32 on FMAs; every feature case runs in both dtypes; two bf16 dq
-   calls on the same inputs give the same bits;
+   TMA), f32 on FMAs; every feature case runs in both dtypes. The paged
+   kernel (split over positions, then merged) has two: bf16 scores and P.V
+   on tensor cores (mma.sync), f32 on FMAs. The mLSTM's model calls go to
+   a one-pass decode step (S <= 8) or the FMA chunkwise kernel (both
+   dtypes); its bf16 tensor-core variant is held and timed too, though no
+   path calls it. Two calls on the same inputs give the same bits for the
+   bf16 dq, the paged kernel, the tensor-core mLSTM and the step; the new
+   kernels build with no spilled registers;
 4. serving: full-width qwen3-4b (random bf16 weights from a seeded
    generator) through ``DecodeEngine`` on 16 requests; launch counters
    prove prefill went through the flash kernel (36 launches per prefill)
@@ -34,14 +40,15 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
 6. xLSTM serving: full-width xlstm-350m (random bf16 weights, the
    blocks' f32 leaves kept f32) through the serve launcher's loop, 8
    prompts x 4096 tokens and 32 new tokens each; launch counters prove
-   every prefill and decode step went through the mLSTM kernel (20 x 32)
-   and nothing else; on one prompt, every mLSTM call of the bf16 prefill
-   gives the same h and state as the plain chunkwise form on its own
-   inputs, and the kernel path's prefill logits agree with the plain
-   path's in bf16 on the prompt's first tokens and in f32 on all 4096
-   (random-weight bf16 xLSTM is chaotic over longer prompts:
-   ``--xlstm-orders``); a reduced model's f32 streams on the card equal
-   the CPU's;
+   the prefill went through the FMA mLSTM (20 launches) and every decode
+   step through the one-pass step (20 x 31), and nothing else; on
+   one prompt, every mLSTM call of the bf16 prefill gives the same h and
+   state as the plain chunkwise form on its own inputs, and the kernel
+   path's prefill logits agree with the plain path's in bf16 on the
+   prompt's first 32 tokens and in f32 on all 4096 (random-weight bf16
+   xLSTM is chaotic over longer prompts: ``--xlstm-orders``), and beside
+   that, measured, the same with the tensor-core variant; a reduced
+   model's f32 streams on the card equal the CPU's;
 7. training: full-width qwen3-4b (f32 params from a seeded generator,
    AdamW, seq 4096, global batch 2 in 2 microbatches, remat per layer)
    through ``run_segment`` for 4 steps: finite losses and grad norms, no
@@ -66,6 +73,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 from pathlib import Path
 import re
 import subprocess
@@ -78,6 +86,10 @@ import torch
 REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 
+# kernels that must build without spilling registers (ptxas): the paged
+# split and merge, the mLSTM decode step and its tensor-core prefill
+NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_merge_kernel",
+                    "mlstm_step_kernel", "mlstm_tc_kernel")
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
@@ -152,7 +164,7 @@ SSM_CASES = [
     (1, 128, 256, 16, torch.bfloat16),
 ]
 # (B, H, S, hd, dtype): tests/test_kernels.py MLSTM_CASES (the JAX test's
-# chunk column has no counterpart: the kernel picks its own chunk of 32)
+# chunk column has no counterpart: each kernel variant picks its own chunk)
 MLSTM_CASES = [
     (2, 2, 128, 64, torch.float32),
     (1, 4, 64, 32, torch.float32),
@@ -172,6 +184,10 @@ MLSTM_MAIN_H_TOL = dict(atol=1e-3, rtol=1e-2)
 MLSTM_MAIN_STATE_TOL = dict(atol=1e-4, rtol=1e-3)
 MLSTM_MAIN_TOLS = dict(h=MLSTM_MAIN_H_TOL, C=MLSTM_MAIN_STATE_TOL, n=MLSTM_MAIN_STATE_TOL,
                        m=MLSTM_M_TOL)
+# the chunk at which the mLSTM's bound counts the intra-chunk products: a
+# fixed yardstick, whatever chunk a kernel variant uses (the tensor-core
+# kernel's 64, the FMA kernel's 32)
+MLSTM_BOUND_CHUNK = 32
 # the JAX test's tolerance for the scan's final state (y takes tol(dtype))
 SSM_H_TOL = dict(atol=1e-4, rtol=1e-4)
 # hymba's main-path shapes (u bf16, dt/B_/C_ f32), held tighter than the
@@ -214,15 +230,21 @@ def hold(name: str, out: torch.Tensor, ref: torch.Tensor, t: dict) -> float:
     return err
 
 
-def time_ms(fn, flush: torch.Tensor, reps: int = 10, warmup: int = 2) -> float:
+def time_ms(fn, flush: torch.Tensor, reps: int = 10, warmup: int = 2,
+            clean: bool = False) -> float:
     """Mean device time of one call, CUDA events around each call, with the
-    L2 cache flushed before each (the main path finds it cold)."""
+    L2 cache flushed before each (the main path finds it cold): by writing
+    the 256 MB buffer, or with ``clean`` by reading it, so that no dirty
+    line is written back during the call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
-        flush.zero_()
+        if clean:
+            flush.max()
+        else:
+            flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -247,12 +269,14 @@ def _counters() -> dict:
 
     return {"flash_attention_tc": (kernel, "launches_tc"),
             "flash_attention_fma": (kernel, "launches_fma"),
-            "paged_attention": (paged, "launches"),
+            "paged_attention_tc": (paged, "launches_tc"),
+            "paged_attention_fma": (paged, "launches_fma"),
             "flash_attention_bwd_dkdv_tc": (kernel_bwd, "launches_dkdv_tc"),
             "flash_attention_bwd_dkdv_fma": (kernel_bwd, "launches_dkdv_fma"),
             "flash_attention_bwd_dq_tc": (kernel_bwd, "launches_dq_tc"),
             "flash_attention_bwd_dq_fma": (kernel_bwd, "launches_dq_fma"),
-            "ssm_scan": (scan, "launches"), "mlstm": (mlstm, "launches")}
+            "ssm_scan": (scan, "launches"), "mlstm_tc": (mlstm, "launches_tc"),
+            "mlstm_fma": (mlstm, "launches_fma"), "mlstm_step": (mlstm, "launches_step")}
 
 
 def reset_launches() -> None:
@@ -555,15 +579,38 @@ def _paged_inputs(gen, B, H, KVH, hd, ps, mb, lens, dtype, seed):
             torch.as_tensor(np.asarray(lens, np.int32), device="cuda"))
 
 
-def check_paged(gen: torch.Generator, flush: torch.Tensor) -> dict:
+def check_paged(gen: torch.Generator, flush: torch.Tensor) -> list:
+    """The split-and-merge paged kernel in both dtypes (bf16 on tensor
+    cores, f32 on FMAs) against ``paged_attention_ref`` on the reference's cases, the
+    split's edges, a dead lane and the serving main path's shape; at that
+    shape also against the plain split form, and two calls giving the same
+    bits. One record per dtype."""
     from repro_torch.kernels.paged_attention import kernel
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                         paged_attention_split_ref)
 
-    log("[kernels] paged_attention vs paged_attention_ref")
+    log("[kernels] paged_attention (split over positions, then merge; bf16 mma.sync, f32 FMA) "
+        "vs paged_attention_ref")
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for B, H, KVH, hd, ps, mb, lens, dtype in PAGED_CASES:
         args = _paged_inputs(gen, B, H, KVH, hd, ps, mb, lens, dtype, seed=0)
-        hold(f"paged B{B} H{H}/{KVH} hd{hd} ps{ps} lens{lens} {str(dtype)[6:]}",
-             kernel.paged_attention(*args), paged_attention_ref(*args), tol(dtype))
+        errs[dtype] = max(errs[dtype], hold(
+            f"paged B{B} H{H}/{KVH} hd{hd} ps{ps} lens{lens} {str(dtype)[6:]}",
+            kernel.paged_attention(*args), paged_attention_ref(*args), tol(dtype)))
+    # the split's edges at its segment of 128 positions: lengths 0 and 1,
+    # one and two segments, one more position, every lane dead, pages of 8,
+    # a page of 24 that straddles segments, a page of 256 that holds two
+    for ps, mb, lens in ((16, 20, [0, 1, 128, 129]), (16, 20, [0, 0, 0, 0]),
+                         (16, 20, [256, 257, 127, 5]), (8, 40, [128, 129, 0, 1]),
+                         (24, 14, [128, 150, 143, 1]), (256, 2, [129, 300, 256, 0])):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _paged_inputs(gen, 4, 8, 2, 64, ps, mb, lens, dtype, seed=2)
+            out = kernel.paged_attention(*args)
+            errs[dtype] = max(errs[dtype], hold(
+                f"paged split edges ps{ps} lens{lens} {str(dtype)[6:]}",
+                out, paged_attention_ref(*args), tol(dtype)))
+            if not all(bool((out[b] == 0).all()) for b, n in enumerate(lens) if n == 0):
+                raise AssertionError(f"paged split edges lens{lens}: a dead lane is not zeros")
 
     q, kp, vp, table, sl = _paged_inputs(gen, 3, 4, 2, 32, 16, 3, [40, 17, 25], torch.float32, 0)
     full = kernel.paged_attention(q, kp, vp, table, sl)
@@ -578,27 +625,64 @@ def check_paged(gen: torch.Generator, flush: torch.Tensor) -> dict:
 
     rng = np.random.RandomState(1)
     lens = [2048] + rng.randint(1, 2049, 7).tolist()
-    args = _paged_inputs(gen, 8, 32, 8, 128, 16, 128, lens, torch.float32, seed=1)
-    hold(f"paged main-path 8 lanes H32/8 hd128 ps16 lens{lens} f32",
-         kernel.paged_attention(*args), paged_attention_ref(*args), F32_TOL)
-    args = _paged_inputs(gen, 8, 32, 8, 128, 16, 128, lens, torch.bfloat16, seed=1)
-    err = hold(f"paged main-path 8 lanes H32/8 hd128 ps16 lens{lens} bf16",
-               kernel.paged_attention(*args), paged_attention_ref(*args), PAGED_MAIN_BF16_TOL)
+    main = {}
+    for dtype, t in ((torch.float32, F32_TOL), (torch.bfloat16, PAGED_MAIN_BF16_TOL)):
+        args = main[dtype] = _paged_inputs(gen, 8, 32, 8, 128, 16, 128, lens, dtype, seed=1)
+        name = f"paged main-path 8 lanes H32/8 hd128 ps16 lens{lens} {str(dtype)[6:]}"
+        out = kernel.paged_attention(*args)
+        errs[dtype] = max(errs[dtype], hold(name, out, paged_attention_ref(*args), t))
+        hold(f"{name} vs the plain split form", out, paged_attention_split_ref(*args), t)
+        same = torch.equal(out, kernel.paged_attention(*args))
+        log(f"  {name}: two calls give the same bits: {same}")
+        if not same:
+            raise AssertionError("the paged kernel gave different bits on the same inputs")
+
     n_tok = sum(lens)
     n_pages = sum(-(-n // 16) for n in lens)
-    flops = 4.0 * n_tok * 32 * 128
-    nbytes = 2.0 * (2 * 8 * 32 * 128 + 2 * n_tok * 8 * 128) + 4.0 * (n_pages + 8)
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    ms = time_ms(lambda: kernel.paged_attention(*args), flush)
-    plain_ms = time_ms(lambda: paged_attention_ref(*args), flush)
-    log(f"  paged main path (8 lanes, {n_tok} cached tokens, bf16): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-        f"{nbytes / ms / 1e6:.1f} GB/s achieved")
-    return dict(name="paged_attention", route="cuda",
-                source="src/repro_torch/csrc/paged_attention.cu",
-                replaces="src/repro/kernels/paged_attention/kernel.py:35",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    records = []
+    for dtype in (torch.bfloat16, torch.float32):
+        args = main[dtype]
+        el = args[0].element_size()
+        flops = 4.0 * n_tok * 32 * 128
+        nbytes = el * (2 * 8 * 32 * 128 + 2 * n_tok * 8 * 128) + 4.0 * (n_pages + 8)
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS if el == 2 else PEAK_F32_FLOPS)
+        ms = time_ms(lambda: kernel.paged_attention(*args), flush)
+        clean_ms = time_ms(lambda: kernel.paged_attention(*args), flush, clean=True)
+        plain_ms = time_ms(lambda: paged_attention_ref(*args), flush)
+        log(f"  paged main path (8 lanes, {n_tok} cached tokens, {str(dtype)[6:]}): kernel "
+            f"{ms:.4f} ms (split + merge; {clean_ms:.4f} ms after a read-only flush), plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); {nbytes / ms / 1e6:.1f} GB/s achieved; device time per launch "
+            f"(profiler): " + ", ".join(
+                f"{name} {t:.4f} ms" for name, t in _device_ms_per_launch(
+                    lambda: kernel.paged_attention(*args), flush, "paged_").items()))
+        records.append(dict(
+            name=f"paged_attention_{'tc' if el == 2 else 'fma'}", route="cuda",
+            source="src/repro_torch/csrc/paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention/kernel.py:35",
+            max_abs_err=errs[dtype], ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+    return records
+
+
+def _device_ms_per_launch(fn, flush: torch.Tensor, key: str, reps: int = 5) -> dict:
+    """Device time per launch of each kernel whose name holds ``key``, over
+    ``reps`` calls of ``fn`` (L2 flushed before each), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if key in e.key and getattr(e, "self_device_time_total", 0) > 0:
+            name = re.sub(r"^.*::", "", e.key.split("<")[0])
+            out[name] = e.self_device_time_total / e.count / 1e3
+    return out
 
 
 def _ssm_inputs(gen, B, S, inner, N, dtype, dt_dtype):
@@ -689,78 +773,147 @@ def _to_ref_layout(q, k, v, gates):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), g
 
 
-def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> dict:
-    """The chunkwise mLSTM against ``mlstm_ref`` (the sequential oracle) on
-    the JAX test's cases, a ragged S and a carried state, and against
-    ``mlstm_chunkwise_ref`` at xlstm-350m's prefill and decode shapes."""
+def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
+    """The chunkwise mLSTM's kernels: the two the model's calls reach (S <=
+    ``STEP_MAX``: the one-pass decode step; longer: the FMA chunkwise
+    kernel, both dtypes) and the bf16 tensor-core variant, which no path
+    calls yet (``kernel.mlstm_tc``), against ``mlstm_ref`` (the sequential
+    oracle) on the JAX test's cases, ragged S with a carried state and two
+    calls carrying the state, and against ``mlstm_chunkwise_ref`` at
+    xlstm-350m's prefill and decode shapes; two calls of the tensor-core
+    kernel and of the step give the same bits. One record per kernel of a
+    path; the tensor-core variant's numbers are logged."""
     from repro_torch.kernels.mlstm import kernel, ops
     from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref, mlstm_ref
 
+    def variants(S, dtype):
+        """(name, function) of each kernel that takes these inputs."""
+        if S <= kernel.STEP_MAX:
+            return [("step", ops.mlstm)]
+        return [("fma", ops.mlstm)] + ([("tc", kernel.mlstm_tc)] if dtype == torch.bfloat16
+                                       else [])
+
+    errs = {"tc": 0.0, "fma": 0.0, "step": 0.0}
+
     def against_oracle(name, B, S, H, hd, dtype, with_state=False, h_tol=None):
         q, k, v, gates, state = _mlstm_inputs(gen, B, S, H, hd, dtype, with_state)
-        h, (C, n, m) = ops.mlstm(q, k, v, gates, state)
-        torch.cuda.synchronize()
         hr, (Cr, nr, mr) = mlstm_ref(*_to_ref_layout(q, k, v, gates), state)
-        if h.dtype != dtype or {C.dtype, n.dtype, m.dtype} != {torch.float32}:
-            raise AssertionError(f"{name}: h {h.dtype}, state {C.dtype} {n.dtype} {m.dtype}")
-        errs = [hold(f"{name} h", h, hr.transpose(1, 2), h_tol or tol(dtype)),
-                hold(f"{name} C", C, Cr, MLSTM_STATE_TOL), hold(f"{name} n", n, nr, MLSTM_STATE_TOL)]
-        hold(f"{name} m", m, mr, MLSTM_M_TOL)
-        return max(errs)
+        for var, fn in variants(S, dtype):
+            h, (C, n, m) = fn(q, k, v, gates, state)
+            torch.cuda.synchronize()
+            if h.dtype != dtype or {C.dtype, n.dtype, m.dtype} != {torch.float32}:
+                raise AssertionError(f"{name}: h {h.dtype}, state {C.dtype} {n.dtype} {m.dtype}")
+            full = f"{name} [{var}]"
+            err = max(hold(f"{full} h", h, hr.transpose(1, 2), h_tol or tol(dtype)),
+                      hold(f"{full} C", C, Cr, MLSTM_STATE_TOL),
+                      hold(f"{full} n", n, nr, MLSTM_STATE_TOL))
+            hold(f"{full} m", m, mr, MLSTM_M_TOL)
+            errs[var] = max(errs[var], err)
 
-    log("[kernels] mlstm vs mlstm_ref (h, C, n, m) and mlstm_chunkwise_ref")
+    log("[kernels] mlstm (one-pass step, FMA, tensor cores) vs mlstm_ref (h, C, n, m) and "
+        "mlstm_chunkwise_ref")
     for B, H, S, hd, dtype in MLSTM_CASES:
         against_oracle(f"mlstm B{B} H{H} S{S} hd{hd} {str(dtype)[6:]}", B, S, H, hd, dtype)
     against_oracle("mlstm ragged S100 with state B2 H2 hd96 f32", 2, 100, 2, 96, torch.float32,
                    with_state=True)
-    err_dec = against_oracle("mlstm main-path decode S1 with state B8 H4 hd512 bf16", 8, 1, 4,
-                             512, torch.bfloat16, with_state=True, h_tol=MLSTM_MAIN_H_TOL)
+    against_oracle("mlstm ragged S100 with state B2 H2 hd128 bf16", 2, 100, 2, 128,
+                   torch.bfloat16, with_state=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        against_oracle(f"mlstm step S5 with state B2 H2 hd96 {str(dtype)[6:]}", 2, 5, 2, 96,
+                       dtype, with_state=True)
+    against_oracle("mlstm main-path decode S1 with state B8 H4 hd512 bf16", 8, 1, 4,
+                   512, torch.bfloat16, with_state=True, h_tol=MLSTM_MAIN_H_TOL)
 
     # two calls carrying the state compose into one call
-    q, k, v, gates, state = _mlstm_inputs(gen, 2, 77, 4, 64, torch.float32, with_state=True)
-    h_all, st_all = ops.mlstm(q, k, v, gates, state)
-    h1, st1 = ops.mlstm(q[:, :40], k[:, :40], v[:, :40], gates[:, :40], state)
-    h2, st2 = ops.mlstm(q[:, 40:], k[:, 40:], v[:, 40:], gates[:, 40:], st1)
-    torch.cuda.synchronize()
-    hold("mlstm two calls compose h", torch.cat([h1, h2], 1), h_all, F32_TOL)
-    for name, a, b in zip("Cnm", st2, st_all):
-        hold(f"mlstm two calls compose {name}", a, b, MLSTM_STATE_TOL)
+    for dtype, h_t in ((torch.float32, F32_TOL), (torch.bfloat16, tol(torch.bfloat16))):
+        q, k, v, gates, state = _mlstm_inputs(gen, 2, 77, 4, 64, dtype, with_state=True)
+        for var, fn in variants(77, dtype):
+            h_all, st_all = fn(q, k, v, gates, state)
+            h1, st1 = fn(q[:, :40], k[:, :40], v[:, :40], gates[:, :40], state)
+            h2, st2 = fn(q[:, 40:], k[:, 40:], v[:, 40:], gates[:, 40:], st1)
+            torch.cuda.synchronize()
+            name = f"mlstm two calls compose {str(dtype)[6:]} [{var}]"
+            hold(f"{name} h", torch.cat([h1, h2], 1), h_all, h_t)
+            for key, a, b in zip("Cnm", st2, st_all):
+                hold(f"{name} {key}", a, b, MLSTM_STATE_TOL)
 
     # xlstm-350m's prefill shape, against the plain chunkwise form at chunk 256
     B, S, H, hd, chunk = 8, 4096, 4, 512, 256
     q, k, v, gates, _ = _mlstm_inputs(gen, B, S, H, hd, torch.bfloat16)
-    h, (C, n, m) = ops.mlstm(q, k, v, gates)
-    torch.cuda.synchronize()
     hr, (Cr, nr, mr) = mlstm_chunkwise_ref(q, k, v, gates, None, chunk)
-    name = f"mlstm main-path prefill B{B} S{S} H{H} hd{hd} bf16"
-    err = max(hold(f"{name} h", h, hr, MLSTM_MAIN_H_TOL),
-              hold(f"{name} C", C, Cr, MLSTM_MAIN_STATE_TOL),
-              hold(f"{name} n", n, nr, MLSTM_MAIN_STATE_TOL))
-    hold(f"{name} m", m, mr, MLSTM_M_TOL)
-    del hr, Cr, nr, mr, C, n, m
-    # the work the function needs, per token and head: q C^T and the C
-    # update (2 hd^2 flop each), and at the kernel's chunk c the intra-chunk
-    # q K^T and (q K^T . D) V (2 c hd each)
-    c = kernel.CHUNK
-    flops = (4.0 * hd * hd + 4.0 * c * hd) * B * S * H
-    nbytes = 4.0 * B * S * H * hd * 2 + 4.0 * B * S * 2 * H + 4.0 * B * H * (hd * hd + hd + 1)
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    ms = time_ms(lambda: kernel.mlstm(q, k, v, gates), flush)
-    plain_ms = time_ms(lambda: mlstm_chunkwise_ref(q, k, v, gates, None, chunk), flush, reps=3)
+    for var, fn in variants(S, torch.bfloat16):
+        h, (C, n, m) = fn(q, k, v, gates)
+        torch.cuda.synchronize()
+        name = f"mlstm main-path prefill B{B} S{S} H{H} hd{hd} bf16 [{var}]"
+        errs[var] = max(errs[var], hold(f"{name} h", h, hr, MLSTM_MAIN_H_TOL),
+                        hold(f"{name} C", C, Cr, MLSTM_MAIN_STATE_TOL),
+                        hold(f"{name} n", n, nr, MLSTM_MAIN_STATE_TOL))
+        hold(f"{name} m", m, mr, MLSTM_M_TOL)
+        if var == "tc":
+            h2, (C2, n2, m2) = fn(q, k, v, gates)
+            same = all(torch.equal(x, y) for x, y in zip((h, C, n, m), (h2, C2, n2, m2)))
+            log(f"  {name}: two calls give the same bits: {same}")
+            if not same:
+                raise AssertionError("the tensor-core mLSTM gave different bits on the same "
+                                     "inputs")
+            del h2, C2, n2, m2
+        del h, C, n, m
+    del hr, Cr, nr, mr
     dq, dk, dv, dg, dstate = _mlstm_inputs(gen, B, 1, H, hd, torch.bfloat16, with_state=True)
-    dec_ms = time_ms(lambda: kernel.mlstm(dq, dk, dv, dg, dstate), flush)
-    dec_plain_ms = time_ms(lambda: mlstm_chunkwise_ref(dq, dk, dv, dg, dstate, chunk), flush)
-    dec_bytes = 4.0 * 2 * B * H * (hd * hd + hd + 1) + 2.0 * 4 * B * H * hd + 4.0 * B * 2 * H
-    dec_b_ms, dec_by = bound(4.0 * hd * hd * B * H, dec_bytes, PEAK_BF16_FLOPS)
-    log(f"  mlstm main path (B{B} S{S} H{H} hd{hd}, q/k/v bf16): kernel {ms:.4f} ms, plain "
-        f"(chunkwise, chunk {chunk}) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-        f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved; decode shape (S=1, "
-        f"state carried): kernel {dec_ms:.4f} ms, plain {dec_plain_ms:.4f} ms, bound "
-        f"{dec_b_ms:.4f} ms ({dec_by})")
-    return dict(name="mlstm", route="cuda", source="src/repro_torch/csrc/mlstm.cu",
-                replaces="src/repro/kernels/mlstm/kernel.py:31",
-                max_abs_err=max(err, err_dec), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    outs = [ops.mlstm(dq, dk, dv, dg, dstate) for _ in range(2)]
+    same = all(torch.equal(x, y) for x, y in zip((outs[0][0], *outs[0][1]),
+                                                  (outs[1][0], *outs[1][1])))
+    log(f"  mlstm main-path decode S1: two step calls give the same bits: {same}")
+    if not same:
+        raise AssertionError("the mLSTM decode step gave different bits on the same inputs")
+    del outs
+
+    def work(B, S, H, hd, el):
+        """(flop, bytes) the function needs: per token and head q C^T and the
+        C update (2 hd^2 flop each) and, at the fixed yardstick chunk
+        MLSTM_BOUND_CHUNK, the intra-chunk q K^T and (q K^T . D) V (2 c hd
+        each); q, k, v read and h written once (el bytes), the gates read
+        and the state (C, n, m) written once (read too where it is
+        carried: S = 1)."""
+        c = MLSTM_BOUND_CHUNK
+        flops = (4.0 * hd * hd + (4.0 * c * hd if S > 1 else 0.0)) * B * S * H
+        state = 4.0 * B * H * (hd * hd + hd + 1)
+        nbytes = el * B * S * H * hd * 4 + 4.0 * B * S * 2 * H + state * (1 if S > 1 else 2)
+        return flops, nbytes
+
+    flops, nbytes = work(B, S, H, hd, 2)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    ms = time_ms(lambda: kernel.mlstm(q, k, v, gates), flush, reps=3)
+    tc_ms = time_ms(lambda: kernel.mlstm_tc(q, k, v, gates), flush)
+    plain_ms = time_ms(lambda: mlstm_chunkwise_ref(q, k, v, gates, None, chunk), flush, reps=3)
+    log(f"  mlstm main path (B{B} S{S} H{H} hd{hd}, q/k/v bf16): FMA kernel {ms:.4f} ms, "
+        f"tensor-core variant {tc_ms:.4f} ms, plain (chunkwise, chunk {chunk}) {plain_ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}); {flops / ms / 1e9:.1f} and {flops / tc_ms / 1e9:.1f} "
+        f"TFLOP/s of the function's work achieved")
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    del q, k, v
+    f_flops, f_bytes = work(B, S, H, hd, 4)
+    f_b_ms, f_by = bound(f_flops, f_bytes, PEAK_F32_FLOPS)
+    f_ms = time_ms(lambda: kernel.mlstm(q32, k32, v32, gates), flush, reps=3)
+    f_plain_ms = time_ms(lambda: mlstm_chunkwise_ref(q32, k32, v32, gates, None, chunk), flush,
+                         reps=3)
+    log(f"  mlstm fma at the main path's shape in f32: kernel {f_ms:.4f} ms, plain "
+        f"{f_plain_ms:.4f} ms, bound {f_b_ms:.4f} ms ({f_by}, f32 at 67 TFLOP/s)")
+    del q32, k32, v32
+    d_flops, d_bytes = work(B, 1, H, hd, 2)
+    d_b_ms, d_by = bound(d_flops, d_bytes, PEAK_BF16_FLOPS)
+    d_ms = time_ms(lambda: kernel.mlstm(dq, dk, dv, dg, dstate), flush)
+    d_plain_ms = time_ms(lambda: mlstm_chunkwise_ref(dq, dk, dv, dg, dstate, chunk), flush)
+    log(f"  mlstm step at the decode shape (S=1, state carried, bf16): kernel {d_ms:.4f} ms, "
+        f"plain {d_plain_ms:.4f} ms, bound {d_b_ms:.4f} ms ({d_by}); "
+        f"{d_bytes / d_ms / 1e6:.1f} GB/s achieved")
+    log(f"  mlstm tensor-core variant (no path calls it): max abs err {errs['tc']:.3e}")
+    rec = dict(route="cuda", replaces="src/repro/kernels/mlstm/kernel.py:31", library_ms=None,
+               source="src/repro_torch/csrc/mlstm.cu")
+    return [dict(rec, name="mlstm_fma", max_abs_err=errs["fma"], ms=ms, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by),
+            dict(rec, name="mlstm_step", max_abs_err=errs["step"], ms=d_ms,
+                 plain_ms=d_plain_ms, bound_ms=d_b_ms, bound_by=d_by)]
 
 
 # ---------------------------------------------------------------------------
@@ -808,12 +961,13 @@ def serve_full_width() -> dict:
     if eng.free_pages != num_pages - 1:
         raise AssertionError(f"pool did not drain: {eng.free_pages} free of {num_pages - 1}")
     want = expect_launches(flash_attention_tc=cfg.num_layers * eng.prefills,
-                           paged_attention=cfg.num_layers * eng.decode_steps)
+                           paged_attention_tc=cfg.num_layers * eng.decode_steps)
     log(f"[serve] {len(done)} requests x 32 tokens done in {wall:.2f} s; prompt lengths "
         f"{lens}; {eng.prefills} prefills, {eng.decode_steps} decode steps; pool back to "
         f"{eng.free_pages} free pages")
     log(f"[serve] launches {launches}, expected {want}")
-    if launches != want or min(launches["flash_attention_tc"], launches["paged_attention"]) <= 0:
+    if launches != want or min(launches["flash_attention_tc"],
+                               launches["paged_attention_tc"]) <= 0:
         raise AssertionError("the main path did not go through the kernels as expected")
     log(f"[serve] prefill {eng.prefilled_tokens / eng.prefill_seconds:.1f} tokens/s "
         f"({eng.prefilled_tokens} tokens in {eng.prefill_seconds:.3f} s); decode "
@@ -935,7 +1089,7 @@ def serve_reduced_matches_cpu() -> dict:
         f"{'identical' if streams['cpu'] == streams['cuda'] else 'DIFFERENT'}")
     if streams["cpu"] != streams["cuda"]:
         raise AssertionError(f"card streams {streams['cuda']} != CPU {streams['cpu']}")
-    return hold_f32_launches("serve", launches, "flash_attention_fma", "paged_attention")
+    return hold_f32_launches("serve", launches, "flash_attention_fma", "paged_attention_fma")
 
 
 # ---------------------------------------------------------------------------
@@ -1095,8 +1249,8 @@ def greedy_reduced_matches_cpu(arch: str, tag: str, *kernels: str) -> dict:
 
 XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW = 8, 4096, 32
 # the prompt length at which the check holds bf16 prefill logits end to
-# end: one kernel chunk. ``--xlstm-orders`` measures why no longer: past
-# 32 tokens, two plain orders of the same sums disagree (top-1) as well.
+# end: within one kernel chunk. ``--xlstm-orders`` measures why no longer:
+# past 32 tokens, two plain orders of the same sums disagree (top-1) as well.
 XLSTM_BF16_LEN = 32
 
 
@@ -1136,7 +1290,7 @@ def serve_xlstm_full_width() -> dict:
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    want = expect_launches(mlstm=n_mlstm * (1 + res.decode_steps))
+    want = expect_launches(mlstm_fma=n_mlstm, mlstm_step=n_mlstm * res.decode_steps)
     out = res.tokens
     log(f"[xlstm] {B} prompts x {S} tokens, {new} new tokens each; first row "
         f"{out[0].tolist()}")
@@ -1148,34 +1302,46 @@ def serve_xlstm_full_width() -> dict:
     if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(res.cache)):
         raise AssertionError("non-finite recurrent state")
     if res.decode_steps != new - 1 or launches != want:
-        raise AssertionError("the xLSTM path did not go through the kernel as expected")
+        raise AssertionError("the xLSTM path did not go through the kernels as expected")
     log(f"[xlstm] prefill {B * S / res.prefill_seconds:.1f} tokens/s ({B * S} tokens in "
         f"{res.prefill_seconds:.3f} s); decode {1e3 * res.decode_seconds / res.decode_steps:.2f} "
         f"ms per step ({B * res.decode_steps / res.decode_seconds:.1f} tokens/s); peak memory "
         f"{peak_gb:.2f} GB")
 
-    compare_xlstm_paths(model, params, tokens[:1])
     profile_greedy("xlstm", model, params, tokens, res.cache, new)
+    compare_xlstm_paths(model, params, tokens[:1])
     return launches
 
 
-def _xlstm_prefill(model, params, row, chunk=None, held=None):
-    """Prefill ``row`` with the mLSTM kernel (``chunk`` None) or with the
-    plain chunkwise form at ``chunk``. With ``held`` (a dict), every
-    kernel call's h and final (C, n, m) are held against the plain form at
-    the model's chunk on that call's own inputs; ``held`` keeps the number
-    of calls, each quantity's max abs error and the failures. Returns the
-    last position's logits."""
+def _xlstm_prefill(model, params, row, chunk=None, held=None, perturb=0.0, tc=False):
+    """Prefill ``row`` with the mLSTM kernels (``chunk`` None; with ``tc``,
+    the tensor-core variant where S > ``STEP_MAX``) or with the plain
+    chunkwise form at ``chunk``; with ``perturb``, the plain form's h
+    is multiplied by (1 + perturb x a standard normal draw) before its
+    rounding to q's dtype. With ``held`` (a dict), every kernel call's h
+    and final (C, n, m) are held against the plain form at the model's
+    chunk on that call's own inputs; ``held`` keeps the number of calls,
+    each quantity's max abs error and the failures. Returns the last
+    position's logits."""
     from unittest import mock
 
-    from repro_torch.kernels.mlstm import ops
+    from repro_torch.kernels.mlstm import kernel, ops
     from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
     from repro_torch.models import xlstm
 
+    noise = torch.Generator(device="cuda").manual_seed(1) if perturb else None
+
     def mlstm(q, k, v, gates, state, model_chunk):
+        if chunk is not None and perturb:
+            h, st = mlstm_chunkwise_ref(q.float(), k.float(), v.float(), gates, state, chunk)
+            h = h * (1 + perturb * torch.randn(h.shape, generator=noise, device=h.device))
+            return h.to(q.dtype), st
         if chunk is not None:
             return mlstm_chunkwise_ref(q, k, v, gates, state, chunk)
-        out = ops.mlstm(q, k, v, gates, state, model_chunk)
+        if tc and q.shape[1] > kernel.STEP_MAX:
+            out = kernel.mlstm_tc(q, k, v, gates.float().contiguous(), state)
+        else:
+            out = ops.mlstm(q, k, v, gates, state, model_chunk)
         if held is not None:
             (h, st), (hr, st_r) = out, mlstm_chunkwise_ref(q, k, v, gates, state, model_chunk)
             held["calls"] = held.get("calls", 0) + 1
@@ -1186,11 +1352,13 @@ def _xlstm_prefill(model, params, row, chunk=None, held=None):
                     held.setdefault("failed", []).append(f"call {held['calls']} {key}")
         return out
 
-    before = read_launches()["mlstm"]
+    mlstm_launches = lambda: sum(n for name, n in read_launches().items()
+                                 if name.startswith("mlstm_"))
+    before = mlstm_launches()
     with mock.patch.object(xlstm, "mlstm", mlstm):
         logits, _ = model.prefill(params, {"tokens": row}, row.shape[1])
     torch.cuda.synchronize()
-    launched = read_launches()["mlstm"] - before
+    launched = mlstm_launches() - before
     if launched != (_n_mlstm(model.cfg) if chunk is None else 0):
         raise AssertionError(f"prefill launched the mLSTM kernel {launched} times")
     return logits[0, -1].float()
@@ -1205,13 +1373,66 @@ def _logit_agreement(a: torch.Tensor, b: torch.Tensor) -> tuple:
     return int(a.argmax()) == int(b.argmax()), corr, float((a - b).abs().max())
 
 
-def _hold_logits(name: str, kern: torch.Tensor, plain: torch.Tensor) -> None:
-    """Kernel-path against plain-path logits: top-1 equal, correlation > 0.99."""
+def _hold_logits(name: str, kern: torch.Tensor, plain: torch.Tensor) -> bool:
+    """Kernel-path against plain-path logits: top-1 equal, correlation > 0.99.
+    Logs the comparison and returns whether it holds."""
     top, corr, diff = _logit_agreement(kern, plain)
     log(f"[xlstm] {name}, kernel vs plain chunk 256: top-1 equal {top}, correlation "
         f"{corr:.6f}, max abs diff {diff:.4f}")
-    if not (torch.isfinite(kern).all() and top and corr > 0.99):
-        raise AssertionError(f"{name}: kernel-path logits disagree with the plain path")
+    return bool(torch.isfinite(kern).all()) and top and corr > 0.99
+
+
+def _mlstm_f64(q, k, v, gates) -> torch.Tensor:
+    """h of the mLSTM recurrence from a zero state in f64 (model layout)."""
+    B, S, H, hd = q.shape
+    q, k, v, gates = (t.double() for t in (q, k, v, gates))
+    C = q.new_zeros((B, H, hd, hd))
+    n, m = q.new_zeros((B, H, hd)), q.new_zeros((B, H))
+    hs = []
+    for t in range(S):
+        it, ft = gates[:, t, :H], gates[:, t, H:]
+        m_new = torch.maximum(ft + m, it)
+        i_, f_ = torch.exp(it - m_new), torch.exp(ft + m - m_new)
+        kf = k[:, t] / math.sqrt(hd)
+        C = f_[..., None, None] * C + i_[..., None, None] * (v[:, t][..., :, None]
+                                                             * kf[..., None, :])
+        n = f_[..., None] * n + i_[..., None] * kf
+        den = torch.clamp((n * q[:, t]).sum(-1).abs(), min=1.0)
+        hs.append(torch.einsum("bhij,bhj->bhi", C, q[:, t]) / den[..., None])
+        m = m_new
+    return torch.stack(hs, dim=1)
+
+
+def _h_vs_f64(model, params, row) -> str:
+    """Each mLSTM call of a bf16 prefill of ``row`` (on the plain path's
+    inputs): the share of h's bf16 elements that differ from the f64
+    recurrence rounded to bf16, for the kernel the path calls, the
+    tensor-core variant and the plain form at chunk 256 (a measurement:
+    how far each is from exact where the end-to-end check compares them)."""
+    from unittest import mock
+
+    from repro_torch.kernels.mlstm import kernel, ops
+    from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
+    from repro_torch.models import xlstm
+
+    differ = {"kernel": 0, "tensor-core variant": 0, "plain 256": 0}
+    total = 0
+
+    def mlstm(q, k, v, gates, state, model_chunk):
+        nonlocal total
+        plain = mlstm_chunkwise_ref(q, k, v, gates, state, 256)
+        exact = _mlstm_f64(q, k, v, gates).to(q.dtype)
+        for name, h in (("kernel", ops.mlstm(q, k, v, gates, state)[0]),
+                        ("tensor-core variant",
+                         kernel.mlstm_tc(q, k, v, gates.float().contiguous(), state)[0]),
+                        ("plain 256", plain[0])):
+            differ[name] += int((h != exact).sum())
+        total += exact.numel()
+        return plain
+
+    with mock.patch.object(xlstm, "mlstm", mlstm):
+        model.prefill(params, {"tokens": row}, row.shape[1])
+    return ", ".join(f"{name} {100 * n / total:.4f}%" for name, n in differ.items())
 
 
 def compare_xlstm_paths(model, params, row) -> None:
@@ -1226,12 +1447,18 @@ def compare_xlstm_paths(model, params, row) -> None:
       top-1 equal, correlation > 0.99. Longer bf16 prompts are not
       comparable end to end: with random weights the stack is chaotic,
       and past this length two plain orders of the same sums (chunk 256
-      vs 32) stop agreeing too (``--xlstm-orders`` measures it);
+      vs 32) stop agreeing too (``--xlstm-orders`` measures it). Beside
+      it, measured and not held: the same comparison with the tensor-core
+      variant, and how far each one's mLSTM h is from the exact
+      recurrence;
     * f32 (the same seed's weights in f32, f32 compute), all 4096 tokens:
-      top-1 equal, correlation > 0.99."""
+      top-1 equal, correlation > 0.99.
+
+    All three run; the phase fails after them if any did not hold."""
     from repro_torch.models import build_model
 
     S = row.shape[1]
+    failed = []
     held: dict = {}
     _xlstm_prefill(model, params, row, held=held)
     log(f"[xlstm] bf16 prefill (S={S}), each of {held['calls']} mLSTM calls against the plain "
@@ -1240,17 +1467,28 @@ def compare_xlstm_paths(model, params, row) -> None:
             f"rtol={MLSTM_MAIN_TOLS[key]['rtol']})"
             for key in "hCnm") + f"; failures: {held.get('failed', 'none')}")
     if held.get("failed") or held["calls"] != _n_mlstm(model.cfg):
-        raise AssertionError("an mLSTM call of the bf16 prefill disagrees with the plain form")
+        failed.append("an mLSTM call of the bf16 prefill disagrees with the plain form")
 
     short = row[:, :XLSTM_BF16_LEN]
-    _hold_logits(f"bf16 prefill logits (S={XLSTM_BF16_LEN})",
-                 _xlstm_prefill(model, params, short), _xlstm_prefill(model, params, short, 256))
+    name = f"bf16 prefill logits (S={XLSTM_BF16_LEN})"
+    plain = _xlstm_prefill(model, params, short, 256)
+    if not _hold_logits(name, _xlstm_prefill(model, params, short), plain):
+        failed.append(f"{name}: kernel-path logits disagree with the plain path")
+    _hold_logits(f"{name} with the tensor-core variant (measured, not held)",
+                 _xlstm_prefill(model, params, short, tc=True), plain)
+    log(f"[xlstm] bf16 prefill (S={XLSTM_BF16_LEN}), mLSTM h elements that differ from the f64 "
+        f"recurrence rounded to bf16, over the {_n_mlstm(model.cfg)} calls: "
+        f"{_h_vs_f64(model, params, short)}")
 
     cfg32 = dataclasses.replace(model.cfg, dtype="float32")
     model32 = build_model(cfg32)
     params32 = model32.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
-    _hold_logits(f"f32 prefill logits (S={S})", _xlstm_prefill(model32, params32, row),
-                 _xlstm_prefill(model32, params32, row, 256))
+    name = f"f32 prefill logits (S={S})"
+    if not _hold_logits(name, _xlstm_prefill(model32, params32, row),
+                        _xlstm_prefill(model32, params32, row, 256)):
+        failed.append(f"{name}: kernel-path logits disagree with the plain path")
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 def _block_divergence(model, params, row, chunks) -> str:
@@ -1284,10 +1522,13 @@ def _block_divergence(model, params, row, chunks) -> str:
 def xlstm_orders() -> None:
     """bf16 full-width xlstm-350m prefill logits of single prompts at
     growing lengths, each against the plain path (the chunkwise form at
-    chunk 256): the kernel path, and the plain path in two other orders of
-    the same sums (chunk 32, chunk 8). Shows up to which length bf16
-    logits are comparable end to end (``XLSTM_BF16_LEN``), and, for one
-    prompt, how two plain orders drift apart block by block."""
+    chunk 256): the kernel path (and with the tensor-core variant), and the
+    plain path in two other orders of
+    the same sums (chunk 32, chunk 8), and up to 64 tokens the plain path
+    with each mLSTM output moved by a random relative 1e-7 (f32's rounding
+    size) before its bf16 rounding. Shows up to which length bf16 logits
+    are comparable end to end (``XLSTM_BF16_LEN``), and, for one prompt,
+    how two plain orders drift apart block by block."""
     from repro_torch.config import get_arch
     from repro_torch.models import build_model
 
@@ -1300,8 +1541,12 @@ def xlstm_orders() -> None:
             row = torch.as_tensor(prompts[r:r + 1, :S].astype(np.int32), device="cuda")
             plain = _xlstm_prefill(model, params, row, 256)
             others = {"kernel": _xlstm_prefill(model, params, row),
+                      "tensor cores": _xlstm_prefill(model, params, row, tc=True),
                       "plain 32": _xlstm_prefill(model, params, row, 32),
                       "plain 8": _xlstm_prefill(model, params, row, 8)}
+            if S <= 64:     # plain 256 with h moved by f32's own rounding size
+                others["plain 256, h x (1 + 1e-7 n)"] = _xlstm_prefill(
+                    model, params, row, 256, perturb=1e-7)
             log(f"[xlstm-orders] prompt {r} S={S}, against plain 256 (top-1 equal, "
                 f"correlation): " + "; ".join(
                     "{} {} {:.6f}".format(name, *_logit_agreement(x, plain)[:2])
@@ -1501,6 +1746,19 @@ def main() -> int:
         per_source[src.strip()] = f"max {max(regs, default=0)} registers, {spill} spill bytes"
     log(f"[build] {len(_build.sources())} sources in {_build.last_build['seconds']:.1f} s "
         f"-> {_build.last_build['path']}; ptxas per source (all instantiations): {per_source}")
+    # this slice's kernels, per entry function: registers and spill bytes (none allowed)
+    spills = {}
+    for entry in ptxas.split("Compiling entry function '")[1:]:
+        fn = entry.split("'", 1)[0]
+        if any(key in fn for key in NO_SPILL_KERNELS):
+            regs = re.findall(r"Used (\d+) registers", entry)
+            spill = sum(int(a) + int(b) for a, b in
+                        re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry))
+            spills[fn] = (int(regs[0]) if regs else None, spill)
+    log("[build] ptxas of " + ", ".join(NO_SPILL_KERNELS) + ": " + "; ".join(
+        f"{fn[:70]}: {r} registers, {sp} spill bytes" for fn, (r, sp) in spills.items()))
+    if ptxas != "(cached)" and (not spills or any(sp for _, sp in spills.values())):
+        raise AssertionError("a kernel of this slice spills registers (or was not compiled)")
     _build.load()
     if args.xlstm_orders:
         xlstm_orders()
@@ -1508,8 +1766,8 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    records = [*check_flash(gen, flush), check_paged(gen, flush), *check_flash_bwd(gen, flush),
-               check_ssm_scan(gen, flush), check_mlstm(gen, flush)]
+    records = [*check_flash(gen, flush), *check_paged(gen, flush), *check_flash_bwd(gen, flush),
+               check_ssm_scan(gen, flush), *check_mlstm(gen, flush)]
     del flush
     if args.kernels_only:
         log(json.dumps({"kernels": records}))
@@ -1526,7 +1784,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["xlstm"] = serve_xlstm_full_width()
-    paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm")
+    paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_fma",
+                                                    "mlstm_step")
     gc.collect()
     torch.cuda.empty_cache()
     paths["train"] = train_full_width()

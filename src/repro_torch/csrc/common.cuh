@@ -46,4 +46,19 @@ __device__ __forceinline__ void load_f32(const T* __restrict__ p, float* out) {
   }
 }
 
+// 16-byte asynchronous copies from global into shared memory (cp.async, L2
+// only): started, grouped by commit, waited for with all but N groups landed.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 }  // namespace repro

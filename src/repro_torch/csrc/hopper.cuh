@@ -124,6 +124,32 @@ __device__ __forceinline__ void regs_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REGS));
 }
 
+// Orders this thread's earlier generic-proxy writes to shared memory before
+// later async-proxy reads of it (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barriers (ids 1..15; 0 is __syncthreads): `sync` waits until
+// `count` threads have arrived at `id`, `arrive` signals without waiting.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Byte offset of element (row, col) of a bf16 box of 64-column (128-byte)
+// rows under TMA's 128-byte swizzle: 16-byte chunk index XOR (row % 8).
+__device__ __forceinline__ int swz128(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ (row & 7))) << 4) + (col & 7) * 2;
+}
+// The same for 32-column (64-byte) rows under the 64-byte swizzle: the
+// 16-byte chunk index XOR bits 7-8 of the byte offset, (row / 2) % 4.
+__device__ __forceinline__ int swz64(int row, int col) {
+  return row * 64 + ((((col >> 3) ^ ((row >> 1) & 3))) << 4) + (col & 7) * 2;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -208,6 +234,34 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
+// D (64 x 64, f32) (+)= A (64 x 16, smem, MN-major: the transpose bit) * B (16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_ta(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+// D (64 x 64, f32) (+)= A (64 x 16, bf16 registers) * B (16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
 // D (64 x 128, f32) (+)= A (64 x 16, bf16 registers) * B (16 x 128, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[4],
                                             uint64_t desc_b, int accumulate) {
@@ -267,11 +321,13 @@ inline EncodeTiledFn encode_tiled() {
 // one box per SW-byte column chunk of a tile. A ragged tail of S reads as
 // zeros, never as the next batch row. Dims of extent 1 get a packed stride
 // (the map demands a multiple of 16 bytes, whatever torch reports there).
+// `swizzle` (128 or 64) overrides that width, and with it the box's columns.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S, int H, int hd,
-                            long long sb, long long ss, long long sh, int rows) {
+                            long long sb, long long ss, long long sh, int rows,
+                            int swizzle = 0) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const int sw = hd * 2 >= 128 ? 128 : 64;
+  const int sw = swizzle ? swizzle : hd * 2 >= 128 ? 128 : 64;
   const cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
   cuuint64_t st[3] = {cuuint64_t(sh) * 2, cuuint64_t(ss) * 2, cuuint64_t(sb) * 2};
   if (H == 1) st[0] = cuuint64_t(hd) * 2;

@@ -15,13 +15,17 @@
 // which is the sequential recurrence of kernels/mlstm/ref.py regrouped. It
 // returns h (B, S, H, hd) in q's type and the final (C, n, m) in f32.
 //
-// What bounds it: at the model's prefill shape (B 8, S 4096, H 4, hd 512,
-// bf16 q/k/v) the chunkwise form at chunk 256 needs ~2.4e11 flop of matrix
-// products (0.24 ms at 989 TFLOP/s of bf16 tensor cores) and moves ~0.57 GB
-// (0.17 ms at 3.35 TB/s): operations bound it. At decode (S = 1) the state
-// is the work: a read and a write of C, 67 MB at B 8.
+// Two kernels here, chosen by the wrapper (kernels/mlstm/kernel.py):
+// * `mlstm_kernel<T>`, the chunkwise form on f32 FMAs for f32 and bf16 q/k/v
+//   (csrc/mlstm_tc.cu has a bf16 variant on tensor cores, which the wrapper
+//   does not dispatch to); f32 callers (the reduced models, whose
+//   card-equals-CPU checks hold 1e-4) need f32 products, which TF32 tensor
+//   cores would not give;
+// * `mlstm_step_kernel`, the decode step (S of a few timesteps, either
+//   dtype): one pass over C. At decode (S = 1) the state is the work, a read
+//   and a write of C (67 MB at B 8, H 4, hd 512), so it is bound by bytes.
 //
-// Design (a simple first version: f32 FMAs, no tensor cores):
+// Design of the chunkwise FMA kernel:
 // * The state does not fit an SM (C is 1 MB of f32 per (b, h) at hd 512), so
 //   each block owns a 32-row tile of C's value rows, C[v0:v0+32, :] (64 KB at
 //   hd 512), in shared memory for the whole sequence: grid (hd / 32, B * H).
@@ -264,6 +268,136 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* g,
   return cudaGetLastError();
 }
 
+// ---- the decode step: one pass over C ----------------------------------------
+
+constexpr int STEP_THREADS = 256;                 // 8 warps
+constexpr int STEP_ROWS = 16;                     // rows of C per block: 2 a warp
+constexpr int STEP_F4 = 4;                        // float4s of a row a lane holds (hd <= 512)
+
+// For each (b, h) and each of the S (a few) timesteps, in order:
+//   m' = max(f~ + m, i~),  i' = exp(i~ - m'),  f' = exp(f~ + m - m'),  k^ = k / sqrt(hd)
+//   n' = f' n + i' k^,  C'[i, :] = f' C[i, :] + i' v_i k^,
+//   h_i = C'[i, :] . q / max(|n' . q|, 1)
+// A block owns STEP_ROWS rows of C, read once into registers with 16-byte
+// loads, updated and used in the same pass, and written once; every block
+// recomputes n' and n'.q (hd FMAs a step), so blocks never talk to each other.
+template <typename T>
+__global__ void __launch_bounds__(STEP_THREADS) mlstm_step_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ g, const float* __restrict__ C0, const float* __restrict__ n0,
+    const float* __restrict__ m0, T* __restrict__ hout, float* __restrict__ Cout,
+    float* __restrict__ nout, float* __restrict__ mout, int H, int S, int hd,
+    Strides sq, Strides sk, Strides sv, Strides sh, long long gb, long long gs) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                     // [hd] q_t
+  float* ks = qs + hd;                  // [hd] k^_t
+  float* ns = ks + hd;                  // [hd] n
+  float* red = ns + hd;                 // [8] per-warp partial sums of n'.q
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.y, b = bh / H, hh = bh % H;
+  const int nf = hd / 4;                // float4s of a row
+  const float inv_sqrt_hd = 1.f / sqrtf(float(hd));
+
+  float4 c[2][STEP_F4];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long row = (long long)bh * hd + blockIdx.x * STEP_ROWS + warp * 2 + rr;
+#pragma unroll
+    for (int j = 0; j < STEP_F4; ++j) {
+      const int f = lane + 32 * j;
+      c[rr][j] = (C0 != nullptr && f < nf)
+                     ? reinterpret_cast<const float4*>(C0 + row * hd)[f]
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  for (int i = tid; i < hd; i += STEP_THREADS) ns[i] = n0 != nullptr ? n0[(long long)bh * hd + i] : 0.f;
+  float m = m0 != nullptr ? m0[bh] : 0.f;
+
+  const T* qb = q + b * sq.b + hh * sq.h;
+  const T* kb = k + b * sk.b + hh * sk.h;
+  const T* vb = v + b * sv.b + hh * sv.h;
+  T* hb = hout + b * sh.b + hh * sh.h;
+  const float* gp = g + b * gb;
+  for (int t = 0; t < S; ++t) {
+    const float ig = gp[t * gs + hh], fg = gp[t * gs + H + hh];
+    const float m_new = fmaxf(fg + m, ig);
+    const float ip = expf(ig - m_new), fp = expf(fg + m - m_new);
+    __syncthreads();                    // the previous step's readers of qs, ks, red are done
+    float part = 0.f;
+    for (int i = tid; i < hd; i += STEP_THREADS) {
+      const float qx = repro::to_float(qb[t * sq.s + i]);
+      const float kx = repro::to_float(kb[t * sk.s + i]) * inv_sqrt_hd;
+      const float nx = fmaf(fp, ns[i], ip * kx);
+      qs[i] = qx;
+      ks[i] = kx;
+      ns[i] = nx;
+      part = fmaf(nx, qx, part);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(repro::FULL_MASK, part, off);
+    if (lane == 0) red[warp] = part;
+    __syncthreads();
+    float nq = 0.f;
+#pragma unroll
+    for (int w = 0; w < STEP_THREADS / 32; ++w) nq += red[w];
+    const float inv_den = 1.f / fmaxf(fabsf(nq), 1.f);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = blockIdx.x * STEP_ROWS + warp * 2 + rr;
+      const float iv = ip * repro::to_float(vb[t * sv.s + r]);
+      float dot = 0.f;
+#pragma unroll
+      for (int j = 0; j < STEP_F4; ++j) {
+        const int f = lane + 32 * j;
+        if (f < nf) {
+          const float4 k4 = reinterpret_cast<const float4*>(ks)[f];
+          const float4 q4 = reinterpret_cast<const float4*>(qs)[f];
+          float4& x = c[rr][j];
+          x.x = fmaf(fp, x.x, iv * k4.x);
+          x.y = fmaf(fp, x.y, iv * k4.y);
+          x.z = fmaf(fp, x.z, iv * k4.z);
+          x.w = fmaf(fp, x.w, iv * k4.w);
+          dot = dot4(x, q4, dot);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(repro::FULL_MASK, dot, off);
+      if (lane == 0) hb[t * sh.s + r] = repro::from_float<T>(dot * inv_den);
+    }
+    m = m_new;
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long row = (long long)bh * hd + blockIdx.x * STEP_ROWS + warp * 2 + rr;
+#pragma unroll
+    for (int j = 0; j < STEP_F4; ++j) {
+      const int f = lane + 32 * j;
+      if (f < nf) reinterpret_cast<float4*>(Cout + row * hd)[f] = c[rr][j];
+    }
+  }
+  if (blockIdx.x == 0) {
+    __syncthreads();
+    for (int i = tid; i < hd; i += STEP_THREADS) nout[(long long)bh * hd + i] = ns[i];
+    if (tid == 0) mout[bh] = m;
+  }
+}
+
+template <typename T>
+cudaError_t launch_step(const void* q, const void* k, const void* v, const float* g,
+                        const float* C0, const float* n0, const float* m0, void* h, float* C,
+                        float* n, float* m, int B, int S, int H, int hd, Strides sq,
+                        Strides sk, Strides sv, Strides sh, long long gb, long long gs,
+                        cudaStream_t stream) {
+  const size_t smem = (3 * size_t(hd) + STEP_THREADS / 32) * sizeof(float);
+  const dim3 grid(hd / STEP_ROWS, B * H);
+  mlstm_step_kernel<T><<<grid, STEP_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), g, C0, n0,
+      m0, static_cast<T*>(h), C, n, m, H, S, hd, sq, sk, sv, sh, gb, gs);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, h: (B, S, H, hd) in `dtype` with the given (b, s, h) strides and
@@ -297,6 +431,38 @@ extern "C" int repro_mlstm(
     case repro::kBFloat16:
       return launch<__nv_bfloat16>(q, k, v, f_g, f_C0, f_n0, f_m0, h, f_C, f_n, f_m, B, S, H,
                                    hd, sq, sk, sv, sh, g_b, g_s, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The decode step (a few timesteps, one pass over C): the same arguments and
+// layouts as repro_mlstm.
+extern "C" int repro_mlstm_step(
+    const void* q, const void* k, const void* v, const void* gates, const void* C0,
+    const void* n0, const void* m0, void* h, void* C, void* n, void* m,
+    int dtype, int B, int S, int H, int hd,
+    long long q_b, long long q_s, long long q_h, long long k_b, long long k_s, long long k_h,
+    long long v_b, long long v_s, long long v_h, long long h_b, long long h_s, long long h_h,
+    long long g_b, long long g_s, void* stream) {
+  if (B == 0 || H == 0) return cudaSuccess;
+  if (B < 0 || H < 0 || S < 0 || (long long)B * H > 65535 || hd < 32 || hd > 512 || hd % 32)
+    return cudaErrorInvalidValue;
+  const Strides sq{q_b, q_s, q_h}, sk{k_b, k_s, k_h}, sv{v_b, v_s, v_h}, sh{h_b, h_s, h_h};
+  const float* f_g = static_cast<const float*>(gates);
+  const float* f_C0 = static_cast<const float*>(C0);
+  const float* f_n0 = static_cast<const float*>(n0);
+  const float* f_m0 = static_cast<const float*>(m0);
+  float* f_C = static_cast<float*>(C);
+  float* f_n = static_cast<float*>(n);
+  float* f_m = static_cast<float*>(m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case repro::kFloat32:
+      return launch_step<float>(q, k, v, f_g, f_C0, f_n0, f_m0, h, f_C, f_n, f_m, B, S, H, hd,
+                                sq, sk, sv, sh, g_b, g_s, s);
+    case repro::kBFloat16:
+      return launch_step<__nv_bfloat16>(q, k, v, f_g, f_C0, f_n0, f_m0, h, f_C, f_n, f_m, B, S,
+                                        H, hd, sq, sk, sv, sh, g_b, g_s, s);
     default: return cudaErrorInvalidValue;
   }
 }

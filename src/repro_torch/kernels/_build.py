@@ -40,6 +40,15 @@ _F = ctypes.c_float
 # element-type codes of csrc/common.cuh's `DType`
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+_MLSTM = [
+    _P, _P, _P, _P, _P, _P, _P,          # q, k, v, gates, C0, n0, m0 (NULL = zeros)
+    _P, _P, _P, _P,                      # h, C, n, m
+    _I, _I, _I, _I, _I,                  # dtype, B, S, H, hd
+    _L, _L, _L, _L, _L, _L,              # q strides (b, s, h), k strides
+    _L, _L, _L, _L, _L, _L,              # v strides, h strides
+    _L, _L, _P,                          # gate strides (b, s), stream
+]
+
 # C signatures, mirrored from the `extern "C"` declarations in csrc/
 SIGNATURES = {
     "repro_flash_attention_fwd": [
@@ -62,23 +71,19 @@ SIGNATURES = {
         _I, _I, _I, _F, _P,              # causal, window, q_offset, sm_scale, stream
     ],
     "repro_paged_attention": [
-        _P, _P, _P, _P, _P, _P,          # q, k_pages, v_pages, block_table, seq_lens, out
+        _P, _P, _P, _P, _P, _P, _P,      # q, k_pages, v_pages, block_table, seq_lens, out,
+                                         # workspace
         _I, _I, _I, _I, _I, _I, _I, _I,  # dtype, B, H, KVH, hd, P, page_size, max_blocks
-        _F, _P,                          # sm_scale, stream
+        _I, _F, _P,                      # segments, sm_scale, stream
     ],
     "repro_ssm_scan": [
         _P, _P, _P, _P, _P, _P, _P,      # u, dt, B_, C_, A, D, h0 (NULL = zeros)
         _P, _P,                          # y, h_final
         _I, _I, _I, _I, _I, _P,          # dtype, B, S, inner, N, stream
     ],
-    "repro_mlstm": [
-        _P, _P, _P, _P, _P, _P, _P,      # q, k, v, gates, C0, n0, m0 (NULL = zeros)
-        _P, _P, _P, _P,                  # h, C, n, m
-        _I, _I, _I, _I, _I,              # dtype, B, S, H, hd
-        _L, _L, _L, _L, _L, _L,          # q strides (b, s, h), k strides
-        _L, _L, _L, _L, _L, _L,          # v strides, h strides
-        _L, _L, _P,                      # gate strides (b, s), stream
-    ],
+    "repro_mlstm": _MLSTM,               # f32 FMA chunkwise kernel
+    "repro_mlstm_step": _MLSTM,          # one-pass decode step
+    "repro_mlstm_tc": _MLSTM[:11] + _MLSTM[12:],   # tensor cores, bf16 only: no dtype
 }
 
 _lib = None

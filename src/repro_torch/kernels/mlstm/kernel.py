@@ -1,9 +1,24 @@
-"""Launch wrapper of the CUDA chunkwise mLSTM (``csrc/mlstm.cu``, replacing
-the Pallas ``_mlstm_kernel``).
+"""Launch wrappers of the CUDA chunkwise mLSTM (``csrc/mlstm.cu`` and
+``csrc/mlstm_tc.cu``, replacing the Pallas ``_mlstm_kernel``).
 
-``mlstm`` validates what the kernel takes, allocates the outputs, launches
-on PyTorch's current stream and counts the launch in ``launches``. It
-never falls back: anything the kernel does not take raises.
+Each wrapper validates what its kernel takes, allocates the outputs and
+launches on PyTorch's current stream, counting the launch in its own
+counter; anything the kernel does not take raises.
+
+``mlstm``, the one the model calls, picks by S (not a fallback: each case
+has exactly one kernel):
+
+* S <= ``STEP_MAX`` (a decode step), either dtype: the one-pass step
+  kernel (``launches_step``);
+* longer, either dtype: the FMA chunkwise kernel (``launches_fma``).
+
+``mlstm_tc`` is the bf16 chunkwise kernel on tensor cores
+(``launches_tc``; head_dim a multiple of 64). ``mlstm`` does not dispatch
+to it: with it, random-weight bf16 xlstm-350m's prefill logits over 32
+tokens lose top-1 agreement with the plain path (``chip_smoke.py``'s
+end-to-end bf16 check), though its h is nearer an f64 recurrence than
+the plain path's; it is held against the plain form and timed on the card
+until that check is settled.
 """
 from __future__ import annotations
 
@@ -13,10 +28,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0   # kernel launches since the last reset (plain int)
+launches_tc = 0     # kernel launches since the last reset (plain ints), by variant
+launches_fma = 0
+launches_step = 0
 
-MAX_HEAD_DIM = 512   # the kernel keeps a 32-row tile of C (32 x hd f32) in shared memory
-CHUNK = 32           # timesteps per chunk of the kernel (``L`` in csrc/mlstm.cu)
+MAX_HEAD_DIM = 512   # the kernels keep a tile of C's rows (rows x hd f32) on chip
+STEP_MAX = 8         # up to this many timesteps run in one pass over C
 
 
 def _check(q, k, v, gates, state) -> None:
@@ -49,6 +66,38 @@ def _check(q, k, v, gates, state) -> None:
             if tuple(t.shape) != shape or not t.is_contiguous():
                 raise ValueError(f"mlstm kernel: state {name}{tuple(t.shape)}, expected a "
                                  f"contiguous {shape}")
+        if state[0].data_ptr() % 16:
+            raise ValueError("mlstm kernel: state C must be 16-byte aligned")
+
+
+def _check_tc(q, k, v) -> None:
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"mlstm tensor-core kernel: bf16 q/k/v, got {q.dtype}")
+    if q.shape[3] % 64:
+        raise ValueError(f"mlstm tensor-core kernel: head_dim {q.shape[3]} (a multiple of 64)")
+    if any(t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]) for t in (q, k, v)):
+        raise ValueError("mlstm tensor-core kernel: q/k/v must be 16-byte aligned with "
+                         "strides of whole 16-byte units (TMA)")
+
+
+def _launch(fn, what, dtype_args, q, k, v, gates, state):
+    """Allocates h and the final state, launches ``fn`` and raises on a CUDA error."""
+    B, S, H, hd = q.shape
+    h = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    C = torch.empty((B, H, hd, hd), dtype=torch.float32, device=q.device)
+    n = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    C0, n0, m0 = (t.data_ptr() for t in state) if state is not None else (None, None, None)
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), gates.data_ptr(), C0, n0, m0,
+            h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(),
+            *dtype_args, B, S, H, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *h.stride()[:3],
+            *gates.stride()[:2], torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(err, what)
+    return h, (C, n, m)
 
 
 def mlstm(
@@ -60,23 +109,30 @@ def mlstm(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Returns (h (B,S,H,hd) in q's dtype, (C (B,H,hd,hd), n (B,H,hd), m (B,H)) f32).
     ``state`` (C, n, m) f32 contiguous, None for zeros; it is only read."""
-    global launches
+    global launches_fma, launches_step
     _check(q, k, v, gates, state)
-    B, S, H, hd = q.shape
-    h = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    C = torch.empty((B, H, hd, hd), dtype=torch.float32, device=q.device)
-    n = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    C0, n0, m0 = (t.data_ptr() for t in state) if state is not None else (None, None, None)
     lib = _build.load()
-    with torch.cuda.device(q.device):
-        err = lib.repro_mlstm(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), gates.data_ptr(), C0, n0, m0,
-            h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(),
-            _build.DTYPE_CODE[q.dtype], B, S, H, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *h.stride()[:3],
-            *gates.stride()[:2], torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(err, "mlstm")
-    launches += 1
-    return h, (C, n, m)
+    dtype = (_build.DTYPE_CODE[q.dtype],)
+    if q.shape[1] <= STEP_MAX:
+        out = _launch(lib.repro_mlstm_step, "mlstm (step)", dtype, q, k, v, gates, state)
+        launches_step += 1
+    else:
+        out = _launch(lib.repro_mlstm, "mlstm (fma)", dtype, q, k, v, gates, state)
+        launches_fma += 1
+    return out
+
+
+def mlstm_tc(
+    q: torch.Tensor,       # (B, S, H, hd) bf16, rows contiguous
+    k: torch.Tensor,
+    v: torch.Tensor,
+    gates: torch.Tensor,   # (B, S, 2H) f32
+    state: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The same function as ``mlstm`` on the tensor-core kernel."""
+    global launches_tc
+    _check(q, k, v, gates, state)
+    _check_tc(q, k, v)
+    out = _launch(_build.load().repro_mlstm_tc, "mlstm (tc)", (), q, k, v, gates, state)
+    launches_tc += 1
+    return out

@@ -2,12 +2,13 @@
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel (or
 raises), a CPU tensor runs the plain ``mlstm_chunkwise_ref`` at the
-model's ``chunk``. On the card the gates and the state go to the kernel in
-f32 and contiguous; q/k/v keep their dtype (f32 or bf16), which is h's,
-and may be strided views of the (B, S, inner) projections. The kernel
-picks its own chunk and bounds its loops by S, so nothing is padded: the
-stabilizer and the state are the same for any chunk length, up to
-rounding.
+model's ``chunk``. On the card the gates and the state go to the kernels
+in f32 and contiguous; q/k/v keep their dtype (f32 or bf16), which is h's,
+and may be strided views of the (B, S, inner) projections. ``kernel.mlstm``
+picks the kernel (a decode step of a few timesteps: one pass over C;
+longer: the chunkwise FMA kernel); each bounds its loops by S, so nothing
+is padded: the stabilizer and the state are the same for any chunk
+length, up to rounding.
 """
 from __future__ import annotations
 

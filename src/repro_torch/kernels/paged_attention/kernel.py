@@ -1,10 +1,14 @@
 """Launch wrapper of the CUDA paged decode attention
 (``csrc/paged_attention.cu``, replacing the Pallas ``_paged_kernel``).
 
-``paged_attention`` validates what the kernel takes, allocates the
-output, launches on PyTorch's current stream and counts the launch in
-``launches``. It never falls back: anything the kernel does not take
-raises.
+``paged_attention`` validates what the kernel takes, allocates the output
+and the split kernel's f32 workspace (PyTorch's caching allocator),
+launches the split and merge kernels on PyTorch's current stream and
+counts the call by variant, chosen by q's dtype: bf16 scores and P·V on
+tensor cores (``launches_tc``), f32 on FMAs (``launches_fma``). It never
+reads ``seq_lens`` or
+``block_table`` on the host, so it never synchronises. It never falls
+back: anything the kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -14,8 +18,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention.ref import SEGMENT_POSITIONS
 
-launches = 0   # kernel launches since the last reset (plain int)
+launches_tc = 0     # calls since the last reset (plain ints), by variant
+launches_fma = 0
 
 HEAD_DIMS = (32, 64, 128)
 GROUPS = (1, 2, 4, 8)
@@ -57,20 +63,30 @@ def paged_attention(
     sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Returns (B, H, hd) in q's dtype."""
-    global launches
+    global launches_tc, launches_fma
     _check(q, k_pages, v_pages, block_table, seq_lens)
     B, H, hd = q.shape
     P, ps, KVH, _ = k_pages.shape
+    nb = block_table.shape[1]
     scale = sm_scale if sm_scale is not None else float(1.0 / np.sqrt(hd))
     out = torch.empty_like(q)
+    if B == 0 or nb == 0:
+        return out.zero_()
+    n_seg = -(-nb * ps // SEGMENT_POSITIONS)
+    # per (lane, kv head, segment, query head): acc[hd], then m, then l
+    ws = torch.empty(B * KVH * n_seg * (H // KVH) * (hd + 2), dtype=torch.float32,
+                     device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.repro_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            _build.DTYPE_CODE[q.dtype], B, H, KVH, hd, P, ps, block_table.shape[1],
+            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            _build.DTYPE_CODE[q.dtype], B, H, KVH, hd, P, ps, nb, n_seg,
             float(scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "paged_attention")
-    launches += 1
+    if q.dtype == torch.bfloat16:
+        launches_tc += 1
+    else:
+        launches_fma += 1
     return out

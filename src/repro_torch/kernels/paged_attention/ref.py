@@ -1,8 +1,12 @@
-"""Plain PyTorch version of the paged decode-attention kernel (counterpart
+"""Plain PyTorch versions of the paged decode-attention kernel (counterpart
 of ``repro/kernels/paged_attention/ref.py``).
 
-Gathers each lane's pages through its block table and runs exact masked
-softmax attention over the gathered positions, in f32.
+``paged_attention_ref`` gathers each lane's pages through its block table
+and runs exact masked softmax attention over the gathered positions, in
+f32. ``paged_attention_split_ref`` computes the same thing the way the
+CUDA kernel does: per segment of ``SEGMENT_POSITIONS`` consecutive
+positions a partial (max m, sum l, unnormalised acc), then a merge of the
+partials in segment order.
 
 Layout contract (shared with kernel.py / ops.py and the CUDA source):
 
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
+SEGMENT_POSITIONS = 128   # positions per segment of the kernel's split (csrc SEG)
 
 
 def paged_attention_ref(
@@ -56,3 +61,59 @@ def paged_attention_ref(
     # zero the output explicitly, as the kernel's finalize does
     o = torch.where(seq_lens[:, None, None, None] > 0, o, 0.0)
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_attention_split_ref(
+    q: torch.Tensor,            # (B, H, hd)
+    k_pages: torch.Tensor,      # (P, page_size, KVH, hd)
+    v_pages: torch.Tensor,      # (P, page_size, KVH, hd)
+    block_table: torch.Tensor,  # (B, max_blocks) int32
+    seq_lens: torch.Tensor,     # (B,) int32
+    *,
+    sm_scale: Optional[float] = None,
+    segment: int = SEGMENT_POSITIONS,
+) -> torch.Tensor:
+    """Split-and-merge form, in f32: segment j holds positions [j*L, (j+1)*L)
+    with L = ``segment`` (the kernel's unless a test sets another; a page may
+    span segments). Its partial over its live positions is (m_j = max s,
+    l_j = sum exp(s - m_j), acc_j = sum exp(s - m_j) v); an empty segment's
+    is (-1e30, 0, 0). The merge takes the live segments in
+    order: M = max m_j, o = sum exp(m_j - M) acc_j / max(sum exp(m_j - M)
+    l_j, 1e-37); a dead lane has no live segment and gives zeros."""
+    B, H, hd = q.shape
+    P, page_size, KVH = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
+    max_blocks = block_table.shape[1]
+    G = H // KVH
+    T = max_blocks * page_size
+    L = segment
+    n_seg = -(-T // L)
+    scale = sm_scale if sm_scale is not None else float(1.0 / np.sqrt(hd))
+
+    tbl = torch.clamp(block_table.long(), 0, P - 1)
+    k = k_pages[tbl].reshape(B, T, KVH, hd).float()
+    v = v_pages[tbl].reshape(B, T, KVH, hd).float()
+    qg = q.reshape(B, KVH, G, hd).float() * scale
+    lens = torch.clamp(seq_lens.long(), max=T)
+    out = torch.zeros((B, KVH, G, hd), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        n = int(lens[b])
+        parts = []
+        for j in range(n_seg):
+            lo, hi = j * L, min(n, (j + 1) * L)
+            if hi <= lo:
+                break   # this and later segments are empty: the merge reads none of them
+            s = torch.einsum("kgd,tkd->kgt", qg[b], k[b, lo:hi])      # (KVH, G, t)
+            m = s.max(dim=-1).values
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("kgt,tkd->kgd", p, v[b, lo:hi])))
+        if not parts:
+            continue   # a dead lane stays exact zeros
+        M = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+        l_sum = torch.zeros_like(M)
+        acc = torch.zeros((KVH, G, hd), dtype=torch.float32, device=q.device)
+        for m, l, a in parts:
+            w = torch.exp(m - M)
+            l_sum = l_sum + l * w
+            acc = acc + a * w[..., None]
+        out[b] = acc / torch.clamp(l_sum, min=1e-37)[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)

@@ -174,8 +174,9 @@ def test_flash_ops_cpu_dispatch_runs_plain_version():
 
 def test_paged_ops_cpu_dispatch_runs_plain_version():
     _, tx = _split(_paged_inputs(2, 4, 2, 32, 16, 3, [20, 9], F32))
-    before = paged_kernel.launches
+    counts = lambda: (paged_kernel.launches_tc, paged_kernel.launches_fma)
+    before = counts()
     assert torch.equal(paged_decode_attention(*tx), paged_attention_ref(*tx))
-    assert paged_kernel.launches == before
+    assert counts() == before
     with pytest.raises(ValueError, match="CUDA"):
         paged_kernel.paged_attention(*tx)

@@ -19,7 +19,8 @@ import torch
 from repro.kernels.mlstm import mlstm_chunkwise as jax_mlstm_chunkwise
 from repro.kernels.mlstm import mlstm_ref as jax_mlstm_ref
 from repro.models import xlstm as jax_xlstm
-from repro_torch.kernels.mlstm import kernel, mlstm, mlstm_chunkwise_ref, mlstm_ref
+from repro_torch.kernels.mlstm import (kernel, mlstm, mlstm_chunkwise_hilo_ref,
+                                       mlstm_chunkwise_ref, mlstm_ref, mlstm_step_ref)
 
 F32, BF16 = "float32", "bfloat16"
 
@@ -150,9 +151,10 @@ def test_mlstm_ops_runs_the_plain_version_on_cpu():
     a = _inputs(1, 2, 20, 32, seed=3, with_state=True)
     args = _model_layout(*_torch(a, BF16))
     state = tuple(torch.from_numpy(x) for x in a["state"])
-    launches = kernel.launches
+    counts = lambda: (kernel.launches_tc, kernel.launches_fma, kernel.launches_step)
+    launches = counts()
     h, st = mlstm(*args, state, chunk=8)
-    assert kernel.launches == launches
+    assert counts() == launches
     rh, rst = mlstm_chunkwise_ref(*args, state, chunk=8)
     assert torch.equal(h, rh) and all(torch.equal(x, y) for x, y in zip(st, rst))
 
@@ -161,3 +163,126 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     args = _model_layout(*_torch(_inputs(1, 2, 4, 32, seed=5), F32))
     with pytest.raises(ValueError, match="CUDA"):
         kernel.mlstm(*args)
+
+
+def test_tensor_core_wrapper_refuses_cpu_tensors():
+    args = _model_layout(*_torch(_inputs(1, 2, 16, 64, seed=5), BF16))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.mlstm_tc(*args)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' algorithms, as plain forms: the one-pass decode step and
+# the tensor-core prefill's rounding scheme (hi + lo bf16 halves)
+# ---------------------------------------------------------------------------
+
+STEP_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,hd,S", [(2, 2, 64, 1), (1, 4, 32, 1), (2, 1, 128, 1),
+                                      (8, 4, 128, 1), (1, 2, 64, 3)])
+def test_mlstm_step_ref_matches_jax_from_state(B, H, hd, S):
+    """The decode step's one-pass form from a carried state, against the JAX
+    sequential oracle, f32 at 1e-5 (h, C, n and m)."""
+    a = _inputs(B, H, S, hd, seed=200 + hd + S, with_state=True)
+    state = tuple(torch.from_numpy(x) for x in a["state"])
+    h, st = mlstm_step_ref(*_model_layout(*_torch(a, F32)), state)
+    jh, jst = jax_mlstm_ref(*_jax(a, F32), tuple(jnp.asarray(x) for x in a["state"]))
+    assert h.dtype == torch.float32 and tuple(h.shape) == (B, S, H, hd)
+    np.testing.assert_allclose(_np(h.transpose(1, 2)), _np(jh), **STEP_TOL)
+    for name, x, y in zip("Cnm", st, jst):
+        np.testing.assert_allclose(_np(x), _np(y), err_msg=name, **STEP_TOL)
+
+
+def test_mlstm_step_ref_from_zero_state_matches_sequential():
+    a = _inputs(2, 2, 2, 64, seed=11)
+    args = _model_layout(*_torch(a, F32))
+    h, st = mlstm_step_ref(*args)
+    rh, rst = mlstm_ref(*_torch(a, F32))
+    np.testing.assert_allclose(_np(h.transpose(1, 2)), _np(rh), **STEP_TOL)
+    for x, y in zip(st, rst):
+        np.testing.assert_allclose(_np(x), _np(y), **STEP_TOL)
+
+
+# chip_smoke.py's tolerances: the oracle cases' state (MLSTM_STATE_TOL) and
+# the prefill shape's against the plain chunkwise form (MLSTM_MAIN_*)
+MAIN_H_TOL = dict(atol=1e-3, rtol=1e-2)
+MAIN_STATE_TOL = dict(atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("B,H,S,hd,chunk,dtype",
+                         [c for c in MLSTM_CASES if c[-1] == BF16]
+                         + [(2, 2, 100, 64, 64, BF16), (1, 1, 200, 128, 64, BF16)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mlstm_hilo_emulation_matches_jax_ref(B, H, S, hd, chunk, dtype, with_state):
+    """The tensor-core kernel's rounding scheme (its chunk of 64, hi + lo
+    halves of P', C_in and V w) against the JAX sequential oracle on the
+    bf16 MLSTM_CASES row and ragged S with and without a carried state:
+    h at the bf16 tolerance, C and n at 1e-4, m at 1e-3."""
+    a = _inputs(B, H, S, hd, seed=300 + S + hd, with_state=with_state)
+    state = tuple(torch.from_numpy(x) for x in a["state"]) if with_state else None
+    h, st = mlstm_chunkwise_hilo_ref(*_model_layout(*_torch(a, dtype)), state)
+    jstate = tuple(jnp.asarray(x) for x in a["state"]) if with_state else None
+    jh, jst = jax_mlstm_ref(*_jax(a, dtype), jstate)
+    assert h.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(h.transpose(1, 2)), _np(jh), **h_tol(dtype))
+    _assert_state(st, jst)
+
+
+def test_mlstm_hilo_emulation_holds_main_tolerances():
+    """At the model's head_dim (512) over 16 chunks, the emulation stays within
+    chip_smoke.py's prefill-shape tolerances of the plain chunkwise form at
+    the model's chunk 256, and of the JAX oracle."""
+    a = _inputs(1, 2, 1024, 512, seed=9)
+    args = _model_layout(*_torch(a, BF16))
+    h, st = mlstm_chunkwise_hilo_ref(*args)
+    rh, rst = mlstm_chunkwise_ref(*args, chunk=256)
+    np.testing.assert_allclose(_np(h), _np(rh), **MAIN_H_TOL)
+    for name, x, y in zip("Cn", st[:2], rst[:2]):
+        np.testing.assert_allclose(_np(x), _np(y), err_msg=name, **MAIN_STATE_TOL)
+    np.testing.assert_allclose(_np(st[2]), _np(rst[2]), **M_TOL)
+
+
+def _main_shape_errors_with(split):
+    """The emulation at the model's head_dim with ``ref._hilo`` replaced by
+    ``split``; whether h, C and n hold chip_smoke.py's prefill-shape
+    tolerances against the plain chunkwise form at chunk 256."""
+    from unittest import mock
+
+    from repro_torch.kernels.mlstm import ref
+
+    a = _inputs(1, 2, 1024, 512, seed=9)
+    args = _model_layout(*_torch(a, BF16))
+    rh, rst = mlstm_chunkwise_ref(*args, chunk=256)
+    with mock.patch.object(ref, "_hilo", split):
+        h, st = mlstm_chunkwise_hilo_ref(*args)
+    close = lambda x, y, t: bool(torch.all((x.float() - y.float()).abs()
+                                           <= t["atol"] + t["rtol"] * y.float().abs()))
+    return (close(h, rh, MAIN_H_TOL), close(st[0], rst[0], MAIN_STATE_TOL),
+            close(st[1], rst[1], MAIN_STATE_TOL))
+
+
+def test_mlstm_one_rounding_misses_main_tolerances():
+    """Why the kernel splits f32 operands: with C_in, P' and V·w each rounded
+    to bf16 once, h and C miss the prefill-shape tolerances that the hi + lo
+    scheme holds (test above)."""
+    once = lambda x, terms=2: (x.to(torch.bfloat16).float(),)
+    h_ok, C_ok, _ = _main_shape_errors_with(once)
+    assert not h_ok and not C_ok
+
+
+def test_mlstm_hi_only_inter_is_caught_at_the_main_h_tolerance():
+    """The kernel's q·C_inᵀ taken from C_in's hi half alone leaves the state
+    exact but moves h past the prefill-shape tolerance, so chip_smoke.py's
+    main-path check catches that fault."""
+    from repro_torch.kernels.mlstm import ref
+
+    full = ref._hilo
+
+    def hi_only_for_C(x, terms=2):
+        if x.dim() == 4 and x.shape[-1] == x.shape[-2] == 512:   # C_in (B, H, hd, hd)
+            return (x.to(torch.bfloat16).float(),)
+        return full(x, terms)
+
+    h_ok, C_ok, n_ok = _main_shape_errors_with(hi_only_for_C)
+    assert not h_ok and C_ok and n_ok
