@@ -17,12 +17,13 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    have two variants each, by dtype: bf16 on tensor cores (wgmma fed by
    TMA), f32 on FMAs; every feature case runs in both dtypes. The paged
    kernel (split over positions, then merged) has two: bf16 scores and P.V
-   on tensor cores (mma.sync), f32 on FMAs. The mLSTM's model calls go to
-   a one-pass decode step (S <= 8) or the FMA chunkwise kernel (both
-   dtypes); its bf16 tensor-core variant is held and timed too, though no
-   path calls it. Two calls on the same inputs give the same bits for the
-   bf16 dq, the paged kernel, the tensor-core mLSTM and the step; the new
-   kernels build with no spilled registers;
+   on tensor cores (mma.sync), f32 on FMAs. The scan has a prefill kernel
+   and a decode kernel (S <= 4), picked by S. The mLSTM's model calls go
+   to a one-pass decode step (S <= 8) or a chunkwise kernel: bf16 on
+   tensor cores, f32 (and head dims the tensor cores do not take) on
+   FMAs, both held in both dtypes. Two calls on the same inputs give the
+   same bits for the bf16 dq, the paged kernel, the scan, the tensor-core
+   mLSTM and the step; the new kernels build with no spilled registers;
 4. serving: full-width qwen3-4b (random bf16 weights from a seeded
    generator) through ``DecodeEngine`` on 16 requests; launch counters
    prove prefill went through the flash kernel (36 launches per prefill)
@@ -40,15 +41,16 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
 6. xLSTM serving: full-width xlstm-350m (random bf16 weights, the
    blocks' f32 leaves kept f32) through the serve launcher's loop, 8
    prompts x 4096 tokens and 32 new tokens each; launch counters prove
-   the prefill went through the FMA mLSTM (20 launches) and every decode
-   step through the one-pass step (20 x 31), and nothing else; on
+   the prefill went through the tensor-core mLSTM (20 launches) and every
+   decode step through the one-pass step (20 x 31), and nothing else; on
    one prompt, every mLSTM call of the bf16 prefill gives the same h and
-   state as the plain chunkwise form on its own inputs, and the kernel
-   path's prefill logits agree with the plain path's in bf16 on the
-   prompt's first 32 tokens and in f32 on all 4096 (random-weight bf16
-   xLSTM is chaotic over longer prompts: ``--xlstm-orders``), and beside
-   that, measured, the same with the tensor-core variant; a reduced
-   model's f32 streams on the card equal the CPU's;
+   state as the plain chunkwise form on its own inputs; the bf16 prefill
+   of all 8 prompts' first 32 tokens is no farther from an f32 reference
+   than 1.5 x two plain bf16 orders are, and its mLSTM h no farther from
+   an f64 recurrence than the plain form's (``compare_xlstm_paths``; the
+   FMA kernel's path is measured beside it); f32 prefill logits on 4096
+   tokens agree with the plain path's; a reduced model's f32 streams on
+   the card equal the CPU's;
 7. training: full-width qwen3-4b (f32 params from a seeded generator,
    AdamW, seq 4096, global batch 2 in 2 microbatches, remat per layer)
    through ``run_segment`` for 4 steps: finite losses and grad norms, no
@@ -87,13 +89,16 @@ REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 
 # kernels that must build without spilling registers (ptxas): the paged
-# split and merge, the mLSTM decode step and its tensor-core prefill
+# split and merge, the mLSTM decode step and its tensor-core prefill, the
+# scan's prefill and decode kernels
 NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_merge_kernel",
-                    "mlstm_step_kernel", "mlstm_tc_kernel")
+                    "mlstm_step_kernel", "mlstm_tc_kernel", "ssm_scan_kernel", "ssm_step_kernel")
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
 PEAK_BYTES = 3.35e12
+# the SFU's exponentials (ex2): 16 a clock per SM, 132 SMs, 1980 MHz boost
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 # (B, S, H, KVH, hd, causal, window, dtype): tests/test_torch_kernels.py
 # FLASH_CASES (tests/test_kernels.py's, then rows for each feature of the
@@ -156,7 +161,7 @@ FLASH_BWD_CASES = [
 # the JAX test's own tolerance for the backward kernels
 FLASH_BWD_F32_TOL = dict(atol=1e-4, rtol=1e-4)
 # (B, S, inner, N, dtype): tests/test_kernels.py SSM_CASES (the JAX test's
-# chunk column has no counterpart: the kernel walks S in one loop)
+# chunk column has no counterpart: the kernel stages S in tiles of its own)
 SSM_CASES = [
     (2, 128, 256, 16, torch.float32),
     (1, 96, 128, 8, torch.float32),
@@ -191,9 +196,10 @@ MLSTM_BOUND_CHUNK = 32
 # the JAX test's tolerance for the scan's final state (y takes tol(dtype))
 SSM_H_TOL = dict(atol=1e-4, rtol=1e-4)
 # hymba's main-path shapes (u bf16, dt/B_/C_ f32), held tighter than the
-# JAX test's after a first H100 run showed the errors: y (bf16) up to
-# 3.1e-2 at |y| in [4, 8), one bf16 ulp, which rtol 1e-2 covers (an ulp is
-# at most 2^-7 |y|); h (f32) up to 7.7e-7, against 1e-5 here.
+# JAX test's after a first H100 run showed the errors: y (bf16) up to one
+# bf16 ulp (3.1e-2 at |y| in [4, 8); 6.25e-2 in [8, 16)), which rtol 1e-2
+# covers (an ulp is at most 2^-7 |y|); h (f32) up to 7.7e-7 with expf,
+# 2.9e-6 with ex2.approx, against 1e-5 here.
 SSM_MAIN_Y_TOL = dict(atol=1e-3, rtol=1e-2)
 SSM_MAIN_H_TOL = dict(atol=1e-5, rtol=1e-5)
 # The forward's lse (f32, natural log, ~5-10 here) is computed from the same
@@ -697,13 +703,17 @@ def _ssm_inputs(gen, B, S, inner, N, dtype, dt_dtype):
 
 
 def check_ssm_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
-    """The selective scan against ``ssm_scan_ref`` on the JAX test's cases
-    and at hymba-1.5b's serving shapes (prefill and one decode step)."""
+    """The selective scan against ``ssm_scan_ref``: its prefill entry
+    (``ssm_scan_kernel``, S > ``STEP_MAX``) on the JAX test's cases and
+    ragged ones, its decode entry (``ssm_step_kernel``) on the first two
+    steps of each of those, and both at hymba-1.5b's serving shapes (prefill
+    and one decode step), where two calls must give the same bits."""
     from repro_torch.kernels.ssm_scan import kernel, ops
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
-    def case(name, B, S, inner, N, dtype, dt_dtype, with_h0=True, tols=None):
-        args = _ssm_inputs(gen, B, S, inner, N, dtype, dt_dtype)[:7 if with_h0 else 6]
+    def case(name, B, S, inner, N, dtype, dt_dtype, with_h0=True, tols=None, args=None):
+        args = args or _ssm_inputs(gen, B, S, inner, N, dtype, dt_dtype)[:7 if with_h0 else 6]
+        name += " [step]" if args[0].shape[1] <= kernel.STEP_MAX else " [scan]"
         y, h = ops.ssm_scan(*args)
         torch.cuda.synchronize()
         yr, hr = ssm_scan_ref(*args)
@@ -712,19 +722,41 @@ def check_ssm_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
         y_tol, h_tol = tols or (tol(dtype), SSM_H_TOL)
         return args, max(hold(f"{name} y", y, yr, y_tol), hold(f"{name} h", h, hr, h_tol))
 
+    def first_steps(args, S):
+        return [x[:, :S].contiguous() if i < 4 else x for i, x in enumerate(args)]
+
     log("[kernels] ssm_scan vs ssm_scan_ref (y and h_final)")
     for B, S, inner, N, dtype in SSM_CASES:
         # as in the JAX test, dt, B_ and C_ have u's dtype (bf16 ones upcast in ops.py)
-        case(f"ssm B{B} S{S} inner{inner} N{N} {str(dtype)[6:]}", B, S, inner, N, dtype, dtype)
-    # no h0 (zeros), and ragged against both the 128-channel blocks and the 64-step tiles
-    case("ssm no h0 B2 S33 inner200 N8 f32", 2, 33, 200, 8, torch.float32, torch.float32,
-         with_h0=False)
+        name = f"ssm B{B} S{S} inner{inner} N{N} {str(dtype)[6:]}"
+        args, _ = case(name, B, S, inner, N, dtype, dtype)
+        case(f"{name}, its first 2 steps", B, 2, inner, N, dtype, dtype,
+             args=first_steps(args, 2))
+    # ragged against the scan's blocks (32 channels at N 16, 64 at N 8) and
+    # 16-step tiles, and against the step's blocks (16 or 32 channels); no h0
+    # (zeros); inner 203: rows not 16-byte aligned (copied element by element)
+    for name, B, S, inner, N, dtype, with_h0 in (
+            ("ssm no h0 B2 S33 inner200 N8 f32", 2, 33, 200, 8, torch.float32, False),
+            ("ssm ragged B2 S33 inner200 N16 bf16", 2, 33, 200, 16, torch.bfloat16, True),
+            ("ssm misaligned B2 S40 inner203 N16 bf16", 2, 40, 203, 16, torch.bfloat16, True),
+            ("ssm misaligned B1 S21 inner203 N8 f32", 1, 21, 203, 8, torch.float32, True),
+            ("ssm decode B3 S1 inner200 N16 f32", 3, 1, 200, 16, torch.float32, True),
+            ("ssm decode B3 S2 inner200 N8 bf16", 3, 2, 200, 8, torch.bfloat16, True),
+            ("ssm no h0 B2 S3 inner203 N16 f32", 2, 3, 203, 16, torch.float32, False)):
+        case(name, B, S, inner, N, dtype, dtype, with_h0=with_h0)
     # hymba-1.5b's main path: u in the compute dtype, dt/B_/C_ f32, a carried state
     main = (SSM_MAIN_Y_TOL, SSM_MAIN_H_TOL)
-    _, err_dec = case("ssm main-path decode B8 S1 inner3200 N16 bf16", 8, 1, 3200, 16,
-                      torch.bfloat16, torch.float32, tols=main)
+    dec, err_dec = case("ssm main-path decode B8 S1 inner3200 N16 bf16", 8, 1, 3200, 16,
+                        torch.bfloat16, torch.float32, tols=main)
     args, err = case("ssm main-path prefill B8 S4096 inner3200 N16 bf16", 8, 4096, 3200, 16,
                      torch.bfloat16, torch.float32, tols=main)
+    for what, a in (("prefill", args), ("decode", dec)):
+        one, two = kernel.ssm_scan(*a), kernel.ssm_scan(*a)
+        same = all(torch.equal(x, z) for x, z in zip(one, two))
+        log(f"  ssm main-path {what}: two calls give the same bits: {same}")
+        if not same:
+            raise AssertionError(f"the scan's {what} gave different bits on the same inputs")
+        del one, two
 
     def work(u, dt, B_, C_, A, D, h0):
         """(flop, bytes): each input read once (h0 too), y and h written once."""
@@ -739,15 +771,18 @@ def check_ssm_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
     N = args[4].shape[1]
     flops, nbytes = work(*args)
     b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    sfu_ms = B * S * inner * N / SFU_EXP_PER_S * 1e3
     ms = time_ms(lambda: kernel.ssm_scan(*args), flush)
     plain_ms = time_ms(lambda: ssm_scan_ref(*args), flush, reps=2, warmup=1)
-    dec = _ssm_inputs(gen, 8, 1, 3200, 16, torch.bfloat16, torch.float32)
     dec_ms = time_ms(lambda: kernel.ssm_scan(*dec), flush)
+    dec_dev = _device_ms_per_launch(lambda: kernel.ssm_scan(*dec), flush, "ssm_step")
     dec_b_ms, dec_by = bound(*work(*dec), PEAK_F32_FLOPS)
     log(f"  ssm_scan main path (B{B} S{S} inner{inner} N{N}, u bf16): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {nbytes / ms / 1e6:.1f} GB/s, "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), the {B * S * inner * N:.3e} "
+        f"exponentials at the SFU's rate {sfu_ms:.4f} ms; {nbytes / ms / 1e6:.1f} GB/s, "
         f"{flops / ms / 1e9:.1f} GFLOP/s achieved; decode shape (S=1, h0 carried): kernel "
-        f"{dec_ms:.4f} ms, bound {dec_b_ms:.4f} ms ({dec_by})")
+        f"{dec_ms:.4f} ms by events, device time per launch {dec_dev} (profiler), bound "
+        f"{dec_b_ms:.4f} ms ({dec_by})")
     return dict(name="ssm_scan", route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
                 replaces="src/repro/kernels/ssm_scan/kernel.py:24",
                 max_abs_err=max(err, err_dec), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -774,15 +809,14 @@ def _to_ref_layout(q, k, v, gates):
 
 
 def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
-    """The chunkwise mLSTM's kernels: the two the model's calls reach (S <=
-    ``STEP_MAX``: the one-pass decode step; longer: the FMA chunkwise
-    kernel, both dtypes) and the bf16 tensor-core variant, which no path
-    calls yet (``kernel.mlstm_tc``), against ``mlstm_ref`` (the sequential
-    oracle) on the JAX test's cases, ragged S with a carried state and two
-    calls carrying the state, and against ``mlstm_chunkwise_ref`` at
-    xlstm-350m's prefill and decode shapes; two calls of the tensor-core
-    kernel and of the step give the same bits. One record per kernel of a
-    path; the tensor-core variant's numbers are logged."""
+    """The chunkwise mLSTM's three kernels (S <= ``STEP_MAX``: the one-pass
+    decode step; longer: the bf16 tensor-core kernel, and the FMA kernel,
+    both dtypes, which takes f32 and other head dims), each through its own
+    wrapper, against ``mlstm_ref`` (the sequential oracle) on the JAX
+    test's cases, ragged S with a carried state and two calls carrying the
+    state, and against ``mlstm_chunkwise_ref`` at xlstm-350m's prefill and
+    decode shapes; two calls of the tensor-core kernel and of the step give
+    the same bits. One record per kernel."""
     from repro_torch.kernels.mlstm import kernel, ops
     from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref, mlstm_ref
 
@@ -790,8 +824,8 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
         """(name, function) of each kernel that takes these inputs."""
         if S <= kernel.STEP_MAX:
             return [("step", ops.mlstm)]
-        return [("fma", ops.mlstm)] + ([("tc", kernel.mlstm_tc)] if dtype == torch.bfloat16
-                                       else [])
+        return [("fma", kernel.mlstm_fma)] + ([("tc", kernel.mlstm_tc)]
+                                              if dtype == torch.bfloat16 else [])
 
     errs = {"tc": 0.0, "fma": 0.0, "step": 0.0}
 
@@ -883,18 +917,18 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
 
     flops, nbytes = work(B, S, H, hd, 2)
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    ms = time_ms(lambda: kernel.mlstm(q, k, v, gates), flush, reps=3)
+    ms = time_ms(lambda: kernel.mlstm_fma(q, k, v, gates), flush, reps=3)
     tc_ms = time_ms(lambda: kernel.mlstm_tc(q, k, v, gates), flush)
     plain_ms = time_ms(lambda: mlstm_chunkwise_ref(q, k, v, gates, None, chunk), flush, reps=3)
-    log(f"  mlstm main path (B{B} S{S} H{H} hd{hd}, q/k/v bf16): FMA kernel {ms:.4f} ms, "
-        f"tensor-core variant {tc_ms:.4f} ms, plain (chunkwise, chunk {chunk}) {plain_ms:.4f} "
-        f"ms, bound {b_ms:.4f} ms ({b_by}); {flops / ms / 1e9:.1f} and {flops / tc_ms / 1e9:.1f} "
-        f"TFLOP/s of the function's work achieved")
+    log(f"  mlstm main path (B{B} S{S} H{H} hd{hd}, q/k/v bf16): tensor-core kernel (the "
+        f"path's) {tc_ms:.4f} ms, FMA kernel {ms:.4f} ms, plain (chunkwise, chunk {chunk}) "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {flops / tc_ms / 1e9:.1f} and "
+        f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved")
     q32, k32, v32 = (x.float() for x in (q, k, v))
     del q, k, v
     f_flops, f_bytes = work(B, S, H, hd, 4)
     f_b_ms, f_by = bound(f_flops, f_bytes, PEAK_F32_FLOPS)
-    f_ms = time_ms(lambda: kernel.mlstm(q32, k32, v32, gates), flush, reps=3)
+    f_ms = time_ms(lambda: kernel.mlstm_fma(q32, k32, v32, gates), flush, reps=3)
     f_plain_ms = time_ms(lambda: mlstm_chunkwise_ref(q32, k32, v32, gates, None, chunk), flush,
                          reps=3)
     log(f"  mlstm fma at the main path's shape in f32: kernel {f_ms:.4f} ms, plain "
@@ -907,10 +941,12 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
     log(f"  mlstm step at the decode shape (S=1, state carried, bf16): kernel {d_ms:.4f} ms, "
         f"plain {d_plain_ms:.4f} ms, bound {d_b_ms:.4f} ms ({d_by}); "
         f"{d_bytes / d_ms / 1e6:.1f} GB/s achieved")
-    log(f"  mlstm tensor-core variant (no path calls it): max abs err {errs['tc']:.3e}")
     rec = dict(route="cuda", replaces="src/repro/kernels/mlstm/kernel.py:31", library_ms=None,
                source="src/repro_torch/csrc/mlstm.cu")
-    return [dict(rec, name="mlstm_fma", max_abs_err=errs["fma"], ms=ms, plain_ms=plain_ms,
+    return [dict(rec, name="mlstm_tc", source="src/repro_torch/csrc/mlstm_tc.cu",
+                 max_abs_err=errs["tc"], ms=tc_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by),
+            dict(rec, name="mlstm_fma", max_abs_err=errs["fma"], ms=ms, plain_ms=plain_ms,
                  bound_ms=b_ms, bound_by=b_by),
             dict(rec, name="mlstm_step", max_abs_err=errs["step"], ms=d_ms,
                  plain_ms=d_plain_ms, bound_ms=d_b_ms, bound_by=d_by)]
@@ -1248,10 +1284,15 @@ def greedy_reduced_matches_cpu(arch: str, tag: str, *kernels: str) -> dict:
 # ---------------------------------------------------------------------------
 
 XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW = 8, 4096, 32
-# the prompt length at which the check holds bf16 prefill logits end to
-# end: within one kernel chunk. ``--xlstm-orders`` measures why no longer:
-# past 32 tokens, two plain orders of the same sums disagree (top-1) as well.
+# the prompt length of the bf16 end-to-end check, above the step kernel's
+# STEP_MAX so that the prefill kernel runs it. Random-weight bf16 xlstm is
+# chaotic (``--xlstm-orders``: a random relative 1e-7 change of the mLSTM
+# outputs flips prompt 0's top-1 at 8 and 32 tokens), so the check holds a
+# path's distance from an f32 reference against that of two plain bf16
+# orders, not top-1 against one of them.
 XLSTM_BF16_LEN = 32
+# hold 1's margin over the larger of the two plain orders' distances
+XLSTM_D_MARGIN = 1.5
 
 
 def serve_xlstm_full_width() -> dict:
@@ -1290,7 +1331,7 @@ def serve_xlstm_full_width() -> dict:
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    want = expect_launches(mlstm_fma=n_mlstm, mlstm_step=n_mlstm * res.decode_steps)
+    want = expect_launches(mlstm_tc=n_mlstm, mlstm_step=n_mlstm * res.decode_steps)
     out = res.tokens
     log(f"[xlstm] {B} prompts x {S} tokens, {new} new tokens each; first row "
         f"{out[0].tolist()}")
@@ -1309,20 +1350,20 @@ def serve_xlstm_full_width() -> dict:
         f"{peak_gb:.2f} GB")
 
     profile_greedy("xlstm", model, params, tokens, res.cache, new)
-    compare_xlstm_paths(model, params, tokens[:1])
+    compare_xlstm_paths(model, params, tokens, "tc" if launches["mlstm_tc"] else "fma")
     return launches
 
 
-def _xlstm_prefill(model, params, row, chunk=None, held=None, perturb=0.0, tc=False):
-    """Prefill ``row`` with the mLSTM kernels (``chunk`` None; with ``tc``,
-    the tensor-core variant where S > ``STEP_MAX``) or with the plain
-    chunkwise form at ``chunk``; with ``perturb``, the plain form's h
-    is multiplied by (1 + perturb x a standard normal draw) before its
-    rounding to q's dtype. With ``held`` (a dict), every kernel call's h
-    and final (C, n, m) are held against the plain form at the model's
-    chunk on that call's own inputs; ``held`` keeps the number of calls,
-    each quantity's max abs error and the failures. Returns the last
-    position's logits."""
+def _xlstm_prefill(model, params, rows, chunk=None, held=None, perturb=0.0, route=None):
+    """Prefill ``rows`` with the mLSTM kernels (``chunk`` None: as the model
+    calls them, or with ``route`` "fma" or "tc" that chunkwise kernel where
+    S > ``STEP_MAX``) or with the plain chunkwise form at ``chunk``; with
+    ``perturb``, the plain form's h is multiplied by (1 + perturb x a
+    standard normal draw) before its rounding to q's dtype. With ``held``
+    (a dict), every kernel call's h and final (C, n, m) are held against the
+    plain form at the model's chunk on that call's own inputs; ``held``
+    keeps the number of calls, each quantity's max abs error and the
+    failures. Returns the last position's logits (B, vocab) in f32."""
     from unittest import mock
 
     from repro_torch.kernels.mlstm import kernel, ops
@@ -1330,6 +1371,7 @@ def _xlstm_prefill(model, params, row, chunk=None, held=None, perturb=0.0, tc=Fa
     from repro_torch.models import xlstm
 
     noise = torch.Generator(device="cuda").manual_seed(1) if perturb else None
+    chunkwise = {"fma": kernel.mlstm_fma, "tc": kernel.mlstm_tc}
 
     def mlstm(q, k, v, gates, state, model_chunk):
         if chunk is not None and perturb:
@@ -1338,8 +1380,8 @@ def _xlstm_prefill(model, params, row, chunk=None, held=None, perturb=0.0, tc=Fa
             return h.to(q.dtype), st
         if chunk is not None:
             return mlstm_chunkwise_ref(q, k, v, gates, state, chunk)
-        if tc and q.shape[1] > kernel.STEP_MAX:
-            out = kernel.mlstm_tc(q, k, v, gates.float().contiguous(), state)
+        if route is not None and q.shape[1] > kernel.STEP_MAX:
+            out = chunkwise[route](q, k, v, gates.float().contiguous(), state)
         else:
             out = ops.mlstm(q, k, v, gates, state, model_chunk)
         if held is not None:
@@ -1356,12 +1398,12 @@ def _xlstm_prefill(model, params, row, chunk=None, held=None, perturb=0.0, tc=Fa
                                  if name.startswith("mlstm_"))
     before = mlstm_launches()
     with mock.patch.object(xlstm, "mlstm", mlstm):
-        logits, _ = model.prefill(params, {"tokens": row}, row.shape[1])
+        logits, _ = model.prefill(params, {"tokens": rows}, rows.shape[1])
     torch.cuda.synchronize()
     launched = mlstm_launches() - before
     if launched != (_n_mlstm(model.cfg) if chunk is None else 0):
         raise AssertionError(f"prefill launched the mLSTM kernel {launched} times")
-    return logits[0, -1].float()
+    return logits[:, -1].float()
 
 
 def _n_mlstm(cfg) -> int:
@@ -1373,13 +1415,9 @@ def _logit_agreement(a: torch.Tensor, b: torch.Tensor) -> tuple:
     return int(a.argmax()) == int(b.argmax()), corr, float((a - b).abs().max())
 
 
-def _hold_logits(name: str, kern: torch.Tensor, plain: torch.Tensor) -> bool:
-    """Kernel-path against plain-path logits: top-1 equal, correlation > 0.99.
-    Logs the comparison and returns whether it holds."""
-    top, corr, diff = _logit_agreement(kern, plain)
-    log(f"[xlstm] {name}, kernel vs plain chunk 256: top-1 equal {top}, correlation "
-        f"{corr:.6f}, max abs diff {diff:.4f}")
-    return bool(torch.isfinite(kern).all()) and top and corr > 0.99
+def _distance(p: torch.Tensor, ref: torch.Tensor) -> float:
+    """D: the mean over rows of 1 - corr(p's row, ref's row)."""
+    return sum(1 - _logit_agreement(a, b)[1] for a, b in zip(p, ref)) / len(p)
 
 
 def _mlstm_f64(q, k, v, gates) -> torch.Tensor:
@@ -1403,60 +1441,68 @@ def _mlstm_f64(q, k, v, gates) -> torch.Tensor:
     return torch.stack(hs, dim=1)
 
 
-def _h_vs_f64(model, params, row) -> str:
-    """Each mLSTM call of a bf16 prefill of ``row`` (on the plain path's
+def _h_vs_f64(model, params, rows) -> dict:
+    """Each mLSTM call of a bf16 prefill of ``rows`` (on the plain path's
     inputs): the share of h's bf16 elements that differ from the f64
-    recurrence rounded to bf16, for the kernel the path calls, the
-    tensor-core variant and the plain form at chunk 256 (a measurement:
-    how far each is from exact where the end-to-end check compares them)."""
+    recurrence rounded to bf16, for the FMA kernel, the tensor-core kernel
+    and the plain form at chunk 256 (how far each is from exact where the
+    end-to-end check compares them)."""
     from unittest import mock
 
-    from repro_torch.kernels.mlstm import kernel, ops
+    from repro_torch.kernels.mlstm import kernel
     from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
     from repro_torch.models import xlstm
 
-    differ = {"kernel": 0, "tensor-core variant": 0, "plain 256": 0}
+    differ = {"fma": 0, "tc": 0, "plain 256": 0}
     total = 0
 
     def mlstm(q, k, v, gates, state, model_chunk):
         nonlocal total
         plain = mlstm_chunkwise_ref(q, k, v, gates, state, 256)
         exact = _mlstm_f64(q, k, v, gates).to(q.dtype)
-        for name, h in (("kernel", ops.mlstm(q, k, v, gates, state)[0]),
-                        ("tensor-core variant",
-                         kernel.mlstm_tc(q, k, v, gates.float().contiguous(), state)[0]),
-                        ("plain 256", plain[0])):
+        g = gates.float().contiguous()
+        for name, h in (("fma", kernel.mlstm_fma(q, k, v, g, state)[0]),
+                        ("tc", kernel.mlstm_tc(q, k, v, g, state)[0]), ("plain 256", plain[0])):
             differ[name] += int((h != exact).sum())
         total += exact.numel()
         return plain
 
     with mock.patch.object(xlstm, "mlstm", mlstm):
-        model.prefill(params, {"tokens": row}, row.shape[1])
-    return ", ".join(f"{name} {100 * n / total:.4f}%" for name, n in differ.items())
+        model.prefill(params, {"tokens": rows}, rows.shape[1])
+    return {name: n / total for name, n in differ.items()}
 
 
-def compare_xlstm_paths(model, params, row) -> None:
-    """The kernel path against the plain path (the chunkwise form at the
-    model's chunk 256) on one prompt:
+def compare_xlstm_paths(model, params, tokens, route: str) -> None:
+    """The bf16 model's prefill, whose chunkwise mLSTM calls run the
+    ``route`` kernel ("tc" or "fma"), against plain and f32 references:
 
-    * bf16 (the served model), all 4096 tokens: every mLSTM call of the
-      kernel path's prefill (20 layers) holds h and the final (C, n, m)
-      against the plain form on the call's own inputs, at the kernel
-      phase's prefill-shape tolerances;
-    * bf16 prefill logits of the prompt's first ``XLSTM_BF16_LEN`` tokens:
-      top-1 equal, correlation > 0.99. Longer bf16 prompts are not
-      comparable end to end: with random weights the stack is chaotic,
-      and past this length two plain orders of the same sums (chunk 256
-      vs 32) stop agreeing too (``--xlstm-orders`` measures it). Beside
-      it, measured and not held: the same comparison with the tensor-core
-      variant, and how far each one's mLSTM h is from the exact
-      recurrence;
-    * f32 (the same seed's weights in f32, f32 compute), all 4096 tokens:
-      top-1 equal, correlation > 0.99.
+    * bf16, one prompt, all 4096 tokens: every mLSTM call of the kernel
+      path's prefill (20 layers) holds h and the final (C, n, m) against
+      the plain form on the call's own inputs, at the kernel phase's
+      prefill-shape tolerances;
+    * bf16, all 8 prompts cut to ``XLSTM_BF16_LEN`` tokens, against
+      ``ref32`` (the same weights upcast to f32, f32 compute, the plain
+      chunkwise form at chunk 256). D(P) = the mean over the prompts of
+      1 - corr(P's last-position logits, ref32's). Hold 1: the path's
+      logits are finite and D(path) <= ``XLSTM_D_MARGIN`` x the larger D
+      of two plain bf16 orders (chunk 256 and 32): no farther from f32
+      than correct bf16 orders. Hold 2: over the 20 mLSTM calls of that
+      prefill, each on the plain path's inputs, the share of the path's
+      bf16 h elements that differ from the f64 recurrence rounded to bf16
+      is at most the plain form's (chunk 256). Both kernel paths (FMA and
+      tensor cores) are measured under both holds; the one the model runs
+      is held. Logged, not held: each path's count of prompts whose top-1
+      equals ref32's, and prompt 0's comparison with plain 256 (top-1,
+      correlation, max diff), the check of earlier versions;
+    * f32 (the same seed's weights in f32, f32 compute), one prompt, all
+      4096 tokens: top-1 equal and correlation > 0.99 against the plain
+      path.
 
-    All three run; the phase fails after them if any did not hold."""
+    All run; the phase fails after them if any did not hold."""
     from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
 
+    row = tokens[:1]
     S = row.shape[1]
     failed = []
     held: dict = {}
@@ -1469,24 +1515,54 @@ def compare_xlstm_paths(model, params, row) -> None:
     if held.get("failed") or held["calls"] != _n_mlstm(model.cfg):
         failed.append("an mLSTM call of the bf16 prefill disagrees with the plain form")
 
-    short = row[:, :XLSTM_BF16_LEN]
-    name = f"bf16 prefill logits (S={XLSTM_BF16_LEN})"
-    plain = _xlstm_prefill(model, params, short, 256)
-    if not _hold_logits(name, _xlstm_prefill(model, params, short), plain):
-        failed.append(f"{name}: kernel-path logits disagree with the plain path")
-    _hold_logits(f"{name} with the tensor-core variant (measured, not held)",
-                 _xlstm_prefill(model, params, short, tc=True), plain)
-    log(f"[xlstm] bf16 prefill (S={XLSTM_BF16_LEN}), mLSTM h elements that differ from the f64 "
-        f"recurrence rounded to bf16, over the {_n_mlstm(model.cfg)} calls: "
-        f"{_h_vs_f64(model, params, short)}")
+    short = tokens[:, :XLSTM_BF16_LEN]
+    model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    ref32 = _xlstm_prefill(model32, tree_map(lambda t: t.float(), params), short, 256)
+    # (at 32 tokens, chunks of 256 and of 32 are one chunk, and coincide; plain
+    # 8 is logged beside them as a third order)
+    logits = {"plain 256": _xlstm_prefill(model, params, short, 256),
+              "plain 32": _xlstm_prefill(model, params, short, 32),
+              "plain 8": _xlstm_prefill(model, params, short, 8),
+              "fma": _xlstm_prefill(model, params, short, route="fma"),
+              "tc": _xlstm_prefill(model, params, short, route="tc"),
+              "model": _xlstm_prefill(model, params, short)}
+    if not torch.equal(logits["model"], logits[route]):
+        failed.append(f"the model's bf16 prefill is not the {route} kernel's path")
+    dist = {name: _distance(x, ref32) for name, x in logits.items()}
+    limit = XLSTM_D_MARGIN * max(dist["plain 256"], dist["plain 32"])
+    share = _h_vs_f64(model, params, short)
+    top = {name: sum(int(a.argmax()) == int(b.argmax()) for a, b in zip(x, ref32))
+           for name, x in logits.items()}
+    n = len(short)
+    log(f"[xlstm] bf16 prefill of {n} prompts x {XLSTM_BF16_LEN} tokens against ref32 (f32 "
+        f"weights and compute, plain chunk 256): D = mean(1 - corr) " + ", ".join(
+            f"{name} {d:.6e}" for name, d in dist.items())
+        + f"; hold 1 limit {XLSTM_D_MARGIN} x max(plain 256, plain 32) = {limit:.6e}; top-1 "
+        f"equal to ref32's (of {n}, logged): " + ", ".join(f"{k} {v}" for k, v in top.items()))
+    log(f"[xlstm] bf16 prefill ({n} x {XLSTM_BF16_LEN}), mLSTM h elements that differ from the "
+        f"f64 recurrence rounded to bf16, over the {_n_mlstm(model.cfg)} calls: " + ", ".join(
+            f"{name} {100 * v:.4f}%" for name, v in share.items()))
+    for name in ("fma", "tc"):
+        hold1 = bool(torch.isfinite(logits[name]).all()) and dist[name] <= limit
+        hold2 = share[name] <= share["plain 256"]
+        top0, corr0, diff0 = _logit_agreement(logits[name][0], logits["plain 256"][0])
+        path = name == route
+        log(f"[xlstm] {name} path{' (the model runs it: held)' if path else ' (logged)'}: "
+            f"hold 1 {'ok' if hold1 else 'FAIL'}, hold 2 {'ok' if hold2 else 'FAIL'}; prompt 0 "
+            f"against plain 256 (logged): top-1 equal {top0}, correlation {corr0:.6f}, max abs "
+            f"diff {diff0:.4f}")
+        if path and not (hold1 and hold2):
+            failed.append(f"bf16 prefill (S={XLSTM_BF16_LEN}): the {name} path fails hold " +
+                          " and ".join(str(i + 1) for i, ok in enumerate((hold1, hold2)) if not ok))
 
-    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
-    model32 = build_model(cfg32)
     params32 = model32.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
-    name = f"f32 prefill logits (S={S})"
-    if not _hold_logits(name, _xlstm_prefill(model32, params32, row),
-                        _xlstm_prefill(model32, params32, row, 256)):
-        failed.append(f"{name}: kernel-path logits disagree with the plain path")
+    top0, corr0, diff0 = _logit_agreement(_xlstm_prefill(model32, params32, row)[0],
+                                          _xlstm_prefill(model32, params32, row, 256)[0])
+    log(f"[xlstm] f32 prefill logits (S={S}), kernel vs plain chunk 256: top-1 equal {top0}, "
+        f"correlation {corr0:.6f}, max abs diff {diff0:.4f}")
+    if not (top0 and corr0 > 0.99):
+        failed.append(f"f32 prefill logits (S={S}): kernel-path logits disagree with the plain "
+                      f"path")
     if failed:
         raise AssertionError("; ".join(failed))
 
@@ -1522,13 +1598,12 @@ def _block_divergence(model, params, row, chunks) -> str:
 def xlstm_orders() -> None:
     """bf16 full-width xlstm-350m prefill logits of single prompts at
     growing lengths, each against the plain path (the chunkwise form at
-    chunk 256): the kernel path (and with the tensor-core variant), and the
-    plain path in two other orders of
-    the same sums (chunk 32, chunk 8), and up to 64 tokens the plain path
-    with each mLSTM output moved by a random relative 1e-7 (f32's rounding
-    size) before its bf16 rounding. Shows up to which length bf16 logits
-    are comparable end to end (``XLSTM_BF16_LEN``), and, for one prompt,
-    how two plain orders drift apart block by block."""
+    chunk 256): the tensor-core and the FMA kernel paths, the plain path in
+    two other orders of the same sums (chunk 32, chunk 8), and up to 64
+    tokens the plain path with each mLSTM output moved by a random relative
+    1e-7 (f32's rounding size) before its bf16 rounding. Shows how far
+    bf16 logits are comparable end to end, and, for one prompt, how two
+    plain orders drift apart block by block."""
     from repro_torch.config import get_arch
     from repro_torch.models import build_model
 
@@ -1539,14 +1614,14 @@ def xlstm_orders() -> None:
     for r in range(4):
         for S in (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096):
             row = torch.as_tensor(prompts[r:r + 1, :S].astype(np.int32), device="cuda")
-            plain = _xlstm_prefill(model, params, row, 256)
-            others = {"kernel": _xlstm_prefill(model, params, row),
-                      "tensor cores": _xlstm_prefill(model, params, row, tc=True),
-                      "plain 32": _xlstm_prefill(model, params, row, 32),
-                      "plain 8": _xlstm_prefill(model, params, row, 8)}
+            plain = _xlstm_prefill(model, params, row, 256)[0]
+            others = {"tensor cores": _xlstm_prefill(model, params, row, route="tc")[0],
+                      "FMA kernel": _xlstm_prefill(model, params, row, route="fma")[0],
+                      "plain 32": _xlstm_prefill(model, params, row, 32)[0],
+                      "plain 8": _xlstm_prefill(model, params, row, 8)[0]}
             if S <= 64:     # plain 256 with h moved by f32's own rounding size
                 others["plain 256, h x (1 + 1e-7 n)"] = _xlstm_prefill(
-                    model, params, row, 256, perturb=1e-7)
+                    model, params, row, 256, perturb=1e-7)[0]
             log(f"[xlstm-orders] prompt {r} S={S}, against plain 256 (top-1 equal, "
                 f"correlation): " + "; ".join(
                     "{} {} {:.6f}".format(name, *_logit_agreement(x, plain)[:2])
@@ -1714,7 +1789,7 @@ def main() -> int:
                     help="stop after building and checking the kernels")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
-                         "of the kernel path and two plain orders agree, by prompt length")
+                         "of the kernel paths and plain orders agree, by prompt length")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)

@@ -17,8 +17,8 @@
 //
 // Two kernels here, chosen by the wrapper (kernels/mlstm/kernel.py):
 // * `mlstm_kernel<T>`, the chunkwise form on f32 FMAs for f32 and bf16 q/k/v
-//   (csrc/mlstm_tc.cu has a bf16 variant on tensor cores, which the wrapper
-//   does not dispatch to); f32 callers (the reduced models, whose
+//   (bf16 calls whose head_dim is a multiple of 64 go to csrc/mlstm_tc.cu,
+//   on tensor cores, instead); f32 callers (the reduced models, whose
 //   card-equals-CPU checks hold 1e-4) need f32 products, which TF32 tensor
 //   cores would not give;
 // * `mlstm_step_kernel`, the decode step (S of a few timesteps, either

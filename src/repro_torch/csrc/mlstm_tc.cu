@@ -3,8 +3,8 @@
 // A variant of the Pallas TPU kernel `_mlstm_kernel` / `mlstm_chunkwise` in
 // src/repro/kernels/mlstm/kernel.py for bf16 inputs; the function, the
 // chunkwise regrouping and the outputs are those of mlstm.cu (h in bf16, the
-// final C, n, m in f32). The model's calls go to mlstm.cu (kernels/mlstm/
-// kernel.py says why); this one is reached through `kernel.mlstm_tc`.
+// final C, n, m in f32). kernels/mlstm/kernel.py sends the model's bf16
+// prefill calls here (head_dim a multiple of 64); f32 calls go to mlstm.cu.
 //
 // What bounds it: at xlstm-350m's prefill (B 8, S 4096, H 4, hd 512) the
 // products of the chunkwise form are ~1.5e11 flop (0.15 ms at 989 TFLOP/s)

@@ -5,20 +5,18 @@ Each wrapper validates what its kernel takes, allocates the outputs and
 launches on PyTorch's current stream, counting the launch in its own
 counter; anything the kernel does not take raises.
 
-``mlstm``, the one the model calls, picks by S (not a fallback: each case
-has exactly one kernel):
+``mlstm``, the one the model calls, picks by the inputs (not a fallback:
+each case has exactly one kernel):
 
 * S <= ``STEP_MAX`` (a decode step), either dtype: the one-pass step
   kernel (``launches_step``);
-* longer, either dtype: the FMA chunkwise kernel (``launches_fma``).
+* longer, bf16 with a head_dim and layout the tensor-core kernel takes
+  (``_tc_takes``): the chunkwise kernel on tensor cores (``launches_tc``);
+* longer otherwise (f32, or another head_dim): the FMA chunkwise kernel
+  (``launches_fma``).
 
-``mlstm_tc`` is the bf16 chunkwise kernel on tensor cores
-(``launches_tc``; head_dim a multiple of 64). ``mlstm`` does not dispatch
-to it: with it, random-weight bf16 xlstm-350m's prefill logits over 32
-tokens lose top-1 agreement with the plain path (``chip_smoke.py``'s
-end-to-end bf16 check), though its h is nearer an f64 recurrence than
-the plain path's; it is held against the plain form and timed on the card
-until that check is settled.
+``mlstm_tc`` and ``mlstm_fma`` call one chunkwise kernel each whatever the
+inputs, for the checks on the card.
 """
 from __future__ import annotations
 
@@ -70,14 +68,19 @@ def _check(q, k, v, gates, state) -> None:
             raise ValueError("mlstm kernel: state C must be 16-byte aligned")
 
 
+def _tc_takes(q, k, v) -> bool:
+    """Whether the tensor-core kernel takes these q/k/v: bf16, head_dim a
+    multiple of 64, TMA's 16-byte alignment of base and strides."""
+    return (q.dtype == torch.bfloat16 and q.shape[3] % 64 == 0
+            and not any(t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+                        for t in (q, k, v)))
+
+
 def _check_tc(q, k, v) -> None:
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"mlstm tensor-core kernel: bf16 q/k/v, got {q.dtype}")
-    if q.shape[3] % 64:
-        raise ValueError(f"mlstm tensor-core kernel: head_dim {q.shape[3]} (a multiple of 64)")
-    if any(t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]) for t in (q, k, v)):
-        raise ValueError("mlstm tensor-core kernel: q/k/v must be 16-byte aligned with "
-                         "strides of whole 16-byte units (TMA)")
+    if not _tc_takes(q, k, v):
+        raise ValueError(f"mlstm tensor-core kernel: q/k/v must be bf16 (got {q.dtype}) with "
+                         f"a head_dim that is a multiple of 64 (got {q.shape[3]}), 16-byte "
+                         f"aligned with strides of whole 16-byte units (TMA)")
 
 
 def _launch(fn, what, dtype_args, q, k, v, gates, state):
@@ -109,16 +112,29 @@ def mlstm(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Returns (h (B,S,H,hd) in q's dtype, (C (B,H,hd,hd), n (B,H,hd), m (B,H)) f32).
     ``state`` (C, n, m) f32 contiguous, None for zeros; it is only read."""
-    global launches_fma, launches_step
+    global launches_step
     _check(q, k, v, gates, state)
-    lib = _build.load()
-    dtype = (_build.DTYPE_CODE[q.dtype],)
-    if q.shape[1] <= STEP_MAX:
-        out = _launch(lib.repro_mlstm_step, "mlstm (step)", dtype, q, k, v, gates, state)
-        launches_step += 1
-    else:
-        out = _launch(lib.repro_mlstm, "mlstm (fma)", dtype, q, k, v, gates, state)
-        launches_fma += 1
+    if q.shape[1] > STEP_MAX:
+        return (mlstm_tc if _tc_takes(q, k, v) else mlstm_fma)(q, k, v, gates, state)
+    out = _launch(_build.load().repro_mlstm_step, "mlstm (step)",
+                  (_build.DTYPE_CODE[q.dtype],), q, k, v, gates, state)
+    launches_step += 1
+    return out
+
+
+def mlstm_fma(
+    q: torch.Tensor,       # (B, S, H, hd) f32 or bf16, rows contiguous
+    k: torch.Tensor,
+    v: torch.Tensor,
+    gates: torch.Tensor,   # (B, S, 2H) f32
+    state: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The same function as ``mlstm`` on the FMA chunkwise kernel."""
+    global launches_fma
+    _check(q, k, v, gates, state)
+    out = _launch(_build.load().repro_mlstm, "mlstm (fma)", (_build.DTYPE_CODE[q.dtype],),
+                  q, k, v, gates, state)
+    launches_fma += 1
     return out
 
 

@@ -4,7 +4,10 @@ replacing the Pallas ``_ssm_kernel``).
 ``ssm_scan`` validates what the kernel takes, allocates the outputs,
 launches on PyTorch's current stream and counts the launch in
 ``launches``. It never falls back: anything the kernel does not take
-raises.
+raises. The C entry picks one of two kernels by S (each case has exactly
+one): up to ``STEP_MAX`` timesteps (a decode step) ``ssm_step_kernel``,
+one thread per state; longer ``ssm_scan_kernel``, 4 states a thread and
+tiles of timesteps staged through shared memory.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from repro_torch.kernels import _build
 launches = 0   # kernel launches since the last reset (plain int)
 
 STATE_DIMS = (8, 16)
+STEP_MAX = 4   # csrc/ssm_scan.cu: up to this many timesteps run the step kernel
 
 
 def _check(u, dt, B_, C_, A, D, h0) -> None:

@@ -171,6 +171,36 @@ def test_tensor_core_wrapper_refuses_cpu_tensors():
         kernel.mlstm_tc(*args)
 
 
+@pytest.mark.parametrize("dtype,S", [(BF16, 16), (F32, 16)])
+def test_prefill_wrappers_refuse_cpu_tensors(dtype, S):
+    """A prefill (S > STEP_MAX) through the dispatching ``kernel.mlstm`` and
+    through the FMA wrapper raises on CPU tensors, whichever kernel it picks."""
+    args = _model_layout(*_torch(_inputs(1, 2, S, 64, seed=5), dtype))
+    for fn in (kernel.mlstm, kernel.mlstm_fma):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+
+
+def _misaligned(t):
+    """A copy of ``t`` whose data starts 2 bytes past a 16-byte boundary."""
+    flat = torch.zeros(t.numel() + 8, dtype=t.dtype)
+    flat[1:1 + t.numel()] = t.reshape(-1)
+    return flat[1:1 + t.numel()].view(t.shape)
+
+
+@pytest.mark.parametrize("dtype,hd,misaligned,takes", [
+    (BF16, 64, False, True), (BF16, 512, False, True),     # xlstm-350m's hd 512
+    (BF16, 96, False, False), (F32, 64, False, False), (BF16, 64, True, False)])
+def test_prefill_route_takes_bf16_head_dims_multiple_of_64(dtype, hd, misaligned, takes):
+    """``kernel.mlstm`` sends a bf16 prefill to the tensor-core kernel when
+    the head dim is a multiple of 64 and q/k/v meet TMA's alignment; f32,
+    other head dims and misaligned inputs take the FMA kernel."""
+    q, k, v, _ = _model_layout(*_torch(_inputs(1, 2, 16, hd, seed=8), dtype))
+    if misaligned:
+        q = _misaligned(q)
+    assert kernel._tc_takes(q, k, v) is takes
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels' algorithms, as plain forms: the one-pass decode step and
 # the tensor-core prefill's rounding scheme (hi + lo bf16 halves)

@@ -5,7 +5,9 @@ the CPU.
 against the JAX Pallas kernel in interpret mode and against the JAX
 ``ssm_scan_ref``, on the SSM_CASES rows of ``tests/test_kernels.py``
 (copied), with that test's tolerances: y at 2e-5 (f32) or 2e-2 (bf16), the
-final state at 1e-4. Inputs are made with numpy from a seed; at bf16 the
+final state at 1e-4. ``ssm_scan_lanes_ref``, the CUDA kernels' order of
+operations, is held the same way, and on ragged, decode and reduced
+main-path shapes. Inputs are made with numpy from a seed; at bf16 the
 same f32 arrays are rounded to bf16 on both sides (round to nearest even
 in both, so the bits agree). ``mamba_block`` / ``mamba_decode_step`` are
 held against JAX's on reduced hymba-1.5b with converted params: f32 at
@@ -25,7 +27,7 @@ from repro.kernels.ssm_scan import ssm_scan_ref as jax_ssm_scan_ref
 from repro.models import build_model as jax_build_model
 from repro.models import ssm as jax_ssm
 from repro_torch.config import get_arch
-from repro_torch.kernels.ssm_scan import kernel, ssm_scan, ssm_scan_ref
+from repro_torch.kernels.ssm_scan import kernel, ssm_scan, ssm_scan_lanes_ref, ssm_scan_ref
 from repro_torch.models import ssm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.transformer import layer_slice
@@ -119,16 +121,75 @@ def test_ssm_scan_state_carry():
 
 
 def test_ssm_scan_ref_is_ops_on_cpu():
+    """A CPU tensor goes to the plain ``ssm_scan_ref``, never to the kernel
+    nor to the kernel-order emulation."""
     _, t = _both(_inputs(1, 9, 32, 8, seed=4), BF16)
+    launches = kernel.launches
     y, h = ssm_scan(**t)
+    assert kernel.launches == launches
     ry, rh = ssm_scan_ref(**t)
     assert torch.equal(y, ry) and torch.equal(h, rh)
+    ly, lh = ssm_scan_lanes_ref(**t)
+    assert not torch.equal(lh, rh)      # another order of operations, other bits
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     _, t = _both(_inputs(1, 4, 32, 8, seed=5), F32)
     with pytest.raises(ValueError, match="CUDA"):
         kernel.ssm_scan(**t)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' order of operations (csrc/ssm_scan.cu)
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's SSM_MAIN_Y_TOL and SSM_MAIN_H_TOL (hymba's main-path shapes)
+MAIN_Y_TOL = dict(atol=1e-3, rtol=1e-2)
+MAIN_H_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _hold_lanes(arrs, dtype, y_t, h_t, chunk=None, u_dtype=None):
+    """ssm_scan_lanes_ref against the JAX kernel (interpret mode) and the JAX
+    ssm_scan_ref on the same inputs (u in ``u_dtype`` if given, dt/B_/C_ in
+    ``dtype``)."""
+    j, t = _both(arrs, dtype)
+    if u_dtype is not None:
+        j["u"] = jnp.asarray(arrs["u"], jnp.dtype(u_dtype))
+        t["u"] = torch.from_numpy(arrs["u"]).to(getattr(torch, u_dtype))
+    y, h = ssm_scan_lanes_ref(**t)
+    assert y.dtype == t["u"].dtype and h.dtype == torch.float32
+    S = arrs["u"].shape[1]
+    refs = [jax_ssm_scan_ref(**j), jax_ssm_scan(**j, chunk=chunk or S, interpret=True)]
+    for ref_y, ref_h in refs:
+        np.testing.assert_allclose(_np(y), _np(ref_y), **y_t)
+        np.testing.assert_allclose(_np(h), _np(ref_h), **h_t)
+
+
+@pytest.mark.parametrize("B,S,inner,N,chunk,dtype", SSM_CASES)
+def test_ssm_scan_lanes_ref_matches_jax_kernel_and_ref(B, S, inner, N, chunk, dtype):
+    _hold_lanes(_inputs(B, S, inner, N, seed=S * inner + N), dtype, y_tol(dtype), H_TOL,
+                chunk=chunk)
+
+
+@pytest.mark.parametrize("N", [8, 16])
+def test_ssm_scan_lanes_ref_ragged(N):
+    """inner 200 is not a multiple of a scan block's channels (32 at N=16,
+    64 at N=8), S 33 not a multiple of the 16-step tile."""
+    _hold_lanes(_inputs(2, 33, 200, N, seed=N), F32, y_tol(F32), H_TOL, chunk=33)
+
+
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("S", [1, 2])
+def test_ssm_scan_lanes_ref_decode_from_carried_state(S, N):
+    """The decode kernel's shapes: S <= 4 from a carried state."""
+    _hold_lanes(_inputs(3, S, 200, N, seed=20 + S), F32, y_tol(F32), H_TOL)
+
+
+def test_ssm_scan_lanes_ref_reduced_main_path():
+    """hymba's main-path types (u bf16; dt, B_, C_ f32; a carried state) at
+    a reduced shape, at the card's main-path tolerances."""
+    _hold_lanes(_inputs(2, 96, 320, 16, seed=30), F32, MAIN_Y_TOL, MAIN_H_TOL, chunk=32,
+                u_dtype=BF16)
 
 
 # ---------------------------------------------------------------------------
