@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # the whole check, one card
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
+    python3 chip_smoke.py --spot-only     # build + the spot provisioner's phase only
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
@@ -58,12 +59,29 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    and launch counters of 144 flash forwards and 72 of each backward
    kernel per step; then a reduced f32 model's 5 steps on the card match
    the plain CPU trainer's losses and grad norms (rtol 1e-4) and params
-   (atol 1e-5).
+   (atol 1e-5);
+8. spot provisioner: full-width qwen3-4b (as in 7) through
+   ``SpotTrainingOrchestrator`` in siwoft mode on the orchestrator bench's
+   split scenario (a 400 GB job on two 8-device legs, one step a trace
+   hour, leg B revoked at future hour 2), a pool of 8 slots on cuda:0, 12
+   steps in segments of 3: B's revocation cuts a segment after 2 of its
+   steps, one leg is repaired, the job completes; 0 < reshard_bytes <
+   train_state_bytes, the leg costs sum to the bill, 144 flash forwards
+   and 72 of each backward kernel per executed step, and the re-executed
+   steps' losses equal the first attempt's bit for bit (the host snapshot
+   of the segment-start state restored it); peak memory, the snapshot's
+   GB and seconds, the host's seconds per provisioning decision and ms per
+   step are logged. Then reduced f32 qwen3-4b (tests/test_orchestrator.py's
+   config) in siwoft, checkpoint and hybrid mode on the card and on the
+   CPU: the deterministic report columns equal, losses at rtol 1e-4 (the
+   checkpoint mode restores onto the card); and the training launcher's
+   three spot modes on the card, reduced, with ``--trace``, each trace
+   read back with ``read_jsonl``.
 
 A kernel variant's ``launches_by_path`` in the JSON record holds its count
-on each path (``serve``, ``hybrid``, ``xlstm``, ``train`` at full width in
-bf16, and the reduced f32 runs ``serve_f32``, ``hybrid_f32``, ``xlstm_f32``,
-``train_f32``), each counted from 0 just before that path's run and read
+on each path (``serve``, ``hybrid``, ``xlstm``, ``train``, ``spot`` at full width
+in bf16, the reduced f32 runs ``serve_f32``, ``hybrid_f32``, ``xlstm_f32``,
+``train_f32``, ``spot_f32``, and the launcher's reduced bf16 ``spot_launch``), each counted from 0 just before that path's run and read
 just after; ``launches`` is their sum. The full-width paths launch only the
 tensor-core variants, the f32 runs only the FMA ones. The last three lines of stdout are the card's name and power limit, the
 per-kernel JSON record and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1782,11 +1800,235 @@ def train_reduced_matches_cpu() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the spot provisioner
+# ---------------------------------------------------------------------------
+
+# the split scenario of benchmarks/orchestrator_bench.py:130-150: three
+# 8-device markets with 40 GB a device (A, B calm in history, C mildly
+# revoking) and a 1-device market that never fits; B revokes at future hour 2
+SPLIT_MARKETS = [
+    ("big8.a", "us-east-1", "us-east-1a", 40, 1.2, 8, 60.0),
+    ("big8.b", "eu-west-1", "eu-west-1a", 40, 1.2, 8, 60.0),
+    ("big8.c", "ap-southeast-1", "ap-southeast-1a", 40, 1.2, 8, 60.0),
+    ("small1", "us-east-1", "us-east-1b", 64, 0.4, 1, 10.0),
+]
+# 12 steps in segments of 3 at one step a trace hour (the 1-device
+# reference rate): B's revocation cuts the segment that starts at step 9
+# after 2 of its steps (the CPU port's run of this scenario says so)
+SPOT_STEPS, SPOT_SEGMENT = 12, 3
+# the reduced three-mode run: tests/test_orchestrator.py's config
+SPOT_REDUCED = dict(steps=30, segment_steps=10, ckpt_every=5, ft_revocations=2)
+# the deterministic report columns the card must reproduce (==)
+SPOT_COLUMNS = ("total_steps", "useful_steps", "wasted_steps", "revocations", "markets_used",
+                "allocations_used", "leg_repairs", "leg_costs", "cost_dollars",
+                "reshard_bytes", "restore_bytes", "reshard_events", "mesh_shapes",
+                "cost_to_complete")
+
+
+def _split_markets():
+    from repro_torch.core.market import Market, MarketSet
+
+    markets = [Market(i, *m[:5], device_count=m[5], interconnect_gbps=m[6])
+               for i, m in enumerate(SPLIT_MARKETS)]
+    hp = np.full((4, 90), 0.35)
+    hp[2, ::45] = 1.5
+    hp[3, ::5] = 0.6
+    fp = np.full((4, 24), 0.35)
+    fp[1, 2:4] = 1.5
+    return MarketSet(markets, hp), MarketSet(markets, fp, start_hour=90)
+
+
+def _indexed(step_fn, out: list):
+    """``step_fn`` that also keeps (the state's step index, its metrics as
+    floats, its seconds to the loss on the host) for every executed step."""
+    def step(state, batch):
+        i, t0 = state.step, time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        m = {k: float(v) for k, v in metrics.items()}
+        out.append((i, m, time.perf_counter() - t0))
+        return state, metrics
+    return step
+
+
+def spot_full_width() -> dict:
+    """Full-width qwen3-4b through ``SpotTrainingOrchestrator`` in siwoft
+    mode on the split scenario, a pool of 8 slots on cuda:0."""
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.core import orchestrator as orch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import ElasticMeshManager, train_state_bytes
+    from repro_torch.models import build_model
+
+    cfg = get_arch("qwen3-4b")
+    model = build_model(cfg)
+    seq, batch = 4096, 2
+    tc = TrainConfig(total_steps=SPOT_STEPS, warmup_steps=1, microbatches=2)
+    layout = ShardingLayout(attn_impl="flash")
+    pool = ElasticMeshManager([torch.device("cuda", 0)] * 8)
+    log(f"[spot] {cfg.name} at full width and depth, f32 params + AdamW, seq {seq}, global "
+        f"batch {batch} in {tc.microbatches} microbatches; siwoft on the split scenario "
+        f"(job_memory_gb 400, one step a trace hour, B revokes at future hour 2), "
+        f"{SPOT_STEPS} steps in segments of {SPOT_SEGMENT}, a pool of 8 slots on cuda:0; "
+        f"train_state_bytes {train_state_bytes(model)}")
+    steps: list = []
+    make_step = orch.make_step
+    orch.make_step = lambda *a, **kw: _indexed(make_step(*a, **kw), steps)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rep = orch.SpotTrainingOrchestrator(
+            model, SyntheticLM(cfg.vocab_size, seq, batch, seed=0), "cuda", *_split_markets(),
+            mode="siwoft", tc=tc, layout=layout, segment_steps=SPOT_SEGMENT,
+            steps_per_trace_hour=1, seed=0, mesh_manager=pool, job_memory_gb=400.0,
+        ).run(SPOT_STEPS)
+    finally:
+        orch.make_step = make_step
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    executed = rep.useful_steps + rep.wasted_steps
+    per_step = cfg.num_layers * tc.microbatches
+    want = expect_launches(flash_attention_tc=2 * per_step * executed,
+                           flash_attention_bwd_dkdv_tc=per_step * executed,
+                           flash_attention_bwd_dq_tc=per_step * executed)
+    for i, m, dt in steps:
+        log(f"[spot] step {i}: loss {m['loss']:.9g}, grad_norm {m['grad_norm']:.6f}, "
+            f"{dt * 1e3:.1f} ms")
+    firsts, repeats = {}, []
+    for i, m, _ in steps:
+        if i in firsts:
+            repeats.append((i, firsts[i], m["loss"]))
+        else:
+            firsts[i] = m["loss"]
+    ms = [dt * 1e3 for i, _, dt in steps if i > 0]
+    decisions = rep.decision_seconds
+    log(f"[spot] report: useful {rep.useful_steps}, wasted {rep.wasted_steps}, revocations "
+        f"{rep.revocations}, leg repairs {rep.leg_repairs}, allocations "
+        f"{rep.allocations_used}, reshard_bytes {rep.reshard_bytes}, cost "
+        f"{rep.cost_dollars!r}, leg costs {rep.leg_costs}, mesh shapes {rep.mesh_shapes}")
+    for snap in rep.snapshots:
+        back = snap["restore_seconds"]
+        log(f"[spot] segment-start snapshot at step {snap['step']}: "
+            f"{snap['bytes'] / 1e9:.3f} GB to host memory in {snap['seconds']:.2f} s, "
+            + (f"written back in {back:.2f} s" if back is not None else "not written back"))
+    log(f"[spot] {executed} steps executed in {wall:.1f} s of run; ms a step (after step "
+        f"0) {min(ms):.1f}-{max(ms):.1f}, mean {sum(ms) / len(ms):.1f}; host seconds a "
+        f"provisioning decision: {len(decisions)} decisions, mean "
+        f"{sum(decisions) / len(decisions):.4f}, max {max(decisions):.4f}; peak device "
+        f"memory {peak_gb:.2f} GB; launches {launches}, expected {want}")
+    log(f"[spot] re-executed steps, loss of the first attempt vs the second: "
+        + ", ".join(f"step {i}: {a!r} vs {b!r}" for i, a, b in repeats))
+    if rep.useful_steps != SPOT_STEPS or executed != len(steps):
+        raise AssertionError(f"spot run: {rep.useful_steps} useful of {SPOT_STEPS}, "
+                             f"{executed} executed, {len(steps)} recorded")
+    if not (rep.revocations >= 1 and rep.leg_repairs >= 1 and rep.snapshots):
+        raise AssertionError("spot run: no mid-segment revocation with a leg repair")
+    if not 0 < rep.reshard_bytes < train_state_bytes(model):
+        raise AssertionError(f"spot run: reshard_bytes {rep.reshard_bytes} not in "
+                             f"(0, {train_state_bytes(model)})")
+    if not abs(sum(rep.leg_costs.values()) - rep.cost_dollars) <= 1e-6:
+        raise AssertionError("spot run: the leg costs do not sum to the bill")
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for _, m, _ in steps):
+        raise AssertionError("spot run: non-finite training metrics")
+    if launches != want:
+        raise AssertionError("the spot path did not go through the kernels as expected")
+    if not repeats or any(a != b for _, a, b in repeats):
+        raise AssertionError("re-executed steps did not reproduce the first attempt's losses")
+    if not peak_gb < 80:
+        raise AssertionError(f"peak device memory {peak_gb:.2f} GB")
+    return launches
+
+
+def spot_reduced_matches_cpu() -> dict:
+    """Reduced f32 qwen3-4b through the orchestrator in all three modes, on
+    the card and on the CPU from the same initial state: the deterministic
+    report columns equal, losses at rtol 1e-4. Returns the card's launches."""
+    import tempfile
+
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.core import generate_markets, split_history_future
+    from repro_torch.core.orchestrator import SpotTrainingOrchestrator
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import init_train_state
+
+    cfg = dataclasses.replace(get_arch("qwen3-4b").reduced(), dtype="float32")
+    model = build_model(cfg)
+    ms = split_history_future(generate_markets(seed=3, n_hours=24 * 120), 24 * 90)
+    state_cpu = init_train_state(model, torch.Generator().manual_seed(0), "cpu")
+    r = SPOT_REDUCED
+    launches = dict.fromkeys(read_launches(), 0)
+    for mode in ("siwoft", "checkpoint", "hybrid"):
+        reports = {}
+        for device in ("cuda", "cpu"):
+            if device == "cuda":
+                reset_launches()
+            with tempfile.TemporaryDirectory() as d:
+                o = SpotTrainingOrchestrator(
+                    model, SyntheticLM(cfg.vocab_size, 32, 4, seed=0), device, *ms, mode=mode,
+                    tc=TrainConfig(total_steps=2 * r["steps"], warmup_steps=5),
+                    layout=ShardingLayout(attn_impl="flash"),
+                    segment_steps=r["segment_steps"], steps_per_trace_hour=200, ckpt_dir=d,
+                    ckpt_every=r["ckpt_every"], ft_revocations=r["ft_revocations"], seed=0,
+                    init_state=lambda: _copy_state(state_cpu, device),
+                )
+                reports[device] = o.run(r["steps"])
+                if o.ckpt is not None:
+                    o.ckpt.close()
+            if device == "cuda":
+                launches = {k: launches[k] + v for k, v in read_launches().items()}
+        gpu, cpu = reports["cuda"], reports["cpu"]
+        a, b = np.array(gpu.losses), np.array(cpu.losses)
+        same = {k: getattr(gpu, k) == getattr(cpu, k) for k in SPOT_COLUMNS}
+        log(f"[spot] reduced f32 {mode}: useful {gpu.useful_steps}, wasted {gpu.wasted_steps}, "
+            f"revocations {gpu.revocations}, restore_bytes {gpu.restore_bytes}, cost "
+            f"{gpu.cost_dollars!r}; columns equal to the CPU's: {all(same.values())}; "
+            f"losses, largest relative difference "
+            f"{float(np.max(np.abs(a - b) / np.abs(b))) if len(a) == len(b) else 'n/a'}")
+        if not all(same.values()):
+            raise AssertionError(f"reduced {mode} on the card: columns differ from the CPU's: "
+                                 f"{[k for k, v in same.items() if not v]}")
+        if not np.allclose(a, b, rtol=1e-4, atol=0):
+            raise AssertionError(f"reduced {mode} on the card: losses differ from the CPU's")
+    return hold_f32_launches("spot", launches, "flash_attention_fma",
+                             "flash_attention_bwd_dkdv_fma", "flash_attention_bwd_dq_fma")
+
+
+def spot_launcher() -> dict:
+    """``python -m repro_torch.launch.train --spot-mode M --trace PATH`` for
+    each mode, reduced, on the card; each trace parses with ``read_jsonl``
+    into a run that opens with RunStart and pins its breakdown."""
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.obs import events, read_jsonl
+
+    reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        for mode in ("siwoft", "checkpoint", "hybrid"):
+            path = Path(d) / f"{mode}.jsonl"
+            summary = train.main(["--spot-mode", mode, "--steps", "10", "--device", "cuda",
+                                  "--trace", str(path)])
+            trace = read_jsonl(path)
+            kinds = [events.wire_name(type(e)) for e in trace]
+            log(f"[spot] launcher --spot-mode {mode}: {summary}; trace {len(trace)} events "
+                f"{sorted(set(kinds))}")
+            if not (kinds and kinds[0] == "run_start" and "breakdown_pin" in kinds
+                    and summary["useful"] >= 10 and np.isfinite(summary["loss_last"])):
+                raise AssertionError(f"launcher --spot-mode {mode}: bad run or trace")
+    return read_launches()
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after building and checking the kernels")
+    ap.add_argument("--spot-only", action="store_true",
+                    help="only build the kernels and run the spot provisioner's phase")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
                          "of the kernel paths and plain orders agree, by prompt length")
@@ -1838,6 +2080,12 @@ def main() -> int:
     if args.xlstm_orders:
         xlstm_orders()
         return 0
+    if args.spot_only:
+        spot = {"spot": spot_full_width(), "spot_f32": spot_reduced_matches_cpu(),
+                "spot_launch": spot_launcher()}
+        log(f"chip_smoke: --spot-only, launches by path {spot}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -1865,6 +2113,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["train"] = train_full_width()
     paths["train_f32"] = train_reduced_matches_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["spot"] = spot_full_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["spot_f32"] = spot_reduced_matches_cpu()
+    paths["spot_launch"] = spot_launcher()
     for r in records:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -40,8 +40,10 @@ from repro_torch.models.common import tree_flatten
 
 
 def _to_host(x: Any) -> np.ndarray:
+    """A host copy of one leaf, never a view: the train step updates params
+    and moments in place while the writer thread saves them."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().view(np.uint16)
         return x.numpy()

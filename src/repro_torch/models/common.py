@@ -15,6 +15,30 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+LOGICAL_AXES = (
+    "layers",      # scan dim — never sharded
+    "groups",      # xLSTM super-block scan dim — never sharded
+    "vocab",       # embedding / lm-head vocab dim
+    "embed",       # d_model (a.k.a. residual stream)
+    "q_dim",       # fused num_heads * head_dim projection output
+    "kv_dim",      # fused num_kv_heads * head_dim projection output
+    "heads",       # attention heads (activations)
+    "kv_heads",
+    "head_dim",
+    "ffn",         # MLP hidden
+    "experts",     # MoE expert dim
+    "ssm_inner",   # Mamba inner (expand * d_model)
+    "ssm_state",   # Mamba state N
+    "conv",        # depthwise conv width
+    "dt_rank",
+    "enc_embed",   # encoder width (enc-dec models)
+    "vit_embed",   # stub vision encoder width (VLM)
+    "seq",         # sequence dim (activations only)
+    "batch",       # batch dim (activations only)
+)
+
+# stacking dims: every slot holds every layer, so ``repro_torch.dist`` never
+# maps these to a mesh axis
 SCAN_AXES = ("layers", "groups")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.int32}

@@ -54,8 +54,9 @@ def params_from_jax(tree: Any, cfg: ModelConfig, device, dtype: Optional[torch.d
 
 def params_to_numpy(params: Any) -> Any:
     """The port's params -> numpy tree in the JAX layout (f32 leaves stay
-    bit-exact, so ``params_to_numpy(params_from_jax(t))`` equals ``t``)."""
-    return common.tree_map(lambda t: t.detach().cpu().float().numpy(), params)
+    bit-exact, so ``params_to_numpy(params_from_jax(t))`` equals ``t``).
+    The arrays are copies: the train step updates params in place."""
+    return common.tree_map(lambda t: np.array(t.detach().cpu().float().numpy()), params)
 
 
 def cache_from_jax(tree: Any, cfg: ModelConfig, batch: int, seq_len: int, device):

@@ -23,6 +23,7 @@ from repro.config import get_arch as jax_get_arch
 from repro.dist.meshplan import ThroughputTracker
 from repro.models import build_model as jax_build_model
 from repro_torch.config import ShardingLayout, get_arch
+from repro_torch.dist import ThroughputTracker as PortThroughputTracker
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax
 from repro_torch.obs import events as E
@@ -194,17 +195,25 @@ def test_engine_occupancy_tracks_live_lanes(served):
     assert eng.occupancy == 0.0
 
 
-def test_engine_feeds_duck_typed_tracker(served):
-    """The JAX package's ThroughputTracker is fed by the port's engine
-    unchanged (duck typing: ``observe(key, steps, seconds)``)."""
+def _feeds(served, tracker):
     _, _, model, params, reqs, *_ = served
-    tracker = ThroughputTracker()
     eng = _engine(model, lanes=2, num_pages=9, tracker=tracker, tracker_key="1x1")
     for r in reqs[:2]:
         eng.submit(r)
     eng.run(params)
     assert tracker.steps_per_sec("1x1") > 0.0
     assert eng.measured_tokens_per_sec > 0.0
+
+
+def test_engine_feeds_duck_typed_tracker(served):
+    """The port's own ThroughputTracker (``repro_torch.dist``) is fed by the
+    port's engine (duck typing: ``observe(key, steps, seconds)``)."""
+    _feeds(served, PortThroughputTracker())
+
+
+def test_engine_feeds_jax_tracker(served):
+    """The JAX package's ThroughputTracker takes the same feed unchanged."""
+    _feeds(served, ThroughputTracker())
 
 
 def test_engine_refuses_what_it_cannot_run(served, monkeypatch):

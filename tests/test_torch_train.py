@@ -12,6 +12,7 @@ import os
 from pathlib import Path
 import subprocess
 import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -369,3 +370,19 @@ def test_train_launcher_runs_on_cpu():
     )
     assert res.returncode == 0, res.stderr
     assert '"training done"' in res.stdout
+
+
+def test_checkpoint_save_copies_cpu_tensors(tmp_path):
+    """``save`` snapshots now: a CPU tensor updated in place after ``save``
+    (as the train step updates params) does not reach the checkpoint."""
+    t = torch.arange(1 << 16, dtype=torch.float32)
+    ckpt = CheckpointManager(str(tmp_path), keep=1)
+    gate, write = threading.Event(), ckpt._write
+    ckpt._write = lambda step, leaves: (gate.wait(), write(step, leaves))
+    ckpt.save(1, {"w": t})
+    t.add_(1.0)                      # before the writer thread may write
+    gate.set()
+    ckpt.wait()
+    _, restored = ckpt.restore(1, device="cpu", like={"w": t})
+    ckpt.close()
+    assert torch.equal(restored["w"], torch.arange(1 << 16, dtype=torch.float32))
