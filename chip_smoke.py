@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # the whole check, one card
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
     python3 chip_smoke.py --spot-only     # build + the spot provisioner's phase only
+    python3 chip_smoke.py --serve-plan-only  # build + the spot serving phase only
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
@@ -76,12 +77,32 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    CPU: the deterministic report columns equal, losses at rtol 1e-4 (the
    checkpoint mode restores onto the card); and the training launcher's
    three spot modes on the card, reduced, with ``--trace``, each trace
-   read back with ``read_jsonl``.
+   read back with ``read_jsonl``;
+9. spot serving: full-width qwen3-4b (bf16 weights from a seeded
+   generator) through the serve launcher's plan modes (``serve_plan``) on
+   a pool of 8 slots on cuda:0, 8 prompts x 2000 tokens and 32 new tokens:
+   dense uninterrupted, dense revoked after 16 steps (plans 8 -> 4) under
+   ``drop`` and ``migrate``, the engine uninterrupted and revoked (its
+   pool released, its streams drained onto a fresh engine). Held: the
+   byte columns equal the CPU's prediction (``serve_plan_predicted``) and
+   params stay below the training path's bytes; the migrate stream equals
+   the uninterrupted one, drop's first 17 tokens do, and the engine's
+   rows are equal or first diverge at a near-tie of the uninterrupted
+   run's logits (top-2 gap <= 2 bf16 ulps of the top logit, correlation
+   > 0.99); 36 flash launches a prefill and 36 paged ones a decode step;
+   reduced f32 in the five runs on the card equals the CPU in every
+   column but the timings. Then ``FleetSimulator`` in engine mode, priced
+   by the engine's tokens/s and the revoked run's tracker, runs the serve
+   bench's policies on its markets and quick traces: token conservation,
+   every migration below the training path's bytes, and a replay of its
+   trace with 0 mismatches are held; the CSV rows are printed.
 
 A kernel variant's ``launches_by_path`` in the JSON record holds its count
 on each path (``serve``, ``hybrid``, ``xlstm``, ``train``, ``spot`` at full width
 in bf16, the reduced f32 runs ``serve_f32``, ``hybrid_f32``, ``xlstm_f32``,
-``train_f32``, ``spot_f32``, and the launcher's reduced bf16 ``spot_launch``), each counted from 0 just before that path's run and read
+``train_f32``, ``spot_f32``, the launcher's reduced bf16 ``spot_launch``, and
+the plan modes' ``serve_plan`` and ``serve_plan_f32``), each counted from 0
+just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
 tensor-core variants, the f32 runs only the FMA ones. The last three lines of stdout are the card's name and power limit, the
 per-kernel JSON record and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -2022,6 +2043,390 @@ def spot_launcher() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: spot serving
+# ---------------------------------------------------------------------------
+
+# qwen3-4b at full width: 8 prompts x 2000 tokens, 32 new tokens, revoked
+# after 16 decode steps; a pool of 8 slots on cuda:0 (plans 8 -> 4)
+SERVE_B, SERVE_S, SERVE_NEW, SERVE_REVOKE = 8, 2000, 32, 16
+# the five runs: (counts, revoke_after, cache_policy, engine)
+SERVE_RUNS = {
+    "dense": ([8], 0, "drop", False),
+    "dense_drop": ([8, 4], SERVE_REVOKE, "drop", False),
+    "dense_migrate": ([8, 4], SERVE_REVOKE, "migrate", False),
+    "engine": ([8], 0, "drop", True),
+    "engine_revoked": ([8, 4], SERVE_REVOKE, "drop", True),
+}
+# the reduced f32 runs, card against CPU: tests/test_torch_serve_plan.py's sizes
+SERVE_F32 = dict(batch=4, prompt_len=16, new_tokens=8, revoke_after=3)
+# PLAN_JSON columns that are timings (every other column must be equal)
+PLAN_TIMINGS = ("measured_steps_per_sec", "engine_tokens_per_sec",
+                "engine_tokens_per_sec_before", "recover_seconds", "prefill_seconds",
+                "decode_seconds")
+# the engine rule after the revocation: a row may first diverge only where
+# the uninterrupted run's top-2 logit gap is at most 2 bf16 ulps of the top
+# logit (|top| x 2^-7 each) and the two runs' logits correlate above 0.99
+ENGINE_GAP_ULPS, ENGINE_MIN_CORR = 2, 0.99
+# benchmarks/serve_bench.py's CSV columns (report_row)
+FLEET_CSV = ("scenario,policy,cost_usd,slo_violation_s,served_mtok,shed_tok,queued_tok_h,"
+             "revocations,repairs,migrated_bytes,restored_bytes,replicas,p50_delay_s,"
+             "p99_delay_s,scale_ups,scale_downs,idle_headroom_mtok")
+
+
+def serve_plan_predicted(model) -> dict:
+    """The byte columns the revoked full-width runs must report, from the
+    specs alone on the CPU (before any run): params moved 8 -> 4 slots with
+    weight matrices in bf16 (the tree the card serves), the bf16 dense cache
+    at batch 8 x (2000 + 32), and the training path's state."""
+    from repro_torch.dist import (ElasticMeshManager, cache_shardings, param_shardings,
+                                  reshard_bytes, train_state_bytes)
+    from repro_torch.launch.serve import PLAN_LAYOUT as layout
+    from repro_torch.models.common import tree_map
+
+    man = ElasticMeshManager([torch.device("cpu")] * 8)
+    old, new = man.plan_for(8).mesh, man.plan_for(4).mesh
+    served = tree_map(lambda s: dataclasses.replace(s, dtype="bfloat16") if s.is_matrix else s,
+                      model.specs)
+    c_specs = model.cache_specs(SERVE_B, SERVE_S + SERVE_NEW)
+    return {"params_bytes": reshard_bytes(served, param_shardings(model.specs, old, layout),
+                                          param_shardings(model.specs, new, layout)),
+            "cache_bytes": reshard_bytes(c_specs, cache_shardings(c_specs, old, layout),
+                                         cache_shardings(c_specs, new, layout)),
+            "train_path_bytes": train_state_bytes(model)}
+
+
+class _DecodeLogits:
+    """Keep, on the card, the last-position logits of every paged decode
+    call of the engines built inside the block (a copy: 8 x vocab f32 a
+    step), by wrapping the engine module's step builder."""
+
+    def __init__(self):
+        self.logits: list = []
+
+    def __enter__(self):
+        from repro_torch.serve import engine
+
+        self._build = build = engine.build_paged_decode_step
+
+        def wrapped(model, layout):
+            step = build(model, layout)
+
+            def keep(params, cache, tokens, seq_lens, table):
+                logits, cache = step(params, cache, tokens, seq_lens, table)
+                self.logits.append(logits[:, -1].float().clone())
+                return logits, cache
+            return keep
+
+        engine.build_paged_decode_step = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve import engine
+
+        engine.build_paged_decode_step = self._build
+
+
+def _serve_plan_run(model, params, prompts, name, tracker=None) -> tuple:
+    """One of SERVE_RUNS at full width: (PLAN_JSON object, launches, peak
+    GB, decode logits of an engine run)."""
+    from repro_torch.launch.serve import serve_plan
+
+    counts, revoke, policy, engine = SERVE_RUNS[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    keep = _DecodeLogits()
+    reset_launches()
+    with keep:
+        out = serve_plan(model, params, prompts, SERVE_NEW, counts, revoke_after=revoke,
+                         cache_policy=policy, engine=engine, device="cuda", tracker=tracker)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = max(out["decode_steps"], 1)
+    log(f"[serve-plan] {name}: plans {counts}, prefill {out['prefill_seconds']:.3f} s, decode "
+        f"{1e3 * out['decode_seconds'] / steps:.2f} ms a step ({out['decode_steps']} steps), "
+        f"steps/s by plan {out['measured_steps_per_sec']}, "
+        + (f"engine tokens/s {out['engine_tokens_per_sec']} (before the revocation "
+           f"{out['engine_tokens_per_sec_before']}), " if engine else "")
+        + f"time to recover {out['recover_seconds']} s, params_bytes {out['params_bytes']}, "
+        f"cache_bytes {out['cache_bytes']}, train_path_bytes {out['train_path_bytes']}, "
+        f"migrated_at {out['migrated_at']}, peak device memory {peak_gb:.2f} GB")
+    return out, launches, peak_gb, keep.logits
+
+
+def _hold_serve_launches(name, out, launches, layers) -> None:
+    if SERVE_RUNS[name][3]:
+        want = expect_launches(flash_attention_tc=layers * out["prefills"],
+                               paged_attention_tc=layers * out["decode_steps"])
+    else:
+        want = expect_launches(flash_attention_tc=layers * (2 if name == "dense_drop" else 1))
+    log(f"[serve-plan] {name}: launches {launches}, expected {want}")
+    if launches != want:
+        raise AssertionError(f"serve-plan {name}: the path did not go through the kernels "
+                             f"as expected")
+
+
+def hold_engine_streams(ref: dict, got: dict, ref_logits: list, got_logits: list) -> list:
+    """The revoked engine run's streams against the uninterrupted one's:
+    equal through the revocation; after it each row is equal or first
+    diverges at a near-tie (ENGINE_GAP_ULPS, ENGINE_MIN_CORR). Token j >= 1
+    of a row comes from decode call j - 1 in both runs. Returns the
+    divergences as (row, token, gap, allowed gap, correlation)."""
+    out = []
+    for b, (r, g) in enumerate(zip(ref["tokens"], got["tokens"])):
+        if r == g:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(r, g)) if x != y)
+        if j <= SERVE_REVOKE:
+            raise AssertionError(f"engine row {b} diverges at token {j}, before the revocation")
+        a, c = ref_logits[j - 1][b], got_logits[j - 1][b]
+        top = torch.topk(a, 2).values
+        gap, allowed = float(top[0] - top[1]), ENGINE_GAP_ULPS * abs(float(top[0])) * 2 ** -7
+        corr = float(torch.corrcoef(torch.stack([a, c]))[0, 1])
+        out.append((b, j, gap, allowed, corr))
+        log(f"[serve-plan] engine row {b}: first divergence at token {j}: uninterrupted top-2 "
+            f"gap {gap:.5f} (allowed {allowed:.5f}), logits correlation {corr:.6f}")
+        if not (gap <= allowed and corr > ENGINE_MIN_CORR):
+            raise AssertionError(f"engine row {b}: the resumed stream diverges at token {j} "
+                                 f"where the uninterrupted run has no near-tie")
+    return out
+
+
+def serve_plan_full_width() -> tuple:
+    """Full-width qwen3-4b through the launcher's plan modes: dense under
+    both cache policies and the engine, each revoked after 16 steps beside
+    an uninterrupted run. Returns (launches summed over the runs, the
+    uninterrupted engine's tokens/s, the revoked engine run's tracker, the
+    model, its params)."""
+    from repro_torch.config import get_arch
+    from repro_torch.dist import ThroughputTracker, train_state_bytes
+    from repro_torch.models import build_model
+    from repro_torch.models.common import param_bytes
+    from repro_torch.serve import DecodeEngine
+
+    cfg = get_arch("qwen3-4b")
+    model = build_model(cfg)
+    predicted = serve_plan_predicted(model)
+    if predicted["train_path_bytes"] != train_state_bytes(model):
+        raise AssertionError("the predicted training-path bytes are not train_state_bytes")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                               (SERVE_B, SERVE_S)).astype(np.int32)
+    log(f"[serve-plan] {cfg.name} at full width and depth ({model.param_count() / 1e9:.3f} B "
+        f"params, bf16), {SERVE_B} prompts x {SERVE_S} tokens, {SERVE_NEW} new tokens, "
+        f"revoked after {SERVE_REVOKE} steps, plans 8 -> 4 slots on cuda:0; predicted "
+        f"{predicted}")
+    total = dict.fromkeys(read_launches(), 0)
+    runs, logits = {}, {}
+    tracker = ThroughputTracker()
+    for name in SERVE_RUNS:
+        out, launches, peak, kept = _serve_plan_run(
+            model, params, prompts, name, tracker if name == "engine_revoked" else None)
+        _hold_serve_launches(name, out, launches, cfg.num_layers)
+        runs[name], logits[name] = out, kept
+        total = {k: total[k] + v for k, v in launches.items()}
+        if name == "engine_revoked":
+            pool_gb = param_bytes(model.paged_cache_specs(
+                SERVE_B * -(-(SERVE_S + SERVE_NEW) // 16) + 1)) / 1e9
+            release = DecodeEngine.release_pool
+            DecodeEngine.release_pool = lambda self: None
+            try:
+                held, _, held_peak, _ = _serve_plan_run(model, params, prompts, name)
+            finally:
+                DecodeEngine.release_pool = release
+            log(f"[serve-plan] engine_revoked: peak device memory {peak:.2f} GB with the "
+                f"dying pool ({pool_gb:.3f} GB) released before the replacement's is made, "
+                f"{held_peak:.2f} GB with it held; streams equal: "
+                f"{held['tokens'] == out['tokens']}")
+            if held["tokens"] != out["tokens"]:
+                raise AssertionError("engine streams depend on the dying pool's release")
+
+    for name in ("dense_drop", "dense_migrate", "engine_revoked"):
+        r = runs[name]
+        want_cache = predicted["cache_bytes"] if name == "dense_migrate" else 0
+        sps = r["measured_steps_per_sec"]
+        if not (r["migrated_at"] == SERVE_REVOKE
+                and r["params_bytes"] == predicted["params_bytes"]
+                and 0 < r["params_bytes"] < r["train_path_bytes"]
+                and r["train_path_bytes"] == predicted["train_path_bytes"]
+                and r["cache_bytes"] == want_cache
+                and set(sps) == {"4x2", "2x2"} and min(sps.values()) > 0
+                and r["recover_seconds"] > 0):
+            raise AssertionError(f"serve-plan {name}: migration columns {r} against {predicted}")
+    ref = runs["dense"]["tokens"]
+    if runs["dense_migrate"]["tokens"] != ref:
+        raise AssertionError("dense migrate: the stream differs from the uninterrupted run's")
+    drop = runs["dense_drop"]["tokens"]
+    head = SERVE_REVOKE + 1
+    if [row[:head] for row in drop] != [row[:head] for row in ref]:
+        raise AssertionError("dense drop: the first tokens differ from the uninterrupted run's")
+    later = [sum(x == y for x, y in zip(a[head:], b[head:])) for a, b in zip(drop, ref)]
+    log(f"[serve-plan] dense migrate: stream equal to the uninterrupted run's; dense drop: "
+        f"first {head} tokens equal, later tokens equal by row {later} of {SERVE_NEW - head}")
+    div = hold_engine_streams(runs["engine"], runs["engine_revoked"], logits["engine"],
+                              logits["engine_revoked"])
+    log(f"[serve-plan] engine: {SERVE_B - len(div)} of {SERVE_B} rows equal in full, "
+        f"divergences {div}")
+    return total, runs["engine"]["engine_tokens_per_sec"], tracker, model, params
+
+
+def serve_plan_reduced_matches_cpu() -> dict:
+    """Reduced f32 qwen3-4b through the five runs on the card and on the
+    CPU, the same weights and prompts: every PLAN_JSON column but the
+    timings equal, and every revoked stream equal to the uninterrupted
+    one. Returns the card's launches."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import serve_plan
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+
+    cfg = dataclasses.replace(get_arch("qwen3-4b").reduced(), dtype="float32")
+    model = build_model(cfg)
+    params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
+    r = SERVE_F32
+    prompts = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (r["batch"], r["prompt_len"])).astype(np.int32)
+    launches = dict.fromkeys(read_launches(), 0)
+    outs = {}
+    for name, (counts, revoke, policy, engine) in SERVE_RUNS.items():
+        for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            if device == "cuda":
+                reset_launches()
+            outs[name, device] = serve_plan(
+                model, params, prompts, r["new_tokens"], counts,
+                revoke_after=r["revoke_after"] if revoke else 0, cache_policy=policy,
+                engine=engine, device=device)
+            if device == "cuda":
+                launches = {k: launches[k] + v for k, v in read_launches().items()}
+        gpu, cpu = (outs[name, d] for d in ("cuda", "cpu"))
+        differ = [k for k in gpu if k not in PLAN_TIMINGS and gpu[k] != cpu[k]]
+        log(f"[serve-plan] reduced f32 {name}: columns other than timings equal to the CPU's: "
+            f"{not differ}; migrated_at {gpu['migrated_at']}, params_bytes "
+            f"{gpu['params_bytes']}, cache_bytes {gpu['cache_bytes']}")
+        if differ or set(gpu) != set(cpu):
+            raise AssertionError(f"reduced f32 {name} on the card differs from the CPU: {differ}")
+    for name in ("dense_drop", "dense_migrate"):
+        if outs[name, "cuda"]["tokens"] != outs["dense", "cuda"]["tokens"]:
+            raise AssertionError(f"reduced f32 {name}: stream differs from the uninterrupted")
+    if outs["engine_revoked", "cuda"]["tokens"] != outs["engine", "cuda"]["tokens"]:
+        raise AssertionError("reduced f32 engine round trip differs from the uninterrupted run")
+    return hold_f32_launches("serve-plan", launches, "flash_attention_fma",
+                             "paged_attention_fma")
+
+
+def _fleet_row(scenario, policy, rep) -> str:
+    """benchmarks/serve_bench.py::report_row."""
+    from repro_torch.core.units import SECONDS_PER_HOUR, TOKENS_PER_MEGATOKEN
+
+    return (
+        f"{scenario},{policy},{rep.cost_dollars:.4f},"
+        f"{rep.slo_violation_seconds:.1f},"
+        f"{rep.router.served_tokens / TOKENS_PER_MEGATOKEN:.3f},{rep.router.shed_tokens:.1f},"
+        f"{rep.router.queued_token_seconds / SECONDS_PER_HOUR:.1f},"
+        f"{rep.revocations},{rep.repairs},"
+        f"{rep.migrated_bytes},{rep.restored_bytes},{rep.replicas_provisioned},"
+        f"{rep.p50_delay_seconds:.3f},{rep.p99_delay_seconds:.3f},"
+        f"{rep.scale_ups},{rep.scale_downs},"
+        f"{rep.idle_headroom_tokens / TOKENS_PER_MEGATOKEN:.3f}"
+    )
+
+
+def fleet_on_card_rate(model, params, engine_tps: float, tracker) -> list:
+    """The serve bench's fleet, sized by the card's rate: FleetSimulator in
+    engine mode with the uninterrupted engine run's tokens/s and the revoked
+    run's tracker, on BENCH_serve's market set and its steady and diurnal
+    traces at --quick length, scaled so that target / replica rate is
+    480 / 100; the workload is full-width qwen3-4b's serving footprint.
+    Holds token conservation, every migration below the training path's
+    bytes, and a replay of the recorded trace with 0 mismatches. Returns
+    the CSV rows."""
+    import tempfile
+
+    from repro_torch.core import generate_markets, split_history_future
+    from repro_torch.core import provisioner as alg
+    from repro_torch.core.units import BYTES_PER_GIB
+    from repro_torch.dist import serve_state_bytes, train_state_bytes, tree_bytes
+    from repro_torch.models.common import param_bytes
+    from repro_torch.obs import events, read_jsonl, recording, replay, write_jsonl
+    from repro_torch.serve import FleetSimulator, ServePolicy, ServingWorkload
+    from repro_torch.serve import on_demand_reference
+
+    pb = tree_bytes(params)
+    cb = serve_state_bytes(model, SERVE_B, 2048) - param_bytes(model.specs)
+    scale = engine_tps / 100.0
+    wl = ServingWorkload(target_tokens_per_sec=480.0 * scale, replica_tokens_per_sec=engine_tps,
+                         state_gb=(pb + cb) / BYTES_PER_GIB, param_bytes=pb, cache_bytes=cb,
+                         inflight_context_tokens=SERVE_B * 2048.0)
+    hours = 24 * 3
+    hist, fut = split_history_future(generate_markets(seed=4, n_hours=24 * 90 + hours + 24),
+                                     24 * 90)
+    feats = alg.MarketFeatures.from_history(hist)
+    fleet_policy = ServePolicy(slo_horizon_hours=24.0, capacity_headroom=1.25,
+                               cache_policy="drop")
+    static_policy = ServePolicy(slo_horizon_hours=24.0, capacity_headroom=1.5)
+    kw = dict(throughput_mode="engine", measured_tokens_per_sec=engine_tps, tracker=tracker)
+    t = np.arange(hours, dtype=float)
+    steady = np.full(hours, 350.0)
+    steady[0] = 0.0
+    diurnal = 300.0 - 180.0 * np.cos(2 * math.pi * ((t % 24) / 24.0))
+    diurnal[0] = 0.0
+    log(f"[fleet] workload: param_bytes {pb} (bf16 tree), cache_bytes {cb} (batch 8 x 2048), "
+        f"replica rate {engine_tps} tokens/s (the card's engine), target "
+        f"{wl.target_tokens_per_sec}; tracker {tracker.measured}")
+    rows, train_path = [FLEET_CSV], train_state_bytes(model)
+    with recording() as rec:
+        for scenario, rate in (("steady", steady * scale), ("diurnal", diurnal * scale)):
+            reps = {
+                "fleet": FleetSimulator(hist, fut, wl, fleet_policy, **kw).run(hours, rate),
+                "autoscale": FleetSimulator(hist, fut, wl, fleet_policy, sizing="auto",
+                                            **kw).run(hours, rate),
+                "on_demand": on_demand_reference(wl, feats, fut, hours, rate, fleet_policy),
+                "static": FleetSimulator(hist, fut, wl, static_policy, mode="static",
+                                         **kw).run(hours, rate),
+            }
+            for policy, rep in reps.items():
+                rows.append(_fleet_row(scenario, policy, rep))
+                r = rep.router
+                if not math.isclose(r.served_tokens + r.shed_tokens + r.q_end,
+                                    r.offered_tokens, rel_tol=1e-9):
+                    raise AssertionError(f"fleet {scenario} {policy}: tokens not conserved")
+            f, od, auto = reps["fleet"], reps["on_demand"], reps["autoscale"]
+            log(f"[fleet] {scenario} (logged, not held): fleet cost < on-demand "
+                f"{f.cost_dollars < od.cost_dollars}, fleet violations <= on-demand "
+                f"{f.slo_violation_seconds <= od.slo_violation_seconds}, autoscale violations "
+                f"<= fleet {auto.slo_violation_seconds <= f.slo_violation_seconds}, autoscale "
+                f"cost < fleet {auto.cost_dollars < f.cost_dollars}")
+    moves = [e.bytes_moved for e in rec.events if isinstance(e, events.ReshardStart)]
+    if not all(0 < m < train_path for m in moves):
+        raise AssertionError(f"a fleet migration moved {max(moves)} >= {train_path} bytes")
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "fleet.jsonl"
+        write_jsonl(path, rec.events)
+        runs, problems = replay.verify_events(read_jsonl(path))
+    log(f"[fleet] {len(moves)} migrations, largest {max(moves, default=0)} bytes (training "
+        f"path {train_path}); trace of {len(rec.events)} events replays as {len(runs)} runs "
+        f"with {len(problems)} mismatches")
+    if problems or not runs or any(r.pin is None for r in runs):
+        raise AssertionError(f"fleet trace replay: {problems[:3]}")
+    return rows
+
+
+def spot_serving() -> dict:
+    """Phase 9: the launcher's plan modes at full width, reduced f32 against
+    the CPU, and the fleet on the card's rate. Returns launches by path."""
+    launches, engine_tps, tracker, model, params = serve_plan_full_width()
+    rows = fleet_on_card_rate(model, params, engine_tps, tracker)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {"serve_plan": launches, "serve_plan_f32": serve_plan_reduced_matches_cpu()}
+    for row in rows:
+        print(row, flush=True)
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2029,6 +2434,8 @@ def main() -> int:
                     help="stop after building and checking the kernels")
     ap.add_argument("--spot-only", action="store_true",
                     help="only build the kernels and run the spot provisioner's phase")
+    ap.add_argument("--serve-plan-only", action="store_true",
+                    help="only build the kernels and run the spot serving phase")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
                          "of the kernel paths and plain orders agree, by prompt length")
@@ -2050,8 +2457,10 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[device] {name}; {smi_line}; torch {torch.__version__}, cuda {torch.version.cuda}")
+    log(f"[phase 1/9] [device] {name}; {smi_line}; torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}")
 
+    log("[phase 2/9] build")
     _build.build()
     ptxas = _build.last_build["log"]
     per_source = {}
@@ -2081,12 +2490,20 @@ def main() -> int:
         xlstm_orders()
         return 0
     if args.spot_only:
+        log("[phase 8/9] the spot provisioner")
         spot = {"spot": spot_full_width(), "spot_f32": spot_reduced_matches_cpu(),
                 "spot_launch": spot_launcher()}
         log(f"chip_smoke: --spot-only, launches by path {spot}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
+    if args.serve_plan_only:
+        log("[phase 9/9] spot serving")
+        paths = spot_serving()
+        log(f"chip_smoke: --serve-plan-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
 
+    log("[phase 3/9] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [*check_flash(gen, flush), *check_paged(gen, flush), *check_flash_bwd(gen, flush),
@@ -2097,29 +2514,38 @@ def main() -> int:
         log("chip_smoke: --kernels-only, stopped before serving")
         return 0
 
+    log("[phase 4/9] serving")
     paths = {"serve": serve_full_width()}
     paths["serve_f32"] = serve_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
+    log("[phase 5/9] hybrid serving")
     paths["hybrid"] = serve_hybrid_full_width()
     paths["hybrid_f32"] = greedy_reduced_matches_cpu("hymba-1.5b", "hybrid",
                                                      "flash_attention_fma", "ssm_scan")
     gc.collect()
     torch.cuda.empty_cache()
+    log("[phase 6/9] xLSTM serving")
     paths["xlstm"] = serve_xlstm_full_width()
     paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_fma",
                                                     "mlstm_step")
     gc.collect()
     torch.cuda.empty_cache()
+    log("[phase 7/9] training")
     paths["train"] = train_full_width()
     paths["train_f32"] = train_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
+    log("[phase 8/9] the spot provisioner")
     paths["spot"] = spot_full_width()
     gc.collect()
     torch.cuda.empty_cache()
     paths["spot_f32"] = spot_reduced_matches_cpu()
     paths["spot_launch"] = spot_launcher()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 9/9] spot serving")
+    paths.update(spot_serving())
     for r in records:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

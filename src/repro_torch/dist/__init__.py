@@ -13,10 +13,11 @@ instance menu into slot grids (``ElasticMeshManager``) and computes
 reference's numbers for the same shapes and placements.
 
 A pool of N slots on one device simulates N devices: the placements decide
-the byte accounting, execution is on the one device. Batch, cache and
-activation shardings have no effect there and are not ported, nor are
-``replicate`` and ``reshard_params``, which no caller of the port needs
-yet.
+the byte accounting, execution is on the one device. Cache placements
+(``cache_shardings``) price the dense cache a serving migration moves.
+Batch and activation shardings have no effect there and are not ported,
+nor are ``replicate`` and ``reshard_params``, which no caller of the port
+needs yet.
 """
 from repro_torch.dist.elastic import placement_device, reshard_tree
 from repro_torch.dist.meshplan import (
@@ -34,6 +35,7 @@ from repro_torch.dist.sharding import (
     PARAM_RULES,
     Placement,
     SlotMesh,
+    cache_shardings,
     opt_state_shardings,
     param_shardings,
     replicated,
@@ -47,6 +49,7 @@ __all__ = [
     "Placement",
     "SlotMesh",
     "ThroughputTracker",
+    "cache_shardings",
     "leg_state_bytes",
     "mesh_shape_for",
     "opt_state_shardings",

@@ -24,8 +24,9 @@ by their index in the pool, never by the device object.
 :meth:`Placement.indices_map` gives each slot its slice of a tensor, as
 ``NamedSharding.devices_indices_map`` gives each device its slice.
 Placements decide the byte accounting (``repro_torch.dist.meshplan``);
-execution is on the pool's device. Batch, cache and activation shardings
-have no effect on one device and are not ported.
+execution is on the pool's device. Cache placements price the dense cache
+a serving migration moves (:func:`cache_shardings`); batch and activation
+shardings have no effect on one device and are not ported.
 """
 from __future__ import annotations
 
@@ -211,3 +212,11 @@ def opt_state_shardings(specs: Any, mesh: SlotMesh, layout: ShardingLayout) -> A
     params tp_only but moments fully sharded ("baseline").
     """
     return _spec_shardings(specs, mesh, _rules_for(layout, key="opt_rules"))
+
+
+def cache_shardings(cache_specs: Any, mesh: SlotMesh, layout: ShardingLayout) -> Any:
+    """Placements for the decode cache. Cache specs carry their own logical
+    dims (``batch``/``seq``/``kv_heads``/...); the seq (slot) dim shards over
+    the model axis — ``cache_len_for`` rounds it to a multiple of 16 so this
+    always divides on the production mesh."""
+    return _spec_shardings(cache_specs, mesh, _rules_for(layout))

@@ -9,9 +9,12 @@ lane's write position and attention extent come from its own ``seq_lens``
 entry, and its pages from its row of the block table.
 
 Admission is FIFO; a request is admitted only when a lane is free AND the
-pool has ``ceil((prompt + resume + max_new) / page_size)`` free pages for
-its whole lifetime, reserved up front, so an admitted request never
-stalls on pool exhaustion. The pool's LAST page is the trash page: dead
+pool has ``ceil((prompt + max_new) / page_size)`` free pages for its whole
+lifetime, reserved up front, so an admitted request never stalls on pool
+exhaustion. A resumed request's committed tokens are part of its
+``max_new_tokens`` (the stream ends when it holds that many), so they add
+no pages: the reference adds them again, which over-reserves and refuses a
+resumed request that the pool sized for the original one could hold. The pool's LAST page is the trash page: dead
 lanes write there and it is never allocated.
 
 Prefill runs dense, one request at a time at its exact prompt length;
@@ -170,12 +173,15 @@ class DecodeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def release_pool(self) -> None:
+        """Free the paged KV pool: the instance is gone and its pages die
+        with it. The engine can still ``shed`` its streams, not step."""
+        self.cache = None
+
     # -- admission ----------------------------------------------------------
 
     def _pages_needed(self, req: Request) -> int:
-        n_resume = len(req.resume_tokens) if req.resume_tokens is not None else 0
-        total = len(req.prompt) + n_resume + req.max_new_tokens
-        return -(-total // self.page_size)
+        return -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)
 
     def _admit(self) -> None:
         while self._pending and None in self._lanes:

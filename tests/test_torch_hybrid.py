@@ -300,11 +300,13 @@ def test_host_main_serves_on_cpu(capsys):
     assert '"serve done"' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [dict(plan="8,4"), dict(engine=True), dict(trace="t.jsonl"),
-                                  dict(int8_cache=True)])
+@pytest.mark.parametrize("flag", [dict(), dict(plan="8,4"), dict(plan="8,4", engine=True),
+                                  dict(trace="t.jsonl")])
 def test_host_main_refuses_unported_modes(flag):
+    """``--plan``, ``--engine`` and ``--trace`` are ported; the int8 KV
+    cache is not, and every mode refuses it."""
     with pytest.raises(NotImplementedError, match="not ported"):
-        serve_launcher.host_main(_args(**flag))
+        serve_launcher._dispatch(_args(int8_cache=True, **flag))
 
 
 def test_serve_launcher_refuses_missing_cuda(monkeypatch):

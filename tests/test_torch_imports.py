@@ -49,7 +49,9 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.optim, repro_torch.data, repro_torch.ckpt\n"
         "import repro_torch.models.convert\n"
         "import repro_torch.core, repro_torch.core.orchestrator, repro_torch.dist\n"
-        "import repro_torch.obs.export\n"
+        "import repro_torch.obs.export, repro_torch.obs.replay, repro_torch.obs.log\n"
+        "import repro_torch.serve.router, repro_torch.serve.autoscale\n"
+        "import repro_torch.serve.fleet, repro_torch.serve.migrate, repro_torch.serve\n"
         "from repro_torch.kernels import _build\n"
         "assert _build._lib is None and not _build.last_build\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules\n"
