@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
     python3 chip_smoke.py --spot-only     # build + the spot provisioner's phase only
     python3 chip_smoke.py --serve-plan-only  # build + the spot serving phase only
+    python3 chip_smoke.py --moe-only      # build + the flash kernels at mixtral's shape + phase 10
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
@@ -23,7 +24,10 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    and a decode kernel (S <= 4), picked by S. The mLSTM's model calls go
    to a one-pass decode step (S <= 8) or a chunkwise kernel: bf16 on
    tensor cores, f32 (and head dims the tensor cores do not take) on
-   FMAs, both held in both dtypes. Two calls on the same inputs give the
+   FMAs, both held in both dtypes. The flash forward, dk/dv and dq are
+   also held at mixtral-8x7b's training shape (B1 S8192 H32/8 hd128,
+   window 4096, bf16), timed beside SDPA with the band as a boolean mask.
+   Two calls on the same inputs give the
    same bits for the bf16 dq, the paged kernel, the scan, the tensor-core
    mLSTM and the step; the new kernels build with no spilled registers;
 4. serving: full-width qwen3-4b (random bf16 weights from a seeded
@@ -89,19 +93,45 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    the uninterrupted one, drop's first 17 tokens do, and the engine's
    rows are equal or first diverge at a near-tie of the uninterrupted
    run's logits (top-2 gap <= 2 bf16 ulps of the top logit, correlation
-   > 0.99); 36 flash launches a prefill and 36 paged ones a decode step;
+   > 0.99), and at the replacement's first decode call each lane's
+   ``seq_lens`` equals the uninterrupted engine's (prompt + committed
+   tokens but the newest) and every K/V row below it correlates with the
+   uninterrupted row above 0.99; 36 flash launches a prefill and 36 paged
+   ones a decode step;
    reduced f32 in the five runs on the card equals the CPU in every
    column but the timings. Then ``FleetSimulator`` in engine mode, priced
    by the engine's tokens/s and the revoked run's tracker, runs the serve
    bench's policies on its markets and quick traces: token conservation,
    every migration below the training path's bytes, and a replay of its
-   trace with 0 mismatches are held; the CSV rows are printed.
+   trace with 0 mismatches are held; the CSV rows are printed;
+10. the MoE family, full layer width with the depth cut to fit the card:
+   mixtral-8x7b (16 of 32 layers, 8 experts top-2, window 4096; 4 prompts
+   x 8192 tokens) and phi3.5-moe (16 of 32 layers, 16 experts; 4 x 4096)
+   through the serve launcher's loop, 32 new tokens (bf16 matrices, the
+   router f32): one flash launch a layer and nothing else; the flash
+   prefill's last top-1 equal to the masked one's and its logits, over
+   every position of one prompt, no farther from an f32 reference (the
+   weights upcast, masked attention) than 1.5 x the masked bf16 path's in
+   two chunk orders (random-weight bf16 MoE is chaotic: near-tie routing
+   flips move the capacity drops); and the last decode step against a
+   fresh prefill over the prompt and the 31 fed tokens (top-1 equal, or
+   phase 9's near-tie; the expert counters that agree are logged);
+   mixtral (2 of 32
+   layers, f32 params + AdamW, seq 8192, batch 2 in 2 microbatches)
+   through ``run_segment`` for 4 steps: finite losses, aux loss > 0,
+   params unmoved at step 0 and moved after, 8 flash forwards and 4 of
+   each backward kernel a step; reduced f32 mixtral and phi3.5 serving and
+   3 mixtral training steps on the card equal the CPU's (streams, logits,
+   every expert counter; loss, aux loss and grad norm rtol 1e-4, params
+   atol 1e-5).
 
 A kernel variant's ``launches_by_path`` in the JSON record holds its count
 on each path (``serve``, ``hybrid``, ``xlstm``, ``train``, ``spot`` at full width
 in bf16, the reduced f32 runs ``serve_f32``, ``hybrid_f32``, ``xlstm_f32``,
 ``train_f32``, ``spot_f32``, the launcher's reduced bf16 ``spot_launch``, and
-the plan modes' ``serve_plan`` and ``serve_plan_f32``), each counted from 0
+the plan modes' ``serve_plan`` and ``serve_plan_f32``, the MoE family's
+``moe``, ``moe_phi``, ``moe_train`` at full width and ``moe_f32``,
+``moe_train_f32`` reduced), each counted from 0
 just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
 tensor-core variants, the f32 runs only the FMA ones. The last three lines of stdout are the card's name and power limit, the
@@ -581,11 +611,12 @@ def check_flash_bwd(gen: torch.Generator, flush: torch.Tensor) -> list:
     return records
 
 
-def sdpa_backward_ms(q, k, v, do, flush) -> float:
+def sdpa_backward_ms(q, k, v, do, flush, mask=None) -> float:
     """PyTorch's SDPA backward at the same shapes: autograd through
     ``scaled_dot_product_attention`` (fwd + bwd) minus its forward alone,
-    with k and v repeated to H heads; the flash backend in bf16, the
-    memory-efficient one in f32 (flash takes no f32)."""
+    with k and v repeated to H heads; causal, or with ``mask`` (a boolean
+    band) as ``attn_mask``; the flash backend in bf16 and causal, the
+    memory-efficient one in f32 or with a mask (flash takes neither)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     G = q.shape[2] // k.shape[2]
@@ -594,19 +625,111 @@ def sdpa_backward_ms(q, k, v, do, flush) -> float:
     vt = v.repeat_interleave(G, dim=2).transpose(1, 2).detach().requires_grad_()
     dot = do.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    backend = (SDPBackend.FLASH_ATTENTION if q.dtype == torch.bfloat16
+    backend = (SDPBackend.FLASH_ATTENTION if q.dtype == torch.bfloat16 and mask is None
                else SDPBackend.EFFICIENT_ATTENTION)
+    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
 
     def fwd_bwd():
         for t in (qt, kt, vt):
             t.grad = None
-        sdpa(qt, kt, vt, is_causal=True).backward(dot)
+        sdpa(qt, kt, vt, **kw).backward(dot)
 
     with sdpa_kernel(backend):
         both = time_ms(fwd_bwd, flush)
         with torch.no_grad():
-            fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
+            fwd = time_ms(lambda: sdpa(qt, kt, vt, **kw), flush)
     return both - fwd
+
+
+def _pairs(S: int, window: int) -> int:
+    """The live (q, k) pairs of causal attention over S positions, within
+    ``window`` positions when it is set."""
+    if not window:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+# mixtral-8x7b's training shape: B1 S8192 H32/8 hd128, window 4096, bf16
+MOE_ATTN = dict(B=1, S=8192, H=32, KVH=8, hd=128, window=4096)
+
+
+def check_flash_window_8192(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """The forward, dk/dv and dq tensor-core kernels at mixtral-8x7b's
+    training shape against their plain versions, which run one kv head's
+    group of query heads at a time (a group's S x S f32 scores are 1.07 GB);
+    the kernels' times beside their bounds and SDPA's with the band as a
+    boolean mask (the memory-efficient backend: flash takes no mask).
+    Returns the largest errors, by record name."""
+    from repro_torch.kernels.flash_attention import kernel, kernel_bwd
+    from repro_torch.kernels.flash_attention.ref import _mask, attention_bwd_ref, attention_fwd_ref
+
+    B, S, H, KVH, hd, window = (MOE_ATTN[k] for k in ("B", "S", "H", "KVH", "hd", "window"))
+    G = H // KVH
+    mk = lambda heads: torch.randn((B, S, heads, hd), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+    q, k, v, do = mk(H), mk(KVH), mk(KVH), mk(H)
+    kw = dict(causal=True, window=window, q_offset=0)
+    o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = kernel_bwd.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+    dq = kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    log(f"[kernels] flash forward and backward at mixtral's training shape (B{B} S{S} "
+        f"H{H}/{KVH} hd{hd} w{window} bf16) vs the plain versions, one kv group at a time")
+    errs = {"flash_attention_tc": 0.0, "flash_attention_bwd_dkdv_tc": 0.0,
+            "flash_attention_bwd_dq_tc": 0.0}
+    for g in range(KVH):
+        hs, ks = slice(g * G, (g + 1) * G), slice(g, g + 1)
+        tag = f"flash S{S} w{window} bf16 kv group {g}"
+        ro, rlse = attention_fwd_ref(q[:, :, hs], k[:, :, ks], v[:, :, ks], **kw)
+        e = hold(tag, o[:, :, hs], ro, FLASH_MAIN_BF16_TOL)
+        hold(f"{tag} lse", lse[:, hs], rlse, LSE_TOL)
+        errs["flash_attention_tc"] = max(errs["flash_attention_tc"], e)
+        del ro, rlse
+        rq, rk, rv = attention_bwd_ref(q[:, :, hs], k[:, :, ks], v[:, :, ks], o[:, :, hs],
+                                       lse[:, hs], do[:, :, hs], **kw)
+        errs["flash_attention_bwd_dkdv_tc"] = max(
+            errs["flash_attention_bwd_dkdv_tc"],
+            hold(f"{tag} dk", dk[:, :, ks], rk, FLASH_BWD_MAIN_BF16_TOL),
+            hold(f"{tag} dv", dv[:, :, ks], rv, FLASH_BWD_MAIN_BF16_TOL))
+        errs["flash_attention_bwd_dq_tc"] = max(
+            errs["flash_attention_bwd_dq_tc"],
+            hold(f"{tag} dq", dq[:, :, hs], rq, FLASH_BWD_MAIN_BF16_TOL))
+        del rq, rk, rv
+    del o, dk, dv, dq
+    torch.cuda.empty_cache()
+
+    # bounds: the forward's 2 products over the live pairs; the backward's
+    # 5 split as check_flash_bwd splits them (dkdv: s, dp, dv, dk; dq: dq)
+    prod = 2.0 * _pairs(S, window) * hd * H * B
+    el = 2.0
+    qkv_bytes = el * (2 * B * S * H * hd + 2 * B * S * KVH * hd)
+    work = {"flash_attention_tc": (2 * prod, qkv_bytes + 4.0 * B * H * S),
+            "flash_attention_bwd_dkdv_tc": (4 * prod, qkv_bytes + 2 * 4.0 * B * H * S
+                                            + el * 2 * B * S * KVH * hd),
+            "flash_attention_bwd_dq_tc": (prod, el * B * S * H * hd)}
+    fns = {"flash_attention_tc": lambda: kernel.flash_attention_fwd(q, k, v, **kw),
+           "flash_attention_bwd_dkdv_tc": lambda: kernel_bwd.flash_attention_bwd_dkdv(
+               q, k, v, do, lse, delta, **kw),
+           "flash_attention_bwd_dq_tc": lambda: kernel_bwd.flash_attention_bwd_dq(
+               q, k, v, do, lse, delta, **kw)}
+    band = _mask(S, S, True, window, 0, q.device)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_fwd = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band, enable_gqa=True), flush, reps=3, warmup=1)
+    sdpa_bwd = sdpa_backward_ms(q, k, v, do, flush, mask=band)
+    times = {}
+    for name, (flops, nbytes) in work.items():
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        ms = time_ms(fns[name], flush)
+        times[name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"  {name} at B{B} S{S} H{H}/{KVH} hd{hd} w{window} bf16: kernel {ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s of the function's "
+            f"work achieved")
+    log(f"  SDPA with the band as a boolean mask (memory-efficient backend, GQA): forward "
+        f"{sdpa_fwd:.4f} ms; backward (fwd + bwd minus fwd, k/v repeated to {H} heads) "
+        f"{sdpa_bwd:.4f} ms; largest errors {errs}")
+    return errs
 
 
 def _paged_inputs(gen, B, H, KVH, hd, ps, mb, lens, dtype, seed):
@@ -1285,11 +1408,11 @@ def profile_greedy(tag: str, model, params, tokens, cache, new: int) -> None:
 
 def greedy_reduced_matches_cpu(arch: str, tag: str, *kernels: str) -> dict:
     """A reduced model at f32: the serve launcher's loop on the card (the
-    kernels) against the same loop on the CPU (their plain versions). The
-    prompt, 20 tokens, is longer than hymba's 16-slot ring (16 new tokens
-    wrap it) and ragged against the mLSTM's chunks (8 on the CPU, 32 in the
-    kernel). Returns the card run's launches, which must include
-    ``kernels``."""
+    kernels) against the same loop on the CPU (their plain versions), and a
+    MoE model's expert counters equal. The prompt, 20 tokens, is longer
+    than hymba's and mixtral's 16-slot rings (16 new tokens wrap them) and
+    ragged against the mLSTM's chunks (8 on the CPU, 32 in the kernel).
+    Returns the card run's launches, which must include ``kernels``."""
     from repro_torch.config import get_arch
     from repro_torch.launch.serve import greedy_serve
     from repro_torch.models import build_model
@@ -1313,6 +1436,11 @@ def greedy_reduced_matches_cpu(arch: str, tag: str, *kernels: str) -> dict:
     log(f"[{tag}] reduced f32 streams, card vs CPU plain: {'identical' if same else 'DIFFERENT'}; "
         f"logits max abs diff {err:.3e} (atol {REDUCED_LOGITS_TOL['atol']}, rtol "
         f"{REDUCED_LOGITS_TOL['rtol']})")
+    if "moe_load" in cpu.cache.get("blocks", {}):
+        loads = gpu.cache["blocks"]["moe_load"].cpu(), cpu.cache["blocks"]["moe_load"]
+        log(f"[{tag}] reduced f32 expert counters ({loads[1].numel()}), card vs CPU: "
+            f"{'equal' if torch.equal(*loads) else 'DIFFERENT'}")
+        same = same and torch.equal(*loads)
     if not (same and ok):
         raise AssertionError(f"card {gpu.tokens.tolist()} != CPU {cpu.tokens.tolist()}, or logits")
     return hold_f32_launches(tag, launches, *kernels)
@@ -1751,7 +1879,7 @@ def train_full_width() -> dict:
     return launches
 
 
-def profile_training(model, step_fn, state, ds) -> None:
+def profile_training(model, step_fn, state, ds, label: str = "seq 4096") -> None:
     """Where the time goes: one more full-width step under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1762,7 +1890,7 @@ def profile_training(model, step_fn, state, ds) -> None:
         step_fn(state, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    log(f"[profile] one training step, seq 4096, 2 microbatches:\n"
+    log(f"[profile] one training step, {label}, 2 microbatches:\n"
         f"{_device_breakdown(prof, wall, top=12)}")
 
 
@@ -1776,10 +1904,12 @@ def _copy_state(state, device):
                                                  state.opt.count), state.step)
 
 
-def train_reduced_matches_cpu() -> dict:
-    """A reduced f32 model: 5 training steps on the card (the f32 variants
-    of the flash kernels) against the plain CPU trainer, from the same state
-    and data. Returns the card run's launches."""
+def train_reduced_matches_cpu(arch: str = "qwen3-4b", tag: str = "train",
+                              n_steps: int = 5) -> dict:
+    """A reduced f32 model: ``n_steps`` training steps on the card (the f32
+    variants of the flash kernels) against the plain CPU trainer, from the
+    same state and data (a MoE model's aux loss too). Returns the card
+    run's launches."""
     from repro_torch.config import ShardingLayout, TrainConfig, get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
@@ -1787,7 +1917,7 @@ def train_reduced_matches_cpu() -> dict:
     from repro_torch.train.loop import make_step, run_segment
     from repro_torch.train.steps import init_train_state
 
-    cfg = dataclasses.replace(get_arch("qwen3-4b").reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
     model = build_model(cfg)
     tc = TrainConfig(total_steps=10, warmup_steps=2, microbatches=2)
     layout = ShardingLayout(attn_impl="flash")
@@ -1798,25 +1928,26 @@ def train_reduced_matches_cpu() -> dict:
         metrics: list = []
         step_fn = _recording(make_step(model, tc, layout), metrics)
         reset_launches()
-        res = run_segment(model, state, ds, device, tc, layout, num_steps=5, jitted=step_fn)
+        res = run_segment(model, state, ds, device, tc, layout, num_steps=n_steps,
+                          jitted=step_fn)
         runs[device] = (metrics, res.state)
         if device == "cuda":
             launches = read_launches()
     (m_gpu, s_gpu), (m_cpu, s_cpu) = runs["cuda"], runs["cpu"]
-    for key in ("loss", "grad_norm"):
+    for key in ("loss", "grad_norm") + (("aux_loss",) if cfg.moe is not None else ()):
         a = np.array([m[key] for m in m_gpu])
         b = np.array([m[key] for m in m_cpu])
-        log(f"[train] reduced f32 {key}, card {a.tolist()} vs CPU {b.tolist()}; "
+        log(f"[{tag}] reduced f32 {key}, card {a.tolist()} vs CPU {b.tolist()}; "
             f"largest relative difference {float(np.max(np.abs(a - b) / np.abs(b))):.3e}")
         if not np.allclose(a, b, rtol=1e-4, atol=0):
             raise AssertionError(f"reduced training {key} on the card differs from the CPU's")
     err = max(float((a.cpu() - b).abs().max())
               for a, b in zip(tree_leaves(s_gpu.params), tree_leaves(s_cpu.params)))
-    log(f"[train] reduced f32 params after 5 steps, card vs CPU: max abs diff {err:.3e} "
+    log(f"[{tag}] reduced f32 params after {n_steps} steps, card vs CPU: max abs diff {err:.3e} "
         f"(atol 1e-5)")
     if not err <= 1e-5:
         raise AssertionError("reduced training params on the card differ from the CPU's")
-    return hold_f32_launches("train", launches, "flash_attention_fma",
+    return hold_f32_launches(tag, launches, "flash_attention_fma",
                              "flash_attention_bwd_dkdv_fma", "flash_attention_bwd_dq_fma")
 
 
@@ -2098,10 +2229,17 @@ def serve_plan_predicted(model) -> dict:
 class _DecodeLogits:
     """Keep, on the card, the last-position logits of every paged decode
     call of the engines built inside the block (a copy: 8 x vocab f32 a
-    step), by wrapping the engine module's step builder."""
+    step), by wrapping the engine module's step builder; and, just before
+    the decode call numbered ``capture_at`` (counted over every engine of
+    the block: the replacement's first call after a revocation at that
+    step), each lane's ``seq_lens`` and the K/V rows its pages hold at
+    positions 0 .. ``rows`` - 1, as ``kv`` = (seq_lens, k, v), k and v
+    (layers, lanes, positions, KVH, hd)."""
 
-    def __init__(self):
+    def __init__(self, capture_at=None, rows=0):
         self.logits: list = []
+        self.capture_at, self.rows = capture_at, rows
+        self.kv = None
 
     def __enter__(self):
         from repro_torch.serve import engine
@@ -2112,6 +2250,8 @@ class _DecodeLogits:
             step = build(model, layout)
 
             def keep(params, cache, tokens, seq_lens, table):
+                if len(self.logits) == self.capture_at:
+                    self.kv = _lane_rows(cache, seq_lens, table, self.rows)
                 logits, cache = step(params, cache, tokens, seq_lens, table)
                 self.logits.append(logits[:, -1].float().clone())
                 return logits, cache
@@ -2126,16 +2266,81 @@ class _DecodeLogits:
         engine.build_paged_decode_step = self._build
 
 
-def _serve_plan_run(model, params, prompts, name, tracker=None) -> tuple:
+def _lane_rows(cache, seq_lens, table, T: int) -> tuple:
+    """(seq_lens on the host, k, v): each lane's K/V rows at positions
+    0 .. T - 1 of every layer, gathered through its block table."""
+    lens = seq_lens.cpu()
+    out = []
+    for key in ("k_pages", "v_pages"):
+        pool = cache["blocks"][key]                           # (L, P, ps, KVH, hd)
+        ps = pool.shape[2]
+        rows = []
+        for b in range(len(lens)):
+            pages = table[b, :-(-T // ps)].long()
+            lane = pool[:, pages]                             # (L, n, ps, KVH, hd)
+            rows.append(lane.reshape(lane.shape[0], -1, *lane.shape[3:])[:, :T])
+        out.append(torch.stack(rows, dim=1).clone())
+    return (lens, *out)
+
+
+def hold_resumed_pages(ref_kv: tuple, got_kv: tuple, prompt_len: int) -> dict:
+    """After the revocation, the replacement engine's lanes against the
+    uninterrupted engine's at the same decode call: ``seq_lens`` equal and
+    equal to the prompt plus every committed token but the newest (which
+    rides this call), P + SERVE_REVOKE; and every K/V row (layer, lane,
+    position) below P + SERVE_REVOKE correlating with the uninterrupted row
+    above ENGINE_MIN_CORR, phase 9's flash-vs-incremental rule (the
+    replacement wrote them by a flash prefill, the uninterrupted engine by
+    its prefill and incremental decode). A resume one token short fails
+    both: its ``seq_lens`` is one less and its last row is empty. Both are
+    evaluated before either raises."""
+    (ref_lens, rk, rv), (got_lens, gk, gv) = ref_kv, got_kv
+    want = prompt_len + SERVE_REVOKE
+    lens_ok = torch.equal(ref_lens, got_lens) and bool((got_lens == want).all())
+    log(f"[serve-plan] engine resume: seq_lens {got_lens.tolist()} (uninterrupted "
+        f"{ref_lens.tolist()}, want prompt + committed - 1 = {want}): "
+        f"{'equal' if lens_ok else 'DIFFERENT'}")
+    worst, where, max_diff = 1.0, None, 0.0
+    for name, a_all, b_all in (("k", rk, gk), ("v", rv, gv)):
+        if a_all.shape != b_all.shape:
+            raise AssertionError(f"engine resume: {name} rows {tuple(b_all.shape)} against "
+                                 f"{tuple(a_all.shape)}")
+        for layer in range(a_all.shape[0]):
+            a = a_all[layer].float().flatten(2)               # (lanes, positions, KVH*hd)
+            b = b_all[layer].float().flatten(2)
+            max_diff = max(max_diff, float((a - b).abs().max()))
+            a, b = a - a.mean(-1, keepdim=True), b - b.mean(-1, keepdim=True)
+            corr = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+            corr = torch.nan_to_num(corr, nan=-1.0)
+            low = float(corr.min())
+            if low < worst:
+                lane, pos = divmod(int(corr.argmin()), corr.shape[1])
+                worst, where = low, (name, layer, lane, pos)
+    ok = worst > ENGINE_MIN_CORR
+    log(f"[serve-plan] engine resume: K/V rows of {rk.shape[0]} layers x {rk.shape[1]} lanes x "
+        f"{rk.shape[2]} positions against the uninterrupted engine's: lowest row correlation "
+        f"{worst:.6f} at (tensor, layer, lane, position) {where}, largest abs difference "
+        f"{max_diff:.4f}; {'ok' if ok else 'FAIL'} (> {ENGINE_MIN_CORR})")
+    if not lens_ok:
+        raise AssertionError("engine resume: the lanes' seq_lens differ from the uninterrupted "
+                             "engine's")
+    if not ok:
+        raise AssertionError(f"engine resume: the K/V row at {where} differs from the "
+                             f"uninterrupted engine's (correlation {worst:.6f})")
+    return {"seq_lens": got_lens.tolist(), "lowest_corr": worst, "max_abs_diff": max_diff}
+
+
+def _serve_plan_run(model, params, prompts, name, tracker=None, capture=False) -> tuple:
     """One of SERVE_RUNS at full width: (PLAN_JSON object, launches, peak
-    GB, decode logits of an engine run)."""
+    GB, decode logits of an engine run, with ``capture`` the lanes' rows
+    before decode call SERVE_REVOKE)."""
     from repro_torch.launch.serve import serve_plan
 
     counts, revoke, policy, engine = SERVE_RUNS[name]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    keep = _DecodeLogits()
+    keep = _DecodeLogits(SERVE_REVOKE if capture else None, prompts.shape[1] + SERVE_REVOKE)
     reset_launches()
     with keep:
         out = serve_plan(model, params, prompts, SERVE_NEW, counts, revoke_after=revoke,
@@ -2151,7 +2356,7 @@ def _serve_plan_run(model, params, prompts, name, tracker=None) -> tuple:
         + f"time to recover {out['recover_seconds']} s, params_bytes {out['params_bytes']}, "
         f"cache_bytes {out['cache_bytes']}, train_path_bytes {out['train_path_bytes']}, "
         f"migrated_at {out['migrated_at']}, peak device memory {peak_gb:.2f} GB")
-    return out, launches, peak_gb, keep.logits
+    return out, launches, peak_gb, keep
 
 
 def _hold_serve_launches(name, out, launches, layers) -> None:
@@ -2217,13 +2422,14 @@ def serve_plan_full_width() -> tuple:
         f"revoked after {SERVE_REVOKE} steps, plans 8 -> 4 slots on cuda:0; predicted "
         f"{predicted}")
     total = dict.fromkeys(read_launches(), 0)
-    runs, logits = {}, {}
+    runs, logits, rows = {}, {}, {}
     tracker = ThroughputTracker()
     for name in SERVE_RUNS:
         out, launches, peak, kept = _serve_plan_run(
-            model, params, prompts, name, tracker if name == "engine_revoked" else None)
+            model, params, prompts, name, tracker if name == "engine_revoked" else None,
+            capture=SERVE_RUNS[name][3])
         _hold_serve_launches(name, out, launches, cfg.num_layers)
-        runs[name], logits[name] = out, kept
+        runs[name], logits[name], rows[name] = out, kept.logits, kept.kv
         total = {k: total[k] + v for k, v in launches.items()}
         if name == "engine_revoked":
             pool_gb = param_bytes(model.paged_cache_specs(
@@ -2263,10 +2469,12 @@ def serve_plan_full_width() -> tuple:
     later = [sum(x == y for x, y in zip(a[head:], b[head:])) for a, b in zip(drop, ref)]
     log(f"[serve-plan] dense migrate: stream equal to the uninterrupted run's; dense drop: "
         f"first {head} tokens equal, later tokens equal by row {later} of {SERVE_NEW - head}")
+    resumed = hold_resumed_pages(rows["engine"], rows["engine_revoked"], SERVE_S)
+    del rows
     div = hold_engine_streams(runs["engine"], runs["engine_revoked"], logits["engine"],
                               logits["engine_revoked"])
     log(f"[serve-plan] engine: {SERVE_B - len(div)} of {SERVE_B} rows equal in full, "
-        f"divergences {div}")
+        f"divergences {div}; resumed lanes {resumed}")
     return total, runs["engine"]["engine_tokens_per_sec"], tracker, model, params
 
 
@@ -2427,6 +2635,291 @@ def spot_serving() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the MoE family (mixtral-8x7b, phi3.5-moe)
+# ---------------------------------------------------------------------------
+
+# full layer width, depth cut to fit one card's 80 GB: 16 of 32 layers to
+# serve (mixtral 23.48 B params, 46.96 GB of bf16 matrices; phi3.5 21.07 B),
+# 2 to train (3.165 B f32 params, 50.6 GB with grads and AdamW moments)
+MOE_LAYERS, MOE_TRAIN_LAYERS, MOE_NEW = 16, 2, 32
+# path: (arch, prompts, prompt length); mixtral's prompts span two windows
+MOE_SERVE = {"moe": ("mixtral-8x7b", 4, 8192), "moe_phi": ("phi3.5-moe-42b-a6.6b", 4, 4096)}
+MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 8192, 2, 4
+# Random-weight MoE in bf16 is chaotic: a rounding-level change of the
+# attention output flips a few near-tie top-k picks in the first layer,
+# each flip moves the capacity drops of every later assignment to those
+# experts (the heaviest expert takes well over its capacity in the later
+# layers), and the share of differing picks grows layer by layer
+# (``moe_flash_gate`` logs them): the flash and the masked prefill's last
+# logits correlate well below 0.99 with the same top-1, and for phi3.5
+# two masked chunk orders do too. So, as for bf16 xlstm (PR 18), the flash
+# prefill is held by its distance from an f32 reference (the same bf16
+# weights upcast, f32 compute, masked attention) over every position of
+# the first prompt, D = mean(1 - corr) of the logits, against that of the
+# masked bf16 path in two chunk orders: D(flash) <= MOE_D_MARGIN x
+# max(D(masked)).
+MOE_D_MARGIN = 1.5
+
+
+def _near_tie(ref: torch.Tensor, pick: int) -> tuple:
+    """(ok, gap, allowed): ``pick`` is the top-1 of ``ref`` or within
+    ENGINE_GAP_ULPS bf16 ulps of it (phase 9's near-tie rule)."""
+    top = float(ref.max())
+    gap, allowed = top - float(ref[pick]), ENGINE_GAP_ULPS * abs(top) * 2 ** -7
+    return gap <= allowed, gap, allowed
+
+
+def moe_serve_full_width(path: str) -> dict:
+    """mixtral-8x7b or phi3.5-moe at full layer width and 16 of 32 layers
+    through the serve launcher's loop: one batched prefill of 4 prompts,
+    then 31 greedy decode steps against the dense cache (for mixtral the
+    4096-slot ring). Held: the launches (one flash forward a layer, nothing
+    else), the flash prefill against the masked one (``moe_flash_gate``),
+    and the last decode step against a fresh prefill over the prompt and
+    the 31 generated tokens (top-1 equal, or phase 9's near-tie); how many
+    expert counters agree is logged."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import greedy_serve
+    from repro_torch.models import RunOpts, build_model
+    from repro_torch.models.common import tree_leaves
+
+    arch, B, S = MOE_SERVE[path]
+    cfg = dataclasses.replace(get_arch(arch), num_layers=MOE_LAYERS)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    router = params["blocks"]["moe"]["router"].dtype
+    gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    log(f"[{path}] {cfg.name}: {cfg.num_layers} of {get_arch(arch).num_layers} layers (depth "
+        f"cut, width full), d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, window {cfg.window}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}, d_ff {cfg.d_ff}; {model.param_count() / 1e9:.3f} B params, "
+        f"{gb:.2f} GB on the card (router {router}), made in {time.perf_counter() - t0:.1f} s")
+    if router != torch.float32:
+        raise AssertionError(f"the router is stored in {router}, not f32")
+
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    tokens = torch.as_tensor(prompts, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = greedy_serve(model, params, tokens, MOE_NEW)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = expect_launches(flash_attention_tc=cfg.num_layers)
+    out = res.tokens
+    log(f"[{path}] {B} prompts x {S} tokens, {MOE_NEW} new tokens each; first row "
+        f"{out[0].tolist()}")
+    log(f"[{path}] launches {launches}, expected {want}")
+    if tuple(out.shape) != (B, MOE_NEW) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"generated tokens {tuple(out.shape)} outside the vocabulary")
+    if not all(bool(torch.isfinite(lg.float()).all()) for lg in res.logits):
+        raise AssertionError("non-finite logits")
+    if res.decode_steps != MOE_NEW - 1 or launches != want:
+        raise AssertionError(f"{path}: the path did not go through the kernels as expected")
+    log(f"[{path}] prefill {B * S / res.prefill_seconds:.1f} tokens/s ({B * S} tokens in "
+        f"{res.prefill_seconds:.3f} s); decode {1e3 * res.decode_seconds / res.decode_steps:.2f} "
+        f"ms per step ({B * res.decode_steps / res.decode_seconds:.1f} tokens/s); peak memory "
+        f"{peak_gb:.2f} GB")
+
+    moe_flash_gate(path, model, params, tokens[:1])
+
+    # decode against the forward: the last decode step's logits beside a
+    # fresh prefill over the prompt and the 31 tokens decode fed
+    grown = torch.cat([tokens, out[:, :MOE_NEW - 1].to("cuda")], dim=1)
+    fresh, fresh_cache = model.prefill(params, {"tokens": grown}, S + MOE_NEW,
+                                       RunOpts(attn_impl="flash"))
+    dec = res.logits[-1].float()
+    fwd = fresh[:, -1].float()
+    rows = []
+    for r in range(B):
+        pick = int(dec[r].argmax())
+        tie, gap, allowed = _near_tie(fwd[r], pick)
+        c = float(torch.corrcoef(torch.stack([dec[r], fwd[r]]))[0, 1])
+        same = pick == int(fwd[r].argmax())
+        rows.append((r, same, round(gap, 5), round(allowed, 5), round(c, 6)))
+        if not (same or (tie and c > ENGINE_MIN_CORR)):
+            raise AssertionError(f"{path} row {r}: decode's top-1 {pick} is not the forward's "
+                                 f"nor a near-tie of it (gap {gap}, allowed {allowed}, "
+                                 f"correlation {c})")
+    got, ref = res.cache["blocks"]["moe_load"], fresh_cache["blocks"]["moe_load"]
+    equal = int((got == ref).sum())
+    log(f"[{path}] last decode step vs a fresh prefill of {S + MOE_NEW - 1} tokens, by row "
+        f"(row, top-1 equal, forward's gap to decode's pick, allowed, correlation): {rows}; "
+        f"moe_load counters equal to the fresh prefill's: {equal} of {got.numel()} "
+        f"(largest difference {int((got - ref).abs().max())})")
+    del fresh, fresh_cache
+    profile_greedy(path, model, params, tokens, res.cache, MOE_NEW)
+    return launches
+
+
+def _positions_distance(a: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(mean over positions of 1 - corr of the logits rows, share of
+    positions whose top-1 agrees) of ``a`` against ``ref``, both (S, V)."""
+    a, ref = a.float(), ref.float()
+    top = float((a.argmax(-1) == ref.argmax(-1)).float().mean())
+    a, ref = a - a.mean(-1, keepdim=True), ref - ref.mean(-1, keepdim=True)
+    corr = (a * ref).sum(-1) / (a.norm(dim=-1) * ref.norm(dim=-1))
+    return float((1 - corr).mean()), top
+
+
+def moe_flash_gate(path: str, model, params, row: torch.Tensor) -> None:
+    """The flash forward of one prompt against the masked one: the last
+    position's top-1 equal, and D(flash) <= MOE_D_MARGIN x max(D(masked))
+    against the f32 reference (MOE_D_MARGIN's comment), every position."""
+    from unittest import mock
+
+    from repro_torch.models import RunOpts, build_model, moe
+
+    batch = {"tokens": row}
+    model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    picks: dict = {}
+
+    def forward(tag, m, opts):
+        """All positions' logits of ``m``; each layer's top-k picks, sorted,
+        into ``picks[tag]``."""
+        route = moe._route
+        picks[tag] = []
+
+        def recording(p, x, cfg):
+            out = route(p, x, cfg)
+            picks[tag].append(out[2].sort(-1).values)
+            return out
+
+        with mock.patch.object(moe, "_route", recording):
+            return m.forward(params, batch, dataclasses.replace(opts, remat="none"))[0][0]
+
+    with torch.no_grad():
+        before = read_launches()
+        ref = forward("f32", model32, RunOpts(attn_impl="masked"))
+        plain = {kv: forward(kv, model, RunOpts(attn_impl="masked", kv_chunk=kv))
+                 for kv in (1024, 512)}
+        if read_launches() != before:
+            raise AssertionError("the masked path launched a kernel")
+        flash = forward("flash", model, RunOpts(attn_impl="flash"))
+    d = {"flash": _positions_distance(flash, ref),
+         **{f"masked kv_chunk {kv}": _positions_distance(t, ref) for kv, t in plain.items()}}
+    limit = MOE_D_MARGIN * max(d[f"masked kv_chunk {kv}"][0] for kv in plain)
+    a, b = flash[-1].float(), plain[1024][-1].float()
+    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    top_eq = int(a.argmax()) == int(b.argmax())
+    orders = float(torch.corrcoef(torch.stack([plain[512][-1].float(), b]))[0, 1])
+    differ = lambda x, y: [round(float((p != q).any(-1).float().mean()), 5)
+                           for p, q in zip(picks[x], picks[y])]
+    cap = moe._capacity(model.cfg, row.shape[1])
+    heaviest = [int(torch.bincount(p.flatten(), minlength=model.cfg.moe.num_experts).max())
+                for p in picks[1024]]
+    log(f"[{path}] share of tokens whose top-{model.cfg.moe.top_k} picks differ, by layer: "
+        f"flash vs masked {differ('flash', 1024)}; masked kv_chunk 512 vs 1024 "
+        f"{differ(512, 1024)}; f32 vs masked {differ('f32', 1024)}; the heaviest expert's "
+        f"assignments by layer (masked) {heaviest} against a capacity of {cap}")
+    log(f"[{path}] flash vs masked logits at the last of {row.shape[1]} positions: top-1 equal "
+        f"{top_eq}, correlation {corr:.6f} (masked kv_chunk 512 vs 1024: {orders:.6f}); "
+        f"against the f32 reference over every position, "
+        f"(D = mean(1 - corr), top-1 share): " + ", ".join(
+            f"{k} ({v[0]:.6e}, {v[1]:.4f})" for k, v in d.items())
+        + f"; limit {limit:.6e} ({MOE_D_MARGIN} x the masked paths')")
+    if not (bool(torch.isfinite(flash.float()).all()) and top_eq and d["flash"][0] <= limit):
+        raise AssertionError(f"{path}: the flash prefill is farther from the f32 reference "
+                             f"than the masked paths allow, or its last top-1 differs")
+
+
+def moe_train_full_width() -> dict:
+    """mixtral-8x7b at full layer width and 2 of 32 layers, f32 params +
+    AdamW, seq 8192 (two windows), global batch 2 in 2 microbatches, remat
+    per layer, through ``run_segment`` for 4 steps: the windowed flash
+    backward on a training path."""
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import make_step, run_segment
+    from repro_torch.train.steps import init_train_state
+
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b"), num_layers=MOE_TRAIN_LAYERS)
+    model = build_model(cfg)
+    seq, batch, n_steps = MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS
+    tc = TrainConfig(total_steps=n_steps, warmup_steps=1, microbatches=2)
+    layout = ShardingLayout(attn_impl="flash")
+    ds = SyntheticLM(cfg.vocab_size, seq, batch, seed=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    log(f"[moe-train] {cfg.name}: {cfg.num_layers} of 32 layers (depth cut, width full), "
+        f"window {cfg.window}, {cfg.moe.num_experts} experts; {model.param_count() / 1e9:.3f} "
+        f"B f32 params; params + AdamW moments {torch.cuda.memory_allocated() / 1e9:.2f} GB, "
+        f"made in {time.perf_counter() - t0:.1f} s; seq {seq}, global batch {batch} in "
+        f"{tc.microbatches} microbatches, remat {layout.remat}")
+
+    def probe(st):
+        p = st.params
+        return [t.detach().clone() for t in (
+            p["embed"][:4, :8], p["lm_head"][:8, :4], p["blocks"]["attn"]["wq"][0, :8, :4],
+            p["blocks"]["moe"]["router"][-1, :8], p["blocks"]["moe"]["wo"][-1, 0, :8, :4])]
+
+    metrics: list = []
+    step_fn = _recording(make_step(model, tc, layout), metrics)
+    before = probe(state)
+    reset_launches()
+    res0 = run_segment(model, state, ds, "cuda", tc, layout, num_steps=1, jitted=step_fn)
+    if not all(torch.equal(a, b) for a, b in zip(before, probe(res0.state))):
+        raise AssertionError("params moved at step 0, where the learning rate is 0")
+    res1 = run_segment(model, res0.state, ds, "cuda", tc, layout, num_steps=n_steps - 1,
+                       start_step=1, jitted=step_fn)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = [float((a - b).abs().max()) for a, b in zip(before, probe(res1.state))]
+    per_mb = cfg.num_layers * tc.microbatches * n_steps
+    want = expect_launches(flash_attention_tc=2 * per_mb, flash_attention_bwd_dkdv_tc=per_mb,
+                           flash_attention_bwd_dq_tc=per_mb)
+    secs = res0.step_seconds + res1.step_seconds
+    for i, (m, dt) in enumerate(zip(metrics, secs)):
+        log(f"[moe-train] step {i}: loss {m['loss']:.6f}, aux_loss {m['aux_loss']:.6f}, "
+            f"grad_norm {m['grad_norm']:.6f}, lr {m['lr']:.3e}, {dt * 1e3:.1f} ms, "
+            f"{batch * seq / dt:.1f} tokens/s")
+    log(f"[moe-train] peak memory {peak_gb:.2f} GB; largest change of the probed params after "
+        f"step 1: {max(moved):.3e}; launches {launches}, expected {want}")
+    if len(metrics) != n_steps or not all(
+            np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and np.isfinite(m["aux_loss"])
+            and m["aux_loss"] > 0 for m in metrics):
+        raise AssertionError(f"non-finite or missing training metrics, or aux_loss <= 0: {metrics}")
+    if not min(moved) > 0:
+        raise AssertionError("a probed param did not move after step 1")
+    if launches != want:
+        raise AssertionError("the MoE training path did not go through the kernels as expected")
+    profile_training(model, step_fn, res1.state, ds, f"seq {seq}")
+    return launches
+
+
+def moe_reduced_matches_cpu() -> dict:
+    """Reduced mixtral (window 8, 4 experts) and phi3.5 at f32 through the
+    serve launcher's loop, card against CPU: streams, logits and every
+    expert counter. Returns the card's launches over both."""
+    runs = [greedy_reduced_matches_cpu(arch, tag, "flash_attention_fma")
+            for arch, tag in (("mixtral-8x7b", "moe"), ("phi3.5-moe-42b-a6.6b", "moe_phi"))]
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def moe_phase() -> dict:
+    """Phase 10: MoE serving (mixtral, phi3.5) and mixtral training at full
+    width, then the reduced f32 runs against the CPU. Returns launches by
+    path."""
+    paths = {}
+    for path in MOE_SERVE:
+        paths[path] = moe_serve_full_width(path)
+        gc.collect()
+        torch.cuda.empty_cache()
+    paths["moe_train"] = moe_train_full_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["moe_f32"] = moe_reduced_matches_cpu()
+    paths["moe_train_f32"] = train_reduced_matches_cpu("mixtral-8x7b", "moe-train", 3)
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2436,6 +2929,9 @@ def main() -> int:
                     help="only build the kernels and run the spot provisioner's phase")
     ap.add_argument("--serve-plan-only", action="store_true",
                     help="only build the kernels and run the spot serving phase")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="only build the kernels, hold the flash kernels at mixtral's training "
+                         "shape and run the MoE phase")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
                          "of the kernel paths and plain orders agree, by prompt length")
@@ -2451,16 +2947,16 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     smi_line = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[phase 1/9] [device] {name}; {smi_line}; torch {torch.__version__}, "
+    log(f"[phase 1/10] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    log("[phase 2/9] build")
+    log("[phase 2/10] build")
     _build.build()
     ptxas = _build.last_build["log"]
     per_source = {}
@@ -2490,53 +2986,65 @@ def main() -> int:
         xlstm_orders()
         return 0
     if args.spot_only:
-        log("[phase 8/9] the spot provisioner")
+        log("[phase 8/10] the spot provisioner")
         spot = {"spot": spot_full_width(), "spot_f32": spot_reduced_matches_cpu(),
                 "spot_launch": spot_launcher()}
         log(f"chip_smoke: --spot-only, launches by path {spot}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.serve_plan_only:
-        log("[phase 9/9] spot serving")
+        log("[phase 9/10] spot serving")
         paths = spot_serving()
         log(f"chip_smoke: --serve-plan-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
+    if args.moe_only:
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        check_flash_window_8192(torch.Generator(device="cuda").manual_seed(0), flush)
+        del flush
+        log("[phase 10/10] the MoE family")
+        paths = moe_phase()
+        log(f"chip_smoke: --moe-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
 
-    log("[phase 3/9] kernels against their plain versions")
+    log("[phase 3/10] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [*check_flash(gen, flush), *check_paged(gen, flush), *check_flash_bwd(gen, flush),
                check_ssm_scan(gen, flush), *check_mlstm(gen, flush)]
+    for kernel_name, err in check_flash_window_8192(gen, flush).items():
+        rec = next(r for r in records if r["name"] == kernel_name)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
     del flush
     if args.kernels_only:
         log(json.dumps({"kernels": records}))
         log("chip_smoke: --kernels-only, stopped before serving")
         return 0
 
-    log("[phase 4/9] serving")
+    log("[phase 4/10] serving")
     paths = {"serve": serve_full_width()}
     paths["serve_f32"] = serve_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 5/9] hybrid serving")
+    log("[phase 5/10] hybrid serving")
     paths["hybrid"] = serve_hybrid_full_width()
     paths["hybrid_f32"] = greedy_reduced_matches_cpu("hymba-1.5b", "hybrid",
                                                      "flash_attention_fma", "ssm_scan")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 6/9] xLSTM serving")
+    log("[phase 6/10] xLSTM serving")
     paths["xlstm"] = serve_xlstm_full_width()
     paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_fma",
                                                     "mlstm_step")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 7/9] training")
+    log("[phase 7/10] training")
     paths["train"] = train_full_width()
     paths["train_f32"] = train_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 8/9] the spot provisioner")
+    log("[phase 8/10] the spot provisioner")
     paths["spot"] = spot_full_width()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2544,8 +3052,12 @@ def main() -> int:
     paths["spot_launch"] = spot_launcher()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 9/9] spot serving")
+    log("[phase 9/10] spot serving")
     paths.update(spot_serving())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 10/10] the MoE family")
+    paths.update(moe_phase())
     for r in records:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
@@ -2554,7 +3066,7 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi_line)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                               "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,12 +1,14 @@
 """The paper's provisioner in the port: copies of the JAX-free modules of
 ``repro.core`` (units, markets, allocations, policies, Algorithm 1,
-accounting; only their imports differ) and ``orchestrator.py``, which
-drives the port's training loop. ``Simulator`` and ``PortfolioPolicy`` are
-not copied yet.
+accounting, the discrete-event simulator and the failover portfolio;
+only their imports differ) and ``orchestrator.py``, which drives the
+port's training loop.
 
 market.py       spot markets, price traces, MTTR / correlation features
 provisioner.py  Algorithm 1, step-for-step
 policies.py     P-SIWOFT + FT baselines (checkpoint / migration / replication)
+portfolio.py    failover portfolio over P-SIWOFT's ranking
+simulator.py    discrete-event executor reproducing Fig. 1
 accounting.py   per-billing-cycle cost/time breakdowns
 orchestrator.py bridges the provisioner to the port's training loop
 """
@@ -41,6 +43,7 @@ from repro_torch.core.policies import (
     ReplicationPolicy,
     SiwoftPolicy,
 )
+from repro_torch.core.portfolio import PortfolioPolicy
 from repro_torch.core.provisioner import (
     MarketFeatures,
     allocation_expected_cost_to_complete,
@@ -49,6 +52,7 @@ from repro_torch.core.provisioner import (
     expected_cost_to_complete,
     find_suitable_allocations,
 )
+from repro_torch.core.simulator import Simulator
 
 __all__ = [
     "INSTANCE_MENU", "InstanceShape",
@@ -58,7 +62,7 @@ __all__ = [
     "split_history_future", "PriceTable",
     "CheckpointPolicy", "Job", "MigrationPolicy", "OnDemandPolicy",
     "OverheadModel", "ReplicationPolicy", "SiwoftPolicy",
-    "MarketFeatures", "Breakdown",
+    "MarketFeatures", "PortfolioPolicy", "Simulator", "Breakdown",
     "cost_to_complete", "expected_cost_to_complete",
     "Allocation", "Leg", "DCN_BANDWIDTH_GBPS", "combined_throughput",
     "find_suitable_allocations", "allocation_throughput",

@@ -61,8 +61,10 @@ def _rule(**overrides: Tuple[str, ...]) -> Rule:
         "dt_rank": (),
         "ssm_state": (),
         "conv": (),
-        # activation dims
-        "batch": ("pod", "data"),
+        # activation dims; 'pod' is the reference's multi-pod mesh axis: the
+        # port builds no multi-pod mesh until it runs on more than one device,
+        # and a rule naming an axis its mesh lacks resolves to no sharding
+        "batch": ("pod", "data"),  # repro-lint: disable=S001
         "seq": ("model",),
         "heads": ("model",),
         "kv_heads": ("model",),

@@ -134,6 +134,13 @@ def param_bytes(specs: Any) -> int:
     )
 
 
+# a leaf with more elements than this is drawn one slice of its leading
+# (stacking) dim at a time, so that its f32 draw never sits beside the whole
+# leaf: one (16, 8, 4096, 14336) expert leaf is 30 GB in f32. Every smaller
+# leaf is drawn at once, as before.
+DRAW_BY_SLICE_NUMEL = 2**31
+
+
 def _init_one(spec: ParamSpec, generator: torch.Generator, device, dtype) -> torch.Tensor:
     out_dtype = torch_dtype(dtype) if (dtype is not None and spec.is_matrix) \
         else torch_dtype(spec.dtype)
@@ -141,13 +148,19 @@ def _init_one(spec: ParamSpec, generator: torch.Generator, device, dtype) -> tor
         return torch.zeros(spec.shape, dtype=out_dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=out_dtype, device=device)
-    x = torch.randn(spec.shape, generator=generator, device=device, dtype=torch.float32)
     if spec.init == "embed":
         std = spec.scale
     else:  # fan-in scaled normal
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale / np.sqrt(max(fan_in, 1))
-    return x.mul_(float(std)).to(out_dtype)
+    if int(np.prod(spec.shape)) <= DRAW_BY_SLICE_NUMEL:
+        x = torch.randn(spec.shape, generator=generator, device=device, dtype=torch.float32)
+        return x.mul_(float(std)).to(out_dtype)
+    out = torch.empty(spec.shape, dtype=out_dtype, device=device)
+    for i in range(spec.shape[0]):
+        x = torch.randn(spec.shape[1:], generator=generator, device=device, dtype=torch.float32)
+        out[i] = x.mul_(float(std))
+    return out
 
 
 def init_params(specs: Any, generator: torch.Generator, device, dtype=None) -> Any:

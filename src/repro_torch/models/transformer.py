@@ -7,13 +7,15 @@ against that cache) and ``decode_step_paged`` (one continuous-batching
 token per lane against the paged pool). The layer loop is a Python loop
 over per-layer views of the stacked parameters.
 
-Ported block families: DENSE with full attention (every entry point);
-for serving only (``prefill``, ``decode_step``), HYBRID_PARALLEL (Hymba:
-attention and a Mamba block side by side) with sliding-window attention,
-and MLSTM (xLSTM: ``groups`` of mLSTM blocks and one sLSTM, no attention).
-The selective-scan and mLSTM kernels have no gradient yet, so the
-training forwards refuse those. The other families raise
-``NotImplementedError``.
+Ported block families: DENSE with full attention and MOE (attention,
+then a mixture of experts in place of the MLP) with full or
+sliding-window attention, at every entry point but the paged decode
+(DENSE only, as in the reference); for serving only (``prefill``,
+``decode_step``), HYBRID_PARALLEL (Hymba: attention and a Mamba block
+side by side) with sliding-window attention, and MLSTM (xLSTM: ``groups``
+of mLSTM blocks and one sLSTM, no attention). The selective-scan and
+mLSTM kernels have no gradient yet, so the training forwards refuse
+those. The other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.config.base import AttentionKind, BlockKind, ModelConfig
-from repro_torch.models import common, layers, ssm, xlstm
+from repro_torch.models import common, layers, moe, ssm, xlstm
 from repro_torch.models.common import ParamSpec
 
 
@@ -41,6 +43,8 @@ class RunOpts:
 
 
 _SERVED = {(BlockKind.DENSE, AttentionKind.FULL),
+           (BlockKind.MOE, AttentionKind.FULL),
+           (BlockKind.MOE, AttentionKind.SLIDING),
            (BlockKind.HYBRID_PARALLEL, AttentionKind.SLIDING),
            (BlockKind.MLSTM, AttentionKind.NONE)}
 
@@ -48,9 +52,12 @@ _SERVED = {(BlockKind.DENSE, AttentionKind.FULL),
 def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
     if (cfg.block, cfg.attention) not in _SERVED:
         raise NotImplementedError(
-            f"repro_torch serves DENSE full-attention, HYBRID_PARALLEL sliding-window and "
-            f"MLSTM models only, got {cfg.block.value}/{cfg.attention.value}"
+            f"repro_torch serves DENSE full-attention, MOE full or sliding-window, "
+            f"HYBRID_PARALLEL sliding-window and MLSTM models only, got "
+            f"{cfg.block.value}/{cfg.attention.value}"
         )
+    if cfg.block == BlockKind.MOE and cfg.moe is None:
+        raise NotImplementedError(f"repro_torch: {cfg.name} is MOE with no MoEConfig")
     if cfg.tie_embeddings or cfg.embed_scale or cfg.vision_tokens or cfg.encoder_layers:
         raise NotImplementedError(f"repro_torch: {cfg.name} needs a later slice")
     if opts is not None:
@@ -62,14 +69,17 @@ def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
             raise NotImplementedError(f"repro_torch: remat {opts.remat!r} is not ported yet")
 
 
-def _require_dense(cfg: ModelConfig, what: str) -> None:
-    """The training forwards and the paged decode take DENSE blocks only: a
-    hybrid or xLSTM training step would need the scan's or the mLSTM's
-    gradient (their kernels have none yet), and the reference pages DENSE
-    blocks only."""
-    if cfg.block != BlockKind.DENSE:
+def _require_dense(cfg: ModelConfig, what: str, moe_too: bool = False) -> None:
+    """The training forwards take DENSE and MOE blocks, the paged decode
+    DENSE blocks only: a hybrid or xLSTM training step would need the
+    scan's or the mLSTM's gradient (their kernels have none yet), and the
+    reference pages DENSE blocks only (MOE serves through the dense ring
+    cache, which carries its load counters)."""
+    allowed = (BlockKind.DENSE, BlockKind.MOE) if moe_too else (BlockKind.DENSE,)
+    if cfg.block not in allowed:
+        names = " and ".join(b.name for b in allowed)
         raise NotImplementedError(
-            f"repro_torch: {what} supports DENSE blocks only, got {cfg.block.value}")
+            f"repro_torch: {what} supports {names} blocks only, got {cfg.block.value}")
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +95,10 @@ def block_spec(cfg: ModelConfig) -> Dict[str, Any]:
         spec["fuse_attn"] = layers.rmsnorm_spec(cfg.d_model)
         spec["fuse_ssm"] = layers.rmsnorm_spec(cfg.d_model)
     spec["ln2"] = layers.rmsnorm_spec(cfg.d_model)
-    spec["mlp"] = layers.mlp_spec(cfg)
+    if cfg.block == BlockKind.MOE:
+        spec["moe"] = moe.moe_spec(cfg)
+    else:
+        spec["mlp"] = layers.mlp_spec(cfg)
     return spec
 
 
@@ -135,9 +148,10 @@ def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, int8: bool = False) -> Dict[str, Any]:
-    """Dense cache specs, stacked over layers: k, v, pos_ids, and the
-    hybrid block's SSM state under ``ssm``; for xLSTM the recurrent states
-    under ``groups`` (``seq_len`` unused: the state is constant per token)."""
+    """Dense cache specs, stacked over layers: k, v, pos_ids, the hybrid
+    block's SSM state under ``ssm`` and the MoE block's int32 expert
+    counters under ``moe_load``; for xLSTM the recurrent states under
+    ``groups`` (``seq_len`` unused: the state is constant per token)."""
     _check_supported(cfg)
     if int8:
         raise NotImplementedError("repro_torch: the int8 KV cache is not ported yet")
@@ -147,6 +161,8 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, int8: bool = False) 
     one: Dict[str, Any] = layers.make_cache_specs(cfg, batch, cache_len_for(cfg, seq_len))
     if cfg.block == BlockKind.HYBRID_PARALLEL:
         one["ssm"] = ssm.init_state(cfg, batch)
+    if cfg.block == BlockKind.MOE:
+        one["moe_load"] = moe.moe_load_spec(cfg, batch)
     return {"blocks": common.stacked(one, cfg.num_layers)}
 
 
@@ -303,6 +319,14 @@ def _xlstm_group(p, x: torch.Tensor, cfg: ModelConfig, cache=None):
     return x, out
 
 
+def _ffn(p, h: torch.Tensor, cfg: ModelConfig):
+    """The block's feed-forward half: (out, aux_loss f32, moe_load or None);
+    the MoE block's experts in place of the MLP."""
+    if cfg.block == BlockKind.MOE:
+        return moe.moe_block(p["moe"], h, cfg)
+    return layers.mlp(p["mlp"], h, cfg), torch.zeros((), dtype=torch.float32, device=h.device), None
+
+
 def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"][tokens.long()].to(common.torch_dtype(cfg.dtype))
 
@@ -341,7 +365,7 @@ def forward_hidden(params, batch, cfg: ModelConfig, opts: RunOpts):
     or, to differentiate, a list of per-layer trees (see ``per_layer``).
     """
     _check_supported(cfg, opts)
-    _require_dense(cfg, "training")
+    _require_dense(cfg, "training", moe_too=True)
     blocks = params["blocks"]
     if not isinstance(blocks, list):
         blocks = [layer_slice(blocks, i) for i in range(cfg.num_layers)]
@@ -352,13 +376,16 @@ def forward_hidden(params, batch, cfg: ModelConfig, opts: RunOpts):
         attn_out, _ = _attn_full(p["attn"], h, positions, cfg, opts)
         xx = xx + attn_out
         h = layers.rmsnorm(p["ln2"], xx, cfg.norm_eps)
-        return xx + layers.mlp(p["mlp"], h, cfg)
+        out, aux, _ = _ffn(p, h, cfg)
+        return xx + out, aux
 
     body = _maybe_remat(body, opts)
+    auxes = []
     for p in blocks:
-        x = body(x, p)
+        x, aux = body(x, p)
+        auxes.append(aux)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, torch.stack(auxes).sum()
 
 
 def unembed_weight(params, cfg: ModelConfig) -> torch.Tensor:
@@ -376,8 +403,9 @@ def prefill(params, batch, cfg: ModelConfig, opts: RunOpts, cache_seq_len: int):
     """Forward + cache build. ``batch["tokens"]``: (B, S) int.
     Returns (last-position logits (B, 1, V), cache): k/v of the last
     ``cache_len_for(cfg, cache_seq_len)`` positions in ring-buffer slots,
-    ``pos_ids``, and for hybrid blocks the SSM state under ``ssm``; for
-    xLSTM the recurrent states under ``groups``."""
+    ``pos_ids``, for hybrid blocks the SSM state under ``ssm``, for MoE
+    blocks each sequence's expert counters under ``moe_load``; for xLSTM
+    the recurrent states under ``groups``."""
     _check_supported(cfg, opts)
     x, positions = _embed_inputs(params, batch, cfg)
     if cfg.block == BlockKind.MLSTM:
@@ -399,7 +427,10 @@ def prefill(params, batch, cfg: ModelConfig, opts: RunOpts, cache_seq_len: int):
         else:
             x = x + attn_out
         h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + layers.mlp(p["mlp"], h, cfg)
+        out, _, load = _ffn(p, h, cfg)
+        x = x + out
+        if load is not None:
+            c["moe_load"] = load
         caches.append(c)
     return _unembed(params, x[:, -1:, :], cfg), {"blocks": _stack(caches)}
 
@@ -409,8 +440,8 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig, opts: RunOpts
 
     tokens: (B, 1) int; pos: the absolute position of the new token (the
     same for every row). Writes the token's k/v into its ring slot, the
-    new SSM state of hybrid blocks and the new xLSTM states into ``cache``
-    IN PLACE (the reference returns an updated copy). Returns (logits
+    new SSM state of hybrid blocks, the MoE blocks' expert counters and the
+    new xLSTM states into ``cache`` IN PLACE (the reference returns an updated copy). Returns (logits
     (B, 1, V), cache).
     """
     _check_supported(cfg, opts)
@@ -433,7 +464,12 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig, opts: RunOpts
         else:
             x = x + attn_out
         h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + layers.mlp(p["mlp"], h, cfg)
+        if cfg.block == BlockKind.MOE:
+            m_out, new_load = moe.moe_decode_block(p["moe"], h, c["moe_load"], pos, cfg)
+            c["moe_load"].copy_(new_load)
+            x = x + m_out
+        else:
+            x = x + layers.mlp(p["mlp"], h, cfg)
     return _unembed(params, x, cfg), cache
 
 

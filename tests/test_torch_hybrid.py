@@ -333,7 +333,7 @@ def test_hybrid_training_and_paged_decode_refuse():
     with pytest.raises(NotImplementedError, match="DENSE"):
         m.paged_cache_specs(8)
     with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, block=BlockKind.MOE))
+        build_model(dataclasses.replace(cfg, block=BlockKind.ENCDEC))
     with pytest.raises(NotImplementedError, match="int8"):
         m.cache_specs(2, 8, int8=True)
 
