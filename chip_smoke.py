@@ -6,6 +6,7 @@
     python3 chip_smoke.py --spot-only     # build + the spot provisioner's phase only
     python3 chip_smoke.py --serve-plan-only  # build + the spot serving phase only
     python3 chip_smoke.py --moe-only      # build + the flash kernels at mixtral's shape + phase 10
+    python3 chip_smoke.py --dense-variants-only  # build + the kernels at phase 11's shapes + phase 11
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
@@ -123,7 +124,31 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    each backward kernel a step; reduced f32 mixtral and phi3.5 serving and
    3 mixtral training steps on the card equal the CPU's (streams, logits,
    every expert counter; loss, aux loss and grad norm rtol 1e-4, params
-   atol 1e-5).
+   atol 1e-5);
+11. the dense variants, each at full width and depth, the attention
+   biases drawn N(0, 0.5) (``init`` leaves them at zero, as the reference
+   does): qwen1.5-32b (64 layers, 70.39 GB of bf16 weights, QKV bias)
+   through ``DecodeEngine`` with the int8 pool (769 pages, 8.19 GB; the
+   bf16 pool of that size would not fit, which is held) on phase 4's
+   requests: one flash forward a layer a prefill and no paged kernel (the
+   int8 pool decodes in plain PyTorch, as the reference's does); on one
+   layer the scoped dequantization equals the whole pool's bit for bit;
+   then its first 2 requests through a bf16 pool (64 paged launches a
+   step), fed the int8 streams, held by the reference's rule (top-1 equal
+   or correlation > 0.98) at every step; qwen1.5-4b trained 4 steps as in
+   7 (160 / 80 / 80 launches a step, the biases' gradients nonzero) and
+   served as in 4 (40 launches a prefill and a step); internvl2-26b (48
+   layers) through the serve launcher's loop, 4 prompts of 2048 tokens
+   after 1025 patch rows (S = 3073), 32 new tokens: 48 flash forwards,
+   none in decode; the flash prefill against the masked one, the last
+   decode step against a fresh prefill over patches, prompt and fed
+   tokens (top-1 equal or phase 9's near-tie), ``pos_ids`` without a
+   hole; reduced f32 int8 qwen1.5-32b serving, qwen1.5-4b training and
+   serving, internvl2 serving and the ``triangular`` schedule's prefill
+   and 3 training steps on the card equal the CPU's. The kernel phase
+   holds the forward at G=1 (B1 S2000 H40/40) and G=6 (B4 S3073 H48/8,
+   a last tile of one row), the forward and both backward kernels at
+   B1 S4096 H20/20, and the paged kernel at 8 lanes, H20/20 and H40/40.
 
 A kernel variant's ``launches_by_path`` in the JSON record holds its count
 on each path (``serve``, ``hybrid``, ``xlstm``, ``train``, ``spot`` at full width
@@ -131,7 +156,11 @@ in bf16, the reduced f32 runs ``serve_f32``, ``hybrid_f32``, ``xlstm_f32``,
 ``train_f32``, ``spot_f32``, the launcher's reduced bf16 ``spot_launch``, and
 the plan modes' ``serve_plan`` and ``serve_plan_f32``, the MoE family's
 ``moe``, ``moe_phi``, ``moe_train`` at full width and ``moe_f32``,
-``moe_train_f32`` reduced), each counted from 0
+``moe_train_f32`` reduced; the dense variants' ``dense_int8``,
+``dense_bf16``, ``dense_q4_train``, ``dense_q4_serve``, ``dense_vlm`` at
+full width and ``dense_int8_f32``, ``dense_q4_train_f32``,
+``dense_q4_tri``, ``dense_q4_serve_f32``, ``dense_vlm_f32`` reduced), each
+counted from 0
 just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
 tensor-core variants, the f32 runs only the FMA ones. The last three lines of stdout are the card's name and power limit, the
@@ -145,11 +174,17 @@ import dataclasses
 import gc
 import json
 import math
+import os
 from pathlib import Path
 import re
 import subprocess
 import sys
 import time
+
+# qwen1.5-32b's weights and int8 pool leave ~6 GB of the card: growable
+# segments keep the caching allocator from stranding it in split blocks
+# (read when the allocator starts, so set before torch touches the card)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np
 import torch
@@ -1118,25 +1153,52 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
 # phase 4: full-width serving
 # ---------------------------------------------------------------------------
 
-def serve_full_width() -> dict:
-    from repro_torch.config import ShardingLayout, get_arch
-    from repro_torch.models import RunOpts, build_model
-    from repro_torch.serve import DecodeEngine, Request
+def draw_biases(params, gen: torch.Generator) -> None:
+    """Overwrite the attention biases (zeros from ``init``, as in the
+    reference) with an N(0, 0.5) draw from ``gen``, in place, so that a
+    path that never added them could not pass; no-op without biases."""
+    attn = params["blocks"]["attn"] if "blocks" in params else {}
+    for key in ("bq", "bk", "bv"):
+        if key in attn:
+            t = attn[key]
+            t.copy_(0.5 * torch.randn(t.shape, generator=gen, device=t.device,
+                                      dtype=torch.float32))
 
-    cfg = get_arch("qwen3-4b")
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = model.param_count()
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params / 1e9:.3f} B params in bf16, made on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
+
+def phase4_requests(cfg) -> list:
+    """Phase 4's 16 requests: lengths from RandomState(0) in [16, 2000],
+    plus 2000 and 127, 32 new tokens each."""
+    from repro_torch.serve import Request
 
     rng = np.random.RandomState(0)
     lens = rng.randint(16, 2001, 14).tolist() + [2000, 127]
-    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, n).astype(np.int32),
+    return [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, n).astype(np.int32),
                     max_new_tokens=32) for i, n in enumerate(lens)]
+
+
+def serve_full_width(arch: str = "qwen3-4b", tag: str = "serve") -> dict:
+    """``arch`` at full width and depth, bf16, through ``DecodeEngine`` on
+    phase 4's requests (the attention biases drawn nonzero where the model
+    has them)."""
+    from repro_torch.config import ShardingLayout, get_arch
+    from repro_torch.models import RunOpts, build_model
+    from repro_torch.serve import DecodeEngine
+
+    cfg = get_arch(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, "cuda", torch.bfloat16)
+    draw_biases(params, gen)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, qkv bias {cfg.qkv_bias}, "
+        f"{n_params / 1e9:.3f} B params in bf16, made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    reqs = phase4_requests(cfg)
+    lens = [len(r.prompt) for r in reqs]
     num_pages = 4 * 128 + 1
     eng = DecodeEngine(model, ShardingLayout(attn_impl="flash"), "cuda",
                        lanes=8, num_pages=num_pages, max_context=2048)
@@ -1160,14 +1222,14 @@ def serve_full_width() -> dict:
         raise AssertionError(f"pool did not drain: {eng.free_pages} free of {num_pages - 1}")
     want = expect_launches(flash_attention_tc=cfg.num_layers * eng.prefills,
                            paged_attention_tc=cfg.num_layers * eng.decode_steps)
-    log(f"[serve] {len(done)} requests x 32 tokens done in {wall:.2f} s; prompt lengths "
+    log(f"[{tag}] {len(done)} requests x 32 tokens done in {wall:.2f} s; prompt lengths "
         f"{lens}; {eng.prefills} prefills, {eng.decode_steps} decode steps; pool back to "
         f"{eng.free_pages} free pages")
-    log(f"[serve] launches {launches}, expected {want}")
+    log(f"[{tag}] launches {launches}, expected {want}")
     if launches != want or min(launches["flash_attention_tc"],
                                launches["paged_attention_tc"]) <= 0:
         raise AssertionError("the main path did not go through the kernels as expected")
-    log(f"[serve] prefill {eng.prefilled_tokens / eng.prefill_seconds:.1f} tokens/s "
+    log(f"[{tag}] prefill {eng.prefilled_tokens / eng.prefill_seconds:.1f} tokens/s "
         f"({eng.prefilled_tokens} tokens in {eng.prefill_seconds:.3f} s); decode "
         f"{eng.measured_tokens_per_sec:.1f} tokens/s ({eng.decoded_tokens} tokens in "
         f"{eng.decode_seconds:.3f} s, {1e3 * eng.decode_seconds / eng.decode_steps:.2f} ms "
@@ -1181,7 +1243,7 @@ def serve_full_width() -> dict:
     a, b = flash[0, -1].float(), masked[0, -1].float()
     corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
     top_eq = int(a.argmax()) == int(b.argmax())
-    log(f"[serve] flash vs masked prefill logits (S={S}): top-1 equal {top_eq}, "
+    log(f"[{tag}] flash vs masked prefill logits (S={S}): top-1 equal {top_eq}, "
         f"correlation {corr:.6f}, max abs diff {float((a - b).abs().max()):.4f}")
     if not (torch.isfinite(a).all() and top_eq and corr > 0.99):
         raise AssertionError("flash prefill logits disagree with the masked path")
@@ -1258,36 +1320,44 @@ def profile_serving(model, params) -> None:
         f"{_device_breakdown(prof, wall)}")
 
 
-def serve_reduced_matches_cpu() -> dict:
+def serve_reduced_matches_cpu(arch: str = "qwen3-4b", int8: bool = False,
+                              tag: str = "serve") -> dict:
     """A reduced f32 model: the engine on the card (the f32 flash variant and
-    the paged kernel) must give the plain CPU engine's greedy streams token
-    for token. Returns the card run's launches."""
+    the paged kernel; with ``int8`` the int8 pool, which decodes in plain
+    PyTorch) must give the plain CPU engine's greedy streams token for
+    token. Returns the card run's launches."""
     from repro_torch.config import ShardingLayout, get_arch
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
     from repro_torch.serve import DecodeEngine, Request
 
-    cfg = dataclasses.replace(get_arch("qwen3-4b").reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
     model = build_model(cfg)
-    params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    params_cpu = model.init(gen, "cpu")
+    draw_biases(params_cpu, gen)
     params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
     rng = np.random.RandomState(0)
     reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, n).astype(np.int32),
                     max_new_tokens=8) for i, n in enumerate((5, 17, 9, 30))]
     streams = {}
+    layout = ShardingLayout(attn_impl="flash", int8_kv_cache=int8)
     for device, params in (("cpu", params_cpu), ("cuda", params_gpu)):
-        eng = DecodeEngine(model, ShardingLayout(attn_impl="flash"), device,
-                           lanes=2, num_pages=9, max_context=48)
+        eng = DecodeEngine(model, layout, device, lanes=2, num_pages=9, max_context=48)
         for r in reqs:
             eng.submit(r)
         reset_launches()
         streams[device] = {c.rid: c.tokens for c in eng.run(params)}
         launches = read_launches()
-    log(f"[serve] reduced f32 streams, card vs CPU plain: "
-        f"{'identical' if streams['cpu'] == streams['cuda'] else 'DIFFERENT'}")
+    log(f"[{tag}] reduced f32 {cfg.name} streams{' (int8 pool)' if int8 else ''}, card vs CPU "
+        f"plain: {'identical' if streams['cpu'] == streams['cuda'] else 'DIFFERENT'}")
     if streams["cpu"] != streams["cuda"]:
         raise AssertionError(f"card streams {streams['cuda']} != CPU {streams['cpu']}")
-    return hold_f32_launches("serve", launches, "flash_attention_fma", "paged_attention_fma")
+    if int8:
+        if launches["paged_attention_fma"] or launches["paged_attention_tc"]:
+            raise AssertionError("the int8 pool launched a paged kernel")
+        return hold_f32_launches(tag, launches, "flash_attention_fma")
+    return hold_f32_launches(tag, launches, "flash_attention_fma", "paged_attention_fma")
 
 
 # ---------------------------------------------------------------------------
@@ -1420,13 +1490,19 @@ def greedy_reduced_matches_cpu(arch: str, tag: str, *kernels: str) -> dict:
 
     cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
     model = build_model(cfg)
-    params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    params_cpu = model.init(gen, "cpu")
+    draw_biases(params_cpu, gen)
     params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
     prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    patches = (torch.randn((2, cfg.vision_tokens, cfg.vision_width), generator=gen)
+               if cfg.vision_tokens else None)
     runs = {}
     for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
         reset_launches()
-        runs[device] = greedy_serve(model, params, torch.as_tensor(prompt, device=device), 16)
+        runs[device] = greedy_serve(
+            model, params, torch.as_tensor(prompt, device=device), 16,
+            patches=None if patches is None else patches.to(device))
         if device == "cuda":
             launches = read_launches()
     gpu, cpu = runs["cuda"], runs["cpu"]
@@ -1814,23 +1890,27 @@ def _recording(step_fn, out: list):
 
 
 def _probe(state) -> list:
-    """Small slices of four leaves, to see whether an update moved them."""
+    """Small slices of four leaves (and of a bias, where the model has
+    one), to see whether an update moved them."""
     p = state.params
+    attn = p["blocks"]["attn"]
     return [t.detach().clone() for t in (p["embed"][:4, :8], p["lm_head"][:8, :4],
-                                         p["blocks"]["attn"]["wq"][0, :8, :4],
-                                         p["blocks"]["mlp"]["wo"][-1, :8, :4])]
+                                         attn["wq"][0, :8, :4], p["blocks"]["mlp"]["wo"][-1, :8, :4],
+                                         *([attn["bq"][-1, :8]] if "bq" in attn else []))]
 
 
-def train_full_width() -> dict:
-    """qwen3-4b at full width and depth, f32 params + AdamW, seq 4096,
-    global batch 2 in 2 microbatches, through ``run_segment`` for 4 steps."""
+def train_full_width(arch: str = "qwen3-4b", tag: str = "train") -> dict:
+    """``arch`` at full width and depth, f32 params + AdamW, seq 4096,
+    global batch 2 in 2 microbatches, through ``run_segment`` for 4 steps
+    (the attention biases drawn nonzero where the model has them, and
+    their gradients held nonzero through AdamW's first moment)."""
     from repro_torch.config import ShardingLayout, TrainConfig, get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
     from repro_torch.train.loop import make_step, run_segment
     from repro_torch.train.steps import init_train_state
 
-    cfg = get_arch("qwen3-4b")
+    cfg = get_arch(arch)
     model = build_model(cfg)
     seq, batch, n_steps = 4096, 2, 4
     tc = TrainConfig(total_steps=n_steps, warmup_steps=1, microbatches=2)
@@ -1838,9 +1918,11 @@ def train_full_width() -> dict:
     ds = SyntheticLM(cfg.vocab_size, seq, batch, seed=0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_train_state(model, gen, "cuda")
+    draw_biases(state.params, gen)
     torch.cuda.synchronize()
-    log(f"[train] {cfg.name}: {cfg.num_layers} layers (no depth cut), d_model {cfg.d_model}, "
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers (no depth cut), d_model {cfg.d_model}, "
         f"{model.param_count() / 1e9:.3f} B f32 params; params + AdamW moments "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, made on the card in "
         f"{time.perf_counter() - t0:.1f} s; seq {seq}, global batch {batch} in "
@@ -1864,9 +1946,9 @@ def train_full_width() -> dict:
                            flash_attention_bwd_dq_tc=per_mb)
     secs = res0.step_seconds + res1.step_seconds
     for i, (m, dt) in enumerate(zip(metrics, secs)):
-        log(f"[train] step {i}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+        log(f"[{tag}] step {i}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
             f"lr {m['lr']:.3e}, {dt * 1e3:.1f} ms, {batch * seq / dt:.1f} tokens/s")
-    log(f"[train] peak memory {peak_gb:.2f} GB; largest change of the probed params after "
+    log(f"[{tag}] peak memory {peak_gb:.2f} GB; largest change of the probed params after "
         f"step 1: {max(moved):.3e}; launches {launches}, expected {want}")
     if len(metrics) != n_steps or not all(
             np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
@@ -1875,6 +1957,15 @@ def train_full_width() -> dict:
         raise AssertionError("a probed param did not move after step 1")
     if launches != want:
         raise AssertionError("the training path did not go through the kernels as expected")
+    m_attn = res1.state.opt.m["blocks"]["attn"]
+    if "bq" in m_attn:
+        # AdamW's first moment is (1 - b1) x the gradient's running mean: a
+        # bias whose gradient never reached it would keep it at 0 (its
+        # weight decay moves the param, not the moment)
+        first = {k: float(m_attn[k].abs().max()) for k in ("bq", "bk", "bv")}
+        log(f"[{tag}] largest |AdamW first moment| of the biases after {n_steps} steps: {first}")
+        if not min(first.values()) > 0:
+            raise AssertionError("a bias got no gradient")
     profile_training(model, step_fn, res1.state, ds)
     return launches
 
@@ -1905,11 +1996,12 @@ def _copy_state(state, device):
 
 
 def train_reduced_matches_cpu(arch: str = "qwen3-4b", tag: str = "train",
-                              n_steps: int = 5) -> dict:
+                              n_steps: int = 5, attn_impl: str = "flash") -> dict:
     """A reduced f32 model: ``n_steps`` training steps on the card (the f32
-    variants of the flash kernels) against the plain CPU trainer, from the
-    same state and data (a MoE model's aux loss too). Returns the card
-    run's launches."""
+    variants of the flash kernels; with ``attn_impl="triangular"`` the
+    plain causal chunk schedule, no kernel) against the plain CPU trainer,
+    from the same state and data (a MoE model's aux loss too; attention
+    biases drawn nonzero). Returns the card run's launches."""
     from repro_torch.config import ShardingLayout, TrainConfig, get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
@@ -1920,9 +2012,11 @@ def train_reduced_matches_cpu(arch: str = "qwen3-4b", tag: str = "train",
     cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
     model = build_model(cfg)
     tc = TrainConfig(total_steps=10, warmup_steps=2, microbatches=2)
-    layout = ShardingLayout(attn_impl="flash")
+    layout = ShardingLayout(attn_impl=attn_impl, q_chunk=32, kv_chunk=32)
     ds = SyntheticLM(cfg.vocab_size, 100, 4, seed=0)   # 100: ragged against 64-row tiles
-    state_cpu = init_train_state(model, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    state_cpu = init_train_state(model, gen, "cpu")
+    draw_biases(state_cpu.params, gen)
     runs = {}
     for device, state in (("cuda", _copy_state(state_cpu, "cuda")), ("cpu", state_cpu)):
         metrics: list = []
@@ -1947,6 +2041,11 @@ def train_reduced_matches_cpu(arch: str = "qwen3-4b", tag: str = "train",
         f"(atol 1e-5)")
     if not err <= 1e-5:
         raise AssertionError("reduced training params on the card differ from the CPU's")
+    if attn_impl == "triangular":
+        log(f"[{tag}] reduced f32 launches {launches} (triangular: plain attention)")
+        if launches != expect_launches():
+            raise AssertionError("the triangular schedule launched a kernel")
+        return launches
     return hold_f32_launches(tag, launches, "flash_attention_fma",
                              "flash_attention_bwd_dkdv_fma", "flash_attention_bwd_dq_fma")
 
@@ -2920,6 +3019,475 @@ def moe_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the dense variants' shapes (run again under --dense-variants-only)
+# ---------------------------------------------------------------------------
+
+# (tag, B, S, H, KVH): the flash forward at qwen1.5-32b's prefill (G=1) and
+# internvl2-26b's (1025 patch rows + 2048 text tokens, G=6; the last q tile
+# of 128 rows holds one row), hd 128, causal, bf16
+DENSE_FLASH_SHAPES = [("qwen1.5-32b prefill", 1, 2000, 40, 40),
+                      ("internvl2-26b prefill", 4, 3073, 48, 8)]
+# qwen1.5-4b's training shape: B1 S4096 H20/20 hd128 causal, bf16
+DENSE_TRAIN_ATTN = dict(B=1, S=4096, H=20, KVH=20, hd=128)
+# the paged kernel at 8 lanes, G=1 (qwen1.5-4b's H20, qwen1.5-32b's H40), hd128
+DENSE_PAGED_HEADS = (20, 40)
+
+
+def check_dense_variant_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """The forward, dk/dv, dq and paged tensor-core kernels at this slice's
+    new shapes (group sizes 1 and 6, a ragged last tile of one row) against
+    their plain versions (one batch row at a time where the plain scores
+    would not fit), each timed beside SDPA (or, for the paged kernel, the
+    plain version) and its bound. Returns the largest errors, by record name."""
+    from repro_torch.kernels.flash_attention import kernel, kernel_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_ref
+    from repro_torch.kernels.paged_attention import kernel as paged
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    log("[kernels] the dense variants' shapes: flash forward at G=1 and G=6 (S=3073), the "
+        "backward at H20/20, paged at G=1")
+    errs = dict.fromkeys(("flash_attention_tc", "flash_attention_bwd_dkdv_tc",
+                          "flash_attention_bwd_dq_tc", "paged_attention_tc"), 0.0)
+    kw = dict(causal=True, window=0, q_offset=0)
+    mk = lambda B, S, heads, hd=128: torch.randn((B, S, heads, hd), generator=gen,
+                                                 device="cuda").to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for tag, B, S, H, KVH in DENSE_FLASH_SHAPES:
+        q, k, v = mk(B, S, H), mk(B, S, KVH), mk(B, S, KVH)
+        o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        for b in range(B):
+            e = hold_fwd(f"flash {tag} B{B} S{S} H{H}/{KVH} hd128 bf16 row {b}", o[b:b + 1],
+                         lse[b:b + 1], q[b:b + 1], k[b:b + 1], v[b:b + 1], kw,
+                         FLASH_MAIN_BF16_TOL)
+            errs["flash_attention_tc"] = max(errs["flash_attention_tc"], e)
+        del o, lse
+        flops, nbytes = _flash_fwd_work(B, S, H, KVH, 128)
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        ms = time_ms(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush)
+        plain_ms = time_ms(lambda: attention_fwd_ref(q[:1], k[:1], v[:1], **kw), flush, reps=3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+        log(f"  flash {tag} (B{B} S{S} H{H}/{KVH} hd128 bf16): kernel {ms:.4f} ms, plain (o, "
+            f"lse; one batch row) {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); {flops / ms / 1e9:.1f} TFLOP/s achieved")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    B, S, H, KVH, hd = (DENSE_TRAIN_ATTN[x] for x in ("B", "S", "H", "KVH", "hd"))
+    q, k, v, do = mk(B, S, H), mk(B, S, KVH), mk(B, S, KVH), mk(B, S, H)
+    o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = kernel_bwd.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+    dq = kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    tag = f"qwen1.5-4b training B{B} S{S} H{H}/{KVH} hd{hd} bf16"
+    errs["flash_attention_tc"] = max(errs["flash_attention_tc"], hold_fwd(
+        f"flash {tag}", o, lse, q, k, v, kw, FLASH_MAIN_BF16_TOL))
+    rq, rk, rv = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    errs["flash_attention_bwd_dkdv_tc"] = max(
+        hold(f"bwd {tag} dk", dk, rk, FLASH_BWD_MAIN_BF16_TOL),
+        hold(f"bwd {tag} dv", dv, rv, FLASH_BWD_MAIN_BF16_TOL))
+    errs["flash_attention_bwd_dq_tc"] = hold(f"bwd {tag} dq", dq, rq, FLASH_BWD_MAIN_BF16_TOL)
+    del rq, rk, rv, dk, dv, dq
+    torch.cuda.empty_cache()
+    prod = 2.0 * _pairs(S, 0) * hd * H * B
+    qkv_bytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KVH * hd)
+    work = {"flash_attention_tc": (2 * prod, qkv_bytes + 4.0 * B * H * S),
+            "flash_attention_bwd_dkdv_tc": (4 * prod, qkv_bytes + 2 * 4.0 * B * H * S
+                                            + 2.0 * 2 * B * S * KVH * hd),
+            "flash_attention_bwd_dq_tc": (prod, 2.0 * B * S * H * hd)}
+    fns = {"flash_attention_tc": lambda: kernel.flash_attention_fwd(q, k, v, **kw),
+           "flash_attention_bwd_dkdv_tc": lambda: kernel_bwd.flash_attention_bwd_dkdv(
+               q, k, v, do, lse, delta, **kw),
+           "flash_attention_bwd_dq_tc": lambda: kernel_bwd.flash_attention_bwd_dq(
+               q, k, v, do, lse, delta, **kw)}
+    plain_fwd = time_ms(lambda: attention_fwd_ref(q, k, v, **kw), flush, reps=3)
+    plain_bwd = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw), flush, reps=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
+    sdpa_bwd = sdpa_backward_ms(q, k, v, do, flush)
+    for name, (flops, nbytes) in work.items():
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        ms = time_ms(fns[name], flush)
+        log(f"  {name} at {tag}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved")
+    log(f"  at {tag}: plain forward {plain_fwd:.4f} ms, plain backward (all of dq, dk, dv) "
+        f"{plain_bwd:.4f} ms; SDPA flash forward {sdpa_fwd:.4f} ms, backward (fwd + bwd minus "
+        f"fwd) {sdpa_bwd:.4f} ms")
+    del q, k, v, do, o, lse, delta, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    lens = [2048] + np.random.RandomState(1).randint(1, 2049, 7).tolist()
+    n_tok = sum(lens)
+    n_pages = sum(-(-n // 16) for n in lens)
+    for H in DENSE_PAGED_HEADS:
+        args = _paged_inputs(gen, 8, H, H, 128, 16, 128, lens, torch.bfloat16, seed=1)
+        name = f"paged 8 lanes H{H}/{H} hd128 ps16 lens{lens} bf16"
+        out = paged.paged_attention(*args)
+        errs["paged_attention_tc"] = max(errs["paged_attention_tc"], hold(
+            name, out, paged_attention_ref(*args), PAGED_MAIN_BF16_TOL))
+        flops = 4.0 * n_tok * H * 128
+        nbytes = 2.0 * (2 * 8 * H * 128 + 2 * n_tok * H * 128) + 4.0 * (n_pages + 8)
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        ms = time_ms(lambda: paged.paged_attention(*args), flush)
+        plain_ms = time_ms(lambda: paged_attention_ref(*args), flush)
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); {nbytes / ms / 1e6:.1f} GB/s achieved")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dense variants (qwen1.5-32b int8, qwen1.5-4b, internvl2-26b)
+# ---------------------------------------------------------------------------
+
+# qwen1.5-32b through the engine with the int8 pool: 768 live pages + the
+# trash page (8.19 GB in int8; the same pool in bf16, 16.13 GB, does not
+# fit beside the 70.39 GB of bf16 weights); the bf16 comparison run serves
+# the first 2 requests in 256 + 1 pages (5.39 GB)
+INT8_PAGES, BF16_CMP_LANES, BF16_CMP_PAGES = 769, 2, 257
+# the reference's int8 rule (tests/test_serving_extras.py): top-1 equal, or
+# the logits correlate above this
+INT8_MIN_CORR = 0.98
+# internvl2-26b: 4 prompts of 2048 text tokens after its 1025 patch rows
+VLM_B, VLM_S, VLM_NEW = 4, 2048, 32
+
+
+def _free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _recorded(eng, rids, out: dict, force: dict = None):
+    """Wrap ``eng``'s decode step: keep each step's logits (f32, on the
+    host) of the lanes that hold ``rids`` in ``out[rid]``; with ``force``
+    (rid -> token stream), make the engine feed those tokens instead of
+    its own greedy picks (teacher forcing; the kept logits are the real
+    ones)."""
+    step = eng._decode
+
+    def decode(params, cache, tokens, seq_lens, table):
+        logits, cache = step(params, cache, tokens, seq_lens, table)
+        lanes = {lane.rid: i for i, lane in enumerate(eng._lanes)
+                 if lane is not None and lane.rid in rids}
+        if force is not None:
+            logits = logits.clone()
+        for rid, i in lanes.items():
+            out.setdefault(rid, []).append(logits[i, -1].float().cpu())
+            if force is not None:
+                tok = force[rid][len(out[rid])]
+                logits[i, -1, tok] = torch.finfo(logits.dtype).max
+        return logits, cache
+
+    eng._decode = decode
+
+
+def scoped_equals_whole_pool(cfg, params, pool_layer) -> None:
+    """On one layer of the int8 pool at this shape (8 lanes, up to 2048
+    positions, the pool's own pages): the scoped dequantization of
+    ``decode_attention_paged`` gives the bits that dequantizing the WHOLE
+    pool before the same gather and masked attention gives (the
+    reference's tests/test_serve_engine.py property)."""
+    from repro_torch.models import common, layers
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.RandomState(5)
+    c = {k: v.clone() for k, v in pool_layer.items()}
+    P, ps, KVH, hd = c["k_pages"].shape
+    mb = 128
+    # 8 lanes on distinct pages of the pool's 768: one at 2047 cached
+    # tokens, seven shorter
+    lens = torch.as_tensor([2047] + rng.randint(1, 1500, 7).tolist(), dtype=torch.int32,
+                           device="cuda")
+    table = np.full((8, mb), -1, np.int32)
+    perm, at = rng.permutation(P - 1), 0
+    for b, n in enumerate(lens.tolist()):
+        used = -(-(n + 1) // ps)
+        table[b, :used] = perm[at:at + used]
+        at += used
+    table = torch.as_tensor(table, device="cuda")
+    x = torch.randn((8, 1, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    p = {k: v[0] for k, v in params["blocks"]["attn"].items()}
+    y_scoped = layers.decode_attention_paged(p, c, x, lens, table, cfg)
+    q, _, _ = layers._project_qkv(p, x, cfg)
+    q = layers.rope(q, lens[:, None].float(), cfg.rope_theta)
+    full_k = layers._dequantize_kv(c["k_pages"], c["k_scale"], x.dtype)
+    full_v = layers._dequantize_kv(c["v_pages"], c["v_scale"], x.dtype)
+    tbl = torch.clamp(table, min=0).long()
+    kg = full_k[tbl].reshape(8, mb * ps, KVH, hd)
+    vg = full_v[tbl].reshape(8, mb * ps, KVH, hd)
+    mask = (torch.arange(mb * ps, device="cuda")[None, :] < (lens + 1)[:, None])[:, None, :]
+    att = layers._sdpa(q[:, 0].reshape(8, 1, KVH, -1, hd), kg, vg, mask, float(hd ** -0.5))
+    y_full = common.dense(att.reshape(8, 1, cfg.q_dim), p["wo"], cfg.dtype)
+    same = torch.equal(y_scoped, y_full)
+    log(f"[dense_int8] one layer at 8 lanes x up to {mb * ps} positions, H{KVH}: the scoped "
+        f"dequantization equals the whole pool's, bit for bit: {same}")
+    if not same:
+        raise AssertionError("the int8 pool's scoped dequantization differs from the whole "
+                             "pool's")
+    # the plain int8 attend alone (gather, dequantize, masked softmax) at this
+    # shape: the time an int8 paged kernel would replace, 64 times a step
+    n_tok = int((lens + 1).sum())
+    nbytes = 2.0 * n_tok * KVH * (hd + 2) + 2.0 * 8 * cfg.num_heads * hd * 2
+    b_ms, b_by = bound(4.0 * n_tok * cfg.num_heads * hd, nbytes, PEAK_BF16_FLOPS)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    ms = time_ms(lambda: layers._paged_attend_int8(q[:, 0], c, table, lens + 1), flush)
+    log(f"[dense_int8] the plain int8 paged attend (one layer, {n_tok} cached tokens): "
+        f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); x {cfg.num_layers} layers = "
+        f"{ms * cfg.num_layers:.2f} ms a decode step")
+
+
+def dense_int8_full_width() -> dict:
+    """qwen1.5-32b at full width and depth (64 layers, 35.2 B params in
+    bf16) through ``DecodeEngine`` with the int8 pool, on phase 4's
+    requests; then its first 2 requests through a bf16 pool, teacher-forced
+    on the int8 streams, held by the reference's rule. Returns launches by
+    path: ``dense_int8`` and ``dense_bf16``."""
+    from repro_torch.config import ShardingLayout, get_arch
+    from repro_torch.models import build_model, common
+    from repro_torch.serve import DecodeEngine
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    cfg = get_arch("qwen1.5-32b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, "cuda", torch.bfloat16)
+    draw_biases(params, gen)
+    torch.cuda.synchronize()
+    _free_cuda()                        # the f32 draws' blocks, before the pool
+    weights = sum(t.numel() * t.element_size() for t in common.tree_leaves(params))
+    free, _ = torch.cuda.mem_get_info()
+    int8_pool = common.param_bytes(model.paged_cache_specs(INT8_PAGES, int8=True))
+    bf16_pool = common.param_bytes(model.paged_cache_specs(INT8_PAGES))
+    log(f"[dense_int8] {cfg.name}: {cfg.num_layers} of {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, qkv bias; "
+        f"{model.param_count() / 1e9:.3f} B params, {weights / 1e9:.2f} GB on the card, made "
+        f"in {time.perf_counter() - t0:.1f} s; total_memory {total} B ({total / 2**30:.2f} "
+        f"GiB), free after the weights {free / 1e9:.2f} GB")
+    log(f"[dense_int8] a pool of {INT8_PAGES} pages x 16: int8 {int8_pool} B "
+        f"({int8_pool / 1e9:.2f} GB), bf16 {bf16_pool} B ({bf16_pool / 1e9:.2f} GB); weights + "
+        f"int8 pool {(weights + int8_pool) / 2**30:.2f} GiB, weights + bf16 pool "
+        f"{(weights + bf16_pool) / 2**30:.2f} GiB, of {total / 2**30:.2f} GiB")
+    if not (weights + bf16_pool > total and weights + int8_pool <= total):
+        raise AssertionError("the bf16 pool would fit, or the int8 pool would not")
+
+    reqs = phase4_requests(cfg)
+    eng = DecodeEngine(model, ShardingLayout(attn_impl="flash", int8_kv_cache=True), "cuda",
+                       lanes=8, num_pages=INT8_PAGES, max_context=2048)
+    if eng.pool_bytes != int8_pool:
+        raise AssertionError(f"engine pool {eng.pool_bytes} B != the specs' {int8_pool} B")
+    logits8: dict = {}
+    _recorded(eng, (0, 1), logits8)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    done = {c.rid: c.tokens for c in eng.run(params)}
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = expect_launches(flash_attention_tc=cfg.num_layers * eng.prefills)
+    log(f"[dense_int8] {len(done)} requests x 32 tokens in {wall:.2f} s; {eng.prefills} "
+        f"prefills, {eng.decode_steps} decode steps; launches {launches}, expected {want}")
+    if sorted(done) != list(range(len(reqs))) or not all(
+            len(t) == 32 and all(0 <= x < cfg.vocab_size for x in t) for t in done.values()):
+        raise AssertionError("a request did not get 32 tokens in the vocabulary")
+    if eng.free_pages != INT8_PAGES - 1 or launches != want:
+        raise AssertionError("the pool did not drain, or the int8 path launched other kernels")
+    log(f"[dense_int8] prefill {eng.prefilled_tokens / eng.prefill_seconds:.1f} tokens/s "
+        f"({eng.prefilled_tokens} tokens in {eng.prefill_seconds:.3f} s); decode "
+        f"{eng.measured_tokens_per_sec:.1f} tokens/s, "
+        f"{1e3 * eng.decode_seconds / eng.decode_steps:.2f} ms per step (bound "
+        f"{weights / PEAK_BYTES * 1e3:.2f} ms: the weights read once); peak memory "
+        f"{peak_gb:.2f} GB ({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    scoped_equals_whole_pool(cfg, params, {k: v[0] for k, v in eng.cache["blocks"].items()})
+    del eng
+    _free_cuda()
+
+    # the first 2 requests through a bf16 pool, fed the int8 run's tokens
+    eng = DecodeEngine(model, ShardingLayout(attn_impl="flash"), "cuda", lanes=BF16_CMP_LANES,
+                       num_pages=BF16_CMP_PAGES, max_context=2048)
+    logits16: dict = {}
+    _recorded(eng, (0, 1), logits16, force=done)
+    for r in reqs[:2]:
+        eng.submit(r)
+    reset_launches()
+    forced = {c.rid: c.tokens for c in eng.run(params)}
+    cmp_launches = read_launches()
+    want = expect_launches(flash_attention_tc=cfg.num_layers * eng.prefills,
+                           paged_attention_tc=cfg.num_layers * eng.decode_steps)
+    log(f"[dense_bf16] {BF16_CMP_LANES} requests through a bf16 pool of {BF16_CMP_PAGES} "
+        f"pages ({eng.pool_bytes / 1e9:.2f} GB), {eng.decode_steps} decode steps; launches "
+        f"{cmp_launches}, expected {want}")
+    if cmp_launches != want or forced != {r: done[r] for r in (0, 1)}:
+        raise AssertionError("the bf16 comparison run did not go through the kernels, or was "
+                             "not fed the int8 streams")
+    rows = []
+    for rid in (0, 1):
+        for i, (a, b) in enumerate(zip(logits8[rid], logits16[rid])):
+            same = int(a.argmax()) == int(b.argmax())
+            c = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+            rows.append((rid, i + 1, same, c))
+            if not (same or c > INT8_MIN_CORR):
+                raise AssertionError(f"request {rid} step {i + 1}: int8 top-1 differs and the "
+                                     f"logits correlate {c} <= {INT8_MIN_CORR}")
+    log(f"[dense_bf16] int8 vs bf16 pool on the same tokens, {len(rows)} decode steps of "
+        f"requests 0 and 1 (and their first tokens, from the same prefill): top-1 equal at "
+        f"{sum(r[2] for r in rows)}; correlation {min(r[3] for r in rows):.6f} to "
+        f"{max(r[3] for r in rows):.6f}")
+    del eng, params
+    _free_cuda()
+    return {"dense_int8": launches, "dense_bf16": cmp_launches}
+
+
+def triangular_reduced_matches_cpu() -> dict:
+    """Reduced f32 qwen1.5-4b prefill logits with ``attn_impl="triangular"``
+    (chunks of 8 over a 40-token prompt), card against CPU; then 3 training
+    steps (``train_reduced_matches_cpu``). Returns the card's launches."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import RunOpts, build_model
+    from repro_torch.models.common import tree_map
+
+    cfg = dataclasses.replace(get_arch("qwen1.5-4b").reduced(), dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, "cpu")
+    draw_biases(params, gen)
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 40))
+                             .astype(np.int32))
+    opts = RunOpts(attn_impl="triangular", q_chunk=8, kv_chunk=8)
+    reset_launches()
+    card, _ = model.prefill(tree_map(lambda t: t.to("cuda"), params),
+                            {"tokens": tokens.to("cuda")}, 48, opts)
+    cpu, _ = model.prefill(params, {"tokens": tokens}, 48, opts)
+    err = float((card.cpu() - cpu).abs().max())
+    log(f"[dense_q4_tri] reduced f32 triangular prefill logits, card vs CPU: max abs diff "
+        f"{err:.3e} (atol {REDUCED_LOGITS_TOL['atol']}, rtol {REDUCED_LOGITS_TOL['rtol']})")
+    if not torch.allclose(card.cpu(), cpu, **REDUCED_LOGITS_TOL) or read_launches() != \
+            expect_launches():
+        raise AssertionError("the triangular prefill differs from the CPU's, or launched a "
+                             "kernel")
+    return train_reduced_matches_cpu("qwen1.5-4b", "dense_q4_tri", 3, attn_impl="triangular")
+
+
+def dense_vlm_full_width() -> dict:
+    """internvl2-26b at full width and depth (48 layers, bf16) through the
+    serve launcher's loop: 4 prompts of 2048 text tokens after 1025 patch
+    rows (the flash kernel sees S=3073), 32 new tokens; the dense ring
+    cache decodes in plain PyTorch, as the reference does."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import greedy_serve
+    from repro_torch.models import RunOpts, build_model, common
+
+    cfg = get_arch("internvl2-26b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, "cuda", torch.bfloat16)
+    patches = torch.randn((VLM_B, cfg.vision_tokens, cfg.vision_width), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in common.tree_leaves(params)) / 1e9
+    log(f"[dense_vlm] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.vision_tokens} patch rows of width "
+        f"{cfg.vision_width}; {model.param_count() / 1e9:.3f} B params, {gb:.2f} GB on the "
+        f"card, made in {time.perf_counter() - t0:.1f} s")
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (VLM_B, VLM_S)).astype(np.int32)
+    tokens = torch.as_tensor(prompts, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = greedy_serve(model, params, tokens, VLM_NEW, patches=patches)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = expect_launches(flash_attention_tc=cfg.num_layers)
+    out = res.tokens
+    S_all = cfg.vision_tokens + VLM_S
+    log(f"[dense_vlm] {VLM_B} prompts x ({cfg.vision_tokens} patch rows + {VLM_S} tokens), "
+        f"{VLM_NEW} new tokens; first row {out[0].tolist()}; launches {launches}, expected "
+        f"{want}")
+    if tuple(out.shape) != (VLM_B, VLM_NEW) or not bool(((out >= 0) & (out < cfg.vocab_size))
+                                                        .all()):
+        raise AssertionError("generated tokens outside the vocabulary")
+    if not all(bool(torch.isfinite(lg.float()).all()) for lg in res.logits) or launches != want:
+        raise AssertionError("non-finite logits, or the VLM path did not launch as expected")
+    log(f"[dense_vlm] prefill {VLM_B * S_all / res.prefill_seconds:.1f} rows/s ({VLM_B} x "
+        f"{S_all} in {res.prefill_seconds:.3f} s); decode "
+        f"{1e3 * res.decode_seconds / res.decode_steps:.2f} ms per step "
+        f"({VLM_B * res.decode_steps / res.decode_seconds:.1f} tokens/s); peak memory "
+        f"{peak_gb:.2f} GB")
+    pos = res.cache["blocks"]["pos_ids"][0].cpu()
+    n = S_all + VLM_NEW - 1
+    hole_free = torch.equal(pos[:n], torch.arange(n, dtype=pos.dtype)) and bool((pos[n:] == -1)
+                                                                                .all())
+    log(f"[dense_vlm] pos_ids after decode: 0..{n - 1} without a hole, the rest empty: "
+        f"{hole_free}")
+    if not hole_free:
+        raise AssertionError("the VLM cache's positions have a hole (a missing decode offset?)")
+
+    # flash prefill against the masked path on the first prompt
+    row = {"tokens": tokens[:1], "patches": patches[:1]}
+    flash, _ = model.prefill(params, row, VLM_S, RunOpts(attn_impl="flash"))
+    masked, _ = model.prefill(params, row, VLM_S, RunOpts(attn_impl="masked"))
+    a, b = flash[0, -1].float(), masked[0, -1].float()
+    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    top_eq = int(a.argmax()) == int(b.argmax())
+    log(f"[dense_vlm] flash vs masked prefill logits (S={S_all}): top-1 equal {top_eq}, "
+        f"correlation {corr:.6f}, max abs diff {float((a - b).abs().max()):.4f}")
+    if not (torch.isfinite(a).all() and top_eq and corr > 0.99):
+        raise AssertionError("the VLM's flash prefill disagrees with the masked path")
+    del flash, masked
+
+    # the last decode step against a fresh prefill over patches, prompt and the 31 fed tokens
+    grown = torch.cat([tokens, out[:, :VLM_NEW - 1].to("cuda")], dim=1)
+    fresh, _ = model.prefill(params, {"tokens": grown, "patches": patches}, VLM_S + VLM_NEW,
+                             RunOpts(attn_impl="flash"))
+    dec, fwd = res.logits[-1].float(), fresh[:, -1].float()
+    rows = []
+    for r in range(VLM_B):
+        pick = int(dec[r].argmax())
+        tie, gap, allowed = _near_tie(fwd[r], pick)
+        c = float(torch.corrcoef(torch.stack([dec[r], fwd[r]]))[0, 1])
+        same = pick == int(fwd[r].argmax())
+        rows.append((r, same, round(gap, 5), round(allowed, 5), round(c, 6)))
+        if not (same or (tie and c > ENGINE_MIN_CORR)):
+            raise AssertionError(f"dense_vlm row {r}: decode's top-1 {pick} is not the fresh "
+                                 f"prefill's nor a near-tie (gap {gap}, allowed {allowed}, "
+                                 f"correlation {c})")
+    log(f"[dense_vlm] last decode step vs a fresh prefill of {S_all + VLM_NEW - 1} rows, by row "
+        f"(row, top-1 equal, gap, allowed, correlation): {rows}")
+    del fresh, res, params
+    _free_cuda()
+    return launches
+
+
+def dense_variants_phase() -> dict:
+    """Phase 11: qwen1.5-32b with the int8 pool (and its bf16 comparison),
+    qwen1.5-4b training and serving, internvl2-26b serving, each at full
+    width and depth, and their reduced f32 runs against the CPU; the
+    triangular schedule, reduced, card against CPU. Returns launches by
+    path."""
+    log(f"[dense] total_memory {torch.cuda.get_device_properties(0).total_memory} B")
+    _free_cuda()
+    paths = dense_int8_full_width()
+    paths["dense_int8_f32"] = serve_reduced_matches_cpu("qwen1.5-32b", True, "dense_int8")
+    _free_cuda()
+    paths["dense_q4_train"] = train_full_width("qwen1.5-4b", "dense_q4_train")
+    _free_cuda()
+    paths["dense_q4_train_f32"] = train_reduced_matches_cpu("qwen1.5-4b", "dense_q4_train", 3)
+    paths["dense_q4_tri"] = triangular_reduced_matches_cpu()
+    paths["dense_q4_serve"] = serve_full_width("qwen1.5-4b", "dense_q4_serve")
+    _free_cuda()
+    paths["dense_q4_serve_f32"] = serve_reduced_matches_cpu("qwen1.5-4b", False,
+                                                            "dense_q4_serve")
+    paths["dense_vlm"] = dense_vlm_full_width()
+    paths["dense_vlm_f32"] = greedy_reduced_matches_cpu("internvl2-26b", "dense_vlm",
+                                                        "flash_attention_fma")
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2932,6 +3500,9 @@ def main() -> int:
     ap.add_argument("--moe-only", action="store_true",
                     help="only build the kernels, hold the flash kernels at mixtral's training "
                          "shape and run the MoE phase")
+    ap.add_argument("--dense-variants-only", action="store_true",
+                    help="only build the kernels, hold them at the dense variants' shapes and "
+                         "run the dense variants' phase")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
                          "of the kernel paths and plain orders agree, by prompt length")
@@ -2953,10 +3524,10 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[phase 1/10] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
+    log(f"[phase 1/11] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    log("[phase 2/10] build")
+    log("[phase 2/11] build")
     _build.build()
     ptxas = _build.last_build["log"]
     per_source = {}
@@ -2986,14 +3557,14 @@ def main() -> int:
         xlstm_orders()
         return 0
     if args.spot_only:
-        log("[phase 8/10] the spot provisioner")
+        log("[phase 8/11] the spot provisioner")
         spot = {"spot": spot_full_width(), "spot_f32": spot_reduced_matches_cpu(),
                 "spot_launch": spot_launcher()}
         log(f"chip_smoke: --spot-only, launches by path {spot}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.serve_plan_only:
-        log("[phase 9/10] spot serving")
+        log("[phase 9/11] spot serving")
         paths = spot_serving()
         log(f"chip_smoke: --serve-plan-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -3002,49 +3573,59 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_flash_window_8192(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 10/10] the MoE family")
+        log("[phase 10/11] the MoE family")
         paths = moe_phase()
         log(f"chip_smoke: --moe-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
+    if args.dense_variants_only:
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        check_dense_variant_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
+        del flush
+        log("[phase 11/11] the dense variants")
+        paths = dense_variants_phase()
+        log(f"chip_smoke: --dense-variants-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
 
-    log("[phase 3/10] kernels against their plain versions")
+    log("[phase 3/11] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [*check_flash(gen, flush), *check_paged(gen, flush), *check_flash_bwd(gen, flush),
                check_ssm_scan(gen, flush), *check_mlstm(gen, flush)]
-    for kernel_name, err in check_flash_window_8192(gen, flush).items():
-        rec = next(r for r in records if r["name"] == kernel_name)
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    for more in (check_flash_window_8192(gen, flush), check_dense_variant_kernels(gen, flush)):
+        for kernel_name, err in more.items():
+            rec = next(r for r in records if r["name"] == kernel_name)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
     del flush
     if args.kernels_only:
         log(json.dumps({"kernels": records}))
         log("chip_smoke: --kernels-only, stopped before serving")
         return 0
 
-    log("[phase 4/10] serving")
+    log("[phase 4/11] serving")
     paths = {"serve": serve_full_width()}
     paths["serve_f32"] = serve_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 5/10] hybrid serving")
+    log("[phase 5/11] hybrid serving")
     paths["hybrid"] = serve_hybrid_full_width()
     paths["hybrid_f32"] = greedy_reduced_matches_cpu("hymba-1.5b", "hybrid",
                                                      "flash_attention_fma", "ssm_scan")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 6/10] xLSTM serving")
+    log("[phase 6/11] xLSTM serving")
     paths["xlstm"] = serve_xlstm_full_width()
     paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_fma",
                                                     "mlstm_step")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 7/10] training")
+    log("[phase 7/11] training")
     paths["train"] = train_full_width()
     paths["train_f32"] = train_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 8/10] the spot provisioner")
+    log("[phase 8/11] the spot provisioner")
     paths["spot"] = spot_full_width()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3052,12 +3633,16 @@ def main() -> int:
     paths["spot_launch"] = spot_launcher()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 9/10] spot serving")
+    log("[phase 9/11] spot serving")
     paths.update(spot_serving())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 10/10] the MoE family")
+    log("[phase 10/11] the MoE family")
     paths.update(moe_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 11/11] the dense variants")
+    paths.update(dense_variants_phase())
     for r in records:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -143,7 +143,7 @@ class ShardingLayout:
     gradient_allreduce_dtype: str = "float32"
     remat: str = "full"
     scan_layers: bool = True
-    attn_impl: str = "masked"         # masked | flash
+    attn_impl: str = "masked"         # masked | triangular | flash
     q_chunk: int = 512
     kv_chunk: int = 1024
     decode_unroll: bool = False

@@ -3,7 +3,7 @@ and serving on mesh plans through a spot revocation.
 
     python -m repro_torch.launch.serve --arch <id> [--batch 4] [--prompt-len 64]
         [--new-tokens 8] [--reduced | --no-reduced] [--device cuda|cpu] [--seed 0]
-        [--trace PATH]
+        [--int8-cache] [--trace PATH]
 
 The host path is the counterpart of ``repro.launch.serve::host_main`` on
 one device (``cuda`` unless ``--device cpu``): one batched prefill over
@@ -48,11 +48,19 @@ reference's; the host path stores weight matrices in the compute dtype.
 events, drains) to a JSONL file: ``python -m repro_torch.obs.replay PATH``
 replays it, ``python -m repro_torch.obs.export PATH`` renders it.
 
+``--int8-cache`` (every mode) keeps the KV cache in int8 with a scale per
+(row, kv head): the dense cache of the host and ``--plan`` paths (whose
+``migrate`` moves the scales with the codes, and whose byte columns count
+them) and the engine's paged pool.
+
 Params come from ``torch.Generator(device).manual_seed(seed)``. The prompts
-are ``numpy.random.RandomState(seed).randint(0, vocab, (batch, prompt_len))``:
-the reference draws them with ``jax.random``, whose numbers the port cannot
-reproduce, so the two launchers serve different prompts. ``--int8-cache``
-(the int8 KV cache) is not ported yet and raises ``NotImplementedError``.
+are ``numpy.random.RandomState(seed).randint(0, vocab, (batch, prompt_len))``
+and a VLM's stub patch embeddings ``(batch, vision_tokens, vision_width)``
+are drawn in bf16 from the same seeded torch generator, after the params:
+the reference draws both with ``jax.random`` (patches from key 3), whose
+numbers the port cannot reproduce, so the two launchers serve different
+inputs. A VLM serves in the host and the dense ``--plan`` paths; the
+engine serves text only.
 """
 from __future__ import annotations
 
@@ -108,18 +116,20 @@ def _sync(device: torch.device) -> None:
 
 
 def greedy_serve(model: Model, params, tokens: torch.Tensor, new_tokens: int,
-                 layout: ShardingLayout = ShardingLayout(attn_impl="flash")) -> ServeResult:
-    """Prefill ``tokens`` (B, S) in one batch, then greedy-decode until
-    every row has ``new_tokens`` tokens; the cache holds S + new_tokens
-    positions (a ring buffer of the window for sliding attention; xLSTM
-    keeps only its constant-size recurrent states)."""
+                 layout: ShardingLayout = ShardingLayout(attn_impl="flash"),
+                 patches: Optional[torch.Tensor] = None) -> ServeResult:
+    """Prefill ``tokens`` (B, S) in one batch (after a VLM's ``patches``),
+    then greedy-decode until every row has ``new_tokens`` tokens; the cache
+    holds S + new_tokens positions and the vision prefix (a ring buffer of
+    the window for sliding attention; xLSTM keeps only its constant-size
+    recurrent states). ``layout.int8_kv_cache`` makes the cache int8."""
     device = tokens.device
     S = tokens.shape[1]
     prefill = build_prefill_step(model, layout, S + new_tokens)
     decode = build_decode_step(model, layout)
 
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, _batch(tokens, patches))
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     _sync(device)
     prefill_s = time.perf_counter() - t0
@@ -134,6 +144,10 @@ def greedy_serve(model: Model, params, tokens: torch.Tensor, new_tokens: int,
     _sync(device)
     return ServeResult(torch.cat(toks, dim=1).cpu(), outs, cache, prefill_s,
                        time.perf_counter() - t0)
+
+
+def _batch(tokens: torch.Tensor, patches: Optional[torch.Tensor]) -> dict:
+    return {"tokens": tokens} if patches is None else {"tokens": tokens, "patches": patches}
 
 
 # the plan modes prefill through the flash kernel's entry point; the
@@ -153,32 +167,38 @@ def _no_migration(cache_policy: str) -> dict:
 def serve_plan(model: Model, params, prompts: np.ndarray, new_tokens: int,
                counts: Sequence[int], *, revoke_after: int = 0, cache_policy: str = "drop",
                engine: bool = False, device="cuda",
-               tracker: Optional[ThroughputTracker] = None) -> dict:
-    """Serve ``prompts`` (B, S) on the plans for ``counts`` (a pool of
-    ``max(counts)`` slots on ``device``); with a second count, revoke the
-    first plan after ``revoke_after`` decode steps and migrate to the
-    second. Each decode step is timed into ``tracker`` (a fresh
-    ``ThroughputTracker`` by default) under its plan's key. Returns the
-    ``PLAN_JSON`` object."""
+               tracker: Optional[ThroughputTracker] = None, int8_cache: bool = False,
+               patches: Optional[torch.Tensor] = None) -> dict:
+    """Serve ``prompts`` (B, S) (after a VLM's ``patches``, dense only) on
+    the plans for ``counts`` (a pool of ``max(counts)`` slots on
+    ``device``); with a second count, revoke the first plan after
+    ``revoke_after`` decode steps and migrate to the second. Each decode
+    step is timed into ``tracker`` (a fresh ``ThroughputTracker`` by
+    default) under its plan's key. ``int8_cache``: the int8 KV cache.
+    Returns the ``PLAN_JSON`` object."""
     if engine and cache_policy != "drop":
         raise SystemExit("--engine supports --cache-policy drop only "
                          "(pool pages die with the instance)")
     dev = resolve_device(device)
     man = ElasticMeshManager([dev] * max(counts))
     revoke_after = revoke_after if len(counts) > 1 else 0
-    serve = _engine_plan if engine else _dense_plan
-    return serve(model, params, np.asarray(prompts, np.int32), new_tokens, list(counts),
-                 revoke_after, cache_policy, man, PLAN_LAYOUT,
-                 tracker if tracker is not None else ThroughputTracker())
+    layout = dataclasses.replace(PLAN_LAYOUT, int8_kv_cache=int8_cache)
+    tracker = tracker if tracker is not None else ThroughputTracker()
+    prompts = np.asarray(prompts, np.int32)
+    if engine:
+        return _engine_plan(model, params, prompts, new_tokens, list(counts), revoke_after,
+                            man, layout, tracker)
+    return _dense_plan(model, params, prompts, new_tokens, list(counts), revoke_after,
+                       cache_policy, man, layout, tracker, patches)
 
 
 def _dense_plan(model, params, prompts, new_tokens, counts, revoke_after, cache_policy,
-                man, layout, tracker) -> dict:
+                man, layout, tracker, patches) -> dict:
     """Lock-step prefill + greedy decode on the dense cache, with a live
     shape migration at ``revoke_after``."""
     B, S = prompts.shape
     total = S + new_tokens
-    c_specs = model.cache_specs(B, total)
+    c_specs = model.cache_specs(B, total, int8=layout.int8_kv_cache)
     plan = man.plan_for(counts[0])
     p_sh = param_shardings(model.specs, plan.mesh, layout)
     c_sh = cache_shardings(c_specs, plan.mesh, layout)
@@ -189,7 +209,7 @@ def _dense_plan(model, params, prompts, new_tokens, counts, revoke_after, cache_
 
     migrated = _no_migration(cache_policy)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, _batch(tokens, patches))
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     toks = [tok.cpu()]
     prefill_s = time.perf_counter() - t0
@@ -222,7 +242,7 @@ def _dense_plan(model, params, prompts, new_tokens, counts, revoke_after, cache_
                 # as recompute on the replacement
                 t1 = time.perf_counter()
                 refill = torch.cat([tokens, gen[:, :i].to(tokens.device)], dim=1)
-                _, cache = prefill(params, {"tokens": refill})
+                _, cache = prefill(params, _batch(refill, patches))
                 _sync(tokens.device)
                 prefill_s += time.perf_counter() - t1
             log.info("revoked: migrated to replacement plan", token=i,
@@ -249,8 +269,8 @@ def _dense_plan(model, params, prompts, new_tokens, counts, revoke_after, cache_
             "decode_seconds": decode_s, "decode_steps": len(toks) - 1}
 
 
-def _engine_plan(model, params, prompts, new_tokens, counts, revoke_after, cache_policy,
-                 man, layout, tracker) -> dict:
+def _engine_plan(model, params, prompts, new_tokens, counts, revoke_after, man, layout,
+                 tracker) -> dict:
     """The continuous-batching engine on plans: at ``revoke_after`` the
     dying engine's pool is released (pages die with the instance) and its
     streams drain onto a fresh engine for the new plan."""
@@ -271,7 +291,8 @@ def _engine_plan(model, params, prompts, new_tokens, counts, revoke_after, cache
     for b in range(B):
         engine.submit(Request(rid=b, prompt=prompts[b], max_new_tokens=new_tokens))
     log.info("engine plan up", devices=plan.device_count, mesh=str(plan.mesh_shape),
-             lanes=B, pages=num_pages)
+             lanes=B, pages=num_pages, pool_bytes=engine.pool_bytes,
+             int8_cache=layout.int8_kv_cache)
 
     migrated = _no_migration("drop")
     engines = [engine]
@@ -317,9 +338,6 @@ def _engine_plan(model, params, prompts, new_tokens, counts, revoke_after, cache
 
 
 def _model_and_prompts(args):
-    if args.int8_cache:
-        raise NotImplementedError("repro_torch: --int8-cache needs the int8 KV cache, "
-                                  "not ported yet")
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -329,15 +347,29 @@ def _model_and_prompts(args):
     return build_model(cfg), prompts, device
 
 
+def _params_and_patches(model: Model, args, device, dtype=None):
+    """Params from the seeded generator, then a VLM's stub patch embeddings
+    (bf16, standard normal) from the same generator; None for a text model."""
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = model.init(gen, device, dtype)
+    cfg = model.cfg
+    if not cfg.vision_tokens:
+        return params, None
+    patches = torch.randn((args.batch, cfg.vision_tokens, cfg.vision_width), generator=gen,
+                          device=device).to(torch.bfloat16)
+    return params, patches
+
+
 def plan_main(args) -> dict:
     """``--plan`` (and ``--engine``): print the ``first row:`` and
     ``PLAN_JSON`` lines; returns the ``PLAN_JSON`` object."""
     model, prompts, device = _model_and_prompts(args)
     # param_dtype (f32) storage, as the reference's plan modes hold the params
-    params = model.init(torch.Generator(device=device).manual_seed(args.seed), device)
+    params, patches = _params_and_patches(model, args, device)
     out = serve_plan(model, params, prompts, args.new_tokens,
                      [int(x) for x in args.plan.split(",")], revoke_after=args.revoke_after,
-                     cache_policy=args.cache_policy, engine=args.engine, device=device)
+                     cache_policy=args.cache_policy, engine=args.engine, device=device,
+                     int8_cache=args.int8_cache, patches=patches)
     print("first row:", out["tokens"][0], flush=True)
     print("PLAN_JSON " + json.dumps(out), flush=True)
     return out
@@ -347,11 +379,13 @@ def host_main(args) -> dict:
     """The host path: lock-step batched prefill + decode on one device."""
     model, prompt, device = _model_and_prompts(args)
     cfg = model.cfg
-    params = model.init(torch.Generator(device=device).manual_seed(args.seed), device,
-                        common.torch_dtype(cfg.dtype))
-    res = greedy_serve(model, params, torch.as_tensor(prompt, device=device), args.new_tokens)
+    params, patches = _params_and_patches(model, args, device, common.torch_dtype(cfg.dtype))
+    layout = ShardingLayout(attn_impl="flash", int8_kv_cache=args.int8_cache)
+    res = greedy_serve(model, params, torch.as_tensor(prompt, device=device), args.new_tokens,
+                       layout, patches)
     summary = {"event": "serve done", "arch": cfg.name, "device": str(device),
                "batch": args.batch, "prompt_len": args.prompt_len,
+               "int8_cache": args.int8_cache,
                "prefill_ms": res.prefill_seconds * 1e3,
                "ms_per_token": res.decode_seconds / max(res.decode_steps, 1) * 1e3,
                "first_row": res.tokens[0].tolist()}
@@ -376,7 +410,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--int8-cache", action="store_true", help="not ported yet")
+    ap.add_argument("--int8-cache", action="store_true",
+                    help="keep the KV cache (dense or paged) in int8 with a scale per row "
+                         "and kv head")
     ap.add_argument("--plan", default="",
                     help="serve on ElasticMeshManager plans: comma-separated slot "
                          "counts; the second entry is the migration target (e.g. 8,4)")

@@ -41,7 +41,8 @@ LOGICAL_AXES = (
 # maps these to a mesh axis
 SCAN_AXES = ("layers", "groups")
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.int32}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.int32,
+           "int8": torch.int8}
 
 
 def torch_dtype(name) -> torch.dtype:

@@ -59,13 +59,10 @@ def params_to_numpy(params: Any) -> Any:
     return common.tree_map(lambda t: np.array(t.detach().cpu().float().numpy()), params)
 
 
-def cache_from_jax(tree: Any, cfg: ModelConfig, batch: int, seq_len: int, device):
-    """numpy cache (JAX layout, from ``Model.prefill`` or
-    ``Model.init_cache``; the hybrid block's state nested under ``ssm``, the
-    xLSTM states under ``groups``) ->
-    the port's tensors on ``device``, each in the dtype it arrives in (a
-    JAX bf16 leaf goes through f32, losslessly); shapes are checked against
-    ``cache_specs(cfg, batch, seq_len)``."""
+def _cache_leaf(device):
+    """numpy leaf -> tensor on ``device`` in the dtype it arrives in (a JAX
+    bf16 leaf goes through f32, losslessly; int8 codes stay int8), its
+    shape checked against its spec."""
     dev = resolve_device(device)
 
     def one(spec, arr):
@@ -76,13 +73,36 @@ def cache_from_jax(tree: Any, cfg: ModelConfig, batch: int, seq_len: int, device
             return torch.from_numpy(arr.astype(np.float32)).to(dev, torch.bfloat16)
         return torch.from_numpy(np.array(arr, copy=True)).to(dev)
 
-    return _zip_specs(one, transformer.cache_specs(cfg, batch, seq_len), tree)
+    return one
+
+
+def cache_from_jax(tree: Any, cfg: ModelConfig, batch: int, seq_len: int, device):
+    """numpy dense cache (JAX layout, from ``Model.prefill`` or
+    ``Model.init_cache``; the hybrid block's state nested under ``ssm``, the
+    xLSTM states under ``groups``; an int8 cache's codes and ``k_scale`` /
+    ``v_scale``) -> the port's tensors on ``device``; shapes are checked
+    against ``cache_specs(cfg, batch, seq_len, int8=...)``."""
+    int8 = "k_scale" in tree.get("blocks", {})
+    return _zip_specs(_cache_leaf(device),
+                      transformer.cache_specs(cfg, batch, seq_len, int8=int8), tree)
+
+
+def paged_cache_from_jax(tree: Any, cfg: ModelConfig, device):
+    """numpy paged pool (JAX layout, ``Model.init_paged_cache`` or a
+    ``decode_step_paged`` result; int8 codes with their scales) -> the
+    port's tensors on ``device``; the page count and size are read from
+    ``k_pages`` and the shapes checked against ``paged_cache_specs``."""
+    blocks = tree["blocks"]
+    P, ps = np.asarray(blocks["k_pages"]).shape[1:3]
+    specs = transformer.paged_cache_specs(cfg, int(P), int(ps), int8="k_scale" in blocks)
+    return _zip_specs(_cache_leaf(device), specs, tree)
 
 
 def cache_to_numpy(cache: Any) -> Any:
-    """The port's cache -> numpy tree in the JAX layout: int leaves
-    (``pos_ids``) as int32, float leaves as f32 (bf16 ones exactly). The
-    arrays are copies: decode updates the cache in place."""
+    """The port's cache or pool -> numpy tree in the JAX layout: int leaves
+    (``pos_ids``, int8 codes) in their own type, float leaves as f32 (bf16
+    ones exactly). The arrays are copies: decode updates the cache in
+    place."""
     def one(t):
         t = t.detach().cpu()
         return np.array(t.numpy() if not t.is_floating_point() else t.float().numpy())

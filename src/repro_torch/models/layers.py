@@ -1,8 +1,11 @@
 """Shared layers of the decoders (port of ``repro.models.layers``):
 f32-internal RMSNorm, split-half RoPE, SwiGLU MLP, the qkv projection
-with qk-norm, the plain ``masked`` blockwise attention used by prefill
-(full or sliding-window), one-token attention against a dense (ring-
-buffer) KV cache, and one-token attention against the shared paged pool.
+with its optional bias and qk-norm, the plain blockwise attention used by
+prefill and training (``masked``: every q chunk scans every kv chunk;
+``triangular``: a causal q chunk scans only the kv chunks at or below its
+diagonal; full or sliding-window), one-token attention against a dense
+(ring-buffer) KV cache, and one-token attention against the shared paged
+pool. Both caches may hold int8 codes with a per-(row, kv head) scale.
 
 Tensors keep the reference's layouts: activations ``(B, S, d)``, heads
 ``(B, S, H, hd)``, dense caches ``(B, T, KVH, hd)``, pools
@@ -91,8 +94,6 @@ def mlp(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def attention_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    if cfg.qkv_bias:
-        raise NotImplementedError("repro_torch: qkv bias is not ported yet")
     d = cfg.d_model
     qd, kd = cfg.q_dim, cfg.kv_dim
     spec: Dict[str, ParamSpec] = {
@@ -101,6 +102,10 @@ def attention_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         "wv": ParamSpec((d, kd), ("embed", "kv_dim")),
         "wo": ParamSpec((qd, d), ("q_dim", "embed")),
     }
+    if cfg.qkv_bias:
+        spec["bq"] = ParamSpec((qd,), ("q_dim",), init="zeros")
+        spec["bk"] = ParamSpec((kd,), ("kv_dim",), init="zeros")
+        spec["bv"] = ParamSpec((kd,), ("kv_dim",), init="zeros")
     if cfg.qk_norm:
         spec["q_norm"] = ParamSpec((cfg.resolved_head_dim,), ("head_dim",), init="ones")
         spec["k_norm"] = ParamSpec((cfg.resolved_head_dim,), ("head_dim",), init="ones")
@@ -110,12 +115,17 @@ def attention_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 def _project_qkv(
     params: Dict, x: torch.Tensor, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(B,S,d) -> q (B,S,H,hd), k/v (B,S,KVH,hd), with qk-norm."""
+    """(B,S,d) -> q (B,S,H,hd), k/v (B,S,KVH,hd): the bias (cast to the
+    projection's dtype) before the head split, then qk-norm."""
     ct = cfg.dtype
     hd = cfg.resolved_head_dim
     q = common.dense(x, params["wq"], ct)
     k = common.dense(x, params["wk"], ct)
     v = common.dense(x, params["wv"], ct)
+    if "bq" in params:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
     q = q.reshape(*q.shape[:-1], cfg.num_heads, hd)
     k = k.reshape(*k.shape[:-1], cfg.num_kv_heads, hd)
     v = v.reshape(*v.shape[:-1], cfg.num_kv_heads, hd)
@@ -175,13 +185,18 @@ def blockwise_attention(
     q_chunk: int = 512,
     kv_chunk: int = 1024,
     window: int = 0,
+    impl: str = "masked",
     q_offset: int = 0,
     kv_valid: Optional[int] = None,
 ) -> torch.Tensor:
-    """The reference's ``masked`` blockwise attention: every q chunk scans
-    every kv chunk under the mask. q: (B,Sq,H,hd); k/v: (B,T,KVH,hd).
-    Returns (B,Sq,H,hd). ``kv_valid``: kv rows at or past it are padding.
-    With a sliding ``window``, each q chunk attends to a static band of
+    """The reference's blockwise attention. ``impl="masked"``: every q
+    chunk scans every kv chunk under the mask. ``impl="triangular"`` with
+    ``causal``: q chunk i scans only kv chunks ``0 .. ceil(((i + 1) q_chunk
+    + q_offset) / kv_chunk)`` (capped at the count), the reference's static
+    unroll; the chunks it skips are wholly masked, so the result is the
+    masked one. q: (B,Sq,H,hd); k/v: (B,T,KVH,hd). Returns (B,Sq,H,hd).
+    ``kv_valid``: kv rows at or past it are padding. With a sliding
+    ``window`` (either ``impl``), each q chunk attends to a static band of
     ``window + q_chunk`` kv rows instead (one fused block per chunk).
     """
     B, Sq, H, hd = q.shape
@@ -215,7 +230,7 @@ def blockwise_attention(
         v_p = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
         out = blockwise_attention(
             q_p, k_p, v_p, causal=causal, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
-            q_offset=q_offset, kv_valid=T,
+            impl=impl, q_offset=q_offset, kv_valid=T,
         )
         return out[:, :Sq]
 
@@ -237,6 +252,7 @@ def blockwise_attention(
                               v[:, start:start + band], mask.expand(B, q_chunk, band), scale))
         return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
 
+    n_kv = T // kv_chunk
     outs = []
     for i in range(Sq // q_chunk):
         qc = qg[:, i * q_chunk:(i + 1) * q_chunk]
@@ -244,7 +260,10 @@ def blockwise_attention(
         acc = torch.zeros((B, q_chunk, KVH, G, hd), dtype=torch.float32, device=dev)
         m = torch.full((B, KVH, G, q_chunk), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, KVH, G, q_chunk), dtype=torch.float32, device=dev)
-        for j in range(T // kv_chunk):
+        n_vis = n_kv
+        if impl == "triangular" and causal:
+            n_vis = min(-(-((i + 1) * q_chunk + q_offset) // kv_chunk), n_kv)
+        for j in range(n_vis):
             kv_pos = j * kv_chunk + torch.arange(kv_chunk, device=dev)
             mask = None
             if causal:
@@ -265,19 +284,42 @@ def blockwise_attention(
 # Dense KV cache (lock-step decode)
 # ---------------------------------------------------------------------------
 
-def make_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, ParamSpec]:
+def make_cache_specs(
+    cfg: ModelConfig, batch: int, cache_len: int, int8: bool = False,
+) -> Dict[str, ParamSpec]:
     """Dense KV-cache entry for ONE layer (stacked over layers by the
     caller). ``pos_ids`` holds the absolute position in each slot (-1 =
     empty), which serves full caches and ring-buffer window caches alike.
-    (The reference's int8 cache is not ported.)"""
+    ``int8``: k and v hold int8 codes, and ``k_scale`` / ``v_scale`` (in
+    ``cfg.dtype``) one scale per (batch, slot, kv head)."""
     hd = cfg.resolved_head_dim
     shape = (batch, cache_len, cfg.num_kv_heads, hd)
     axes = ("batch", "seq", "kv_heads", "head_dim")
-    return {
-        "k": ParamSpec(shape, axes, init="zeros", dtype=cfg.dtype),
-        "v": ParamSpec(shape, axes, init="zeros", dtype=cfg.dtype),
+    kv_dtype = "int8" if int8 else cfg.dtype
+    spec = {
+        "k": ParamSpec(shape, axes, init="zeros", dtype=kv_dtype),
+        "v": ParamSpec(shape, axes, init="zeros", dtype=kv_dtype),
         "pos_ids": ParamSpec((cache_len,), (None,), init="zeros", dtype="int32"),
     }
+    if int8:
+        s_shape, s_axes = shape[:-1] + (1,), axes[:-1] + (None,)
+        spec["k_scale"] = ParamSpec(s_shape, s_axes, init="zeros", dtype=cfg.dtype)
+        spec["v_scale"] = ParamSpec(s_shape, s_axes, init="zeros", dtype=cfg.dtype)
+    return spec
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization over the last (head) dim: (codes int8,
+    f32 scale with a trailing dim of 1). ``torch.round`` rounds half to
+    even, as ``jnp.round`` does."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * scale.float()).to(dtype)
 
 
 def decode_attention(
@@ -306,8 +348,19 @@ def decode_attention(
     k, v, pos_ids = cache["k"], cache["v"], cache["pos_ids"]
     T = k.shape[1]
     slot = pos % T
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
+    if k.dtype == torch.int8:
+        # quantize the new row, write codes and (cfg.dtype) scales, then
+        # attend over the whole ring dequantized with the stored scales
+        for key, new in (("k", k_new), ("v", v_new)):
+            codes, scale = _quantize_kv(new[:, 0])
+            cache[key][:, slot] = codes
+            cache[key + "_scale"][:, slot] = scale.to(cache[key + "_scale"].dtype)
+        k_use = _dequantize_kv(k, cache["k_scale"], q.dtype)
+        v_use = _dequantize_kv(v, cache["v_scale"], q.dtype)
+    else:
+        k[:, slot] = k_new[:, 0].to(k.dtype)
+        v[:, slot] = v_new[:, 0].to(v.dtype)
+        k_use, v_use = k.to(q.dtype), v.to(q.dtype)
     pos_ids[slot] = pos
 
     valid = pos_ids >= 0
@@ -318,7 +371,7 @@ def decode_attention(
     KVH = cfg.num_kv_heads
     qg = q.reshape(B, 1, KVH, cfg.num_heads // KVH, hd)
     mask = valid[None, None, :].expand(B, 1, T)
-    out = _sdpa(qg, k.to(q.dtype), v.to(q.dtype), mask, float(1.0 / np.sqrt(hd)))
+    out = _sdpa(qg, k_use, v_use, mask, float(1.0 / np.sqrt(hd)))
     out = out.reshape(B, 1, cfg.num_heads * hd)
     return common.dense(out, params["wo"], cfg.dtype), cache
 
@@ -328,22 +381,29 @@ def decode_attention(
 # ---------------------------------------------------------------------------
 
 def make_paged_cache_specs(
-    cfg: ModelConfig, num_pages: int, page_size: int = PAGE_SIZE,
+    cfg: ModelConfig, num_pages: int, page_size: int = PAGE_SIZE, int8: bool = False,
 ) -> Dict[str, ParamSpec]:
     """Paged-KV pool entry for ONE layer (stacked by the caller).
 
     ``num_pages`` blocks of ``page_size`` consecutive token positions,
     shared by every sequence through per-lane block tables. The LAST page
     is the trash page: dead decode lanes write there and it is never
-    allocated or attended to.
+    allocated or attended to. ``int8``: int8 codes, and ``k_scale`` /
+    ``v_scale`` (in ``cfg.dtype``) one scale per (page row, kv head).
     """
     hd = cfg.resolved_head_dim
     shape = (num_pages, page_size, cfg.num_kv_heads, hd)
     axes = (None, None, "kv_heads", "head_dim")
-    return {
-        "k_pages": ParamSpec(shape, axes, init="zeros", dtype=cfg.dtype),
-        "v_pages": ParamSpec(shape, axes, init="zeros", dtype=cfg.dtype),
+    kv_dtype = "int8" if int8 else cfg.dtype
+    spec = {
+        "k_pages": ParamSpec(shape, axes, init="zeros", dtype=kv_dtype),
+        "v_pages": ParamSpec(shape, axes, init="zeros", dtype=kv_dtype),
     }
+    if int8:
+        s_shape, s_axes = shape[:-1] + (1,), axes[:-1] + (None,)
+        spec["k_scale"] = ParamSpec(s_shape, s_axes, init="zeros", dtype=cfg.dtype)
+        spec["v_scale"] = ParamSpec(s_shape, s_axes, init="zeros", dtype=cfg.dtype)
+    return spec
 
 
 def _paged_write(pages: torch.Tensor, new: torch.Tensor, rows: torch.Tensor) -> None:
@@ -373,8 +433,14 @@ def decode_attention_paged(
     ``seq_lens[b]`` is both the number of cached tokens and the absolute
     position of lane b's token. A dead lane (unassigned page at its write
     index) writes to the trash page and attends over zero positions.
-    Attention goes through ``ops.paged_decode_attention``: the CUDA kernel
-    on a GPU tensor, the plain ``paged_attention_ref`` on the CPU.
+    A bf16 or f32 pool attends through ``paged_decode_attention``: the CUDA
+    kernel on a GPU tensor, the plain ``paged_attention_ref`` on the CPU.
+    An int8 pool (the reference has no kernel for it) attends in plain
+    PyTorch on every device: its codes and scales are written through
+    ``_paged_write``, then the block table's pages (``max(table, 0)``) are
+    gathered and only those dequantized, and the token attends over the
+    gathered rows under its length mask (the reference's
+    ``_paged_attend_gathered``).
     """
     from repro_torch.kernels.paged_attention import paged_decode_attention
 
@@ -393,10 +459,37 @@ def decode_attention_paged(
     live = page >= 0
     dest = torch.where(live, page, P - 1)  # trash page for dead lanes
     rows = dest * ps + pos % ps
-    _paged_write(k_pages, k_new[:, 0], rows)
-    _paged_write(v_pages, v_new[:, 0], rows)
-
     lens_att = torch.where(live, pos + 1, 0).to(torch.int32)
-    out = paged_decode_attention(q[:, 0], k_pages, v_pages, block_table, lens_att)
+    if k_pages.dtype == torch.int8:
+        for key, new in (("k", k_new), ("v", v_new)):
+            codes, scale = _quantize_kv(new[:, 0])
+            _paged_write(cache[key + "_pages"], codes, rows)
+            _paged_write(cache[key + "_scale"], scale, rows)
+        out = _paged_attend_int8(q[:, 0], cache, block_table, lens_att)
+    else:
+        _paged_write(k_pages, k_new[:, 0], rows)
+        _paged_write(v_pages, v_new[:, 0], rows)
+        out = paged_decode_attention(q[:, 0], k_pages, v_pages, block_table, lens_att)
     out = out.reshape(B, 1, cfg.num_heads * hd)
     return common.dense(out, params["wo"], cfg.dtype)
+
+
+def _paged_attend_int8(
+    q: torch.Tensor, cache: Dict, block_table: torch.Tensor, lens: torch.Tensor,
+) -> torch.Tensor:
+    """One token per lane against an int8 pool, exactly as the reference's
+    gather path: the table's pages (``-1`` read as page 0, masked by
+    ``lens``) gathered, dequantized to q's dtype, then masked softmax
+    attention. q: (B, H, hd); lens: (B,) valid positions. -> (B, H, hd)."""
+    B, H, hd = q.shape
+    P, ps, KVH = cache["k_pages"].shape[:3]
+    tbl = torch.clamp(block_table, min=0).long()
+    T = tbl.shape[1] * ps
+    k = _dequantize_kv(cache["k_pages"][tbl], cache["k_scale"][tbl], q.dtype)
+    v = _dequantize_kv(cache["v_pages"][tbl], cache["v_scale"][tbl], q.dtype)
+    qg = q.reshape(B, 1, KVH, H // KVH, hd)
+    kv_pos = torch.arange(T, dtype=torch.int32, device=q.device)
+    mask = (kv_pos[None, :] < lens[:, None])[:, None, :]      # (B, 1, T)
+    out = _sdpa(qg, k.reshape(B, T, KVH, hd), v.reshape(B, T, KVH, hd), mask,
+                float(1.0 / np.sqrt(hd)))
+    return out.reshape(B, H, hd)

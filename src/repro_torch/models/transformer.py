@@ -7,15 +7,18 @@ against that cache) and ``decode_step_paged`` (one continuous-batching
 token per lane against the paged pool). The layer loop is a Python loop
 over per-layer views of the stacked parameters.
 
-Ported block families: DENSE with full attention and MOE (attention,
-then a mixture of experts in place of the MLP) with full or
-sliding-window attention, at every entry point but the paged decode
-(DENSE only, as in the reference); for serving only (``prefill``,
-``decode_step``), HYBRID_PARALLEL (Hymba: attention and a Mamba block
-side by side) with sliding-window attention, and MLSTM (xLSTM: ``groups``
-of mLSTM blocks and one sLSTM, no attention). The selective-scan and
-mLSTM kernels have no gradient yet, so the training forwards refuse
-those. The other families raise ``NotImplementedError``.
+Ported block families: DENSE with full attention (with or without a QKV
+bias, and the VLM's stub vision prefix: ``batch["patches"]`` projected by
+``vision_proj`` and prepended to the text) and MOE (attention, then a
+mixture of experts in place of the MLP) with full or sliding-window
+attention, at every entry point but the paged decode (DENSE text only, as
+in the reference); for serving only (``prefill``, ``decode_step``),
+HYBRID_PARALLEL (Hymba: attention and a Mamba block side by side) with
+sliding-window attention, and MLSTM (xLSTM: ``groups`` of mLSTM blocks and
+one sLSTM, no attention). The selective-scan and mLSTM kernels have no
+gradient yet, so the training forwards refuse those. Either KV cache may
+be int8 (``RunOpts.int8_kv_cache``). The other families, tied or scaled
+embeddings and encoders raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ class RunOpts:
     """Execution knobs from ``ShardingLayout`` that change how attention
     runs, not what it computes."""
 
-    attn_impl: str = "masked"      # masked | flash
+    attn_impl: str = "masked"      # masked | triangular | flash
     q_chunk: int = 512
     kv_chunk: int = 1024
     remat: str = "full"            # none | full ("dots" is not ported)
@@ -58,12 +61,10 @@ def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
         )
     if cfg.block == BlockKind.MOE and cfg.moe is None:
         raise NotImplementedError(f"repro_torch: {cfg.name} is MOE with no MoEConfig")
-    if cfg.tie_embeddings or cfg.embed_scale or cfg.vision_tokens or cfg.encoder_layers:
+    if cfg.tie_embeddings or cfg.embed_scale or cfg.encoder_layers:
         raise NotImplementedError(f"repro_torch: {cfg.name} needs a later slice")
     if opts is not None:
-        if opts.int8_kv_cache:
-            raise NotImplementedError("repro_torch: the int8 KV cache is not ported yet")
-        if opts.attn_impl not in ("masked", "flash"):
+        if opts.attn_impl not in ("masked", "triangular", "flash"):
             raise NotImplementedError(f"repro_torch: attn_impl {opts.attn_impl!r}")
         if opts.remat not in ("none", "full"):
             raise NotImplementedError(f"repro_torch: remat {opts.remat!r} is not ported yet")
@@ -135,30 +136,34 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
             {"block": xlstm.slstm_spec(cfg), "ln": layers.rmsnorm_spec(d)})
     else:
         spec["blocks"] = common.stacked(block_spec(cfg), cfg.num_layers)
+    if cfg.vision_tokens:  # the VLM's stub projector
+        spec["vision_proj"] = ParamSpec((cfg.vision_width, d), ("vit_embed", "embed"))
     return spec
 
 
 def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
-    """Dense cache length: the sequence, or for sliding-window attention at
-    most the window (a ring buffer), rounded up to a multiple of 16."""
-    n = seq_len
+    """Dense cache length: the sequence plus a VLM's vision prefix, or for
+    sliding-window attention at most the window (a ring buffer), rounded up
+    to a multiple of 16."""
+    n = seq_len + cfg.vision_tokens
     if cfg.attention == AttentionKind.SLIDING and cfg.window:
         n = min(n, cfg.window)
     return -(-n // 16) * 16
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, int8: bool = False) -> Dict[str, Any]:
-    """Dense cache specs, stacked over layers: k, v, pos_ids, the hybrid
+    """Dense cache specs, stacked over layers: k, v, pos_ids (with
+    ``int8``: int8 k and v and their ``k_scale`` / ``v_scale``), the hybrid
     block's SSM state under ``ssm`` and the MoE block's int32 expert
     counters under ``moe_load``; for xLSTM the recurrent states under
-    ``groups`` (``seq_len`` unused: the state is constant per token)."""
+    ``groups`` (``seq_len`` and ``int8`` unused: the state is constant per
+    token)."""
     _check_supported(cfg)
-    if int8:
-        raise NotImplementedError("repro_torch: the int8 KV cache is not ported yet")
     if cfg.block == BlockKind.MLSTM:
         return {"groups": _xlstm_groups(cfg, xlstm.mlstm_state_spec(cfg, batch),
                                         xlstm.slstm_state_spec(cfg, batch))}
-    one: Dict[str, Any] = layers.make_cache_specs(cfg, batch, cache_len_for(cfg, seq_len))
+    one: Dict[str, Any] = layers.make_cache_specs(cfg, batch, cache_len_for(cfg, seq_len),
+                                                  int8=int8)
     if cfg.block == BlockKind.HYBRID_PARALLEL:
         one["ssm"] = ssm.init_state(cfg, batch)
     if cfg.block == BlockKind.MOE:
@@ -166,12 +171,13 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, int8: bool = False) 
     return {"blocks": common.stacked(one, cfg.num_layers)}
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> Dict[str, Any]:
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device,
+               int8: bool = False) -> Dict[str, Any]:
     """An empty cache: zeros, and ``pos_ids = -1`` (no slot filled) where
     there is a KV cache."""
     cache = common.tree_map(
         lambda s: torch.zeros(s.shape, dtype=common.torch_dtype(s.dtype), device=device),
-        cache_specs(cfg, batch, seq_len),
+        cache_specs(cfg, batch, seq_len, int8=int8),
     )
     if "blocks" in cache:
         cache["blocks"]["pos_ids"].fill_(-1)
@@ -179,19 +185,20 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> Dict[str, 
 
 
 def paged_cache_specs(
-    cfg: ModelConfig, num_pages: int, page_size: int = layers.PAGE_SIZE,
+    cfg: ModelConfig, num_pages: int, page_size: int = layers.PAGE_SIZE, int8: bool = False,
 ) -> Dict[str, Any]:
     """Paged KV pool specs, stacked over layers (serving decode engine)."""
     _check_supported(cfg)
     _require_dense(cfg, "the paged KV cache")
-    one = layers.make_paged_cache_specs(cfg, num_pages, page_size)
+    one = layers.make_paged_cache_specs(cfg, num_pages, page_size, int8=int8)
     return {"blocks": common.stacked(one, cfg.num_layers)}
 
 
 def init_paged_cache(
     cfg: ModelConfig, num_pages: int, device, page_size: int = layers.PAGE_SIZE,
+    int8: bool = False,
 ) -> Dict[str, Any]:
-    specs = paged_cache_specs(cfg, num_pages, page_size)
+    specs = paged_cache_specs(cfg, num_pages, page_size, int8=int8)
     return common.tree_map(
         lambda s: torch.zeros(s.shape, dtype=common.torch_dtype(s.dtype), device=device),
         specs,
@@ -236,14 +243,18 @@ def _attn_full(params, h, positions, cfg: ModelConfig, opts: RunOpts):
     else:
         out = layers.blockwise_attention(
             q, k, v, causal=True, window=window, q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk,
+            impl=opts.attn_impl,
         )
     B, S = h.shape[:2]
     out = out.reshape(B, S, cfg.q_dim)
     return common.dense(out, params["wo"], cfg.dtype), (k, v)
 
 
-def _kv_to_cache(kv, positions, cache_len: int) -> Dict[str, torch.Tensor]:
-    """Write the last ``cache_len`` positions of (k, v) into a fresh cache."""
+def _kv_to_cache(kv, positions, cache_len: int, int8: bool,
+                 scale_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Write the last ``cache_len`` positions of (k, v) into a fresh cache;
+    ``int8``: as codes, with their scales in ``scale_dtype``, quantized
+    after the ring layout as the reference does."""
     k, v = kv
     S = k.shape[1]
     T = cache_len
@@ -251,15 +262,21 @@ def _kv_to_cache(kv, positions, cache_len: int) -> Dict[str, torch.Tensor]:
         kc, vc = k[:, S - T:], v[:, S - T:]
         pos_ids = positions[0, S - T:].to(torch.int32)
         order = torch.argsort(pos_ids % T, stable=True)   # ring layout: slot = pos % T
-        return {"k": kc[:, order], "v": vc[:, order], "pos_ids": pos_ids[order]}
-    pad = T - S
-    pad_kv = (0, 0, 0, 0, 0, pad)
-    pos_ids = torch.cat([
-        positions[0].to(torch.int32),
-        torch.full((pad,), -1, dtype=torch.int32, device=k.device),
-    ])
-    return {"k": torch.nn.functional.pad(k, pad_kv),
-            "v": torch.nn.functional.pad(v, pad_kv), "pos_ids": pos_ids}
+        out = {"k": kc[:, order], "v": vc[:, order], "pos_ids": pos_ids[order]}
+    else:
+        pad = T - S
+        pad_kv = (0, 0, 0, 0, 0, pad)
+        pos_ids = torch.cat([
+            positions[0].to(torch.int32),
+            torch.full((pad,), -1, dtype=torch.int32, device=k.device),
+        ])
+        out = {"k": torch.nn.functional.pad(k, pad_kv),
+               "v": torch.nn.functional.pad(v, pad_kv), "pos_ids": pos_ids}
+    if int8:
+        for key in ("k", "v"):
+            out[key], scale = layers._quantize_kv(out[key])
+            out[key + "_scale"] = scale.to(scale_dtype)
+    return out
 
 
 def _fuse(p, attn_out: torch.Tensor, ssm_out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -332,11 +349,18 @@ def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
-    """tokens (text only) -> (x, positions)."""
+    """tokens, after a VLM's projected ``batch["patches"]`` (B, P,
+    vision_width) -> (x, positions over both, n_prefix = P or 0)."""
     x = _embed_tokens(params, batch["tokens"], cfg)
+    n_prefix = 0
+    if cfg.vision_tokens:
+        ct = common.torch_dtype(cfg.dtype)
+        prefix = common.dense(batch["patches"].to(ct), params["vision_proj"], ct)
+        x = torch.cat([prefix, x], dim=1)
+        n_prefix = prefix.shape[1]
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    return x, positions
+    return x, positions, n_prefix
 
 
 def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -359,7 +383,8 @@ def _maybe_remat(fn, opts: RunOpts):
 def forward_hidden(params, batch, cfg: ModelConfig, opts: RunOpts):
     """Full-sequence forward up to (but excluding) the LM head.
 
-    Returns (normed hidden states (B, S, d), aux_loss) — the fused
+    Returns (normed hidden states over the TEXT positions (B, S, d),
+    aux_loss) — the fused
     cross-entropy in ``train/steps.py`` consumes this and never materializes
     the full (B, S, vocab) logits. ``params["blocks"]`` is the stacked tree
     or, to differentiate, a list of per-layer trees (see ``per_layer``).
@@ -369,7 +394,7 @@ def forward_hidden(params, batch, cfg: ModelConfig, opts: RunOpts):
     blocks = params["blocks"]
     if not isinstance(blocks, list):
         blocks = [layer_slice(blocks, i) for i in range(cfg.num_layers)]
-    x, positions = _embed_inputs(params, batch, cfg)
+    x, positions, n_prefix = _embed_inputs(params, batch, cfg)
 
     def body(xx, p):
         h = layers.rmsnorm(p["ln1"], xx, cfg.norm_eps)
@@ -384,7 +409,7 @@ def forward_hidden(params, batch, cfg: ModelConfig, opts: RunOpts):
     for p in blocks:
         x, aux = body(x, p)
         auxes.append(aux)
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = layers.rmsnorm(params["final_norm"], x[:, n_prefix:], cfg.norm_eps)
     return x, torch.stack(auxes).sum()
 
 
@@ -394,20 +419,23 @@ def unembed_weight(params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward_train(params, batch, cfg: ModelConfig, opts: RunOpts):
-    """Full-sequence forward. Returns (logits (B, S, V), aux_loss)."""
+    """Full-sequence forward. Returns (logits over the TEXT positions
+    (B, S, V), aux_loss)."""
     x, aux = forward_hidden(params, batch, cfg, opts)
     return common.dense(x, unembed_weight(params, cfg), cfg.dtype), aux
 
 
 def prefill(params, batch, cfg: ModelConfig, opts: RunOpts, cache_seq_len: int):
-    """Forward + cache build. ``batch["tokens"]``: (B, S) int.
-    Returns (last-position logits (B, 1, V), cache): k/v of the last
-    ``cache_len_for(cfg, cache_seq_len)`` positions in ring-buffer slots,
-    ``pos_ids``, for hybrid blocks the SSM state under ``ssm``, for MoE
-    blocks each sequence's expert counters under ``moe_load``; for xLSTM
-    the recurrent states under ``groups``."""
+    """Forward + cache build. ``batch["tokens"]``: (B, S) int (a VLM's
+    ``batch["patches"]`` go before them). Returns (last-position logits
+    (B, 1, V), cache): k/v of the last ``cache_len_for(cfg, cache_seq_len)``
+    positions in ring-buffer slots (``opts.int8_kv_cache``: int8 codes and
+    their scales, quantized layer by layer, so no whole-depth cache of the
+    compute dtype is ever held), ``pos_ids``, for hybrid blocks the SSM
+    state under ``ssm``, for MoE blocks each sequence's expert counters
+    under ``moe_load``; for xLSTM the recurrent states under ``groups``."""
     _check_supported(cfg, opts)
-    x, positions = _embed_inputs(params, batch, cfg)
+    x, positions, _ = _embed_inputs(params, batch, cfg)
     if cfg.block == BlockKind.MLSTM:
         states = []
         for g in range(_xlstm_group_layout(cfg)[0]):
@@ -420,7 +448,7 @@ def prefill(params, batch, cfg: ModelConfig, opts: RunOpts, cache_seq_len: int):
         p = layer_slice(params["blocks"], i)
         h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
         attn_out, kv = _attn_full(p["attn"], h, positions, cfg, opts)
-        c = _kv_to_cache(kv, positions, T)
+        c = _kv_to_cache(kv, positions, T, opts.int8_kv_cache, common.torch_dtype(cfg.dtype))
         if cfg.block == BlockKind.HYBRID_PARALLEL:
             ssm_out, c["ssm"] = ssm.mamba_block(p["mamba"], h, cfg)
             x = x + _fuse(p, attn_out, ssm_out, cfg)
@@ -438,14 +466,15 @@ def prefill(params, batch, cfg: ModelConfig, opts: RunOpts, cache_seq_len: int):
 def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig, opts: RunOpts):
     """One lock-step decode step against the dense cache.
 
-    tokens: (B, 1) int; pos: the absolute position of the new token (the
-    same for every row). Writes the token's k/v into its ring slot, the
+    tokens: (B, 1) int; pos: the TEXT position of the new token (the same
+    for every row; a VLM's vision prefix is added here, since prefill
+    placed the text after it). Writes the token's k/v into its ring slot, the
     new SSM state of hybrid blocks, the MoE blocks' expert counters and the
     new xLSTM states into ``cache`` IN PLACE (the reference returns an updated copy). Returns (logits
     (B, 1, V), cache).
     """
     _check_supported(cfg, opts)
-    pos = int(pos)
+    pos = int(pos) + cfg.vision_tokens
     x = _embed_tokens(params, tokens, cfg)
     if cfg.block == BlockKind.MLSTM:
         for g in range(_xlstm_group_layout(cfg)[0]):

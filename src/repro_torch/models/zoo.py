@@ -46,8 +46,8 @@ class Model:
     def cache_specs(self, batch: int, seq_len: int, int8: bool = False):
         return transformer.cache_specs(self.cfg, batch, seq_len, int8=int8)
 
-    def init_cache(self, batch: int, seq_len: int, device="cuda"):
-        return transformer.init_cache(self.cfg, batch, seq_len, resolve_device(device))
+    def init_cache(self, batch: int, seq_len: int, device="cuda", int8: bool = False):
+        return transformer.init_cache(self.cfg, batch, seq_len, resolve_device(device), int8)
 
     def decode_step_paged(
         self, params, cache, tokens, seq_lens, block_table, opts: Optional[RunOpts] = None,
@@ -56,12 +56,13 @@ class Model:
             params, cache, tokens, seq_lens, block_table, self.cfg, opts or RunOpts(),
         )
 
-    def paged_cache_specs(self, num_pages: int, page_size: int = 16):
-        return transformer.paged_cache_specs(self.cfg, num_pages, page_size)
+    def paged_cache_specs(self, num_pages: int, page_size: int = 16, int8: bool = False):
+        return transformer.paged_cache_specs(self.cfg, num_pages, page_size, int8=int8)
 
-    def init_paged_cache(self, num_pages: int, device="cuda", page_size: int = 16):
+    def init_paged_cache(self, num_pages: int, device="cuda", page_size: int = 16,
+                         int8: bool = False):
         return transformer.init_paged_cache(
-            self.cfg, num_pages, resolve_device(device), page_size
+            self.cfg, num_pages, resolve_device(device), page_size, int8=int8
         )
 
     def param_count(self) -> int:

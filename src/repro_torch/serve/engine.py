@@ -22,6 +22,14 @@ the dense cache's ``T // page_size`` pages are then copied into the
 request's reserved pool pages. On a CUDA device prefill attention is the
 flash kernel (``layout.attn_impl`` must be ``"flash"``) and decode
 attention the paged kernel; no argument turns them off there.
+
+``layout.int8_kv_cache`` makes the pool int8: k and v pages hold codes,
+``k_scale`` / ``v_scale`` pages one scale per (row, kv head), half the
+bytes of a bf16 pool and a little more. The prefill quantizes its dense
+cache and the codes and scales are packed alike. An int8 pool decodes in
+plain PyTorch on every device (the reference has no kernel for it:
+``layers.decode_attention_paged``). The engine serves text: a VLM's
+vision prefix is refused, as the reference's paged decode has none.
 """
 from __future__ import annotations
 
@@ -94,8 +102,10 @@ class DecodeEngine:
     ):
         if num_pages < 2:
             raise ValueError("pool needs at least one real page + trash")
-        if layout.int8_kv_cache:
-            raise NotImplementedError("repro_torch: the int8 KV cache is not ported yet")
+        if model.cfg.vision_tokens:
+            raise NotImplementedError(
+                f"repro_torch: the paged decode engine serves text only, {model.cfg.name} "
+                f"has a vision prefix")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and layout.attn_impl != "flash":
             raise ValueError(
@@ -125,7 +135,10 @@ class DecodeEngine:
         self._done: List[Completion] = []
         # the ops wrappers run the kernel on a CUDA tensor, the plain version on the CPU
         self._decode = build_paged_decode_step(model, layout)
-        self.cache = model.init_paged_cache(num_pages, self.device, page_size)
+        self.cache = model.init_paged_cache(num_pages, self.device, page_size,
+                                            int8=layout.int8_kv_cache)
+        self.pool_bytes = sum(t.numel() * t.element_size()
+                              for t in self.cache["blocks"].values())
 
     # -- submission ---------------------------------------------------------
 
@@ -197,11 +210,15 @@ class DecodeEngine:
             self._insert(req, [self._free_pages.popleft() for _ in range(needed)])
 
     def _pack(self, dense_blocks, pages: List[int]) -> None:
-        """Copy the dense prefill cache's pages into the reserved pool pages."""
+        """Copy the dense prefill cache's pages (codes and scales, for an
+        int8 pool) into the reserved pool pages."""
         ps = self.page_size
         idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
-        for dk, pk in (("k", "k_pages"), ("v", "v_pages")):
-            src = dense_blocks[dk][:, 0]                     # (L, T, KVH, hd)
+        for dk, pk in (("k", "k_pages"), ("v", "v_pages"),
+                       ("k_scale", "k_scale"), ("v_scale", "v_scale")):
+            if dk not in dense_blocks:
+                continue
+            src = dense_blocks[dk][:, 0]                     # (L, T, KVH, hd or 1)
             L, T = src.shape[:2]
             pool = self.cache["blocks"][pk]
             pool[:, idx] = src.reshape(L, T // ps, ps, *src.shape[2:]).to(pool.dtype)

@@ -134,10 +134,13 @@ def build_train_step(
         return loss + aux, loss, aux
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        if state.params["embed"].device.type == "cuda" and layout.attn_impl != "flash":
+        if state.params["embed"].device.type == "cuda" and layout.attn_impl not in (
+                "flash", "triangular"):
+            # triangular is the reference's causal chunk schedule, plain
+            # attention by design (the reference has no kernel for it)
             raise ValueError(
                 f"the train step on CUDA attends with the flash kernels: "
-                f"layout.attn_impl must be 'flash', got {layout.attn_impl!r}"
+                f"layout.attn_impl must be 'flash' (or 'triangular'), got {layout.attn_impl!r}"
             )
         # leaves that share the params' storage, each with its own .grad
         leaves = per_layer(state.params, n_layers, lambda t: t.detach().requires_grad_())

@@ -217,10 +217,15 @@ def test_engine_feeds_jax_tracker(served):
 
 
 def test_engine_refuses_what_it_cannot_run(served, monkeypatch):
+    """A vision prefix (the paged decode serves text) and a missing card;
+    the int8 pool is served (tests/test_torch_int8_cache.py)."""
     _, _, model, *_ = served
-    with pytest.raises(NotImplementedError, match="int8"):
-        DecodeEngine(model, ShardingLayout(int8_kv_cache=True), "cpu",
-                     lanes=1, num_pages=4, max_context=48)
+    with pytest.raises(NotImplementedError, match="vision"):
+        DecodeEngine(build_model(get_arch("internvl2-26b").reduced()), ShardingLayout(),
+                     "cpu", lanes=1, num_pages=4, max_context=48)
+    eng = DecodeEngine(model, ShardingLayout(int8_kv_cache=True), "cpu",
+                       lanes=1, num_pages=4, max_context=48)
+    assert eng.cache["blocks"]["k_pages"].dtype == torch.int8
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):   # the default device is cuda
         DecodeEngine(model, ShardingLayout(attn_impl="flash"),

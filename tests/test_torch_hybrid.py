@@ -302,11 +302,25 @@ def test_host_main_serves_on_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [dict(), dict(plan="8,4"), dict(plan="8,4", engine=True),
                                   dict(trace="t.jsonl")])
-def test_host_main_refuses_unported_modes(flag):
-    """``--plan``, ``--engine`` and ``--trace`` are ported; the int8 KV
-    cache is not, and every mode refuses it."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve_launcher._dispatch(_args(int8_cache=True, **flag))
+def test_host_main_refuses_unported_modes(flag, tmp_path):
+    """``--plan``, ``--engine``, ``--trace`` and the int8 KV cache are
+    ported: hymba serves with an int8 ring cache in the host and plan
+    modes; the engine's paged pool refuses its HYBRID blocks, as the
+    reference's does."""
+    argv = ["--arch", HYMBA, "--batch", "2", "--prompt-len", "20", "--new-tokens", "4",
+            "--device", "cpu", "--int8-cache"]
+    if flag.get("plan"):
+        argv += ["--plan", flag["plan"], "--revoke-after", "2"]
+    if flag.get("engine"):
+        with pytest.raises(NotImplementedError, match="DENSE"):
+            serve_launcher.main(argv + ["--engine"])
+        return
+    if flag.get("trace"):
+        argv += ["--trace", str(tmp_path / flag["trace"])]
+    out = serve_launcher.main(argv)
+    rows = out["tokens"] if "tokens" in out else [out["first_row"]]
+    assert len(rows) in (1, 2) and all(len(r) == 4 and all(0 <= t < 256 for t in r)
+                                       for r in rows)
 
 
 def test_serve_launcher_refuses_missing_cuda(monkeypatch):
@@ -334,8 +348,9 @@ def test_hybrid_training_and_paged_decode_refuse():
         m.paged_cache_specs(8)
     with pytest.raises(NotImplementedError):
         build_model(dataclasses.replace(cfg, block=BlockKind.ENCDEC))
-    with pytest.raises(NotImplementedError, match="int8"):
-        m.cache_specs(2, 8, int8=True)
+    # the int8 ring cache is served: int8 k/v, scales, and the SSM state
+    spec = m.cache_specs(2, 8, int8=True)["blocks"]
+    assert spec["k"].dtype == "int8" and spec["k_scale"].shape[-1] == 1 and "ssm" in spec
 
 
 def _dtypes(tree, prefix=""):

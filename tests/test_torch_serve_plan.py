@@ -286,10 +286,12 @@ def test_migrate_cache_copies_and_drop_drops():
     (["--engine"], SystemExit),
     (["--engine", "--plan", "8,4", "--revoke-after", "3", "--cache-policy", "migrate"],
      SystemExit),
-    (["--int8-cache"], NotImplementedError),
-    (["--int8-cache", "--plan", "8"], NotImplementedError),
+    (["--int8-cache", "--engine"], SystemExit),
+    (["--int8-cache", "--engine", "--plan", "8,4", "--cache-policy", "migrate"], SystemExit),
 ], ids=["engine-without-plan", "engine-migrate", "int8", "int8-plan"])
 def test_flag_rules_raise_as_in_the_reference(argv, exc):
+    """The reference's rules, with and without the int8 cache (which every
+    mode serves: tests/test_torch_int8_cache.py)."""
     with pytest.raises(exc):
         serve.main(BASE + argv)
 
