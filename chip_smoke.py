@@ -7,6 +7,7 @@
     python3 chip_smoke.py --serve-plan-only  # build + the spot serving phase only
     python3 chip_smoke.py --moe-only      # build + the flash kernels at mixtral's shape + phase 10
     python3 chip_smoke.py --dense-variants-only  # build + the kernels at phase 11's shapes + phase 11
+    python3 chip_smoke.py --gemma-only    # build + the kernels at head dim 256 + phase 12
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
@@ -148,7 +149,19 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    and 3 training steps on the card equal the CPU's. The kernel phase
    holds the forward at G=1 (B1 S2000 H40/40) and G=6 (B4 S3073 H48/8,
    a last tile of one row), the forward and both backward kernels at
-   B1 S4096 H20/20, and the paged kernel at 8 lanes, H20/20 and H40/40.
+   B1 S4096 H20/20, and the paged kernel at 8 lanes, H20/20 and H40/40;
+12. gemma-7b (head dim 256, GeGLU, tied embeddings scaled by sqrt(d_model)
+   in f32, which makes the residual stream f32): served at full width and
+   depth (28 layers, 8.538 B params, bf16) through ``DecodeEngine`` on
+   phase 4's requests: 28 flash forwards a prefill and 28 paged launches a
+   step; the flash prefill against the masked one as in 4; trained at full
+   width with GEMMA_TRAIN_LAYERS of its 28 layers as in 7 (4N flash
+   forwards and 2N of each backward kernel a step); reduced f32 gemma with
+   head dim 256 serving and 3 training steps on the card equal the CPU's.
+   The kernel phase holds the forward, dk/dv, dq and paged kernels at head
+   dim 256 in both dtypes on the reference's feature cases and at gemma's
+   shapes (prefill B1 S2000, training B1 S4096, H16/16; paged 8 lanes),
+   and every hd-256 instantiation builds with no spilled registers.
 
 A kernel variant's ``launches_by_path`` in the JSON record holds its count
 on each path (``serve``, ``hybrid``, ``xlstm``, ``train``, ``spot`` at full width
@@ -159,7 +172,9 @@ the plan modes' ``serve_plan`` and ``serve_plan_f32``, the MoE family's
 ``moe_train_f32`` reduced; the dense variants' ``dense_int8``,
 ``dense_bf16``, ``dense_q4_train``, ``dense_q4_serve``, ``dense_vlm`` at
 full width and ``dense_int8_f32``, ``dense_q4_train_f32``,
-``dense_q4_tri``, ``dense_q4_serve_f32``, ``dense_vlm_f32`` reduced), each
+``dense_q4_tri``, ``dense_q4_serve_f32``, ``dense_vlm_f32`` reduced;
+gemma-7b's ``gemma``, ``gemma_train`` at full width and ``gemma_f32``,
+``gemma_train_f32`` reduced), each
 counted from 0
 just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
@@ -194,9 +209,11 @@ SRC = REPO / "src"
 
 # kernels that must build without spilling registers (ptxas): the paged
 # split and merge, the mLSTM decode step and its tensor-core prefill, the
-# scan's prefill and decode kernels
+# scan's prefill and decode kernels, and every instantiation at head dim 256
+# (a template argument of 256 in its mangled name)
 NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_merge_kernel",
-                    "mlstm_step_kernel", "mlstm_tc_kernel", "ssm_scan_kernel", "ssm_step_kernel")
+                    "mlstm_step_kernel", "mlstm_tc_kernel", "ssm_scan_kernel", "ssm_step_kernel",
+                    "Li256E")
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
@@ -309,6 +326,17 @@ SSM_MAIN_H_TOL = dict(atol=1e-5, rtol=1e-5)
 # The forward's lse (f32, natural log, ~5-10 here) is computed from the same
 # rounded inputs on both sides at every dtype, so the f32 tolerance holds.
 LSE_TOL = F32_TOL
+
+
+# fields a reduced config keeps from the full one: gemma's head dim 256
+# (``reduced()`` sets 32), so that the reduced runs take the hd-256 kernels
+REDUCED_KEEPS = {"gemma-7b": ("head_dim",)}
+
+
+def reduced_f32(cfg):
+    """``cfg.reduced()`` at f32, keeping the fields REDUCED_KEEPS names."""
+    keep = {f: getattr(cfg, f) for f in REDUCED_KEEPS.get(cfg.name, ())}
+    return dataclasses.replace(cfg.reduced(), dtype="float32", **keep)
 
 
 def tol(dtype) -> dict:
@@ -1193,8 +1221,8 @@ def serve_full_width(arch: str = "qwen3-4b", tag: str = "serve") -> dict:
     torch.cuda.synchronize()
     n_params = model.param_count()
     log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, qkv bias {cfg.qkv_bias}, "
-        f"{n_params / 1e9:.3f} B params in bf16, made on the card in "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.resolved_head_dim}, qkv bias "
+        f"{cfg.qkv_bias}, {n_params / 1e9:.3f} B params in bf16, made on the card in "
         f"{time.perf_counter() - t0:.1f} s")
 
     reqs = phase4_requests(cfg)
@@ -1245,6 +1273,7 @@ def serve_full_width(arch: str = "qwen3-4b", tag: str = "serve") -> dict:
     top_eq = int(a.argmax()) == int(b.argmax())
     log(f"[{tag}] flash vs masked prefill logits (S={S}): top-1 equal {top_eq}, "
         f"correlation {corr:.6f}, max abs diff {float((a - b).abs().max()):.4f}")
+    del flash, masked
     if not (torch.isfinite(a).all() and top_eq and corr > 0.99):
         raise AssertionError("flash prefill logits disagree with the masked path")
     profile_serving(model, params)
@@ -1331,7 +1360,7 @@ def serve_reduced_matches_cpu(arch: str = "qwen3-4b", int8: bool = False,
     from repro_torch.models.common import tree_map
     from repro_torch.serve import DecodeEngine, Request
 
-    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    cfg = reduced_f32(get_arch(arch))
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
     params_cpu = model.init(gen, "cpu")
@@ -1488,7 +1517,7 @@ def greedy_reduced_matches_cpu(arch: str, tag: str, *kernels: str) -> dict:
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
 
-    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    cfg = reduced_f32(get_arch(arch))
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
     params_cpu = model.init(gen, "cpu")
@@ -1894,23 +1923,26 @@ def _probe(state) -> list:
     one), to see whether an update moved them."""
     p = state.params
     attn = p["blocks"]["attn"]
-    return [t.detach().clone() for t in (p["embed"][:4, :8], p["lm_head"][:8, :4],
+    head = p["lm_head"][:8, :4] if "lm_head" in p else p["embed"][-4:, :8]   # tied: embed.T
+    return [t.detach().clone() for t in (p["embed"][:4, :8], head,
                                          attn["wq"][0, :8, :4], p["blocks"]["mlp"]["wo"][-1, :8, :4],
                                          *([attn["bq"][-1, :8]] if "bq" in attn else []))]
 
 
-def train_full_width(arch: str = "qwen3-4b", tag: str = "train") -> dict:
-    """``arch`` at full width and depth, f32 params + AdamW, seq 4096,
-    global batch 2 in 2 microbatches, through ``run_segment`` for 4 steps
-    (the attention biases drawn nonzero where the model has them, and
-    their gradients held nonzero through AdamW's first moment)."""
+def train_full_width(arch: str = "qwen3-4b", tag: str = "train", layers: int = 0) -> dict:
+    """``arch`` at full width and depth (or ``layers`` of its layers), f32
+    params + AdamW, seq 4096, global batch 2 in 2 microbatches, through
+    ``run_segment`` for 4 steps (the attention biases drawn nonzero where
+    the model has them, and their gradients held nonzero through AdamW's
+    first moment)."""
     from repro_torch.config import ShardingLayout, TrainConfig, get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
     from repro_torch.train.loop import make_step, run_segment
     from repro_torch.train.steps import init_train_state
 
-    cfg = get_arch(arch)
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, num_layers=layers) if layers else full
     model = build_model(cfg)
     seq, batch, n_steps = 4096, 2, 4
     tc = TrainConfig(total_steps=n_steps, warmup_steps=1, microbatches=2)
@@ -1922,7 +1954,9 @@ def train_full_width(arch: str = "qwen3-4b", tag: str = "train") -> dict:
     state = init_train_state(model, gen, "cuda")
     draw_biases(state.params, gen)
     torch.cuda.synchronize()
-    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers (no depth cut), d_model {cfg.d_model}, "
+    depth = f"{cfg.num_layers} of {full.num_layers} layers (depth cut, width full)" if layers \
+        else f"{cfg.num_layers} layers (no depth cut)"
+    log(f"[{tag}] {cfg.name}: {depth}, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
         f"{model.param_count() / 1e9:.3f} B f32 params; params + AdamW moments "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, made on the card in "
         f"{time.perf_counter() - t0:.1f} s; seq {seq}, global batch {batch} in "
@@ -2009,7 +2043,7 @@ def train_reduced_matches_cpu(arch: str = "qwen3-4b", tag: str = "train",
     from repro_torch.train.loop import make_step, run_segment
     from repro_torch.train.steps import init_train_state
 
-    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    cfg = reduced_f32(get_arch(arch))
     model = build_model(cfg)
     tc = TrainConfig(total_steps=10, warmup_steps=2, microbatches=2)
     layout = ShardingLayout(attn_impl=attn_impl, q_chunk=32, kv_chunk=32)
@@ -3138,6 +3172,193 @@ def check_dense_variant_kernels(gen: torch.Generator, flush: torch.Tensor) -> di
 
 
 # ---------------------------------------------------------------------------
+# phase 3 at head dim 256: gemma-7b's kernels (run again under --gemma-only)
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Skv, H, KVH, causal, window, q_offset) at hd 256, both dtypes,
+# forward and backward: the reference's feature cases (GQA, a window, a
+# ragged tail, a q offset, non-causal) with the head dim set to 256, and a
+# q offset that is no multiple of the 64-row kv tile (the causal diagonal
+# then crosses a tile 48 rows in)
+GEMMA_FLASH_CASES = [
+    (1, 256, 256, 4, 2, True, 0, 0),
+    (2, 128, 128, 4, 1, True, 64, 0),
+    (1, 200, 200, 4, 2, True, 48, 0),
+    (2, 333, 333, 4, 2, True, 0, 0),
+    (1, 64, 192, 4, 2, True, 0, 128),
+    (1, 64, 240, 4, 2, True, 0, 176),
+    (2, 100, 100, 4, 2, False, 0, 0),
+]
+# (B, H, KVH, page_size, max_blocks, lens) at hd 256, both dtypes:
+# tests/test_kernels.py PAGED_CASES and the split's edges (check_paged)
+GEMMA_PAGED_CASES = [
+    (2, 4, 4, 16, 4, [64, 33]),
+    (3, 8, 2, 16, 4, [1, 50, 64]),
+    (2, 4, 1, 8, 6, [41, 17]),
+    (4, 8, 2, 16, 20, [0, 1, 128, 129]),
+    (4, 8, 2, 24, 14, [128, 150, 143, 1]),
+    (4, 8, 2, 256, 2, [129, 300, 256, 0]),
+]
+# gemma-7b's shapes: serving prefill B1 S2000 and training B1 S4096, H16/16
+# hd 256 causal; the paged kernel at 8 lanes, H16/16 hd 256
+GEMMA_ATTN = dict(H=16, KVH=16, hd=256, prefill_S=2000, train_S=4096)
+
+
+def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """The flash forward, dk/dv, dq and paged kernels at head dim 256 in
+    both dtypes (bf16 on tensor cores, f32 on FMAs) against their plain
+    versions on the feature cases and at gemma-7b's shapes; the bf16 dq and
+    paged kernels give the same bits twice; times beside the bound and
+    SDPA's (the paged kernel: the plain version's). Returns the largest
+    errors, by record name."""
+    from repro_torch.kernels.flash_attention import kernel, kernel_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_ref
+    from repro_torch.kernels.paged_attention import kernel as paged
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    hd = GEMMA_ATTN["hd"]
+    log(f"[kernels] head dim {hd} (gemma-7b): flash forward, dk/dv, dq and paged, both dtypes")
+    variant = lambda dtype: "tc" if dtype == torch.bfloat16 else "fma"
+    errs = {f"{n}_{v}": 0.0 for n in ("flash_attention", "flash_attention_bwd_dkdv",
+                                      "flash_attention_bwd_dq", "paged_attention")
+            for v in ("tc", "fma")}
+    mk = lambda B, S, heads, dtype: torch.randn((B, S, heads, hd), generator=gen,
+                                                device="cuda").to(dtype)
+
+    def fwd_bwd(name, B, Sq, Skv, H, KVH, causal, window, q_offset, dtype, t_fwd, t_bwd):
+        q, k, v, do = mk(B, Sq, H, dtype), mk(B, Skv, KVH, dtype), mk(B, Skv, KVH, dtype), \
+            mk(B, Sq, H, dtype)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = kernel_bwd.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+        dq = kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        vr = variant(dtype)
+        errs[f"flash_attention_{vr}"] = max(errs[f"flash_attention_{vr}"],
+                                            hold_fwd(name, o, lse, q, k, v, kw, t_fwd))
+        rq, rk, rv = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        errs[f"flash_attention_bwd_dkdv_{vr}"] = max(
+            errs[f"flash_attention_bwd_dkdv_{vr}"], hold(f"{name} dk", dk, rk, t_bwd),
+            hold(f"{name} dv", dv, rv, t_bwd))
+        errs[f"flash_attention_bwd_dq_{vr}"] = max(errs[f"flash_attention_bwd_dq_{vr}"],
+                                                   hold(f"{name} dq", dq, rq, t_bwd))
+        return q, k, v, do, o, lse, delta, kw
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for args in GEMMA_FLASH_CASES:
+            fwd_bwd(f"hd{hd} (B, Sq, Skv, H, KVH, causal, window, q_offset) = {args} "
+                    f"{str(dtype)[6:]}", *args, dtype, tol(dtype),
+                    FLASH_BWD_F32_TOL if dtype == torch.float32 else tol(dtype))
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, KVH, ps, mb, lens in GEMMA_PAGED_CASES:
+            args = _paged_inputs(gen, B, H, KVH, hd, ps, mb, lens, dtype, seed=3)
+            out = paged.paged_attention(*args)
+            errs[f"paged_attention_{variant(dtype)}"] = max(
+                errs[f"paged_attention_{variant(dtype)}"],
+                hold(f"paged hd{hd} B{B} H{H}/{KVH} ps{ps} lens{lens} {str(dtype)[6:]}",
+                     out, paged_attention_ref(*args), tol(dtype)))
+            if not all(bool((out[b] == 0).all()) for b, n in enumerate(lens) if n == 0):
+                raise AssertionError(f"paged hd{hd} lens{lens}: a dead lane is not zeros")
+
+    H, KVH = GEMMA_ATTN["H"], GEMMA_ATTN["KVH"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # serving prefill, bf16 (and the f32 variant at S 1000)
+    for S, dtype, t in ((GEMMA_ATTN["prefill_S"], torch.bfloat16, FLASH_MAIN_BF16_TOL),
+                        (1000, torch.float32, F32_TOL)):
+        q, k, v = mk(1, S, H, dtype), mk(1, S, KVH, dtype), mk(1, S, KVH, dtype)
+        kw = dict(causal=True, window=0, q_offset=0)
+        o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tag = f"gemma prefill B1 S{S} H{H}/{KVH} hd{hd} {str(dtype)[6:]}"
+        vr = variant(dtype)
+        errs[f"flash_attention_{vr}"] = max(errs[f"flash_attention_{vr}"],
+                                            hold_fwd(f"flash {tag}", o, lse, q, k, v, kw, t))
+        flops, nbytes = _flash_fwd_work(1, S, H, KVH, hd)
+        if dtype == torch.float32:
+            nbytes = 2 * nbytes - 4.0 * H * S          # f32 elements: twice the bytes
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS if vr == "tc" else PEAK_F32_FLOPS)
+        ms = time_ms(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush)
+        plain_ms = time_ms(lambda: attention_fwd_ref(q, k, v, **kw), flush, reps=3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
+        log(f"  flash_attention_{vr} at {tag}: kernel {ms:.4f} ms, plain (o, lse) "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+        del q, k, v, o, lse, qt, kt, vt
+
+    # training, bf16 at S 4096 (and the f32 variants at S 1000)
+    for S, dtype, t_fwd, t_bwd in ((GEMMA_ATTN["train_S"], torch.bfloat16, FLASH_MAIN_BF16_TOL,
+                                    FLASH_BWD_MAIN_BF16_TOL),
+                                   (1000, torch.float32, F32_TOL, FLASH_BWD_F32_TOL)):
+        tag = f"gemma training B1 S{S} H{H}/{KVH} hd{hd} {str(dtype)[6:]}"
+        q, k, v, do, o, lse, delta, kw = fwd_bwd(tag, 1, S, S, H, KVH, True, 0, 0, dtype,
+                                                 t_fwd, t_bwd)
+        torch.cuda.empty_cache()
+        vr = variant(dtype)
+        if dtype == torch.bfloat16:
+            dq_a, dq_b = (kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+                          for _ in range(2))
+            same = torch.equal(dq_a, dq_b)
+            log(f"  {tag}: two dq calls give the same bits: {same}")
+            if not same:
+                raise AssertionError("the bf16 dq kernel gave different bits at hd 256")
+            del dq_a, dq_b
+        el = q.element_size()
+        prod = 2.0 * _pairs(S, 0) * hd * H
+        qkv_bytes = el * (2 * S * H * hd + 2 * S * KVH * hd)
+        work = {f"flash_attention_{vr}": (2 * prod, qkv_bytes + 4.0 * H * S),
+                f"flash_attention_bwd_dkdv_{vr}": (4 * prod, qkv_bytes + 2 * 4.0 * H * S
+                                                   + el * 2 * S * KVH * hd),
+                f"flash_attention_bwd_dq_{vr}": (prod, el * S * H * hd)}
+        fns = {f"flash_attention_{vr}": lambda: kernel.flash_attention_fwd(q, k, v, **kw),
+               f"flash_attention_bwd_dkdv_{vr}": lambda: kernel_bwd.flash_attention_bwd_dkdv(
+                   q, k, v, do, lse, delta, **kw),
+               f"flash_attention_bwd_dq_{vr}": lambda: kernel_bwd.flash_attention_bwd_dq(
+                   q, k, v, do, lse, delta, **kw)}
+        plain_fwd = time_ms(lambda: attention_fwd_ref(q, k, v, **kw), flush, reps=3)
+        plain_bwd = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw), flush, reps=3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
+        sdpa_bwd = sdpa_backward_ms(q, k, v, do, flush)
+        peak = PEAK_BF16_FLOPS if vr == "tc" else PEAK_F32_FLOPS
+        for name, (flops, nbytes) in work.items():
+            b_ms, b_by = bound(flops, nbytes, peak)
+            ms = time_ms(fns[name], flush)
+            log(f"  {name} at {tag}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved")
+        log(f"  at {tag}: plain forward {plain_fwd:.4f} ms, plain backward (all of dq, dk, dv) "
+            f"{plain_bwd:.4f} ms; SDPA forward {sdpa_fwd:.4f} ms, backward (fwd + bwd minus "
+            f"fwd) {sdpa_bwd:.4f} ms")
+        del q, k, v, do, o, lse, delta, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    # paged decode at 8 lanes, both dtypes
+    lens = [2048] + np.random.RandomState(1).randint(1, 2049, 7).tolist()
+    n_tok = sum(lens)
+    n_pages = sum(-(-n // 16) for n in lens)
+    for dtype, t in ((torch.bfloat16, PAGED_MAIN_BF16_TOL), (torch.float32, F32_TOL)):
+        args = _paged_inputs(gen, 8, H, KVH, hd, 16, 128, lens, dtype, seed=1)
+        vr = variant(dtype)
+        name = f"paged 8 lanes H{H}/{KVH} hd{hd} ps16 lens{lens} {str(dtype)[6:]}"
+        out = paged.paged_attention(*args)
+        errs[f"paged_attention_{vr}"] = max(errs[f"paged_attention_{vr}"], hold(
+            name, out, paged_attention_ref(*args), t))
+        same = torch.equal(out, paged.paged_attention(*args))
+        log(f"  {name}: two calls give the same bits: {same}")
+        if not same:
+            raise AssertionError("the paged kernel gave different bits at hd 256")
+        el = args[0].element_size()
+        flops = 4.0 * n_tok * H * hd
+        nbytes = el * (2 * 8 * H * hd + 2 * n_tok * KVH * hd) + 4.0 * (n_pages + 8)
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS if el == 2 else PEAK_F32_FLOPS)
+        ms = time_ms(lambda: paged.paged_attention(*args), flush)
+        plain_ms = time_ms(lambda: paged_attention_ref(*args), flush)
+        log(f"  paged_attention_{vr} at {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}); {nbytes / ms / 1e6:.1f} GB/s achieved")
+    return errs
+
+# ---------------------------------------------------------------------------
 # phase 11: the dense variants (qwen1.5-32b int8, qwen1.5-4b, internvl2-26b)
 # ---------------------------------------------------------------------------
 
@@ -3488,6 +3709,31 @@ def dense_variants_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: gemma-7b (head dim 256, GeGLU, tied and scaled embeddings)
+# ---------------------------------------------------------------------------
+
+# gemma-7b trained at full width with GEMMA_TRAIN_LAYERS of its 28 layers:
+# f32 params, grads and AdamW moments are 16 B a param, 12.58 GB for the
+# tied embedding and 4.43 GB a layer, so all 28 (136.6 GB) do not fit. 10
+# layers peaked at 67.09 GB on an H100 (80 GB HBM3, 700 W); 12 add 8.86 GB
+# of state, ~76 GB of the card's 85.0, as qwen3-4b's full depth (75.5 GB)
+GEMMA_TRAIN_LAYERS = 12
+def gemma_phase() -> dict:
+    """Phase 12: gemma-7b served at full width and depth through the engine,
+    trained at full width with GEMMA_TRAIN_LAYERS layers, and its reduced
+    f32 serving and training (head dim 256) against the CPU. Returns
+    launches by path."""
+    _free_cuda()
+    paths = {"gemma": serve_full_width("gemma-7b", "gemma")}
+    _free_cuda()
+    paths["gemma_f32"] = serve_reduced_matches_cpu("gemma-7b", False, "gemma")
+    paths["gemma_train"] = train_full_width("gemma-7b", "gemma_train", GEMMA_TRAIN_LAYERS)
+    _free_cuda()
+    paths["gemma_train_f32"] = train_reduced_matches_cpu("gemma-7b", "gemma_train", 3)
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3503,6 +3749,9 @@ def main() -> int:
     ap.add_argument("--dense-variants-only", action="store_true",
                     help="only build the kernels, hold them at the dense variants' shapes and "
                          "run the dense variants' phase")
+    ap.add_argument("--gemma-only", action="store_true",
+                    help="only build the kernels, hold them at head dim 256 and run gemma-7b's "
+                         "phase")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
                          "of the kernel paths and plain orders agree, by prompt length")
@@ -3524,10 +3773,10 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[phase 1/11] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
+    log(f"[phase 1/12] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    log("[phase 2/11] build")
+    log("[phase 2/12] build")
     _build.build()
     ptxas = _build.last_build["log"]
     per_source = {}
@@ -3549,7 +3798,8 @@ def main() -> int:
                         re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry))
             spills[fn] = (int(regs[0]) if regs else None, spill)
     log("[build] ptxas of " + ", ".join(NO_SPILL_KERNELS) + ": " + "; ".join(
-        f"{fn[:70]}: {r} registers, {sp} spill bytes" for fn, (r, sp) in spills.items()))
+        f"{re.sub(r'^_ZN.*?_cu_[0-9a-f]+', '', fn)[:70]}: {r} registers, {sp} spill bytes"
+        for fn, (r, sp) in spills.items()))
     if ptxas != "(cached)" and (not spills or any(sp for _, sp in spills.values())):
         raise AssertionError("a kernel of this slice spills registers (or was not compiled)")
     _build.load()
@@ -3557,14 +3807,14 @@ def main() -> int:
         xlstm_orders()
         return 0
     if args.spot_only:
-        log("[phase 8/11] the spot provisioner")
+        log("[phase 8/12] the spot provisioner")
         spot = {"spot": spot_full_width(), "spot_f32": spot_reduced_matches_cpu(),
                 "spot_launch": spot_launcher()}
         log(f"chip_smoke: --spot-only, launches by path {spot}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.serve_plan_only:
-        log("[phase 9/11] spot serving")
+        log("[phase 9/12] spot serving")
         paths = spot_serving()
         log(f"chip_smoke: --serve-plan-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -3573,7 +3823,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_flash_window_8192(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 10/11] the MoE family")
+        log("[phase 10/12] the MoE family")
         paths = moe_phase()
         log(f"chip_smoke: --moe-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -3582,18 +3832,28 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_dense_variant_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 11/11] the dense variants")
+        log("[phase 11/12] the dense variants")
         paths = dense_variants_phase()
         log(f"chip_smoke: --dense-variants-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
+    if args.gemma_only:
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        check_gemma_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
+        del flush
+        log("[phase 12/12] gemma-7b")
+        paths = gemma_phase()
+        log(f"chip_smoke: --gemma-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
 
-    log("[phase 3/11] kernels against their plain versions")
+    log("[phase 3/12] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [*check_flash(gen, flush), *check_paged(gen, flush), *check_flash_bwd(gen, flush),
                check_ssm_scan(gen, flush), *check_mlstm(gen, flush)]
-    for more in (check_flash_window_8192(gen, flush), check_dense_variant_kernels(gen, flush)):
+    for more in (check_flash_window_8192(gen, flush), check_dense_variant_kernels(gen, flush),
+                 check_gemma_kernels(gen, flush)):
         for kernel_name, err in more.items():
             rec = next(r for r in records if r["name"] == kernel_name)
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -3603,29 +3863,29 @@ def main() -> int:
         log("chip_smoke: --kernels-only, stopped before serving")
         return 0
 
-    log("[phase 4/11] serving")
+    log("[phase 4/12] serving")
     paths = {"serve": serve_full_width()}
     paths["serve_f32"] = serve_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 5/11] hybrid serving")
+    log("[phase 5/12] hybrid serving")
     paths["hybrid"] = serve_hybrid_full_width()
     paths["hybrid_f32"] = greedy_reduced_matches_cpu("hymba-1.5b", "hybrid",
                                                      "flash_attention_fma", "ssm_scan")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 6/11] xLSTM serving")
+    log("[phase 6/12] xLSTM serving")
     paths["xlstm"] = serve_xlstm_full_width()
     paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_fma",
                                                     "mlstm_step")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 7/11] training")
+    log("[phase 7/12] training")
     paths["train"] = train_full_width()
     paths["train_f32"] = train_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 8/11] the spot provisioner")
+    log("[phase 8/12] the spot provisioner")
     paths["spot"] = spot_full_width()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3633,16 +3893,20 @@ def main() -> int:
     paths["spot_launch"] = spot_launcher()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 9/11] spot serving")
+    log("[phase 9/12] spot serving")
     paths.update(spot_serving())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 10/11] the MoE family")
+    log("[phase 10/12] the MoE family")
     paths.update(moe_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 11/11] the dense variants")
+    log("[phase 11/12] the dense variants")
     paths.update(dense_variants_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 12/12] gemma-7b")
+    paths.update(gemma_phase())
     for r in records:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -16,14 +16,16 @@
 //   - one block per (head, 128-row q tile, batch), heads fastest and q
 //     tiles last-first, so every head's longest causal rows start in the
 //     first wave;
-//   - a producer warp keeps TMA loads of 128-row K and V tiles in flight
+//   - a producer warp keeps TMA loads of 128-row K and V tiles (64-row at
+//     hd 256, where two stages of 128 rows would not fit beside Q) in flight
 //     through a 2-stage mbarrier ring; two consumer warpgroups own 64 q rows
-//     each (setmaxnreg moves registers from the producer to them);
-//   - S = Q K^T is a wgmma m64n128k16 with both operands in shared memory,
+//     each (setmaxnreg moves registers from the producer to them: at hd 256
+//     the O accumulator alone is 128 f32 registers a thread);
+//   - S = Q K^T is a wgmma m64n128k16 (m64n64k16 at hd 256) with both operands in shared memory,
 //     K-major; the online softmax runs on the accumulator fragment in
 //     registers (row max over the 4 threads of a row, exp2 with the scale
 //     folded in, the row sum l from the f32 p); O += P V is a wgmma
-//     m64n{hd}k16 with P as bf16 A operands from registers (two: see the
+//     m64n{hd}k16 (up to m64n256k16) with P as bf16 A operands from registers (two: see the
 //     last point) and V MN-major (the transpose bit, no copy of V);
 //   - kv tiles that the causal mask or the window cover entirely are
 //     skipped (the Pallas kernel's `run` predicate), for the block and, in
@@ -41,7 +43,8 @@
 // * f32, `flash_fwd_kernel`, plain f32 FMAs out of shared memory: f32
 //   callers (the reduced models, whose card-equals-CPU checks hold 1e-4)
 //   need f32 products, which TF32 tensor cores would not give. One block of
-//   128 threads per (batch, head, 64-row q tile); q, k and v converted to
+//   128 threads per (batch, head, 64-row q tile), head dims 32 to 256 (214 KB
+//   of shared memory at 256); q, k and v converted to
 //   f32 once into shared memory (rows padded by one float); each thread owns
 //   a 4 x 8 block of the score tile and a 4 x hd/8 block of the output; row
 //   max and row sum reduce over the 8 threads of a row with warp shuffles.
@@ -226,6 +229,7 @@ cudaError_t dispatch_hd(const FlashArgs& a, int hd, cudaStream_t stream) {
     case 32: return launch<T, 32>(a, stream);
     case 64: return launch<T, 64>(a, stream);
     case 128: return launch<T, 128>(a, stream);
+    case 256: return launch<T, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -238,7 +242,6 @@ using bf16 = __nv_bfloat16;
 namespace hw = repro::hopper;
 
 constexpr int BQ = 128;                    // q rows per block (two warpgroups of 64)
-constexpr int BK = 128;                    // kv rows per tile
 constexpr int STAGES = 2;                  // K/V ring depth
 constexpr int CONSUMERS = 2;               // consumer warpgroups
 constexpr int THREADS = 128 * (CONSUMERS + 1);
@@ -255,6 +258,9 @@ struct Args {
 
 template <int HD>
 struct Layout {
+  // kv rows per tile: 128, or 64 at hd 256, where two stages of 128-row K
+  // and V tiles (256 KB) would not fit beside Q in 227 KB
+  static constexpr int BK = HD > 128 ? 64 : 128;
   static constexpr int SW = HD * 2 >= 128 ? 128 : 64;   // swizzle width, bytes
   static constexpr int BOX = SW / 2;                    // columns per TMA box
   static constexpr int Q_BYTES = BQ * HD * 2;
@@ -263,7 +269,8 @@ struct Layout {
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
 };
 
-// Whether rows [qlo, qhi] (absolute positions) see any key of the kv tile at k0.
+// Whether rows [qlo, qhi] (absolute positions) see any key of the BK-row kv tile at k0.
+template <int BK>
 __device__ __forceinline__ bool live(const Args& a, int qlo, int qhi, int k0) {
   if (a.causal && qhi < k0) return false;
   if (a.window && k0 + BK - 1 <= qlo - a.window) return false;
@@ -275,7 +282,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                     const __grid_constant__ CUtensorMap mv, const Args a) {
   using L = Layout<HD>;
-  constexpr int SW = L::SW;
+  constexpr int SW = L::SW, BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - hw::smem_u32(smem_raw) % 1024) % 1024);
   uint8_t* Qs = base;
@@ -311,7 +318,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
       uint32_t parity = 1;                               // the ring starts empty
       for (int kt = 0; kt < a.n_kv; ++kt) {
         const int k0 = kt * BK;
-        if (!live(a, qpos0, qpos0 + BQ - 1, k0)) continue;
+        if (!live<BK>(a, qpos0, qpos0 + BQ - 1, k0)) continue;
         hw::mbar_wait(&empty[stage], parity);
         hw::mbar_arrive_expect_tx(&full[stage], 2 * L::KV_BYTES);
         uint8_t* kd = Ks + stage * L::KV_BYTES;
@@ -324,7 +331,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
       }
     }
   } else {
-    // ---- consumer warpgroups: 64 q rows each ----
+    // ---- consumer warpgroups: 64 q rows each (at hd 256, o alone is 128
+    // registers a thread) ----
     hw::regs_alloc<240>();
     const int wg = threadIdx.x / 128;
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
@@ -343,9 +351,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
     uint32_t parity = 0;
     for (int kt = 0; kt < a.n_kv; ++kt) {
       const int k0 = kt * BK;
-      if (!live(a, qpos0, qpos0 + BQ - 1, k0)) continue;
+      if (!live<BK>(a, qpos0, qpos0 + BQ - 1, k0)) continue;
       hw::mbar_wait(&full[stage], parity);
-      if (live(a, qlo, qhi, k0)) {
+      if (live<BK>(a, qlo, qhi, k0)) {
         const uint8_t* kd = Ks + stage * L::KV_BYTES;
         const uint8_t* vd = Vs + stage * L::KV_BYTES;
         float s[BK / 2];
@@ -434,6 +442,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
 
 template <int HD>
 cudaError_t launch(const FlashArgs& f, cudaStream_t stream) {
+  constexpr int BK = Layout<HD>::BK;
   CUtensorMap mq, mk, mv;
   cudaError_t err;
   if ((err = hw::make_map(&mq, f.q, f.B, f.Sq, f.H, HD, f.q_sb, f.q_ss, f.q_sh, BQ)) ||
@@ -457,6 +466,7 @@ cudaError_t dispatch_hd(const FlashArgs& a, int hd, cudaStream_t stream) {
     case 32: return launch<32>(a, stream);
     case 64: return launch<64>(a, stream);
     case 128: return launch<128>(a, stream);
+    case 256: return launch<256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -38,6 +38,9 @@
 //   instead of 4, at f32-like accuracy;
 // * setmaxnreg gives each consumer thread 240 registers (dk and dv are 128
 //   f32 accumulators at hd 128) and the producer 24;
+// * at hd 256 that would be 256 accumulators: there a block takes 64 kv
+//   rows, both warpgroups compute the same s^T and dp^T for them, and each
+//   owns half of dK's and dV's columns (m64n128k16 products; `Layout::SPLIT`);
 // * tiles that the causal mask or the window cover entirely are skipped;
 //   the elementwise mask runs only on tiles that cross the diagonal, the
 //   window's edge or a ragged end; rows past Sq and Skv read as TMA's zero
@@ -57,23 +60,29 @@
 // * dq += ds K is a wgmma m64n{hd}k16 with ds as bf16 A operands from
 //   registers (hi + lo halves, as in dk/dv: 4 products a tile where the
 //   bound counts 1) and K MN-major from the tile that fed s (the transpose
-//   bit); setmaxnreg as in dk/dv; the elementwise mask only on edge tiles.
+//   bit); setmaxnreg as in dk/dv; the elementwise mask only on edge tiles;
+// * at hd 256 (`DqLayout::SPLIT`) a block takes 64 q rows, both warpgroups
+//   compute the same s and dp, and each owns half of dq's columns (dq alone
+//   would be 128 accumulators a thread, and 128-row Q and dO tiles would not
+//   fit beside the K and V ring).
 //
 // dk/dv and dq, f32: `flash_bwd_dkdv_kernel` and `flash_bwd_dq_kernel`,
 // plain f32 FMAs out of shared memory. f32 callers (the reduced models,
 // whose card-equals-CPU checks hold 1e-4) need f32 products, which TF32
 // tensor cores would not give.
-// * dkdv: one block of 256 threads per (batch, kv head, 64-row kv tile); it
+// * tiles of 64 rows, or 32 at hd 256 (`TILE_ROWS`), so that q, do, k and v
+//   in f32 fit shared memory (140 KB at hd 256);
+// * dkdv: one block of 256 threads per (batch, kv head, kv tile); it
 //   loads its k and v tile once, then walks the G query heads of that kv head
-//   and, for each, the live 64-row q tiles, accumulating dk and dv in
+//   and, for each, the live q tiles, accumulating dk and dv in
 //   registers and writing each once;
-// * dq: one block per (batch, head, 64-row q tile); it loads q, do, lse and
+// * dq: one block per (batch, head, q tile); it loads q, do, lse and
 //   delta once and walks the live kv tiles, accumulating dq in registers;
 // * ragged tails of Sq and Skv are masked per row and column instead of
 //   padded; every tensor is read in the model's (B, S, H, hd) layout through
 //   strides, so there are no transpose or pad copies;
 // * the scores and dp of a tile are computed together: each thread owns a
-//   2 x 8 block of the 64 x 64 tile; p and ds go through shared memory (rows
+//   2 x 8 block of the 64 x 64 tile (1 x 4 of 32 x 32); p and ds go through shared memory (rows
 //   padded by one float, as every f32 tile here, so column reads are free of
 //   bank conflicts) into the products that accumulate the gradients.
 #include <stdint.h>
@@ -83,10 +92,12 @@
 
 namespace {
 
-constexpr int BQ = 64;         // q rows per tile
-constexpr int BK = 64;         // kv rows per tile
-constexpr int THREADS = 256;   // 32 row pairs x 8 column threads
-constexpr int LDP = BK + 1;    // row stride of the p / ds tiles
+constexpr int THREADS = 256;   // 32 row groups x 8 column threads
+
+// Square q and kv tiles of TB rows for head dim HD: 64, or 32 at hd 256,
+// where two 64-row tiles of q, do, k and v in f32 (297 KB) would not fit.
+template <int HD>
+constexpr int TILE_ROWS = HD > 128 ? 32 : 64;
 
 struct BwdArgs {
   const void* q; const void* k; const void* v; const void* dout;
@@ -120,10 +131,11 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
-// lse and delta of rows [row0, row0 + BQ) of one (b, h); rows past Sq read 0.
+// lse and delta of rows [row0, row0 + TB) of one (b, h); rows past Sq read 0.
+template <int TB>
 __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s, const BwdArgs& a,
                                           int b, int h, int row0) {
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
+  for (int r = threadIdx.x; r < TB; r += THREADS) {
     const int row = row0 + r;
     const long long idx = ((long long)b * a.H + h) * a.Sq + row;
     lse_s[r] = row < a.Sq ? a.lse[idx] : 0.f;
@@ -131,54 +143,56 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s, const Bw
   }
 }
 
+template <int TB>
 __device__ __forceinline__ bool tile_live(const BwdArgs& a, int qpos0, int k0) {
-  if (a.causal && qpos0 + BQ - 1 < k0) return false;
-  if (a.window && k0 + BK - 1 <= qpos0 - a.window) return false;
+  if (a.causal && qpos0 + TB - 1 < k0) return false;
+  if (a.window && k0 + TB - 1 <= qpos0 - a.window) return false;
   return true;
 }
 
 // p and ds of one (q tile, kv tile) pair into shared memory. Thread (ty, tx)
-// computes rows 2ty, 2ty+1 and columns tx + 8j of s = q k^T and dp = do v^T.
-template <int HD>
+// computes rows R ty .. R ty + R - 1 and columns tx + 8j (j < C) of s = q k^T
+// and dp = do v^T, R = TB / 32 and C = TB / 8.
+template <int HD, int TB>
 __device__ __forceinline__ void p_and_ds(float* Ps, float* dSs, const float* Qs,
                                          const float* dOs, const float* Ks, const float* Vs,
                                          const float* lse_s, const float* delta_s,
                                          const BwdArgs& a, int q0, int k0) {
-  constexpr int LD = HD + 1;
+  constexpr int LD = HD + 1, LDP = TB + 1, R = TB / 32, C = TB / 8;
   const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
-  float s[2][8], dp[2][8];
+  float s[R][C], dp[R][C];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < C; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < HD; ++d) {
-    float qa[2], da[2], kk[8], vv[8];
+    float qa[R], da[R], kk[C], vv[C];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      qa[i] = Qs[(ty * 2 + i) * LD + d];
-      da[i] = dOs[(ty * 2 + i) * LD + d];
+    for (int i = 0; i < R; ++i) {
+      qa[i] = Qs[(ty * R + i) * LD + d];
+      da[i] = dOs[(ty * R + i) * LD + d];
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < C; ++j) {
       kk[j] = Ks[(tx + 8 * j) * LD + d];
       vv[j] = Vs[(tx + 8 * j) * LD + d];
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < C; ++j) {
         s[i][j] = fmaf(qa[i], kk[j], s[i][j]);
         dp[i][j] = fmaf(da[i], vv[j], dp[i][j]);
       }
   }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = ty * 2 + i;
+  for (int i = 0; i < R; ++i) {
+    const int r = ty * R + i;
     const int qrow = q0 + r;
     const int qp = a.q_offset + qrow;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < C; ++j) {
       const int c = tx + 8 * j;
       const int kp = k0 + c;
       bool ok = qrow < a.Sq && kp < a.Skv;
@@ -193,64 +207,65 @@ __device__ __forceinline__ void p_and_ds(float* Ps, float* dSs, const float* Qs,
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(BwdArgs a) {
-  constexpr int LD = HD + 1;
+  constexpr int TB = TILE_ROWS<HD>, R = TB / 32;
+  constexpr int LD = HD + 1, LDP = TB + 1;
   constexpr int DJ = HD / 8;           // gradient columns per thread
   extern __shared__ float smem[];
-  float* Ks = smem;                    // BK x LD
-  float* Vs = Ks + BK * LD;            // BK x LD
-  float* Qs = Vs + BK * LD;            // BQ x LD
-  float* dOs = Qs + BQ * LD;           // BQ x LD
-  float* Ps = dOs + BQ * LD;           // BQ x LDP
-  float* dSs = Ps + BQ * LDP;          // BQ x LDP
-  float* lse_s = dSs + BQ * LDP;       // BQ
-  float* delta_s = lse_s + BQ;         // BQ
+  float* Ks = smem;                    // TB x LD
+  float* Vs = Ks + TB * LD;            // TB x LD
+  float* Qs = Vs + TB * LD;            // TB x LD
+  float* dOs = Qs + TB * LD;           // TB x LD
+  float* Ps = dOs + TB * LD;           // TB x LDP
+  float* dSs = Ps + TB * LDP;          // TB x LDP
+  float* lse_s = dSs + TB * LDP;       // TB
+  float* delta_s = lse_s + TB;         // TB
 
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.KVH;
-  const int k0 = kt * BK;
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;  // kv rows 2ty, 2ty+1; cols tx + 8j
+  const int k0 = kt * TB;
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;  // kv rows R ty + i; cols tx + 8j
 
-  load_tile<T, HD, BK>(Ks, static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh,
+  load_tile<T, HD, TB>(Ks, static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh,
                        a.k_ss, k0, a.Skv);
-  load_tile<T, HD, BK>(Vs, static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh,
+  load_tile<T, HD, TB>(Vs, static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh,
                        a.v_ss, k0, a.Skv);
 
-  float dk[2][DJ], dv[2][DJ];
+  float dk[R][DJ], dv[R][DJ];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
-  const int n_q = (a.Sq + BQ - 1) / BQ;
+  const int n_q = (a.Sq + TB - 1) / TB;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
     const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
     const T* db = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
     for (int qt = 0; qt < n_q; ++qt) {
-      const int q0 = qt * BQ;
-      if (!tile_live(a, a.q_offset + q0, k0)) continue;
+      const int q0 = qt * TB;
+      if (!tile_live<TB>(a, a.q_offset + q0, k0)) continue;
       __syncthreads();                 // the previous tile's smem reads are done
-      load_tile<T, HD, BQ>(Qs, qb, a.q_ss, q0, a.Sq);
-      load_tile<T, HD, BQ>(dOs, db, a.do_ss, q0, a.Sq);
-      load_rows(lse_s, delta_s, a, b, h, q0);
+      load_tile<T, HD, TB>(Qs, qb, a.q_ss, q0, a.Sq);
+      load_tile<T, HD, TB>(dOs, db, a.do_ss, q0, a.Sq);
+      load_rows<TB>(lse_s, delta_s, a, b, h, q0);
       __syncthreads();
-      p_and_ds<HD>(Ps, dSs, Qs, dOs, Ks, Vs, lse_s, delta_s, a, q0, k0);
+      p_and_ds<HD, TB>(Ps, dSs, Qs, dOs, Ks, Vs, lse_s, delta_s, a, q0, k0);
       __syncthreads();
       // dv[c] += sum_r p[r][c] do[r];  dk[c] += sum_r ds[r][c] q[r]
 #pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
-        float pa[2], sa[2];
+      for (int r = 0; r < TB; ++r) {
+        float pa[R], sa[R];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          pa[i] = Ps[r * LDP + ty * 2 + i];
-          sa[i] = dSs[r * LDP + ty * 2 + i];
+        for (int i = 0; i < R; ++i) {
+          pa[i] = Ps[r * LDP + ty * R + i];
+          sa[i] = dSs[r * LDP + ty * R + i];
         }
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
           const float dov = dOs[r * LD + tx + 8 * j];
           const float qv = Qs[r * LD + tx + 8 * j];
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
+          for (int i = 0; i < R; ++i) {
             dv[i][j] = fmaf(pa[i], dov, dv[i][j]);
             dk[i][j] = fmaf(sa[i], qv, dk[i][j]);
           }
@@ -260,8 +275,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(BwdArgs a) {
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = k0 + ty * 2 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = k0 + ty * R + i;
     if (row >= a.Skv) continue;
     T* dkrow = static_cast<T*>(a.dk) + b * a.dk_sb + row * a.dk_ss + kvh * a.dk_sh;
     T* dvrow = static_cast<T*>(a.dv) + b * a.dv_sb + row * a.dv_ss + kvh * a.dv_sh;
@@ -275,68 +290,69 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(BwdArgs a) {
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(BwdArgs a) {
-  constexpr int LD = HD + 1;
+  constexpr int TB = TILE_ROWS<HD>, R = TB / 32;
+  constexpr int LD = HD + 1, LDP = TB + 1;
   constexpr int DJ = HD / 8;
   extern __shared__ float smem[];
-  float* Qs = smem;                    // BQ x LD
-  float* dOs = Qs + BQ * LD;           // BQ x LD
-  float* Ks = dOs + BQ * LD;           // BK x LD
-  float* Vs = Ks + BK * LD;            // BK x LD
-  float* Ps = Vs + BK * LD;            // BQ x LDP
-  float* dSs = Ps + BQ * LDP;          // BQ x LDP
-  float* lse_s = dSs + BQ * LDP;       // BQ
-  float* delta_s = lse_s + BQ;         // BQ
+  float* Qs = smem;                    // TB x LD
+  float* dOs = Qs + TB * LD;           // TB x LD
+  float* Ks = dOs + TB * LD;           // TB x LD
+  float* Vs = Ks + TB * LD;            // TB x LD
+  float* Ps = Vs + TB * LD;            // TB x LDP
+  float* dSs = Ps + TB * LDP;          // TB x LDP
+  float* lse_s = dSs + TB * LDP;       // TB
+  float* delta_s = lse_s + TB;         // TB
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KVH);
-  const int q0 = qt * BQ;
+  const int q0 = qt * TB;
   const int qpos0 = a.q_offset + q0;
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;  // q rows 2ty, 2ty+1; cols tx + 8j
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;  // q rows R ty + i; cols tx + 8j
 
-  load_tile<T, HD, BQ>(Qs, static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh,
+  load_tile<T, HD, TB>(Qs, static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh,
                        a.q_ss, q0, a.Sq);
-  load_tile<T, HD, BQ>(dOs, static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh,
+  load_tile<T, HD, TB>(dOs, static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh,
                        a.do_ss, q0, a.Sq);
-  load_rows(lse_s, delta_s, a, b, h, q0);
+  load_rows<TB>(lse_s, delta_s, a, b, h, q0);
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
-  float dq[2][DJ];
+  float dq[R][DJ];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dq[i][j] = 0.f;
 
-  const int n_kv = (a.Skv + BK - 1) / BK;
+  const int n_kv = (a.Skv + TB - 1) / TB;
   for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BK;
-    if (a.causal && qpos0 + BQ - 1 < k0) break;              // this and later tiles masked
-    if (!tile_live(a, qpos0, k0)) continue;
+    const int k0 = kt * TB;
+    if (a.causal && qpos0 + TB - 1 < k0) break;              // this and later tiles masked
+    if (!tile_live<TB>(a, qpos0, k0)) continue;
     __syncthreads();
-    load_tile<T, HD, BK>(Ks, kb, a.k_ss, k0, a.Skv);
-    load_tile<T, HD, BK>(Vs, vb, a.v_ss, k0, a.Skv);
+    load_tile<T, HD, TB>(Ks, kb, a.k_ss, k0, a.Skv);
+    load_tile<T, HD, TB>(Vs, vb, a.v_ss, k0, a.Skv);
     __syncthreads();
-    p_and_ds<HD>(Ps, dSs, Qs, dOs, Ks, Vs, lse_s, delta_s, a, q0, k0);
+    p_and_ds<HD, TB>(Ps, dSs, Qs, dOs, Ks, Vs, lse_s, delta_s, a, q0, k0);
     __syncthreads();
     // dq[r] += sum_c ds[r][c] k[c]
 #pragma unroll 2
-    for (int c = 0; c < BK; ++c) {
-      float sa[2];
+    for (int c = 0; c < TB; ++c) {
+      float sa[R];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) sa[i] = dSs[(ty * 2 + i) * LDP + c];
+      for (int i = 0; i < R; ++i) sa[i] = dSs[(ty * R + i) * LDP + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
         const float kv = Ks[c * LD + tx + 8 * j];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) dq[i][j] = fmaf(sa[i], kv, dq[i][j]);
+        for (int i = 0; i < R; ++i) dq[i][j] = fmaf(sa[i], kv, dq[i][j]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + ty * 2 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty * R + i;
     if (row >= a.Sq) continue;
     T* dqrow = static_cast<T*>(a.dq) + b * a.dq_sb + row * a.dq_ss + h * a.dq_sh;
 #pragma unroll
@@ -346,27 +362,28 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(BwdArgs a) {
 
 template <int HD>
 constexpr int smem_bytes() {
-  return int(sizeof(float)) * ((BQ + BK) * 2 * (HD + 1) + 2 * BQ * LDP + 2 * BQ);
+  constexpr int TB = TILE_ROWS<HD>;
+  return int(sizeof(float)) * (4 * TB * (HD + 1) + 2 * TB * (TB + 1) + 2 * TB);
 }
 
 template <typename T, int HD>
 cudaError_t launch_dkdv(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD>();
+  constexpr int smem = smem_bytes<HD>(), TB = TILE_ROWS<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkdv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Skv + BK - 1) / BK, a.KVH, a.B);
+  const dim3 grid((a.Skv + TB - 1) / TB, a.KVH, a.B);
   flash_bwd_dkdv_kernel<T, HD><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD>();
+  constexpr int smem = smem_bytes<HD>(), TB = TILE_ROWS<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
+  const dim3 grid((a.Sq + TB - 1) / TB, a.H, a.B);
   flash_bwd_dq_kernel<T, HD><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -378,7 +395,6 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 namespace hw = repro::hopper;
 
-constexpr int BKV = 128;                   // kv rows per block (two warpgroups of 64)
 constexpr int BQT = 64;                    // q rows per streamed tile
 constexpr int STAGES = 2;                  // Q/dO ring depth
 constexpr int CONSUMERS = 2;
@@ -394,8 +410,16 @@ struct Args {
   float sm_scale, scale_log2;              // scale_log2 = sm_scale * log2(e)
 };
 
+// Up to hd 128 the two consumer warpgroups own 64 kv rows each and all of
+// their dK and dV columns (128 f32 accumulators a thread at hd 128). At hd
+// 256 that would be 256: there the block takes 64 kv rows, both warpgroups
+// compute the same s^T and dp^T for them, and each owns half of dK's and
+// dV's columns (SPLIT).
 template <int HD>
 struct Layout {
+  static constexpr bool SPLIT = HD > 128;
+  static constexpr int BKV = SPLIT ? 64 : 128;    // kv rows per block
+  static constexpr int NCOL = SPLIT ? HD / 2 : HD;   // dK, dV columns per warpgroup
   static constexpr int SW = HD * 2 >= 128 ? 128 : 64;
   static constexpr int BOX = SW / 2;
   static constexpr int KV_BYTES = BKV * HD * 2;   // K, and V
@@ -419,7 +443,7 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq,
                          const __grid_constant__ CUtensorMap mv,
                          const __grid_constant__ CUtensorMap mdo, const Args a) {
   using L = Layout<HD>;
-  constexpr int SW = L::SW;
+  constexpr int SW = L::SW, BKV = L::BKV, NCOL = L::NCOL;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - hw::smem_u32(smem_raw) % 1024) % 1024);
   uint8_t* Ks = base;
@@ -487,19 +511,21 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq,
       }
     }
   } else {
-    // ---- consumer warpgroups: 64 kv rows each ----
+    // ---- consumer warpgroups: 64 kv rows each (SPLIT: the same 64, half the columns) ----
     hw::regs_alloc<240>();
     const int wg = threadIdx.x / 128;
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int r0 = warp * 16 + lane / 4;                 // kv rows r0 and r0 + 8 of the 64
     const int cq = 2 * (lane % 4);                       // q columns cq, cq + 1 of each 8
-    const int klo = k0 + wg * 64, khi = klo + 63;
-    const uint8_t* k_wg = Ks + wg * 64 * SW;
-    const uint8_t* v_wg = Vs + wg * 64 * SW;
+    const int rows0 = L::SPLIT ? 0 : wg * 64;            // the warpgroup's kv rows in the block
+    const int col0 = L::SPLIT ? wg * NCOL : 0;           // and its first dK, dV column
+    const int klo = k0 + rows0, khi = klo + 63;
+    const uint8_t* k_wg = Ks + rows0 * SW;
+    const uint8_t* v_wg = Vs + rows0 * SW;
 
-    float dk[HD / 2], dv[HD / 2];
+    float dk[NCOL / 2], dv[NCOL / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < NCOL / 2; ++i) dk[i] = dv[i] = 0.f;
 
     hw::mbar_wait(bar_kv, 0);
     int stage = 0;
@@ -560,8 +586,9 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq,
           hw::wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < BQT / 16; ++kk) {      // dv += p^T dO, dk += ds^T Q
-            const uint64_t d_do = hw::make_desc<SW>(dd + kk * 16 * SW, BQT * SW, 8 * SW);
-            const uint64_t d_q = hw::make_desc<SW>(qd + kk * 16 * SW, BQT * SW, 8 * SW);
+            const int off = (col0 / L::BOX) * BQT * SW + kk * 16 * SW;   // the NCOL columns
+            const uint64_t d_do = hw::make_desc<SW>(dd + off, BQT * SW, 8 * SW);
+            const uint64_t d_q = hw::make_desc<SW>(qd + off, BQT * SW, 8 * SW);
             hw::wgmma_rs_tb(dv, p_hi[kk], d_do, 1);
             hw::wgmma_rs_tb(dv, p_lo[kk], d_do, 1);
             hw::wgmma_rs_tb(dk, ds_hi[kk], d_q, 1);
@@ -582,10 +609,10 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq,
     for (int i = 0; i < 2; ++i) {
       const int row = klo + r0 + 8 * i;
       if (row >= a.Skv) continue;
-      bf16* dkrow = a.dk + b * a.dk_sb + row * a.dk_ss + kvh * a.dk_sh;
-      bf16* dvrow = a.dv + b * a.dv_sb + row * a.dv_ss + kvh * a.dv_sh;
+      bf16* dkrow = a.dk + b * a.dk_sb + row * a.dk_ss + kvh * a.dk_sh + col0;
+      bf16* dvrow = a.dv + b * a.dv_sb + row * a.dv_ss + kvh * a.dv_sh + col0;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
+      for (int n = 0; n < NCOL / 8; ++n) {
         *reinterpret_cast<uint32_t*>(dkrow + 8 * n + cq) =
             hw::pack_bf16(dk[4 * n + 2 * i], dk[4 * n + 2 * i + 1]);
         *reinterpret_cast<uint32_t*>(dvrow + 8 * n + cq) =
@@ -597,6 +624,7 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq,
 
 template <int HD>
 cudaError_t launch_dkdv(const BwdArgs& f, cudaStream_t stream) {
+  constexpr int BKV = Layout<HD>::BKV;
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t err;
   if ((err = hw::make_map(&mq, f.q, f.B, f.Sq, f.H, HD, f.q_sb, f.q_ss, f.q_sh, BQT)) ||
@@ -619,7 +647,6 @@ cudaError_t launch_dkdv(const BwdArgs& f, cudaStream_t stream) {
 
 // ---- bf16 dq: the tensor-core kernel ----------------------------------------
 
-constexpr int DQ_BQ = 128;                 // q rows per block (two warpgroups of 64)
 constexpr int DQ_BK = 64;                  // kv rows per streamed tile
 
 struct DqArgs {
@@ -631,11 +658,18 @@ struct DqArgs {
   float sm_scale, scale_log2;              // scale_log2 = sm_scale * log2(e)
 };
 
+// As for dk/dv: two warpgroups of 64 q rows each, or at hd 256 (SPLIT)
+// the same 64 q rows with half of dq's columns each (dq alone would be 128
+// accumulators a thread, and 128-row Q and dO tiles would not fit beside
+// the K and V ring).
 template <int HD>
 struct DqLayout {
+  static constexpr bool SPLIT = HD > 128;
+  static constexpr int BQ = SPLIT ? 64 : 128;      // q rows per block
+  static constexpr int NCOL = SPLIT ? HD / 2 : HD; // dq columns per warpgroup
   static constexpr int SW = HD * 2 >= 128 ? 128 : 64;
   static constexpr int BOX = SW / 2;
-  static constexpr int Q_BYTES = DQ_BQ * HD * 2;   // Q, and dO
+  static constexpr int Q_BYTES = BQ * HD * 2;      // Q, and dO
   static constexpr int KV_BYTES = DQ_BK * HD * 2;  // each stage's K, and V
   // Q | dO | K[STAGES] | V[STAGES] | barriers
   static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
@@ -655,7 +689,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
                        const __grid_constant__ CUtensorMap mv,
                        const __grid_constant__ CUtensorMap mdo, const DqArgs a) {
   using L = DqLayout<HD>;
-  constexpr int SW = L::SW;
+  constexpr int SW = L::SW, BQ = L::BQ, NCOL = L::NCOL;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - hw::smem_u32(smem_raw) % 1024) % 1024);
   uint8_t* Qs = base;
@@ -667,9 +701,9 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
   uint64_t* empty = full + STAGES;
 
   const int h = blockIdx.x, b = blockIdx.z;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_BQ;  // longest causal rows first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;     // longest causal rows first
   const int kvh = h / a.G;
-  const int qpos0 = a.q_offset + q0, qpos1 = qpos0 + DQ_BQ - 1;
+  const int qpos0 = a.q_offset + q0, qpos1 = qpos0 + BQ - 1;
 
   if (threadIdx.x == 0) {
     hw::mbar_init(bar_q, 1);
@@ -687,8 +721,8 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
     if (threadIdx.x == CONSUMERS * 128) {
       hw::mbar_arrive_expect_tx(bar_q, 2 * L::Q_BYTES);
       for (int c = 0; c < HD / L::BOX; ++c) {
-        hw::tma_load_4d(Qs + c * DQ_BQ * SW, &mq, bar_q, c * L::BOX, h, q0, b);
-        hw::tma_load_4d(dOs + c * DQ_BQ * SW, &mdo, bar_q, c * L::BOX, h, q0, b);
+        hw::tma_load_4d(Qs + c * BQ * SW, &mq, bar_q, c * L::BOX, h, q0, b);
+        hw::tma_load_4d(dOs + c * BQ * SW, &mdo, bar_q, c * L::BOX, h, q0, b);
       }
       int stage = 0;
       uint32_t parity = 1;                               // the ring starts empty
@@ -708,27 +742,29 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
       }
     }
   } else {
-    // ---- consumer warpgroups: 64 q rows each ----
+    // ---- consumer warpgroups: 64 q rows each (SPLIT: the same 64, half the columns) ----
     hw::regs_alloc<240>();
     const int wg = threadIdx.x / 128;
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int r0 = warp * 16 + lane / 4;                 // q rows r0 and r0 + 8 of the 64
     const int cq = 2 * (lane % 4);                       // columns cq, cq + 1 of each 8
-    const int qlo = qpos0 + wg * 64, qhi = qlo + 63;
-    const uint8_t* q_wg = Qs + wg * 64 * SW;
-    const uint8_t* do_wg = dOs + wg * 64 * SW;
+    const int rows0 = L::SPLIT ? 0 : wg * 64;            // the warpgroup's q rows in the block
+    const int col0 = L::SPLIT ? wg * NCOL : 0;           // and its first dq column
+    const int qlo = qpos0 + rows0, qhi = qlo + 63;
+    const uint8_t* q_wg = Qs + rows0 * SW;
+    const uint8_t* do_wg = dOs + rows0 * SW;
 
     float lse2[2], dlt[2];                               // lse log2e and delta of both rows
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int row = q0 + wg * 64 + r0 + 8 * i;
+      const int row = q0 + rows0 + r0 + 8 * i;
       const long long idx = ((long long)b * a.H + h) * a.Sq + row;
       lse2[i] = row < a.Sq ? a.lse[idx] * LOG2E : 0.f;
       dlt[i] = row < a.Sq ? a.delta[idx] : 0.f;
     }
-    float dq[HD / 2];
+    float dq[NCOL / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < NCOL / 2; ++i) dq[i] = 0.f;
 
     hw::mbar_wait(bar_q, 0);
     int stage = 0;
@@ -746,13 +782,13 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {         // s = Q K^T
           const int col = (kk * 16 % L::BOX) * 2, box = kk * 16 / L::BOX;
-          hw::wgmma_ss(s, hw::make_desc<SW>(q_wg + box * DQ_BQ * SW + col, 0, 8 * SW),
+          hw::wgmma_ss(s, hw::make_desc<SW>(q_wg + box * BQ * SW + col, 0, 8 * SW),
                        hw::make_desc<SW>(kd + box * DQ_BK * SW + col, 0, 8 * SW), kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {         // dp = dO V^T
           const int col = (kk * 16 % L::BOX) * 2, box = kk * 16 / L::BOX;
-          hw::wgmma_ss(dp, hw::make_desc<SW>(do_wg + box * DQ_BQ * SW + col, 0, 8 * SW),
+          hw::wgmma_ss(dp, hw::make_desc<SW>(do_wg + box * BQ * SW + col, 0, 8 * SW),
                        hw::make_desc<SW>(vd + box * DQ_BK * SW + col, 0, 8 * SW), kk > 0);
         }
         hw::wgmma_commit();
@@ -783,7 +819,8 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
         hw::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DQ_BK / 16; ++kk) {      // dq += ds K
-          const uint64_t d_k = hw::make_desc<SW>(kd + kk * 16 * SW, DQ_BK * SW, 8 * SW);
+          const uint64_t d_k = hw::make_desc<SW>(kd + (col0 / L::BOX) * DQ_BK * SW + kk * 16 * SW,
+                                                 DQ_BK * SW, 8 * SW);
           hw::wgmma_rs_tb(dq, ds_hi[kk], d_k, 1);
           hw::wgmma_rs_tb(dq, ds_lo[kk], d_k, 1);
         }
@@ -798,11 +835,11 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int row = q0 + wg * 64 + r0 + 8 * i;
+      const int row = q0 + rows0 + r0 + 8 * i;
       if (row >= a.Sq) continue;
-      bf16* dqrow = a.dq + b * a.dq_sb + row * a.dq_ss + h * a.dq_sh;
+      bf16* dqrow = a.dq + b * a.dq_sb + row * a.dq_ss + h * a.dq_sh + col0;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
+      for (int n = 0; n < NCOL / 8; ++n)
         *reinterpret_cast<uint32_t*>(dqrow + 8 * n + cq) =
             hw::pack_bf16(dq[4 * n + 2 * i], dq[4 * n + 2 * i + 1]);
     }
@@ -811,10 +848,11 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
 
 template <int HD>
 cudaError_t launch_dq(const BwdArgs& f, cudaStream_t stream) {
+  constexpr int BQ = DqLayout<HD>::BQ;
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t err;
-  if ((err = hw::make_map(&mq, f.q, f.B, f.Sq, f.H, HD, f.q_sb, f.q_ss, f.q_sh, DQ_BQ)) ||
-      (err = hw::make_map(&mdo, f.dout, f.B, f.Sq, f.H, HD, f.do_sb, f.do_ss, f.do_sh, DQ_BQ)) ||
+  if ((err = hw::make_map(&mq, f.q, f.B, f.Sq, f.H, HD, f.q_sb, f.q_ss, f.q_sh, BQ)) ||
+      (err = hw::make_map(&mdo, f.dout, f.B, f.Sq, f.H, HD, f.do_sb, f.do_ss, f.do_sh, BQ)) ||
       (err = hw::make_map(&mk, f.k, f.B, f.Skv, f.KVH, HD, f.k_sb, f.k_ss, f.k_sh, DQ_BK)) ||
       (err = hw::make_map(&mv, f.v, f.B, f.Skv, f.KVH, HD, f.v_sb, f.v_ss, f.v_sh, DQ_BK)))
     return err;
@@ -825,7 +863,7 @@ cudaError_t launch_dq(const BwdArgs& f, cudaStream_t stream) {
   err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(f.H, (f.Sq + DQ_BQ - 1) / DQ_BQ, f.B);
+  const dim3 grid(f.H, (f.Sq + BQ - 1) / BQ, f.B);
   flash_bwd_dq_tc_kernel<HD><<<grid, THREADS, smem, stream>>>(mq, mk, mv, mdo, a);
   return cudaGetLastError();
 }
@@ -839,6 +877,7 @@ cudaError_t dispatch_dq(const BwdArgs& a, int dtype, int hd, cudaStream_t s) {
     case 32: return f32 ? launch_dq<float, 32>(a, s) : tc::launch_dq<32>(a, s);
     case 64: return f32 ? launch_dq<float, 64>(a, s) : tc::launch_dq<64>(a, s);
     case 128: return f32 ? launch_dq<float, 128>(a, s) : tc::launch_dq<128>(a, s);
+    case 256: return f32 ? launch_dq<float, 256>(a, s) : tc::launch_dq<256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -850,6 +889,7 @@ cudaError_t dispatch_dkdv(const BwdArgs& a, int dtype, int hd, cudaStream_t s) {
     case 32: return f32 ? launch_dkdv<float, 32>(a, s) : tc::launch_dkdv<32>(a, s);
     case 64: return f32 ? launch_dkdv<float, 64>(a, s) : tc::launch_dkdv<64>(a, s);
     case 128: return f32 ? launch_dkdv<float, 128>(a, s) : tc::launch_dkdv<128>(a, s);
+    case 256: return f32 ? launch_dkdv<float, 256>(a, s) : tc::launch_dkdv<256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -39,6 +39,8 @@
 //   (no atomics: the same bits every run) and writes the output in q's
 //   type. A dead lane (seq_len 0) has no live segment and writes exact
 //   zeros; no block reads another lane's data.
+// Head dims 32, 64, 128 and 256 (at 256 the ring is 64 KB in bf16, 128 KB
+// in f32, and the group size at most 4).
 #include <stdint.h>
 
 #include <type_traits>
@@ -149,6 +151,7 @@ __global__ void __launch_bounds__(THREADS) paged_split_fma_kernel(PagedArgs a) {
   constexpr int DC = HD / 8;                        // 8-column chunks of a row
   constexpr int OWNERS = G * DC;                    // PV phase: (head, 8 columns) pairs
   constexpr int PSPLIT = THREADS / OWNERS;          // threads sharing an owner's positions
+  static_assert(OWNERS <= THREADS, "every (head, 8 columns) pair needs a thread");
   extern __shared__ __align__(16) uint8_t smem[];
   T* ring = reinterpret_cast<T*>(smem);             // [STAGES][TILE][HD]
   float* qs = reinterpret_cast<float*>(smem + S::RING);   // [G][SPLIT][QP], scaled
@@ -483,13 +486,17 @@ cudaError_t launch(const PagedArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Group sizes 1, 2, 4 and 8; at hd 256 up to 4 (the FMA kernel's P.V phase
+// gives each (head, 8 columns) pair a thread of its 128).
 template <typename T, int HD>
 cudaError_t dispatch_g(const PagedArgs& a, cudaStream_t stream) {
   switch (a.H / a.KVH) {
     case 1: return launch<T, HD, 1>(a, stream);
     case 2: return launch<T, HD, 2>(a, stream);
     case 4: return launch<T, HD, 4>(a, stream);
-    case 8: return launch<T, HD, 8>(a, stream);
+    case 8:
+      if constexpr (HD <= 128) return launch<T, HD, 8>(a, stream);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -500,6 +507,7 @@ cudaError_t dispatch_hd(const PagedArgs& a, int hd, cudaStream_t stream) {
     case 32: return dispatch_g<T, 32>(a, stream);
     case 64: return dispatch_g<T, 64>(a, stream);
     case 128: return dispatch_g<T, 128>(a, stream);
+    case 256: return dispatch_g<T, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

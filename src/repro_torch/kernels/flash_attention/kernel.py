@@ -20,7 +20,7 @@ from repro_torch.kernels import _build
 launches_tc = 0    # bf16: wgmma + TMA
 launches_fma = 0   # f32: f32 FMAs
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -23,8 +23,9 @@ from repro_torch.kernels.paged_attention.ref import SEGMENT_POSITIONS
 launches_tc = 0     # calls since the last reset (plain ints), by variant
 launches_fma = 0
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 GROUPS = (1, 2, 4, 8)
+GROUPS_HD256 = (1, 2, 4)   # the f32 kernel's P.V phase gives each (head, 8 columns) a thread
 
 
 def _check(q, k_pages, v_pages, block_table, seq_lens) -> None:
@@ -44,9 +45,10 @@ def _check(q, k_pages, v_pages, block_table, seq_lens) -> None:
     if block_table.dim() != 2 or block_table.shape[0] != B or tuple(seq_lens.shape) != (B,):
         raise ValueError(f"paged_attention kernel: table{tuple(block_table.shape)} "
                          f"lens{tuple(seq_lens.shape)} for {B} lanes")
-    if hd not in HEAD_DIMS or H // KVH not in GROUPS:
+    groups = GROUPS_HD256 if hd == 256 else GROUPS
+    if hd not in HEAD_DIMS or H // KVH not in groups:
         raise ValueError(f"paged_attention kernel: head_dim {hd} (one of {HEAD_DIMS}), "
-                         f"group {H // KVH} (one of {GROUPS})")
+                         f"group {H // KVH} (one of {groups} at this head_dim)")
     if not all(t.is_contiguous() for t in tensors) or any(
         t.data_ptr() % 16 for t in (q, k_pages, v_pages)
     ):

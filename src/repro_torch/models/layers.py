@@ -1,5 +1,5 @@
 """Shared layers of the decoders (port of ``repro.models.layers``):
-f32-internal RMSNorm, split-half RoPE, SwiGLU MLP, the qkv projection
+f32-internal RMSNorm, split-half RoPE, the gated MLP (SwiGLU, GeGLU), the qkv projection
 with its optional bias and qk-norm, the plain blockwise attention used by
 prefill and training (``masked``: every q chunk scans every kv chunk;
 ``triangular``: a causal q chunk scans only the kv chunks at or below its
@@ -70,7 +70,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def mlp_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     if not cfg.gated_mlp:
-        raise NotImplementedError("repro_torch: only the gated (SwiGLU) MLP is ported")
+        raise NotImplementedError("repro_torch: only the gated (SwiGLU, GeGLU) MLP is ported")
     d, f = cfg.d_model, cfg.d_ff
     return {
         "wi_gate": ParamSpec((d, f), ("embed", "ffn")),
@@ -79,14 +79,22 @@ def mlp_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """silu, or gelu as ``jax.nn.gelu`` computes it by default: the tanh
+    approximation, not the erf form."""
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise NotImplementedError(f"repro_torch: activation {kind!r}")
+
+
 def mlp(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU: wo(silu(x wi_gate) * x wi_up)."""
-    if cfg.mlp_activation != "silu":
-        raise NotImplementedError(f"repro_torch: activation {cfg.mlp_activation!r}")
+    """SwiGLU or GeGLU: wo(act(x wi_gate) * x wi_up)."""
     ct = cfg.dtype
     g = common.dense(x, params["wi_gate"], ct)
     u = common.dense(x, params["wi_up"], ct)
-    return common.dense(F.silu(g) * u, params["wo"], ct)
+    return common.dense(_act(g, cfg.mlp_activation) * u, params["wo"], ct)
 
 
 # ---------------------------------------------------------------------------

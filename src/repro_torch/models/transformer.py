@@ -17,14 +17,18 @@ HYBRID_PARALLEL (Hymba: attention and a Mamba block side by side) with
 sliding-window attention, and MLSTM (xLSTM: ``groups`` of mLSTM blocks and
 one sLSTM, no attention). The selective-scan and mLSTM kernels have no
 gradient yet, so the training forwards refuse those. Either KV cache may
-be int8 (``RunOpts.int8_kv_cache``). The other families, tied or scaled
-embeddings and encoders raise ``NotImplementedError``.
+be int8 (``RunOpts.int8_kv_cache``). Embeddings may be tied (the LM head is
+``embed.T``, a view) and scaled by sqrt(d_model) as a float32 scalar, which
+makes the residual stream f32 whatever the compute dtype, as in the
+reference (gemma). The other families and encoders raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 
@@ -61,7 +65,7 @@ def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
         )
     if cfg.block == BlockKind.MOE and cfg.moe is None:
         raise NotImplementedError(f"repro_torch: {cfg.name} is MOE with no MoEConfig")
-    if cfg.tie_embeddings or cfg.embed_scale or cfg.encoder_layers:
+    if cfg.encoder_layers:
         raise NotImplementedError(f"repro_torch: {cfg.name} needs a later slice")
     if opts is not None:
         if opts.attn_impl not in ("masked", "triangular", "flash"):
@@ -128,8 +132,9 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     spec: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, d), ("vocab", "embed"), init="embed"),
         "final_norm": layers.rmsnorm_spec(d),
-        "lm_head": ParamSpec((d, cfg.vocab_size), ("embed", "vocab")),
     }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ParamSpec((d, cfg.vocab_size), ("embed", "vocab"))
     if cfg.block == BlockKind.MLSTM:
         spec["groups"] = _xlstm_groups(
             cfg, {"block": xlstm.mlstm_spec(cfg), "ln": layers.rmsnorm_spec(d)},
@@ -345,7 +350,14 @@ def _ffn(p, h: torch.Tensor, cfg: ModelConfig):
 
 
 def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(common.torch_dtype(cfg.dtype))
+    """The rows of ``tokens`` in the compute dtype; with ``embed_scale``
+    times sqrt(d_model) rounded to float32, in f32: the reference multiplies
+    by a numpy float32 scalar, which promotes a bf16 operand to f32, so the
+    residual stream (every norm and ``x + h`` after it) runs in f32."""
+    x = params["embed"][tokens.long()].to(common.torch_dtype(cfg.dtype))
+    if cfg.embed_scale:
+        x = x.float() * float(np.sqrt(cfg.d_model).astype(np.float32))
+    return x
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
@@ -365,7 +377,7 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
 
 def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return common.dense(x, params["lm_head"], cfg.dtype)
+    return common.dense(x, unembed_weight(params, cfg), cfg.dtype)
 
 
 def _maybe_remat(fn, opts: RunOpts):
@@ -414,7 +426,10 @@ def forward_hidden(params, batch, cfg: ModelConfig, opts: RunOpts):
 
 
 def unembed_weight(params, cfg: ModelConfig) -> torch.Tensor:
-    """(d, vocab) projection (tied embeddings come with a later slice)."""
+    """(d, vocab) projection: with tied embeddings ``embed.T``, a view (no
+    copy of the vocab x d table; its gradient lands in ``embed``'s)."""
+    if cfg.tie_embeddings:
+        return params["embed"].T
     return params["lm_head"]
 
 

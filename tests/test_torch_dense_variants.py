@@ -105,7 +105,8 @@ def _patches(cfg, B, seed=3):
 # configs and specs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("module", ["qwen1_5_4b.py", "qwen1_5_32b.py", "internvl2_26b.py"])
+@pytest.mark.parametrize("module", ["qwen1_5_4b.py", "qwen1_5_32b.py", "internvl2_26b.py",
+                                    "gemma_7b.py"])
 def test_config_copy_equals_reference_apart_from_imports(module):
     port = (REPO / "src" / "repro_torch" / "configs" / module).read_text()
     ref = (REPO / "src" / "repro" / "configs" / module).read_text()
@@ -462,19 +463,42 @@ def test_triangular_non_causal_takes_the_masked_path():
 # what stays refused
 # ---------------------------------------------------------------------------
 
+def _variant_prefill_matches_jax(**change):
+    """Reduced qwen1.5-4b with ``change`` applied in both packages, f32,
+    biases drawn: the port builds it and its prefill logits (B=2, S=20)
+    match the reference's."""
+    jcfg, cfg = (dataclasses.replace(c, **change) for c in _cfgs(Q4))
+    jm, m = jax_build_model(jcfg), build_model(cfg)
+    tree = _biased(jax.tree_util.tree_map(np.asarray, jm.init(jax.random.key(0))))
+    assert _spec_fields(m.specs) == _spec_fields(jm.specs)
+    toks = _prompt(cfg.vocab_size, 2, 20)
+    want, _ = jm.prefill(jax.tree_util.tree_map(jnp.asarray, tree),
+                         {"tokens": jnp.asarray(toks)}, 20)
+    got, _ = m.prefill(params_from_jax(tree, cfg, "cpu"), {"tokens": torch.from_numpy(toks)},
+                       20)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
 @pytest.mark.parametrize("field", ["tie_embeddings", "embed_scale", "encoder_layers"])
 def test_later_slices_still_refuse(field):
-    cfg = dataclasses.replace(get_arch(Q4).reduced(), **{field: 2 if field == "encoder_layers"
-                                                         else True})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(cfg)
+    """Encoders still need a later slice; tied and scaled embeddings (ported
+    with gemma-7b) now build and match the reference."""
+    if field == "encoder_layers":
+        cfg = dataclasses.replace(get_arch(Q4).reduced(), encoder_layers=2)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            build_model(cfg)
+    else:
+        _variant_prefill_matches_jax(**{field: True})
 
 
 def test_geglu_and_dots_remat_still_refuse():
+    """``remat="dots"`` still refuses (GeGLU, ported with gemma-7b, is held
+    by ``test_geglu_matches_jax``)."""
     _, _, m, p = _models(Q4)
     tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    geglu = build_model(dataclasses.replace(m.cfg, mlp_activation="gelu"))
-    with pytest.raises(NotImplementedError, match="activation"):
-        geglu.forward(p, tokens)
     with pytest.raises(NotImplementedError, match="dots"):
         m.forward(p, tokens, RunOpts(remat="dots"))
+
+
+def test_geglu_matches_jax():
+    _variant_prefill_matches_jax(mlp_activation="gelu")
