@@ -8,6 +8,8 @@
     python3 chip_smoke.py --moe-only      # build + the flash kernels at mixtral's shape + phase 10
     python3 chip_smoke.py --dense-variants-only  # build + the kernels at phase 11's shapes + phase 11
     python3 chip_smoke.py --gemma-only    # build + the kernels at head dim 256 + phase 12
+    python3 chip_smoke.py --whisper-only  # build + the flash kernels at whisper's shapes + phase 13
+    python3 chip_smoke.py --hybrid-train-only  # build + hymba's training kernels + phase 14
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
@@ -15,7 +17,8 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
 2. build: compile ``src/repro_torch/csrc/*.cu`` for sm_90a (``kernels/_build.py``),
    one nvcc per source, all in parallel;
 3. kernels: each hand-written kernel (flash forward, paged decode, the two
-   flash backward kernels, the selective scan, the chunkwise mLSTM) against
+   flash backward kernels, the selective scan and its backward, the
+   chunkwise mLSTM) against
    its plain PyTorch version on the card, on the reference's test shapes
    and at the main paths' shapes, with times (CUDA events, L2 flushed
    between launches) beside the bound. The flash forward, dk/dv and dq
@@ -161,7 +164,32 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    The kernel phase holds the forward, dk/dv, dq and paged kernels at head
    dim 256 in both dtypes on the reference's feature cases and at gemma's
    shapes (prefill B1 S2000, training B1 S4096, H16/16; paged 8 lanes),
-   and every hd-256 instantiation builds with no spilled registers.
+   and every hd-256 instantiation builds with no spilled registers;
+13. whisper-tiny (LayerNorm, the biased GELU MLP, a 4-layer encoder over
+   1500 stub frames, cross-attention, the ``memory`` cache entry), bf16
+   with every bias and norm drawn off its default: served at full width
+   and depth through the serve launcher's loop (16 rows, 64-token prompts
+   and their frames, 128 new tokens): 4 flash forwards a prefill (the
+   decoder's self-attention) and no kernel in decode (the encoder and
+   cross-attention are plain, as in the reference); the flash prefill
+   against the masked one (top-1 equal, correlation > 0.99); trained at
+   full width and depth through ``build_train_step`` (``run_segment``
+   refuses it: the data path makes no frames), 8 rows of 448 tokens with
+   frames in 2 microbatches, f32 params + AdamW, 4 steps: 16 flash
+   forwards and 8 of each backward kernel a step; reduced f32 serving and
+   3 training steps on the card equal the CPU's;
+14. hymba-1.5b trained at full width and depth (32 layers, 1.662 B f32
+   params + AdamW) as in 7: 4 flash forwards, 2 of each flash backward
+   kernel, 4 scan forwards (keeping their states) and 2 scan backwards a
+   layer a step; reduced f32 hymba's 3 steps on the card equal the CPU's.
+   The kernel phase holds the flash forward and both backward kernels at
+   whisper's shapes (G=1 hd 64) and hymba's training shape (B1 S4096
+   H25/5, G=5, window 1024) in both dtypes, and the scan's backward
+   (``ssm_scan_bwd_kernel``, from the states the forward kept after each
+   16-step tile, then its partial sums) against ``ssm_scan_bwd_ref`` on
+   the reference's cases and at hymba's training shape, in both u dtypes,
+   with the same bits twice; the forward keeping its states gives the bits
+   it gives without.
 
 A kernel variant's ``launches_by_path`` in the JSON record holds its count
 on each path (``serve``, ``hybrid``, ``xlstm``, ``train``, ``spot`` at full width
@@ -174,7 +202,9 @@ the plan modes' ``serve_plan`` and ``serve_plan_f32``, the MoE family's
 full width and ``dense_int8_f32``, ``dense_q4_train_f32``,
 ``dense_q4_tri``, ``dense_q4_serve_f32``, ``dense_vlm_f32`` reduced;
 gemma-7b's ``gemma``, ``gemma_train`` at full width and ``gemma_f32``,
-``gemma_train_f32`` reduced), each
+``gemma_train_f32`` reduced; whisper-tiny's ``whisper``, ``whisper_train``
+and ``whisper_f32``, ``whisper_train_f32``; hymba's ``hybrid_train`` and
+``hybrid_train_f32``), each
 counted from 0
 just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
@@ -213,7 +243,7 @@ SRC = REPO / "src"
 # (a template argument of 256 in its mangled name)
 NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_merge_kernel",
                     "mlstm_step_kernel", "mlstm_tc_kernel", "ssm_scan_kernel", "ssm_step_kernel",
-                    "Li256E")
+                    "ssm_scan_bwd_kernel", "ssm_sum_parts_kernel", "Li256E")
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
@@ -323,6 +353,15 @@ SSM_H_TOL = dict(atol=1e-4, rtol=1e-4)
 # 2.9e-6 with ex2.approx, against 1e-5 here.
 SSM_MAIN_Y_TOL = dict(atol=1e-3, rtol=1e-2)
 SSM_MAIN_H_TOL = dict(atol=1e-5, rtol=1e-5)
+# the scan's gradient against ssm_scan_bwd_ref (f32, exp): the f32 outputs
+# at the test cases as the JAX test holds h; du (u's dtype) at tol(dtype).
+# At hymba's training shape g runs 4096 steps and dB_, dC_ sum 3200
+# channels, each term off by ex2.approx's few ulps: rtol 1e-3; du (bf16)
+# within one bf16 ulp, as y is.
+SSM_BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+SSM_BWD_MAIN_TOL = dict(atol=1e-3, rtol=1e-3)
+# hymba-1.5b's training microbatch: B1 S4096, inner 3200, N16, u bf16
+HYMBA_TRAIN_SCAN = dict(B=1, S=4096, inner=3200, N=16)
 # The forward's lse (f32, natural log, ~5-10 here) is computed from the same
 # rounded inputs on both sides at every dtype, so the f32 tolerance holds.
 LSE_TOL = F32_TOL
@@ -414,7 +453,8 @@ def _counters() -> dict:
             "flash_attention_bwd_dq_tc": (kernel_bwd, "launches_dq_tc"),
             "flash_attention_bwd_dq_fma": (kernel_bwd, "launches_dq_fma"),
             "ssm_scan": (scan, "launches"), "mlstm_tc": (mlstm, "launches_tc"),
-            "mlstm_fma": (mlstm, "launches_fma"), "mlstm_step": (mlstm, "launches_step")}
+            "mlstm_fma": (mlstm, "launches_fma"), "mlstm_step": (mlstm, "launches_step"),
+            "ssm_scan_bwd": (scan, "launches_bwd")}
 
 
 def reset_launches() -> None:
@@ -1014,6 +1054,108 @@ def check_ssm_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
+def check_ssm_scan_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """The scan's backward kernel against ``ssm_scan_bwd_ref``, from the
+    forward kernel's kept states: on the JAX test's cases and ragged ones,
+    both u dtypes, with h0 and dh and without, and at hymba-1.5b's training
+    microbatch, where two calls must give the same bits. The forward with
+    the kept states gives the bits it gives without them; its time at the
+    serving prefill shape and at the training shape, with and without."""
+    from repro_torch.kernels.ssm_scan import kernel
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
+
+    names = ("du", "ddt", "dB_", "dC_", "dA", "dD", "dh0")
+
+    def case(name, B, S, inner, N, dtype, with_h0, tols=None):
+        u, dt, B_, C_, A, D, h0 = _ssm_inputs(gen, B, S, inner, N, dtype, torch.float32)
+        h0 = h0 if with_h0 else None
+        dy = torch.randn((B, S, inner), generator=gen, device="cuda").to(dtype)
+        dh = torch.randn((B, inner, N), generator=gen, device="cuda") if with_h0 else None
+        y0, h_0 = kernel.ssm_scan(u, dt, B_, C_, A, D, h0)
+        y, h, chunks = kernel.ssm_scan(u, dt, B_, C_, A, D, h0, keep_chunks=True)
+        if not (torch.equal(y, y0) and torch.equal(h, h_0)):
+            raise AssertionError(f"{name}: the forward keeping its states gave other bits")
+        got = kernel.ssm_scan_bwd(u, dt, B_, C_, A, D, h0, chunks, dy, dh)
+        torch.cuda.synchronize()
+        want = ssm_scan_bwd_ref(u, dt, B_, C_, A, D, h0, dy, dh)
+        f32_tol, du_tol = tols or (SSM_BWD_TOL, tol(dtype))
+        err = 0.0
+        for n, a, b in zip(names, got, want):
+            if (a is None) != (b is None):
+                raise AssertionError(f"{name} {n}: {a is None} vs the plain version's {b is None}")
+            if a is not None:
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    raise AssertionError(f"{name} {n}: {a.dtype}{tuple(a.shape)} vs "
+                                         f"{b.dtype}{tuple(b.shape)}")
+                err = max(err, hold(f"{name} {n}", a, b, du_tol if n == "du" else f32_tol))
+        return err, (u, dt, B_, C_, A, D, h0, chunks, dy, dh)
+
+    log("[kernels] ssm_scan_bwd vs ssm_scan_bwd_ref (du, ddt, dB_, dC_, dA, dD, dh0)")
+    err = 0.0
+    for B, S, inner, N, dtype in SSM_CASES:
+        for with_h0 in (True, False):
+            e, _ = case(f"ssm bwd B{B} S{S} inner{inner} N{N} {str(dtype)[6:]}"
+                        f"{'' if with_h0 else ' no h0, no dh'}", B, S, inner, N, dtype, with_h0)
+            err = max(err, e)
+    # ragged against the 16-step tiles and the backward's blocks (32 channels
+    # at N 16, 64 at N 8); S <= 4 (the step kernel's forward, no kept state)
+    # and S <= 16 (one tile); inner 203: rows not 16-byte aligned
+    for name, B, S, inner, N, dtype, with_h0 in (
+            ("ssm bwd ragged B2 S33 inner200 N16 bf16", 2, 33, 200, 16, torch.bfloat16, True),
+            ("ssm bwd ragged B2 S40 inner203 N8 f32", 2, 40, 203, 8, torch.float32, True),
+            ("ssm bwd one tile B3 S16 inner70 N16 f32", 3, 16, 70, 16, torch.float32, False),
+            ("ssm bwd step-kernel forward B2 S3 inner65 N8 bf16", 2, 3, 65, 8, torch.bfloat16,
+             True)):
+        err = max(err, case(name, B, S, inner, N, dtype, with_h0)[0])
+    # hymba-1.5b's training microbatch (u bf16, zero start state, no dh)
+    sh = HYMBA_TRAIN_SCAN
+    B, S, inner, N = sh["B"], sh["S"], sh["inner"], sh["N"]
+    e, args = case(f"ssm bwd main-path training B{B} S{S} inner{inner} N{N} bf16", B, S, inner,
+                   N, torch.bfloat16, False, tols=(SSM_BWD_MAIN_TOL, SSM_MAIN_Y_TOL))
+    err = max(err, e)
+    one, two = kernel.ssm_scan_bwd(*args), kernel.ssm_scan_bwd(*args)
+    same = all(a is None and b is None or torch.equal(a, b) for a, b in zip(one, two))
+    log(f"  ssm bwd main-path training: two calls give the same bits: {same}")
+    if not same:
+        raise AssertionError("the scan's backward gave different bits on the same inputs")
+    del one, two
+
+    u, dt, B_, C_, A, D, h0, chunks, dy, dh = args
+    # the gradient's least work: each input (u, dt, B_, C_, A, D, dy) read and
+    # each output (du, ddt, dB_, dC_, dA, dD) written once; per (b, t, i, n)
+    # the state (4 flops) and the adjoint (16), and one exponential
+    el = u.element_size()
+    nbytes = (2 * el + 4.0 * 2) * B * S * inner + 4.0 * 4 * B * S * N + 4.0 * 2 * (inner * N + inner)
+    flops = 20.0 * B * S * inner * N
+    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    sfu_ms = B * S * inner * N / SFU_EXP_PER_S * 1e3
+    ms = time_ms(lambda: kernel.ssm_scan_bwd(*args), flush)
+    plain_ms = time_ms(lambda: ssm_scan_bwd_ref(u, dt, B_, C_, A, D, h0, dy, dh), flush,
+                       reps=1, warmup=1)
+    leaves = [t.detach().clone().requires_grad_() for t in (u, dt, B_, C_, A, D)]
+
+    def autograd_ref():
+        y, _ = ssm_scan_ref(*leaves)
+        torch.autograd.grad(y, leaves, dy)
+
+    autograd_ms = time_ms(autograd_ref, flush, reps=1, warmup=1)
+    fwd = {what: time_ms(lambda: kernel.ssm_scan(u, dt, B_, C_, A, D, h0, keep_chunks=keep), flush)
+           for what, keep in (("plain", False), ("keeping its states", True))}
+    dev = _device_ms_per_launch(lambda: kernel.ssm_scan_bwd(*args), flush, "ssm_")
+    log(f"  ssm_scan_bwd main path (B{B} S{S} inner{inner} N{N}, u bf16): kernel {ms:.4f} ms "
+        f"(kernel + partial sums; device time per launch {dev}), plain ssm_scan_bwd_ref "
+        f"{plain_ms:.4f} ms, autograd through ssm_scan_ref (forward + backward) "
+        f"{autograd_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; the {B * S * inner * N:.3e} "
+        f"exponentials at the SFU's rate {sfu_ms:.4f} ms); {nbytes / ms / 1e6:.1f} GB/s "
+        f"achieved; the forward at this shape {fwd['plain']:.4f} ms, keeping its "
+        f"{chunks.shape[1]} states {fwd['keeping its states']:.4f} ms")
+    del args, u, dt, B_, C_, A, D, chunks, dy, leaves
+    return dict(name="ssm_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+                replaces="src/repro/models/ssm.py:129",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 def _mlstm_inputs(gen, B, S, H, hd, dtype, with_state=False):
     """The JAX test's distributions in the model's layout: q, k, v normal
     (B, S, H, hd); gates 2 x normal (B, S, 2H) f32; a state (C, n normal,
@@ -1473,10 +1615,11 @@ def serve_hybrid_full_width() -> dict:
     return launches
 
 
-def profile_greedy(tag: str, model, params, tokens, cache, new: int) -> None:
+def profile_greedy(tag: str, model, params, tokens, cache, new: int, frames=None) -> None:
     """Where the time goes on a serve-launcher path: one batched full-width
-    prefill of ``tokens`` and three decode steps of its rows from ``cache``
-    (past the served tokens), under torch.profiler."""
+    prefill of ``tokens`` (an encoder-decoder's ``frames`` encoded first)
+    and three decode steps of its rows from ``cache`` (past the served
+    tokens, in the ring), under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import RunOpts
@@ -1487,7 +1630,8 @@ def profile_greedy(tag: str, model, params, tokens, cache, new: int) -> None:
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        logits, _ = model.prefill(params, {"tokens": tokens}, S + new, opts)
+        batch = {"tokens": tokens} if frames is None else {"tokens": tokens, "frames": frames}
+        logits, _ = model.prefill(params, batch, S + new, opts)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     log(f"[profile] {tag} prefill, {B} x {S} tokens:\n{_device_breakdown(prof, wall)}")
@@ -1521,17 +1665,21 @@ def greedy_reduced_matches_cpu(arch: str, tag: str, *kernels: str) -> dict:
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
     params_cpu = model.init(gen, "cpu")
-    draw_biases(params_cpu, gen)
+    # an encoder-decoder's biases and norms all start at their defaults
+    (draw_off_defaults if cfg.encoder_layers else draw_biases)(params_cpu, gen)
     params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
     prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 20)).astype(np.int32)
     patches = (torch.randn((2, cfg.vision_tokens, cfg.vision_width), generator=gen)
                if cfg.vision_tokens else None)
+    frames = (torch.randn((2, cfg.encoder_seq_len, cfg.d_model), generator=gen)
+              if cfg.encoder_layers else None)
+    on = lambda t, device: None if t is None else t.to(device)
     runs = {}
     for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
         reset_launches()
         runs[device] = greedy_serve(
             model, params, torch.as_tensor(prompt, device=device), 16,
-            patches=None if patches is None else patches.to(device))
+            patches=on(patches, device), frames=on(frames, device))
         if device == "cuda":
             launches = read_launches()
     gpu, cpu = runs["cuda"], runs["cpu"]
@@ -1924,9 +2072,12 @@ def _probe(state) -> list:
     p = state.params
     attn = p["blocks"]["attn"]
     head = p["lm_head"][:8, :4] if "lm_head" in p else p["embed"][-4:, :8]   # tied: embed.T
+    mamba = p["blocks"].get("mamba")
     return [t.detach().clone() for t in (p["embed"][:4, :8], head,
                                          attn["wq"][0, :8, :4], p["blocks"]["mlp"]["wo"][-1, :8, :4],
-                                         *([attn["bq"][-1, :8]] if "bq" in attn else []))]
+                                         *([attn["bq"][-1, :8]] if "bq" in attn else []),
+                                         *([mamba["A_log"][-1, :8], mamba["D"][0, :8]]
+                                           if mamba is not None else []))]
 
 
 def train_full_width(arch: str = "qwen3-4b", tag: str = "train", layers: int = 0) -> dict:
@@ -1976,8 +2127,12 @@ def train_full_width(arch: str = "qwen3-4b", tag: str = "train", layers: int = 0
     moved = [float((a - b).abs().max()) for a, b in zip(before, _probe(res1.state))]
 
     per_mb = cfg.num_layers * tc.microbatches * n_steps
+    # a hybrid block's scan: forward and recompute keeping its states, then
+    # its backward, as the flash kernels
+    scan = dict(ssm_scan=2 * per_mb, ssm_scan_bwd=per_mb) if "mamba" in state.params["blocks"] \
+        else {}
     want = expect_launches(flash_attention_tc=2 * per_mb, flash_attention_bwd_dkdv_tc=per_mb,
-                           flash_attention_bwd_dq_tc=per_mb)
+                           flash_attention_bwd_dq_tc=per_mb, **scan)
     secs = res0.step_seconds + res1.step_seconds
     for i, (m, dt) in enumerate(zip(metrics, secs)):
         log(f"[{tag}] step {i}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
@@ -2004,11 +2159,13 @@ def train_full_width(arch: str = "qwen3-4b", tag: str = "train", layers: int = 0
     return launches
 
 
-def profile_training(model, step_fn, state, ds, label: str = "seq 4096") -> None:
-    """Where the time goes: one more full-width step under torch.profiler."""
+def profile_training(model, step_fn, state, ds, label: str = "seq 4096", batch=None) -> None:
+    """Where the time goes: one more full-width step under torch.profiler,
+    on ``batch`` or else the dataset's next batch."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch = {k: torch.from_numpy(v).to("cuda") for k, v in ds.batch(state.step).items()}
+    if batch is None:
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in ds.batch(state.step).items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2080,8 +2237,9 @@ def train_reduced_matches_cpu(arch: str = "qwen3-4b", tag: str = "train",
         if launches != expect_launches():
             raise AssertionError("the triangular schedule launched a kernel")
         return launches
+    scan = ("ssm_scan", "ssm_scan_bwd") if cfg.ssm is not None else ()
     return hold_f32_launches(tag, launches, "flash_attention_fma",
-                             "flash_attention_bwd_dkdv_fma", "flash_attention_bwd_dq_fma")
+                             "flash_attention_bwd_dkdv_fma", "flash_attention_bwd_dq_fma", *scan)
 
 
 # ---------------------------------------------------------------------------
@@ -3430,7 +3588,7 @@ def scoped_equals_whole_pool(cfg, params, pool_layer) -> None:
     x = torch.randn((8, 1, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
     p = {k: v[0] for k, v in params["blocks"]["attn"].items()}
     y_scoped = layers.decode_attention_paged(p, c, x, lens, table, cfg)
-    q, _, _ = layers._project_qkv(p, x, cfg)
+    q, _, _ = layers._project_qkv(p, x, x, cfg)
     q = layers.rope(q, lens[:, None].float(), cfg.rope_theta)
     full_k = layers._dequantize_kv(c["k_pages"], c["k_scale"], x.dtype)
     full_v = layers._dequantize_kv(c["v_pages"], c["v_scale"], x.dtype)
@@ -3734,6 +3892,361 @@ def gemma_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3 at this slice's shapes: whisper-tiny's and hymba-1.5b's training
+# attention (run again under --whisper-only and --hybrid-train-only)
+# ---------------------------------------------------------------------------
+
+# (name, B, S, H, KVH, hd, window, dtype, backward): whisper's decoder
+# prefill (B16 S64) and training microbatch (4 rows of 448), G=1 hd 64;
+# hymba's training microbatch (B1 S4096 H25/5, G=5, window 1024); the f32
+# variants (the reduced runs' route) at whisper's training shape and at G=5
+# under the window at S=1500
+SLICE14_ATTN = [
+    ("whisper prefill", 16, 64, 6, 6, 64, 0, torch.bfloat16, False),
+    ("whisper training", 4, 448, 6, 6, 64, 0, torch.bfloat16, True),
+    ("hymba training", 1, 4096, 25, 5, 64, 1024, torch.bfloat16, True),
+    ("whisper training", 4, 448, 6, 6, 64, 0, torch.float32, True),
+    ("hymba training", 1, 1500, 25, 5, 64, 1024, torch.float32, True),
+]
+
+
+def check_slice14_attention(gen: torch.Generator, flush: torch.Tensor, which: str = "") -> dict:
+    """The flash forward, dk/dv and dq kernels at SLICE14_ATTN's shapes
+    (those whose name starts with ``which``) against their plain versions,
+    which run one kv head's group of query heads at a time; the bf16 dq at
+    G=5 gives the same bits twice; each kernel's time beside its bound, the
+    plain versions' and SDPA's (the band as a boolean mask under a window).
+    Returns the largest errors, by record name."""
+    from repro_torch.kernels.flash_attention import kernel, kernel_bwd
+    from repro_torch.kernels.flash_attention.ref import _mask, attention_bwd_ref, attention_fwd_ref
+
+    errs: dict = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, B, S, H, KVH, hd, window, dtype, backward in SLICE14_ATTN:
+        if not name.startswith(which):
+            continue
+        G, vr = H // KVH, "tc" if dtype == torch.bfloat16 else "fma"
+        tag = f"{name} B{B} S{S} H{H}/{KVH} hd{hd} w{window} {str(dtype)[6:]}"
+        log(f"[kernels] flash at {tag} vs the plain versions, one kv group at a time")
+        mk = lambda heads: torch.randn((B, S, heads, hd), generator=gen, device="cuda").to(dtype)
+        q, k, v, do = mk(H), mk(KVH), mk(KVH), mk(H)
+        kw = dict(causal=True, window=window, q_offset=0)
+        t_fwd = FLASH_MAIN_BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        t_bwd = FLASH_BWD_MAIN_BF16_TOL if dtype == torch.bfloat16 else FLASH_BWD_F32_TOL
+        o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
+        if backward:
+            delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+            dk, dv = kernel_bwd.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+            dq = kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        put = lambda key, e: errs.__setitem__(key, max(errs.get(key, 0.0), e))
+        for g in range(KVH):
+            hs, ks = slice(g * G, (g + 1) * G), slice(g, g + 1)
+            gt = f"{tag} kv group {g}"
+            ro, rlse = attention_fwd_ref(q[:, :, hs], k[:, :, ks], v[:, :, ks], **kw)
+            put(f"flash_attention_{vr}", hold(gt, o[:, :, hs], ro, t_fwd))
+            hold(f"{gt} lse", lse[:, hs], rlse, LSE_TOL)
+            del ro, rlse
+            if backward:
+                rq, rk, rv = attention_bwd_ref(q[:, :, hs], k[:, :, ks], v[:, :, ks],
+                                               o[:, :, hs], lse[:, hs], do[:, :, hs], **kw)
+                put(f"flash_attention_bwd_dkdv_{vr}",
+                    max(hold(f"{gt} dk", dk[:, :, ks], rk, t_bwd),
+                        hold(f"{gt} dv", dv[:, :, ks], rv, t_bwd)))
+                put(f"flash_attention_bwd_dq_{vr}", hold(f"{gt} dq", dq[:, :, hs], rq, t_bwd))
+                del rq, rk, rv
+        if backward and dtype == torch.bfloat16 and G > 1:
+            again = kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            same = torch.equal(dq, again)
+            log(f"  {tag}: two dq calls give the same bits: {same}")
+            if not same:
+                raise AssertionError(f"the bf16 dq kernel gave different bits at {tag}")
+            del again
+
+        # bounds: the forward's 2 products over the live pairs; the
+        # backward's 5 split as check_flash_bwd splits them
+        el = q.element_size()
+        prod = 2.0 * _pairs(S, window) * hd * H * B
+        qkv_bytes = el * (2 * B * S * H * hd + 2 * B * S * KVH * hd)
+        peak = PEAK_BF16_FLOPS if vr == "tc" else PEAK_F32_FLOPS
+        work = {f"flash_attention_{vr}": (2 * prod, qkv_bytes + 4.0 * B * H * S,
+                                          lambda: kernel.flash_attention_fwd(q, k, v, **kw))}
+        if backward:
+            work[f"flash_attention_bwd_dkdv_{vr}"] = (
+                4 * prod, qkv_bytes + 2 * 4.0 * B * H * S + el * 2 * B * S * KVH * hd,
+                lambda: kernel_bwd.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw))
+            work[f"flash_attention_bwd_dq_{vr}"] = (
+                prod, el * B * S * H * hd,
+                lambda: kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
+        for rec, (flops, nbytes, fn) in work.items():
+            b_ms, b_by = bound(flops, nbytes, peak)
+            ms = time_ms(fn, flush)
+            log(f"  {rec} at {tag}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved")
+        plain_fwd = time_ms(lambda: attention_fwd_ref(q, k, v, **kw), flush, reps=2, warmup=1)
+        mask = _mask(S, S, True, window, 0, q.device) if window else None
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_kw = dict(attn_mask=mask) if window else dict(is_causal=True)
+        sdpa_fwd = time_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw), flush)
+        line = (f"  at {tag}: plain forward {plain_fwd:.4f} ms, SDPA forward {sdpa_fwd:.4f} ms"
+                f"{' (the band as a boolean mask)' if window else ''}")
+        if backward:
+            plain_bwd = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw), flush,
+                                reps=2, warmup=1)
+            line += (f"; plain backward (all of dq, dk, dv) {plain_bwd:.4f} ms, SDPA backward "
+                     f"(fwd + bwd minus fwd) {sdpa_backward_ms(q, k, v, do, flush, mask):.4f} ms")
+            del dk, dv, dq, delta
+        log(line)
+        del q, k, v, do, o, lse, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    log(f"  largest errors at this slice's attention shapes: {errs}")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 13: whisper-tiny (LayerNorm, the biased GELU MLP, the encoder,
+# cross-attention, the memory cache)
+# ---------------------------------------------------------------------------
+
+# serving: 16 rows of 1500 frames, 64-token prompts, 128 new tokens (192
+# decoder positions, inside whisper's 448-token context); training: 8 rows
+# of 448 tokens with their frames, 2 microbatches
+WHISPER_SERVE = dict(B=16, S=64, new=128)
+WHISPER_TRAIN = dict(B=8, S=448, steps=4)
+
+
+def draw_off_defaults(params, gen: torch.Generator) -> None:
+    """Overwrite, in place, every bias (``bias``, ``bi``, ``bo``, ``bq``,
+    ``bk``, ``bv``: zeros from ``init``, as in the reference) with N(0, 0.5)
+    and every norm ``scale`` (ones) with 1 + N(0, 0.2), drawn from ``gen``,
+    so that a path that skipped one could not pass unseen."""
+    for key, t in params.items():
+        if isinstance(t, dict):
+            draw_off_defaults(t, gen)
+        elif key in ("bias", "bi", "bo", "bq", "bk", "bv", "scale"):
+            x = torch.randn(t.shape, generator=gen, device=t.device, dtype=torch.float32)
+            t.copy_(x * 0.2 + 1.0 if key == "scale" else x * 0.5)
+
+
+def _whisper_batch(cfg, B: int, S: int, gen: torch.Generator, device, seed: int = 0,
+                   labels: bool = False) -> dict:
+    """Prompts from RandomState(seed) (with next-token labels, never equal
+    to the tokens, when asked for) and bf16 standard-normal frames from
+    ``gen``: the stub frontend's embeddings."""
+    rows = np.random.RandomState(seed).randint(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    out = {"tokens": torch.as_tensor(rows[:, :S], device=device),
+           "frames": torch.randn((B, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+                                 device=device).to(torch.bfloat16)}
+    if labels:
+        out["labels"] = torch.as_tensor(rows[:, 1:], device=device)
+    return out
+
+
+def whisper_serve_full_width() -> dict:
+    """whisper-tiny at full width and depth (bf16, biases and norms drawn
+    off their defaults) through the serve launcher's loop; returns the
+    launches."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import greedy_serve
+    from repro_torch.models import RunOpts, build_model, transformer
+
+    cfg = get_arch("whisper-tiny")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, "cuda", torch.bfloat16)
+    draw_off_defaults(params, gen)
+    B, S, new = WHISPER_SERVE["B"], WHISPER_SERVE["S"], WHISPER_SERVE["new"]
+    batch = _whisper_batch(cfg, B, S, gen, "cuda")
+    log(f"[whisper] {cfg.name}: {cfg.num_layers} decoder and {cfg.encoder_layers} encoder "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads x {cfg.resolved_head_dim}, "
+        f"{cfg.encoder_seq_len} frames, vocab {cfg.vocab_size} tied; "
+        f"{model.param_count():,} params (bf16 matrices); {B} rows x {S} prompt tokens, {new} "
+        f"new tokens")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = greedy_serve(model, params, batch["tokens"], new, frames=batch["frames"])
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = expect_launches(flash_attention_tc=cfg.num_layers)
+    log(f"[whisper] launches {launches}, expected {want}; first row {res.tokens[0, :16].tolist()}")
+    if tuple(res.tokens.shape) != (B, new) or not all(
+            bool(torch.isfinite(lg.float()).all()) for lg in res.logits):
+        raise AssertionError("whisper serving: tokens of the wrong shape or non-finite logits")
+    if launches != want:
+        raise AssertionError("whisper serving did not go through the kernels as expected")
+    if tuple(res.cache["memory"].shape) != (B, cfg.encoder_seq_len, cfg.d_model):
+        raise AssertionError(f"memory {tuple(res.cache['memory'].shape)}")
+
+    # the encoder alone, then the flash prefill against the masked one
+    ct = torch.bfloat16
+    frames = batch["frames"]
+    transformer._run_encoder(params["encoder"], frames.to(ct), cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        transformer._run_encoder(params["encoder"], frames.to(ct), cfg)
+    torch.cuda.synchronize()
+    enc_s = (time.perf_counter() - t0) / 3
+    kern, _ = model.prefill(params, batch, S + new, RunOpts(attn_impl="flash"))
+    masked, _ = model.prefill(params, batch, S + new, RunOpts(attn_impl="masked"))
+    a, b = kern[:, -1].float(), masked[:, -1].float()
+    corr = min(float(torch.corrcoef(torch.stack([a[i], b[i]]))[0, 1]) for i in range(B))
+    top_eq = bool((a.argmax(-1) == b.argmax(-1)).all())
+    log(f"[whisper] flash vs masked prefill logits: top-1 equal in every row {top_eq}, smallest "
+        f"correlation {corr:.6f}, max abs diff {float((a - b).abs().max()):.4f}")
+    if not (top_eq and corr > 0.99):
+        raise AssertionError("whisper's flash prefill disagrees with the masked one")
+    log(f"[whisper] encoder {B * cfg.encoder_seq_len / enc_s:.1f} frames/s ({B} x "
+        f"{cfg.encoder_seq_len} frames in {enc_s * 1e3:.2f} ms); prefill (encoder included) "
+        f"{B * S / res.prefill_seconds:.1f} tokens/s ({res.prefill_seconds * 1e3:.2f} ms); decode "
+        f"{1e3 * res.decode_seconds / res.decode_steps:.3f} ms a step ({res.decode_steps} steps, "
+        f"{B * res.decode_steps / res.decode_seconds:.1f} tokens/s); peak memory {peak_gb:.3f} GB")
+    profile_greedy("whisper", model, params, batch["tokens"], res.cache, new,
+                   frames=batch["frames"])
+    return launches
+
+
+def whisper_train_full_width() -> dict:
+    """whisper-tiny at full width and depth, f32 params (biases and norms
+    drawn off their defaults) + AdamW, 8 rows of 448 tokens with their
+    frames in 2 microbatches, ``remat="full"``, through ``build_train_step``
+    for 4 steps (``run_segment`` refuses an encoder-decoder: the data path
+    makes no frames). Returns the launches."""
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import build_train_step, init_train_state
+
+    cfg = get_arch("whisper-tiny")
+    model = build_model(cfg)
+    B, S, n_steps = WHISPER_TRAIN["B"], WHISPER_TRAIN["S"], WHISPER_TRAIN["steps"]
+    tc = TrainConfig(total_steps=n_steps, warmup_steps=1, microbatches=2)
+    layout = ShardingLayout(attn_impl="flash")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_train_state(model, gen, "cuda")
+    draw_off_defaults(state.params, gen)
+    step_fn = build_train_step(model, tc, layout)
+    probe = lambda st: [t.detach().clone() for t in (
+        st.params["embed"][:4, :8], st.params["encoder"]["blocks"]["mlp"]["bo"][0, :8],
+        st.params["blocks"]["cross"]["wq"][0, :8, :4], st.params["blocks"]["ln_cross"]["bias"][0, :8])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = probe(state)
+    reset_launches()
+    metrics, secs = [], []
+    for i in range(n_steps):
+        batch = _whisper_batch(cfg, B, S, gen, "cuda", seed=100 + i, labels=True)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})   # the device sync
+        secs.append(time.perf_counter() - t0)
+        if i == 0 and not all(torch.equal(a, b) for a, b in zip(before, probe(state))):
+            raise AssertionError("whisper params moved at step 0, where the learning rate is 0")
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = [float((a - b).abs().max()) for a, b in zip(before, probe(state))]
+    per = cfg.num_layers * tc.microbatches * n_steps
+    want = expect_launches(flash_attention_tc=2 * per, flash_attention_bwd_dkdv_tc=per,
+                           flash_attention_bwd_dq_tc=per)
+    for i, (m, dt) in enumerate(zip(metrics, secs)):
+        log(f"[whisper_train] step {i}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+            f"lr {m['lr']:.3e}, {dt * 1e3:.1f} ms, {B * S / dt:.1f} tokens/s")
+    log(f"[whisper_train] peak memory {peak_gb:.3f} GB; largest change of the probed params "
+        f"after step 1: {max(moved):.3e}; launches {launches}, expected {want}")
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
+        raise AssertionError(f"non-finite whisper training metrics: {metrics}")
+    if not min(moved) > 0:
+        raise AssertionError("a probed whisper param did not move after step 1")
+    if launches != want:
+        raise AssertionError("whisper training did not go through the kernels as expected")
+    profile_training(model, step_fn, state, None, f"whisper {B} x {S} tokens with frames",
+                     _whisper_batch(cfg, B, S, gen, "cuda", seed=100 + n_steps, labels=True))
+    return launches
+
+
+def whisper_train_reduced_matches_cpu(n_steps: int = 3) -> dict:
+    """Reduced f32 whisper (biases and norms drawn off their defaults):
+    ``n_steps`` of ``build_train_step`` (4 rows of 100 tokens with frames,
+    2 microbatches) on the card against the CPU: loss and grad norm rtol
+    1e-4, params atol 1e-5 but cross-attention's key bias, whose gradient
+    is 0 up to rounding (no RoPE: it shifts a query row's scores alike),
+    held by its first moment below 1e-9 on both. Returns the card's
+    launches."""
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.train.steps import build_train_step, init_train_state
+
+    cfg = reduced_f32(get_arch("whisper-tiny"))
+    model = build_model(cfg)
+    tc = TrainConfig(total_steps=10, warmup_steps=2, microbatches=2)
+    layout = ShardingLayout(attn_impl="flash", q_chunk=32, kv_chunk=32)
+    gen = torch.Generator().manual_seed(0)
+    state_cpu = init_train_state(model, gen, "cpu")
+    draw_off_defaults(state_cpu.params, gen)
+    batches = [_whisper_batch(cfg, 4, 100, gen, "cpu", seed=i, labels=True) for i in range(n_steps)]
+    runs = {}
+    for device, state in (("cuda", _copy_state(state_cpu, "cuda")), ("cpu", state_cpu)):
+        step_fn = build_train_step(model, tc, layout)
+        reset_launches()
+        metrics = []
+        for b in batches:
+            state, m = step_fn(state, {k: v.to(device) for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[device] = (metrics, state)
+        if device == "cuda":
+            launches = read_launches()
+    (m_gpu, s_gpu), (m_cpu, s_cpu) = runs["cuda"], runs["cpu"]
+    for key in ("loss", "grad_norm"):
+        a, b = np.array([m[key] for m in m_gpu]), np.array([m[key] for m in m_cpu])
+        log(f"[whisper_train] reduced f32 {key}, card {a.tolist()} vs CPU {b.tolist()}; largest "
+            f"relative difference {float(np.max(np.abs(a - b) / np.abs(b))):.3e}")
+        if not np.allclose(a, b, rtol=1e-4, atol=0):
+            raise AssertionError(f"reduced whisper training {key} on the card differs from the CPU's")
+    noise = s_cpu.params["blocks"]["cross"]["bk"]
+    err = max(float((a.cpu() - b).abs().max()) for a, b in
+              zip(tree_flatten(s_gpu.params)[0], tree_flatten(s_cpu.params)[0]) if b is not noise)
+    first = max(float(s.opt.m["blocks"]["cross"]["bk"].abs().max()) for s in (s_gpu, s_cpu))
+    log(f"[whisper_train] reduced f32 params after {n_steps} steps, card vs CPU: max abs diff "
+        f"{err:.3e} (atol 1e-5); cross-attention bk's largest first moment {first:.3e}")
+    if not (err <= 1e-5 and first < 1e-9):
+        raise AssertionError("reduced whisper training params on the card differ from the CPU's")
+    return hold_f32_launches("whisper_train", launches, "flash_attention_fma",
+                             "flash_attention_bwd_dkdv_fma", "flash_attention_bwd_dq_fma")
+
+
+def whisper_phase() -> dict:
+    """Phase 13: whisper-tiny served and trained at full width and depth,
+    and its reduced f32 serving and training against the CPU. Returns
+    launches by path."""
+    _free_cuda()
+    paths = {"whisper": whisper_serve_full_width()}
+    _free_cuda()
+    paths["whisper_f32"] = greedy_reduced_matches_cpu("whisper-tiny", "whisper",
+                                                      "flash_attention_fma")
+    paths["whisper_train"] = whisper_train_full_width()
+    _free_cuda()
+    paths["whisper_train_f32"] = whisper_train_reduced_matches_cpu()
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 14: hymba-1.5b trained at full width and depth (the scan's backward)
+# ---------------------------------------------------------------------------
+
+def hybrid_train_phase() -> dict:
+    """Phase 14: hymba-1.5b, all 32 layers, trained as phase 7 trains
+    qwen3-4b (the flash kernels under the window, the scan forward keeping
+    its states and the scan backward every step), then reduced f32 hymba's
+    3 steps on the card against the CPU. Returns launches by path."""
+    _free_cuda()
+    paths = {"hybrid_train": train_full_width("hymba-1.5b", "hybrid_train")}
+    _free_cuda()
+    paths["hybrid_train_f32"] = train_reduced_matches_cpu("hymba-1.5b", "hybrid_train", 3)
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3752,6 +4265,12 @@ def main() -> int:
     ap.add_argument("--gemma-only", action="store_true",
                     help="only build the kernels, hold them at head dim 256 and run gemma-7b's "
                          "phase")
+    ap.add_argument("--whisper-only", action="store_true",
+                    help="only build the kernels, hold the flash kernels at whisper-tiny's shapes "
+                         "and run whisper-tiny's phase")
+    ap.add_argument("--hybrid-train-only", action="store_true",
+                    help="only build the kernels, hold the flash kernels at hymba-1.5b's "
+                         "training shape and the scan's backward, and run hymba's training phase")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
                          "of the kernel paths and plain orders agree, by prompt length")
@@ -3773,10 +4292,10 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[phase 1/12] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
+    log(f"[phase 1/14] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    log("[phase 2/12] build")
+    log("[phase 2/14] build")
     _build.build()
     ptxas = _build.last_build["log"]
     per_source = {}
@@ -3807,14 +4326,14 @@ def main() -> int:
         xlstm_orders()
         return 0
     if args.spot_only:
-        log("[phase 8/12] the spot provisioner")
+        log("[phase 8/14] the spot provisioner")
         spot = {"spot": spot_full_width(), "spot_f32": spot_reduced_matches_cpu(),
                 "spot_launch": spot_launcher()}
         log(f"chip_smoke: --spot-only, launches by path {spot}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.serve_plan_only:
-        log("[phase 9/12] spot serving")
+        log("[phase 9/14] spot serving")
         paths = spot_serving()
         log(f"chip_smoke: --serve-plan-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -3823,7 +4342,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_flash_window_8192(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 10/12] the MoE family")
+        log("[phase 10/14] the MoE family")
         paths = moe_phase()
         log(f"chip_smoke: --moe-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -3832,7 +4351,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_dense_variant_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 11/12] the dense variants")
+        log("[phase 11/14] the dense variants")
         paths = dense_variants_phase()
         log(f"chip_smoke: --dense-variants-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -3841,19 +4360,40 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_gemma_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 12/12] gemma-7b")
+        log("[phase 12/14] gemma-7b")
         paths = gemma_phase()
         log(f"chip_smoke: --gemma-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
+    if args.whisper_only:
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush, "whisper")
+        del flush
+        log("[phase 13/14] whisper-tiny")
+        paths = whisper_phase()
+        log(f"chip_smoke: --whisper-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
+    if args.hybrid_train_only:
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        check_slice14_attention(gen, flush, "hymba")
+        check_ssm_scan_bwd(gen, flush)
+        del flush
+        log("[phase 14/14] hymba-1.5b training")
+        paths = hybrid_train_phase()
+        log(f"chip_smoke: --hybrid-train-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
 
-    log("[phase 3/12] kernels against their plain versions")
+    log("[phase 3/14] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [*check_flash(gen, flush), *check_paged(gen, flush), *check_flash_bwd(gen, flush),
-               check_ssm_scan(gen, flush), *check_mlstm(gen, flush)]
+               check_ssm_scan(gen, flush), check_ssm_scan_bwd(gen, flush),
+               *check_mlstm(gen, flush)]
     for more in (check_flash_window_8192(gen, flush), check_dense_variant_kernels(gen, flush),
-                 check_gemma_kernels(gen, flush)):
+                 check_gemma_kernels(gen, flush), check_slice14_attention(gen, flush)):
         for kernel_name, err in more.items():
             rec = next(r for r in records if r["name"] == kernel_name)
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -3863,29 +4403,29 @@ def main() -> int:
         log("chip_smoke: --kernels-only, stopped before serving")
         return 0
 
-    log("[phase 4/12] serving")
+    log("[phase 4/14] serving")
     paths = {"serve": serve_full_width()}
     paths["serve_f32"] = serve_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 5/12] hybrid serving")
+    log("[phase 5/14] hybrid serving")
     paths["hybrid"] = serve_hybrid_full_width()
     paths["hybrid_f32"] = greedy_reduced_matches_cpu("hymba-1.5b", "hybrid",
                                                      "flash_attention_fma", "ssm_scan")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 6/12] xLSTM serving")
+    log("[phase 6/14] xLSTM serving")
     paths["xlstm"] = serve_xlstm_full_width()
     paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_fma",
                                                     "mlstm_step")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 7/12] training")
+    log("[phase 7/14] training")
     paths["train"] = train_full_width()
     paths["train_f32"] = train_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 8/12] the spot provisioner")
+    log("[phase 8/14] the spot provisioner")
     paths["spot"] = spot_full_width()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3893,20 +4433,28 @@ def main() -> int:
     paths["spot_launch"] = spot_launcher()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 9/12] spot serving")
+    log("[phase 9/14] spot serving")
     paths.update(spot_serving())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 10/12] the MoE family")
+    log("[phase 10/14] the MoE family")
     paths.update(moe_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 11/12] the dense variants")
+    log("[phase 11/14] the dense variants")
     paths.update(dense_variants_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 12/12] gemma-7b")
+    log("[phase 12/14] gemma-7b")
     paths.update(gemma_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 13/14] whisper-tiny")
+    paths.update(whisper_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 14/14] hymba-1.5b training")
+    paths.update(hybrid_train_phase())
     for r in records:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

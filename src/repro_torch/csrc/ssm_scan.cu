@@ -42,11 +42,17 @@
 // * no padding: a ragged S bounds the last tile; a ragged or misaligned
 //   `inner` copies the affected chunks element by element, zero-filled.
 //
+// * for training, an optional output `h_chunks`: the state after each tile
+//   but the last, which the backward (`ssm_scan_bwd_kernel`, below) starts
+//   its recomputes from; null on the serving paths.
+//
 // `ssm_step_kernel` (S <= STEP_MAX, a decode step): the same split and
 // order with one channel a thread and no staging, so that every load is in
 // flight at once: at the decode shape (B 8, inner 3200, N 16) it moves
 // ~3.7 MB, a round trip of device memory.
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -60,6 +66,7 @@ constexpr int STAGES = 4;         // tiles in the ring (STAGES - 1 in flight)
 constexpr int STEP_THREADS = 128; // threads of a step block
 constexpr int STEP_MAX = 4;       // up to this many timesteps go to the step kernel
 constexpr float LOG2E = 1.4426950408889634f;
+static_assert(SPL == 4, "a lane's states are stored as one float4");
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -142,7 +149,7 @@ __global__ void __launch_bounds__(THREADS, 8) ssm_scan_kernel(
     const T* __restrict__ u, const float* __restrict__ dt, const float* __restrict__ Bm,
     const float* __restrict__ Cm, const float* __restrict__ A, const float* __restrict__ D,
     const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ h_out,
-    int S, int inner) {
+    float* __restrict__ h_chunks, int S, int inner) {
   constexpr int LANES = N / SPL, HALF = LANES / 2, CH = Stage<T, N>::CH;
   static_assert(CPT == 2, "the lanes reduce a thread's two channels by halves");
   __shared__ __align__(16) Stage<T, N> ring[STAGES];
@@ -236,6 +243,16 @@ __global__ void __launch_bounds__(THREADS, 8) ssm_scan_kernel(
       for (int t = 0; t < TS; ++t) advance(t);
 #pragma unroll
       for (int t = 0; t < TS; ++t) reduce(t);
+      if (h_chunks != nullptr && k + 1 < tiles) {   // the state after this tile, for the backward
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const int c = c0 + CPT * q + j;
+          if (c < inner) {
+            float* dst = h_chunks + (((long long)b * (tiles - 1) + k) * inner + c) * N + lane * SPL;
+            *reinterpret_cast<float4*>(dst) = make_float4(h[j][0], h[j][1], h[j][2], h[j][3]);
+          }
+        }
+      }
     } else {
 #pragma unroll
       for (int t = 0; t < TS; ++t)
@@ -303,43 +320,291 @@ __global__ void __launch_bounds__(STEP_THREADS) ssm_step_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The scan's gradient (no Pallas counterpart: the reference differentiates a
+// jnp scan, src/repro/models/ssm.py:124-160, under jax.checkpoint per chunk).
+//
+// With da_t = exp(dt_t A) and g_t the gradient of the loss by h_t (b, i, n),
+// run in reverse, the term da_{S+1} g_{S+1} past the last step read as dh
+// (the final state's gradient, zeros when absent):
+//
+//   g_t   = C_t dy_t + da_{t+1} g_{t+1}
+//   du_t  = D dy_t + sum_n g_t dt_t B_t           ddt_t = sum_n g_t (A da_t h_{t-1} + B_t u_t)
+//   dB_t  = sum_i g_t dt_t u_t                    dC_t  = sum_i h_t dy_t
+//   dA    = sum_{b,t} g_t dt_t da_t h_{t-1}        dD    = sum_{b,t} dy_t u_t
+//   dh0   = da_1 g_1 (the g carried past the first step)
+//
+// The recurrence is never run backwards by dividing by da (it underflows).
+// The forward kernel keeps the state after every TS-step tile but the last
+// (`h_chunks`, (B, tiles - 1, inner, N) f32); the backward walks the tiles
+// last to first, recomputes a tile's TS states from its start state into
+// registers (TS x SPL floats a thread, indices static in unrolled loops),
+// then runs the adjoint over them. Each thread owns BSPL states of one
+// channel, so du and ddt (sums over n) reduce over a channel's N / BSPL
+// lanes by xor shuffles in a fixed order, written by one lane. dB_ and dC_ (sums over the inner channels) reduce over a
+// warp's channels by xor shuffles, then over the block's warps in order,
+// into per-block partials; dA and dD (sums over batch rows and time) are
+// summed over time in registers into per-row partials. A second kernel
+// sums the partials in order: no float atomics, the same bits every call.
+//
+// What bounds it: at hymba's training microbatch (B 1, S 4096, inner 3200,
+// N 16, u bf16) it reads u, dt, dy and writes du, ddt (14 B an element,
+// 13.1 M elements), reads the boundaries and writes and reads the partials;
+// and takes two exponentials per (b, t, i, n), one in the recompute and one
+// in the adjoint. At that shape the grid is 100 blocks of 256 threads (2
+// states a thread): under one block an SM, 6 warps where they land, each
+// walking 4096 steps in order, so what bounds this design is each step's
+// latency, not bytes or operations: tiles are staged by cp.async one
+// ahead, and whole tiles run with no branch between steps so that the
+// steps' independent loads and shuffles overlap.
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_THREADS = 256;   // threads of a backward block
+constexpr int BSPL = 2;            // states a backward lane holds
+constexpr int SUM_THREADS = 256;   // threads of a partials-summing block
+
+template <typename T, int N>
+struct BwdStage {
+  static constexpr int CH = BWD_THREADS / (N / BSPL);   // channels of a block
+  float dt[TS][CH];
+  T u[TS][CH];
+  T dy[TS][CH];
+  float B[TS][N];
+  float C[TS][N];
+};
+
+template <typename T, int N>
+struct BwdShared {
+  static constexpr int WARPS = BWD_THREADS / 32;
+  BwdStage<T, N> ring[2];       // tile k computed while tile k - 1 lands
+  float red[2][WARPS][TS][N];   // each warp's channel sums of dB_ (0) and dC_ (1)
+};
+
+// Thread (col, lane) holds states lane*BSPL .. +BSPL of channel c0 + col.
+// Tiles go last to first; each is staged by cp.async while the tile after
+// it (in time) is computed, with the start state it needs loaded into
+// registers at the same time. A whole tile runs with no branch between its
+// steps (only a ragged last tile checks), so that later steps' loads and
+// reductions issue early.
+template <typename T, int N>
+__global__ void __launch_bounds__(BWD_THREADS) ssm_scan_bwd_kernel(
+    const T* __restrict__ u, const float* __restrict__ dt, const float* __restrict__ Bm,
+    const float* __restrict__ Cm, const float* __restrict__ A, const float* __restrict__ D,
+    const float* __restrict__ h0, const float* __restrict__ h_chunks, const T* __restrict__ dy,
+    const float* __restrict__ dh, T* __restrict__ du, float* __restrict__ ddt,
+    float* __restrict__ part_bc, float* __restrict__ part_ad, float* __restrict__ dh0,
+    int S, int inner) {
+  constexpr int LANES = N / BSPL, CH = BwdStage<T, N>::CH, WARPS = BwdShared<T, N>::WARPS;
+  __shared__ __align__(16) BwdShared<T, N> sm;
+
+  const int b = blockIdx.y, Bb = gridDim.y, c0 = blockIdx.x * CH;
+  const int col = threadIdx.x / LANES, lane = threadIdx.x % LANES, warp = threadIdx.x / 32;
+  const int c = c0 + col;
+  const bool live = c < inner;
+  // a dead channel's threads run on zeros (its inputs are staged as zeros,
+  // so its g, states and partials stay 0) and take part in every shuffle
+  const long long state = ((long long)b * inner + (live ? c : 0)) * N + lane * BSPL;
+  const int tiles = (S + TS - 1) / TS;
+  const int cols = min(CH, inner - c0);
+  const bool vec_u = inner % (16 / int(sizeof(T))) == 0 && aligned16(u) && aligned16(dy);
+  const bool vec_dt = inner % 4 == 0 && aligned16(dt);
+  const bool vec_bc = aligned16(Bm) && aligned16(Cm);
+
+  float an[BSPL], a[BSPL], g[BSPL], gA[BSPL];
+#pragma unroll
+  for (int j = 0; j < BSPL; ++j) {
+    an[j] = live ? A[(long long)c * N + lane * BSPL + j] : 0.f;
+    a[j] = an[j] * LOG2E;
+    g[j] = live && dh != nullptr ? dh[state + j] : 0.f;
+    gA[j] = 0.f;
+  }
+  const float d = live ? D[c] : 0.f;
+  float gD = 0.f;
+
+  // tile k's inputs into ring slot k % 2 (cp.async, one group a tile), and
+  // the state before its first step into `start` (registers)
+  auto issue = [&](int k, float* start) {
+    if (k >= 0) {
+      BwdStage<T, N>& st = sm.ring[k % 2];
+      const int rows = min(TS, S - k * TS);
+      const long long row = (long long)b * S + (long long)k * TS;
+      stage_rows<float, CH>(st.dt, dt + row * inner + c0, inner, rows, cols, vec_dt);
+      stage_rows<T, CH>(st.u, u + row * inner + c0, inner, rows, cols, vec_u);
+      stage_rows<T, CH>(st.dy, dy + row * inner + c0, inner, rows, cols, vec_u);
+      stage_rows<float, N>(st.B, Bm + row * N, N, rows, N, vec_bc);
+      stage_rows<float, N>(st.C, Cm + row * N, N, rows, N, vec_bc);
+      const float* src = k == 0 ? h0
+          : h_chunks + ((long long)b * (tiles - 1) + k - 1) * inner * N;
+      const long long at = k == 0 ? state : (long long)(live ? c : 0) * N + lane * BSPL;
+#pragma unroll
+      for (int j = 0; j < BSPL; ++j) start[j] = live && src != nullptr ? src[at + j] : 0.f;
+    }
+    repro::cp_async_commit();
+  };
+
+  float h_next[BSPL];
+  issue(tiles - 1, h_next);
+  for (int k = tiles - 1; k >= 0; --k) {
+    const int t0 = k * TS, steps = min(TS, S - t0);
+    const long long row0 = (long long)b * S + t0;
+    float h_in[BSPL];
+#pragma unroll
+    for (int j = 0; j < BSPL; ++j) h_in[j] = h_next[j];
+    repro::cp_async_wait<0>();   // this thread's copies of tile k landed
+    __syncthreads();             // everyone's have; tile k + 1's slot and red are free
+    issue(k - 1, h_next);
+    const BwdStage<T, N>& st = sm.ring[k % 2];
+
+    float hs[TS][BSPL];   // the tile's states, recomputed as the forward computes them
+    auto recompute = [&](int t) {
+      const float dtt = st.dt[t][col], dtu = dtt * repro::to_float(st.u[t][col]);
+#pragma unroll
+      for (int j = 0; j < BSPL; ++j) {
+        const float prev = t > 0 ? hs[t > 0 ? t - 1 : 0][j] : h_in[j];
+        hs[t][j] = fmaf(exp2_approx(dtt * a[j]), prev, st.B[t][lane * BSPL + j] * dtu);
+      }
+    };
+    auto adjoint = [&](int t) {   // step t of the adjoint
+      const float dtt = st.dt[t][col], ut = repro::to_float(st.u[t][col]);
+      const float dyt = repro::to_float(st.dy[t][col]);
+      float s_du = 0.f, s_ddt = 0.f, pb[BSPL], pc[BSPL];
+#pragma unroll
+      for (int j = 0; j < BSPL; ++j) {
+        const float bb = st.B[t][lane * BSPL + j], cc = st.C[t][lane * BSPL + j];
+        const float prev = t > 0 ? hs[t > 0 ? t - 1 : 0][j] : h_in[j];
+        const float da = exp2_approx(dtt * a[j]);
+        g[j] = fmaf(cc, dyt, g[j]);
+        pc[j] = hs[t][j] * dyt;
+        pb[j] = g[j] * (dtt * ut);
+        s_du = fmaf(g[j], dtt * bb, s_du);
+        s_ddt = fmaf(g[j], fmaf(an[j] * da, prev, bb * ut), s_ddt);
+        gA[j] = fmaf(g[j] * dtt, da * prev, gA[j]);
+        g[j] *= da;
+      }
+      s_du = group_sum<LANES>(s_du);
+      s_ddt = group_sum<LANES>(s_ddt);
+      gD = fmaf(dyt, ut, gD);
+      if (live && lane == 0) {
+        const long long idx = (row0 + t) * inner + c;
+        du[idx] = repro::from_float<T>(fmaf(d, dyt, s_du));
+        ddt[idx] = s_ddt;
+      }
+      // over the warp's channels: the lanes of one state index differ in
+      // the bits at and above LANES
+#pragma unroll
+      for (int off = LANES; off < 32; off *= 2) {
+#pragma unroll
+        for (int j = 0; j < BSPL; ++j) {
+          pb[j] += __shfl_xor_sync(repro::FULL_MASK, pb[j], off);
+          pc[j] += __shfl_xor_sync(repro::FULL_MASK, pc[j], off);
+        }
+      }
+      if (threadIdx.x % 32 < LANES) {
+#pragma unroll
+        for (int j = 0; j < BSPL; ++j) {
+          sm.red[0][warp][t][lane * BSPL + j] = pb[j];
+          sm.red[1][warp][t][lane * BSPL + j] = pc[j];
+        }
+      }
+    };
+    if (steps == TS) {
+#pragma unroll
+      for (int t = 0; t < TS; ++t) recompute(t);
+#pragma unroll
+      for (int t = TS - 1; t >= 0; --t) adjoint(t);
+    } else {
+#pragma unroll
+      for (int t = 0; t < TS; ++t)
+        if (t < steps) recompute(t);
+#pragma unroll
+      for (int t = TS - 1; t >= 0; --t)
+        if (t < steps) adjoint(t);
+    }
+    __syncthreads();
+    // this block's partial sums of dB_ and dC_ over its channels, warps in order
+    for (int e = threadIdx.x; e < 2 * TS * N; e += BWD_THREADS) {
+      const int which = e / (TS * N), r = (e / N) % TS, n = e % N;
+      if (r < steps) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) s += sm.red[which][w][r][n];
+        part_bc[((((long long)blockIdx.x * 2 + which) * Bb + b) * S + t0 + r) * N + n] = s;
+      }
+    }
+  }
+
+  if (live) {
+    const long long row = (long long)b * (inner * N + inner);
+#pragma unroll
+    for (int j = 0; j < BSPL; ++j) {
+      if (dh0 != nullptr) dh0[state + j] = g[j];
+      part_ad[row + (long long)c * N + lane * BSPL + j] = gA[j];
+    }
+    if (lane == 0) part_ad[row + (long long)inner * N + c] = gD;
+  }
+}
+
+// out[e] = sum over p of parts[p * n + e], p in order.
+__global__ void __launch_bounds__(SUM_THREADS) ssm_sum_parts_kernel(
+    const float* __restrict__ parts, float* __restrict__ out, int n_parts, long long n) {
+  for (long long e = (long long)blockIdx.x * SUM_THREADS + threadIdx.x; e < n;
+       e += (long long)gridDim.x * SUM_THREADS) {
+    float s = 0.f;
+    for (int p = 0; p < n_parts; ++p) s += parts[(long long)p * n + e];
+    out[e] = s;
+  }
+}
+
+void sum_parts(const float* parts, float* out, int n_parts, long long n, cudaStream_t stream) {
+  if (n <= 0) return;
+  const long long blocks = std::min<long long>((n + SUM_THREADS - 1) / SUM_THREADS, 132 * 8);
+  ssm_sum_parts_kernel<<<(int)blocks, SUM_THREADS, 0, stream>>>(parts, out, n_parts, n);
+}
+
 template <typename T, int N>
 cudaError_t launch(const void* u, const float* dt, const float* Bm, const float* Cm,
                    const float* A, const float* D, const float* h0, void* y, float* h_out,
-                   int Bb, int S, int inner, cudaStream_t stream) {
+                   float* h_chunks, int Bb, int S, int inner, cudaStream_t stream) {
   const T* tu = static_cast<const T*>(u);
   T* ty = static_cast<T*>(y);
-  if (S <= STEP_MAX) {
+  if (S <= STEP_MAX) {   // one tile: no boundary to keep
     constexpr int CHS = STEP_THREADS / (N / SPL);
     ssm_step_kernel<T, N><<<dim3((inner + CHS - 1) / CHS, Bb), STEP_THREADS, 0, stream>>>(
         tu, dt, Bm, Cm, A, D, h0, ty, h_out, S, inner);
   } else {
     constexpr int CH = Stage<T, N>::CH;
     ssm_scan_kernel<T, N><<<dim3((inner + CH - 1) / CH, Bb), THREADS, 0, stream>>>(
-        tu, dt, Bm, Cm, A, D, h0, ty, h_out, S, inner);
+        tu, dt, Bm, Cm, A, D, h0, ty, h_out, h_chunks, S, inner);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_n(const void* u, const float* dt, const float* Bm, const float* Cm,
-                       const float* A, const float* D, const float* h0, void* y,
-                       float* h_out, int Bb, int S, int inner, int N, cudaStream_t stream) {
-  switch (N) {
-    case 8: return launch<T, 8>(u, dt, Bm, Cm, A, D, h0, y, h_out, Bb, S, inner, stream);
-    case 16: return launch<T, 16>(u, dt, Bm, Cm, A, D, h0, y, h_out, Bb, S, inner, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <typename T, int N>
+cudaError_t launch_bwd(const void* u, const float* dt, const float* Bm, const float* Cm,
+                       const float* A, const float* D, const float* h0, const float* h_chunks,
+                       const void* dy, const float* dh, void* du, float* ddt, float* dBC,
+                       float* dAD, float* dh0, float* part_bc, float* part_ad, int Bb, int S,
+                       int inner, cudaStream_t stream) {
+  constexpr int CH = BwdStage<T, N>::CH;
+  const int blocks = (inner + CH - 1) / CH;
+  ssm_scan_bwd_kernel<T, N><<<dim3(blocks, Bb), BWD_THREADS, 0, stream>>>(
+      static_cast<const T*>(u), dt, Bm, Cm, A, D, h0, h_chunks, static_cast<const T*>(dy), dh,
+      static_cast<T*>(du), ddt, part_bc, part_ad, dh0, S, inner);
+  sum_parts(part_bc, dBC, blocks, 2LL * Bb * S * N, stream);
+  sum_parts(part_ad, dAD, Bb, (long long)inner * N + inner, stream);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // u, y: (B, S, inner) in `dtype`; dt: (B, S, inner) f32; B_, C_: (B, S, N)
 // f32; A: (inner, N) f32; D: (inner,) f32; h0 (nullable), h_out: (B, inner, N)
-// f32. All contiguous.
+// f32; h_chunks (nullable): (B, ceil(S / 16) - 1, inner, N) f32, the state
+// after each 16-step tile but the last (written by the S > 4 kernel only;
+// for S <= 4 there is none). All contiguous.
 extern "C" int repro_ssm_scan(
     const void* u, const void* dt, const void* B_, const void* C_, const void* A,
-    const void* D, const void* h0, void* y, void* h_out,
+    const void* D, const void* h0, void* y, void* h_out, void* h_chunks,
     int dtype, int Bb, int S, int inner, int N, void* stream) {
   if (Bb == 0 || inner == 0) return cudaSuccess;
   if (Bb < 0 || Bb > 65535 || S < 0 || inner < 0) return cudaErrorInvalidValue;
@@ -350,13 +615,54 @@ extern "C" int repro_ssm_scan(
   const float* f_D = static_cast<const float*>(D);
   const float* f_h0 = static_cast<const float*>(h0);
   float* f_hout = static_cast<float*>(h_out);
+  float* f_chunks = static_cast<float*>(h_chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case repro::kFloat32:
-      return dispatch_n<float>(u, f_dt, f_B, f_C, f_A, f_D, f_h0, y, f_hout, Bb, S, inner, N, s);
-    case repro::kBFloat16:
-      return dispatch_n<__nv_bfloat16>(u, f_dt, f_B, f_C, f_A, f_D, f_h0, y, f_hout, Bb, S,
-                                       inner, N, s);
-    default: return cudaErrorInvalidValue;
-  }
+#define REPRO_SCAN(T, NN) \
+  launch<T, NN>(u, f_dt, f_B, f_C, f_A, f_D, f_h0, y, f_hout, f_chunks, Bb, S, inner, s)
+  if (dtype == repro::kFloat32 && N == 8) return REPRO_SCAN(float, 8);
+  if (dtype == repro::kFloat32 && N == 16) return REPRO_SCAN(float, 16);
+  if (dtype == repro::kBFloat16 && N == 8) return REPRO_SCAN(__nv_bfloat16, 8);
+  if (dtype == repro::kBFloat16 && N == 16) return REPRO_SCAN(__nv_bfloat16, 16);
+#undef REPRO_SCAN
+  return cudaErrorInvalidValue;
+}
+
+// The gradient of repro_ssm_scan. Inputs as there, plus h_chunks (from the
+// forward; unread when S <= 16), dy (B, S, inner) in `dtype` and dh
+// (nullable: zeros) (B, inner, N) f32. Outputs: du (B, S, inner) in `dtype`,
+// ddt (B, S, inner) f32, dBC (2, B, S, N) f32 (dB_ then dC_), dAD
+// (inner * N + inner) f32 (dA then dD), dh0 (nullable: not written)
+// (B, inner, N) f32. Scratch: part_bc (ceil(inner / CH), 2, B, S, N) and
+// part_ad (B, inner * N + inner) f32, CH = 32 at N 16 and 64 at N 8.
+extern "C" int repro_ssm_scan_bwd(
+    const void* u, const void* dt, const void* B_, const void* C_, const void* A,
+    const void* D, const void* h0, const void* h_chunks, const void* dy, const void* dh,
+    void* du, void* ddt, void* dBC, void* dAD, void* dh0, void* part_bc, void* part_ad,
+    int dtype, int Bb, int S, int inner, int N, void* stream) {
+  if (Bb == 0 || inner == 0) return cudaSuccess;
+  if (Bb < 0 || Bb > 65535 || S < 0 || inner < 0) return cudaErrorInvalidValue;
+  const float* f_dt = static_cast<const float*>(dt);
+  const float* f_B = static_cast<const float*>(B_);
+  const float* f_C = static_cast<const float*>(C_);
+  const float* f_A = static_cast<const float*>(A);
+  const float* f_D = static_cast<const float*>(D);
+  const float* f_h0 = static_cast<const float*>(h0);
+  const float* f_chunks = static_cast<const float*>(h_chunks);
+  const float* f_dh = static_cast<const float*>(dh);
+  float* f_ddt = static_cast<float*>(ddt);
+  float* f_dBC = static_cast<float*>(dBC);
+  float* f_dAD = static_cast<float*>(dAD);
+  float* f_dh0 = static_cast<float*>(dh0);
+  float* f_pbc = static_cast<float*>(part_bc);
+  float* f_pad = static_cast<float*>(part_ad);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_SCAN_BWD(T, NN)                                                              \
+  launch_bwd<T, NN>(u, f_dt, f_B, f_C, f_A, f_D, f_h0, f_chunks, dy, f_dh, du, f_ddt, f_dBC, \
+                    f_dAD, f_dh0, f_pbc, f_pad, Bb, S, inner, s)
+  if (dtype == repro::kFloat32 && N == 8) return REPRO_SCAN_BWD(float, 8);
+  if (dtype == repro::kFloat32 && N == 16) return REPRO_SCAN_BWD(float, 16);
+  if (dtype == repro::kBFloat16 && N == 8) return REPRO_SCAN_BWD(__nv_bfloat16, 8);
+  if (dtype == repro::kBFloat16 && N == 16) return REPRO_SCAN_BWD(__nv_bfloat16, 16);
+#undef REPRO_SCAN_BWD
+  return cudaErrorInvalidValue;
 }

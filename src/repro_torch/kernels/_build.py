@@ -78,7 +78,14 @@ SIGNATURES = {
     ],
     "repro_ssm_scan": [
         _P, _P, _P, _P, _P, _P, _P,      # u, dt, B_, C_, A, D, h0 (NULL = zeros)
-        _P, _P,                          # y, h_final
+        _P, _P, _P,                      # y, h_final, h_chunks (NULL = not kept)
+        _I, _I, _I, _I, _I, _P,          # dtype, B, S, inner, N, stream
+    ],
+    "repro_ssm_scan_bwd": [
+        _P, _P, _P, _P, _P, _P, _P, _P,  # u, dt, B_, C_, A, D, h0, h_chunks
+        _P, _P,                          # dy, dh (NULL = zeros)
+        _P, _P, _P, _P, _P,              # du, ddt, dB_ and dC_, dA and dD, dh0 (NULL = none)
+        _P, _P,                          # partials: dB_ and dC_ by block, dA and dD by row
         _I, _I, _I, _I, _I, _P,          # dtype, B, S, inner, N, stream
     ],
     "repro_mlstm": _MLSTM,               # f32 FMA chunkwise kernel

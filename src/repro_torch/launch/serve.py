@@ -56,11 +56,15 @@ them) and the engine's paged pool.
 Params come from ``torch.Generator(device).manual_seed(seed)``. The prompts
 are ``numpy.random.RandomState(seed).randint(0, vocab, (batch, prompt_len))``
 and a VLM's stub patch embeddings ``(batch, vision_tokens, vision_width)``
-are drawn in bf16 from the same seeded torch generator, after the params:
-the reference draws both with ``jax.random`` (patches from key 3), whose
-numbers the port cannot reproduce, so the two launchers serve different
-inputs. A VLM serves in the host and the dense ``--plan`` paths; the
-engine serves text only.
+or an encoder-decoder's stub frame embeddings ``(batch, encoder_seq_len,
+d_model)`` are drawn in bf16 from the same seeded torch generator, after
+the params: the reference draws them with ``jax.random`` (frames from key
+2, patches from key 3), whose numbers the port cannot reproduce, so the
+two launchers serve different inputs. A VLM serves in the host and the
+dense ``--plan`` paths; the engine serves text only. An encoder-decoder
+(``--arch whisper-tiny``) serves in the host path only: ``--plan`` and
+``--engine`` refuse it (its memory under a plan migration is a later
+slice).
 """
 from __future__ import annotations
 
@@ -87,7 +91,7 @@ from repro_torch.dist import (
 )
 from repro_torch.models import build_model, common
 from repro_torch.models.layers import PAGE_SIZE
-from repro_torch.models.zoo import Model
+from repro_torch.models.zoo import Model, input_specs
 from repro_torch.obs import get_logger
 from repro_torch.serve.autoscale import drain_replica
 from repro_torch.serve.engine import DecodeEngine, Request
@@ -117,19 +121,22 @@ def _sync(device: torch.device) -> None:
 
 def greedy_serve(model: Model, params, tokens: torch.Tensor, new_tokens: int,
                  layout: ShardingLayout = ShardingLayout(attn_impl="flash"),
-                 patches: Optional[torch.Tensor] = None) -> ServeResult:
-    """Prefill ``tokens`` (B, S) in one batch (after a VLM's ``patches``),
-    then greedy-decode until every row has ``new_tokens`` tokens; the cache
-    holds S + new_tokens positions and the vision prefix (a ring buffer of
-    the window for sliding attention; xLSTM keeps only its constant-size
-    recurrent states). ``layout.int8_kv_cache`` makes the cache int8."""
+                 patches: Optional[torch.Tensor] = None,
+                 frames: Optional[torch.Tensor] = None) -> ServeResult:
+    """Prefill ``tokens`` (B, S) in one batch (after a VLM's ``patches``;
+    an encoder-decoder encodes its ``frames`` first), then greedy-decode
+    until every row has ``new_tokens`` tokens; the cache holds S +
+    new_tokens positions and the vision prefix (a ring buffer of the window
+    for sliding attention; xLSTM keeps only its constant-size recurrent
+    states; an encoder-decoder keeps its encoder's output beside them).
+    ``layout.int8_kv_cache`` makes the cache int8."""
     device = tokens.device
     S = tokens.shape[1]
     prefill = build_prefill_step(model, layout, S + new_tokens)
     decode = build_decode_step(model, layout)
 
     t0 = time.perf_counter()
-    logits, cache = prefill(params, _batch(tokens, patches))
+    logits, cache = prefill(params, _batch(tokens, patches, frames))
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     _sync(device)
     prefill_s = time.perf_counter() - t0
@@ -146,8 +153,14 @@ def greedy_serve(model: Model, params, tokens: torch.Tensor, new_tokens: int,
                        time.perf_counter() - t0)
 
 
-def _batch(tokens: torch.Tensor, patches: Optional[torch.Tensor]) -> dict:
-    return {"tokens": tokens} if patches is None else {"tokens": tokens, "patches": patches}
+def _batch(tokens: torch.Tensor, patches: Optional[torch.Tensor],
+           frames: Optional[torch.Tensor] = None) -> dict:
+    out = {"tokens": tokens}
+    if patches is not None:
+        out["patches"] = patches
+    if frames is not None:
+        out["frames"] = frames
+    return out
 
 
 # the plan modes prefill through the flash kernel's entry point; the
@@ -164,6 +177,16 @@ def _no_migration(cache_policy: str) -> dict:
             "migrated_at": None, "cache_policy": cache_policy}
 
 
+def _refuse_encoder(cfg) -> None:
+    """The plan modes serve decoder-only models: an encoder-decoder's
+    memory under a plan migration (and in the paged engine, which the
+    reference gives DENSE blocks only) is a later slice."""
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            f"--plan / --engine serve decoder-only models; {cfg.name}'s encoder memory under "
+            f"a plan migration is a later slice (serve it on the host path)")
+
+
 def serve_plan(model: Model, params, prompts: np.ndarray, new_tokens: int,
                counts: Sequence[int], *, revoke_after: int = 0, cache_policy: str = "drop",
                engine: bool = False, device="cuda",
@@ -176,6 +199,7 @@ def serve_plan(model: Model, params, prompts: np.ndarray, new_tokens: int,
     step is timed into ``tracker`` (a fresh ``ThroughputTracker`` by
     default) under its plan's key. ``int8_cache``: the int8 KV cache.
     Returns the ``PLAN_JSON`` object."""
+    _refuse_encoder(model.cfg)
     if engine and cache_policy != "drop":
         raise SystemExit("--engine supports --cache-policy drop only "
                          "(pool pages die with the instance)")
@@ -347,29 +371,29 @@ def _model_and_prompts(args):
     return build_model(cfg), prompts, device
 
 
-def _params_and_patches(model: Model, args, device, dtype=None):
-    """Params from the seeded generator, then a VLM's stub patch embeddings
-    (bf16, standard normal) from the same generator; None for a text model."""
+def _params_and_inputs(model: Model, args, device, dtype=None):
+    """Params from the seeded generator, then the stub frontends' inputs
+    that ``input_specs`` names beside the tokens (an encoder-decoder's
+    ``frames``, a VLM's ``patches``; bf16, standard normal) from the same
+    generator, by name; an empty dict for a text model."""
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device, dtype)
-    cfg = model.cfg
-    if not cfg.vision_tokens:
-        return params, None
-    patches = torch.randn((args.batch, cfg.vision_tokens, cfg.vision_width), generator=gen,
-                          device=device).to(torch.bfloat16)
-    return params, patches
+    specs = input_specs(model.cfg, args.batch, args.prompt_len, "prefill")
+    return params, {name: torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+                    for name, (shape, _) in specs.items() if name != "tokens"}
 
 
 def plan_main(args) -> dict:
     """``--plan`` (and ``--engine``): print the ``first row:`` and
     ``PLAN_JSON`` lines; returns the ``PLAN_JSON`` object."""
     model, prompts, device = _model_and_prompts(args)
+    _refuse_encoder(model.cfg)
     # param_dtype (f32) storage, as the reference's plan modes hold the params
-    params, patches = _params_and_patches(model, args, device)
+    params, inputs = _params_and_inputs(model, args, device)
     out = serve_plan(model, params, prompts, args.new_tokens,
                      [int(x) for x in args.plan.split(",")], revoke_after=args.revoke_after,
                      cache_policy=args.cache_policy, engine=args.engine, device=device,
-                     int8_cache=args.int8_cache, patches=patches)
+                     int8_cache=args.int8_cache, patches=inputs.get("patches"))
     print("first row:", out["tokens"][0], flush=True)
     print("PLAN_JSON " + json.dumps(out), flush=True)
     return out
@@ -379,10 +403,10 @@ def host_main(args) -> dict:
     """The host path: lock-step batched prefill + decode on one device."""
     model, prompt, device = _model_and_prompts(args)
     cfg = model.cfg
-    params, patches = _params_and_patches(model, args, device, common.torch_dtype(cfg.dtype))
+    params, inputs = _params_and_inputs(model, args, device, common.torch_dtype(cfg.dtype))
     layout = ShardingLayout(attn_impl="flash", int8_kv_cache=args.int8_cache)
     res = greedy_serve(model, params, torch.as_tensor(prompt, device=device), args.new_tokens,
-                       layout, patches)
+                       layout, **inputs)
     summary = {"event": "serve done", "arch": cfg.name, "device": str(device),
                "batch": args.batch, "prompt_len": args.prompt_len,
                "int8_cache": args.int8_cache,

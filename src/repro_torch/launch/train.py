@@ -5,8 +5,10 @@
         [--spot-mode none|siwoft|checkpoint|hybrid] [--trace PATH]
 
 Trains on one device (``cuda`` unless ``--device cpu``), attending through
-the flash kernels' autograd Function: the CUDA kernels on the card, their
-plain versions on the CPU. ``--reduced`` (the default, as in the
+the flash kernels' autograd Function (and a hybrid model's Mamba blocks
+scanning through the selective scan's): the CUDA kernels on the card,
+their plain versions on the CPU. An encoder-decoder (whisper) is refused:
+the data path makes no frames. ``--reduced`` (the default, as in the
 reference) runs the family-preserving tiny config; ``--no-reduced`` the
 full one. With ``--spot-mode none`` the run is one ``run_segment``; with
 ``siwoft|checkpoint|hybrid`` it goes through the provisioner
@@ -38,6 +40,10 @@ def _run(args) -> dict:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.encoder_layers:
+        raise SystemExit(f"launch.train: {cfg.name} trains on frames, which the data path does "
+                         f"not make (neither does the reference's); train it through "
+                         f"build_train_step with a batch that carries frames")
     model = build_model(cfg)
     ds = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
     tc = TrainConfig(total_steps=args.steps, warmup_steps=min(20, args.steps // 10 + 1))

@@ -1,5 +1,5 @@
-"""Model code of the port: the dense, hybrid (Hymba) and xLSTM decoders
-behind ``build_model``."""
+"""Model code of the port: the dense, MoE, hybrid (Hymba) and xLSTM
+decoders and the encoder-decoder (whisper) behind ``build_model``."""
 from repro_torch.models.transformer import RunOpts
 from repro_torch.models.zoo import Model, build_model
 

@@ -1,7 +1,9 @@
-"""Shared layers of the decoders (port of ``repro.models.layers``):
-f32-internal RMSNorm, split-half RoPE, the gated MLP (SwiGLU, GeGLU), the qkv projection
-with its optional bias and qk-norm, the plain blockwise attention used by
-prefill and training (``masked``: every q chunk scans every kv chunk;
+"""Shared layers of the models (port of ``repro.models.layers``):
+f32-internal RMSNorm and LayerNorm (``norm`` picks by the params), split-half RoPE, the gated MLP
+(SwiGLU, GeGLU) and the biased GELU MLP, the qkv projection (queries and
+keys/values from separate inputs for cross-attention) with its optional
+bias and qk-norm, the plain blockwise attention used by prefill, training,
+the encoder and cross-attention (``masked``: every q chunk scans every kv chunk;
 ``triangular``: a causal q chunk scans only the kv chunks at or below its
 diagonal; full or sliding-window), one-token attention against a dense
 (ring-buffer) KV cache, and one-token attention against the shared paged
@@ -38,6 +40,13 @@ def rmsnorm_spec(dim: int, axis: str = "embed") -> Dict[str, ParamSpec]:
     return {"scale": ParamSpec((dim,), (axis,), init="ones")}
 
 
+def layernorm_spec(dim: int, axis: str = "embed") -> Dict[str, ParamSpec]:
+    return {
+        "scale": ParamSpec((dim,), (axis,), init="ones"),
+        "bias": ParamSpec((dim,), (axis,), init="zeros"),
+    }
+
+
 def rmsnorm(params: Dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm in f32, output cast back to the input dtype."""
     dtype = x.dtype
@@ -45,6 +54,25 @@ def rmsnorm(params: Dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = x.square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps) * params["scale"].float()
     return y.to(dtype)
+
+
+def layernorm(params: Dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm in f32 (mean, then the variance of the centred values),
+    output cast back to the input dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(dtype)
+
+
+def norm(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """LayerNorm where the params have a ``bias`` (whisper), else RMSNorm."""
+    if "bias" in params:
+        return layernorm(params, x, cfg.norm_eps)
+    return rmsnorm(params, x, cfg.norm_eps)
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,13 +97,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def mlp_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    if not cfg.gated_mlp:
-        raise NotImplementedError("repro_torch: only the gated (SwiGLU, GeGLU) MLP is ported")
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.gated_mlp:
+        return {
+            "wi_gate": ParamSpec((d, f), ("embed", "ffn")),
+            "wi_up": ParamSpec((d, f), ("embed", "ffn")),
+            "wo": ParamSpec((f, d), ("ffn", "embed")),
+        }
     return {
-        "wi_gate": ParamSpec((d, f), ("embed", "ffn")),
-        "wi_up": ParamSpec((d, f), ("embed", "ffn")),
+        "wi": ParamSpec((d, f), ("embed", "ffn")),
+        "bi": ParamSpec((f,), ("ffn",), init="zeros"),
         "wo": ParamSpec((f, d), ("ffn", "embed")),
+        "bo": ParamSpec((d,), ("embed",), init="zeros"),
     }
 
 
@@ -90,18 +123,25 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def mlp(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU or GeGLU: wo(act(x wi_gate) * x wi_up)."""
+    """SwiGLU or GeGLU, wo(act(x wi_gate) * x wi_up); or, not gated (whisper),
+    act(x wi + bi) wo + bo, each bias cast to the compute dtype."""
     ct = cfg.dtype
-    g = common.dense(x, params["wi_gate"], ct)
-    u = common.dense(x, params["wi_up"], ct)
-    return common.dense(_act(g, cfg.mlp_activation) * u, params["wo"], ct)
+    if cfg.gated_mlp:
+        g = common.dense(x, params["wi_gate"], ct)
+        u = common.dense(x, params["wi_up"], ct)
+        return common.dense(_act(g, cfg.mlp_activation) * u, params["wo"], ct)
+    dt = common.torch_dtype(ct)
+    h = _act(common.dense(x, params["wi"], ct) + params["bi"].to(dt), cfg.mlp_activation)
+    return common.dense(h, params["wo"], ct) + params["bo"].to(dt)
 
 
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
 
-def attention_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+def attention_spec(cfg: ModelConfig, cross: bool = False) -> Dict[str, ParamSpec]:
+    """Projections (and the QKV bias, qk-norm scales where the config has
+    them); ``cross``: an encoder-decoder's cross-attention, never qk-normed."""
     d = cfg.d_model
     qd, kd = cfg.q_dim, cfg.kv_dim
     spec: Dict[str, ParamSpec] = {
@@ -114,22 +154,23 @@ def attention_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         spec["bq"] = ParamSpec((qd,), ("q_dim",), init="zeros")
         spec["bk"] = ParamSpec((kd,), ("kv_dim",), init="zeros")
         spec["bv"] = ParamSpec((kd,), ("kv_dim",), init="zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         spec["q_norm"] = ParamSpec((cfg.resolved_head_dim,), ("head_dim",), init="ones")
         spec["k_norm"] = ParamSpec((cfg.resolved_head_dim,), ("head_dim",), init="ones")
     return spec
 
 
 def _project_qkv(
-    params: Dict, x: torch.Tensor, cfg: ModelConfig
+    params: Dict, xq: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(B,S,d) -> q (B,S,H,hd), k/v (B,S,KVH,hd): the bias (cast to the
-    projection's dtype) before the head split, then qk-norm."""
+    """xq (B,S,d), xkv (B,T,d) -> q (B,S,H,hd), k/v (B,T,KVH,hd): the bias
+    (cast to the projection's dtype) before the head split, then qk-norm.
+    Self-attention passes the same tensor twice."""
     ct = cfg.dtype
     hd = cfg.resolved_head_dim
-    q = common.dense(x, params["wq"], ct)
-    k = common.dense(x, params["wk"], ct)
-    v = common.dense(x, params["wv"], ct)
+    q = common.dense(xq, params["wq"], ct)
+    k = common.dense(xkv, params["wk"], ct)
+    v = common.dense(xkv, params["wv"], ct)
     if "bq" in params:
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
@@ -288,6 +329,20 @@ def blockwise_attention(
     return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
 
 
+def cross_attention_layer(
+    params: Dict, x: torch.Tensor, memory: torch.Tensor, cfg: ModelConfig,
+) -> torch.Tensor:
+    """Encoder-decoder cross-attention (no RoPE, no mask) of x (B,S,d) over
+    the encoder's memory (B,T,d), through the plain blockwise attention at
+    the reference's fixed 512 / 512 chunks (a memory of 1500 frames is
+    padded to 1536, the pad rows masked). Returns (B,S,d) projected by
+    ``wo``."""
+    q, k, v = _project_qkv(params, x, memory, cfg)
+    out = blockwise_attention(q, k, v, causal=False, q_chunk=512, kv_chunk=512)
+    B, S = x.shape[:2]
+    return common.dense(out.reshape(B, S, cfg.q_dim), params["wo"], cfg.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Dense KV cache (lock-step decode)
 # ---------------------------------------------------------------------------
@@ -348,7 +403,7 @@ def decode_attention(
     """
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    q, k_new, v_new = _project_qkv(params, x, cfg)
+    q, k_new, v_new = _project_qkv(params, x, x, cfg)
     positions = torch.full((B, 1), float(pos), device=x.device)
     q = rope(q, positions, cfg.rope_theta)
     k_new = rope(k_new, positions, cfg.rope_theta)
@@ -458,7 +513,7 @@ def decode_attention_paged(
     P, ps = k_pages.shape[:2]
 
     pos = seq_lens.to(torch.int32)
-    q, k_new, v_new = _project_qkv(params, x, cfg)
+    q, k_new, v_new = _project_qkv(params, x, x, cfg)
     q = rope(q, pos[:, None].float(), cfg.rope_theta)
     k_new = rope(k_new, pos[:, None].float(), cfg.rope_theta)
 

@@ -3,8 +3,13 @@ half of Hymba's parallel attention + SSM blocks.
 
 The recurrence goes through ``kernels.ssm_scan.ops.ssm_scan``: the CUDA
 kernel on a GPU tensor, its plain sequential version on the CPU, in
-prefill (the whole sequence from a zero state) and in every decode step
-(S=1 from the cached state). The selective-parameter projections stay
+prefill (the whole sequence from a zero state), in every decode step
+(S=1 from the cached state) and in training, where the block is
+differentiated: the scan's gradient is its backward kernel on the card
+(from the states the forward kept after each 16-step tile, as the
+reference's ``jax.checkpoint`` keeps its chunk boundaries) and the plain
+adjoint recurrence on the CPU; everything around it is autograd. The
+selective-parameter projections stay
 ``torch.matmul``, as the JAX package leaves them to XLA outside any
 kernel; the JAX block computes them per scan chunk under
 ``jax.checkpoint``, here they run once over the whole sequence, which

@@ -9,19 +9,23 @@ over per-layer views of the stacked parameters.
 
 Ported block families: DENSE with full attention (with or without a QKV
 bias, and the VLM's stub vision prefix: ``batch["patches"]`` projected by
-``vision_proj`` and prepended to the text) and MOE (attention, then a
+``vision_proj`` and prepended to the text), MOE (attention, then a
 mixture of experts in place of the MLP) with full or sliding-window
-attention, at every entry point but the paged decode (DENSE text only, as
-in the reference); for serving only (``prefill``, ``decode_step``),
-HYBRID_PARALLEL (Hymba: attention and a Mamba block side by side) with
-sliding-window attention, and MLSTM (xLSTM: ``groups`` of mLSTM blocks and
-one sLSTM, no attention). The selective-scan and mLSTM kernels have no
-gradient yet, so the training forwards refuse those. Either KV cache may
-be int8 (``RunOpts.int8_kv_cache``). Embeddings may be tied (the LM head is
+attention, HYBRID_PARALLEL (Hymba: attention and a Mamba block side by
+side, the selective scan differentiated by its backward kernel) with
+sliding-window attention, and ENCDEC (whisper: a LayerNorm encoder over
+``batch["frames"]``, the stub frontend's embeddings, whose output, the
+``memory``, every decoder block cross-attends to after its self-attention;
+the cache keeps it under ``memory``) with full attention, at every entry
+point but the paged decode (DENSE text only, as in the reference); and
+MLSTM (xLSTM: ``groups`` of mLSTM blocks and one sLSTM, no attention) for
+serving only (``prefill``, ``decode_step``): the mLSTM kernel has no
+gradient yet, so the training forwards refuse it. Either KV cache may be
+int8 (``RunOpts.int8_kv_cache``). Embeddings may be tied (the LM head is
 ``embed.T``, a view) and scaled by sqrt(d_model) as a float32 scalar, which
 makes the residual stream f32 whatever the compute dtype, as in the
-reference (gemma). The other families and encoders raise
-``NotImplementedError``.
+reference (gemma). Norms are LayerNorm for the ``audio`` family (whisper)
+and RMSNorm otherwise. The other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,20 +57,21 @@ _SERVED = {(BlockKind.DENSE, AttentionKind.FULL),
            (BlockKind.MOE, AttentionKind.FULL),
            (BlockKind.MOE, AttentionKind.SLIDING),
            (BlockKind.HYBRID_PARALLEL, AttentionKind.SLIDING),
-           (BlockKind.MLSTM, AttentionKind.NONE)}
+           (BlockKind.MLSTM, AttentionKind.NONE),
+           (BlockKind.ENCDEC, AttentionKind.FULL)}
 
 
 def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
     if (cfg.block, cfg.attention) not in _SERVED:
         raise NotImplementedError(
             f"repro_torch serves DENSE full-attention, MOE full or sliding-window, "
-            f"HYBRID_PARALLEL sliding-window and MLSTM models only, got "
-            f"{cfg.block.value}/{cfg.attention.value}"
+            f"HYBRID_PARALLEL sliding-window, MLSTM and ENCDEC full-attention models only, "
+            f"got {cfg.block.value}/{cfg.attention.value}"
         )
     if cfg.block == BlockKind.MOE and cfg.moe is None:
         raise NotImplementedError(f"repro_torch: {cfg.name} is MOE with no MoEConfig")
-    if cfg.encoder_layers:
-        raise NotImplementedError(f"repro_torch: {cfg.name} needs a later slice")
+    if cfg.block == BlockKind.ENCDEC and not cfg.encoder_layers:
+        raise NotImplementedError(f"repro_torch: {cfg.name}: ENCDEC blocks with no encoder")
     if opts is not None:
         if opts.attn_impl not in ("masked", "triangular", "flash"):
             raise NotImplementedError(f"repro_torch: attn_impl {opts.attn_impl!r}")
@@ -74,36 +79,53 @@ def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
             raise NotImplementedError(f"repro_torch: remat {opts.remat!r} is not ported yet")
 
 
-def _require_dense(cfg: ModelConfig, what: str, moe_too: bool = False) -> None:
-    """The training forwards take DENSE and MOE blocks, the paged decode
-    DENSE blocks only: a hybrid or xLSTM training step would need the
-    scan's or the mLSTM's gradient (their kernels have none yet), and the
-    reference pages DENSE blocks only (MOE serves through the dense ring
-    cache, which carries its load counters)."""
-    allowed = (BlockKind.DENSE, BlockKind.MOE) if moe_too else (BlockKind.DENSE,)
-    if cfg.block not in allowed:
-        names = " and ".join(b.name for b in allowed)
+def _require_dense(cfg: ModelConfig, what: str) -> None:
+    """The paged decode takes DENSE blocks only, as the reference pages
+    DENSE blocks only: MOE, hybrid and encoder-decoder models serve through
+    the dense ring cache, which carries their load counters, SSM states and
+    encoder memory."""
+    if cfg.block != BlockKind.DENSE:
         raise NotImplementedError(
-            f"repro_torch: {what} supports {names} blocks only, got {cfg.block.value}")
+            f"repro_torch: {what} supports DENSE blocks only, got {cfg.block.value}")
+
+
+def _require_trainable(cfg: ModelConfig) -> None:
+    """The training forwards take every ported block but MLSTM: an xLSTM
+    step needs the mLSTM kernel's gradient and autograd through the sLSTM
+    loop, the next slice."""
+    if cfg.block == BlockKind.MLSTM:
+        raise NotImplementedError(
+            f"repro_torch: training supports DENSE, MOE, HYBRID_PARALLEL and ENCDEC blocks; "
+            f"{cfg.name} ({cfg.block.value}) needs the mLSTM's gradient and the sLSTM loop's, "
+            f"the next slice")
 
 
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
 
+def _norm_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """LayerNorm for whisper (the ``audio`` family), RMSNorm otherwise."""
+    if cfg.family == "audio":
+        return layers.layernorm_spec(cfg.d_model)
+    return layers.rmsnorm_spec(cfg.d_model)
+
+
 def block_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """Spec for ONE decoder block of this config's kind (unstacked)."""
-    spec: Dict[str, Any] = {"ln1": layers.rmsnorm_spec(cfg.d_model),
-                            "attn": layers.attention_spec(cfg)}
+    spec: Dict[str, Any] = {"ln1": _norm_spec(cfg), "attn": layers.attention_spec(cfg)}
     if cfg.block == BlockKind.HYBRID_PARALLEL:
         spec["mamba"] = ssm.mamba_spec(cfg)
         spec["fuse_attn"] = layers.rmsnorm_spec(cfg.d_model)
         spec["fuse_ssm"] = layers.rmsnorm_spec(cfg.d_model)
-    spec["ln2"] = layers.rmsnorm_spec(cfg.d_model)
+    spec["ln2"] = _norm_spec(cfg)
     if cfg.block == BlockKind.MOE:
         spec["moe"] = moe.moe_spec(cfg)
     else:
         spec["mlp"] = layers.mlp_spec(cfg)
+    if cfg.block == BlockKind.ENCDEC:
+        spec["ln_cross"] = _norm_spec(cfg)
+        spec["cross"] = layers.attention_spec(cfg, cross=True)
     return spec
 
 
@@ -131,7 +153,7 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
     spec: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, d), ("vocab", "embed"), init="embed"),
-        "final_norm": layers.rmsnorm_spec(d),
+        "final_norm": _norm_spec(cfg),
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = ParamSpec((d, cfg.vocab_size), ("embed", "vocab"))
@@ -141,6 +163,11 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
             {"block": xlstm.slstm_spec(cfg), "ln": layers.rmsnorm_spec(d)})
     else:
         spec["blocks"] = common.stacked(block_spec(cfg), cfg.num_layers)
+    if cfg.encoder_layers:  # whisper's encoder: self-attention (not causal) and the MLP
+        enc_block = {"ln1": _norm_spec(cfg), "attn": layers.attention_spec(cfg),
+                     "ln2": _norm_spec(cfg), "mlp": layers.mlp_spec(cfg)}
+        spec["encoder"] = {"blocks": common.stacked(enc_block, cfg.encoder_layers),
+                           "final_norm": _norm_spec(cfg)}
     if cfg.vision_tokens:  # the VLM's stub projector
         spec["vision_proj"] = ParamSpec((cfg.vision_width, d), ("vit_embed", "embed"))
     return spec
@@ -160,9 +187,10 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, int8: bool = False) 
     """Dense cache specs, stacked over layers: k, v, pos_ids (with
     ``int8``: int8 k and v and their ``k_scale`` / ``v_scale``), the hybrid
     block's SSM state under ``ssm`` and the MoE block's int32 expert
-    counters under ``moe_load``; for xLSTM the recurrent states under
-    ``groups`` (``seq_len`` and ``int8`` unused: the state is constant per
-    token)."""
+    counters under ``moe_load``; an encoder-decoder's encoder output
+    (B, encoder_seq_len, d) under ``memory``, beside ``blocks``; for xLSTM
+    the recurrent states under ``groups`` (``seq_len`` and ``int8`` unused:
+    the state is constant per token)."""
     _check_supported(cfg)
     if cfg.block == BlockKind.MLSTM:
         return {"groups": _xlstm_groups(cfg, xlstm.mlstm_state_spec(cfg, batch),
@@ -173,7 +201,11 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, int8: bool = False) 
         one["ssm"] = ssm.init_state(cfg, batch)
     if cfg.block == BlockKind.MOE:
         one["moe_load"] = moe.moe_load_spec(cfg, batch)
-    return {"blocks": common.stacked(one, cfg.num_layers)}
+    out: Dict[str, Any] = {"blocks": common.stacked(one, cfg.num_layers)}
+    if cfg.encoder_layers:
+        out["memory"] = ParamSpec((batch, cfg.encoder_seq_len, cfg.d_model),
+                                  ("batch", "seq", "embed"), init="zeros", dtype=cfg.dtype)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device,
@@ -236,7 +268,7 @@ def per_layer(params: Dict[str, Any], n: int, fn: Callable = lambda t: t) -> Dic
 
 def _attn_full(params, h, positions, cfg: ModelConfig, opts: RunOpts):
     """Self-attention returning the output and the roped (k, v) to cache."""
-    q, k, v = layers._project_qkv(params, h, cfg)
+    q, k, v = layers._project_qkv(params, h, h, cfg)
     q = layers.rope(q, positions, cfg.rope_theta)
     k = layers.rope(k, positions, cfg.rope_theta)
     window = cfg.window if cfg.attention == AttentionKind.SLIDING else 0
@@ -362,21 +394,49 @@ def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
     """tokens, after a VLM's projected ``batch["patches"]`` (B, P,
-    vision_width) -> (x, positions over both, n_prefix = P or 0)."""
+    vision_width) -> (x, positions over both, the encoder's output over
+    ``batch["frames"]`` (B, encoder_seq_len, d) or None, n_prefix = P or 0)."""
     x = _embed_tokens(params, batch["tokens"], cfg)
+    ct = common.torch_dtype(cfg.dtype)
     n_prefix = 0
     if cfg.vision_tokens:
-        ct = common.torch_dtype(cfg.dtype)
         prefix = common.dense(batch["patches"].to(ct), params["vision_proj"], ct)
         x = torch.cat([prefix, x], dim=1)
         n_prefix = prefix.shape[1]
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    return x, positions, n_prefix
+    memory = None
+    if cfg.encoder_layers:
+        memory = _run_encoder(params["encoder"], batch["frames"].to(ct), cfg)
+    return x, positions, memory, n_prefix
+
+
+def _run_encoder(enc, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """whisper's encoder over the stub frontend's frame embeddings (B, T, d):
+    per layer, self-attention with RoPE over the frames, not causal, through
+    the plain blockwise attention at the reference's fixed 512 / 512 chunks
+    (1500 frames are padded to 1536, the pad rows masked), then the MLP,
+    each after its norm and added to the residual; then the final norm.
+    Plain PyTorch on every device: the reference computes it outside any
+    kernel."""
+    B, T, _ = frames.shape
+    positions = torch.arange(T, dtype=torch.int32, device=frames.device).expand(B, T)
+    x = frames
+    for i in range(common.tree_leaves(enc["blocks"])[0].shape[0]):
+        p = layer_slice(enc["blocks"], i)
+        h = layers.norm(p["ln1"], x, cfg)
+        q, k, v = layers._project_qkv(p["attn"], h, h, cfg)
+        q = layers.rope(q, positions, cfg.rope_theta)
+        k = layers.rope(k, positions, cfg.rope_theta)
+        out = layers.blockwise_attention(q, k, v, causal=False, q_chunk=512, kv_chunk=512)
+        x = x + common.dense(out.reshape(B, T, cfg.q_dim), p["attn"]["wo"], cfg.dtype)
+        h = layers.norm(p["ln2"], x, cfg)
+        x = x + layers.mlp(p["mlp"], h, cfg)
+    return layers.norm(enc["final_norm"], x, cfg)
 
 
 def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = layers.norm(params["final_norm"], x, cfg)
     return common.dense(x, unembed_weight(params, cfg), cfg.dtype)
 
 
@@ -386,6 +446,35 @@ def _maybe_remat(fn, opts: RunOpts):
     if opts.remat == "none":
         return fn
     return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _block(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, opts: RunOpts,
+           memory=None, cache_len: int = 0, cache_dtype=None):
+    """One decoder block over a full sequence (training and prefill):
+    self-attention, beside it a hybrid block's Mamba half, then an
+    encoder-decoder block's cross-attention over ``memory``, then the MLP
+    or the experts, each after its norm and added to the residual. Returns
+    (x, aux_loss f32, this layer's cache entry when ``cache_len`` is set,
+    else None)."""
+    h = layers.norm(p["ln1"], x, cfg)
+    attn_out, kv = _attn_full(p["attn"], h, positions, cfg, opts)
+    c = (_kv_to_cache(kv, positions, cache_len, opts.int8_kv_cache, cache_dtype)
+         if cache_len else None)
+    if cfg.block == BlockKind.HYBRID_PARALLEL:
+        ssm_out, state = ssm.mamba_block(p["mamba"], h, cfg)
+        x = x + _fuse(p, attn_out, ssm_out, cfg)
+        if c is not None:
+            c["ssm"] = state
+    else:
+        x = x + attn_out
+    if cfg.block == BlockKind.ENCDEC:
+        h = layers.norm(p["ln_cross"], x, cfg)
+        x = x + layers.cross_attention_layer(p["cross"], h, memory, cfg)
+    h = layers.norm(p["ln2"], x, cfg)
+    out, aux, load = _ffn(p, h, cfg)
+    if load is not None and c is not None:
+        c["moe_load"] = load
+    return x + out, aux, c
 
 
 # ---------------------------------------------------------------------------
@@ -400,28 +489,26 @@ def forward_hidden(params, batch, cfg: ModelConfig, opts: RunOpts):
     cross-entropy in ``train/steps.py`` consumes this and never materializes
     the full (B, S, vocab) logits. ``params["blocks"]`` is the stacked tree
     or, to differentiate, a list of per-layer trees (see ``per_layer``).
+    Each decoder layer runs under ``_maybe_remat``; an encoder runs once,
+    before them, outside it (as in the reference).
     """
     _check_supported(cfg, opts)
-    _require_dense(cfg, "training", moe_too=True)
+    _require_trainable(cfg)
     blocks = params["blocks"]
     if not isinstance(blocks, list):
         blocks = [layer_slice(blocks, i) for i in range(cfg.num_layers)]
-    x, positions, n_prefix = _embed_inputs(params, batch, cfg)
+    x, positions, memory, n_prefix = _embed_inputs(params, batch, cfg)
 
     def body(xx, p):
-        h = layers.rmsnorm(p["ln1"], xx, cfg.norm_eps)
-        attn_out, _ = _attn_full(p["attn"], h, positions, cfg, opts)
-        xx = xx + attn_out
-        h = layers.rmsnorm(p["ln2"], xx, cfg.norm_eps)
-        out, aux, _ = _ffn(p, h, cfg)
-        return xx + out, aux
+        xx, aux, _ = _block(p, xx, positions, cfg, opts, memory)
+        return xx, aux
 
     body = _maybe_remat(body, opts)
     auxes = []
     for p in blocks:
         x, aux = body(x, p)
         auxes.append(aux)
-    x = layers.rmsnorm(params["final_norm"], x[:, n_prefix:], cfg.norm_eps)
+    x = layers.norm(params["final_norm"], x[:, n_prefix:], cfg)
     return x, torch.stack(auxes).sum()
 
 
@@ -442,15 +529,17 @@ def forward_train(params, batch, cfg: ModelConfig, opts: RunOpts):
 
 def prefill(params, batch, cfg: ModelConfig, opts: RunOpts, cache_seq_len: int):
     """Forward + cache build. ``batch["tokens"]``: (B, S) int (a VLM's
-    ``batch["patches"]`` go before them). Returns (last-position logits
+    ``batch["patches"]`` go before them; an encoder-decoder's
+    ``batch["frames"]`` feed its encoder). Returns (last-position logits
     (B, 1, V), cache): k/v of the last ``cache_len_for(cfg, cache_seq_len)``
     positions in ring-buffer slots (``opts.int8_kv_cache``: int8 codes and
     their scales, quantized layer by layer, so no whole-depth cache of the
     compute dtype is ever held), ``pos_ids``, for hybrid blocks the SSM
     state under ``ssm``, for MoE blocks each sequence's expert counters
-    under ``moe_load``; for xLSTM the recurrent states under ``groups``."""
+    under ``moe_load``, and an encoder's output under ``memory``; for xLSTM
+    the recurrent states under ``groups``."""
     _check_supported(cfg, opts)
-    x, positions, _ = _embed_inputs(params, batch, cfg)
+    x, positions, memory, _ = _embed_inputs(params, batch, cfg)
     if cfg.block == BlockKind.MLSTM:
         states = []
         for g in range(_xlstm_group_layout(cfg)[0]):
@@ -460,22 +549,13 @@ def prefill(params, batch, cfg: ModelConfig, opts: RunOpts, cache_seq_len: int):
     T = cache_len_for(cfg, cache_seq_len)
     caches = []
     for i in range(cfg.num_layers):
-        p = layer_slice(params["blocks"], i)
-        h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-        attn_out, kv = _attn_full(p["attn"], h, positions, cfg, opts)
-        c = _kv_to_cache(kv, positions, T, opts.int8_kv_cache, common.torch_dtype(cfg.dtype))
-        if cfg.block == BlockKind.HYBRID_PARALLEL:
-            ssm_out, c["ssm"] = ssm.mamba_block(p["mamba"], h, cfg)
-            x = x + _fuse(p, attn_out, ssm_out, cfg)
-        else:
-            x = x + attn_out
-        h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        out, _, load = _ffn(p, h, cfg)
-        x = x + out
-        if load is not None:
-            c["moe_load"] = load
+        x, _, c = _block(layer_slice(params["blocks"], i), x, positions, cfg, opts, memory,
+                         T, common.torch_dtype(cfg.dtype))
         caches.append(c)
-    return _unembed(params, x[:, -1:, :], cfg), {"blocks": _stack(caches)}
+    cache = {"blocks": _stack(caches)}
+    if memory is not None:
+        cache["memory"] = memory
+    return _unembed(params, x[:, -1:, :], cfg), cache
 
 
 def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig, opts: RunOpts):
@@ -485,8 +565,10 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig, opts: RunOpts
     for every row; a VLM's vision prefix is added here, since prefill
     placed the text after it). Writes the token's k/v into its ring slot, the
     new SSM state of hybrid blocks, the MoE blocks' expert counters and the
-    new xLSTM states into ``cache`` IN PLACE (the reference returns an updated copy). Returns (logits
-    (B, 1, V), cache).
+    new xLSTM states into ``cache`` IN PLACE (the reference returns an
+    updated copy); an encoder-decoder block cross-attends to the cache's
+    ``memory``, which stays as prefill left it. Returns (logits (B, 1, V),
+    cache).
     """
     _check_supported(cfg, opts)
     pos = int(pos) + cfg.vision_tokens
@@ -496,10 +578,11 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig, opts: RunOpts
             x, _ = _xlstm_group(layer_slice(params["groups"], g), x, cfg,
                                 layer_slice(cache["groups"], g))
         return _unembed(params, x, cfg), cache
+    memory = cache.get("memory")
     for i in range(cfg.num_layers):
         p = layer_slice(params["blocks"], i)
         c = layer_slice(cache["blocks"], i)
-        h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        h = layers.norm(p["ln1"], x, cfg)
         attn_out, _ = layers.decode_attention(p["attn"], c, h, pos, cfg)
         if cfg.block == BlockKind.HYBRID_PARALLEL:
             ssm_out, state = ssm.mamba_decode_step(p["mamba"], h, c["ssm"], cfg)
@@ -507,7 +590,10 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig, opts: RunOpts
             x = x + _fuse(p, attn_out, ssm_out, cfg)
         else:
             x = x + attn_out
-        h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if cfg.block == BlockKind.ENCDEC:
+            h = layers.norm(p["ln_cross"], x, cfg)
+            x = x + layers.cross_attention_layer(p["cross"], h, memory, cfg)
+        h = layers.norm(p["ln2"], x, cfg)
         if cfg.block == BlockKind.MOE:
             m_out, new_load = moe.moe_decode_block(p["moe"], h, c["moe_load"], pos, cfg)
             c["moe_load"].copy_(new_load)
@@ -535,8 +621,8 @@ def decode_step_paged(
     for i in range(cfg.num_layers):
         p = layer_slice(params["blocks"], i)
         c = layer_slice(cache["blocks"], i)
-        h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        h = layers.norm(p["ln1"], x, cfg)
         x = x + layers.decode_attention_paged(p["attn"], c, h, seq_lens, block_table, cfg)
-        h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        h = layers.norm(p["ln2"], x, cfg)
         x = x + layers.mlp(p["mlp"], h, cfg)
     return _unembed(params, x, cfg), cache

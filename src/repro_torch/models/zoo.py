@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,3 +71,25 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg, specs=transformer.model_specs(cfg))
+
+
+def input_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                mode: str = "train") -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The model's inputs for one cell, as (shape, dtype) by name, as the
+    reference's ``input_specs`` gives them: ``tokens`` (B, S) and, in
+    training, ``labels`` (``mode="train"``; ``"prefill"`` tokens only;
+    ``"decode"`` one token a row), an encoder-decoder's ``frames`` (B,
+    encoder_seq_len, d_model) and, but in decode, a VLM's ``patches`` (B,
+    vision_tokens, vision_width), both in the compute dtype (the stub
+    frontends' precomputed embeddings)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"input_specs: mode {mode!r}")
+    ct = common.torch_dtype(cfg.dtype)
+    out = {"tokens": ((batch, 1 if mode == "decode" else seq_len), torch.int32)}
+    if mode == "train":
+        out["labels"] = ((batch, seq_len), torch.int32)
+    if cfg.encoder_layers:
+        out["frames"] = ((batch, cfg.encoder_seq_len, cfg.d_model), ct)
+    if cfg.vision_tokens and mode != "decode":
+        out["patches"] = ((batch, cfg.vision_tokens, cfg.vision_width), ct)
+    return out

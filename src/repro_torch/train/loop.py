@@ -66,7 +66,14 @@ def run_segment(
     watchdog: Optional[StragglerWatchdog] = None,
     jitted=None,
 ) -> SegmentResult:
-    """``jitted`` keeps the reference's name: a step from :func:`make_step`."""
+    """``jitted`` keeps the reference's name: a step from :func:`make_step`.
+    The data path makes tokens and labels only, so an encoder-decoder
+    (whose batches carry ``frames``) is refused: train it through
+    ``build_train_step`` with its frames, as the reference can."""
+    if model.cfg.encoder_layers:
+        raise NotImplementedError(
+            f"run_segment: {model.cfg.name} needs frames, which the data path does not make; "
+            f"train it step by step through build_train_step")
     dev = resolve_device(device)
     step_fn = jitted if jitted is not None else make_step(model, tc, layout)
     wd = watchdog or StragglerWatchdog()

@@ -106,7 +106,7 @@ def _patches(cfg, B, seed=3):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("module", ["qwen1_5_4b.py", "qwen1_5_32b.py", "internvl2_26b.py",
-                                    "gemma_7b.py"])
+                                    "gemma_7b.py", "whisper_tiny.py"])
 def test_config_copy_equals_reference_apart_from_imports(module):
     port = (REPO / "src" / "repro_torch" / "configs" / module).read_text()
     ref = (REPO / "src" / "repro" / "configs" / module).read_text()
@@ -177,7 +177,7 @@ def test_project_qkv_matches_jax(arch):
     jp, tp = _layer_params(arch)
     x = np.random.RandomState(0).randn(2, 7, cfg.d_model).astype(np.float32)
     want = jax_layers._project_qkv(jp, jnp.asarray(x), jnp.asarray(x), jcfg)
-    got = layers._project_qkv(tp, torch.from_numpy(x), cfg)
+    got = layers._project_qkv(tp, torch.from_numpy(x), torch.from_numpy(x), cfg)
     for a, b in zip(got, want):
         np.testing.assert_allclose(_np(a), np.asarray(b), atol=1e-5, rtol=0)
 
@@ -335,8 +335,9 @@ def test_dropping_the_bias_add_fails():
     """A ``_project_qkv`` without the bias add, everything else equal,
     misses the reference's prefill logits by far more than the tolerance:
     the nonzero biases make the comparisons above see the add."""
-    def no_bias(params, x, cfg):
-        return project({k: v for k, v in params.items() if k not in ("bq", "bk", "bv")}, x, cfg)
+    def no_bias(params, xq, xkv, cfg):
+        return project({k: v for k, v in params.items() if k not in ("bq", "bk", "bv")}, xq,
+                       xkv, cfg)
 
     project = layers._project_qkv
     jt, jl, _ = _jax_greedy(Q4, 2, 20)
@@ -481,12 +482,18 @@ def _variant_prefill_matches_jax(**change):
 
 @pytest.mark.parametrize("field", ["tie_embeddings", "embed_scale", "encoder_layers"])
 def test_later_slices_still_refuse(field):
-    """Encoders still need a later slice; tied and scaled embeddings (ported
-    with gemma-7b) now build and match the reference."""
+    """Tied and scaled embeddings (ported with gemma-7b) build and match the
+    reference. Encoders (whisper-tiny, held in tests/test_torch_whisper.py)
+    build too; what an encoder-decoder still may not do is page its cache,
+    as in the reference, and serve under ``--plan`` (a later slice)."""
     if field == "encoder_layers":
-        cfg = dataclasses.replace(get_arch(Q4).reduced(), encoder_layers=2)
+        cfg = get_arch("whisper-tiny").reduced()
+        assert "encoder" in build_model(cfg).specs
+        with pytest.raises(NotImplementedError, match="DENSE"):
+            build_model(cfg).paged_cache_specs(8)
         with pytest.raises(NotImplementedError, match="later slice"):
-            build_model(cfg)
+            from repro_torch.launch.serve import serve_plan
+            serve_plan(build_model(cfg), None, np.zeros((1, 4), np.int32), 2, [1])
     else:
         _variant_prefill_matches_jax(**{field: True})
 

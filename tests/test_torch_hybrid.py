@@ -336,14 +336,23 @@ def test_serve_launcher_refuses_missing_cuda(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_hybrid_training_and_paged_decode_refuse():
+    """Hybrid training runs since the scan has a gradient (held in
+    tests/test_torch_hybrid_train.py); what stays refused: xLSTM training
+    (the mLSTM's gradient is the next slice) and the paged decode of every
+    block but DENSE, as in the reference."""
     cfg = get_arch(HYMBA).reduced()
     m = build_model(cfg)
     params = m.init(torch.Generator().manual_seed(0), "cpu")
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="DENSE"):
-        m.forward_hidden(params, batch)
-    with pytest.raises(NotImplementedError, match="DENSE"):
-        m.forward(params, batch)
+    x, aux = m.forward_hidden(params, batch)
+    assert tuple(x.shape) == (1, 8, cfg.d_model) and float(aux) == 0.0
+    xcfg = get_arch("xlstm-350m").reduced()
+    xm = build_model(xcfg)
+    xparams = xm.init(torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        xm.forward_hidden(xparams, batch)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        xm.forward(xparams, batch)
     with pytest.raises(NotImplementedError, match="DENSE"):
         m.paged_cache_specs(8)
     with pytest.raises(NotImplementedError):

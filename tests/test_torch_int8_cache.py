@@ -267,7 +267,7 @@ def test_paged_int8_scoped_dequant_equals_whole_pool_bitwise():
     x = draw(B, 1, cfg.d_model)
     y_scoped = layers.decode_attention_paged(params, cache, x, lens, table, cfg)
 
-    q, _, _ = layers._project_qkv(params, x, cfg)
+    q, _, _ = layers._project_qkv(params, x, x, cfg)
     q = layers.rope(q, lens[:, None].float(), cfg.rope_theta)
     full_k = layers._dequantize_kv(cache["k_pages"], cache["k_scale"], x.dtype)
     full_v = layers._dequantize_kv(cache["v_pages"], cache["v_scale"], x.dtype)

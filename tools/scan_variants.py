@@ -17,6 +17,9 @@ variants:
 * ``expf``: ``expf(dt * A)`` in place of ``ex2.approx`` of a pre-scaled A;
 * ``guarded``: every tile takes the per-step guarded path of a ragged
   last tile (a branch between steps);
+* ``no-chunks``: without the branch that keeps the state after each tile
+  for the backward (never taken at these shapes, where the wrapper keeps
+  none): the forward as it was before that output;
 * ``no-exp``: the decay is dt * A itself, no exponential;
 * ``no-recurrence``: tiles are staged, reduced and stored, but no step is
   computed.
@@ -40,6 +43,7 @@ VARIANTS = {
     "expf": [("exp2_approx(dtt[c] * a[c][j])", "expf(dtt[c] * a[c][j])"),
              ("exp2_approx(dtt * a[j])", "expf(dtt * a[j])"), (" * LOG2E", "")],
     "guarded": [("if (steps == TS) {", "if (false) {")],
+    "no-chunks": [("if (h_chunks != nullptr && k + 1 < tiles) {", "if (false) {")],
     "no-exp": [("exp2_approx(dtt[c] * a[c][j])", "(dtt[c] * a[c][j])")],
     "no-recurrence": [("auto advance = [&](int t) {   // the recurrence of step t",
                        "auto advance = [&](int t) { p[t][0] = p[t][1] = um[t] = 0.f; };\n"
