@@ -23,7 +23,9 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    and at the main paths' shapes, with times (CUDA events, L2 flushed
    between launches) beside the bound. The flash forward, dk/dv and dq
    have two variants each, by dtype: bf16 on tensor cores (wgmma fed by
-   TMA), f32 on FMAs; every feature case runs in both dtypes. The paged
+   TMA); f32 on FMAs for the forward, and for dk/dv and dq on tensor cores
+   as split TF32 (hi + lo halves of every operand, three mma.sync
+   products, fed by cp.async); every feature case runs in both dtypes. The paged
    kernel (split over positions, then merged) has two: bf16 scores and P.V
    on tensor cores (mma.sync), f32 on FMAs. The scan has a prefill kernel
    and a decode kernel (S <= 4), picked by S. The mLSTM's model calls go
@@ -33,8 +35,9 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    also held at mixtral-8x7b's training shape (B1 S8192 H32/8 hd128,
    window 4096, bf16), timed beside SDPA with the band as a boolean mask.
    Two calls on the same inputs give the
-   same bits for the bf16 dq, the paged kernel, the scan, the tensor-core
-   mLSTM and the step; the new kernels build with no spilled registers;
+   same bits for the bf16 dq, the f32 dk/dv and dq (hd 128 and 256), the
+   paged kernel, the scan, the tensor-core mLSTM and the step; the kernels
+   NO_SPILL_KERNELS names build with no spilled registers;
 4. serving: full-width qwen3-4b (random bf16 weights from a seeded
    generator) through ``DecodeEngine`` on 16 requests; launch counters
    prove prefill went through the flash kernel (36 launches per prefill)
@@ -208,7 +211,9 @@ and ``whisper_f32``, ``whisper_train_f32``; hymba's ``hybrid_train`` and
 counted from 0
 just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
-tensor-core variants, the f32 runs only the FMA ones. The last three lines of stdout are the card's name and power limit, the
+bf16 tensor-core variants (``_tc``), the f32 runs only the f32 ones (the
+forward's FMA kernel, the backward's split-TF32 kernels). The last three
+lines of stdout are the card's name and power limit, the
 per-kernel JSON record and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside this file, the script prints no result and exits 2.
 """
@@ -239,14 +244,21 @@ SRC = REPO / "src"
 
 # kernels that must build without spilling registers (ptxas): the paged
 # split and merge, the mLSTM decode step and its tensor-core prefill, the
-# scan's prefill and decode kernels, and every instantiation at head dim 256
-# (a template argument of 256 in its mangled name)
+# scan's prefill and decode kernels, the f32 (split-TF32) flash backward,
+# and every instantiation at head dim 256 (a template argument of 256 in its
+# mangled name)
 NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_merge_kernel",
                     "mlstm_step_kernel", "mlstm_tc_kernel", "ssm_scan_kernel", "ssm_step_kernel",
-                    "ssm_scan_bwd_kernel", "ssm_sum_parts_kernel", "Li256E")
+                    "ssm_scan_bwd_kernel", "ssm_sum_parts_kernel", "flash_bwd_dkdv_tf32_kernel",
+                    "flash_bwd_dq_tf32_kernel", "Li256E")
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12     # dense TF32 tensor-core rate
+# f32 products as split TF32 take three TF32 products each: the f32
+# backward's bound is its work at a third of the TF32 rate (its f32 FMA
+# bound, at PEAK_F32_FLOPS, is logged beside it)
+PEAK_SPLIT_TF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
 # the SFU's exponentials (ex2): 16 a clock per SM, 132 SMs, 1980 MHz boost
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
@@ -449,9 +461,9 @@ def _counters() -> dict:
             "paged_attention_tc": (paged, "launches_tc"),
             "paged_attention_fma": (paged, "launches_fma"),
             "flash_attention_bwd_dkdv_tc": (kernel_bwd, "launches_dkdv_tc"),
-            "flash_attention_bwd_dkdv_fma": (kernel_bwd, "launches_dkdv_fma"),
+            "flash_attention_bwd_dkdv_tf32": (kernel_bwd, "launches_dkdv_tf32"),
             "flash_attention_bwd_dq_tc": (kernel_bwd, "launches_dq_tc"),
-            "flash_attention_bwd_dq_fma": (kernel_bwd, "launches_dq_fma"),
+            "flash_attention_bwd_dq_tf32": (kernel_bwd, "launches_dq_tf32"),
             "ssm_scan": (scan, "launches"), "mlstm_tc": (mlstm, "launches_tc"),
             "mlstm_fma": (mlstm, "launches_fma"), "mlstm_step": (mlstm, "launches_step"),
             "ssm_scan_bwd": (scan, "launches_bwd")}
@@ -606,9 +618,12 @@ def check_flash_hymba(gen: torch.Generator, flush: torch.Tensor) -> float:
 def check_flash_bwd(gen: torch.Generator, flush: torch.Tensor) -> list:
     """Both backward kernels against ``attention_bwd_ref`` on the same
     (q, k, v, o, lse, do, delta); o and lse from the forward kernel, held
-    first against ``attention_fwd_ref``. Each kernel runs its tensor-core
-    variant in bf16 and its FMA one in f32: every feature case runs in both
-    dtypes. One record per variant; the bf16 dq gives the same bits twice."""
+    first against ``attention_fwd_ref``. Each kernel runs its wgmma
+    variant in bf16 and its split-TF32 one (mma.sync) in f32: every feature
+    case runs in both dtypes. One record per variant; the bf16 dq, and the
+    f32 dq and dk/dv at S1000 hd128, give the same bits twice. The f32
+    records' bound is split TF32's (PEAK_SPLIT_TF32_FLOPS), the f32 FMA
+    bound logged beside it."""
     from repro_torch.kernels.flash_attention import kernel, kernel_bwd
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
@@ -628,14 +643,14 @@ def check_flash_bwd(gen: torch.Generator, flush: torch.Tensor) -> list:
         rq, rk, rv = attention_bwd_ref(q, k, v, o, lse, do, **kw)
         log(f"  {name}: max |ref| dq {float(rq.float().abs().max()):.3e} dk "
             f"{float(rk.float().abs().max()):.3e} dv {float(rv.float().abs().max()):.3e}")
-        variant = "tc" if dtype == torch.bfloat16 else "fma"
+        variant = "tc" if dtype == torch.bfloat16 else "tf32"
         errs["dkdv_" + variant] = max(errs["dkdv_" + variant], hold(f"{name} dk", dk, rk, t),
                                       hold(f"{name} dv", dv, rv, t))
         errs["dq_" + variant] = max(errs["dq_" + variant], hold(f"{name} dq", dq, rq, t))
         return q, k, v, do, lse, delta, kw
 
     log("[kernels] flash_attention_bwd (dkdv, dq) vs attention_bwd_ref")
-    errs = {"dkdv_tc": 0.0, "dkdv_fma": 0.0, "dq_tc": 0.0, "dq_fma": 0.0}
+    errs = {"dkdv_tc": 0.0, "dkdv_tf32": 0.0, "dq_tc": 0.0, "dq_tf32": 0.0}
     for B, S, H, KVH, hd, window in FLASH_BWD_CASES:
         case(f"bwd B{B} S{S} H{H}/{KVH} hd{hd} w{window} f32",
              B, S, S, H, KVH, hd, True, window, 0, torch.float32, FLASH_BWD_F32_TOL)
@@ -651,6 +666,7 @@ def check_flash_bwd(gen: torch.Generator, flush: torch.Tensor) -> list:
                  f"{str(dtype)[6:]}", *args, dtype, t)
     f32_args = case("bwd main-path S1000 H32/8 hd128 f32", 1, 1000, 1000, 32, 8, 128, True, 0,
                     0, torch.float32, FLASH_BWD_F32_TOL)
+    hold_same_bits("bwd main-path S1000 H32/8 hd128 f32", *f32_args)
     q, k, v, do, lse, delta, kw = case(
         "bwd main-path S4096 H32/8 hd128 bf16", 1, 4096, 4096, 32, 8, 128, True, 0, 0,
         torch.bfloat16, FLASH_BWD_MAIN_BF16_TOL)
@@ -693,8 +709,8 @@ def check_flash_bwd(gen: torch.Generator, flush: torch.Tensor) -> list:
     lib32_ms = sdpa_backward_ms(q32, k32, v32, do32, flush)
     runs = {"dkdv_tc": ((q, k, v, do, lse, delta, kw), "dkdv", PEAK_BF16_FLOPS, plain_ms, lib_ms),
             "dq_tc": ((q, k, v, do, lse, delta, kw), "dq", PEAK_BF16_FLOPS, plain_ms, lib_ms),
-            "dkdv_fma": (f32_args, "dkdv", PEAK_F32_FLOPS, plain32_ms, lib32_ms),
-            "dq_fma": (f32_args, "dq", PEAK_F32_FLOPS, plain32_ms, lib32_ms)}
+            "dkdv_tf32": (f32_args, "dkdv", PEAK_SPLIT_TF32_FLOPS, plain32_ms, lib32_ms),
+            "dq_tf32": (f32_args, "dq", PEAK_SPLIT_TF32_FLOPS, plain32_ms, lib32_ms)}
     fns = {"dkdv": kernel_bwd.flash_attention_bwd_dkdv, "dq": kernel_bwd.flash_attention_bwd_dq}
     lines = {"dkdv": 55, "dq": 111}
     records = []
@@ -703,8 +719,9 @@ def check_flash_bwd(gen: torch.Generator, flush: torch.Tensor) -> list:
         b_ms, b_by = bound(flops, nbytes, peak)
         ms = time_ms(lambda: fns[which](*args[:6], **args[6]), flush)
         log(f"  {name} (S{args[0].shape[1]} {str(args[0].dtype)[6:]}): kernel {ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s of the function's work "
-            f"achieved; plain {p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms (whole backward)")
+            f"{b_ms:.4f} ms ({b_by}{f32_fma_bound(flops, nbytes, peak)}); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved; plain "
+            f"{p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms (whole backward)")
         records.append(dict(
             name=f"flash_attention_bwd_{name}", route="cuda",
             source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -712,6 +729,39 @@ def check_flash_bwd(gen: torch.Generator, flush: torch.Tensor) -> list:
             max_abs_err=errs[name], ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=l_ms))
     return records
+
+
+def hold_same_bits(tag: str, q, k, v, do, lse, delta, kw) -> None:
+    """Two calls of the f32 dk/dv and of the f32 dq on the same inputs give
+    the same bits (each block owns its output tile: no atomics)."""
+    from repro_torch.kernels.flash_attention import kernel_bwd
+
+    for which, fn in (("dk/dv", kernel_bwd.flash_attention_bwd_dkdv),
+                      ("dq", kernel_bwd.flash_attention_bwd_dq)):
+        one, two = (fn(q, k, v, do, lse, delta, **kw) for _ in range(2))
+        if not isinstance(one, tuple):
+            one, two = (one,), (two,)
+        same = all(torch.equal(x, y) for x, y in zip(one, two))
+        log(f"  {tag}: two {which} calls give the same bits: {same}")
+        if not same:
+            raise AssertionError(f"the f32 {which} kernel gave different bits at {tag}")
+
+
+def peak_flops(record: str) -> float:
+    """The rate a flash record's bound counts its operations at: bf16
+    tensor cores (``_tc``), split TF32 (``_tf32``), else f32 FMAs."""
+    if record.endswith("_tc"):
+        return PEAK_BF16_FLOPS
+    return PEAK_SPLIT_TF32_FLOPS if record.endswith("_tf32") else PEAK_F32_FLOPS
+
+
+def f32_fma_bound(flops: float, nbytes: float, peak: float) -> str:
+    """For a split-TF32 record: its bound at the f32 FMA rate, as text to log
+    beside the record's own bound (empty for any other peak)."""
+    if peak != PEAK_SPLIT_TF32_FLOPS:
+        return ""
+    ms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    return f"; at the f32 FMA rate {ms:.4f} ms ({by})"
 
 
 def sdpa_backward_ms(q, k, v, do, flush, mask=None) -> float:
@@ -2239,7 +2289,7 @@ def train_reduced_matches_cpu(arch: str = "qwen3-4b", tag: str = "train",
         return launches
     scan = ("ssm_scan", "ssm_scan_bwd") if cfg.ssm is not None else ()
     return hold_f32_launches(tag, launches, "flash_attention_fma",
-                             "flash_attention_bwd_dkdv_fma", "flash_attention_bwd_dq_fma", *scan)
+                             "flash_attention_bwd_dkdv_tf32", "flash_attention_bwd_dq_tf32", *scan)
 
 
 # ---------------------------------------------------------------------------
@@ -2436,7 +2486,7 @@ def spot_reduced_matches_cpu() -> dict:
         if not np.allclose(a, b, rtol=1e-4, atol=0):
             raise AssertionError(f"reduced {mode} on the card: losses differ from the CPU's")
     return hold_f32_launches("spot", launches, "flash_attention_fma",
-                             "flash_attention_bwd_dkdv_fma", "flash_attention_bwd_dq_fma")
+                             "flash_attention_bwd_dkdv_tf32", "flash_attention_bwd_dq_tf32")
 
 
 def spot_launcher() -> dict:
@@ -3364,9 +3414,10 @@ GEMMA_ATTN = dict(H=16, KVH=16, hd=256, prefill_S=2000, train_S=4096)
 
 def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
     """The flash forward, dk/dv, dq and paged kernels at head dim 256 in
-    both dtypes (bf16 on tensor cores, f32 on FMAs) against their plain
-    versions on the feature cases and at gemma-7b's shapes; the bf16 dq and
-    paged kernels give the same bits twice; times beside the bound and
+    both dtypes (bf16 on tensor cores; f32 on FMAs, but for dk/dv and dq
+    on tensor cores as split TF32) against their plain versions on the
+    feature cases and at gemma-7b's shapes; the bf16 dq, the f32 dk/dv and
+    dq and the paged kernel give the same bits twice; times beside the bound and
     SDPA's (the paged kernel: the plain version's). Returns the largest
     errors, by record name."""
     from repro_torch.kernels.flash_attention import kernel, kernel_bwd
@@ -3376,10 +3427,15 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
 
     hd = GEMMA_ATTN["hd"]
     log(f"[kernels] head dim {hd} (gemma-7b): flash forward, dk/dv, dq and paged, both dtypes")
-    variant = lambda dtype: "tc" if dtype == torch.bfloat16 else "fma"
-    errs = {f"{n}_{v}": 0.0 for n in ("flash_attention", "flash_attention_bwd_dkdv",
-                                      "flash_attention_bwd_dq", "paged_attention")
-            for v in ("tc", "fma")}
+    # the record's variant: tensor cores in bf16; in f32 the FMA kernels,
+    # but split TF32 for the backward
+    variant = lambda dtype, bwd=False: ("tc" if dtype == torch.bfloat16 else
+                                        "tf32" if bwd else "fma")
+    errs = {f"{n}_{v}": 0.0 for n, vs in (("flash_attention", ("tc", "fma")),
+                                          ("flash_attention_bwd_dkdv", ("tc", "tf32")),
+                                          ("flash_attention_bwd_dq", ("tc", "tf32")),
+                                          ("paged_attention", ("tc", "fma")))
+            for v in vs}
     mk = lambda B, S, heads, dtype: torch.randn((B, S, heads, hd), generator=gen,
                                                 device="cuda").to(dtype)
 
@@ -3392,14 +3448,14 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
         dk, dv = kernel_bwd.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
         dq = kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
         torch.cuda.synchronize()
-        vr = variant(dtype)
+        vr, vb = variant(dtype), variant(dtype, bwd=True)
         errs[f"flash_attention_{vr}"] = max(errs[f"flash_attention_{vr}"],
                                             hold_fwd(name, o, lse, q, k, v, kw, t_fwd))
         rq, rk, rv = attention_bwd_ref(q, k, v, o, lse, do, **kw)
-        errs[f"flash_attention_bwd_dkdv_{vr}"] = max(
-            errs[f"flash_attention_bwd_dkdv_{vr}"], hold(f"{name} dk", dk, rk, t_bwd),
+        errs[f"flash_attention_bwd_dkdv_{vb}"] = max(
+            errs[f"flash_attention_bwd_dkdv_{vb}"], hold(f"{name} dk", dk, rk, t_bwd),
             hold(f"{name} dv", dv, rv, t_bwd))
-        errs[f"flash_attention_bwd_dq_{vr}"] = max(errs[f"flash_attention_bwd_dq_{vr}"],
+        errs[f"flash_attention_bwd_dq_{vb}"] = max(errs[f"flash_attention_bwd_dq_{vb}"],
                                                    hold(f"{name} dq", dq, rq, t_bwd))
         return q, k, v, do, o, lse, delta, kw
 
@@ -3453,7 +3509,7 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
         q, k, v, do, o, lse, delta, kw = fwd_bwd(tag, 1, S, S, H, KVH, True, 0, 0, dtype,
                                                  t_fwd, t_bwd)
         torch.cuda.empty_cache()
-        vr = variant(dtype)
+        vr, vb = variant(dtype), variant(dtype, bwd=True)
         if dtype == torch.bfloat16:
             dq_a, dq_b = (kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
                           for _ in range(2))
@@ -3462,29 +3518,32 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
             if not same:
                 raise AssertionError("the bf16 dq kernel gave different bits at hd 256")
             del dq_a, dq_b
+        else:
+            hold_same_bits(tag, q, k, v, do, lse, delta, kw)
         el = q.element_size()
         prod = 2.0 * _pairs(S, 0) * hd * H
         qkv_bytes = el * (2 * S * H * hd + 2 * S * KVH * hd)
         work = {f"flash_attention_{vr}": (2 * prod, qkv_bytes + 4.0 * H * S),
-                f"flash_attention_bwd_dkdv_{vr}": (4 * prod, qkv_bytes + 2 * 4.0 * H * S
+                f"flash_attention_bwd_dkdv_{vb}": (4 * prod, qkv_bytes + 2 * 4.0 * H * S
                                                    + el * 2 * S * KVH * hd),
-                f"flash_attention_bwd_dq_{vr}": (prod, el * S * H * hd)}
+                f"flash_attention_bwd_dq_{vb}": (prod, el * S * H * hd)}
         fns = {f"flash_attention_{vr}": lambda: kernel.flash_attention_fwd(q, k, v, **kw),
-               f"flash_attention_bwd_dkdv_{vr}": lambda: kernel_bwd.flash_attention_bwd_dkdv(
+               f"flash_attention_bwd_dkdv_{vb}": lambda: kernel_bwd.flash_attention_bwd_dkdv(
                    q, k, v, do, lse, delta, **kw),
-               f"flash_attention_bwd_dq_{vr}": lambda: kernel_bwd.flash_attention_bwd_dq(
+               f"flash_attention_bwd_dq_{vb}": lambda: kernel_bwd.flash_attention_bwd_dq(
                    q, k, v, do, lse, delta, **kw)}
         plain_fwd = time_ms(lambda: attention_fwd_ref(q, k, v, **kw), flush, reps=3)
         plain_bwd = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw), flush, reps=3)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
         sdpa_bwd = sdpa_backward_ms(q, k, v, do, flush)
-        peak = PEAK_BF16_FLOPS if vr == "tc" else PEAK_F32_FLOPS
         for name, (flops, nbytes) in work.items():
+            peak = peak_flops(name)
             b_ms, b_by = bound(flops, nbytes, peak)
             ms = time_ms(fns[name], flush)
-            log(f"  {name} at {tag}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-                f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved")
+            log(f"  {name} at {tag}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}"
+                f"{f32_fma_bound(flops, nbytes, peak)}); {flops / ms / 1e9:.1f} TFLOP/s of "
+                f"the function's work achieved")
         log(f"  at {tag}: plain forward {plain_fwd:.4f} ms, plain backward (all of dq, dk, dv) "
             f"{plain_bwd:.4f} ms; SDPA forward {sdpa_fwd:.4f} ms, backward (fwd + bwd minus "
             f"fwd) {sdpa_bwd:.4f} ms")
@@ -3925,7 +3984,8 @@ def check_slice14_attention(gen: torch.Generator, flush: torch.Tensor, which: st
     for name, B, S, H, KVH, hd, window, dtype, backward in SLICE14_ATTN:
         if not name.startswith(which):
             continue
-        G, vr = H // KVH, "tc" if dtype == torch.bfloat16 else "fma"
+        G = H // KVH
+        vr, vb = ("tc", "tc") if dtype == torch.bfloat16 else ("fma", "tf32")
         tag = f"{name} B{B} S{S} H{H}/{KVH} hd{hd} w{window} {str(dtype)[6:]}"
         log(f"[kernels] flash at {tag} vs the plain versions, one kv group at a time")
         mk = lambda heads: torch.randn((B, S, heads, hd), generator=gen, device="cuda").to(dtype)
@@ -3950,10 +4010,10 @@ def check_slice14_attention(gen: torch.Generator, flush: torch.Tensor, which: st
             if backward:
                 rq, rk, rv = attention_bwd_ref(q[:, :, hs], k[:, :, ks], v[:, :, ks],
                                                o[:, :, hs], lse[:, hs], do[:, :, hs], **kw)
-                put(f"flash_attention_bwd_dkdv_{vr}",
+                put(f"flash_attention_bwd_dkdv_{vb}",
                     max(hold(f"{gt} dk", dk[:, :, ks], rk, t_bwd),
                         hold(f"{gt} dv", dv[:, :, ks], rv, t_bwd)))
-                put(f"flash_attention_bwd_dq_{vr}", hold(f"{gt} dq", dq[:, :, hs], rq, t_bwd))
+                put(f"flash_attention_bwd_dq_{vb}", hold(f"{gt} dq", dq[:, :, hs], rq, t_bwd))
                 del rq, rk, rv
         if backward and dtype == torch.bfloat16 and G > 1:
             again = kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
@@ -3968,21 +4028,22 @@ def check_slice14_attention(gen: torch.Generator, flush: torch.Tensor, which: st
         el = q.element_size()
         prod = 2.0 * _pairs(S, window) * hd * H * B
         qkv_bytes = el * (2 * B * S * H * hd + 2 * B * S * KVH * hd)
-        peak = PEAK_BF16_FLOPS if vr == "tc" else PEAK_F32_FLOPS
         work = {f"flash_attention_{vr}": (2 * prod, qkv_bytes + 4.0 * B * H * S,
                                           lambda: kernel.flash_attention_fwd(q, k, v, **kw))}
         if backward:
-            work[f"flash_attention_bwd_dkdv_{vr}"] = (
+            work[f"flash_attention_bwd_dkdv_{vb}"] = (
                 4 * prod, qkv_bytes + 2 * 4.0 * B * H * S + el * 2 * B * S * KVH * hd,
                 lambda: kernel_bwd.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw))
-            work[f"flash_attention_bwd_dq_{vr}"] = (
+            work[f"flash_attention_bwd_dq_{vb}"] = (
                 prod, el * B * S * H * hd,
                 lambda: kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
         for rec, (flops, nbytes, fn) in work.items():
+            peak = peak_flops(rec)
             b_ms, b_by = bound(flops, nbytes, peak)
             ms = time_ms(fn, flush)
-            log(f"  {rec} at {tag}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-                f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved")
+            log(f"  {rec} at {tag}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}"
+                f"{f32_fma_bound(flops, nbytes, peak)}); {flops / ms / 1e9:.1f} TFLOP/s of "
+                f"the function's work achieved")
         plain_fwd = time_ms(lambda: attention_fwd_ref(q, k, v, **kw), flush, reps=2, warmup=1)
         mask = _mask(S, S, True, window, 0, q.device) if window else None
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -4212,7 +4273,7 @@ def whisper_train_reduced_matches_cpu(n_steps: int = 3) -> dict:
     if not (err <= 1e-5 and first < 1e-9):
         raise AssertionError("reduced whisper training params on the card differ from the CPU's")
     return hold_f32_launches("whisper_train", launches, "flash_attention_fma",
-                             "flash_attention_bwd_dkdv_fma", "flash_attention_bwd_dq_fma")
+                             "flash_attention_bwd_dkdv_tf32", "flash_attention_bwd_dq_tf32")
 
 
 def whisper_phase() -> dict:

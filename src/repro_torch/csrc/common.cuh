@@ -60,5 +60,19 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
+// The same copy of 16 bytes, or 16 zero bytes when `valid` is false (src
+// unread); and of 4 bytes (cp.async.ca: 4- and 8-byte copies go through L1).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))), "l"(gmem),
+                  "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))), "l"(gmem),
+                  "r"(valid ? 4 : 0)
+               : "memory");
+}
 
 }  // namespace repro

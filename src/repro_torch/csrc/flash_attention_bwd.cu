@@ -66,38 +66,75 @@
 //   would be 128 accumulators a thread, and 128-row Q and dO tiles would not
 //   fit beside the K and V ring).
 //
-// dk/dv and dq, f32: `flash_bwd_dkdv_kernel` and `flash_bwd_dq_kernel`,
-// plain f32 FMAs out of shared memory. f32 callers (the reduced models,
-// whose card-equals-CPU checks hold 1e-4) need f32 products, which TF32
-// tensor cores would not give.
-// * tiles of 64 rows, or 32 at hd 256 (`TILE_ROWS`), so that q, do, k and v
-//   in f32 fit shared memory (140 KB at hd 256);
-// * dkdv: one block of 256 threads per (batch, kv head, kv tile); it
-//   loads its k and v tile once, then walks the G query heads of that kv head
-//   and, for each, the live q tiles, accumulating dk and dv in
-//   registers and writing each once;
-// * dq: one block per (batch, head, q tile); it loads q, do, lse and
-//   delta once and walks the live kv tiles, accumulating dq in registers;
-// * ragged tails of Sq and Skv are masked per row and column instead of
-//   padded; every tensor is read in the model's (B, S, H, hd) layout through
-//   strides, so there are no transpose or pad copies;
-// * the scores and dp of a tile are computed together: each thread owns a
-//   2 x 8 block of the 64 x 64 tile (1 x 4 of 32 x 32); p and ds go through shared memory (rows
-//   padded by one float, as every f32 tile here, so column reads are free of
-//   bank conflicts) into the products that accumulate the gradients.
+// dk/dv and dq, f32: `flash_bwd_dkdv_tf32_kernel` and `flash_bwd_dq_tf32_kernel`,
+// every product on the tensor cores as split TF32 (3xTF32), mma.sync m16n8k8.
+// f32 callers (the reduced models, whose card-equals-CPU checks hold 1e-4)
+// need products near f32's. One TF32 product keeps 11 of x's 24 significant
+// bits and misses FLASH_BWD_F32_TOL; the split does not:
+// * each f32 operand x, including p and ds in registers, is split into
+//   hi = rna(x) and lo = rna(x - hi), rna being cvt.rna.tf32.f32 (round to
+//   nearest, ties away, on the low 13 bits; done here as an integer add of
+//   0x1000 and a mask, which is the same function), and a . b is taken as
+//   a_lo b_hi + a_hi b_lo + a_hi b_hi into one f32 accumulator, the two small
+//   terms first. hi + lo holds x to 2^-22 of |x|; the dropped a_lo b_lo is
+//   ~2^-22 of |a b|. Emulated on the CPU over the five products
+//   (tests/test_torch_flash_bwd_tf32.py, against an f64 reference, as a
+//   fraction of FLASH_BWD_F32_TOL's limit): plain f32 0.014–0.049, the
+//   split 0.017–0.046, one TF32 product 20.5–32.9 (over it);
+// * mma.sync and not wgmma: wgmma takes .tf32 operands from shared memory
+//   only K-major (the transpose bit is for 16-bit types; CUTLASS's
+//   cute/arch/mma_sm90_gmma.hpp has TF32 wgmma only as _TN), and dv, dk and
+//   dq contract over the rows of the stored dO, Q and K tiles; its B
+//   operand would also need hi and lo tiles in shared memory. mma.sync
+//   reads every fragment from registers, so each operand is loaded, split
+//   and fed as it lies;
+// * what bounds it: operations, a third of the TF32 rate for the 5
+//   products (dq computes s and dp again); on the H100 dk/dv runs 58
+//   TFLOP/s of TF32 products at hd 128, held by the three mma.sync a
+//   product and the split's arithmetic with two warps a scheduler
+//   (PERF.md §6, rows 3af and 3bf);
+// * p and ds feed the next product straight from their accumulators: an
+//   accumulator holds columns 2t, 2t + 1 of its 8, where an A fragment
+//   wants t, t + 4. A contraction does not care in which order it sums
+//   its k, so the B operand is read in the accumulator's order instead
+//   (tile rows 2t and 2t + 1 as k = t and t + 4): no shuffle, no shared
+//   memory round trip;
+// * f32 tiles lie in shared memory as rows of HD floats with their 16-byte
+//   chunks XOR-swizzled by row % 8; both ways the products read them (an
+//   8 x 4 block along the row, and rows 2t, 2t + 1 down a column) hit 32
+//   distinct banks. cp.async copies them, 16 bytes a thread, rows past Sq
+//   or Skv as zero fill, through a 2-stage ring: the next tile is in
+//   flight while the block computes on this one;
+// * the tensor cores round their f32 accumulator toward zero, so a sum over
+//   many products drifts: summed in one accumulator, hymba's dv (5 heads'
+//   q rows a kv row) came off by 1.9e-4 on the H100, dk and dv at S1000
+//   hd128 by 9.0e-5 and 1.7e-4 (tools/flash_bwd_variants.py, `one-sum`).
+//   So each tile's share of dK, dV or dq starts at zero and joins the
+//   running sum by an f32 add, rounded to nearest (`add`), a few column
+//   blocks at a time so that the shares' registers fit: 1.8e-5, 2.0e-5
+//   and 2.6e-5 there;
+// * dkdv: one block of 8 warps per (kv tile of 64 rows, kv head, batch);
+//   two warps to each 16 kv rows. K and V stay in shared memory; Q and dO
+//   tiles of 64 rows (16 at hd 256) stream over the G query heads and each
+//   head's live q tiles. Up to hd 128 the two warps take 32 q rows of each
+//   tile apiece and their dK, dV (64 + 64 registers a thread at hd 128)
+//   add up at the end through shared memory, in a fixed order; at hd 256
+//   dK and dV would be 256 registers, so each takes half the columns and
+//   both compute the same s^T and dp^T (`KvLayout::SPLIT`);
+// * dq: one block of 4 warps per (q tile of 64 rows, head, batch), q tiles
+//   last-first (the longest causal rows first); each warp owns 16 q rows
+//   and their dq accumulators; Q and dO stay in shared memory, K and V
+//   tiles of 64 rows (16 at hd 256) stream over the live kv tiles only;
+// * each block owns its output tile and writes it once: no atomics, the
+//   same bits on every call; tiles the causal mask or the window cover
+//   entirely are never loaded; the elementwise mask runs only on tiles that
+//   cross the diagonal, the window's edge or a ragged end.
 #include <stdint.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;   // 32 row groups x 8 column threads
-
-// Square q and kv tiles of TB rows for head dim HD: 64, or 32 at hd 256,
-// where two 64-row tiles of q, do, k and v in f32 (297 KB) would not fit.
-template <int HD>
-constexpr int TILE_ROWS = HD > 128 ? 32 : 64;
 
 struct BwdArgs {
   const void* q; const void* k; const void* v; const void* dout;
@@ -110,283 +147,516 @@ struct BwdArgs {
   float sm_scale;
 };
 
-// ROWS x HD elements of rows [row0, row0 + ROWS) of a strided (S, hd) slab
-// into f32 shared memory with row stride HD + 1; rows at or past `limit` are 0.
-template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          long long row_stride, int row0, int limit) {
-  constexpr int VEC = 16 / int(sizeof(T));
-  constexpr int PER_ROW = HD / VEC;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    float vals[VEC];
-    if (row0 + r < limit) {
-      repro::load_f32<T, VEC>(src + (row0 + r) * row_stride + c, vals);
-    } else {
+// ---- f32: split-TF32 products on the tensor cores ----------------------------
+
+namespace tf32 {
+
+constexpr int STAGES = 2;                  // streamed tiles in flight
+
+// cvt.rna.tf32.f32, as bits: round the low 13 bits to nearest, ties away
+__device__ __forceinline__ uint32_t rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna(x);
+  lo = rna(x - __uint_as_float(hi));
+}
+
+// An A operand (16 x 8) as hi and lo halves
+struct Frag { uint32_t hi[4], lo[4]; };
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a b in split TF32: the two small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag& a, const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma(d, a.lo, bh[0], bh[1]);
+  mma(d, a.hi, bl[0], bl[1]);
+  mma(d, a.hi, bh[0], bh[1]);
+}
+
+// A tile's share of a gradient into its running sum, rounded to nearest
+// (the tensor cores' accumulator rounds toward zero: see the note above).
+__device__ __forceinline__ void add(float (&d)[4], const float (&t)[4]) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) vals[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) dst[r * (HD + 1) + c + e] = vals[e];
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// Lane (g, t) = (lane / 4, lane % 4) of the mma fragments, and its two
+// swizzle terms: xa for an 8 x 4 block along a row (rows g, columns t), xb
+// for rows 2t, 2t + 1 down a column g. Tile element (r, c) lies at
+// r * HD + (c ^ 4 (r % 8)).
+struct Lane {
+  int g, t, xa, xb;
+};
+__device__ __forceinline__ Lane lane_of(int lane) {
+  const int g = lane / 4, t = lane % 4;
+  return Lane{g, t, t ^ (g << 2), g ^ (t << 3)};
+}
+
+// A operand: rows r0 .. r0 + 15 (r0 % 8 == 0), columns kc .. kc + 7 of tile X
+template <int HD>
+__device__ __forceinline__ Frag frag_rows(const float* X, int r0, int kc, const Lane& l) {
+  const float* p0 = X + (r0 + l.g) * HD + (kc & ~31);
+  const float* p1 = p0 + 8 * HD;
+  const int c0 = (kc & 31) ^ l.xa, c1 = ((kc & 31) + 4) ^ l.xa;
+  Frag f;
+  split(p0[c0], f.hi[0], f.lo[0]);
+  split(p1[c0], f.hi[1], f.lo[1]);
+  split(p0[c1], f.hi[2], f.lo[2]);
+  split(p1[c1], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B operand (k x n = 8 x 8) with n along rows n0 .. n0 + 7 of tile Y and k
+// along its columns kc .. kc + 7: Y's rows as they are, for s and dp
+template <int HD>
+__device__ __forceinline__ void frag_cols(const float* Y, int n0, int kc, const Lane& l,
+                                          uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+  const float* p = Y + (n0 + l.g) * HD + (kc & ~31);
+  split(p[(kc & 31) ^ l.xa], bh[0], bl[0]);
+  split(p[((kc & 31) + 4) ^ l.xa], bh[1], bl[1]);
+}
+
+// B operand with k along rows k0 + 2t, k0 + 2t + 1 of tile Y (k = t, t + 4:
+// an accumulator's column order, see frag_acc) and n along its columns
+// n0 .. n0 + 7 (k0 % 8 == n0 % 8 == 0)
+template <int HD>
+__device__ __forceinline__ void frag_krows(const float* Y, int k0, int n0, const Lane& l,
+                                           uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+  const float* p = Y + (k0 + 2 * l.t) * HD + (n0 & ~31);
+  const int c = (n0 & 31) ^ l.xb;
+  split(p[c], bh[0], bl[0]);
+  split(p[HD + (c ^ 4)], bh[1], bl[1]);
+}
+
+// An accumulator block (16 x 8) as the A operand of the next product: the
+// lane's columns 2t, 2t + 1 stand for k = t, t + 4
+__device__ __forceinline__ Frag frag_acc(const float (&c)[4]) {
+  Frag f;
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// Rows [row0, row0 + ROWS) of a strided (S, HD) f32 slab into a swizzled
+// tile, 16 bytes a copy; rows at or past `limit` land as zeros.
+template <int HD, int ROWS, int NT>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
+                                          long long stride, int row0, int limit) {
+  constexpr int CH = HD / 4;
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = row0 + r < limit;
+    repro::cp_async16_zfill(dst + r * HD + 4 * (c ^ (r & 7)),
+                            src + (ok ? (row0 + r) * stride + 4 * c : 0), ok);
   }
 }
 
-// lse and delta of rows [row0, row0 + TB) of one (b, h); rows past Sq read 0.
-template <int TB>
-__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s, const BwdArgs& a,
-                                          int b, int h, int row0) {
-  for (int r = threadIdx.x; r < TB; r += THREADS) {
-    const int row = row0 + r;
-    const long long idx = ((long long)b * a.H + h) * a.Sq + row;
-    lse_s[r] = row < a.Sq ? a.lse[idx] : 0.f;
-    delta_s[r] = row < a.Sq ? a.delta[idx] : 0.f;
+// The (kv tile of BKV rows at k0) x (q tile of BQ rows) blocks that are live:
+// q tiles [lo, hi] of every query head.
+template <int BKV, int BQ>
+__device__ __forceinline__ int2 live_q_tiles(const BwdArgs& a, int k0) {
+  int lo = 0, hi = (a.Sq + BQ - 1) / BQ - 1;
+  const int first = k0 - a.q_offset;                     // causal: q rows from here on
+  if (a.causal && first > 0) lo = first / BQ;
+  if (a.window) {
+    const int last = k0 + BKV - 2 + a.window - a.q_offset;   // and up to here
+    hi = last < 0 ? -1 : min(hi, last / BQ);
   }
+  return make_int2(lo, hi);
 }
 
-template <int TB>
-__device__ __forceinline__ bool tile_live(const BwdArgs& a, int qpos0, int k0) {
-  if (a.causal && qpos0 + TB - 1 < k0) return false;
-  if (a.window && k0 + TB - 1 <= qpos0 - a.window) return false;
-  return true;
-}
+template <int HD>
+struct KvLayout {
+  // Two warps to each 16 kv rows. Up to hd 128 each takes half of every q
+  // tile's rows, and the pair's dK and dV add up at the end; at hd 256
+  // (SPLIT) dK and dV alone would be 256 registers a thread, so each takes
+  // half of their columns and both compute the same s^T and dp^T.
+  static constexpr bool SPLIT = HD > 128;
+  static constexpr int WARPS = 8;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BKV = 64;                     // kv rows a block, 16 a warp pair
+  static constexpr int BQ = SPLIT ? 16 : 64;         // q rows a streamed tile
+  static constexpr int QW = SPLIT ? BQ : BQ / 2;     // of which a warp takes
+  static constexpr int NCOL = SPLIT ? HD / 2 : HD;   // dK, dV columns a warp
+  static constexpr int NG = 2;                       // column blocks a tile's share runs over
+  // K | V | Q[STAGES] | dO[STAGES] | lse[STAGES] | delta[STAGES]
+  static constexpr int SMEM = 4 * (2 * BKV * HD + 2 * STAGES * BQ * HD + 2 * STAGES * BQ);
+};
 
-// p and ds of one (q tile, kv tile) pair into shared memory. Thread (ty, tx)
-// computes rows R ty .. R ty + R - 1 and columns tx + 8j (j < C) of s = q k^T
-// and dp = do v^T, R = TB / 32 and C = TB / 8.
-template <int HD, int TB>
-__device__ __forceinline__ void p_and_ds(float* Ps, float* dSs, const float* Qs,
-                                         const float* dOs, const float* Ks, const float* Vs,
-                                         const float* lse_s, const float* delta_s,
-                                         const BwdArgs& a, int q0, int k0) {
-  constexpr int LD = HD + 1, LDP = TB + 1, R = TB / 32, C = TB / 8;
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
-  float s[R][C], dp[R][C];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < C; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float qa[R], da[R], kk[C], vv[C];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      qa[i] = Qs[(ty * R + i) * LD + d];
-      da[i] = dOs[(ty * R + i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      kk[j] = Ks[(tx + 8 * j) * LD + d];
-      vv[j] = Vs[(tx + 8 * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        s[i][j] = fmaf(qa[i], kk[j], s[i][j]);
-        dp[i][j] = fmaf(da[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = ty * R + i;
-    const int qrow = q0 + r;
-    const int qp = a.q_offset + qrow;
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const int c = tx + 8 * j;
-      const int kp = k0 + c;
-      bool ok = qrow < a.Sq && kp < a.Skv;
-      if (a.causal) ok = ok && qp >= kp;
-      if (a.window) ok = ok && qp - kp < a.window;
-      const float p = ok ? expf(s[i][j] * a.sm_scale - lse_s[r]) : 0.f;
-      Ps[r * LDP + c] = p;
-      dSs[r * LDP + c] = p * (dp[i][j] - delta_s[r]) * a.sm_scale;
-    }
-  }
-}
+template <int HD>
+__global__ void __launch_bounds__(KvLayout<HD>::THREADS, 1)
+flash_bwd_dkdv_tf32_kernel(const BwdArgs a) {
+  using L = KvLayout<HD>;
+  constexpr int BKV = L::BKV, BQ = L::BQ, QW = L::QW, NCOL = L::NCOL, NT = L::THREADS;
+  constexpr int NG = L::NG;
+  extern __shared__ float4 smem_f4[];
+  float* Ks = reinterpret_cast<float*>(smem_f4);
+  float* Vs = Ks + BKV * HD;
+  float* Qs = Vs + BKV * HD;                     // stage s at Qs + s * BQ * HD
+  float* dOs = Qs + STAGES * BQ * HD;
+  float* lse_s = dOs + STAGES * BQ * HD;         // [STAGES][BQ]
+  float* delta_s = lse_s + STAGES * BQ;
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(BwdArgs a) {
-  constexpr int TB = TILE_ROWS<HD>, R = TB / 32;
-  constexpr int LD = HD + 1, LDP = TB + 1;
-  constexpr int DJ = HD / 8;           // gradient columns per thread
-  extern __shared__ float smem[];
-  float* Ks = smem;                    // TB x LD
-  float* Vs = Ks + TB * LD;            // TB x LD
-  float* Qs = Vs + TB * LD;            // TB x LD
-  float* dOs = Qs + TB * LD;           // TB x LD
-  float* Ps = dOs + TB * LD;           // TB x LDP
-  float* dSs = Ps + TB * LDP;          // TB x LDP
-  float* lse_s = dSs + TB * LDP;       // TB
-  float* delta_s = lse_s + TB;         // TB
-
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BKV, kvh = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.KVH;
-  const int k0 = kt * TB;
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;  // kv rows R ty + i; cols tx + 8j
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const Lane l = lane_of(lane);
+  const int half = warp / 4;                     // the warp's half of q rows, or of columns
+  const int kr0 = (warp % 4) * 16;               // its kv rows in the block
+  const int qw0 = L::SPLIT ? 0 : half * QW;      // its q rows in each tile
+  const int col0 = L::SPLIT ? half * NCOL : 0;   // its first dK, dV column
+  const int klo = k0 + kr0, khi = klo + 15;
 
-  load_tile<T, HD, TB>(Ks, static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh,
-                       a.k_ss, k0, a.Skv);
-  load_tile<T, HD, TB>(Vs, static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh,
-                       a.v_ss, k0, a.Skv);
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb;
+  const float* dout = static_cast<const float*>(a.dout) + b * a.do_sb;
+  load_tile<HD, BKV, NT>(Ks, static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh,
+                         a.k_ss, k0, a.Skv);
+  load_tile<HD, BKV, NT>(Vs, static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh,
+                         a.v_ss, k0, a.Skv);
+  repro::cp_async_commit();
 
-  float dk[R][DJ], dv[R][DJ];
+  // the walk: query head g of the group, then its live q tiles
+  const int2 live = live_q_tiles<BKV, BQ>(a, k0);
+  const int per_head = max(0, live.y - live.x + 1), n_tiles = G * per_head;
+  auto issue = [&](int i) {                      // tile i of the walk into stage i % STAGES
+    if (i < n_tiles) {
+      const int h = kvh * G + i / per_head, q0 = (live.x + i % per_head) * BQ;
+      const int st = i % STAGES;
+      load_tile<HD, BQ, NT>(Qs + st * BQ * HD, q + h * a.q_sh, a.q_ss, q0, a.Sq);
+      load_tile<HD, BQ, NT>(dOs + st * BQ * HD, dout + h * a.do_sh, a.do_ss, q0, a.Sq);
+      for (int r = threadIdx.x; r < BQ; r += NT) {
+        const bool ok = q0 + r < a.Sq;
+        const long long idx = ((long long)b * a.H + h) * a.Sq + (ok ? q0 + r : 0);
+        repro::cp_async4_zfill(lse_s + st * BQ + r, a.lse + idx, ok);
+        repro::cp_async4_zfill(delta_s + st * BQ + r, a.delta + idx, ok);
+      }
+    }
+    repro::cp_async_commit();                    // an empty group past the end keeps the count
+  };
+
+  float dk[NCOL / 8][4], dv[NCOL / 8][4];
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int n = 0; n < NCOL / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
-  const int n_q = (a.Sq + TB - 1) / TB;
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const T* db = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
-    for (int qt = 0; qt < n_q; ++qt) {
-      const int q0 = qt * TB;
-      if (!tile_live<TB>(a, a.q_offset + q0, k0)) continue;
-      __syncthreads();                 // the previous tile's smem reads are done
-      load_tile<T, HD, TB>(Qs, qb, a.q_ss, q0, a.Sq);
-      load_tile<T, HD, TB>(dOs, db, a.do_ss, q0, a.Sq);
-      load_rows<TB>(lse_s, delta_s, a, b, h, q0);
-      __syncthreads();
-      p_and_ds<HD, TB>(Ps, dSs, Qs, dOs, Ks, Vs, lse_s, delta_s, a, q0, k0);
-      __syncthreads();
-      // dv[c] += sum_r p[r][c] do[r];  dk[c] += sum_r ds[r][c] q[r]
+  issue(0);
+  for (int i = 0; i < n_tiles; ++i) {
+    issue(i + 1);
+    repro::cp_async_wait<1>();                   // K, V and tile i: this thread's copies
+    __syncthreads();                             // and every thread's
+    const int st = i % STAGES;
+    const int q0 = (live.x + i % per_head) * BQ + qw0;    // the warp's first q row
+    const int qlo = a.q_offset + q0;
+    const bool warp_live = klo < a.Skv && q0 < a.Sq && !(a.causal && qlo + QW - 1 < klo) &&
+                           !(a.window && khi <= qlo - a.window);
+    if (warp_live) {
+      const float* Qt = Qs + st * BQ * HD;
+      const float* dOt = dOs + st * BQ * HD;
+      const float* lse_t = lse_s + st * BQ + qw0;
+      const float* delta_t = delta_s + st * BQ + qw0;
+      float s[QW / 8][4], dp[QW / 8][4];
+#pragma unroll
+      for (int n = 0; n < QW / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll 2
-      for (int r = 0; r < TB; ++r) {
-        float pa[R], sa[R];
+      for (int kc = 0; kc < HD; kc += 8) {       // s^T = K Q^T, dp^T = V dO^T
+        const Frag fk = frag_rows<HD>(Ks, kr0, kc, l);
+        const Frag fv = frag_rows<HD>(Vs, kr0, kc, l);
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-          pa[i] = Ps[r * LDP + ty * R + i];
-          sa[i] = dSs[r * LDP + ty * R + i];
+        for (int n = 0; n < QW / 8; ++n) {
+          uint32_t bh[2], bl[2];
+          frag_cols<HD>(Qt, qw0 + n * 8, kc, l, bh, bl);
+          mma3(s[n], fk, bh, bl);
+          frag_cols<HD>(dOt, qw0 + n * 8, kc, l, bh, bl);
+          mma3(dp[n], fv, bh, bl);
         }
+      }
+      // p^T and ds^T: the lane's kv rows klo + g (+ 8), q rows n * 8 + 2t (+ 1)
+      const bool edge = q0 + QW > a.Sq || khi >= a.Skv || (a.causal && khi > qlo) ||
+                        (a.window && qlo + QW - 1 - klo >= a.window);
 #pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          const float dov = dOs[r * LD + tx + 8 * j];
-          const float qv = Qs[r * LD + tx + 8 * j];
+      for (int n = 0; n < QW / 8; ++n)
 #pragma unroll
-          for (int i = 0; i < R; ++i) {
-            dv[i][j] = fmaf(pa[i], dov, dv[i][j]);
-            dk[i][j] = fmaf(sa[i], qv, dk[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * l.t + (e & 1);
+          float p = expf(s[n][e] * a.sm_scale - lse_t[c]);
+          if (edge) {
+            const int kp = klo + l.g + 8 * (e >> 1), qp = qlo + c;
+            bool ok = q0 + c < a.Sq && kp < a.Skv;
+            if (a.causal) ok = ok && qp >= kp;
+            if (a.window) ok = ok && qp - kp < a.window;
+            p = ok ? p : 0.f;
+          }
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - delta_t[c]) * a.sm_scale;
+        }
+      // dv += p^T dO, dk += ds^T Q: the tile's share of NG column blocks at a time
+#pragma unroll
+      for (int n0 = 0; n0 < NCOL / 8; n0 += NG) {
+        float tv[NG][4], tk[NG][4];
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tv[j][e] = tk[j][e] = 0.f;
+#pragma unroll
+        for (int kq = 0; kq < QW / 8; ++kq) {
+          const Frag fp = frag_acc(s[kq]), fs = frag_acc(dp[kq]);
+#pragma unroll
+          for (int j = 0; j < NG; ++j) {
+            uint32_t bh[2], bl[2];
+            frag_krows<HD>(dOt, qw0 + kq * 8, col0 + (n0 + j) * 8, l, bh, bl);
+            mma3(tv[j], fp, bh, bl);
+            frag_krows<HD>(Qt, qw0 + kq * 8, col0 + (n0 + j) * 8, l, bh, bl);
+            mma3(tk[j], fs, bh, bl);
           }
         }
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          add(dv[n0 + j], tv[j]);
+          add(dk[n0 + j], tk[j]);
+        }
+      }
+    }
+    __syncthreads();                             // stage st is free for tile i + STAGES
+  }
+  repro::cp_async_wait<0>();                     // (K and V, if no tile was live)
+
+  if (!L::SPLIT) {
+    // the pair's halves of the q rows: the second warp's dK and dV through
+    // shared memory (the Q and dO stages, read by now) into the first's
+    __syncthreads();
+    float* red = Qs;                             // dK at r * HD + c, dV BKV * HD after
+    if (half == 1) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = kr0 + l.g + 8 * i;
+#pragma unroll
+        for (int n = 0; n < NCOL / 8; ++n) {
+          *reinterpret_cast<float2*>(red + r * HD + 8 * n + 2 * l.t) =
+              make_float2(dk[n][2 * i], dk[n][2 * i + 1]);
+          *reinterpret_cast<float2*>(red + (BKV + r) * HD + 8 * n + 2 * l.t) =
+              make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
+        }
+      }
+    }
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = kr0 + l.g + 8 * i;
+#pragma unroll
+      for (int n = 0; n < NCOL / 8; ++n) {
+        const float2 k2 = *reinterpret_cast<const float2*>(red + r * HD + 8 * n + 2 * l.t);
+        const float2 v2 =
+            *reinterpret_cast<const float2*>(red + (BKV + r) * HD + 8 * n + 2 * l.t);
+        dk[n][2 * i] += k2.x;
+        dk[n][2 * i + 1] += k2.y;
+        dv[n][2 * i] += v2.x;
+        dv[n][2 * i + 1] += v2.y;
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = k0 + ty * R + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = klo + l.g + 8 * i;
     if (row >= a.Skv) continue;
-    T* dkrow = static_cast<T*>(a.dk) + b * a.dk_sb + row * a.dk_ss + kvh * a.dk_sh;
-    T* dvrow = static_cast<T*>(a.dv) + b * a.dv_sb + row * a.dv_ss + kvh * a.dv_sh;
+    float* dkr = static_cast<float*>(a.dk) + b * a.dk_sb + row * a.dk_ss + kvh * a.dk_sh +
+                 col0 + 2 * l.t;
+    float* dvr = static_cast<float*>(a.dv) + b * a.dv_sb + row * a.dv_ss + kvh * a.dv_sh +
+                 col0 + 2 * l.t;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dkrow[tx + 8 * j] = repro::from_float<T>(dk[i][j]);
-      dvrow[tx + 8 * j] = repro::from_float<T>(dv[i][j]);
+    for (int n = 0; n < NCOL / 8; ++n) {
+      *reinterpret_cast<float2*>(dkr + 8 * n) = make_float2(dk[n][2 * i], dk[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(dvr + 8 * n) = make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
     }
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(BwdArgs a) {
-  constexpr int TB = TILE_ROWS<HD>, R = TB / 32;
-  constexpr int LD = HD + 1, LDP = TB + 1;
-  constexpr int DJ = HD / 8;
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // TB x LD
-  float* dOs = Qs + TB * LD;           // TB x LD
-  float* Ks = dOs + TB * LD;           // TB x LD
-  float* Vs = Ks + TB * LD;            // TB x LD
-  float* Ps = Vs + TB * LD;            // TB x LDP
-  float* dSs = Ps + TB * LDP;          // TB x LDP
-  float* lse_s = dSs + TB * LDP;       // TB
-  float* delta_s = lse_s + TB;         // TB
-
-  const int qt = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (a.H / a.KVH);
-  const int q0 = qt * TB;
-  const int qpos0 = a.q_offset + q0;
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;  // q rows R ty + i; cols tx + 8j
-
-  load_tile<T, HD, TB>(Qs, static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh,
-                       a.q_ss, q0, a.Sq);
-  load_tile<T, HD, TB>(dOs, static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh,
-                       a.do_ss, q0, a.Sq);
-  load_rows<TB>(lse_s, delta_s, a, b, h, q0);
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-
-  float dq[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dq[i][j] = 0.f;
-
-  const int n_kv = (a.Skv + TB - 1) / TB;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * TB;
-    if (a.causal && qpos0 + TB - 1 < k0) break;              // this and later tiles masked
-    if (!tile_live<TB>(a, qpos0, k0)) continue;
-    __syncthreads();
-    load_tile<T, HD, TB>(Ks, kb, a.k_ss, k0, a.Skv);
-    load_tile<T, HD, TB>(Vs, vb, a.v_ss, k0, a.Skv);
-    __syncthreads();
-    p_and_ds<HD, TB>(Ps, dSs, Qs, dOs, Ks, Vs, lse_s, delta_s, a, q0, k0);
-    __syncthreads();
-    // dq[r] += sum_c ds[r][c] k[c]
-#pragma unroll 2
-    for (int c = 0; c < TB; ++c) {
-      float sa[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) sa[i] = dSs[(ty * R + i) * LDP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float kv = Ks[c * LD + tx + 8 * j];
-#pragma unroll
-        for (int i = 0; i < R; ++i) dq[i][j] = fmaf(sa[i], kv, dq[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty * R + i;
-    if (row >= a.Sq) continue;
-    T* dqrow = static_cast<T*>(a.dq) + b * a.dq_sb + row * a.dq_ss + h * a.dq_sh;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dqrow[tx + 8 * j] = repro::from_float<T>(dq[i][j]);
   }
 }
 
 template <int HD>
-constexpr int smem_bytes() {
-  constexpr int TB = TILE_ROWS<HD>;
-  return int(sizeof(float)) * (4 * TB * (HD + 1) + 2 * TB * (TB + 1) + 2 * TB);
+struct QLayout {
+  static constexpr int WARPS = 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BQ = 16 * WARPS;              // q rows a block, 16 a warp
+  static constexpr int BK = HD > 128 ? 16 : 64;      // kv rows a streamed tile
+  static constexpr int NG = HD > 128 ? 8 : HD / 8;   // column blocks a tile's share runs over
+  // Q | dO | K[STAGES] | V[STAGES]
+  static constexpr int SMEM = 4 * (2 * BQ * HD + 2 * STAGES * BK * HD);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(QLayout<HD>::THREADS, 1)
+flash_bwd_dq_tf32_kernel(const BwdArgs a) {
+  using L = QLayout<HD>;
+  constexpr int BQ = L::BQ, BK = L::BK, NT = L::THREADS, NG = L::NG;
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);
+  float* dOs = Qs + BQ * HD;
+  float* Ks = dOs + BQ * HD;                     // stage s at Ks + s * BK * HD
+  float* Vs = Ks + STAGES * BK * HD;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;     // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KVH);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const Lane l = lane_of(lane);
+  const int qr0 = warp * 16;                     // the warp's q rows in the block
+  const int qpos0 = a.q_offset + q0, qlo = qpos0 + qr0, qhi = qlo + 15;
+
+  load_tile<HD, BQ, NT>(Qs, static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh,
+                        a.q_ss, q0, a.Sq);
+  load_tile<HD, BQ, NT>(dOs, static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh,
+                        a.do_ss, q0, a.Sq);
+  repro::cp_async_commit();
+  float lse_r[2], dlt[2];                        // the lane's q rows qr0 + g (+ 8)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + qr0 + l.g + 8 * i;
+    const long long idx = ((long long)b * a.H + h) * a.Sq + row;
+    lse_r[i] = row < a.Sq ? a.lse[idx] : 0.f;
+    dlt[i] = row < a.Sq ? a.delta[idx] : 0.f;
+  }
+
+  // the live kv tiles [lo, hi]: up to the causal edge, from the window's
+  int lo = 0, hi = (a.Skv + BK - 1) / BK - 1;
+  if (a.causal) hi = min(hi, (qpos0 + BQ - 1) / BK);
+  if (a.window && qpos0 - a.window + 1 > 0) lo = (qpos0 - a.window + 1) / BK;
+  const int n_tiles = max(0, hi - lo + 1);
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  auto issue = [&](int i) {                      // tile i of the walk into stage i % STAGES
+    if (i < n_tiles) {
+      const int k0 = (lo + i) * BK, st = i % STAGES;
+      load_tile<HD, BK, NT>(Ks + st * BK * HD, kb, a.k_ss, k0, a.Skv);
+      load_tile<HD, BK, NT>(Vs + st * BK * HD, vb, a.v_ss, k0, a.Skv);
+    }
+    repro::cp_async_commit();
+  };
+
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  issue(0);
+  for (int i = 0; i < n_tiles; ++i) {
+    issue(i + 1);
+    repro::cp_async_wait<1>();                   // Q, dO and tile i: this thread's copies
+    __syncthreads();                             // and every thread's
+    const int st = i % STAGES, k0 = (lo + i) * BK;
+    const bool warp_live = q0 + qr0 < a.Sq && !(a.causal && qhi < k0) &&
+                           !(a.window && k0 + BK - 1 <= qlo - a.window);
+    if (warp_live) {
+      const float* Kt = Ks + st * BK * HD;
+      const float* Vt = Vs + st * BK * HD;
+      float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll 2
+      for (int kc = 0; kc < HD; kc += 8) {       // s = Q K^T, dp = dO V^T
+        const Frag fq = frag_rows<HD>(Qs, qr0, kc, l);
+        const Frag fo = frag_rows<HD>(dOs, qr0, kc, l);
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+          uint32_t bh[2], bl[2];
+          frag_cols<HD>(Kt, n * 8, kc, l, bh, bl);
+          mma3(s[n], fq, bh, bl);
+          frag_cols<HD>(Vt, n * 8, kc, l, bh, bl);
+          mma3(dp[n], fo, bh, bl);
+        }
+      }
+      // ds: the lane's q rows qr0 + g (+ 8), kv columns k0 + n * 8 + 2t (+ 1)
+      const bool edge = k0 + BK > a.Skv || (a.causal && k0 + BK - 1 > qlo) ||
+                        (a.window && qhi - k0 >= a.window);
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i2 = e >> 1;
+          float p = expf(s[n][e] * a.sm_scale - lse_r[i2]);
+          if (edge) {
+            const int kp = k0 + n * 8 + 2 * l.t + (e & 1), qp = qlo + l.g + 8 * i2;
+            bool ok = kp < a.Skv;
+            if (a.causal) ok = ok && qp >= kp;
+            if (a.window) ok = ok && qp - kp < a.window;
+            p = ok ? p : 0.f;
+          }
+          dp[n][e] = p * (dp[n][e] - dlt[i2]) * a.sm_scale;
+        }
+      // dq += ds K: the tile's share of NG column blocks at a time
+#pragma unroll
+      for (int n0 = 0; n0 < HD / 8; n0 += NG) {
+        float t[NG][4];
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) t[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          const Frag fs = frag_acc(dp[kk]);
+#pragma unroll
+          for (int j = 0; j < NG; ++j) {
+            uint32_t bh[2], bl[2];
+            frag_krows<HD>(Kt, kk * 8, (n0 + j) * 8, l, bh, bl);
+            mma3(t[j], fs, bh, bl);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NG; ++j) add(dq[n0 + j], t[j]);
+      }
+    }
+    __syncthreads();                             // stage st is free for tile i + STAGES
+  }
+  repro::cp_async_wait<0>();                     // (Q and dO, if no tile was live)
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + qr0 + l.g + 8 * i;
+    if (row >= a.Sq) continue;
+    float* dqr = static_cast<float*>(a.dq) + b * a.dq_sb + row * a.dq_ss + h * a.dq_sh + 2 * l.t;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(dqr + 8 * n) = make_float2(dq[n][2 * i], dq[n][2 * i + 1]);
+  }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_dkdv(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD>(), TB = TILE_ROWS<HD>;
+  using L = KvLayout<HD>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_dkdv_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Skv + TB - 1) / TB, a.KVH, a.B);
-  flash_bwd_dkdv_kernel<T, HD><<<grid, THREADS, smem, stream>>>(a);
+  const dim3 grid((a.Skv + L::BKV - 1) / L::BKV, a.KVH, a.B);
+  flash_bwd_dkdv_tf32_kernel<HD><<<grid, L::THREADS, L::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD>(), TB = TILE_ROWS<HD>;
+  using L = QLayout<HD>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_dq_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + TB - 1) / TB, a.H, a.B);
-  flash_bwd_dq_kernel<T, HD><<<grid, THREADS, smem, stream>>>(a);
+  const dim3 grid((a.Sq + L::BQ - 1) / L::BQ, a.H, a.B);
+  flash_bwd_dq_tf32_kernel<HD><<<grid, L::THREADS, L::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
+
+}  // namespace tf32
 
 // ---- bf16 dk/dv: the tensor-core kernel -------------------------------------
 
@@ -870,26 +1140,26 @@ cudaError_t launch_dq(const BwdArgs& f, cudaStream_t stream) {
 
 }  // namespace tc
 
-// dq by dtype: f32 on the FMA kernel, bf16 on the tensor-core kernel.
+// dq by dtype: f32 on the split-TF32 kernel, bf16 on the wgmma kernel.
 cudaError_t dispatch_dq(const BwdArgs& a, int dtype, int hd, cudaStream_t s) {
   const bool f32 = dtype == repro::kFloat32;
   switch (hd) {
-    case 32: return f32 ? launch_dq<float, 32>(a, s) : tc::launch_dq<32>(a, s);
-    case 64: return f32 ? launch_dq<float, 64>(a, s) : tc::launch_dq<64>(a, s);
-    case 128: return f32 ? launch_dq<float, 128>(a, s) : tc::launch_dq<128>(a, s);
-    case 256: return f32 ? launch_dq<float, 256>(a, s) : tc::launch_dq<256>(a, s);
+    case 32: return f32 ? tf32::launch_dq<32>(a, s) : tc::launch_dq<32>(a, s);
+    case 64: return f32 ? tf32::launch_dq<64>(a, s) : tc::launch_dq<64>(a, s);
+    case 128: return f32 ? tf32::launch_dq<128>(a, s) : tc::launch_dq<128>(a, s);
+    case 256: return f32 ? tf32::launch_dq<256>(a, s) : tc::launch_dq<256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// dk/dv by dtype: f32 on the FMA kernel, bf16 on the tensor-core kernel.
+// dk/dv by dtype: f32 on the split-TF32 kernel, bf16 on the wgmma kernel.
 cudaError_t dispatch_dkdv(const BwdArgs& a, int dtype, int hd, cudaStream_t s) {
   const bool f32 = dtype == repro::kFloat32;
   switch (hd) {
-    case 32: return f32 ? launch_dkdv<float, 32>(a, s) : tc::launch_dkdv<32>(a, s);
-    case 64: return f32 ? launch_dkdv<float, 64>(a, s) : tc::launch_dkdv<64>(a, s);
-    case 128: return f32 ? launch_dkdv<float, 128>(a, s) : tc::launch_dkdv<128>(a, s);
-    case 256: return f32 ? launch_dkdv<float, 256>(a, s) : tc::launch_dkdv<256>(a, s);
+    case 32: return f32 ? tf32::launch_dkdv<32>(a, s) : tc::launch_dkdv<32>(a, s);
+    case 64: return f32 ? tf32::launch_dkdv<64>(a, s) : tc::launch_dkdv<64>(a, s);
+    case 128: return f32 ? tf32::launch_dkdv<128>(a, s) : tc::launch_dkdv<128>(a, s);
+    case 256: return f32 ? tf32::launch_dkdv<256>(a, s) : tc::launch_dkdv<256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -278,11 +278,6 @@ __global__ void __launch_bounds__(THREADS) paged_split_fma_kernel(PagedArgs a) {
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-// 16 bytes from global, or 16 zero bytes when `valid` is false (src unread)
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(smem)), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
-}
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
@@ -363,8 +358,8 @@ __global__ void __launch_bounds__(THREADS) paged_split_tc_kernel(PagedArgs a) {
     for (int c = tid; c < TILE * CPR; c += THREADS) {
       const int t = c / CPR, piece = c % CPR, pos = t0 + t;
       const bool live = pos < n;
-      cp_async16_zfill(dst + chunk_at(t, piece),
-                       pool + (live ? (long long)rowoff[pos] * row : 0) + kvh * HD + piece * 8, live);
+      repro::cp_async16_zfill(dst + chunk_at(t, piece),
+                              pool + (live ? (long long)rowoff[pos] * row : 0) + kvh * HD + piece * 8, live);
     }
   };
 

@@ -6,9 +6,10 @@ and ``_dq_kernel`` of ``repro/kernels/flash_attention/kernel_bwd.py``).
 ``delta = sum(do * o)`` per row (a torch reduction, as the JAX package
 computes it outside both kernels), allocates the gradients, launches both
 kernels on PyTorch's current stream and counts each launch by variant:
-bf16 runs the tensor-core kernels (``launches_dkdv_tc``, ``launches_dq_tc``),
-f32 the FMA kernels (``launches_dkdv_fma``, ``launches_dq_fma``). It never
-falls back: anything the kernels do not take raises.
+bf16 runs the wgmma kernels (``launches_dkdv_tc``, ``launches_dq_tc``), f32
+the split-TF32 mma.sync kernels (``launches_dkdv_tf32``,
+``launches_dq_tf32``). It never falls back: anything the kernels do not
+take raises.
 """
 from __future__ import annotations
 
@@ -23,9 +24,9 @@ from repro_torch.kernels.flash_attention import kernel
 
 # kernel launches since the last reset (plain ints)
 launches_dkdv_tc = 0    # bf16 dk/dv: wgmma + TMA
-launches_dkdv_fma = 0   # f32 dk/dv: f32 FMAs
+launches_dkdv_tf32 = 0  # f32 dk/dv: split-TF32 mma.sync + cp.async
 launches_dq_tc = 0      # bf16 dq: wgmma + TMA
-launches_dq_fma = 0     # f32 dq: f32 FMAs
+launches_dq_tf32 = 0    # f32 dq: split-TF32 mma.sync + cp.async
 
 
 def _rows_ok(t: torch.Tensor) -> bool:
@@ -76,7 +77,7 @@ def _launch(what, q, k, v, do, lse, delta, outs, causal, window, q_offset, sm_sc
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True, window=0, q_offset=0,
                              sm_scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk, dv (B, Skv, KVH, hd) in k's dtype: the ``_dkdv_kernel`` port."""
-    global launches_dkdv_tc, launches_dkdv_fma
+    global launches_dkdv_tc, launches_dkdv_tf32
     outs = {"dk": torch.empty(k.shape, dtype=k.dtype, device=k.device),
             "dv": torch.empty(v.shape, dtype=v.dtype, device=v.device)}
     _launch("flash_attention_bwd_dkdv", q, k, v, do, lse, delta, outs,
@@ -84,21 +85,21 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True, window=0, 
     if k.dtype == torch.bfloat16:
         launches_dkdv_tc += 1
     else:
-        launches_dkdv_fma += 1
+        launches_dkdv_tf32 += 1
     return outs["dk"], outs["dv"]
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True, window=0, q_offset=0,
                            sm_scale=None) -> torch.Tensor:
     """dq (B, Sq, H, hd) in q's dtype: the ``_dq_kernel`` port."""
-    global launches_dq_tc, launches_dq_fma
+    global launches_dq_tc, launches_dq_tf32
     outs = {"dq": torch.empty(q.shape, dtype=q.dtype, device=q.device)}
     _launch("flash_attention_bwd_dq", q, k, v, do, lse, delta, outs,
             causal, window, q_offset, sm_scale)
     if q.dtype == torch.bfloat16:
         launches_dq_tc += 1
     else:
-        launches_dq_fma += 1
+        launches_dq_tf32 += 1
     return outs["dq"]
 
 

@@ -105,8 +105,8 @@ def test_function_cpu_path_matches_autograd_of_attention_ref(B, Sq, Skv, H, KVH,
                                                              window, q_offset):
     q, k, v, do = _inputs(B, Sq, Skv, H, KVH, hd, seed=2)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    counts = lambda: (kernel_bwd.launches_dkdv_tc, kernel_bwd.launches_dkdv_fma,
-                      kernel_bwd.launches_dq_tc, kernel_bwd.launches_dq_fma)
+    counts = lambda: (kernel_bwd.launches_dkdv_tc, kernel_bwd.launches_dkdv_tf32,
+                      kernel_bwd.launches_dq_tc, kernel_bwd.launches_dq_tf32)
     before = counts()
     got = _autograd(q, k, v, do, lambda *t, **a: flash_attention(*t, causal, window, q_offset))
     _close(got, _autograd(q, k, v, do, attention_ref, **kw))
