@@ -23,9 +23,11 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    and at the main paths' shapes, with times (CUDA events, L2 flushed
    between launches) beside the bound. The flash forward, dk/dv and dq
    have two variants each, by dtype: bf16 on tensor cores (wgmma fed by
-   TMA); f32 on FMAs for the forward, and for dk/dv and dq on tensor cores
-   as split TF32 (hi + lo halves of every operand, three mma.sync
-   products, fed by cp.async); every feature case runs in both dtypes. The paged
+   TMA); f32 on tensor cores as split TF32 (hi + lo halves of every
+   operand, three mma.sync products, fed by cp.async); every feature case
+   runs in both dtypes; the f32 forward is timed at its four shapes with
+   its spread beside SDPA's f32 forward, and the f32 backward's outputs at
+   S1000 hd 128 and 256 are logged as digests. The paged
    kernel (split over positions, then merged) has two: bf16 scores and P.V
    on tensor cores (mma.sync), f32 on FMAs. The scan has a prefill kernel
    and a decode kernel (S <= 4), picked by S. The mLSTM's model calls go
@@ -35,9 +37,10 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    also held at mixtral-8x7b's training shape (B1 S8192 H32/8 hd128,
    window 4096, bf16), timed beside SDPA with the band as a boolean mask.
    Two calls on the same inputs give the
-   same bits for the bf16 dq, the f32 dk/dv and dq (hd 128 and 256), the
-   paged kernel, the scan, the tensor-core mLSTM and the step; the kernels
-   NO_SPILL_KERNELS names build with no spilled registers;
+   same bits for the bf16 dq, the f32 forward, dk/dv and dq (hd 128 and
+   256), the paged kernel, the scan and its backward (over many segments
+   too), the tensor-core mLSTM and the step; the kernels NO_SPILL_KERNELS
+   names build with no spilled registers;
 4. serving: full-width qwen3-4b (random bf16 weights from a seeded
    generator) through ``DecodeEngine`` on 16 requests; launch counters
    prove prefill went through the flash kernel (36 launches per prefill)
@@ -187,12 +190,14 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    layer a step; reduced f32 hymba's 3 steps on the card equal the CPU's.
    The kernel phase holds the flash forward and both backward kernels at
    whisper's shapes (G=1 hd 64) and hymba's training shape (B1 S4096
-   H25/5, G=5, window 1024) in both dtypes, and the scan's backward
-   (``ssm_scan_bwd_kernel``, from the states the forward kept after each
-   16-step tile, then its partial sums) against ``ssm_scan_bwd_ref`` on
-   the reference's cases and at hymba's training shape, in both u dtypes,
-   with the same bits twice; the forward keeping its states gives the bits
-   it gives without.
+   H25/5, G=5, window 1024) in both dtypes, and the scan's backward (time
+   split into segments: ``ssm_scan_bwd_carry_kernel``'s local carries, then
+   ``ssm_scan_bwd_kernel`` per segment from the states the forward kept
+   after each 16-step tile, then its partial sums) against
+   ``ssm_scan_bwd_ref`` on the reference's cases, over many segments with a
+   ragged end and at hymba's training shape, in both u dtypes, with the
+   same bits twice; the forward keeping its states gives the bits it gives
+   without.
 
 A kernel variant's ``launches_by_path`` in the JSON record holds its count
 on each path (``serve``, ``hybrid``, ``xlstm``, ``train``, ``spot`` at full width
@@ -212,7 +217,8 @@ counted from 0
 just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
 bf16 tensor-core variants (``_tc``), the f32 runs only the f32 ones (the
-forward's FMA kernel, the backward's split-TF32 kernels). The last three
+flash forward's and backward's split-TF32 kernels, the paged and mLSTM FMA
+kernels). The last three
 lines of stdout are the card's name and power limit, the
 per-kernel JSON record and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside this file, the script prints no result and exits 2.
@@ -244,19 +250,20 @@ SRC = REPO / "src"
 
 # kernels that must build without spilling registers (ptxas): the paged
 # split and merge, the mLSTM decode step and its tensor-core prefill, the
-# scan's prefill and decode kernels, the f32 (split-TF32) flash backward,
-# and every instantiation at head dim 256 (a template argument of 256 in its
-# mangled name)
+# scan's prefill and decode kernels and its backward's, the f32 (split-TF32)
+# flash forward and backward, and every instantiation at head dim 256 (a
+# template argument of 256 in its mangled name)
 NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_merge_kernel",
                     "mlstm_step_kernel", "mlstm_tc_kernel", "ssm_scan_kernel", "ssm_step_kernel",
-                    "ssm_scan_bwd_kernel", "ssm_sum_parts_kernel", "flash_bwd_dkdv_tf32_kernel",
+                    "ssm_scan_bwd_kernel", "ssm_scan_bwd_carry_kernel", "ssm_sum_parts_kernel",
+                    "flash_fwd_tf32_kernel", "flash_bwd_dkdv_tf32_kernel",
                     "flash_bwd_dq_tf32_kernel", "Li256E")
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12     # dense TF32 tensor-core rate
-# f32 products as split TF32 take three TF32 products each: the f32
-# backward's bound is its work at a third of the TF32 rate (its f32 FMA
+# f32 products as split TF32 take three TF32 products each: the f32 flash
+# kernels' bound is their work at a third of the TF32 rate (their f32 FMA
 # bound, at PEAK_F32_FLOPS, is logged beside it)
 PEAK_SPLIT_TF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
@@ -419,12 +426,12 @@ def hold(name: str, out: torch.Tensor, ref: torch.Tensor, t: dict) -> float:
     return err
 
 
-def time_ms(fn, flush: torch.Tensor, reps: int = 10, warmup: int = 2,
-            clean: bool = False) -> float:
-    """Mean device time of one call, CUDA events around each call, with the
-    L2 cache flushed before each (the main path finds it cold): by writing
-    the 256 MB buffer, or with ``clean`` by reading it, so that no dirty
-    line is written back during the call."""
+def time_each(fn, flush: torch.Tensor, reps: int = 10, warmup: int = 2,
+              clean: bool = False) -> list:
+    """Device time of each of ``reps`` calls, CUDA events around each call,
+    with the L2 cache flushed before each (the main path finds it cold): by
+    writing the 256 MB buffer, or with ``clean`` by reading it, so that no
+    dirty line is written back during the call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -440,7 +447,23 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 10, warmup: int = 2,
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def time_ms(fn, flush: torch.Tensor, reps: int = 10, warmup: int = 2,
+            clean: bool = False) -> float:
+    """Mean device time of one call (``time_each``)."""
+    return sum(time_each(fn, flush, reps, warmup, clean)) / reps
+
+
+def spread(times: list) -> tuple:
+    """(min, median, max) of a list of times."""
+    xs = sorted(times)
+    return xs[0], xs[len(xs) // 2], xs[-1]
+
+
+def fmt_spread(times: list) -> str:
+    return "min {:.4f} / median {:.4f} / max {:.4f} ms".format(*spread(times))
 
 
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple:
@@ -457,7 +480,7 @@ def _counters() -> dict:
     from repro_torch.kernels.ssm_scan import kernel as scan
 
     return {"flash_attention_tc": (kernel, "launches_tc"),
-            "flash_attention_fma": (kernel, "launches_fma"),
+            "flash_attention_tf32": (kernel, "launches_tf32"),
             "paged_attention_tc": (paged, "launches_tc"),
             "paged_attention_fma": (paged, "launches_fma"),
             "flash_attention_bwd_dkdv_tc": (kernel_bwd, "launches_dkdv_tc"),
@@ -512,20 +535,85 @@ def hold_fwd(name: str, o, lse, q, k, v, kw: dict, t: dict) -> float:
     return err
 
 
-def _flash_fwd_work(B, S, H, KVH, hd, window=0) -> tuple:
+def _flash_fwd_work(B, S, H, KVH, hd, window=0, el=2) -> tuple:
     """(flop, bytes) the causal forward needs: QK^T and PV over the live
     (q, k) pairs, 2 flops per multiply-add; q, k, v read and o written once
-    (bf16), lse written once (f32)."""
+    (``el`` bytes an element: bf16 unless told), lse written once (f32)."""
     pairs = S * (S + 1) // 2 if not window else \
         window * (window + 1) // 2 + (S - window) * window
-    return 4.0 * pairs * hd * H * B, 2.0 * (2 * B * S * H * hd + 2 * B * S * KVH * hd) + 4.0 * B * H * S
+    return 4.0 * pairs * hd * H * B, el * (2 * B * S * H * hd + 2 * B * S * KVH * hd) + 4.0 * B * H * S
+
+
+# the f32 forward's timed shapes (PERF.md row 1f): (tag, B, S, H, KVH, hd,
+# window): qwen3-4b's attention at S 1000, gemma-7b's (hd 256), whisper-tiny's
+# training, hymba-1.5b's training at S 1500 under its window
+F32_FWD_SHAPES = [("S1000 H32/8 hd128", 1, 1000, 32, 8, 128, 0),
+                  ("S1000 H16/16 hd256", 1, 1000, 16, 16, 256, 0),
+                  ("whisper B4 S448 H6/6 hd64", 4, 448, 6, 6, 64, 0),
+                  ("hymba B1 S1500 H25/5 hd64 w1024", 1, 1500, 25, 5, 64, 1024)]
+# calls timed a shape: kernel and SDPA in turns, F32_FWD_ROUNDS rounds of
+# F32_FWD_REPS calls each, so that each spread holds 2 x 20 calls
+F32_FWD_ROUNDS, F32_FWD_REPS = 2, 20
+
+
+def check_flash_f32(gen: torch.Generator, flush: torch.Tensor) -> tuple:
+    """The f32 forward (``flash_fwd_tf32_kernel``) at F32_FWD_SHAPES against
+    ``attention_fwd_ref`` (F32_TOL, lse at LSE_TOL); two calls give the same
+    bits at each; its time (min, median, max over the rounds' calls) beside
+    SDPA's f32 forward in turns (the band as a boolean mask under a
+    window), the plain version's and both bounds (split TF32, and the f32
+    FMA rate). Returns (the largest error, the record's fields at the first
+    shape: the medians)."""
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention.ref import _mask, attention_fwd_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    err, record = 0.0, None
+    log("[kernels] flash_attention_tf32 (the f32 forward) at its timed shapes")
+    for tag, B, S, H, KVH, hd, window in F32_FWD_SHAPES:
+        mk = lambda heads: torch.randn((B, S, heads, hd), generator=gen, device="cuda")
+        q, k, v = mk(H), mk(KVH), mk(KVH)
+        kw = dict(causal=True, window=window, q_offset=0)
+        o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max(err, hold_fwd(f"flash f32 {tag}", o, lse, q, k, v, kw, F32_TOL))
+        o2, lse2 = kernel.flash_attention_fwd(q, k, v, **kw)
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        log(f"  flash f32 {tag}: two calls give the same bits: {same}")
+        if not same:
+            raise AssertionError(f"the f32 forward gave different bits at {tag}")
+        flops, nbytes = _flash_fwd_work(B, S, H, KVH, hd, window, el=4)
+        b_ms, b_by = bound(flops, nbytes, PEAK_SPLIT_TF32_FLOPS)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_kw = dict(attn_mask=_mask(S, S, True, window, 0, q.device)) if window else \
+            dict(is_causal=True)
+        ks, ls = [], []
+        for _ in range(F32_FWD_ROUNDS):
+            ks += time_each(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush,
+                            reps=F32_FWD_REPS)
+            ls += time_each(lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw), flush,
+                            reps=F32_FWD_REPS)
+        plain_ms = time_ms(lambda: attention_fwd_ref(q, k, v, **kw), flush, reps=3)
+        med = spread(ks)[1]
+        log(f"  flash_attention_tf32 at {tag}: kernel {fmt_spread(ks)}; SDPA f32 forward"
+            f"{' (the band as a boolean mask)' if window else ''} {fmt_spread(ls)}; plain "
+            f"(o, lse) {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, split TF32"
+            f"{f32_fma_bound(flops, nbytes, PEAK_SPLIT_TF32_FLOPS)}); {flops / med / 1e9:.1f} "
+            f"TFLOP/s at the median")
+        if record is None:
+            record = dict(ms=med, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=spread(ls)[1])
+        del q, k, v, o, lse, o2, lse2, qt, kt, vt, lib_kw
+        torch.cuda.empty_cache()
+    return err, record
 
 
 def check_flash(gen: torch.Generator, flush: torch.Tensor) -> list:
-    """The forward's two variants (bf16: tensor cores; f32: FMAs) against
-    ``attention_fwd_ref`` on the reference's cases and each feature of the
-    kernels (head dims, window, q offset, ragged and non-causal lengths, S
-    not a multiple of 128) in both dtypes, and at the main paths' shapes;
+    """The forward's two variants (bf16: tensor cores on wgmma; f32: split
+    TF32 on mma.sync) against ``attention_fwd_ref`` on the reference's
+    cases and each feature of the kernels (head dims, window, q offset,
+    ragged and non-causal lengths, S not a multiple of 128) in both dtypes,
+    and at the main paths' shapes (the f32 ones in ``check_flash_f32``);
     one record per variant."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
@@ -550,8 +638,7 @@ def check_flash(gen: torch.Generator, flush: torch.Tensor) -> list:
             _, e = case(f"flash (B, Sq, Skv, H, KVH, hd, causal, window, q_offset) = {args} "
                         f"{str(dtype)[6:]}", *args, dtype)
             errs[dtype] = max(errs[dtype], e)
-    (q32, k32, v32, kw32), e = case("flash main-path S1000 H32/8 hd128 f32", 1, 1000, 1000, 32,
-                                    8, 128, True, 0, 0, torch.float32)
+    e, f32_record = check_flash_f32(gen, flush)
     errs[torch.float32] = max(errs[torch.float32], e)
     main = {S: case(f"flash main-path S{S} H32/8 hd128 bf16",
                     1, S, S, 32, 8, 128, True, 0, 0, torch.bfloat16, FLASH_MAIN_BF16_TOL)
@@ -579,8 +666,8 @@ def check_flash(gen: torch.Generator, flush: torch.Tensor) -> list:
                replaces="src/repro/kernels/flash_attention/kernel.py:33")
     return [dict(rec, name="flash_attention_tc", max_abs_err=errs[torch.bfloat16],
                  **timed(main[2000][0], PEAK_BF16_FLOPS, "main path")),
-            dict(rec, name="flash_attention_fma", max_abs_err=errs[torch.float32],
-                 **timed((q32, k32, v32, kw32), PEAK_F32_FLOPS, "f32 variant"))]
+            dict(rec, name="flash_attention_tf32", max_abs_err=errs[torch.float32],
+                 **f32_record)]
 
 
 def check_flash_hymba(gen: torch.Generator, flush: torch.Tensor) -> float:
@@ -745,6 +832,38 @@ def hold_same_bits(tag: str, q, k, v, do, lse, delta, kw) -> None:
         log(f"  {tag}: two {which} calls give the same bits: {same}")
         if not same:
             raise AssertionError(f"the f32 {which} kernel gave different bits at {tag}")
+
+
+# the f32 backward's outputs at these shapes, (B, S, H, KVH, hd), are
+# logged as digests (``bwd_digests``): inputs made on the CPU from seed 0,
+# with o and lse by the plain forward there, so that two builds of the
+# kernels (before and after a change that must not move their bits) can be
+# compared
+BWD_DIGEST_SHAPES = [(1, 1000, 32, 8, 128), (1, 1000, 16, 16, 256)]
+
+
+def bwd_digests() -> dict:
+    """SHA-256 (16 hex digits) of the f32 dk, dv and dq at BWD_DIGEST_SHAPES,
+    by the ``repro_torch`` on ``sys.path``; logged and returned."""
+    import hashlib
+
+    from repro_torch.kernels.flash_attention import kernel_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
+
+    out = {}
+    for B, S, H, KVH, hd in BWD_DIGEST_SHAPES:
+        g = torch.Generator().manual_seed(0)
+        q, k, v, do = (torch.randn((B, S, n, hd), generator=g) for n in (H, KVH, KVH, H))
+        o, lse = attention_fwd_ref(q, k, v)
+        delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+        args = [t.cuda() for t in (q, k, v, do, lse, delta)]
+        dk, dv = kernel_bwd.flash_attention_bwd_dkdv(*args)
+        dq = kernel_bwd.flash_attention_bwd_dq(*args)
+        out[f"B{B} S{S} H{H}/{KVH} hd{hd}"] = {
+            n: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+            for n, t in (("dk", dk), ("dv", dv), ("dq", dq))}
+    log(f"[kernels] f32 flash backward digests (inputs made on the CPU, seed 0): {out}")
+    return out
 
 
 def peak_flops(record: str) -> float:
@@ -1104,13 +1223,27 @@ def check_ssm_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
+def hold_scan_bwd_bits(tag: str, args) -> None:
+    """Two calls of the scan's backward on the same inputs give the same
+    bits (every partial sum in a fixed order: no atomics)."""
+    from repro_torch.kernels.ssm_scan import kernel
+
+    one, two = kernel.ssm_scan_bwd(*args), kernel.ssm_scan_bwd(*args)
+    same = all(a is None and b is None or torch.equal(a, b) for a, b in zip(one, two))
+    log(f"  {tag}: two calls give the same bits: {same}")
+    if not same:
+        raise AssertionError(f"the scan's backward gave different bits at {tag}")
+
+
 def check_ssm_scan_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
-    """The scan's backward kernel against ``ssm_scan_bwd_ref``, from the
-    forward kernel's kept states: on the JAX test's cases and ragged ones,
-    both u dtypes, with h0 and dh and without, and at hymba-1.5b's training
-    microbatch, where two calls must give the same bits. The forward with
-    the kept states gives the bits it gives without them; its time at the
-    serving prefill shape and at the training shape, with and without."""
+    """The scan's backward (its carry pass, main pass and partial sums)
+    against ``ssm_scan_bwd_ref``, from the forward kernel's kept states: on
+    the JAX test's cases and ragged ones, both u dtypes, with h0 and dh and
+    without, over many segments with a ragged end, and at hymba-1.5b's
+    training microbatch, where two calls must give the same bits. The
+    forward with the kept states gives the bits it gives without them; its
+    time at the training shape, with and without; the backward's time
+    there with its spread."""
     from repro_torch.kernels.ssm_scan import kernel
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
 
@@ -1149,26 +1282,40 @@ def check_ssm_scan_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
             err = max(err, e)
     # ragged against the 16-step tiles and the backward's blocks (32 channels
     # at N 16, 64 at N 8); S <= 4 (the step kernel's forward, no kept state)
-    # and S <= 16 (one tile); inner 203: rows not 16-byte aligned
+    # and S <= 16 (one tile); inner 203: rows not 16-byte aligned; S over
+    # many segments with a ragged last tile (kernel.bwd_segment: 16 steps a
+    # segment at these shapes), where two calls give the same bits too. S
+    # 4113 is the training shape's length, held at its tolerance: there the
+    # f32 plain version's own dA and dD sum 4113 steps in order, and on the
+    # CPU its dA was 2.2e-4 off an f64 adjoint (0.47 of SSM_BWD_TOL's
+    # limit), the split's emulation (tests/test_torch_scan_bwd_split.py)
+    # 6.9e-5; the kernel came 2.8e-4 off it on the H100
     for name, B, S, inner, N, dtype, with_h0 in (
             ("ssm bwd ragged B2 S33 inner200 N16 bf16", 2, 33, 200, 16, torch.bfloat16, True),
             ("ssm bwd ragged B2 S40 inner203 N8 f32", 2, 40, 203, 8, torch.float32, True),
             ("ssm bwd one tile B3 S16 inner70 N16 f32", 3, 16, 70, 16, torch.float32, False),
             ("ssm bwd step-kernel forward B2 S3 inner65 N8 bf16", 2, 3, 65, 8, torch.bfloat16,
+             True),
+            ("ssm bwd segments B2 S1000 inner200 N16 bf16", 2, 1000, 200, 16, torch.bfloat16,
+             True),
+            ("ssm bwd segments B1 S4113 inner203 N8 f32", 1, 4113, 203, 8, torch.float32,
              True)):
-        err = max(err, case(name, B, S, inner, N, dtype, with_h0)[0])
+        seg = kernel.bwd_segment(B, S, inner, N)
+        e, args = case(f"{name} ({kernel.bwd_segments(S, seg)} segments of {seg} steps)", B, S,
+                       inner, N, dtype, with_h0,
+                       tols=(SSM_BWD_MAIN_TOL, tol(dtype)) if S > 4096 else None)
+        err = max(err, e)
+        if "segments" in name:
+            hold_scan_bwd_bits(name, args)
     # hymba-1.5b's training microbatch (u bf16, zero start state, no dh)
     sh = HYMBA_TRAIN_SCAN
     B, S, inner, N = sh["B"], sh["S"], sh["inner"], sh["N"]
-    e, args = case(f"ssm bwd main-path training B{B} S{S} inner{inner} N{N} bf16", B, S, inner,
+    seg = kernel.bwd_segment(B, S, inner, N)
+    e, args = case(f"ssm bwd main-path training B{B} S{S} inner{inner} N{N} bf16 "
+                   f"({kernel.bwd_segments(S, seg)} segments of {seg} steps)", B, S, inner,
                    N, torch.bfloat16, False, tols=(SSM_BWD_MAIN_TOL, SSM_MAIN_Y_TOL))
     err = max(err, e)
-    one, two = kernel.ssm_scan_bwd(*args), kernel.ssm_scan_bwd(*args)
-    same = all(a is None and b is None or torch.equal(a, b) for a, b in zip(one, two))
-    log(f"  ssm bwd main-path training: two calls give the same bits: {same}")
-    if not same:
-        raise AssertionError("the scan's backward gave different bits on the same inputs")
-    del one, two
+    hold_scan_bwd_bits("ssm bwd main-path training", args)
 
     u, dt, B_, C_, A, D, h0, chunks, dy, dh = args
     # the gradient's least work: each input (u, dt, B_, C_, A, D, dy) read and
@@ -1179,7 +1326,8 @@ def check_ssm_scan_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
     flops = 20.0 * B * S * inner * N
     b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
     sfu_ms = B * S * inner * N / SFU_EXP_PER_S * 1e3
-    ms = time_ms(lambda: kernel.ssm_scan_bwd(*args), flush)
+    times = time_each(lambda: kernel.ssm_scan_bwd(*args), flush, reps=30)
+    ms = spread(times)[1]
     plain_ms = time_ms(lambda: ssm_scan_bwd_ref(u, dt, B_, C_, A, D, h0, dy, dh), flush,
                        reps=1, warmup=1)
     leaves = [t.detach().clone().requires_grad_() for t in (u, dt, B_, C_, A, D)]
@@ -1192,12 +1340,13 @@ def check_ssm_scan_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
     fwd = {what: time_ms(lambda: kernel.ssm_scan(u, dt, B_, C_, A, D, h0, keep_chunks=keep), flush)
            for what, keep in (("plain", False), ("keeping its states", True))}
     dev = _device_ms_per_launch(lambda: kernel.ssm_scan_bwd(*args), flush, "ssm_")
-    log(f"  ssm_scan_bwd main path (B{B} S{S} inner{inner} N{N}, u bf16): kernel {ms:.4f} ms "
-        f"(kernel + partial sums; device time per launch {dev}), plain ssm_scan_bwd_ref "
-        f"{plain_ms:.4f} ms, autograd through ssm_scan_ref (forward + backward) "
-        f"{autograd_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; the {B * S * inner * N:.3e} "
-        f"exponentials at the SFU's rate {sfu_ms:.4f} ms); {nbytes / ms / 1e6:.1f} GB/s "
-        f"achieved; the forward at this shape {fwd['plain']:.4f} ms, keeping its "
+    log(f"  ssm_scan_bwd main path (B{B} S{S} inner{inner} N{N}, u bf16): kernel "
+        f"{fmt_spread(times)} (carry pass, main pass and partial sums; device time per "
+        f"launch {dev}), plain ssm_scan_bwd_ref {plain_ms:.4f} ms, autograd through "
+        f"ssm_scan_ref (forward + backward) {autograd_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"the {B * S * inner * N:.3e} exponentials at the SFU's rate: one {sfu_ms:.4f} ms, the "
+        f"design's three {3 * sfu_ms:.4f} ms); {nbytes / ms / 1e6:.1f} GB/s achieved at the "
+        f"median; the forward at this shape {fwd['plain']:.4f} ms, keeping its "
         f"{chunks.shape[1]} states {fwd['keeping its states']:.4f} ms")
     del args, u, dt, B_, C_, A, D, chunks, dy, leaves
     return dict(name="ssm_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
@@ -1577,8 +1726,8 @@ def serve_reduced_matches_cpu(arch: str = "qwen3-4b", int8: bool = False,
     if int8:
         if launches["paged_attention_fma"] or launches["paged_attention_tc"]:
             raise AssertionError("the int8 pool launched a paged kernel")
-        return hold_f32_launches(tag, launches, "flash_attention_fma")
-    return hold_f32_launches(tag, launches, "flash_attention_fma", "paged_attention_fma")
+        return hold_f32_launches(tag, launches, "flash_attention_tf32")
+    return hold_f32_launches(tag, launches, "flash_attention_tf32", "paged_attention_fma")
 
 
 # ---------------------------------------------------------------------------
@@ -2288,7 +2437,7 @@ def train_reduced_matches_cpu(arch: str = "qwen3-4b", tag: str = "train",
             raise AssertionError("the triangular schedule launched a kernel")
         return launches
     scan = ("ssm_scan", "ssm_scan_bwd") if cfg.ssm is not None else ()
-    return hold_f32_launches(tag, launches, "flash_attention_fma",
+    return hold_f32_launches(tag, launches, "flash_attention_tf32",
                              "flash_attention_bwd_dkdv_tf32", "flash_attention_bwd_dq_tf32", *scan)
 
 
@@ -2485,7 +2634,7 @@ def spot_reduced_matches_cpu() -> dict:
                                  f"{[k for k, v in same.items() if not v]}")
         if not np.allclose(a, b, rtol=1e-4, atol=0):
             raise AssertionError(f"reduced {mode} on the card: losses differ from the CPU's")
-    return hold_f32_launches("spot", launches, "flash_attention_fma",
+    return hold_f32_launches("spot", launches, "flash_attention_tf32",
                              "flash_attention_bwd_dkdv_tf32", "flash_attention_bwd_dq_tf32")
 
 
@@ -2860,7 +3009,7 @@ def serve_plan_reduced_matches_cpu() -> dict:
             raise AssertionError(f"reduced f32 {name}: stream differs from the uninterrupted")
     if outs["engine_revoked", "cuda"]["tokens"] != outs["engine", "cuda"]["tokens"]:
         raise AssertionError("reduced f32 engine round trip differs from the uninterrupted run")
-    return hold_f32_launches("serve-plan", launches, "flash_attention_fma",
+    return hold_f32_launches("serve-plan", launches, "flash_attention_tf32",
                              "paged_attention_fma")
 
 
@@ -3238,7 +3387,7 @@ def moe_reduced_matches_cpu() -> dict:
     """Reduced mixtral (window 8, 4 experts) and phi3.5 at f32 through the
     serve launcher's loop, card against CPU: streams, logits and every
     expert counter. Returns the card's launches over both."""
-    runs = [greedy_reduced_matches_cpu(arch, tag, "flash_attention_fma")
+    runs = [greedy_reduced_matches_cpu(arch, tag, "flash_attention_tf32")
             for arch, tag in (("mixtral-8x7b", "moe"), ("phi3.5-moe-42b-a6.6b", "moe_phi"))]
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
@@ -3414,8 +3563,8 @@ GEMMA_ATTN = dict(H=16, KVH=16, hd=256, prefill_S=2000, train_S=4096)
 
 def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
     """The flash forward, dk/dv, dq and paged kernels at head dim 256 in
-    both dtypes (bf16 on tensor cores; f32 on FMAs, but for dk/dv and dq
-    on tensor cores as split TF32) against their plain versions on the
+    both dtypes (bf16 on tensor cores; f32 on tensor cores as split TF32,
+    but for the paged kernel on FMAs) against their plain versions on the
     feature cases and at gemma-7b's shapes; the bf16 dq, the f32 dk/dv and
     dq and the paged kernel give the same bits twice; times beside the bound and
     SDPA's (the paged kernel: the plain version's). Returns the largest
@@ -3427,11 +3576,11 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
 
     hd = GEMMA_ATTN["hd"]
     log(f"[kernels] head dim {hd} (gemma-7b): flash forward, dk/dv, dq and paged, both dtypes")
-    # the record's variant: tensor cores in bf16; in f32 the FMA kernels,
-    # but split TF32 for the backward
-    variant = lambda dtype, bwd=False: ("tc" if dtype == torch.bfloat16 else
-                                        "tf32" if bwd else "fma")
-    errs = {f"{n}_{v}": 0.0 for n, vs in (("flash_attention", ("tc", "fma")),
+    # the record's variant: tensor cores in bf16; in f32 split TF32 for the
+    # flash kernels, FMAs for the paged one
+    variant = lambda dtype, flash=True: ("tc" if dtype == torch.bfloat16 else
+                                         "tf32" if flash else "fma")
+    errs = {f"{n}_{v}": 0.0 for n, vs in (("flash_attention", ("tc", "tf32")),
                                           ("flash_attention_bwd_dkdv", ("tc", "tf32")),
                                           ("flash_attention_bwd_dq", ("tc", "tf32")),
                                           ("paged_attention", ("tc", "fma")))
@@ -3448,7 +3597,7 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
         dk, dv = kernel_bwd.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
         dq = kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
         torch.cuda.synchronize()
-        vr, vb = variant(dtype), variant(dtype, bwd=True)
+        vr = vb = variant(dtype)
         errs[f"flash_attention_{vr}"] = max(errs[f"flash_attention_{vr}"],
                                             hold_fwd(name, o, lse, q, k, v, kw, t_fwd))
         rq, rk, rv = attention_bwd_ref(q, k, v, o, lse, do, **kw)
@@ -3468,8 +3617,8 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
         for B, H, KVH, ps, mb, lens in GEMMA_PAGED_CASES:
             args = _paged_inputs(gen, B, H, KVH, hd, ps, mb, lens, dtype, seed=3)
             out = paged.paged_attention(*args)
-            errs[f"paged_attention_{variant(dtype)}"] = max(
-                errs[f"paged_attention_{variant(dtype)}"],
+            errs[f"paged_attention_{variant(dtype, False)}"] = max(
+                errs[f"paged_attention_{variant(dtype, False)}"],
                 hold(f"paged hd{hd} B{B} H{H}/{KVH} ps{ps} lens{lens} {str(dtype)[6:]}",
                      out, paged_attention_ref(*args), tol(dtype)))
             if not all(bool((out[b] == 0).all()) for b, n in enumerate(lens) if n == 0):
@@ -3488,17 +3637,16 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
         vr = variant(dtype)
         errs[f"flash_attention_{vr}"] = max(errs[f"flash_attention_{vr}"],
                                             hold_fwd(f"flash {tag}", o, lse, q, k, v, kw, t))
-        flops, nbytes = _flash_fwd_work(1, S, H, KVH, hd)
-        if dtype == torch.float32:
-            nbytes = 2 * nbytes - 4.0 * H * S          # f32 elements: twice the bytes
-        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS if vr == "tc" else PEAK_F32_FLOPS)
+        flops, nbytes = _flash_fwd_work(1, S, H, KVH, hd, el=q.element_size())
+        peak = peak_flops(f"flash_attention_{vr}")
+        b_ms, b_by = bound(flops, nbytes, peak)
         ms = time_ms(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush)
         plain_ms = time_ms(lambda: attention_fwd_ref(q, k, v, **kw), flush, reps=3)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
         log(f"  flash_attention_{vr} at {tag}: kernel {ms:.4f} ms, plain (o, lse) "
-            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-            f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}"
+            f"{f32_fma_bound(flops, nbytes, peak)}); {flops / ms / 1e9:.1f} TFLOP/s achieved")
         del q, k, v, o, lse, qt, kt, vt
 
     # training, bf16 at S 4096 (and the f32 variants at S 1000)
@@ -3509,7 +3657,7 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
         q, k, v, do, o, lse, delta, kw = fwd_bwd(tag, 1, S, S, H, KVH, True, 0, 0, dtype,
                                                  t_fwd, t_bwd)
         torch.cuda.empty_cache()
-        vr, vb = variant(dtype), variant(dtype, bwd=True)
+        vr = vb = variant(dtype)
         if dtype == torch.bfloat16:
             dq_a, dq_b = (kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
                           for _ in range(2))
@@ -3556,7 +3704,7 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
     n_pages = sum(-(-n // 16) for n in lens)
     for dtype, t in ((torch.bfloat16, PAGED_MAIN_BF16_TOL), (torch.float32, F32_TOL)):
         args = _paged_inputs(gen, 8, H, KVH, hd, 16, 128, lens, dtype, seed=1)
-        vr = variant(dtype)
+        vr = variant(dtype, False)
         name = f"paged 8 lanes H{H}/{KVH} hd{hd} ps16 lens{lens} {str(dtype)[6:]}"
         out = paged.paged_attention(*args)
         errs[f"paged_attention_{vr}"] = max(errs[f"paged_attention_{vr}"], hold(
@@ -3921,7 +4069,7 @@ def dense_variants_phase() -> dict:
                                                             "dense_q4_serve")
     paths["dense_vlm"] = dense_vlm_full_width()
     paths["dense_vlm_f32"] = greedy_reduced_matches_cpu("internvl2-26b", "dense_vlm",
-                                                        "flash_attention_fma")
+                                                        "flash_attention_tf32")
     return paths
 
 
@@ -3985,7 +4133,7 @@ def check_slice14_attention(gen: torch.Generator, flush: torch.Tensor, which: st
         if not name.startswith(which):
             continue
         G = H // KVH
-        vr, vb = ("tc", "tc") if dtype == torch.bfloat16 else ("fma", "tf32")
+        vr = vb = "tc" if dtype == torch.bfloat16 else "tf32"
         tag = f"{name} B{B} S{S} H{H}/{KVH} hd{hd} w{window} {str(dtype)[6:]}"
         log(f"[kernels] flash at {tag} vs the plain versions, one kv group at a time")
         mk = lambda heads: torch.randn((B, S, heads, hd), generator=gen, device="cuda").to(dtype)
@@ -4272,7 +4420,7 @@ def whisper_train_reduced_matches_cpu(n_steps: int = 3) -> dict:
         f"{err:.3e} (atol 1e-5); cross-attention bk's largest first moment {first:.3e}")
     if not (err <= 1e-5 and first < 1e-9):
         raise AssertionError("reduced whisper training params on the card differ from the CPU's")
-    return hold_f32_launches("whisper_train", launches, "flash_attention_fma",
+    return hold_f32_launches("whisper_train", launches, "flash_attention_tf32",
                              "flash_attention_bwd_dkdv_tf32", "flash_attention_bwd_dq_tf32")
 
 
@@ -4284,7 +4432,7 @@ def whisper_phase() -> dict:
     paths = {"whisper": whisper_serve_full_width()}
     _free_cuda()
     paths["whisper_f32"] = greedy_reduced_matches_cpu("whisper-tiny", "whisper",
-                                                      "flash_attention_fma")
+                                                      "flash_attention_tf32")
     paths["whisper_train"] = whisper_train_full_width()
     _free_cuda()
     paths["whisper_train_f32"] = whisper_train_reduced_matches_cpu()
@@ -4453,6 +4601,7 @@ def main() -> int:
     records = [*check_flash(gen, flush), *check_paged(gen, flush), *check_flash_bwd(gen, flush),
                check_ssm_scan(gen, flush), check_ssm_scan_bwd(gen, flush),
                *check_mlstm(gen, flush)]
+    bwd_digests()
     for more in (check_flash_window_8192(gen, flush), check_dense_variant_kernels(gen, flush),
                  check_gemma_kernels(gen, flush), check_slice14_attention(gen, flush)):
         for kernel_name, err in more.items():
@@ -4472,7 +4621,7 @@ def main() -> int:
     log("[phase 5/14] hybrid serving")
     paths["hybrid"] = serve_hybrid_full_width()
     paths["hybrid_f32"] = greedy_reduced_matches_cpu("hymba-1.5b", "hybrid",
-                                                     "flash_attention_fma", "ssm_scan")
+                                                     "flash_attention_tf32", "ssm_scan")
     gc.collect()
     torch.cuda.empty_cache()
     log("[phase 6/14] xLSTM serving")

@@ -40,27 +40,38 @@
 //     prefill logits off the plain masked path's enough to flip a near-tie
 //     top-1 (correlation 0.999681, max abs diff 0.1094, on an H100), where
 //     f32 P had kept it.
-// * f32, `flash_fwd_kernel`, plain f32 FMAs out of shared memory: f32
-//   callers (the reduced models, whose card-equals-CPU checks hold 1e-4)
-//   need f32 products, which TF32 tensor cores would not give. One block of
-//   128 threads per (batch, head, 64-row q tile), head dims 32 to 256 (214 KB
-//   of shared memory at 256); q, k and v converted to
-//   f32 once into shared memory (rows padded by one float); each thread owns
-//   a 4 x 8 block of the score tile and a 4 x hd/8 block of the output; row
-//   max and row sum reduce over the 8 threads of a row with warp shuffles.
+// * f32, `flash_fwd_tf32_kernel`, both products (s = Q K^T and P V) on the
+//   tensor cores as split TF32 (csrc/tf32.cuh: hi + lo halves of every
+//   operand, three mma.sync m16n8k8 a product): f32 callers (the reduced
+//   models, whose card-equals-CPU checks hold 1e-4) need products near
+//   f32's, which one TF32 product would not give (emulated on the CPU in
+//   tests/test_torch_flash_fwd_tf32.py). The f32 backward's dq kernel
+//   turned into a forward:
+//   - one block of WARPS warps per (q tile, head, batch), q tiles
+//     last-first; each warp owns 16 q rows, held in swizzled shared
+//     memory; K and V tiles stream through a 2-stage cp.async ring over the
+//     live kv tiles only (up to the causal edge, from the window's);
+//   - the online softmax runs on the accumulator fragment of s: the row
+//     max over the 4 lanes of a row (xor 1 and 2), corr = exp(m - m_new),
+//     p = exp(s scale - m_new), l rescaled and summed; the masking value
+//     stays NEG_INF (-1e30), so a fully masked row stays finite;
+//   - p feeds P V straight from its accumulator (`frag_acc`, V read in the
+//     accumulator's k order, `frag_krows`); the tile's share of o starts
+//     at zero and joins o by an f32 add (the tensor cores' accumulator
+//     rounds toward zero);
+//   - what bounds it: operations, at a third of the TF32 rate (three
+//     products a product); sized for head dim 256, where the FMA design it
+//     replaced lost most (`Layout`).
 #include <stdint.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using repro::NEG_INF;
 using repro::FULL_MASK;
-
-constexpr int BQ = 64;        // q rows per block
-constexpr int BK = 64;        // kv rows per tile
-constexpr int THREADS = 128;  // 16 row groups x 8 column threads
 
 struct FlashArgs {
   const void* q; const void* k; const void* v; void* o; float* lse;
@@ -70,169 +81,208 @@ struct FlashArgs {
   float sm_scale;
 };
 
-// ROWS x HD elements of rows [row0, row0 + ROWS) of a strided (S, hd) slab
-// into f32 shared memory with row stride HD + 1; rows at or past `limit` are 0.
-template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          long long row_stride, int row0, int limit) {
-  constexpr int VEC = 16 / int(sizeof(T));
-  constexpr int PER_ROW = HD / VEC;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    float vals[VEC];
-    if (row0 + r < limit) {
-      repro::load_f32<T, VEC>(src + (row0 + r) * row_stride + c, vals);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) vals[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) dst[r * (HD + 1) + c + e] = vals[e];
-  }
-}
+// ---- f32: split TF32 on the tensor cores -------------------------------------
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
-  constexpr int LD = HD + 1;
-  constexpr int LDP = BK + 1;
-  constexpr int DJ = HD / 8;          // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                   // BQ x LD
-  float* Ks = Qs + BQ * LD;           // BK x LD
-  float* Vs = Ks + BK * LD;           // BK x LD
-  float* Ps = Vs + BK * LD;           // BQ x LDP
+namespace tf32 {
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
+using namespace repro::tf32;
+
+// 8 warps (128 q rows) from hd 128 up, with 16-row kv tiles at hd 256; 4
+// warps (64 q rows) below. tools/flash_fwd_variants.py on the H100: at hd 256
+// 4 warps with 32-row tiles took 0.5600 ms and 8 with 16-row ones 0.4914, at
+// hd 128 4 warps 0.3421 and 8 0.3195, at hd 64 (hymba's shape) 4 warps 0.2331
+// and 8 0.2396. At hd 256 o alone is 128 registers a thread: a tile's share
+// of o runs over 2 column blocks at a time (4 spilled).
+template <int HD>
+struct Layout {
+  static constexpr int WARPS = HD >= 128 ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BQ = 16 * WARPS;              // q rows a block, 16 a warp
+  static constexpr int BK = HD > 128 ? 16 : 64;      // kv rows a streamed tile
+  static constexpr int NG = HD > 128 ? 2 : HD / 8;   // column blocks a tile's share of o runs over
+  // Q | K[STAGES] | V[STAGES]: 192 KB at hd 128 and 256
+  static constexpr int SMEM = 4 * (BQ * HD + 2 * STAGES * BK * HD);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(Layout<HD>::THREADS, 1)
+flash_fwd_tf32_kernel(const FlashArgs a) {
+  using L = Layout<HD>;
+  constexpr int BQ = L::BQ, BK = L::BK, NT = L::THREADS, NG = L::NG;
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);
+  float* Ks = Qs + BQ * HD;                      // stage s at Ks + s * BK * HD
+  float* Vs = Ks + STAGES * BK * HD;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;     // longest causal rows first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KVH);
-  const int ty = threadIdx.x >> 3;    // rows ty*4 .. ty*4+3 of the tile
-  const int tx = threadIdx.x & 7;     // columns tx + 8*j
-  const int q0 = qt * BQ;
-  const int qpos0 = a.q_offset + q0;  // absolute position of the tile's first row
+  const int warp = threadIdx.x / 32;
+  const Lane l = lane_of(threadIdx.x % 32);
+  const int qr0 = warp * 16;                     // the warp's q rows in the block
+  const int qpos0 = a.q_offset + q0, qlo = qpos0 + qr0, qhi = qlo + 15;
 
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  load_tile<T, HD, BQ>(Qs, qb, a.q_ss, q0, a.Sq);
+  load_tile<HD, BQ, NT>(Qs, static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh,
+                        a.q_ss, q0, a.Sq);
+  repro::cp_async_commit();
 
-  float m[4], l[4], acc[4][DJ];
+  // the live kv tiles [lo, hi]: up to the causal edge, from the window's
+  int lo = 0, hi = (a.Skv + BK - 1) / BK - 1;
+  if (a.causal) hi = min(hi, (qpos0 + BQ - 1) / BK);
+  if (a.window && qpos0 - a.window + 1 > 0) lo = (qpos0 - a.window + 1) / BK;
+  const int n_tiles = max(0, hi - lo + 1);
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  auto issue = [&](int i) {                      // tile i of the walk into stage i % STAGES
+    if (i < n_tiles) {
+      const int k0 = (lo + i) * BK, st = i % STAGES;
+      load_tile<HD, BK, NT>(Ks + st * BK * HD, kb, a.k_ss, k0, a.Skv);
+      load_tile<HD, BK, NT>(Vs + st * BK * HD, vb, a.v_ss, k0, a.Skv);
+    }
+    repro::cp_async_commit();
+  };
+
+  // the lane's rows qr0 + g (index 0) and qr0 + g + 8 (index 1): o's
+  // columns 8n + 2t (+ 1), the running max and the lane's share of the sum
+  float o[HD / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+  for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, rsum[2] = {0.f, 0.f};
+
+  issue(0);
+  for (int i = 0; i < n_tiles; ++i) {
+    issue(i + 1);
+    repro::cp_async_wait<1>();                   // Q and tile i: this thread's copies
+    __syncthreads();                             // and every thread's
+    const int st = i % STAGES, k0 = (lo + i) * BK;
+    const bool warp_live = q0 + qr0 < a.Sq && !(a.causal && qhi < k0) &&
+                           !(a.window && k0 + BK - 1 <= qlo - a.window);
+    if (warp_live) {
+      const float* Kt = Ks + st * BK * HD;
+      const float* Vt = Vs + st * BK * HD;
+      float s[BK / 8][4];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll 2
+      for (int kc = 0; kc < HD; kc += 8) {       // s = Q K^T
+        const Frag fq = frag_rows<HD>(Qs, qr0, kc, l);
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+          uint32_t bh[2], bl[2];
+          frag_cols<HD>(Kt, n * 8, kc, l, bh, bl);
+          mma3(s[n], fq, bh, bl);
+        }
+      }
+      // the online softmax: kv columns k0 + n * 8 + 2t (+ 1)
+      const bool edge = k0 + BK > a.Skv || (a.causal && k0 + BK - 1 > qlo) ||
+                        (a.window && qhi - k0 >= a.window);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * a.sm_scale;
+          if (edge) {
+            const int kp = k0 + n * 8 + 2 * l.t + (e & 1), qp = qlo + l.g + 8 * (e >> 1);
+            bool ok = kp < a.Skv;
+            if (a.causal) ok = ok && qp >= kp;
+            if (a.window) ok = ok && qp - kp < a.window;
+            x = ok ? x : NEG_INF;
+          }
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 2));
+        corr[r] = expf(m[r] - mx[r]);
+        m[r] = mx[r];
+        rsum[r] *= corr[r];
+      }
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = expf(s[n][e] - m[e >> 1]);   // p
+          rsum[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+      // o += P V: the tile's share of NG column blocks at a time
+#pragma unroll
+      for (int n0 = 0; n0 < HD / 8; n0 += NG) {
+        float t[NG][4];
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) t[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          const Frag fp = frag_acc(s[kk]);
+#pragma unroll
+          for (int j = 0; j < NG; ++j) {
+            uint32_t bh[2], bl[2];
+            frag_krows<HD>(Vt, kk * 8, (n0 + j) * 8, l, bh, bl);
+            mma3(t[j], fp, bh, bl);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NG; ++j) add(o[n0 + j], t[j]);
+      }
+    }
+    __syncthreads();                             // stage st is free for tile i + STAGES
   }
-
-  const int n_kv = (a.Skv + BK - 1) / BK;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BK;
-    if (a.causal && qpos0 + BQ - 1 < k0) break;             // this and later tiles masked
-    if (a.window && k0 + BK - 1 <= qpos0 - a.window) continue;
-    __syncthreads();                  // the previous tile's smem reads are done
-    load_tile<T, HD, BK>(Ks, kb, a.k_ss, k0, a.Skv);
-    load_tile<T, HD, BK>(Vs, vb, a.v_ss, k0, a.Skv);
-    __syncthreads();
-
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qa[4], kk[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty * 4 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kk[j] = Ks[(tx + 8 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qa[i], kk[j], s[i][j]);
-    }
+  repro::cp_async_wait<0>();                     // (Q, if no tile was live)
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = qpos0 + ty * 4 + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kp = k0 + tx + 8 * j;
-        bool ok = kp < a.Skv;
-        if (a.causal) ok = ok && qp >= kp;
-        if (a.window) ok = ok && qp - kp < a.window;
-        s[i][j] = ok ? s[i][j] * a.sm_scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) rs += __shfl_xor_sync(FULL_MASK, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Ps[(ty * 4 + i) * LDP + tx + 8 * j] = s[i][j];
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * LDP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vv = Vs[c * LD + tx + 8 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    rsum[r] += __shfl_xor_sync(FULL_MASK, rsum[r], 1);
+    rsum[r] += __shfl_xor_sync(FULL_MASK, rsum[r], 2);
+    const int row = q0 + qr0 + l.g + 8 * r;
     if (row >= a.Sq) continue;
-    const float li = fmaxf(l[i], 1e-37f);
-    T* orow = static_cast<T*>(a.o) + b * a.o_sb + row * a.o_ss + h * a.o_sh;
+    // l >= 1 on a live row (its largest p is 1): an approximate reciprocal
+    // (2 ulp) keeps the IEEE division's slow-path call, and the registers it
+    // saves, out of the epilogue
+    const float li = fmaxf(rsum[r], 1e-37f), inv = __fdividef(1.f, li);
+    float* orow = static_cast<float*>(a.o) + b * a.o_sb + row * a.o_ss + h * a.o_sh + 2 * l.t;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[tx + 8 * j] = repro::from_float<T>(acc[i][j] / li);
-    if (tx == 0) a.lse[((long long)b * a.H + h) * a.Sq + row] = m[i] + logf(li);
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    if (l.t == 0) a.lse[((long long)b * a.H + h) * a.Sq + row] = m[r] + logf(li);
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
-  const int smem = int(sizeof(float)) * ((BQ + 2 * BK) * (HD + 1) + BQ * (BK + 1));
+  using L = Layout<HD>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(a);
+  const dim3 grid((a.Sq + L::BQ - 1) / L::BQ, a.H, a.B);
+  flash_fwd_tf32_kernel<HD><<<grid, L::THREADS, L::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_hd(const FlashArgs& a, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
-    case 256: return launch<T, 256>(a, stream);
+    case 32: return launch<32>(a, stream);
+    case 64: return launch<64>(a, stream);
+    case 128: return launch<128>(a, stream);
+    case 256: return launch<256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
+
+}  // namespace tf32
 
 // ---- bf16: the tensor-core kernel -------------------------------------------
 
@@ -490,7 +540,7 @@ extern "C" int repro_flash_attention_fwd(
               causal, window, q_offset, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case repro::kFloat32: return dispatch_hd<float>(a, hd, s);
+    case repro::kFloat32: return tf32::dispatch_hd(a, hd, s);
     case repro::kBFloat16: return tc::dispatch_hd(a, hd, s);
     default: return cudaErrorInvalidValue;
   }

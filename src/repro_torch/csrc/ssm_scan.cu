@@ -336,27 +336,47 @@ __global__ void __launch_bounds__(STEP_THREADS) ssm_step_kernel(
 //
 // The recurrence is never run backwards by dividing by da (it underflows).
 // The forward kernel keeps the state after every TS-step tile but the last
-// (`h_chunks`, (B, tiles - 1, inner, N) f32); the backward walks the tiles
-// last to first, recomputes a tile's TS states from its start state into
+// (`h_chunks`, (B, tiles - 1, inner, N) f32); the backward walks tiles last
+// to first, recomputes a tile's TS states from its start state into
 // registers (TS x SPL floats a thread, indices static in unrolled loops),
 // then runs the adjoint over them. Each thread owns BSPL states of one
 // channel, so du and ddt (sums over n) reduce over a channel's N / BSPL
-// lanes by xor shuffles in a fixed order, written by one lane. dB_ and dC_ (sums over the inner channels) reduce over a
-// warp's channels by xor shuffles, then over the block's warps in order,
-// into per-block partials; dA and dD (sums over batch rows and time) are
-// summed over time in registers into per-row partials. A second kernel
-// sums the partials in order: no float atomics, the same bits every call.
+// lanes by xor shuffles in a fixed order, written by one lane. dB_ and dC_
+// (sums over the inner channels) reduce over a half warp's channels by xor
+// shuffles, then over the block's half warps in order, into per-block
+// partials; dA and dD (sums over batch rows and time) are summed over time
+// in registers into per-(row, segment) partials. A last kernel sums the
+// partials in order: no float atomics, the same bits every call.
+//
+// Time is split into segments of `seg` steps (whole tiles), so that many
+// blocks walk a row at once. The adjoint is linear in the carried gradient:
+// over a segment [t_a, t_b) the carry out (da_{t_a} g_{t_a}) is
+// g_loc + P c, c being the carry in (da_{t_b} g_{t_b}, or dh past the last
+// step), g_loc the segment run from c = 0, and P the product of its da_t
+// per (b, i, n). g_loc needs only dt, A, C_ and dy: no state. Three steps,
+// in a fixed order:
+// 1. `ssm_scan_bwd_carry_kernel`, one block per (channel block, segment but
+//    the first, batch row): g_loc and P of its segment into `carry`
+//    ((2, B, segments - 1, inner, N) f32; one exponential and a few FMAs per
+//    (t, i, n), no shuffle);
+// 2. each block of the main pass folds the later segments' (g_loc, P) into
+//    its carry, last segment first, from dh (or zeros);
+// 3. `ssm_scan_bwd_kernel`, one block per (channel block, segment, batch
+//    row): the tile walk above over its segment, from that carry and the
+//    kept state at its first tile; segment 0 writes dh0.
 //
 // What bounds it: at hymba's training microbatch (B 1, S 4096, inner 3200,
 // N 16, u bf16) it reads u, dt, dy and writes du, ddt (14 B an element,
 // 13.1 M elements), reads the boundaries and writes and reads the partials;
-// and takes two exponentials per (b, t, i, n), one in the recompute and one
-// in the adjoint. At that shape the grid is 100 blocks of 256 threads (2
-// states a thread): under one block an SM, 6 warps where they land, each
-// walking 4096 steps in order, so what bounds this design is each step's
-// latency, not bytes or operations: tiles are staged by cp.async one
-// ahead, and whole tiles run with no branch between steps so that the
-// steps' independent loads and shuffles overlap.
+// and takes three exponentials per (b, t, i, n), one in the carry pass (but
+// for the first segment), one in the recompute and one in the adjoint. One
+// block walking a row's 4096 steps in order (100 blocks there) is bound by
+// each step's latency: 1.2 ms on the H100. Segments of 384 steps give 1100
+// blocks of the main pass, 8 an SM's worth; then the main pass is bound by
+// issue (shuffles, shared-memory loads, exponentials and FMAs a step: 0.53
+// ms of the 0.64, tools/scan_variants.py --backward). Within a segment tiles
+// are staged by cp.async one ahead, and whole tiles run with no branch
+// between steps so that the steps' independent loads and shuffles overlap.
 // ---------------------------------------------------------------------------
 
 constexpr int BWD_THREADS = 256;   // threads of a backward block
@@ -377,27 +397,117 @@ template <typename T, int N>
 struct BwdShared {
   static constexpr int WARPS = BWD_THREADS / 32;
   BwdStage<T, N> ring[2];       // tile k computed while tile k - 1 lands
-  float red[2][WARPS][TS][N];   // each warp's channel sums of dB_ (0) and dC_ (1)
+  float red[2][2 * WARPS][TS][N];   // each half warp's channel sums of dB_ (0) and dC_ (1)
 };
 
+template <typename T, int N>
+struct CarryStage {
+  static constexpr int CH = BwdStage<T, N>::CH;
+  float dt[TS][CH];
+  T dy[TS][CH];
+  float C[TS][N];
+};
+
+// Thread (col, lane) holds states lane*BSPL .. +BSPL of channel c0 + col, as
+// in the main pass. Segment blockIdx.y + 1's tiles go last to first from
+// g = 0 and P = 1, staged by cp.async one ahead; its (g_loc, P) land in
+// carry[0] and carry[1] at (b, segment - 1, channel, state).
+template <typename T, int N>
+__global__ void __launch_bounds__(BWD_THREADS) ssm_scan_bwd_carry_kernel(
+    const float* __restrict__ dt, const float* __restrict__ Cm, const float* __restrict__ A,
+    const T* __restrict__ dy, float* __restrict__ carry, int S, int inner, int seg_tiles) {
+  constexpr int LANES = N / BSPL, CH = CarryStage<T, N>::CH;
+  __shared__ __align__(16) CarryStage<T, N> ring[2];
+
+  const int seg = blockIdx.y + 1, b = blockIdx.z, c0 = blockIdx.x * CH;
+  const int col = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+  const int c = c0 + col;
+  const bool live = c < inner;
+  const int tiles = (S + TS - 1) / TS, ka = seg * seg_tiles, kb = min(tiles, ka + seg_tiles);
+  const int cols = min(CH, inner - c0);
+  const bool vec_dy = inner % (16 / int(sizeof(T))) == 0 && aligned16(dy);
+  const bool vec_dt = inner % 4 == 0 && aligned16(dt);
+  const bool vec_c = aligned16(Cm);
+
+  float a[BSPL], g[BSPL], P[BSPL];
+#pragma unroll
+  for (int j = 0; j < BSPL; ++j) {
+    a[j] = live ? A[(long long)c * N + lane * BSPL + j] * LOG2E : 0.f;
+    g[j] = 0.f;
+    P[j] = 1.f;
+  }
+  auto issue = [&](int k) {
+    if (k >= ka) {
+      CarryStage<T, N>& st = ring[k % 2];
+      const int rows = min(TS, S - k * TS);
+      const long long row = (long long)b * S + (long long)k * TS;
+      stage_rows<float, CH>(st.dt, dt + row * inner + c0, inner, rows, cols, vec_dt);
+      stage_rows<T, CH>(st.dy, dy + row * inner + c0, inner, rows, cols, vec_dy);
+      stage_rows<float, N>(st.C, Cm + row * N, N, rows, N, vec_c);
+    }
+    repro::cp_async_commit();
+  };
+
+  issue(kb - 1);
+  for (int k = kb - 1; k >= ka; --k) {
+    repro::cp_async_wait<0>();   // this thread's copies of tile k landed
+    __syncthreads();             // everyone's have; tile k + 1's slot is free
+    issue(k - 1);
+    const CarryStage<T, N>& st = ring[k % 2];
+    auto step = [&](int t) {     // the adjoint's carry through step t
+      const float dtt = st.dt[t][col], dyt = repro::to_float(st.dy[t][col]);
+#pragma unroll
+      for (int j = 0; j < BSPL; ++j) {
+        const float da = exp2_approx(dtt * a[j]);
+        g[j] = fmaf(st.C[t][lane * BSPL + j], dyt, g[j]) * da;
+        P[j] *= da;
+      }
+    };
+    const int steps = min(TS, S - k * TS);
+    if (steps == TS) {
+#pragma unroll
+      for (int t = TS - 1; t >= 0; --t) step(t);
+    } else {
+#pragma unroll
+      for (int t = TS - 1; t >= 0; --t)
+        if (t < steps) step(t);
+    }
+  }
+  if (live) {
+    const int NS1 = gridDim.y;
+    const long long at = (((long long)b * NS1 + seg - 1) * inner + c) * N + lane * BSPL;
+    const long long half = (long long)gridDim.z * NS1 * inner * N;
+#pragma unroll
+    for (int j = 0; j < BSPL; ++j) {
+      carry[at + j] = g[j];
+      carry[half + at + j] = P[j];
+    }
+  }
+}
+
 // Thread (col, lane) holds states lane*BSPL .. +BSPL of channel c0 + col.
-// Tiles go last to first; each is staged by cp.async while the tile after
-// it (in time) is computed, with the start state it needs loaded into
+// Segment blockIdx.y's tiles go last to first, from the carry folded out of
+// the later segments' (g_loc, P); each is staged by cp.async while the tile
+// after it (in time) is computed, with the start state it needs loaded into
 // registers at the same time. A whole tile runs with no branch between its
 // steps (only a ragged last tile checks), so that later steps' loads and
 // reductions issue early.
+// Registers capped for 3 blocks an SM (80, no spill; ptxas took 128 and 2
+// blocks uncapped): 0.5491 ms of main pass against 0.5824 at the training
+// shape (tools/scan_variants.py --backward, H100).
 template <typename T, int N>
-__global__ void __launch_bounds__(BWD_THREADS) ssm_scan_bwd_kernel(
+__global__ void __launch_bounds__(BWD_THREADS, 3) ssm_scan_bwd_kernel(
     const T* __restrict__ u, const float* __restrict__ dt, const float* __restrict__ Bm,
     const float* __restrict__ Cm, const float* __restrict__ A, const float* __restrict__ D,
     const float* __restrict__ h0, const float* __restrict__ h_chunks, const T* __restrict__ dy,
-    const float* __restrict__ dh, T* __restrict__ du, float* __restrict__ ddt,
-    float* __restrict__ part_bc, float* __restrict__ part_ad, float* __restrict__ dh0,
-    int S, int inner) {
+    const float* __restrict__ dh, const float* __restrict__ carry, T* __restrict__ du,
+    float* __restrict__ ddt, float* __restrict__ part_bc, float* __restrict__ part_ad,
+    float* __restrict__ dh0, int S, int inner, int seg_tiles) {
   constexpr int LANES = N / BSPL, CH = BwdStage<T, N>::CH, WARPS = BwdShared<T, N>::WARPS;
   __shared__ __align__(16) BwdShared<T, N> sm;
 
-  const int b = blockIdx.y, Bb = gridDim.y, c0 = blockIdx.x * CH;
+  const int seg = blockIdx.y, NS = gridDim.y, b = blockIdx.z, Bb = gridDim.z;
+  const int c0 = blockIdx.x * CH;
   const int col = threadIdx.x / LANES, lane = threadIdx.x % LANES, warp = threadIdx.x / 32;
   const int c = c0 + col;
   const bool live = c < inner;
@@ -405,6 +515,7 @@ __global__ void __launch_bounds__(BWD_THREADS) ssm_scan_bwd_kernel(
   // so its g, states and partials stay 0) and take part in every shuffle
   const long long state = ((long long)b * inner + (live ? c : 0)) * N + lane * BSPL;
   const int tiles = (S + TS - 1) / TS;
+  const int ka = seg * seg_tiles, kb = min(tiles, ka + seg_tiles);   // the segment's tiles
   const int cols = min(CH, inner - c0);
   const bool vec_u = inner % (16 / int(sizeof(T))) == 0 && aligned16(u) && aligned16(dy);
   const bool vec_dt = inner % 4 == 0 && aligned16(dt);
@@ -418,13 +529,23 @@ __global__ void __launch_bounds__(BWD_THREADS) ssm_scan_bwd_kernel(
     g[j] = live && dh != nullptr ? dh[state + j] : 0.f;
     gA[j] = 0.f;
   }
+  // the carry into this segment: the later segments' (g_loc, P) folded in,
+  // the last first
+  if (live) {
+    const long long half = (long long)Bb * (NS - 1) * inner * N;
+    for (int s2 = NS - 1; s2 > seg; --s2) {
+      const long long at = (((long long)b * (NS - 1) + s2 - 1) * inner + c) * N + lane * BSPL;
+#pragma unroll
+      for (int j = 0; j < BSPL; ++j) g[j] = fmaf(carry[half + at + j], g[j], carry[at + j]);
+    }
+  }
   const float d = live ? D[c] : 0.f;
   float gD = 0.f;
 
   // tile k's inputs into ring slot k % 2 (cp.async, one group a tile), and
   // the state before its first step into `start` (registers)
   auto issue = [&](int k, float* start) {
-    if (k >= 0) {
+    if (k >= ka) {
       BwdStage<T, N>& st = sm.ring[k % 2];
       const int rows = min(TS, S - k * TS);
       const long long row = (long long)b * S + (long long)k * TS;
@@ -443,8 +564,8 @@ __global__ void __launch_bounds__(BWD_THREADS) ssm_scan_bwd_kernel(
   };
 
   float h_next[BSPL];
-  issue(tiles - 1, h_next);
-  for (int k = tiles - 1; k >= 0; --k) {
+  issue(kb - 1, h_next);
+  for (int k = kb - 1; k >= ka; --k) {
     const int t0 = k * TS, steps = min(TS, S - t0);
     const long long row0 = (long long)b * S + t0;
     float h_in[BSPL];
@@ -489,21 +610,24 @@ __global__ void __launch_bounds__(BWD_THREADS) ssm_scan_bwd_kernel(
         du[idx] = repro::from_float<T>(fmaf(d, dyt, s_du));
         ddt[idx] = s_ddt;
       }
-      // over the warp's channels: the lanes of one state index differ in
-      // the bits at and above LANES
+      // over the half warp's channels (the lanes of one state index differ
+      // in the bits at and above LANES); the two halves' sums meet in
+      // shared memory after the tile, with every warp's (2.7% faster than
+      // shuffles over the whole warp at the training shape on the H100:
+      // tools/scan_variants.py --backward, `bc-shuffle`)
 #pragma unroll
-      for (int off = LANES; off < 32; off *= 2) {
+      for (int off = LANES; off < 16; off *= 2) {
 #pragma unroll
         for (int j = 0; j < BSPL; ++j) {
           pb[j] += __shfl_xor_sync(repro::FULL_MASK, pb[j], off);
           pc[j] += __shfl_xor_sync(repro::FULL_MASK, pc[j], off);
         }
       }
-      if (threadIdx.x % 32 < LANES) {
+      if (threadIdx.x % 16 < LANES) {
 #pragma unroll
         for (int j = 0; j < BSPL; ++j) {
-          sm.red[0][warp][t][lane * BSPL + j] = pb[j];
-          sm.red[1][warp][t][lane * BSPL + j] = pc[j];
+          sm.red[0][2 * warp + threadIdx.x % 32 / 16][t][lane * BSPL + j] = pb[j];
+          sm.red[1][2 * warp + threadIdx.x % 32 / 16][t][lane * BSPL + j] = pc[j];
         }
       }
     };
@@ -521,23 +645,23 @@ __global__ void __launch_bounds__(BWD_THREADS) ssm_scan_bwd_kernel(
         if (t < steps) adjoint(t);
     }
     __syncthreads();
-    // this block's partial sums of dB_ and dC_ over its channels, warps in order
+    // this block's partial sums of dB_ and dC_ over its channels, half warps in order
     for (int e = threadIdx.x; e < 2 * TS * N; e += BWD_THREADS) {
       const int which = e / (TS * N), r = (e / N) % TS, n = e % N;
       if (r < steps) {
         float s = 0.f;
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) s += sm.red[which][w][r][n];
+        for (int w = 0; w < 2 * WARPS; ++w) s += sm.red[which][w][r][n];
         part_bc[((((long long)blockIdx.x * 2 + which) * Bb + b) * S + t0 + r) * N + n] = s;
       }
     }
   }
 
   if (live) {
-    const long long row = (long long)b * (inner * N + inner);
+    const long long row = ((long long)b * NS + seg) * (inner * N + inner);
 #pragma unroll
     for (int j = 0; j < BSPL; ++j) {
-      if (dh0 != nullptr) dh0[state + j] = g[j];
+      if (dh0 != nullptr && seg == 0) dh0[state + j] = g[j];
       part_ad[row + (long long)c * N + lane * BSPL + j] = gA[j];
     }
     if (lane == 0) part_ad[row + (long long)inner * N + c] = gD;
@@ -579,19 +703,27 @@ cudaError_t launch(const void* u, const float* dt, const float* Bm, const float*
   return cudaGetLastError();
 }
 
+// Segments of `seg` steps over S (at least one, also for S = 0).
+int segments(int S, int seg) { return std::max(1, (S + seg - 1) / seg); }
+
 template <typename T, int N>
 cudaError_t launch_bwd(const void* u, const float* dt, const float* Bm, const float* Cm,
                        const float* A, const float* D, const float* h0, const float* h_chunks,
-                       const void* dy, const float* dh, void* du, float* ddt, float* dBC,
-                       float* dAD, float* dh0, float* part_bc, float* part_ad, int Bb, int S,
-                       int inner, cudaStream_t stream) {
+                       const void* dy, const float* dh, float* carry, void* du, float* ddt,
+                       float* dBC, float* dAD, float* dh0, float* part_bc, float* part_ad,
+                       int Bb, int S, int inner, int seg, cudaStream_t stream) {
   constexpr int CH = BwdStage<T, N>::CH;
   const int blocks = (inner + CH - 1) / CH;
-  ssm_scan_bwd_kernel<T, N><<<dim3(blocks, Bb), BWD_THREADS, 0, stream>>>(
+  const int seg_tiles = seg / TS, NS = segments(S, seg);
+  if (NS > 1) {
+    ssm_scan_bwd_carry_kernel<T, N><<<dim3(blocks, NS - 1, Bb), BWD_THREADS, 0, stream>>>(
+        dt, Cm, A, static_cast<const T*>(dy), carry, S, inner, seg_tiles);
+  }
+  ssm_scan_bwd_kernel<T, N><<<dim3(blocks, NS, Bb), BWD_THREADS, 0, stream>>>(
       static_cast<const T*>(u), dt, Bm, Cm, A, D, h0, h_chunks, static_cast<const T*>(dy), dh,
-      static_cast<T*>(du), ddt, part_bc, part_ad, dh0, S, inner);
+      carry, static_cast<T*>(du), ddt, part_bc, part_ad, dh0, S, inner, seg_tiles);
   sum_parts(part_bc, dBC, blocks, 2LL * Bb * S * N, stream);
-  sum_parts(part_ad, dAD, Bb, (long long)inner * N + inner, stream);
+  sum_parts(part_ad, dAD, Bb * NS, (long long)inner * N + inner, stream);
   return cudaGetLastError();
 }
 
@@ -632,15 +764,19 @@ extern "C" int repro_ssm_scan(
 // (nullable: zeros) (B, inner, N) f32. Outputs: du (B, S, inner) in `dtype`,
 // ddt (B, S, inner) f32, dBC (2, B, S, N) f32 (dB_ then dC_), dAD
 // (inner * N + inner) f32 (dA then dD), dh0 (nullable: not written)
-// (B, inner, N) f32. Scratch: part_bc (ceil(inner / CH), 2, B, S, N) and
-// part_ad (B, inner * N + inner) f32, CH = 32 at N 16 and 64 at N 8.
+// (B, inner, N) f32. `seg`: timesteps of a segment, a multiple of 16;
+// NS = max(1, ceil(S / seg)) segments. Scratch: carry (2, B, NS - 1, inner,
+// N) f32 (nullable when NS is 1), part_bc (ceil(inner / CH), 2, B, S, N) and
+// part_ad (B, NS, inner * N + inner) f32, CH = 32 at N 16 and 64 at N 8.
 extern "C" int repro_ssm_scan_bwd(
     const void* u, const void* dt, const void* B_, const void* C_, const void* A,
     const void* D, const void* h0, const void* h_chunks, const void* dy, const void* dh,
-    void* du, void* ddt, void* dBC, void* dAD, void* dh0, void* part_bc, void* part_ad,
-    int dtype, int Bb, int S, int inner, int N, void* stream) {
+    void* du, void* ddt, void* dBC, void* dAD, void* dh0, void* carry, void* part_bc,
+    void* part_ad, int dtype, int Bb, int S, int inner, int N, int seg, void* stream) {
   if (Bb == 0 || inner == 0) return cudaSuccess;
-  if (Bb < 0 || Bb > 65535 || S < 0 || inner < 0) return cudaErrorInvalidValue;
+  if (Bb < 0 || Bb > 65535 || S < 0 || inner < 0 || seg <= 0 || seg % TS != 0 ||
+      segments(S, seg) > 65535 || (segments(S, seg) > 1 && carry == nullptr))
+    return cudaErrorInvalidValue;
   const float* f_dt = static_cast<const float*>(dt);
   const float* f_B = static_cast<const float*>(B_);
   const float* f_C = static_cast<const float*>(C_);
@@ -653,12 +789,13 @@ extern "C" int repro_ssm_scan_bwd(
   float* f_dBC = static_cast<float*>(dBC);
   float* f_dAD = static_cast<float*>(dAD);
   float* f_dh0 = static_cast<float*>(dh0);
+  float* f_carry = static_cast<float*>(carry);
   float* f_pbc = static_cast<float*>(part_bc);
   float* f_pad = static_cast<float*>(part_ad);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_SCAN_BWD(T, NN)                                                              \
-  launch_bwd<T, NN>(u, f_dt, f_B, f_C, f_A, f_D, f_h0, f_chunks, dy, f_dh, du, f_ddt, f_dBC, \
-                    f_dAD, f_dh0, f_pbc, f_pad, Bb, S, inner, s)
+#define REPRO_SCAN_BWD(T, NN)                                                               \
+  launch_bwd<T, NN>(u, f_dt, f_B, f_C, f_A, f_D, f_h0, f_chunks, dy, f_dh, f_carry, du, f_ddt, \
+                    f_dBC, f_dAD, f_dh0, f_pbc, f_pad, Bb, S, inner, seg, s)
   if (dtype == repro::kFloat32 && N == 8) return REPRO_SCAN_BWD(float, 8);
   if (dtype == repro::kFloat32 && N == 16) return REPRO_SCAN_BWD(float, 16);
   if (dtype == repro::kBFloat16 && N == 8) return REPRO_SCAN_BWD(__nv_bfloat16, 8);

@@ -85,8 +85,10 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P,  # u, dt, B_, C_, A, D, h0, h_chunks
         _P, _P,                          # dy, dh (NULL = zeros)
         _P, _P, _P, _P, _P,              # du, ddt, dB_ and dC_, dA and dD, dh0 (NULL = none)
-        _P, _P,                          # partials: dB_ and dC_ by block, dA and dD by row
-        _I, _I, _I, _I, _I, _P,          # dtype, B, S, inner, N, stream
+        _P,                              # the segments' carries (NULL with one segment)
+        _P, _P,                          # partials: dB_ and dC_ by block, dA and dD by
+                                         # (row, segment)
+        _I, _I, _I, _I, _I, _I, _P,      # dtype, B, S, inner, N, steps a segment, stream
     ],
     "repro_mlstm": _MLSTM,               # f32 FMA chunkwise kernel
     "repro_mlstm_step": _MLSTM,          # one-pass decode step

@@ -3,8 +3,9 @@
 
 ``flash_attention_fwd`` validates what the kernels take, allocates the
 outputs, launches on PyTorch's current stream and counts the launch by
-variant: bf16 runs the tensor-core kernel (``launches_tc``), f32 the FMA
-kernel (``launches_fma``). It never falls back: anything the kernels do
+variant: bf16 runs the tensor-core kernel (``launches_tc``), f32 the
+split-TF32 kernel (``launches_tf32``: both products on the tensor cores as
+hi + lo halves, ``mma.sync``). It never falls back: anything the kernels do
 not take raises.
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ from repro_torch.kernels import _build
 
 # kernel launches since the last reset, by variant (plain ints)
 launches_tc = 0    # bf16: wgmma + TMA
-launches_fma = 0   # f32: f32 FMAs
+launches_tf32 = 0  # f32: split TF32 on mma.sync
 
 HEAD_DIMS = (32, 64, 128, 256)
 
@@ -55,7 +56,7 @@ def flash_attention_fwd(
     sm_scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns o (B, Sq, H, hd) in q's dtype and lse (B, H, Sq, 1) f32."""
-    global launches_tc, launches_fma
+    global launches_tc, launches_tf32
     _check(q, k, v)
     B, Sq, H, hd = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
@@ -75,5 +76,5 @@ def flash_attention_fwd(
     if q.dtype == torch.bfloat16:
         launches_tc += 1
     else:
-        launches_fma += 1
+        launches_tf32 += 1
     return o, lse

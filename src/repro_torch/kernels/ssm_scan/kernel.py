@@ -10,10 +10,14 @@ kernels by S (each case has exactly one): up to ``STEP_MAX`` timesteps (a
 decode step) ``ssm_step_kernel``, one thread per state; longer
 ``ssm_scan_kernel``, 4 states a thread and tiles of ``TILE`` timesteps
 staged through shared memory, which with ``keep_chunks`` also writes the
-state after each tile but the last. The backward's entry launches
-``ssm_scan_bwd_kernel`` (from those states, tile by tile in reverse, 2
-states a thread, ``bwd_channels(N)`` channels a block) and then sums its
-per-block partials in order (``ssm_sum_parts_kernel``).
+state after each tile but the last. The backward's entry splits time into
+segments of ``bwd_segment(...)`` steps and launches
+``ssm_scan_bwd_carry_kernel`` (each segment but the first run from a zero
+carry: its local gradient and decay product), then ``ssm_scan_bwd_kernel``
+(each segment from the carry folded out of the later ones and the kept
+states, tile by tile in reverse, 2 states a thread, ``bwd_channels(N)``
+channels a block), and then sums its partials in order
+(``ssm_sum_parts_kernel``).
 """
 from __future__ import annotations
 
@@ -30,11 +34,31 @@ STATE_DIMS = (8, 16)
 STEP_MAX = 4   # csrc/ssm_scan.cu: up to this many timesteps run the step kernel
 TILE = 16      # csrc/ssm_scan.cu's TS: timesteps of a tile, and of a kept chunk
 BWD_THREADS, BWD_STATES_PER_LANE = 256, 2   # csrc/ssm_scan.cu's BWD_THREADS and BSPL
+# the backward's main pass aims at this many blocks: 8 an SM's worth of an
+# H100's 132 (a constant of the design, never read from the device, so the
+# same inputs give the same bits on any card)
+BWD_SEGMENT_BLOCKS = 8 * 132
 
 
 def bwd_channels(N: int) -> int:
     """Channels of a backward block (csrc/ssm_scan.cu's BwdStage::CH)."""
     return BWD_THREADS // (N // BWD_STATES_PER_LANE)
+
+
+def bwd_segment(B: int, S: int, inner: int, N: int) -> int:
+    """Timesteps of a backward segment, from the shape alone: the most
+    whole tiles a segment may hold while the main pass still has at least
+    ``BWD_SEGMENT_BLOCKS`` blocks (channel blocks x segments x batch rows),
+    and one tile at least. B1 S4096 inner 3200 N16: 24 tiles (384 steps),
+    11 segments, 1100 blocks."""
+    tiles = -(-S // TILE)
+    blocks = -(-inner // bwd_channels(N)) * B
+    return TILE * max(1, tiles * blocks // BWD_SEGMENT_BLOCKS)
+
+
+def bwd_segments(S: int, seg: int) -> int:
+    """Segments of ``seg`` steps over S: at least one (csrc/ssm_scan.cu's ``segments``)."""
+    return max(1, -(-S // seg))
 
 
 def _check(u, dt, B_, C_, A, D, h0, extra=()) -> None:
@@ -135,16 +159,19 @@ def ssm_scan_bwd(
     dAD = torch.empty((inner * N + inner,), **f32)
     dh0 = torch.empty((Bb, inner, N), **f32) if h0 is not None else None
     blocks = -(-inner // bwd_channels(N))
+    seg = bwd_segment(Bb, S, inner, N)
+    NS = bwd_segments(S, seg)
+    carry = torch.empty((2, Bb, NS - 1, inner, N), **f32)
     part_bc = torch.empty((blocks, 2, Bb, S, N), **f32)
-    part_ad = torch.empty((Bb, inner * N + inner), **f32)
+    part_ad = torch.empty((Bb, NS, inner * N + inner), **f32)
     ptr = lambda t: None if t is None or t.numel() == 0 else t.data_ptr()
     lib = _build.load()
     with torch.cuda.device(u.device):
         err = lib.repro_ssm_scan_bwd(
             u.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(), A.data_ptr(),
             D.data_ptr(), ptr(h0), ptr(chunks), dy.data_ptr(), ptr(dh), du.data_ptr(),
-            ddt.data_ptr(), dBC.data_ptr(), dAD.data_ptr(), ptr(dh0), ptr(part_bc),
-            part_ad.data_ptr(), _build.DTYPE_CODE[u.dtype], Bb, S, inner, N,
+            ddt.data_ptr(), dBC.data_ptr(), dAD.data_ptr(), ptr(dh0), ptr(carry), ptr(part_bc),
+            part_ad.data_ptr(), _build.DTYPE_CODE[u.dtype], Bb, S, inner, N, seg,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _build.check(err, "ssm_scan_bwd")

@@ -53,7 +53,7 @@ def test_digest_changes_with_every_flag(flags, monkeypatch):
     assert _build._digest() != before
 
 
-@pytest.mark.parametrize("header", ["common.cuh", "hopper.cuh"])
+@pytest.mark.parametrize("header", ["common.cuh", "hopper.cuh", "tf32.cuh"])
 def test_digest_changes_with_every_header(header, tmp_path, monkeypatch):
     for p in _build.CSRC.glob("*.cu*"):
         (tmp_path / p.name).write_bytes(p.read_bytes())

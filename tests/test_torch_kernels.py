@@ -163,7 +163,7 @@ def test_paged_dead_lane_is_zero_and_isolated():
 
 def test_flash_ops_cpu_dispatch_runs_plain_version():
     _, tx = _split(_flash_inputs(1, 40, 40, 4, 2, 32, F32))
-    counts = lambda: (flash_kernel.launches_tc, flash_kernel.launches_fma)
+    counts = lambda: (flash_kernel.launches_tc, flash_kernel.launches_tf32)
     before = counts()
     out = flash_attention(*tx, True, 0, 0)
     assert torch.equal(out, attention_ref(*tx, causal=True))

@@ -3,8 +3,9 @@
 
     python3 tools/flash_bwd_variants.py [--reps 2] [--only kept,cvt]
 
-Each variant is ``src/repro_torch/csrc/flash_attention_bwd.cu`` with a
-few lines replaced, compiled on its own (one nvcc each, in parallel) and
+Each variant is ``src/repro_torch/csrc/flash_attention_bwd.cu`` (and the
+split-TF32 helpers it includes, ``csrc/tf32.cuh``) with a few lines
+replaced, compiled on its own (one nvcc each, in parallel) and
 called through the port's wrappers on f32 inputs at the port's f32
 training shapes (``SHAPES``; o and lse from the forward kernel, as
 ``chip_smoke.py`` makes them). For each: the split-TF32 dk/dv's and dq's
@@ -74,25 +75,33 @@ SHAPES = [(1, 1000, 32, 8, 128, 0), (1, 1000, 16, 16, 256, 0), (4, 448, 6, 6, 64
           (1, 1500, 25, 5, 64, 1024)]
 
 
-def build(out: Path, names) -> dict:
-    """Compile the variants (in parallel); return {name: loaded library}."""
+def build(out: Path, names, source: str = "flash_attention_bwd.cu", variants=None,
+          entries=("repro_flash_attention_bwd_dkdv", "repro_flash_attention_bwd_dq"),
+          tag: str = "_tf32_") -> dict:
+    """Compile the variants of ``source`` (in parallel; a patch applies to the
+    source or to the header ``tf32.cuh``, whichever holds its text); return
+    {name: loaded library with ``entries`` bound}. ptxas of the entry
+    functions whose name holds ``tag`` is printed."""
     from repro_torch.kernels import _build
 
-    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    variants = VARIANTS if variants is None else variants
+    headers = ("common.cuh", "hopper.cuh", "tf32.cuh")
+    texts = {f: (_build.CSRC / f).read_text() for f in (source, *headers)}
     procs = {}
     for name in names:
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
-        text = src
-        for old, new in VARIANTS[name]:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} is not in flash_attention_bwd.cu")
-            text = text.replace(old, new)
-        (d / "flash_attention_bwd.cu").write_text(text)
-        for f in ("common.cuh", "hopper.cuh", "errors.cu"):
-            shutil.copy(_build.CSRC / f, d / f)
+        files = dict(texts)
+        for old, new in variants[name]:
+            where = [f for f in (source, "tf32.cuh") if old in files[f]]
+            if not where:
+                raise RuntimeError(f"variant {name}: {old!r} is not in {source} or tf32.cuh")
+            files[where[0]] = files[where[0]].replace(old, new)
+        for f, text in files.items():
+            (d / f).write_text(text)
+        shutil.copy(_build.CSRC / "errors.cu", d / "errors.cu")
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-               str(d / "flash_attention_bwd.cu"), str(d / "errors.cu")]
+               str(d / source), str(d / "errors.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     libs = {}
@@ -100,14 +109,14 @@ def build(out: Path, names) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"variant {name} did not build:\n{log}")
-        regs = [(e.split("'", 1)[0].split("tf32")[-1][:24],
+        regs = [(e.split("'", 1)[0].split(tag.strip("_"))[-1][:24],
                  re.search(r"Used (\d+) registers", e).group(1),
                  re.search(r"(\d+) bytes spill stores", e).group(1))
-                for e in log.split("Compiling entry function '")[1:] if "_tf32_" in e[:200]]
-        print(f"[flash_bwd_variants] {name} built; ptxas (kernel, registers, spill stores): "
-              f"{regs}", flush=True)
+                for e in log.split("Compiling entry function '")[1:] if tag in e[:200]]
+        print(f"[{Path(sys.argv[0]).stem}] {name} built; ptxas (kernel, registers, spill "
+              f"stores): {regs}", flush=True)
         lib = ctypes.CDLL(str(out / name / "lib.so"))
-        for fn in ("repro_flash_attention_bwd_dkdv", "repro_flash_attention_bwd_dq"):
+        for fn in entries:
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
