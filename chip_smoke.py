@@ -26,20 +26,22 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    TMA); f32 on tensor cores as split TF32 (hi + lo halves of every
    operand, three mma.sync products, fed by cp.async); every feature case
    runs in both dtypes; the f32 forward is timed at its four shapes with
-   its spread beside SDPA's f32 forward, and the f32 backward's outputs at
-   S1000 hd 128 and 256 are logged as digests. The paged
+   its spread beside SDPA's f32 forward, and the f32 forward's and
+   backward's outputs at S1000 hd 128 and 256 are logged as digests. The paged
    kernel (split over positions, then merged) has two: bf16 scores and P.V
    on tensor cores (mma.sync), f32 on FMAs. The scan has a prefill kernel
    and a decode kernel (S <= 4), picked by S. The mLSTM's model calls go
    to a one-pass decode step (S <= 8) or a chunkwise kernel: bf16 on
-   tensor cores, f32 (and head dims the tensor cores do not take) on
-   FMAs, both held in both dtypes. The flash forward, dk/dv and dq are
+   tensor cores, f32 (and what the tensor-core kernel does not take) on
+   tensor cores as split TF32, both held in both dtypes, the split-TF32
+   one also in f32 at xlstm-350m's prefill shape and timed there. The
+   flash forward, dk/dv and dq are
    also held at mixtral-8x7b's training shape (B1 S8192 H32/8 hd128,
    window 4096, bf16), timed beside SDPA with the band as a boolean mask.
    Two calls on the same inputs give the
    same bits for the bf16 dq, the f32 forward, dk/dv and dq (hd 128 and
    256), the paged kernel, the scan and its backward (over many segments
-   too), the tensor-core mLSTM and the step; the kernels NO_SPILL_KERNELS
+   too), both chunkwise mLSTM kernels and the step; the kernels NO_SPILL_KERNELS
    names build with no spilled registers;
 4. serving: full-width qwen3-4b (random bf16 weights from a seeded
    generator) through ``DecodeEngine`` on 16 requests; launch counters
@@ -65,7 +67,7 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    of all 8 prompts' first 32 tokens is no farther from an f32 reference
    than 1.5 x two plain bf16 orders are, and its mLSTM h no farther from
    an f64 recurrence than the plain form's (``compare_xlstm_paths``; the
-   FMA kernel's path is measured beside it); f32 prefill logits on 4096
+   split-TF32 kernel's path is measured beside it); f32 prefill logits on 4096
    tokens agree with the plain path's; a reduced model's f32 streams on
    the card equal the CPU's;
 7. training: full-width qwen3-4b (f32 params from a seeded generator,
@@ -249,12 +251,14 @@ REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 
 # kernels that must build without spilling registers (ptxas): the paged
-# split and merge, the mLSTM decode step and its tensor-core prefill, the
-# scan's prefill and decode kernels and its backward's, the f32 (split-TF32)
-# flash forward and backward, and every instantiation at head dim 256 (a
-# template argument of 256 in its mangled name)
+# split and merge, the mLSTM decode step, its tensor-core prefill and its
+# split-TF32 chunkwise kernel, the scan's prefill and decode kernels and its
+# backward's, the f32 (split-TF32) flash forward and backward, and every
+# instantiation at head dim 256 (a template argument of 256 in its mangled
+# name)
 NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_merge_kernel",
-                    "mlstm_step_kernel", "mlstm_tc_kernel", "ssm_scan_kernel", "ssm_step_kernel",
+                    "mlstm_step_kernel", "mlstm_tc_kernel", "mlstm_tf32_kernel",
+                    "ssm_scan_kernel", "ssm_step_kernel",
                     "ssm_scan_bwd_kernel", "ssm_scan_bwd_carry_kernel", "ssm_sum_parts_kernel",
                     "flash_fwd_tf32_kernel", "flash_bwd_dkdv_tf32_kernel",
                     "flash_bwd_dq_tf32_kernel", "Li256E")
@@ -262,7 +266,7 @@ NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_me
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12     # dense TF32 tensor-core rate
-# f32 products as split TF32 take three TF32 products each: the f32 flash
+# f32 products as split TF32 take three TF32 products each: the split-TF32
 # kernels' bound is their work at a third of the TF32 rate (their f32 FMA
 # bound, at PEAK_F32_FLOPS, is logged beside it)
 PEAK_SPLIT_TF32_FLOPS = PEAK_TF32_FLOPS / 3
@@ -352,17 +356,15 @@ MLSTM_M_TOL = dict(atol=1e-3, rtol=1e-3)
 MLSTM_STATE_TOL = dict(atol=1e-4, rtol=1e-4)
 # xlstm-350m's prefill shape (B8 S4096 H4 hd512, q/k/v bf16) against the
 # plain chunkwise form at the model's chunk 256: both see the same bf16
-# inputs and sum in f32 in other orders (chunk 32 vs 256), so h (bf16) may
+# inputs and sum in f32 in other orders (chunk 64 vs 256), so h (bf16) may
 # differ by one bf16 ulp (rtol 1e-2 covers 2^-7 |h|) and the state by f32
 # rounding over 4096 steps.
 MLSTM_MAIN_H_TOL = dict(atol=1e-3, rtol=1e-2)
 MLSTM_MAIN_STATE_TOL = dict(atol=1e-4, rtol=1e-3)
 MLSTM_MAIN_TOLS = dict(h=MLSTM_MAIN_H_TOL, C=MLSTM_MAIN_STATE_TOL, n=MLSTM_MAIN_STATE_TOL,
                        m=MLSTM_M_TOL)
-# the chunk at which the mLSTM's bound counts the intra-chunk products: a
-# fixed yardstick, whatever chunk a kernel variant uses (the tensor-core
-# kernel's 64, the FMA kernel's 32)
-MLSTM_BOUND_CHUNK = 32
+# calls the split-TF32 mLSTM is timed over at the prefill shape in f32
+MLSTM_F32_REPS = 20
 # the JAX test's tolerance for the scan's final state (y takes tol(dtype))
 SSM_H_TOL = dict(atol=1e-4, rtol=1e-4)
 # hymba's main-path shapes (u bf16, dt/B_/C_ f32), held tighter than the
@@ -413,6 +415,12 @@ def within(out: torch.Tensor, ref: torch.Tensor, t: dict) -> tuple:
     err = float((a - b).abs().max())
     ok = bool(torch.isfinite(a).all() and torch.all((a - b).abs() <= t["atol"] + t["rtol"] * b.abs()))
     return err, ok
+
+
+def limit_frac(out: torch.Tensor, ref: torch.Tensor, t: dict) -> float:
+    """The largest |out - ref| / (atol + rtol |ref|): at most 1 where ``t`` holds."""
+    a, b = out.double(), ref.double()
+    return float(((a - b).abs() / (t["atol"] + t["rtol"] * b.abs())).max())
 
 
 def hold(name: str, out: torch.Tensor, ref: torch.Tensor, t: dict) -> float:
@@ -488,7 +496,7 @@ def _counters() -> dict:
             "flash_attention_bwd_dq_tc": (kernel_bwd, "launches_dq_tc"),
             "flash_attention_bwd_dq_tf32": (kernel_bwd, "launches_dq_tf32"),
             "ssm_scan": (scan, "launches"), "mlstm_tc": (mlstm, "launches_tc"),
-            "mlstm_fma": (mlstm, "launches_fma"), "mlstm_step": (mlstm, "launches_step"),
+            "mlstm_tf32": (mlstm, "launches_tf32"), "mlstm_step": (mlstm, "launches_step"),
             "ssm_scan_bwd": (scan, "launches_bwd")}
 
 
@@ -834,11 +842,11 @@ def hold_same_bits(tag: str, q, k, v, do, lse, delta, kw) -> None:
             raise AssertionError(f"the f32 {which} kernel gave different bits at {tag}")
 
 
-# the f32 backward's outputs at these shapes, (B, S, H, KVH, hd), are
-# logged as digests (``bwd_digests``): inputs made on the CPU from seed 0,
-# with o and lse by the plain forward there, so that two builds of the
-# kernels (before and after a change that must not move their bits) can be
-# compared
+# the f32 backward's and forward's outputs at these shapes, (B, S, H, KVH,
+# hd), are logged as digests (``bwd_digests``, ``fwd_digests``): inputs made
+# on the CPU from seed 0, with o and lse by the plain forward there for the
+# backward, so that two builds of the kernels (before and after a change
+# that must not move their bits) can be compared
 BWD_DIGEST_SHAPES = [(1, 1000, 32, 8, 128), (1, 1000, 16, 16, 256)]
 
 
@@ -859,15 +867,38 @@ def bwd_digests() -> dict:
         args = [t.cuda() for t in (q, k, v, do, lse, delta)]
         dk, dv = kernel_bwd.flash_attention_bwd_dkdv(*args)
         dq = kernel_bwd.flash_attention_bwd_dq(*args)
+        # the CPU-made inputs too: the CPU's multithreaded sums may round
+        # differently from one process to the next
         out[f"B{B} S{S} H{H}/{KVH} hd{hd}"] = {
             n: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
-            for n, t in (("dk", dk), ("dv", dv), ("dq", dq))}
+            for n, t in (("dk", dk), ("dv", dv), ("dq", dq), ("lse, delta", torch.cat(
+                [lse.flatten(), delta.flatten()])))}
     log(f"[kernels] f32 flash backward digests (inputs made on the CPU, seed 0): {out}")
     return out
 
 
+def fwd_digests() -> dict:
+    """SHA-256 (16 hex digits) of the f32 forward's o and lse at
+    BWD_DIGEST_SHAPES (causal), by the ``repro_torch`` on ``sys.path``;
+    logged and returned."""
+    import hashlib
+
+    from repro_torch.kernels.flash_attention import kernel
+
+    out = {}
+    for B, S, H, KVH, hd in BWD_DIGEST_SHAPES:
+        g = torch.Generator().manual_seed(0)
+        q, k, v = (torch.randn((B, S, n, hd), generator=g) for n in (H, KVH, KVH))
+        o, lse = kernel.flash_attention_fwd(q.cuda(), k.cuda(), v.cuda(), causal=True)
+        out[f"B{B} S{S} H{H}/{KVH} hd{hd}"] = {
+            n: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+            for n, t in (("o", o), ("lse", lse))}
+    log(f"[kernels] f32 flash forward digests (inputs made on the CPU, seed 0): {out}")
+    return out
+
+
 def peak_flops(record: str) -> float:
-    """The rate a flash record's bound counts its operations at: bf16
+    """The rate a record's bound counts its operations at: bf16
     tensor cores (``_tc``), split TF32 (``_tf32``), else f32 FMAs."""
     if record.endswith("_tc"):
         return PEAK_BF16_FLOPS
@@ -1376,13 +1407,15 @@ def _to_ref_layout(q, k, v, gates):
 
 def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
     """The chunkwise mLSTM's three kernels (S <= ``STEP_MAX``: the one-pass
-    decode step; longer: the bf16 tensor-core kernel, and the FMA kernel,
-    both dtypes, which takes f32 and other head dims), each through its own
-    wrapper, against ``mlstm_ref`` (the sequential oracle) on the JAX
-    test's cases, ragged S with a carried state and two calls carrying the
-    state, and against ``mlstm_chunkwise_ref`` at xlstm-350m's prefill and
-    decode shapes; two calls of the tensor-core kernel and of the step give
-    the same bits. One record per kernel."""
+    decode step; longer: the bf16 tensor-core kernel, and the split-TF32
+    kernel, both dtypes, which takes f32 and what the tensor-core kernel
+    does not), each through its own wrapper, against ``mlstm_ref`` (the
+    sequential oracle) on the JAX test's cases, ragged S with a carried
+    state and two calls carrying the state, and against
+    ``mlstm_chunkwise_ref`` at xlstm-350m's prefill shape (in bf16, and in
+    f32 for the split-TF32 kernel, timed there over MLSTM_F32_REPS calls)
+    and decode shape; two calls of each chunkwise kernel and of the step
+    give the same bits. One record per kernel."""
     from repro_torch.kernels.mlstm import kernel, ops
     from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref, mlstm_ref
 
@@ -1390,13 +1423,24 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
         """(name, function) of each kernel that takes these inputs."""
         if S <= kernel.STEP_MAX:
             return [("step", ops.mlstm)]
-        return [("fma", kernel.mlstm_fma)] + ([("tc", kernel.mlstm_tc)]
-                                              if dtype == torch.bfloat16 else [])
+        return [("tf32", kernel.mlstm_tf32)] + ([("tc", kernel.mlstm_tc)]
+                                                if dtype == torch.bfloat16 else [])
 
-    errs = {"tc": 0.0, "fma": 0.0, "step": 0.0}
+    def same_bits(name, fn, args, out):
+        again = fn(*args)
+        same = all(torch.equal(x, y) for x, y in zip((out[0], *out[1]), (again[0], *again[1])))
+        log(f"  {name}: two calls give the same bits: {same}")
+        if not same:
+            raise AssertionError(f"{name}: two calls on the same inputs gave different bits")
 
-    def against_oracle(name, B, S, H, hd, dtype, with_state=False, h_tol=None):
+    errs = {"tc": 0.0, "tf32": 0.0, "step": 0.0}
+
+    def against_oracle(name, B, S, H, hd, dtype, with_state=False, h_tol=None, twice=False,
+                       misaligned=False):
         q, k, v, gates, state = _mlstm_inputs(gen, B, S, H, hd, dtype, with_state)
+        if misaligned:      # 4 bytes past a 16-byte boundary: the plain loads' path
+            q, k, v = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+                       for t in (q, k, v))
         hr, (Cr, nr, mr) = mlstm_ref(*_to_ref_layout(q, k, v, gates), state)
         for var, fn in variants(S, dtype):
             h, (C, n, m) = fn(q, k, v, gates, state)
@@ -1409,15 +1453,20 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
                       hold(f"{full} n", n, nr, MLSTM_STATE_TOL))
             hold(f"{full} m", m, mr, MLSTM_M_TOL)
             errs[var] = max(errs[var], err)
+            if twice:
+                same_bits(full, fn, (q, k, v, gates, state), (h, (C, n, m)))
 
-    log("[kernels] mlstm (one-pass step, FMA, tensor cores) vs mlstm_ref (h, C, n, m) and "
-        "mlstm_chunkwise_ref")
-    for B, H, S, hd, dtype in MLSTM_CASES:
-        against_oracle(f"mlstm B{B} H{H} S{S} hd{hd} {str(dtype)[6:]}", B, S, H, hd, dtype)
+    log("[kernels] mlstm (one-pass step, split TF32, tensor cores) vs mlstm_ref (h, C, n, m) "
+        "and mlstm_chunkwise_ref")
+    for i, (B, H, S, hd, dtype) in enumerate(MLSTM_CASES):
+        against_oracle(f"mlstm B{B} H{H} S{S} hd{hd} {str(dtype)[6:]}", B, S, H, hd, dtype,
+                       twice=i == 0)
     against_oracle("mlstm ragged S100 with state B2 H2 hd96 f32", 2, 100, 2, 96, torch.float32,
                    with_state=True)
     against_oracle("mlstm ragged S100 with state B2 H2 hd128 bf16", 2, 100, 2, 128,
                    torch.bfloat16, with_state=True)
+    against_oracle("mlstm q/k/v 4 bytes off 16-byte alignment B2 H2 S100 hd64 f32", 2, 100, 2,
+                   64, torch.float32, with_state=True, misaligned=True)
     for dtype in (torch.float32, torch.bfloat16):
         against_oracle(f"mlstm step S5 with state B2 H2 hd96 {str(dtype)[6:]}", 2, 5, 2, 96,
                        dtype, with_state=True)
@@ -1450,56 +1499,72 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
                         hold(f"{name} n", n, nr, MLSTM_MAIN_STATE_TOL))
         hold(f"{name} m", m, mr, MLSTM_M_TOL)
         if var == "tc":
-            h2, (C2, n2, m2) = fn(q, k, v, gates)
-            same = all(torch.equal(x, y) for x, y in zip((h, C, n, m), (h2, C2, n2, m2)))
-            log(f"  {name}: two calls give the same bits: {same}")
-            if not same:
-                raise AssertionError("the tensor-core mLSTM gave different bits on the same "
-                                     "inputs")
-            del h2, C2, n2, m2
+            same_bits(name, fn, (q, k, v, gates), (h, (C, n, m)))
         del h, C, n, m
     del hr, Cr, nr, mr
+    # the same shape in f32 (xlstm's reduced parity path's kernel), held at
+    # the prefill shape's state tolerance (h too: f32 carries no bf16 ulp):
+    # C and n against the plain form, h against the f64 recurrence. The
+    # plain f32 form's own rounding of h over 4096 steps reaches the whole
+    # margin on some draws, so it is no oracle for h; the kernel's distance
+    # to it is logged.
+    q32, k32, v32, g32, _ = _mlstm_inputs(gen, B, S, H, hd, torch.float32)
+    hr, (Cr, nr, mr) = mlstm_chunkwise_ref(q32, k32, v32, g32, None, chunk)
+    out = kernel.mlstm_tf32(q32, k32, v32, g32)
+    torch.cuda.synchronize()
+    name = f"mlstm main-path prefill B{B} S{S} H{H} hd{hd} f32 [tf32]"
+    hf = _mlstm_f64(q32, k32, v32, g32)
+    errs["tf32"] = max(errs["tf32"],
+                       hold(f"{name} h against the f64 recurrence", out[0], hf,
+                            MLSTM_MAIN_STATE_TOL),
+                       *(hold(f"{name} {key}", x, r, MLSTM_MAIN_STATE_TOL)
+                         for key, x, r in zip("Cn", out[1], (Cr, nr))))
+    hold(f"{name} m", out[1][2], mr, MLSTM_M_TOL)
+    log(f"  {name}: worst error / limit (MLSTM_MAIN_STATE_TOL) of h: kernel vs plain "
+        f"{limit_frac(out[0], hr, MLSTM_MAIN_STATE_TOL):.4f}, kernel vs f64 "
+        f"{limit_frac(out[0], hf, MLSTM_MAIN_STATE_TOL):.4f}, plain vs f64 "
+        f"{limit_frac(hr, hf, MLSTM_MAIN_STATE_TOL):.4f}")
+    same_bits(name, kernel.mlstm_tf32, (q32, k32, v32, g32), out)
+    del hr, Cr, nr, mr, out, hf
     dq, dk, dv, dg, dstate = _mlstm_inputs(gen, B, 1, H, hd, torch.bfloat16, with_state=True)
-    outs = [ops.mlstm(dq, dk, dv, dg, dstate) for _ in range(2)]
-    same = all(torch.equal(x, y) for x, y in zip((outs[0][0], *outs[0][1]),
-                                                  (outs[1][0], *outs[1][1])))
-    log(f"  mlstm main-path decode S1: two step calls give the same bits: {same}")
-    if not same:
-        raise AssertionError("the mLSTM decode step gave different bits on the same inputs")
-    del outs
+    same_bits("mlstm main-path decode S1 (step)", ops.mlstm, (dq, dk, dv, dg, dstate),
+              ops.mlstm(dq, dk, dv, dg, dstate))
 
     def work(B, S, H, hd, el):
         """(flop, bytes) the function needs: per token and head q C^T and the
-        C update (2 hd^2 flop each) and, at the fixed yardstick chunk
-        MLSTM_BOUND_CHUNK, the intra-chunk q K^T and (q K^T . D) V (2 c hd
-        each); q, k, v read and h written once (el bytes), the gates read
-        and the state (C, n, m) written once (read too where it is
-        carried: S = 1)."""
-        c = MLSTM_BOUND_CHUNK
-        flops = (4.0 * hd * hd + (4.0 * c * hd if S > 1 else 0.0)) * B * S * H
+        C update (2 hd^2 flop each) and the recurrence's O(hd) rest (n,
+        n . q: 4 hd; a chunked form's intra-chunk products are its own
+        overhead, not the function's); q, k, v read and h written once (el
+        bytes), the gates read and the state (C, n, m) written once (read
+        too where it is carried: S = 1)."""
+        flops = (4.0 * hd * hd + 4.0 * hd) * B * S * H
         state = 4.0 * B * H * (hd * hd + hd + 1)
         nbytes = el * B * S * H * hd * 4 + 4.0 * B * S * 2 * H + state * (1 if S > 1 else 2)
         return flops, nbytes
 
     flops, nbytes = work(B, S, H, hd, 2)
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    ms = time_ms(lambda: kernel.mlstm_fma(q, k, v, gates), flush, reps=3)
+    ms = time_ms(lambda: kernel.mlstm_tf32(q, k, v, gates), flush, reps=3)
     tc_ms = time_ms(lambda: kernel.mlstm_tc(q, k, v, gates), flush)
     plain_ms = time_ms(lambda: mlstm_chunkwise_ref(q, k, v, gates, None, chunk), flush, reps=3)
     log(f"  mlstm main path (B{B} S{S} H{H} hd{hd}, q/k/v bf16): tensor-core kernel (the "
-        f"path's) {tc_ms:.4f} ms, FMA kernel {ms:.4f} ms, plain (chunkwise, chunk {chunk}) "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {flops / tc_ms / 1e9:.1f} and "
-        f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved")
-    q32, k32, v32 = (x.float() for x in (q, k, v))
+        f"path's) {tc_ms:.4f} ms, split-TF32 kernel {ms:.4f} ms, plain (chunkwise, chunk "
+        f"{chunk}) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {flops / tc_ms / 1e9:.1f} "
+        f"and {flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved")
     del q, k, v
     f_flops, f_bytes = work(B, S, H, hd, 4)
-    f_b_ms, f_by = bound(f_flops, f_bytes, PEAK_F32_FLOPS)
-    f_ms = time_ms(lambda: kernel.mlstm_fma(q32, k32, v32, gates), flush, reps=3)
-    f_plain_ms = time_ms(lambda: mlstm_chunkwise_ref(q32, k32, v32, gates, None, chunk), flush,
+    f_b_ms, f_by = bound(f_flops, f_bytes, PEAK_SPLIT_TF32_FLOPS)
+    f_times = time_each(lambda: kernel.mlstm_tf32(q32, k32, v32, g32), flush,
+                        reps=MLSTM_F32_REPS)
+    f_ms = spread(f_times)[1]
+    f_plain_ms = time_ms(lambda: mlstm_chunkwise_ref(q32, k32, v32, g32, None, chunk), flush,
                          reps=3)
-    log(f"  mlstm fma at the main path's shape in f32: kernel {f_ms:.4f} ms, plain "
-        f"{f_plain_ms:.4f} ms, bound {f_b_ms:.4f} ms ({f_by}, f32 at 67 TFLOP/s)")
-    del q32, k32, v32
+    log(f"  mlstm_tf32 at the main path's shape in f32: kernel {fmt_spread(f_times)} "
+        f"({MLSTM_F32_REPS} calls), plain {f_plain_ms:.4f} ms, bound {f_b_ms:.4f} ms ({f_by}, "
+        f"split TF32{f32_fma_bound(f_flops, f_bytes, PEAK_SPLIT_TF32_FLOPS)}); "
+        f"{f_flops / f_ms / 1e9:.1f} TFLOP/s of the function's {f_flops:.4e} operations at "
+        f"the median")
+    del q32, k32, v32, g32
     d_flops, d_bytes = work(B, 1, H, hd, 2)
     d_b_ms, d_by = bound(d_flops, d_bytes, PEAK_BF16_FLOPS)
     d_ms = time_ms(lambda: kernel.mlstm(dq, dk, dv, dg, dstate), flush)
@@ -1512,8 +1577,8 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
     return [dict(rec, name="mlstm_tc", source="src/repro_torch/csrc/mlstm_tc.cu",
                  max_abs_err=errs["tc"], ms=tc_ms, plain_ms=plain_ms, bound_ms=b_ms,
                  bound_by=b_by),
-            dict(rec, name="mlstm_fma", max_abs_err=errs["fma"], ms=ms, plain_ms=plain_ms,
-                 bound_ms=b_ms, bound_by=b_by),
+            dict(rec, name="mlstm_tf32", max_abs_err=errs["tf32"], ms=f_ms,
+                 plain_ms=f_plain_ms, bound_ms=f_b_ms, bound_by=f_by),
             dict(rec, name="mlstm_step", max_abs_err=errs["step"], ms=d_ms,
                  plain_ms=d_plain_ms, bound_ms=d_b_ms, bound_by=d_by)]
 
@@ -1853,7 +1918,7 @@ def greedy_reduced_matches_cpu(arch: str, tag: str, *kernels: str) -> dict:
     kernels) against the same loop on the CPU (their plain versions), and a
     MoE model's expert counters equal. The prompt, 20 tokens, is longer
     than hymba's and mixtral's 16-slot rings (16 new tokens wrap them) and
-    ragged against the mLSTM's chunks (8 on the CPU, 32 in the kernel).
+    ragged against the mLSTM's chunks (8 on the CPU, 64 in the kernel).
     Returns the card run's launches, which must include ``kernels``."""
     from repro_torch.config import get_arch
     from repro_torch.launch.serve import greedy_serve
@@ -1969,13 +2034,13 @@ def serve_xlstm_full_width() -> dict:
         f"{peak_gb:.2f} GB")
 
     profile_greedy("xlstm", model, params, tokens, res.cache, new)
-    compare_xlstm_paths(model, params, tokens, "tc" if launches["mlstm_tc"] else "fma")
+    compare_xlstm_paths(model, params, tokens, "tc" if launches["mlstm_tc"] else "tf32")
     return launches
 
 
 def _xlstm_prefill(model, params, rows, chunk=None, held=None, perturb=0.0, route=None):
     """Prefill ``rows`` with the mLSTM kernels (``chunk`` None: as the model
-    calls them, or with ``route`` "fma" or "tc" that chunkwise kernel where
+    calls them, or with ``route`` "tf32" or "tc" that chunkwise kernel where
     S > ``STEP_MAX``) or with the plain chunkwise form at ``chunk``; with
     ``perturb``, the plain form's h is multiplied by (1 + perturb x a
     standard normal draw) before its rounding to q's dtype. With ``held``
@@ -1990,7 +2055,7 @@ def _xlstm_prefill(model, params, rows, chunk=None, held=None, perturb=0.0, rout
     from repro_torch.models import xlstm
 
     noise = torch.Generator(device="cuda").manual_seed(1) if perturb else None
-    chunkwise = {"fma": kernel.mlstm_fma, "tc": kernel.mlstm_tc}
+    chunkwise = {"tf32": kernel.mlstm_tf32, "tc": kernel.mlstm_tc}
 
     def mlstm(q, k, v, gates, state, model_chunk):
         if chunk is not None and perturb:
@@ -2063,7 +2128,7 @@ def _mlstm_f64(q, k, v, gates) -> torch.Tensor:
 def _h_vs_f64(model, params, rows) -> dict:
     """Each mLSTM call of a bf16 prefill of ``rows`` (on the plain path's
     inputs): the share of h's bf16 elements that differ from the f64
-    recurrence rounded to bf16, for the FMA kernel, the tensor-core kernel
+    recurrence rounded to bf16, for the split-TF32 kernel, the tensor-core kernel
     and the plain form at chunk 256 (how far each is from exact where the
     end-to-end check compares them)."""
     from unittest import mock
@@ -2072,7 +2137,7 @@ def _h_vs_f64(model, params, rows) -> dict:
     from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
     from repro_torch.models import xlstm
 
-    differ = {"fma": 0, "tc": 0, "plain 256": 0}
+    differ = {"tf32": 0, "tc": 0, "plain 256": 0}
     total = 0
 
     def mlstm(q, k, v, gates, state, model_chunk):
@@ -2080,7 +2145,7 @@ def _h_vs_f64(model, params, rows) -> dict:
         plain = mlstm_chunkwise_ref(q, k, v, gates, state, 256)
         exact = _mlstm_f64(q, k, v, gates).to(q.dtype)
         g = gates.float().contiguous()
-        for name, h in (("fma", kernel.mlstm_fma(q, k, v, g, state)[0]),
+        for name, h in (("tf32", kernel.mlstm_tf32(q, k, v, g, state)[0]),
                         ("tc", kernel.mlstm_tc(q, k, v, g, state)[0]), ("plain 256", plain[0])):
             differ[name] += int((h != exact).sum())
         total += exact.numel()
@@ -2093,7 +2158,7 @@ def _h_vs_f64(model, params, rows) -> dict:
 
 def compare_xlstm_paths(model, params, tokens, route: str) -> None:
     """The bf16 model's prefill, whose chunkwise mLSTM calls run the
-    ``route`` kernel ("tc" or "fma"), against plain and f32 references:
+    ``route`` kernel ("tc" or "tf32"), against plain and f32 references:
 
     * bf16, one prompt, all 4096 tokens: every mLSTM call of the kernel
       path's prefill (20 layers) holds h and the final (C, n, m) against
@@ -2108,8 +2173,8 @@ def compare_xlstm_paths(model, params, tokens, route: str) -> None:
       than correct bf16 orders. Hold 2: over the 20 mLSTM calls of that
       prefill, each on the plain path's inputs, the share of the path's
       bf16 h elements that differ from the f64 recurrence rounded to bf16
-      is at most the plain form's (chunk 256). Both kernel paths (FMA and
-      tensor cores) are measured under both holds; the one the model runs
+      is at most the plain form's (chunk 256). Both kernel paths (split
+      TF32 and tensor cores) are measured under both holds; the one the model runs
       is held. Logged, not held: each path's count of prompts whose top-1
       equals ref32's, and prompt 0's comparison with plain 256 (top-1,
       correlation, max diff), the check of earlier versions;
@@ -2142,7 +2207,7 @@ def compare_xlstm_paths(model, params, tokens, route: str) -> None:
     logits = {"plain 256": _xlstm_prefill(model, params, short, 256),
               "plain 32": _xlstm_prefill(model, params, short, 32),
               "plain 8": _xlstm_prefill(model, params, short, 8),
-              "fma": _xlstm_prefill(model, params, short, route="fma"),
+              "tf32": _xlstm_prefill(model, params, short, route="tf32"),
               "tc": _xlstm_prefill(model, params, short, route="tc"),
               "model": _xlstm_prefill(model, params, short)}
     if not torch.equal(logits["model"], logits[route]):
@@ -2161,7 +2226,7 @@ def compare_xlstm_paths(model, params, tokens, route: str) -> None:
     log(f"[xlstm] bf16 prefill ({n} x {XLSTM_BF16_LEN}), mLSTM h elements that differ from the "
         f"f64 recurrence rounded to bf16, over the {_n_mlstm(model.cfg)} calls: " + ", ".join(
             f"{name} {100 * v:.4f}%" for name, v in share.items()))
-    for name in ("fma", "tc"):
+    for name in ("tf32", "tc"):
         hold1 = bool(torch.isfinite(logits[name]).all()) and dist[name] <= limit
         hold2 = share[name] <= share["plain 256"]
         top0, corr0, diff0 = _logit_agreement(logits[name][0], logits["plain 256"][0])
@@ -2217,7 +2282,7 @@ def _block_divergence(model, params, row, chunks) -> str:
 def xlstm_orders() -> None:
     """bf16 full-width xlstm-350m prefill logits of single prompts at
     growing lengths, each against the plain path (the chunkwise form at
-    chunk 256): the tensor-core and the FMA kernel paths, the plain path in
+    chunk 256): the tensor-core and the split-TF32 kernel paths, the plain path in
     two other orders of the same sums (chunk 32, chunk 8), and up to 64
     tokens the plain path with each mLSTM output moved by a random relative
     1e-7 (f32's rounding size) before its bf16 rounding. Shows how far
@@ -2235,7 +2300,8 @@ def xlstm_orders() -> None:
             row = torch.as_tensor(prompts[r:r + 1, :S].astype(np.int32), device="cuda")
             plain = _xlstm_prefill(model, params, row, 256)[0]
             others = {"tensor cores": _xlstm_prefill(model, params, row, route="tc")[0],
-                      "FMA kernel": _xlstm_prefill(model, params, row, route="fma")[0],
+                      "split-TF32 kernel": _xlstm_prefill(model, params, row,
+                                                          route="tf32")[0],
                       "plain 32": _xlstm_prefill(model, params, row, 32)[0],
                       "plain 8": _xlstm_prefill(model, params, row, 8)[0]}
             if S <= 64:     # plain 256 with h moved by f32's own rounding size
@@ -4602,6 +4668,7 @@ def main() -> int:
                check_ssm_scan(gen, flush), check_ssm_scan_bwd(gen, flush),
                *check_mlstm(gen, flush)]
     bwd_digests()
+    fwd_digests()
     for more in (check_flash_window_8192(gen, flush), check_dense_variant_kernels(gen, flush),
                  check_gemma_kernels(gen, flush), check_slice14_attention(gen, flush)):
         for kernel_name, err in more.items():
@@ -4626,7 +4693,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("[phase 6/14] xLSTM serving")
     paths["xlstm"] = serve_xlstm_full_width()
-    paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_fma",
+    paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_tf32",
                                                     "mlstm_step")
     gc.collect()
     torch.cuda.empty_cache()

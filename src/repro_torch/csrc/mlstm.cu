@@ -16,46 +16,82 @@
 // returns h (B, S, H, hd) in q's type and the final (C, n, m) in f32.
 //
 // Two kernels here, chosen by the wrapper (kernels/mlstm/kernel.py):
-// * `mlstm_kernel<T>`, the chunkwise form on f32 FMAs for f32 and bf16 q/k/v
-//   (bf16 calls whose head_dim is a multiple of 64 go to csrc/mlstm_tc.cu,
-//   on tensor cores, instead); f32 callers (the reduced models, whose
-//   card-equals-CPU checks hold 1e-4) need f32 products, which TF32 tensor
-//   cores would not give;
+// * `mlstm_tf32_kernel<T, VT>`, the chunkwise form for f32 q/k/v and for the
+//   bf16 calls csrc/mlstm_tc.cu does not take (its head dims are multiples
+//   of 64 on TMA-aligned inputs), every product on the tensor cores as split
+//   TF32 (csrc/tf32.cuh: hi + lo halves of every operand, three mma.sync
+//   m16n8k8 a product): f32 callers (the reduced models, whose
+//   card-equals-CPU checks hold 1e-4) need products near f32's, which one
+//   TF32 product would not give (emulated on the CPU in
+//   tests/test_torch_mlstm_tf32.py). bf16 inputs become f32 on load (exact);
+//   the arithmetic is the same;
 // * `mlstm_step_kernel`, the decode step (S of a few timesteps, either
 //   dtype): one pass over C. At decode (S = 1) the state is the work, a read
 //   and a write of C (67 MB at B 8, H 4, hd 512), so it is bound by bytes.
 //
-// Design of the chunkwise FMA kernel:
+// What bounds the chunkwise form: at xlstm-350m's prefill shape (B 8, S
+// 4096, H 4, hd 512) ~1.5e11 operations against ~1.1 GB in f32, so
+// operations, at a third of the TF32 rate for split products.
+//
+// Design of the split-TF32 chunkwise kernel (the layout of mlstm_tc.cu):
 // * The state does not fit an SM (C is 1 MB of f32 per (b, h) at hd 512), so
-//   each block owns a 32-row tile of C's value rows, C[v0:v0+32, :] (64 KB at
-//   hd 512), in shared memory for the whole sequence: grid (hd / 32, B * H).
-//   The TPU kernel's sequential chunk axis becomes a loop inside the block;
-//   nothing carries over between blocks.
-// * The kernel's own chunk is 32 timesteps, one per lane: the per-chunk
-//   scalars (cumsum, cummax, the stabiliser) are warp scans. Every v-tile
-//   block of a head recomputes them and q K^T, which cost a third of the C
-//   products at this chunk.
-// * q and K^ are staged in 64-column slices of d_k; per slice each thread
-//   accumulates 4 entries of q K^T, 4 of q C_in^T and (warp 0) n_in.q, then
-//   the slice's columns of C and n are updated in place. The denominator
-//   needs no n_t matrix: n_t.q_t is the row sum of P plus the carried term.
+//   each block owns VT value rows of C, C[v0:v0+VT, :] (VT 64 where hd % 64
+//   == 0, else 32; 128 KB at hd 512), in shared memory in f32 for the whole
+//   sequence, its master copy: grid (hd / VT, B * H). The TPU kernel's
+//   sequential chunk axis becomes a loop inside the block over chunks of 64
+//   timesteps; nothing carries over between blocks, and each block owns its
+//   outputs (the same bits every run).
+// * C lies as hd / 32 column slices of VT x 32 floats, and q and K stream
+//   per chunk as 64 x 32 slices through a cp.async ring (zero fill past S),
+//   so every tile the products read has a row of 32 or 64 floats whatever
+//   hd is (csrc/tf32.cuh's swizzle). The V tile (64 x VT) arrives once a
+//   chunk; (V w)^T, with w_s = exp(a_s - M_c) / sqrt(hd), is read from it
+//   as A fragments (`frag_trows`), no transposed copy.
+// * 8 warps. Per 32-column slice j of the key dim: warp (g, half) owns the
+//   chunk's rows 16 g .. 16 g + 15 and half of the columns of P += q_j K_j^T
+//   (skipped where the causal mask covers them) and of inter += q_j C_j^T
+//   (C's old values); n_in.q runs beside them on FMAs. Then, after a barrier,
+//   C_j = cscale C_j + (V w)^T K_j, each warp 16 rows of C, and n_j on FMAs.
+//   Each slice's share of P and inter starts at zero and joins its running
+//   sum by an f32 add, and (V w)^T K_j, from zero over the chunk's 64 steps,
+//   joins C by an f32 FMA: the tensor cores round their accumulator toward
+//   zero. Every operand is split where a fragment reads it.
+// * Choices measured on an H100 (tools/mlstm_variants.py, PERF.md): every
+//   block recomputes q K^T, a third of its products: sharing it over a
+//   thread-block cluster of the head's blocks through distributed shared
+//   memory was slower, as were 32 rows of C a block (twice the blocks),
+//   (V w)^T kept in registers for the chunk (spills), K split once a slice
+//   (a barrier more) and each slice's C update moved into the next slice.
+// * Epilogue: P' = P / sqrt(hd) . D in f32 goes to shared memory (its
+//   columns in the accumulator's k order, so that P' V reads it with
+//   `frag_rows` beside `frag_krows` on V); the row sums of P' (two warps a
+//   row) give the denominator; intra = P' V from zero; h = (intra + cw
+//   inter) / den is stored from the fragments, a row's 8-byte pieces side by
+//   side.
 // * Every block keeps its own copy of n (updated identically); the block of
-//   tile 0 writes n and m out. h goes through shared memory to coalesced stores.
-// * Ragged S and S = 1 bound the loops (no padding); q/k/v are read through
-//   their (B, S, H, hd) strides and the gates from (B, S, 2H); the outputs
-//   are fresh buffers (n0 and m0 are read by every tile, so they may not alias).
+//   tile 0 writes n and m out. Ragged S: rows past S load as zeros, and a
+//   ragged last chunk is masked through its gates (i~ = NEG_INF, so w = 0);
+//   q/k/v are read through their (B, S, H, hd) strides (cp.async of 16 bytes
+//   where f32 base and strides allow, else plain loads) and the gates from
+//   (B, S, 2H); the outputs are fresh buffers (n0 and m0 are read
+//   by every tile, so they may not alias).
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int NT = 256;        // threads: 8 warps
-constexpr int L = 32;          // timesteps per chunk, one per lane
-constexpr int VT = 32;         // value rows of C per block (8 warps x 4)
-constexpr int KS = 64;         // key columns staged per slice
-constexpr int QS = KS + 4;     // padded row of the q / K^ slices (float4-aligned, conflict-free)
-constexpr int PS = L + 1;      // padded row of P and of the h tile
+using namespace repro::tf32;
+using repro::NEG_INF;
+using repro::FULL_MASK;
+
+constexpr int NT = 256;                 // threads: 8 warps
+constexpr int CH = 64;                  // timesteps per chunk
+constexpr int KS = 32;                  // key columns per streamed slice
+// q/K slice stages in flight: with 3, a stage is refilled a slice after its
+// last reader with no barrier between (2 took a third barrier a slice)
+constexpr int RING = 3;
 
 struct Strides {
   long long b, s, h;
@@ -68,204 +104,360 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-size_t smem_floats(int hd) {
-  return size_t(VT) * (hd + 4) + 2 * L * QS + 2 * L * VT + 2 * L * PS + hd + 5 * L + 4;
+template <typename T>
+struct Args {
+  const T* q; const T* k; const T* v; const float* g;
+  const float* C0; const float* n0; const float* m0;
+  T* h; float* C; float* n; float* m;
+  int H, S, hd;
+  Strides sq, sk, sv, sh;
+  long long gb, gs;
+  int vec;                              // f32 q/k/v: base and strides in 16-byte units
+};
+
+template <int VT>
+size_t smem_bytes(int hd) {
+  // C | ring of (q, K) slices | V | P' | n | scalars
+  return 4 * (size_t(VT) * hd + RING * 2 * CH * KS + CH * VT + CH * CH + hd + 8 * CH + 4);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT) mlstm_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ g, const float* __restrict__ C0, const float* __restrict__ n0,
-    const float* __restrict__ m0, T* __restrict__ hout, float* __restrict__ Cout,
-    float* __restrict__ nout, float* __restrict__ mout, int H, int S, int hd,
-    Strides sq, Strides sk, Strides sv, Strides sh, long long gb, long long gs) {
-  extern __shared__ __align__(16) float smem[];
-  const int CS = hd + 4;               // padded row of the C tile
-  float* Cs = smem;                    // [VT][CS]  C[v0 + r, :]
-  float* Qs = Cs + VT * CS;            // [L][QS]   q slice
-  float* Ks = Qs + L * QS;             // [L][QS]   K^ slice
-  float* Vs = Ks + L * QS;             // [L][VT]   v tile
-  float* VWs = Vs + L * VT;            // [L][VT]   v tile x w_s
-  float* Ps = VWs + L * VT;            // [L][PS]   P
-  float* Hs = Ps + L * PS;             // [L][PS]   h tile
-  float* ns = Hs + L * PS;             // [hd]      n
-  float* a_s = ns + hd;                // [L] i~_s - b_s
-  float* M_s = a_s + L;                // [L] M_t
-  float* cw_s = M_s + L;               // [L] exp(m_in - M_t)
-  float* w_s = cw_s + L;               // [L] exp(a_s - M_c), 0 past the chunk's end
-  float* den_s = w_s + L;              // [L]
-  float* misc = den_s + L;             // [0] m, [1] exp(m_in - M_c), [2] next m
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.y, b = bh / H, hh = bh % H;
-  const int v0 = blockIdx.x * VT;
-  const float sqrt_hd = sqrtf(float(hd));
-
-  for (int e = tid; e < VT * hd; e += NT) {
-    const int r = e / hd, c = e % hd;
-    Cs[r * CS + c] = C0 != nullptr ? C0[((long long)bh * hd + v0 + r) * hd + c] : 0.f;
+// Rows [row0, row0 + CH) of a strided (S, W) slab into a swizzled f32 tile
+// (csrc/tf32.cuh's layout); rows at or past `limit` land as zeros. 16-byte
+// copies for aligned f32, else plain converting loads (the ring's barriers
+// make their stores visible as they do the copies').
+template <int W, typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, long long stride,
+                                          int row0, int limit, int vec) {
+  if constexpr (sizeof(T) == 4) {
+    if (vec) {
+      load_tile<W, CH, NT>(dst, src, stride, row0, limit);
+      return;
+    }
   }
-  for (int c = tid; c < hd; c += NT) ns[c] = n0 != nullptr ? n0[(long long)bh * hd + c] : 0.f;
-  if (tid == 0) misc[0] = m0 != nullptr ? m0[bh] : 0.f;
+  for (int i = threadIdx.x; i < CH * W; i += NT) {
+    const int r = i / W, c = i % W;
+    dst[r * W + (c ^ 4 * (r & 7))] =
+        row0 + r < limit ? repro::to_float(src[(row0 + r) * stride + c]) : 0.f;
+  }
+}
 
-  const T* qb = q + b * sq.b + hh * sq.h;
-  const T* kb = k + b * sk.b + hh * sk.h;
-  const T* vb = v + b * sv.b + hh * sv.h + v0;
-  T* hb = hout + b * sh.b + hh * sh.h + v0;
-  const float* gp = g + b * gb;
+template <typename T, int VT>
+__global__ void __launch_bounds__(NT, 1) mlstm_tf32_kernel(const Args<T> a) {
+  constexpr int NI = VT / 16;           // 8-column blocks of a warp's half of inter and intra
+  constexpr int WPR = 128 / VT;         // warps on 16 rows of C in the update
+  constexpr int NB = 4 / WPR;           // its 8-column blocks of a slice
+  extern __shared__ float4 smem_f4[];
+  const int hd = a.hd, NSL = hd / KS;
+  float* Cs = reinterpret_cast<float*>(smem_f4);   // NSL slices of [VT][KS]
+  float* ring = Cs + VT * hd;                      // stage s: q slice [CH][KS], then K slice
+  float* Vs = ring + RING * 2 * CH * KS;           // [CH][VT] v tile
+  float* Ps = Vs + CH * VT;                        // [CH][CH] P', columns in k order
+  float* ns = Ps + CH * CH;                        // [hd] n
+  float* a_s = ns + hd;                            // [CH] i~_s - b_s
+  float* M_s = a_s + CH;                           // [CH] M_t
+  float* cw_s = M_s + CH;                          // [CH] exp(m_in - M_t)
+  float* w_s = cw_s + CH;                          // [CH] exp(a_s - M_c) / sqrt(hd), 0 past the end
+  float* rs_s = w_s + CH;                          // [2][CH] P' row sums by half
+  float* nq_s = rs_s + 2 * CH;                     // [CH] n_in . q_t
+  float* misc = nq_s + CH;                         // [0] m, [1] exp(m_in - M_c), [2] next m
 
-  for (int t0 = 0; t0 < S; t0 += L) {
-    const int Lc = min(L, S - t0);
-    __syncthreads();  // the previous chunk's readers are done; the state is loaded
-    if (warp == 0) {  // the chunk's scalars, lane = timestep
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const Lane l = lane_of(lane);
+  const int bh = blockIdx.y, b = bh / a.H, hh = bh % a.H;
+  const int v0 = blockIdx.x * VT;
+  const int n_chunks = (a.S + CH - 1) / CH;
+  const float inv_sqrt_hd = 1.f / sqrtf(float(hd));
+  const int rg = warp / 2, half = warp % 2;        // products: rows 16 rg.., half the columns
+  const int rc = warp / WPR, nb0 = (warp % WPR) * NB;   // C's update: rows 16 rc.., blocks nb0..
+  const int nc = 4 * warp + (lane & 3), np = lane >> 2;  // n's: column nc, rows np + 8 u
+
+  // C[v0 + r, 4 c4 .. 4 c4 + 3] in the tile, and in C0 and C
+  const auto ctile = [&](int r, int c4) {
+    return reinterpret_cast<float4*>(Cs + (c4 / 8) * VT * KS + r * KS + 4 * ((c4 % 8) ^ (r & 7)));
+  };
+  const auto crow = [&](int r) { return ((long long)bh * hd + v0 + r) * hd; };
+  for (int e = tid; e < VT * hd / 4; e += NT) {
+    const int r = e / (hd / 4), c4 = e % (hd / 4);
+    *ctile(r, c4) = a.C0 != nullptr ? reinterpret_cast<const float4*>(a.C0 + crow(r))[c4]
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int c = tid; c < hd; c += NT) ns[c] = a.n0 != nullptr ? a.n0[(long long)bh * hd + c] : 0.f;
+  if (tid == 0) misc[0] = a.m0 != nullptr ? a.m0[bh] : 0.f;
+
+  const T* qb = a.q + b * a.sq.b + hh * a.sq.h;
+  const T* kb = a.k + b * a.sk.b + hh * a.sk.h;
+  const T* vb = a.v + b * a.sv.b + hh * a.sv.h + v0;
+  T* hb = a.h + b * a.sh.b + hh * a.sh.h + v0;
+  const float* gp = a.g + b * a.gb;
+  const int n_slices = n_chunks * NSL;
+  auto issue = [&](int i) {             // slice i of the walk (chunk i / NSL) into stage i % RING
+    if (i < n_slices) {
+      const int t0 = (i / NSL) * CH, c0 = (i % NSL) * KS;
+      float* dst = ring + (i % RING) * 2 * CH * KS;
+      load_rows<KS>(dst, qb + c0, a.sq.s, t0, a.S, a.vec);
+      load_rows<KS>(dst + CH * KS, kb + c0, a.sk.s, t0, a.S, a.vec);
+    }
+    repro::cp_async_commit();
+  };
+
+  issue(0);
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int t0 = ci * CH, Lc = min(CH, a.S - t0);
+    __syncthreads();                    // the last chunk's readers are done; the state is loaded
+    load_rows<VT>(Vs, vb, a.sv.s, t0, a.S, a.vec);
+    repro::cp_async_commit();
+    if (warp == 0) {
+      // the chunk's scalars; lane holds timesteps 2 lane and 2 lane + 1
       const float m_in = misc[0];
-      float ig = repro::NEG_INF, bsum = 0.f;
-      if (lane < Lc) {
-        ig = gp[(t0 + lane) * gs + hh];
-        bsum = gp[(t0 + lane) * gs + H + hh];
-      }
+      const int ta = 2 * lane, tb = ta + 1;
+      float i0 = NEG_INF, i1 = NEG_INF, f0 = 0.f, f1 = 0.f;
+      if (ta < Lc) { i0 = gp[(t0 + ta) * a.gs + hh]; f0 = gp[(t0 + ta) * a.gs + a.H + hh]; }
+      if (tb < Lc) { i1 = gp[(t0 + tb) * a.gs + hh]; f1 = gp[(t0 + tb) * a.gs + a.H + hh]; }
+      float incl = f0 + f1;             // inclusive cumsum of f~ over lanes
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
-        const float y = __shfl_up_sync(repro::FULL_MASK, bsum, o);
-        if (lane >= o) bsum += y;
+        const float y = __shfl_up_sync(FULL_MASK, incl, o);
+        if (lane >= o) incl += y;
       }
-      const float a = ig - bsum;
-      float M = a;
+      float excl = __shfl_up_sync(FULL_MASK, incl, 1);
+      if (lane == 0) excl = 0.f;
+      const float b0 = excl + f0, b1 = b0 + f1;
+      const float a0 = i0 - b0, a1 = i1 - b1;
+      float mx = fmaxf(a0, a1);         // inclusive cummax over lanes
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
-        const float y = __shfl_up_sync(repro::FULL_MASK, M, o);
-        if (lane >= o) M = fmaxf(M, y);
+        const float y = __shfl_up_sync(FULL_MASK, mx, o);
+        if (lane >= o) mx = fmaxf(mx, y);
       }
-      M = fmaxf(m_in, M);
-      const float M_c = __shfl_sync(repro::FULL_MASK, M, Lc - 1);
-      const float b_c = __shfl_sync(repro::FULL_MASK, bsum, Lc - 1);
-      a_s[lane] = a;
-      M_s[lane] = M;
-      cw_s[lane] = expf(m_in - M);
-      w_s[lane] = lane < Lc ? expf(a - M_c) : 0.f;
+      float prev = __shfl_up_sync(FULL_MASK, mx, 1);
+      if (lane == 0) prev = NEG_INF;
+      const float M0 = fmaxf(m_in, fmaxf(prev, a0));
+      const float M1 = fmaxf(m_in, fmaxf(prev, fmaxf(a0, a1)));
+      const int tl = Lc - 1;
+      const float M_c = __shfl_sync(FULL_MASK, (tl & 1) ? M1 : M0, tl / 2);
+      const float b_c = __shfl_sync(FULL_MASK, (tl & 1) ? b1 : b0, tl / 2);
+      a_s[ta] = a0;
+      a_s[tb] = a1;
+      M_s[ta] = M0;
+      M_s[tb] = M1;
+      cw_s[ta] = expf(m_in - M0);
+      cw_s[tb] = expf(m_in - M1);
+      w_s[ta] = ta < Lc ? expf(a0 - M_c) * inv_sqrt_hd : 0.f;
+      w_s[tb] = tb < Lc ? expf(a1 - M_c) * inv_sqrt_hd : 0.f;
       if (lane == 0) {
         misc[1] = expf(m_in - M_c);
         misc[2] = b_c + M_c;
       }
     }
-    __syncthreads();
-    for (int e = tid; e < L * VT; e += NT) {
-      const int s = e / VT, c = e % VT;
-      const float x = s < Lc ? repro::to_float(vb[(t0 + s) * sv.s + c]) : 0.f;
-      Vs[e] = x;
-      VWs[e] = x * w_s[s];
-    }
-    const float cscale = misc[1];
 
-    // lane = timestep t; warp w owns s = 4w..4w+3 of P and v = 4w..4w+3 of q C^T
-    float accP[4] = {0.f, 0.f, 0.f, 0.f}, accN[4] = {0.f, 0.f, 0.f, 0.f}, qn = 0.f;
-    for (int k0 = 0; k0 < hd; k0 += KS) {
-      const int kw = min(KS, hd - k0);
-      __syncthreads();  // the previous slice's readers are done
-      for (int e = tid; e < L * kw; e += NT) {
-        const int t = e / kw, c = e % kw;
-        float qx = 0.f, kx = 0.f;
-        if (t < Lc) {
-          qx = repro::to_float(qb[(t0 + t) * sq.s + k0 + c]);
-          kx = repro::to_float(kb[(t0 + t) * sk.s + k0 + c]) / sqrt_hd;
-        }
-        Qs[t * QS + c] = qx;
-        Ks[t * QS + c] = kx;
-      }
-      __syncthreads();
-      const float* qrow = Qs + lane * QS;
-      for (int c = 0; c < kw; c += 4) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qrow + c);
+    // the lane's rows 16 rg + g (+ 8): P's columns 32 half + 8 n + 2t (+ 1),
+    // inter's VT / 2 half + 8 n + 2t (+ 1); running sums and the share
+    float P[4][4], I[NI][4], Pt[4][4], It[NI][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = warp * 4 + j;
-          accP[j] = dot4(q4, *reinterpret_cast<const float4*>(Ks + r * QS + c), accP[j]);
-          accN[j] = dot4(q4, *reinterpret_cast<const float4*>(Cs + r * CS + k0 + c), accN[j]);
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) P[n][e] = Pt[n][e] = 0.f;
+#pragma unroll
+      for (int n = 0; n < NI; ++n) I[n][e] = It[n][e] = 0.f;
+    }
+    // a slice's share of P and inter joins the running sums by an f32 add
+    const auto join_shares = [&]() {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        add(P[n], Pt[n]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) Pt[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int n = 0; n < NI; ++n) {
+        add(I[n], It[n]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) It[n][e] = 0.f;
+      }
+    };
+    float nq = 0.f;                     // n_in . q_t over this thread's columns
+    const bool p_live = 32 * half <= 16 * rg + 15;
+    float cscale = 0.f;
+    // C_jj = cscale C_jj + (V w)^T K_jj and n_jj = cscale n_jj + nsum_jj,
+    // with K_jj from slice ii of the walk
+    const auto update = [&](int jj, int ii, float nsum_jj) {
+      const float* Kt = ring + (ii % RING) * 2 * CH * KS + CH * KS;
+      float* Ct = Cs + jj * VT * KS;
+      float d[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < CH / 8; ++ks) {
+        const Frag fa = frag_trows<VT>(Vs, w_s, ks * 8, 16 * rc, l);   // (V w)^T
+#pragma unroll
+        for (int n = 0; n < NB; ++n) {
+          uint32_t fh[2], fl[2];
+          frag_krows<KS>(Kt, ks * 8, 8 * (nb0 + n), l, fh, fl);
+          mma3(d[n], fa, fh, fl);
         }
-        if (warp == 0) qn = dot4(q4, *reinterpret_cast<const float4*>(ns + k0 + c), qn);
       }
-      __syncthreads();  // every reader of this slice's old C and n is done
-      const int kq = kw / 4;
-      for (int e = tid; e < VT * kq; e += NT) {
-        const int r = e / kq, c = (e % kq) * 4;
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int s = 0; s < Lc; ++s) {
-          const float x = VWs[s * VT + r];
-          const float4 k4 = *reinterpret_cast<const float4*>(Ks + s * QS + c);
-          acc.x = fmaf(x, k4.x, acc.x);
-          acc.y = fmaf(x, k4.y, acc.y);
-          acc.z = fmaf(x, k4.z, acc.z);
-          acc.w = fmaf(x, k4.w, acc.w);
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const int r = 16 * rc + l.g + 8 * i2, c = 8 * (nb0 + n) + 2 * l.t;
+          float2* cp = reinterpret_cast<float2*>(Ct + r * KS + (c ^ 4 * (r & 7)));
+          const float2 old = *cp;
+          *cp = make_float2(fmaf(cscale, old.x, d[n][2 * i2]),
+                            fmaf(cscale, old.y, d[n][2 * i2 + 1]));
         }
-        float4* cp = reinterpret_cast<float4*>(Cs + r * CS + k0 + c);
-        float4 cur = *cp;
-        cur.x = fmaf(cscale, cur.x, acc.x);
-        cur.y = fmaf(cscale, cur.y, acc.y);
-        cur.z = fmaf(cscale, cur.z, acc.z);
-        cur.w = fmaf(cscale, cur.w, acc.w);
-        *cp = cur;
+      if (np == 0) ns[jj * KS + nc] = fmaf(cscale, ns[jj * KS + nc], nsum_jj);
+    };
+    for (int j = 0; j < NSL; ++j) {
+      const int i = ci * NSL + j;
+      issue(i + 1);
+      repro::cp_async_wait<1>();        // slice i (and V): this thread's copies
+      __syncthreads();                  // and every thread's; the scalars are written
+      if (j == 0) cscale = misc[1];
+      const float* Qs = ring + (i % RING) * 2 * CH * KS;
+      const float* Ks = Qs + CH * KS;
+      float* Cj = Cs + j * VT * KS;
+      float nacc = 0.f;                 // n's share sum_s w_s K_s, for column nc
+#pragma unroll
+      for (int u = 0; u < CH / 8; ++u) {
+        const int s = np + 8 * u;
+        nacc = fmaf(w_s[s], Ks[s * KS + (nc ^ 4 * (s & 7))], nacc);
       }
-      for (int c = tid; c < kw; c += NT) {
-        float acc = 0.f;
-        for (int s = 0; s < Lc; ++s) acc = fmaf(w_s[s], Ks[s * QS + c], acc);
-        ns[k0 + c] = fmaf(cscale, ns[k0 + c], acc);
+      nacc += __shfl_xor_sync(FULL_MASK, nacc, 4);
+      nacc += __shfl_xor_sync(FULL_MASK, nacc, 8);
+      nacc += __shfl_xor_sync(FULL_MASK, nacc, 16);
+#pragma unroll
+      for (int kc = 0; kc < KS; kc += 8) {        // P += q K^T, inter += q C_in^T
+        const Frag fq = frag_rows<KS>(Qs, 16 * rg, kc, l);
+        if (p_live) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            uint32_t fh[2], fl[2];
+            frag_cols<KS>(Ks, 32 * half + 8 * n, kc, l, fh, fl);
+            mma3(Pt[n], fq, fh, fl);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NI; ++n) {
+          uint32_t fh[2], fl[2];
+          frag_cols<KS>(Cj, (VT / 2) * half + 8 * n, kc, l, fh, fl);
+          mma3(It[n], fq, fh, fl);
+        }
       }
+      join_shares();
+      {                                 // beside the products: n_in . q_t
+        const int t = tid >> 2, qt = tid & 3;
+        const float* qrow = Qs + t * KS;
+        const float4 x0 = *reinterpret_cast<const float4*>(qrow + 4 * ((2 * qt) ^ (t & 7)));
+        const float4 x1 = *reinterpret_cast<const float4*>(qrow + 4 * ((2 * qt + 1) ^ (t & 7)));
+        const float* nn = ns + j * KS + 8 * qt;
+        nq = dot4(x0, *reinterpret_cast<const float4*>(nn), nq);
+        nq = dot4(x1, *reinterpret_cast<const float4*>(nn + 4), nq);
+      }
+      __syncthreads();                  // every reader of this slice's C_in and n_in is done
+      update(j, i, nacc);
     }
 
-    const int t = lane;
-    const float M_t = M_s[t];
+    // P' = P / sqrt(hd) . D in f32 into Ps, column s at the position that
+    // frag_rows reads as the k of frag_krows' row s; its row sums
+    float rsum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int s = warp * 4 + j;
-      Ps[t * PS + s] = (s <= t && t < Lc) ? accP[j] * expf(a_s[s] - M_t) : 0.f;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      float rs = 0.f;
-      for (int s = 0; s < L; ++s) rs += Ps[t * PS + s];
-      den_s[t] = fmaxf(fabsf(rs + cw_s[t] * qn), 1.f);
-    }
-    __syncthreads();
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = warp * 4 + j;
-      float intra = 0.f;
-      for (int s = 0; s < L; ++s) intra = fmaf(Ps[t * PS + s], Vs[s * VT + r], intra);
-      Hs[t * PS + r] = (intra + cw_s[t] * accN[j]) / den_s[t];
+      for (int e = 0; e < 4; ++e) {
+        const int t = 16 * rg + l.g + 8 * (e >> 1), s = 32 * half + 8 * n + 2 * l.t + (e & 1);
+        const float x = s <= t ? P[n][e] * inv_sqrt_hd * expf(a_s[s] - M_s[t]) : 0.f;
+        rsum[e >> 1] += x;
+        const int col = 32 * half + 8 * n + l.t + 4 * (e & 1);
+        Ps[t * CH + (col & 32) + ((col & 31) ^ 4 * (t & 7))] = x;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rsum[r] += __shfl_xor_sync(FULL_MASK, rsum[r], 1);
+      rsum[r] += __shfl_xor_sync(FULL_MASK, rsum[r], 2);
+      if (l.t == 0) rs_s[half * CH + 16 * rg + l.g + 8 * r] = rsum[r];
     }
-    __syncthreads();
-    for (int e = tid; e < Lc * VT; e += NT) {
-      const int tt = e / VT, c = e % VT;
-      hb[(t0 + tt) * sh.s + c] = repro::from_float<T>(Hs[tt * PS + c]);
+    nq += __shfl_xor_sync(FULL_MASK, nq, 1);
+    nq += __shfl_xor_sync(FULL_MASK, nq, 2);
+    if ((tid & 3) == 0) nq_s[tid >> 2] = nq;
+    __syncthreads();                    // P', its row sums and n_in . q are written
+
+    // intra = P' V from zero (s past the rows' causal edge skipped); h
+    float o[NI][4];
+#pragma unroll
+    for (int n = 0; n < NI; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    for (int kc = 0; kc < 16 * (rg + 1); kc += 8) {
+      const Frag fp = frag_rows<CH>(Ps, 16 * rg, kc, l);
+#pragma unroll
+      for (int n = 0; n < NI; ++n) {
+        uint32_t fh[2], fl[2];
+        frag_krows<VT>(Vs, kc, (VT / 2) * half + 8 * n, l, fh, fl);
+        mma3(o[n], fp, fh, fl);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = 16 * rg + l.g + 8 * r;
+      if (t >= Lc) continue;
+      const float cw = cw_s[t];
+      // den >= 1: an approximate reciprocal (2 ulp) keeps the IEEE
+      // division's slow-path call out of the epilogue
+      const float inv = __fdividef(1.f, fmaxf(fabsf(rs_s[t] + rs_s[CH + t] + cw * nq_s[t]), 1.f));
+      T* hrow = hb + (t0 + t) * a.sh.s + (VT / 2) * half + 2 * l.t;
+#pragma unroll
+      for (int n = 0; n < NI; ++n) {
+        const float x = (o[n][2 * r] + cw * I[n][2 * r]) * inv;
+        const float y = (o[n][2 * r + 1] + cw * I[n][2 * r + 1]) * inv;
+        if constexpr (sizeof(T) == 4) {
+          *reinterpret_cast<float2*>(hrow + 8 * n) = make_float2(x, y);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(hrow + 8 * n) = __floats2bfloat162_rn(x, y);
+        }
+      }
     }
     if (tid == 0) misc[0] = misc[2];
   }
+  repro::cp_async_wait<0>();
 
   __syncthreads();
-  for (int e = tid; e < VT * hd; e += NT) {
-    const int r = e / hd, c = e % hd;
-    Cout[((long long)bh * hd + v0 + r) * hd + c] = Cs[r * CS + c];
+  for (int e = tid; e < VT * hd / 4; e += NT) {
+    const int r = e / (hd / 4), c4 = e % (hd / 4);
+    reinterpret_cast<float4*>(a.C + crow(r))[c4] = *ctile(r, c4);
   }
   if (blockIdx.x == 0) {
-    for (int c = tid; c < hd; c += NT) nout[(long long)bh * hd + c] = ns[c];
-    if (tid == 0) mout[bh] = misc[0];
+    for (int c = tid; c < hd; c += NT) a.n[(long long)bh * hd + c] = ns[c];
+    if (tid == 0) a.m[bh] = misc[0];
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* g,
-                   const float* C0, const float* n0, const float* m0, void* h, float* C,
-                   float* n, float* m, int B, int S, int H, int hd, Strides sq, Strides sk,
-                   Strides sv, Strides sh, long long gb, long long gs, cudaStream_t stream) {
-  const size_t smem = smem_floats(hd) * sizeof(float);
+template <typename T, int VT>
+cudaError_t launch(const Args<T>& a, int B, cudaStream_t stream) {
+  const int smem = int(smem_bytes<VT>(a.hd));
   cudaError_t err = cudaFuncSetAttribute(
-      mlstm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      mlstm_tf32_kernel<T, VT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(hd / VT, B * H);
-  mlstm_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), g, C0, n0,
-      m0, static_cast<T*>(h), C, n, m, H, S, hd, sq, sk, sv, sh, gb, gs);
+  mlstm_tf32_kernel<T, VT><<<dim3(a.hd / VT, B * a.H), NT, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, const float* g,
+                        const float* C0, const float* n0, const float* m0, void* h, float* C,
+                        float* n, float* m, int B, int S, int H, int hd, Strides sq,
+                        Strides sk, Strides sv, Strides sh, long long gb, long long gs,
+                        cudaStream_t stream) {
+  const auto units = [](const void* p, const Strides& st) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 && st.s % 4 == 0 &&
+           st.h % 4 == 0;
+  };
+  const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  g, C0, n0, m0, static_cast<T*>(h), C, n, m, H, S, hd, sq, sk, sv, sh, gb, gs,
+                  sizeof(T) == 4 && units(q, sq) && units(k, sk) && units(v, sv)};
+  return hd % 64 == 0 ? launch<T, 64>(a, B, stream) : launch<T, 32>(a, B, stream);
 }
 
 // ---- the decode step: one pass over C ----------------------------------------
@@ -426,11 +618,11 @@ extern "C" int repro_mlstm(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kFloat32:
-      return launch<float>(q, k, v, f_g, f_C0, f_n0, f_m0, h, f_C, f_n, f_m, B, S, H, hd, sq,
-                           sk, sv, sh, g_b, g_s, s);
+      return launch_tf32<float>(q, k, v, f_g, f_C0, f_n0, f_m0, h, f_C, f_n, f_m, B, S, H,
+                                hd, sq, sk, sv, sh, g_b, g_s, s);
     case repro::kBFloat16:
-      return launch<__nv_bfloat16>(q, k, v, f_g, f_C0, f_n0, f_m0, h, f_C, f_n, f_m, B, S, H,
-                                   hd, sq, sk, sv, sh, g_b, g_s, s);
+      return launch_tf32<__nv_bfloat16>(q, k, v, f_g, f_C0, f_n0, f_m0, h, f_C, f_n, f_m, B,
+                                        S, H, hd, sq, sk, sv, sh, g_b, g_s, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -25,6 +25,9 @@
 // The tensor cores round their f32 accumulator toward zero, so a sum over
 // many products drifts: each tile's share starts at zero and joins the
 // running sum by an f32 add, rounded to nearest (`add`).
+//
+// The chunkwise mLSTM (mlstm.cu) takes them too, and `frag_trows` for an A
+// operand read down a tile's columns.
 #pragma once
 
 #include <stdint.h>
@@ -126,6 +129,24 @@ __device__ __forceinline__ Frag frag_acc(const float (&c)[4]) {
   split(c[2], f.hi[1], f.lo[1]);
   split(c[1], f.hi[2], f.lo[2]);
   split(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// A operand with m along columns m0 .. m0 + 15 of tile X and k along its
+// rows k0 + 2t, k0 + 2t + 1 (k = t, t + 4: an accumulator's order, to pair
+// with frag_krows), row k scaled by scale[k] first (k0 % 8 == m0 % 16 == 0):
+// a transposed tile times a diagonal, with no transposed copy
+template <int HD>
+__device__ __forceinline__ Frag frag_trows(const float* X, const float* scale, int k0, int m0,
+                                           const Lane& l) {
+  const float* p = X + (k0 + 2 * l.t) * HD + (m0 & ~31);
+  const int c = (m0 & 31) ^ l.xb;
+  const float s0 = scale[k0 + 2 * l.t], s1 = scale[k0 + 2 * l.t + 1];
+  Frag f;
+  split(p[c] * s0, f.hi[0], f.lo[0]);
+  split(p[c ^ 8] * s0, f.hi[1], f.lo[1]);
+  split(p[HD + (c ^ 4)] * s1, f.hi[2], f.lo[2]);
+  split(p[HD + (c ^ 12)] * s1, f.hi[3], f.lo[3]);
   return f;
 }
 

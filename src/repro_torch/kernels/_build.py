@@ -90,7 +90,7 @@ SIGNATURES = {
                                          # (row, segment)
         _I, _I, _I, _I, _I, _I, _P,      # dtype, B, S, inner, N, steps a segment, stream
     ],
-    "repro_mlstm": _MLSTM,               # f32 FMA chunkwise kernel
+    "repro_mlstm": _MLSTM,               # split-TF32 chunkwise kernel
     "repro_mlstm_step": _MLSTM,          # one-pass decode step
     "repro_mlstm_tc": _MLSTM[:11] + _MLSTM[12:],   # tensor cores, bf16 only: no dtype
 }

@@ -12,10 +12,10 @@ each case has exactly one kernel):
   kernel (``launches_step``);
 * longer, bf16 with a head_dim and layout the tensor-core kernel takes
   (``_tc_takes``): the chunkwise kernel on tensor cores (``launches_tc``);
-* longer otherwise (f32, or another head_dim): the FMA chunkwise kernel
-  (``launches_fma``).
+* longer otherwise (f32, or another head_dim): the chunkwise kernel with
+  every product on the tensor cores as split TF32 (``launches_tf32``).
 
-``mlstm_tc`` and ``mlstm_fma`` call one chunkwise kernel each whatever the
+``mlstm_tc`` and ``mlstm_tf32`` call one chunkwise kernel each whatever the
 inputs, for the checks on the card.
 """
 from __future__ import annotations
@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import _build
 
 launches_tc = 0     # kernel launches since the last reset (plain ints), by variant
-launches_fma = 0
+launches_tf32 = 0
 launches_step = 0
 
 MAX_HEAD_DIM = 512   # the kernels keep a tile of C's rows (rows x hd f32) on chip
@@ -115,26 +115,26 @@ def mlstm(
     global launches_step
     _check(q, k, v, gates, state)
     if q.shape[1] > STEP_MAX:
-        return (mlstm_tc if _tc_takes(q, k, v) else mlstm_fma)(q, k, v, gates, state)
+        return (mlstm_tc if _tc_takes(q, k, v) else mlstm_tf32)(q, k, v, gates, state)
     out = _launch(_build.load().repro_mlstm_step, "mlstm (step)",
                   (_build.DTYPE_CODE[q.dtype],), q, k, v, gates, state)
     launches_step += 1
     return out
 
 
-def mlstm_fma(
+def mlstm_tf32(
     q: torch.Tensor,       # (B, S, H, hd) f32 or bf16, rows contiguous
     k: torch.Tensor,
     v: torch.Tensor,
     gates: torch.Tensor,   # (B, S, 2H) f32
     state: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """The same function as ``mlstm`` on the FMA chunkwise kernel."""
-    global launches_fma
+    """The same function as ``mlstm`` on the split-TF32 chunkwise kernel."""
+    global launches_tf32
     _check(q, k, v, gates, state)
-    out = _launch(_build.load().repro_mlstm, "mlstm (fma)", (_build.DTYPE_CODE[q.dtype],),
+    out = _launch(_build.load().repro_mlstm, "mlstm (tf32)", (_build.DTYPE_CODE[q.dtype],),
                   q, k, v, gates, state)
-    launches_fma += 1
+    launches_tf32 += 1
     return out
 
 

@@ -6,8 +6,8 @@ model's ``chunk``. On the card the gates and the state go to the kernels
 in f32 and contiguous; q/k/v keep their dtype (f32 or bf16), which is h's,
 and may be strided views of the (B, S, inner) projections. ``kernel.mlstm``
 picks the kernel (a decode step of a few timesteps: one pass over C;
-longer: the chunkwise kernel, on tensor cores for bf16 and on FMAs for
-f32); each bounds its loops by S, so nothing is padded: the stabilizer
+longer: the chunkwise kernel, on tensor cores in bf16, and as split TF32
+on the tensor cores for f32 and the rest); each bounds its loops by S, so nothing is padded: the stabilizer
 and the state are the same for any chunk length, up to rounding.
 """
 from __future__ import annotations

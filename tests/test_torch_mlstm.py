@@ -151,7 +151,7 @@ def test_mlstm_ops_runs_the_plain_version_on_cpu():
     a = _inputs(1, 2, 20, 32, seed=3, with_state=True)
     args = _model_layout(*_torch(a, BF16))
     state = tuple(torch.from_numpy(x) for x in a["state"])
-    counts = lambda: (kernel.launches_tc, kernel.launches_fma, kernel.launches_step)
+    counts = lambda: (kernel.launches_tc, kernel.launches_tf32, kernel.launches_step)
     launches = counts()
     h, st = mlstm(*args, state, chunk=8)
     assert counts() == launches
@@ -174,9 +174,10 @@ def test_tensor_core_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("dtype,S", [(BF16, 16), (F32, 16)])
 def test_prefill_wrappers_refuse_cpu_tensors(dtype, S):
     """A prefill (S > STEP_MAX) through the dispatching ``kernel.mlstm`` and
-    through the FMA wrapper raises on CPU tensors, whichever kernel it picks."""
+    through the split-TF32 wrapper raises on CPU tensors, whichever kernel it
+    picks."""
     args = _model_layout(*_torch(_inputs(1, 2, S, 64, seed=5), dtype))
-    for fn in (kernel.mlstm, kernel.mlstm_fma):
+    for fn in (kernel.mlstm, kernel.mlstm_tf32):
         with pytest.raises(ValueError, match="CUDA"):
             fn(*args)
 
@@ -194,7 +195,7 @@ def _misaligned(t):
 def test_prefill_route_takes_bf16_head_dims_multiple_of_64(dtype, hd, misaligned, takes):
     """``kernel.mlstm`` sends a bf16 prefill to the tensor-core kernel when
     the head dim is a multiple of 64 and q/k/v meet TMA's alignment; f32,
-    other head dims and misaligned inputs take the FMA kernel."""
+    other head dims and misaligned inputs take the split-TF32 kernel."""
     q, k, v, _ = _model_layout(*_torch(_inputs(1, 2, 16, hd, seed=8), dtype))
     if misaligned:
         q = _misaligned(q)
