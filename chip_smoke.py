@@ -10,6 +10,7 @@
     python3 chip_smoke.py --gemma-only    # build + the kernels at head dim 256 + phase 12
     python3 chip_smoke.py --whisper-only  # build + the flash kernels at whisper's shapes + phase 13
     python3 chip_smoke.py --hybrid-train-only  # build + hymba's training kernels + phase 14
+    python3 chip_smoke.py --xlstm-train-only   # build + the mLSTM's backward + phase 15
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
@@ -18,7 +19,7 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    one nvcc per source, all in parallel;
 3. kernels: each hand-written kernel (flash forward, paged decode, the two
    flash backward kernels, the selective scan and its backward, the
-   chunkwise mLSTM) against
+   chunkwise mLSTM and its backward) against
    its plain PyTorch version on the card, on the reference's test shapes
    and at the main paths' shapes, with times (CUDA events, L2 flushed
    between launches) beside the bound. The flash forward, dk/dv and dq
@@ -199,7 +200,22 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    ``ssm_scan_bwd_ref`` on the reference's cases, over many segments with a
    ragged end and at hymba's training shape, in both u dtypes, with the
    same bits twice; the forward keeping its states gives the bits it gives
-   without.
+   without;
+15. xlstm-350m trained at full width and depth (24 layers, 0.527 B f32
+   params + AdamW, global batch 2 in 2 microbatches, each group under
+   remat) for 2 steps at seq 2048 (the sLSTM's per-step loop makes a step
+   at seq 4096 ~80 s of host launches): per layer and microbatch two
+   tensor-core mLSTM forwards keeping their chunk states (the pass and its
+   recompute) and one mLSTM backward a step, and nothing else; one step
+   profiled at seq 256; reduced f32 xlstm's 3 steps on the card (the
+   split-TF32 forward keeping its states, the backward) equal the CPU's.
+   The kernel phase holds the mLSTM's backward (``csrc/mlstm_bwd.cu``: a
+   reverse pass over chunks carrying dC, a pass parallel over (chunk,
+   value-row tile, b.h), fixed-order sums) against
+   ``mlstm_chunkwise_bwd_ref`` on the reference's cases in both dtypes,
+   with and without a start state, ragged, mostly and rarely clamped, and
+   at xlstm's training microbatch (B1 S4096 H4 hd512) in both dtypes, the
+   same bits twice.
 
 A kernel variant's ``launches_by_path`` in the JSON record holds its count
 on each path (``serve``, ``hybrid``, ``xlstm``, ``train``, ``spot`` at full width
@@ -214,7 +230,7 @@ full width and ``dense_int8_f32``, ``dense_q4_train_f32``,
 gemma-7b's ``gemma``, ``gemma_train`` at full width and ``gemma_f32``,
 ``gemma_train_f32`` reduced; whisper-tiny's ``whisper``, ``whisper_train``
 and ``whisper_f32``, ``whisper_train_f32``; hymba's ``hybrid_train`` and
-``hybrid_train_f32``), each
+``hybrid_train_f32``; xlstm's ``xlstm_train`` and ``xlstm_train_f32``), each
 counted from 0
 just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
@@ -253,15 +269,16 @@ SRC = REPO / "src"
 # kernels that must build without spilling registers (ptxas): the paged
 # split and merge, the mLSTM decode step, its tensor-core prefill and its
 # split-TF32 chunkwise kernel, the scan's prefill and decode kernels and its
-# backward's, the f32 (split-TF32) flash forward and backward, and every
+# backward's, the f32 (split-TF32) flash forward and backward, every
 # instantiation at head dim 256 (a template argument of 256 in its mangled
-# name)
+# name), and the mLSTM backward's three kernels
 NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_merge_kernel",
                     "mlstm_step_kernel", "mlstm_tc_kernel", "mlstm_tf32_kernel",
                     "ssm_scan_kernel", "ssm_step_kernel",
                     "ssm_scan_bwd_kernel", "ssm_scan_bwd_carry_kernel", "ssm_sum_parts_kernel",
                     "flash_fwd_tf32_kernel", "flash_bwd_dkdv_tf32_kernel",
-                    "flash_bwd_dq_tf32_kernel", "Li256E")
+                    "flash_bwd_dq_tf32_kernel", "Li256E", "mlstm_bwd_kernel",
+                    "mlstm_bwd_carry_kernel", "mlstm_bwd_sum_kernel")
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
@@ -365,6 +382,23 @@ MLSTM_MAIN_TOLS = dict(h=MLSTM_MAIN_H_TOL, C=MLSTM_MAIN_STATE_TOL, n=MLSTM_MAIN_
                        m=MLSTM_M_TOL)
 # calls the split-TF32 mLSTM is timed over at the prefill shape in f32
 MLSTM_F32_REPS = 20
+# the mLSTM's gradient against an f64 witness: mlstm_chunkwise_bwd_ref on
+# the same inputs (the forward kernel's h among them) made f64, so that a
+# reading is the kernel's own rounding alone. An f32 output (dgates, the
+# start state's dC0, dn0 and dm0, and dq, dk, dv in f32) sums terms up to
+# its largest value in size, so atol is taken times max(1, max |witness|)
+# of that output (q x 20, the rarely clamped case, makes dk's terms
+# hundreds of times larger; df~ is a reverse cumsum over up to 64 steps).
+# On the CPU the plain version in f32 reaches at most 0.879 of this limit
+# against the witness (dm0, which cancels to far under its terms: B2 H1 S96
+# hd128 bf16 with a state) and 0.271 on any other output (12 cases, 3
+# seeds). The bf16 dq, dk, dv (one rounding each) against the witness
+# rounded to bf16, at tol(bf16), at the training shape at MLSTM_MAIN_H_TOL.
+MLSTM_BWD_TOL = dict(atol=5e-5, rtol=1e-4)
+# xlstm-350m's training microbatch: B1 S4096 H4 hd512
+XLSTM_TRAIN_MLSTM = dict(B=1, S=4096, H=4, hd=512)
+# calls the mLSTM backward is timed over at that shape
+MLSTM_BWD_REPS = 20
 # the JAX test's tolerance for the scan's final state (y takes tol(dtype))
 SSM_H_TOL = dict(atol=1e-4, rtol=1e-4)
 # hymba's main-path shapes (u bf16, dt/B_/C_ f32), held tighter than the
@@ -497,7 +531,7 @@ def _counters() -> dict:
             "flash_attention_bwd_dq_tf32": (kernel_bwd, "launches_dq_tf32"),
             "ssm_scan": (scan, "launches"), "mlstm_tc": (mlstm, "launches_tc"),
             "mlstm_tf32": (mlstm, "launches_tf32"), "mlstm_step": (mlstm, "launches_step"),
-            "ssm_scan_bwd": (scan, "launches_bwd")}
+            "ssm_scan_bwd": (scan, "launches_bwd"), "mlstm_bwd": (mlstm, "launches_bwd")}
 
 
 def reset_launches() -> None:
@@ -1583,6 +1617,177 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
                  plain_ms=d_plain_ms, bound_ms=d_b_ms, bound_by=d_by)]
 
 
+def _clamped_share(kept) -> float:
+    """The share of steps whose denominator is clamped (|n.q| <= 1), from a
+    forward's kept n.q."""
+    return float((kept[3].abs() <= 1.0).float().mean())
+
+
+def check_mlstm_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """The mLSTM's gradient (``csrc/mlstm_bwd.cu``: the carry pass, the
+    parallel pass and the sums, from what the forward kernel kept) against
+    ``mlstm_chunkwise_bwd_ref`` in f64 on the same inputs and the forward
+    kernel's h: on every MLSTM_CASES row in f32 and in bf16, with and without
+    a start state (and then the final state's gradient too), ragged S, a
+    case whose denominators are mostly clamped and one where almost none are
+    (each case's clamped share logged), and at xlstm-350m's training
+    microbatch in bf16 (the tensor-core forward's, the path's) and in f32;
+    two calls give the same bits there. Every hold is logged with the share
+    of its limit taken, and those that fail are raised together. The forward
+    keeping its states gives the bits it gives without. Timed at the training
+    shape beside the bound, the plain version in f32 and autograd through
+    ``mlstm_chunkwise_ref``."""
+    from repro_torch.kernels.mlstm import kernel
+    from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_bwd_ref, mlstm_chunkwise_ref
+
+    names = ("dq", "dk", "dv", "dgates", "dC0", "dn0", "dm0")
+
+    def run(q, k, v, gates, state, dh, dfinal):
+        h, fin, kept = kernel.mlstm_chunkwise(q, k, v, gates, state, keep=True)
+        return h, fin, kept, kernel.mlstm_bwd(q, k, v, gates, h, dh, kept, fin[:2], dfinal,
+                                              want_dstate=state is not None)
+
+    failed = []
+
+    def check(name, out, ref, t):
+        """``hold``'s test and line, with the share of the limit taken; a
+        failure is listed and raised once every case has run, so that one
+        run names every hold that fails."""
+        err, ok = within(out, ref, t)
+        log(f"  {name}: max_abs_err={err:.3e} ({limit_frac(out, ref, t):.3f} of atol="
+            f"{t['atol']:.3e}, rtol={t['rtol']}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+        return err
+
+    def case(name, B, S, H, hd, dtype, with_state, q_scale=1.0, main=False):
+        q, k, v, gates, state = _mlstm_inputs(gen, B, S, H, hd, dtype, with_state)
+        if q_scale != 1.0:
+            q = (q.float() * q_scale).to(dtype)
+        dh = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+        dfinal = (rnd(B, H, hd, hd), rnd(B, H, hd), rnd(B, H)) if with_state else None
+        h0, fin0 = kernel.mlstm_chunkwise(q, k, v, gates, state)
+        h, fin, kept, got = run(q, k, v, gates, state, dh, dfinal)
+        torch.cuda.synchronize()
+        if not (torch.equal(h, h0) and all(torch.equal(a, b) for a, b in zip(fin, fin0))):
+            raise AssertionError(f"{name}: the forward keeping its states gave other bits")
+        f64 = lambda ts: None if ts is None else tuple(t.double() for t in ts)
+        want = mlstm_chunkwise_bwd_ref(*f64((q, k, v, gates)), f64(state), *f64((h, dh)),
+                                       f64(dfinal), kernel.CHUNK)
+        route = "tc" if kernel._tc_takes(q, k, v) else "tf32"
+        full = f"{name} [{route} forward, {100 * _clamped_share(kept):.1f}% clamped]"
+        err = 0.0
+        for n, a, b in zip(names, (*got[:4], *(got[4] or ())), (*want[:4], *(want[4] or ()))):
+            dt = dtype if n in ("dq", "dk", "dv") else torch.float32
+            if a.dtype != dt or a.shape != b.shape:
+                raise AssertionError(f"{full} {n}: {a.dtype}{tuple(a.shape)}, expected "
+                                     f"{dt}{tuple(b.shape)}")
+            if a.dtype == torch.bfloat16:
+                t, b = MLSTM_MAIN_H_TOL if main else tol(dtype), b.to(torch.bfloat16)
+            else:
+                t = dict(atol=MLSTM_BWD_TOL["atol"] * max(1.0, float(b.abs().max())),
+                         rtol=MLSTM_BWD_TOL["rtol"])
+            err = max(err, check(f"{full} {n}", a, b, t))
+        if (got[4] is None) != (want[4] is None):
+            raise AssertionError(f"{full}: the start state's gradient missing on one side")
+        return err, (q, k, v, gates, h, dh, kept), _clamped_share(kept)
+
+    def same_bits(name, args):
+        a = kernel.mlstm_bwd(*args)
+        b = kernel.mlstm_bwd(*args)
+        same = all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+        log(f"  {name}: two calls give the same bits: {same}")
+        if not same:
+            raise AssertionError(f"{name}: two calls on the same inputs gave different bits")
+
+    log("[kernels] mlstm_bwd (carry pass, parallel pass, sums) vs mlstm_chunkwise_bwd_ref in "
+        "f64 (dq, dk, dv, dgates; dC0, dn0, dm0 with a start state)")
+    err = 0.0
+    for B, H, S, hd, _ in MLSTM_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_state in (False, True):
+                e, _, _ = case(f"mlstm bwd B{B} H{H} S{S} hd{hd} {str(dtype)[6:]}"
+                               f"{' with state' if with_state else ''}", B, S, H, hd, dtype,
+                               with_state)
+                err = max(err, e)
+    for name, B, S, H, hd, dtype, q_scale in (
+            ("mlstm bwd ragged S100 B2 H2 hd96 f32", 2, 100, 2, 96, torch.float32, 1.0),
+            ("mlstm bwd ragged S100 B2 H2 hd128 bf16", 2, 100, 2, 128, torch.bfloat16, 1.0),
+            ("mlstm bwd q x 0.02 (mostly clamped) B2 H2 S200 hd64 f32", 2, 200, 2, 64,
+             torch.float32, 0.02),
+            ("mlstm bwd q x 20 (rarely clamped) B2 H2 S200 hd64 f32", 2, 200, 2, 64,
+             torch.float32, 20.0)):
+        e, _, share = case(name, B, S, H, hd, dtype, True, q_scale)
+        err = max(err, e)
+        if "mostly" in name and not share > 0.9 or "rarely" in name and not share < 0.1:
+            raise AssertionError(f"{name}: clamped share {share:.3f} is not what the case is for")
+    sh = XLSTM_TRAIN_MLSTM
+    B, S, H, hd = sh["B"], sh["S"], sh["H"], sh["hd"]
+    main_args = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = f"mlstm bwd main-path training B{B} S{S} H{H} hd{hd} {str(dtype)[6:]}"
+        e, args, _ = case(name, B, S, H, hd, dtype, False, main=True)
+        err = max(err, e)
+        same_bits(name, args)
+        main_args[dtype] = args
+    del args
+    if failed:
+        raise AssertionError(f"mlstm_bwd disagrees with its f64 witness in {len(failed)} holds: "
+                             + "; ".join(failed))
+
+    # the gradient's least work, per token and head: its four hd^2 products
+    # (dC's step back, C_in^T delta into dq, dC^T v into dk, dC k into dv:
+    # 2 hd^2 flop each) and the O(hd) rest (dh.h, the n row's products:
+    # ~16 hd); the chunked form's intra-chunk products are its own overhead.
+    # Bytes: what the function reads and writes, once each: q, k, v, h, dh
+    # and dq, dk, dv (el bytes), the gates and dgates (f32). What this design
+    # has the forward keep (C, n, m at each 64-step chunk's start, n.q per
+    # step) is left out, as the scan backward's kept states are: a backward
+    # could recompute it; its bytes and the bound with them are logged.
+    def work(el):
+        flops = (8.0 * hd * hd + 16.0 * hd) * B * S * H
+        nbytes = el * 8.0 * B * S * H * hd + 4.0 * 2 * B * S * 2 * H
+        return flops, nbytes
+
+    recs = {}
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOPS), (torch.float32, PEAK_SPLIT_TF32_FLOPS)):
+        q, k, v, gates, h, dh, kept = main_args[dtype]
+        flops, nbytes = work(q.element_size())
+        b_ms, b_by = bound(flops, nbytes, peak)
+        kept_bytes = 4.0 * sum(t.numel() for t in kept)
+        kept_ms, kept_by = bound(flops, nbytes + kept_bytes, peak)
+        times = time_each(lambda: kernel.mlstm_bwd(q, k, v, gates, h, dh, kept), flush,
+                          reps=MLSTM_BWD_REPS)
+        ms = spread(times)[1]
+        plain_ms = time_ms(lambda: mlstm_chunkwise_bwd_ref(q, k, v, gates, None, h, dh, None,
+                                                           kernel.CHUNK), flush, reps=1, warmup=1)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, gates)]
+
+        def autograd_ref():
+            out, _ = mlstm_chunkwise_ref(*leaves, None, kernel.CHUNK)
+            torch.autograd.grad(out, leaves, dh)
+
+        autograd_ms = time_ms(autograd_ref, flush, reps=1, warmup=1)
+        dev = _device_ms_per_launch(lambda: kernel.mlstm_bwd(q, k, v, gates, h, dh, kept), flush,
+                                    "mlstm_bwd")
+        log(f"  mlstm_bwd main path (B{B} S{S} H{H} hd{hd}, q/k/v {str(dtype)[6:]}): kernel "
+            f"{fmt_spread(times)} ({MLSTM_BWD_REPS} calls; device time per launch {dev}), plain "
+            f"mlstm_chunkwise_bwd_ref {plain_ms:.4f} ms, autograd through mlstm_chunkwise_ref "
+            f"(forward + backward) {autograd_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{flops:.4e} operations at {peak / 1e12:.0f} TFLOP/s, {nbytes / 1e9:.4f} GB read and "
+            f"written); the forward's kept states, {kept_bytes / 1e9:.4f} GB, not counted: "
+            f"{kept_ms:.4f} ms ({kept_by}) with them; {flops / ms / 1e9:.1f} TFLOP/s of the "
+            f"function's work at the median")
+        recs[dtype] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        del leaves
+    del main_args, q, k, v, gates, h, dh, kept
+    # the record carries the training path's dtype, bf16
+    return dict(name="mlstm_bwd", route="cuda", source="src/repro_torch/csrc/mlstm_bwd.cu",
+                replaces="src/repro/models/xlstm.py:67", max_abs_err=err, library_ms=None,
+                **recs[torch.bfloat16])
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width serving
 # ---------------------------------------------------------------------------
@@ -2502,6 +2707,8 @@ def train_reduced_matches_cpu(arch: str = "qwen3-4b", tag: str = "train",
         if launches != expect_launches():
             raise AssertionError("the triangular schedule launched a kernel")
         return launches
+    if cfg.block.value == "mlstm":
+        return hold_f32_launches(tag, launches, "mlstm_tf32", "mlstm_bwd")
     scan = ("ssm_scan", "ssm_scan_bwd") if cfg.ssm is not None else ()
     return hold_f32_launches(tag, launches, "flash_attention_tf32",
                              "flash_attention_bwd_dkdv_tf32", "flash_attention_bwd_dq_tf32", *scan)
@@ -4522,6 +4729,114 @@ def hybrid_train_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: xlstm-350m trained at full width and depth (the mLSTM's backward)
+# ---------------------------------------------------------------------------
+
+# phase 15's sequence and steps (the first at learning rate 0), and the
+# sequence of its profiled step. Every sLSTM step is ~20 host-launched ops,
+# in the forward, the recompute and the backward: a step at seq 4096 took
+# 77.5-91.5 s on the H100's host (~2.9 M launches), so the phase runs the
+# two steps its holds need, at seq 2048 (the mLSTM backward is held at seq
+# 4096 in the kernel phase), and profiles one at seq 256, whose events the
+# profiler sorts in seconds
+XLSTM_TRAIN = dict(seq=2048, batch=2, steps=2, profile_seq=256)
+
+
+def _probe_xlstm(state) -> list:
+    """Small slices of the embedding, an mLSTM block's wq and f32 gate
+    weights, and an sLSTM block's recurrent weights, to see whether an
+    update moved them."""
+    p = state.params
+    m, s = p["groups"]["mlstm"]["block"], p["groups"]["slstm"]["block"]
+    return [t.detach().clone() for t in (p["embed"][:4, :8], m["wq"][0, 0, :8, :4],
+                                         m["w_if"][-1, -1, :8], s["r_gates"][-1, :8, :4],
+                                         s["w_gates"][0, :8, :4])]
+
+
+def xlstm_train_full_width() -> dict:
+    """xlstm-350m at full width and depth (24 layers: 4 groups of 5 mLSTM
+    and 1 sLSTM), f32 params + AdamW, XLSTM_TRAIN's sequence, global batch
+    2 in 2 microbatches, each group under remat, through ``run_segment`` for
+    XLSTM_TRAIN's steps: finite losses, params unmoved at step 0 (learning
+    rate 0) and moved after; per step and microbatch each mLSTM layer's
+    tensor-core forward twice (the pass and its recompute, both keeping
+    their states) and its backward once, and no other kernel; the step's
+    time and spread, peak memory and, from one profiled step at a shorter
+    sequence, where the time goes."""
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model, transformer
+    from repro_torch.train.loop import make_step, run_segment
+    from repro_torch.train.steps import init_train_state
+
+    cfg = get_arch("xlstm-350m")
+    model = build_model(cfg)
+    groups, m_per, has_s = transformer._xlstm_group_layout(cfg)
+    seq, batch, n_steps = XLSTM_TRAIN["seq"], XLSTM_TRAIN["batch"], XLSTM_TRAIN["steps"]
+    tc = TrainConfig(total_steps=n_steps, warmup_steps=1, microbatches=2)
+    layout = ShardingLayout(attn_impl="flash")
+    ds = SyntheticLM(cfg.vocab_size, seq, batch, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    kept = {k: state.params["groups"][blk]["block"][k].dtype
+            for blk, k in (("mlstm", "w_if"), ("slstm", "w_gates"), ("slstm", "r_gates"))}
+    log(f"[xlstm_train] {cfg.name}: {cfg.num_layers} layers = {groups} groups x ({m_per} "
+        f"mLSTM + {has_s} sLSTM) (no depth cut), d_model {cfg.d_model}; "
+        f"{model.param_count() / 1e9:.3f} B f32 params ({kept}); params + AdamW moments "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; seq {seq}, global batch {batch} in "
+        f"{tc.microbatches} microbatches, remat {layout.remat} (per group)")
+
+    metrics: list = []
+    step_fn = _recording(make_step(model, tc, layout), metrics)
+    before = _probe_xlstm(state)
+    reset_launches()
+    res0 = run_segment(model, state, ds, "cuda", tc, layout, num_steps=1, jitted=step_fn)
+    if not all(torch.equal(a, b) for a, b in zip(before, _probe_xlstm(res0.state))):
+        raise AssertionError("params moved at step 0, where the learning rate is 0")
+    res1 = run_segment(model, res0.state, ds, "cuda", tc, layout, num_steps=n_steps - 1,
+                       start_step=1, jitted=step_fn)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = [float((a - b).abs().max()) for a, b in zip(before, _probe_xlstm(res1.state))]
+    per_mb = groups * m_per * tc.microbatches * n_steps
+    want = expect_launches(mlstm_tc=2 * per_mb, mlstm_bwd=per_mb)
+    secs = res0.step_seconds + res1.step_seconds
+    for i, (m, dt) in enumerate(zip(metrics, secs)):
+        log(f"[xlstm_train] step {i}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+            f"lr {m['lr']:.3e}, {dt * 1e3:.1f} ms, {batch * seq / dt:.1f} tokens/s")
+    log(f"[xlstm_train] step time {fmt_spread([1e3 * s for s in secs])} over {n_steps} steps "
+        f"(the first includes the first calls' set-up); peak memory {peak_gb:.2f} GB; largest "
+        f"change of the probed params after step 1: {max(moved):.3e}; launches {launches}, "
+        f"expected {want}")
+    if len(metrics) != n_steps or not all(
+            np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
+        raise AssertionError(f"non-finite or missing training metrics: {metrics}")
+    if not min(moved) > 0:
+        raise AssertionError("a probed param did not move after step 1")
+    if launches != want:
+        raise AssertionError("the xLSTM training path did not go through the kernels as expected")
+    p_seq = XLSTM_TRAIN["profile_seq"]
+    p_batch = {k: torch.from_numpy(v).to("cuda")
+               for k, v in SyntheticLM(cfg.vocab_size, p_seq, batch, seed=1).batch(0).items()}
+    profile_training(model, step_fn, res1.state, None, f"seq {p_seq} (not {seq})", p_batch)
+    return launches
+
+
+def xlstm_train_phase() -> dict:
+    """Phase 15: xlstm-350m trained at full width and depth, then reduced f32
+    xlstm's 3 steps on the card (the split-TF32 forward keeping its states,
+    the backward) against the CPU. Returns launches by path."""
+    _free_cuda()
+    paths = {"xlstm_train": xlstm_train_full_width()}
+    _free_cuda()
+    paths["xlstm_train_f32"] = train_reduced_matches_cpu("xlstm-350m", "xlstm_train", 3)
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4546,6 +4861,9 @@ def main() -> int:
     ap.add_argument("--hybrid-train-only", action="store_true",
                     help="only build the kernels, hold the flash kernels at hymba-1.5b's "
                          "training shape and the scan's backward, and run hymba's training phase")
+    ap.add_argument("--xlstm-train-only", action="store_true",
+                    help="only build the kernels, hold the mLSTM's backward and run xlstm-350m's "
+                         "training phase")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
                          "of the kernel paths and plain orders agree, by prompt length")
@@ -4567,10 +4885,10 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[phase 1/14] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
+    log(f"[phase 1/15] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    log("[phase 2/14] build")
+    log("[phase 2/15] build")
     _build.build()
     ptxas = _build.last_build["log"]
     per_source = {}
@@ -4601,14 +4919,14 @@ def main() -> int:
         xlstm_orders()
         return 0
     if args.spot_only:
-        log("[phase 8/14] the spot provisioner")
+        log("[phase 8/15] the spot provisioner")
         spot = {"spot": spot_full_width(), "spot_f32": spot_reduced_matches_cpu(),
                 "spot_launch": spot_launcher()}
         log(f"chip_smoke: --spot-only, launches by path {spot}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.serve_plan_only:
-        log("[phase 9/14] spot serving")
+        log("[phase 9/15] spot serving")
         paths = spot_serving()
         log(f"chip_smoke: --serve-plan-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -4617,7 +4935,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_flash_window_8192(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 10/14] the MoE family")
+        log("[phase 10/15] the MoE family")
         paths = moe_phase()
         log(f"chip_smoke: --moe-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -4626,7 +4944,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_dense_variant_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 11/14] the dense variants")
+        log("[phase 11/15] the dense variants")
         paths = dense_variants_phase()
         log(f"chip_smoke: --dense-variants-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -4635,7 +4953,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_gemma_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 12/14] gemma-7b")
+        log("[phase 12/15] gemma-7b")
         paths = gemma_phase()
         log(f"chip_smoke: --gemma-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -4644,7 +4962,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush, "whisper")
         del flush
-        log("[phase 13/14] whisper-tiny")
+        log("[phase 13/15] whisper-tiny")
         paths = whisper_phase()
         log(f"chip_smoke: --whisper-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -4655,18 +4973,28 @@ def main() -> int:
         check_slice14_attention(gen, flush, "hymba")
         check_ssm_scan_bwd(gen, flush)
         del flush
-        log("[phase 14/14] hymba-1.5b training")
+        log("[phase 14/15] hymba-1.5b training")
         paths = hybrid_train_phase()
         log(f"chip_smoke: --hybrid-train-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
+    if args.xlstm_train_only:
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        rec = check_mlstm_bwd(torch.Generator(device="cuda").manual_seed(0), flush)
+        del flush
+        log(json.dumps({"kernels": [rec]}))
+        log("[phase 15/15] xlstm-350m training")
+        paths = xlstm_train_phase()
+        log(f"chip_smoke: --xlstm-train-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
 
-    log("[phase 3/14] kernels against their plain versions")
+    log("[phase 3/15] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [*check_flash(gen, flush), *check_paged(gen, flush), *check_flash_bwd(gen, flush),
                check_ssm_scan(gen, flush), check_ssm_scan_bwd(gen, flush),
-               *check_mlstm(gen, flush)]
+               *check_mlstm(gen, flush), check_mlstm_bwd(gen, flush)]
     bwd_digests()
     fwd_digests()
     for more in (check_flash_window_8192(gen, flush), check_dense_variant_kernels(gen, flush),
@@ -4680,29 +5008,29 @@ def main() -> int:
         log("chip_smoke: --kernels-only, stopped before serving")
         return 0
 
-    log("[phase 4/14] serving")
+    log("[phase 4/15] serving")
     paths = {"serve": serve_full_width()}
     paths["serve_f32"] = serve_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 5/14] hybrid serving")
+    log("[phase 5/15] hybrid serving")
     paths["hybrid"] = serve_hybrid_full_width()
     paths["hybrid_f32"] = greedy_reduced_matches_cpu("hymba-1.5b", "hybrid",
                                                      "flash_attention_tf32", "ssm_scan")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 6/14] xLSTM serving")
+    log("[phase 6/15] xLSTM serving")
     paths["xlstm"] = serve_xlstm_full_width()
     paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_tf32",
                                                     "mlstm_step")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 7/14] training")
+    log("[phase 7/15] training")
     paths["train"] = train_full_width()
     paths["train_f32"] = train_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 8/14] the spot provisioner")
+    log("[phase 8/15] the spot provisioner")
     paths["spot"] = spot_full_width()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4710,28 +5038,32 @@ def main() -> int:
     paths["spot_launch"] = spot_launcher()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 9/14] spot serving")
+    log("[phase 9/15] spot serving")
     paths.update(spot_serving())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 10/14] the MoE family")
+    log("[phase 10/15] the MoE family")
     paths.update(moe_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 11/14] the dense variants")
+    log("[phase 11/15] the dense variants")
     paths.update(dense_variants_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 12/14] gemma-7b")
+    log("[phase 12/15] gemma-7b")
     paths.update(gemma_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 13/14] whisper-tiny")
+    log("[phase 13/15] whisper-tiny")
     paths.update(whisper_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 14/14] hymba-1.5b training")
+    log("[phase 14/15] hymba-1.5b training")
     paths.update(hybrid_train_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 15/15] xlstm-350m training")
+    paths.update(xlstm_train_phase())
     for r in records:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

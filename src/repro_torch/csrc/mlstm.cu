@@ -16,7 +16,7 @@
 // returns h (B, S, H, hd) in q's type and the final (C, n, m) in f32.
 //
 // Two kernels here, chosen by the wrapper (kernels/mlstm/kernel.py):
-// * `mlstm_tf32_kernel<T, VT>`, the chunkwise form for f32 q/k/v and for the
+// * `mlstm_tf32_kernel<T, VT, KEEP>`, the chunkwise form for f32 q/k/v and for the
 //   bf16 calls csrc/mlstm_tc.cu does not take (its head dims are multiples
 //   of 64 on TMA-aligned inputs), every product on the tensor cores as split
 //   TF32 (csrc/tf32.cuh: hi + lo halves of every operand, three mma.sync
@@ -68,6 +68,11 @@
 //   row) give the denominator; intra = P' V from zero; h = (intra + cw
 //   inter) / den is stored from the fragments, a row's 8-byte pieces side by
 //   side.
+// * What the gradient (mlstm_bwd.cu) starts from, with KEEP (a template
+//   argument, so serving's instantiation has none of it): each block writes
+//   its rows of C as each chunk starts (C_in, the update's old values), and
+//   the block of tile 0 n_in, m_in and each step's n.q (the denominator
+//   before its clamp).
 // * Every block keeps its own copy of n (updated identically); the block of
 //   tile 0 writes n and m out. Ragged S: rows past S load as zeros, and a
 //   ragged last chunk is masked through its gates (i~ = NEG_INF, so w = 0);
@@ -109,6 +114,9 @@ struct Args {
   const T* q; const T* k; const T* v; const float* g;
   const float* C0; const float* n0; const float* m0;
   T* h; float* C; float* n; float* m;
+  // kept for the gradient (NULL: not kept): each chunk's start C (B, H, NC,
+  // hd, hd), n (B, H, NC, hd) and m (B, H, NC), and each step's n.q (B, S, H)
+  float* kC; float* kn; float* km; float* knq;
   int H, S, hd;
   Strides sq, sk, sv, sh;
   long long gb, gs;
@@ -141,7 +149,7 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
   }
 }
 
-template <typename T, int VT>
+template <typename T, int VT, bool KEEP>
 __global__ void __launch_bounds__(NT, 1) mlstm_tf32_kernel(const Args<T> a) {
   constexpr int NI = VT / 16;           // 8-column blocks of a warp's half of inter and intra
   constexpr int WPR = 128 / VT;         // warps on 16 rows of C in the update
@@ -247,6 +255,7 @@ __global__ void __launch_bounds__(NT, 1) mlstm_tf32_kernel(const Args<T> a) {
       if (lane == 0) {
         misc[1] = expf(m_in - M_c);
         misc[2] = b_c + M_c;
+        if (KEEP && blockIdx.x == 0) a.km[(long long)bh * n_chunks + ci] = m_in;
       }
     }
 
@@ -305,10 +314,17 @@ __global__ void __launch_bounds__(NT, 1) mlstm_tf32_kernel(const Args<T> a) {
           const int r = 16 * rc + l.g + 8 * i2, c = 8 * (nb0 + n) + 2 * l.t;
           float2* cp = reinterpret_cast<float2*>(Ct + r * KS + (c ^ 4 * (r & 7)));
           const float2 old = *cp;
+          if constexpr (KEEP)
+            *reinterpret_cast<float2*>(
+                a.kC + (((long long)bh * n_chunks + ci) * hd + v0 + r) * hd + jj * KS + c) = old;
           *cp = make_float2(fmaf(cscale, old.x, d[n][2 * i2]),
                             fmaf(cscale, old.y, d[n][2 * i2 + 1]));
         }
-      if (np == 0) ns[jj * KS + nc] = fmaf(cscale, ns[jj * KS + nc], nsum_jj);
+      if (np == 0) {
+        if (KEEP && blockIdx.x == 0)
+          a.kn[((long long)bh * n_chunks + ci) * hd + jj * KS + nc] = ns[jj * KS + nc];
+        ns[jj * KS + nc] = fmaf(cscale, ns[jj * KS + nc], nsum_jj);
+      }
     };
     for (int j = 0; j < NSL; ++j) {
       const int i = ci * NSL + j;
@@ -406,7 +422,10 @@ __global__ void __launch_bounds__(NT, 1) mlstm_tf32_kernel(const Args<T> a) {
       const float cw = cw_s[t];
       // den >= 1: an approximate reciprocal (2 ulp) keeps the IEEE
       // division's slow-path call out of the epilogue
-      const float inv = __fdividef(1.f, fmaxf(fabsf(rs_s[t] + rs_s[CH + t] + cw * nq_s[t]), 1.f));
+      const float nqt = rs_s[t] + rs_s[CH + t] + cw * nq_s[t];
+      const float inv = __fdividef(1.f, fmaxf(fabsf(nqt), 1.f));
+      if (KEEP && blockIdx.x == 0 && half == 0 && l.t == 0)
+        a.knq[((long long)b * a.S + t0 + t) * a.H + hh] = nqt;
       T* hrow = hb + (t0 + t) * a.sh.s + (VT / 2) * half + 2 * l.t;
 #pragma unroll
       for (int n = 0; n < NI; ++n) {
@@ -434,30 +453,34 @@ __global__ void __launch_bounds__(NT, 1) mlstm_tf32_kernel(const Args<T> a) {
   }
 }
 
-template <typename T, int VT>
+template <typename T, int VT, bool KEEP>
 cudaError_t launch(const Args<T>& a, int B, cudaStream_t stream) {
   const int smem = int(smem_bytes<VT>(a.hd));
   cudaError_t err = cudaFuncSetAttribute(
-      mlstm_tf32_kernel<T, VT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      mlstm_tf32_kernel<T, VT, KEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  mlstm_tf32_kernel<T, VT><<<dim3(a.hd / VT, B * a.H), NT, smem, stream>>>(a);
+  mlstm_tf32_kernel<T, VT, KEEP><<<dim3(a.hd / VT, B * a.H), NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v, const float* g,
                         const float* C0, const float* n0, const float* m0, void* h, float* C,
-                        float* n, float* m, int B, int S, int H, int hd, Strides sq,
-                        Strides sk, Strides sv, Strides sh, long long gb, long long gs,
-                        cudaStream_t stream) {
+                        float* n, float* m, float* const* keep, int B, int S, int H, int hd,
+                        Strides sq, Strides sk, Strides sv, Strides sh, long long gb,
+                        long long gs, cudaStream_t stream) {
   const auto units = [](const void* p, const Strides& st) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 && st.s % 4 == 0 &&
            st.h % 4 == 0;
   };
   const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  g, C0, n0, m0, static_cast<T*>(h), C, n, m, H, S, hd, sq, sk, sv, sh, gb, gs,
+                  g, C0, n0, m0, static_cast<T*>(h), C, n, m, keep[0], keep[1], keep[2], keep[3],
+                  H, S, hd, sq, sk, sv, sh, gb, gs,
                   sizeof(T) == 4 && units(q, sq) && units(k, sk) && units(v, sv)};
-  return hd % 64 == 0 ? launch<T, 64>(a, B, stream) : launch<T, 32>(a, B, stream);
+  // keeping is a template argument: serving's instantiation has none of its code
+  if (a.kC != nullptr)
+    return hd % 64 == 0 ? launch<T, 64, true>(a, B, stream) : launch<T, 32, true>(a, B, stream);
+  return hd % 64 == 0 ? launch<T, 64, false>(a, B, stream) : launch<T, 32, false>(a, B, stream);
 }
 
 // ---- the decode step: one pass over C ----------------------------------------
@@ -596,11 +619,15 @@ cudaError_t launch_step(const void* q, const void* k, const void* v, const float
 // contiguous rows; gates: (B, S, 2H) f32 (i~ at [.., h], f~ at [.., H + h])
 // with the given (b, s) strides; C0 (B, H, hd, hd), n0 (B, H, hd), m0 (B, H):
 // f32 contiguous, all three NULL for a zero state; C, n, m: outputs of the same
-// shapes, not aliasing the inputs. hd: a multiple of 32 up to 512.
+// shapes, not aliasing the inputs. hd: a multiple of 32 up to 512. kC, kn,
+// km, knq: what the gradient (mlstm_bwd.cu) starts from, f32 contiguous
+// (B, H, NC, hd, hd), (B, H, NC, hd), (B, H, NC) and (B, S, H), NC =
+// ceil(S / 64): each chunk's start state and each step's n.q; all four NULL
+// for none (serving).
 extern "C" int repro_mlstm(
     const void* q, const void* k, const void* v, const void* gates, const void* C0,
-    const void* n0, const void* m0, void* h, void* C, void* n, void* m,
-    int dtype, int B, int S, int H, int hd,
+    const void* n0, const void* m0, void* h, void* C, void* n, void* m, void* kC, void* kn,
+    void* km, void* knq, int dtype, int B, int S, int H, int hd,
     long long q_b, long long q_s, long long q_h, long long k_b, long long k_s, long long k_h,
     long long v_b, long long v_s, long long v_h, long long h_b, long long h_s, long long h_h,
     long long g_b, long long g_s, void* stream) {
@@ -615,14 +642,16 @@ extern "C" int repro_mlstm(
   float* f_C = static_cast<float*>(C);
   float* f_n = static_cast<float*>(n);
   float* f_m = static_cast<float*>(m);
+  float* const keep[4] = {static_cast<float*>(kC), static_cast<float*>(kn),
+                          static_cast<float*>(km), static_cast<float*>(knq)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kFloat32:
-      return launch_tf32<float>(q, k, v, f_g, f_C0, f_n0, f_m0, h, f_C, f_n, f_m, B, S, H,
-                                hd, sq, sk, sv, sh, g_b, g_s, s);
+      return launch_tf32<float>(q, k, v, f_g, f_C0, f_n0, f_m0, h, f_C, f_n, f_m, keep, B, S,
+                                H, hd, sq, sk, sv, sh, g_b, g_s, s);
     case repro::kBFloat16:
-      return launch_tf32<__nv_bfloat16>(q, k, v, f_g, f_C0, f_n0, f_m0, h, f_C, f_n, f_m, B,
-                                        S, H, hd, sq, sk, sv, sh, g_b, g_s, s);
+      return launch_tf32<__nv_bfloat16>(q, k, v, f_g, f_C0, f_n0, f_m0, h, f_C, f_n, f_m, keep,
+                                        B, S, H, hd, sq, sk, sv, sh, g_b, g_s, s);
     default: return cudaErrorInvalidValue;
   }
 }

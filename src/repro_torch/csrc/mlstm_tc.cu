@@ -43,7 +43,10 @@
 //   inter^T: 32 f32 each; the C slice and its halves: 32; V w halves: 32),
 //   under the 168 that ptxas gives a 384-thread block; setmaxnreg moves
 //   registers from the producer warpgroup to the consumers as in the flash
-//   kernels. Rows past S read as TMA's zero fill (4-D maps over the
+//   kernels. With KEEP (a template argument; serving's instantiation has
+//   none of it) a warpgroup writes its C slice's values as each chunk
+//   starts (C_in, for mlstm_bwd.cu), and block 0 n_in, m_in and each step's
+//   n.q. Rows past S read as TMA's zero fill (4-D maps over the
 //   strides), and a ragged last chunk is masked through its gates (w = 0,
 //   no stored rows).
 #include <stdint.h>
@@ -73,6 +76,7 @@ constexpr int BAR_X_FULL = 1, BAR_X_EMPTY = 2, BAR_WG = 3, BAR_ALL = 5;
 struct Args {
   const float* g; const float* C0; const float* n0; const float* m0;
   bf16* h; float* C; float* n; float* m;
+  float* kC; float* kn; float* km; float* knq;   // kept for the gradient, as in mlstm.cu
   int H, S, hd;
   long long h_b, h_s, h_h, g_b, g_s;
 };
@@ -95,6 +99,7 @@ __device__ __forceinline__ void keep_regs(uint32_t (&a)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
 }
 
+template <bool KEEP>   // keep what the gradient starts from (serving: false)
 __global__ void __launch_bounds__(THREADS, 1)
 mlstm_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, const Args a) {
@@ -228,6 +233,8 @@ mlstm_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
       if (lane == 0) {
         my_misc[1] = expf(m_in - M_c);
         my_misc[2] = b_c + M_c;
+        if (KEEP && blockIdx.x == 0 && wg == 0)
+          a.km[(long long)bh * n_chunks + ci] = m_in;
       }
     }
     hw::bar_sync(BAR_WG + wg, 128);
@@ -272,6 +279,15 @@ mlstm_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
           c[4 * nn + 2 * i2] = v2.x;
           c[4 * nn + 2 * i2 + 1] = v2.y;
         }
+      if constexpr (KEEP) {                              // C_in, kept for the gradient
+        float* kc = a.kC + (((long long)bh * n_chunks + ci) * hd + v0) * hd + c0;
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+          for (int i2 = 0; i2 < 2; ++i2)
+            *reinterpret_cast<float2*>(kc + (long long)(r0 + 8 * i2) * hd + 8 * nn + cq) =
+                make_float2(c[4 * nn + 2 * i2], c[4 * nn + 2 * i2 + 1]);
+      }
       uint32_t c_hi[2][4], c_lo[2][4];
       hw::split_bf16(c, c_hi, c_lo);
 #pragma unroll
@@ -318,7 +334,11 @@ mlstm_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
           acc = fmaf(my_w[s], __bfloat162float(*reinterpret_cast<const bf16*>(ksl + hw::swz64(s, col))), acc);
         acc += __shfl_xor_sync(FULL_MASK, acc, 1);
         acc += __shfl_xor_sync(FULL_MASK, acc, 2);
-        if (quarter == 0) ns[c0 + col] = fmaf(cscale, ns[c0 + col], acc);
+        if (quarter == 0) {
+          if (KEEP && blockIdx.x == 0)
+            a.kn[((long long)bh * n_chunks + ci) * hd + c0 + col] = ns[c0 + col];
+          ns[c0 + col] = fmaf(cscale, ns[c0 + col], acc);
+        }
       }
       hw::wgmma_wait();
       hw::fence_regs(P);
@@ -393,7 +413,12 @@ mlstm_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
         rs[i] += __shfl_xor_sync(FULL_MASK, rs[i], 1);
         rs[i] += __shfl_xor_sync(FULL_MASK, rs[i], 2);
         const int t = r0 + 8 * i;
-        if (lane % 4 == 0) den[t] = fmaxf(fabsf(rs[i] + my_cw[t] * (nqw[t] + nqw[CH + t])), 1.f);
+        if (lane % 4 == 0) {
+          const float nqt = rs[i] + my_cw[t] * (nqw[t] + nqw[CH + t]);
+          den[t] = fmaxf(fabsf(nqt), 1.f);
+          if (KEEP && blockIdx.x == 0 && t < Lc)
+            a.knq[((long long)b * a.S + t0 + t) * a.H + hh] = nqt;
+        }
       }
       hw::fence_proxy_async();
       hw::bar_sync(BAR_WG, 128);                         // P' halves and den are written
@@ -445,11 +470,12 @@ mlstm_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
 
 // bf16 q, k, v (B, S, H, hd) with the given (b, s, h) strides (16-byte
 // multiples) and contiguous rows; h bf16 (B, S, H, hd) contiguous; gates,
-// state and outputs as for repro_mlstm. hd: a multiple of 64 up to 512.
+// state, outputs and what is kept for the gradient as for repro_mlstm. hd:
+// a multiple of 64 up to 512.
 extern "C" int repro_mlstm_tc(
     const void* q, const void* k, const void* v, const void* gates, const void* C0,
-    const void* n0, const void* m0, void* h, void* C, void* n, void* m,
-    int B, int S, int H, int hd,
+    const void* n0, const void* m0, void* h, void* C, void* n, void* m, void* kC, void* kn,
+    void* km, void* knq, int B, int S, int H, int hd,
     long long q_b, long long q_s, long long q_h, long long k_b, long long k_s, long long k_h,
     long long v_b, long long v_s, long long v_h, long long h_b, long long h_s, long long h_h,
     long long g_b, long long g_s, void* stream) {
@@ -466,11 +492,13 @@ extern "C" int repro_mlstm_tc(
   const Args a{static_cast<const float*>(gates), static_cast<const float*>(C0),
                static_cast<const float*>(n0), static_cast<const float*>(m0),
                static_cast<bf16*>(h), static_cast<float*>(C), static_cast<float*>(n),
-               static_cast<float*>(m), H, S, hd, h_b, h_s, h_h, g_b, g_s};
+               static_cast<float*>(m), static_cast<float*>(kC), static_cast<float*>(kn),
+               static_cast<float*>(km), static_cast<float*>(knq), H, S, hd, h_b, h_s, h_h, g_b,
+               g_s};
   const int smem = int(smem_bytes(hd));
-  err = cudaFuncSetAttribute(mlstm_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kern = kC != nullptr ? mlstm_tc_kernel<true> : mlstm_tc_kernel<false>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  mlstm_tc_kernel<<<dim3(hd / VT, B * H), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, a);
+  kern<<<dim3(hd / VT, B * H), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(mq, mk, mv, a);
   return cudaGetLastError();
 }

@@ -49,6 +49,10 @@ _MLSTM = [
     _L, _L, _P,                          # gate strides (b, s), stream
 ]
 
+# the chunkwise kernels also take what they keep for the gradient: C, n, m
+# at each chunk's start and n.q at each step (NULL = not kept)
+_MLSTM_KEEP = _MLSTM[:11] + [_P, _P, _P, _P] + _MLSTM[11:]
+
 # C signatures, mirrored from the `extern "C"` declarations in csrc/
 SIGNATURES = {
     "repro_flash_attention_fwd": [
@@ -90,9 +94,14 @@ SIGNATURES = {
                                          # (row, segment)
         _I, _I, _I, _I, _I, _I, _P,      # dtype, B, S, inner, N, steps a segment, stream
     ],
-    "repro_mlstm": _MLSTM,               # split-TF32 chunkwise kernel
+    "repro_mlstm": _MLSTM_KEEP,          # split-TF32 chunkwise kernel
     "repro_mlstm_step": _MLSTM,          # one-pass decode step
-    "repro_mlstm_tc": _MLSTM[:11] + _MLSTM[12:],   # tensor cores, bf16 only: no dtype
+    "repro_mlstm_tc": _MLSTM_KEEP[:15] + _MLSTM_KEEP[16:],   # tensor cores, bf16 only: no dtype
+    "repro_mlstm_bwd": [
+        _P, _P, _P, _P,                  # 15 inputs, 7 outputs, 8 workspaces (pointer arrays)
+        _I, _I, _I, _I, _I, _P,          # dtype, B, S, H, hd, stream
+    ],                                   # (the fourth: 17 strides)
+    "repro_mlstm_bwd_tile": [_I],
 }
 
 _lib = None

@@ -16,11 +16,16 @@ each case has exactly one kernel):
   every product on the tensor cores as split TF32 (``launches_tf32``).
 
 ``mlstm_tc`` and ``mlstm_tf32`` call one chunkwise kernel each whatever the
-inputs, for the checks on the card.
+inputs, for the checks on the card; with ``keep=True`` they also return what
+the gradient starts from (each 64-step chunk's start state and each step's
+n·q). ``mlstm_bwd`` launches the gradient (``csrc/mlstm_bwd.cu``: its carry
+pass, its parallel pass and the sums, one call in ``launches_bwd``).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
+
+import ctypes
 
 import torch
 
@@ -29,9 +34,15 @@ from repro_torch.kernels import _build
 launches_tc = 0     # kernel launches since the last reset (plain ints), by variant
 launches_tf32 = 0
 launches_step = 0
+launches_bwd = 0
 
 MAX_HEAD_DIM = 512   # the kernels keep a tile of C's rows (rows x hd f32) on chip
 STEP_MAX = 8         # up to this many timesteps run in one pass over C
+CHUNK = 64           # the chunkwise kernels' chunk: what they keep is per chunk of it
+
+# what a chunkwise forward keeps for the gradient: C, n, m at each chunk's
+# start and each step's n·q
+Kept = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _check(q, k, v, gates, state) -> None:
@@ -83,8 +94,16 @@ def _check_tc(q, k, v) -> None:
                          f"aligned with strides of whole 16-byte units (TMA)")
 
 
-def _launch(fn, what, dtype_args, q, k, v, gates, state):
-    """Allocates h and the final state, launches ``fn`` and raises on a CUDA error."""
+def _kept(B, S, H, hd, device) -> Kept:
+    nc = -(-S // CHUNK)
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
+    return f32(B, H, nc, hd, hd), f32(B, H, nc, hd), f32(B, H, nc), f32(B, S, H)
+
+
+def _launch(fn, what, extra, q, k, v, gates, state):
+    """Allocates h and the final state, launches ``fn`` with ``extra`` (the
+    arguments between the outputs' pointers and the shape) and raises on a
+    CUDA error."""
     B, S, H, hd = q.shape
     h = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     C = torch.empty((B, H, hd, hd), dtype=torch.float32, device=q.device)
@@ -94,13 +113,22 @@ def _launch(fn, what, dtype_args, q, k, v, gates, state):
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gates.data_ptr(), C0, n0, m0,
-            h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(),
-            *dtype_args, B, S, H, hd,
+            h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(), *extra, B, S, H, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *h.stride()[:3],
             *gates.stride()[:2], torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, what)
     return h, (C, n, m)
+
+
+def _launch_chunkwise(fn, what, extra, q, k, v, gates, state, keep: bool):
+    """``_launch`` of a chunkwise kernel, which takes four pointers for what
+    the gradient starts from before ``extra`` (NULL: keep nothing); with
+    ``keep`` they are allocated and returned as a third element."""
+    kept = _kept(*q.shape, q.device) if keep else None
+    ptrs = tuple(t.data_ptr() for t in kept) if keep else (None,) * 4
+    out = _launch(fn, what, (*ptrs, *extra), q, k, v, gates, state)
+    return (*out, kept) if keep else out
 
 
 def mlstm(
@@ -115,7 +143,7 @@ def mlstm(
     global launches_step
     _check(q, k, v, gates, state)
     if q.shape[1] > STEP_MAX:
-        return (mlstm_tc if _tc_takes(q, k, v) else mlstm_tf32)(q, k, v, gates, state)
+        return mlstm_chunkwise(q, k, v, gates, state)
     out = _launch(_build.load().repro_mlstm_step, "mlstm (step)",
                   (_build.DTYPE_CODE[q.dtype],), q, k, v, gates, state)
     launches_step += 1
@@ -128,12 +156,14 @@ def mlstm_tf32(
     v: torch.Tensor,
     gates: torch.Tensor,   # (B, S, 2H) f32
     state: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
-) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """The same function as ``mlstm`` on the split-TF32 chunkwise kernel."""
+    keep: bool = False,
+):
+    """The same function as ``mlstm`` on the split-TF32 chunkwise kernel;
+    with ``keep`` also what the gradient starts from, a third element."""
     global launches_tf32
     _check(q, k, v, gates, state)
-    out = _launch(_build.load().repro_mlstm, "mlstm (tf32)", (_build.DTYPE_CODE[q.dtype],),
-                  q, k, v, gates, state)
+    out = _launch_chunkwise(_build.load().repro_mlstm, "mlstm (tf32)",
+                            (_build.DTYPE_CODE[q.dtype],), q, k, v, gates, state, keep)
     launches_tf32 += 1
     return out
 
@@ -144,11 +174,83 @@ def mlstm_tc(
     v: torch.Tensor,
     gates: torch.Tensor,   # (B, S, 2H) f32
     state: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
-) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """The same function as ``mlstm`` on the tensor-core kernel."""
+    keep: bool = False,
+):
+    """The same function as ``mlstm`` on the tensor-core kernel; with
+    ``keep`` also what the gradient starts from, a third element."""
     global launches_tc
     _check(q, k, v, gates, state)
     _check_tc(q, k, v)
-    out = _launch(_build.load().repro_mlstm_tc, "mlstm (tc)", (), q, k, v, gates, state)
+    out = _launch_chunkwise(_build.load().repro_mlstm_tc, "mlstm (tc)", (), q, k, v, gates,
+                            state, keep)
     launches_tc += 1
     return out
+
+
+def mlstm_chunkwise(q, k, v, gates, state=None, keep: bool = False):
+    """The chunkwise kernel ``mlstm`` takes past STEP_MAX (tensor cores where
+    ``_tc_takes``, else split TF32), at any S: a forward whose gradient is
+    wanted keeps its chunk states, which the step kernel has not."""
+    return (mlstm_tc if _tc_takes(q, k, v) else mlstm_tf32)(q, k, v, gates, state, keep)
+
+
+def mlstm_bwd(
+    q: torch.Tensor,       # (B, S, H, hd) f32 or bf16, rows contiguous
+    k: torch.Tensor,
+    v: torch.Tensor,
+    gates: torch.Tensor,   # (B, S, 2H) f32
+    h: torch.Tensor,       # (B, S, H, hd) the forward's output, q's dtype
+    dh: torch.Tensor,      # (B, S, H, hd) q's dtype
+    kept: Kept,            # what the forward kept (``keep=True``)
+    final: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,   # the forward's final C, n
+    dfinal: Optional[Tuple[Optional[torch.Tensor], ...]] = None,  # their dC, dn and dm
+    want_dstate: bool = False,
+):
+    """The chunkwise mLSTM's gradient on the card. Returns (dq, dk, dv in
+    q's dtype, dgates (B, S, 2H) f32, the start state's (dC, dn, dm) f32
+    with ``want_dstate``, else None). ``dfinal`` (any of them None: zero)
+    needs ``final``."""
+    global launches_bwd
+    _check(q, k, v, gates, None)
+    for name, t in (("h", h), ("dh", dh)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or t.stride(3) != 1:
+            raise ValueError(f"mlstm_bwd: {name} {t.dtype}{tuple(t.shape)} is not q's "
+                             f"{q.dtype}{tuple(q.shape)} with contiguous rows on {q.device}")
+    B, S, H, hd = q.shape
+    nc = -(-S // CHUNK)
+    want = ((B, H, nc, hd, hd), (B, H, nc, hd), (B, H, nc), (B, S, H))
+    if any(tuple(t.shape) != w or t.dtype != torch.float32 or not t.is_contiguous()
+           or t.device != q.device for t, w in zip(kept, want)):
+        raise ValueError(f"mlstm_bwd: kept {[tuple(t.shape) for t in kept]}, expected "
+                         f"contiguous f32 {want}")
+    dfinal = tuple(dfinal) if dfinal is not None else (None, None, None)
+    if any(t is not None for t in dfinal[:2]) and final is None:
+        raise ValueError("mlstm_bwd: a final state gradient needs the final state")
+    f32 = lambda t: None if t is None else t.float().contiguous()
+    dfinal = tuple(f32(t) for t in dfinal)
+    final = tuple(f32(t) for t in final) if final is not None else (None, None)
+    dev = q.device
+    e = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)
+    lib = _build.load()
+    vt = lib.repro_mlstm_bwd_tile(hd)
+    tiles = hd // vt
+    dq, dk, dv = e(B, S, H, hd, dtype=q.dtype), e(B, S, H, hd, dtype=q.dtype), e(
+        B, S, H, hd, dtype=q.dtype)
+    dg = e(B, S, 2 * H)
+    dstate = (e(B, H, hd, hd), e(B, H, hd), e(B, H)) if want_dstate else None
+    ws = (e(B, H, nc, hd, hd), e(B, H, nc, hd), e(B, S, H), e(B, S, H),
+          e(tiles, B, S, H, hd), e(tiles, B, S, H, hd), e(tiles, B, S, H), e(tiles, B, H, nc, 2))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    ins = (q, k, v, gates, h, dh, *kept, *dfinal, *final)
+    outs = (dq, dk, dv, dg, *(dstate if dstate is not None else (None,) * 3))
+    arr = lambda ts: (ctypes.c_void_p * len(ts))(*(ptr(t) for t in ts))
+    strides = (ctypes.c_longlong * 17)(*(st for t in (q, k, v, h, dh) for st in t.stride()[:3]),
+                                       *gates.stride()[:2])
+    with torch.cuda.device(dev):
+        err = lib.repro_mlstm_bwd(
+            ctypes.cast(arr(ins), ctypes.c_void_p), ctypes.cast(arr(outs), ctypes.c_void_p),
+            ctypes.cast(arr(ws), ctypes.c_void_p), ctypes.cast(strides, ctypes.c_void_p),
+            _build.DTYPE_CODE[q.dtype], B, S, H, hd, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mlstm_bwd")
+    launches_bwd += 1
+    return dq, dk, dv, dg, dstate

@@ -9,6 +9,12 @@ picks the kernel (a decode step of a few timesteps: one pass over C;
 longer: the chunkwise kernel, on tensor cores in bf16, and as split TF32
 on the tensor cores for f32 and the rest); each bounds its loops by S, so nothing is padded: the stabilizer
 and the state are the same for any chunk length, up to rounding.
+
+When grad mode is on and an input requires a gradient, the call goes
+through ``_MLSTM``: on the card the chunkwise kernel (at any S) keeping
+what the gradient starts from, then ``kernel.mlstm_bwd``; on the CPU
+``mlstm_chunkwise_ref``, then ``mlstm_chunkwise_bwd_ref``. Serving never
+takes it.
 """
 from __future__ import annotations
 
@@ -17,7 +23,50 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.mlstm import kernel
-from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
+from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_bwd_ref, mlstm_chunkwise_ref
+
+
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.float().contiguous()
+
+
+class _MLSTM(torch.autograd.Function):
+    """h and the final state of the chunkwise mLSTM, with its gradient. A
+    final state that nothing uses gets no gradient (``materialize_grads``
+    off: its dC, dn, dm arrive as None)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, gates, C0, n0, m0, chunk):
+        state = None if C0 is None else (C0, n0, m0)
+        ctx.set_materialize_grads(False)
+        ctx.chunk, ctx.has_state, ctx.gates_dtype = chunk, state is not None, gates.dtype
+        if q.device.type == "cuda":
+            g32 = _f32(gates)
+            st = None if state is None else tuple(_f32(t) for t in state)
+            h, (C, n, m), kept = kernel.mlstm_chunkwise(q, k, v, g32, st, keep=True)
+            ctx.save_for_backward(q, k, v, g32, h, C, n, *kept)
+        else:
+            h, (C, n, m) = mlstm_chunkwise_ref(q, k, v, gates, state, chunk)
+            ctx.save_for_backward(q, k, v, gates, h, *(state or ()))
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        saved = ctx.saved_tensors            # unpacked once (checkpoint allows no second)
+        q, k, v, gates, h = saved[:5]
+        if dh is None:
+            dh = torch.zeros_like(h)
+        if q.device.type == "cuda":
+            C, n, *kept = saved[5:]
+            dq, dk, dv, dg, dstate = kernel.mlstm_bwd(
+                q, k, v, gates, h, dh.to(h.dtype).contiguous(), tuple(kept), (C, n),
+                (dC, dn, dm), want_dstate=ctx.has_state)
+        else:
+            state = saved[5:]
+            dq, dk, dv, dg, dstate = mlstm_chunkwise_bwd_ref(
+                q, k, v, gates, tuple(state) or None, h, dh, (dC, dn, dm), ctx.chunk)
+        dstate = dstate if dstate is not None else (None, None, None)
+        return dq, dk, dv, dg.to(ctx.gates_dtype), *dstate, None
 
 
 def mlstm(
@@ -29,10 +78,13 @@ def mlstm(
     chunk: int = 64,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Returns (h (B,S,H,hd) in q's dtype, (C (B,H,hd,hd), n (B,H,hd), m (B,H)) f32)."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"mlstm: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, gates, *(state or ()))):
+        h, C, n, m = _MLSTM.apply(q, k, v, gates, *(state or (None,) * 3), chunk)
+        return h, (C, n, m)
     if q.device.type == "cuda":
-        f32 = lambda t: t.float().contiguous()
-        return kernel.mlstm(q, k, v, f32(gates),
-                            None if state is None else tuple(f32(t) for t in state))
-    if q.device.type == "cpu":
-        return mlstm_chunkwise_ref(q, k, v, gates, state, chunk)
-    raise ValueError(f"mlstm: unsupported device {q.device}")
+        return kernel.mlstm(q, k, v, _f32(gates),
+                            None if state is None else tuple(_f32(t) for t in state))
+    return mlstm_chunkwise_ref(q, k, v, gates, state, chunk)

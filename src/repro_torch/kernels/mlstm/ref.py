@@ -212,3 +212,173 @@ def mlstm_chunkwise_hilo_ref(
         n = cscale[..., None] * n + (kt * w[..., None]).sum(1)
         m = b[:, -1] + M_c
     return torch.cat(hs, dim=1)[:, :S].to(q.dtype), (C, n, m)
+
+
+def _stabilizer_chain(won: torch.Tensor, e: torch.Tensor):
+    """Part (b) of ``mlstm_chunkwise_bwd_ref``: ``e`` (B, S, H), each step's
+    gradient of the loss by its stabilizer m_t with the chunkwise form held
+    fixed, carried back along m_t = max(f̃_t + m_{t−1}, ĩ_t) (``won``: ĩ_t
+    won). Returns its shares of dĩ and df̃ (B, S, H) and of the start
+    state's dm (B, H)."""
+    d_i, d_f = torch.zeros_like(e), torch.zeros_like(e)
+    g = torch.zeros_like(e[:, 0])
+    for t in reversed(range(e.shape[1])):
+        g = g + e[:, t]
+        d_i[:, t] = torch.where(won[:, t], g, 0.0)
+        d_f[:, t] = torch.where(won[:, t], 0.0, g)
+        g = torch.where(won[:, t], 0.0, g)
+    return d_i, d_f, g
+
+
+def mlstm_chunkwise_bwd_ref(
+    q: torch.Tensor,       # (B, S, H, hd)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    gates: torch.Tensor,   # (B, S, 2H): ĩ in [..., :H], f̃ in [..., H:]
+    state: Optional[State],
+    h: torch.Tensor,       # (B, S, H, hd): the forward's output
+    dh: torch.Tensor,      # (B, S, H, hd)
+    dstate: Optional[Tuple[Optional[torch.Tensor], ...]] = None,   # (dC, dn, dm) of the final state
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, Optional[State]]:
+    """The gradient of ``mlstm_chunkwise_ref``, derived by hand: the plain
+    version of the CUDA backward (``csrc/mlstm_bwd.cu``), in its order.
+
+    With m_t the stepwise stabilizer, h depends on m_t only where the
+    clamp max(|n_t·q_t|, 1) holds h_t = num_t (num_t scales as exp(−m_t));
+    elsewhere m cancels between num and den. So the gradient is the sum of
+    (a) the chunkwise form's gradient with every m_t held constant, and
+    (b) a scalar reverse pass: at each clamped step g_t = −(dh_t·h_t) (and
+    at the last step the final state's −⟨dC, C⟩ − ⟨dn, n⟩ + dm), carried
+    back along the stabilizer's argmax chain m_t = max(f̃_t + m_{t−1}, ĩ_t):
+    into dĩ_t where ĩ_t won (the carry ends), else into df̃_t and on to t−1,
+    and from step 0 into dm of the start state.
+
+    (a) treats n as one more value row of C (v' = [v, 1]) whose gradient
+    is φ_t = −sign(n_t·q_t)·(dh_t·h_t)/den_t where |n_t·q_t| > 1, else 0,
+    and δ_t = dh_t/den_t for the others. Per chunk, with P_ts = q_t·k̂_s,
+    D_ts = exp(ĩ_s − b_s + b_t − m_t) (s ≤ t), carry_t = exp(m_in + b_t −
+    m_t), w_s = exp(ĩ_s − b_s + b_E − m_E) and cscale = exp(m_in + b_E − m_E)
+    (E the chunk's last step), dC' the gradient of the chunk's end state:
+
+        dP_ts = δ_t·v_s + φ_t,   G = dP ⊙ D,   gD = dP ⊙ P ⊙ D
+        dq_t  = Σ_s G_ts k̂_s + carry_t (C_inᵀ δ_t + φ_t n_in)
+        dk̂_s  = Σ_t G_ts q_t + w_s (dCᵀ v_s + dn)
+        dv_s  = Σ_t (P ⊙ D)_ts δ_t + w_s dC k̂_s
+        dĩ_s  = Σ_t gD_ts + w_s (v_s·dC k̂_s + dn·k̂_s)
+        db_t  = −dĩ_t + dh_t·h_t + φ_t n_t·q_t  (+ Σ_s w_s(...) + cscale ⟨dC', C'_in⟩ at E)
+
+    and df̃ is db's reverse cumsum over the chunk. The carry's log-gradient
+    dh_t·h_t + φ_t n_t·q_t − Σ_s gD_ts uses δ'_t·num'_t = dh_t·h_t + φ_t n_t·q_t,
+    so C_in q_t is never formed. The chunk hands back dC' ← cscale dC' +
+    Σ_t carry_t δ'_t q_tᵀ. Only the start state's m gets (a)'s m terms
+    (chunk 0's carry and cscale); every later m_in is a held m_t.
+
+    Returns (dq, dk, dv in q's dtype, dgates (B, S, 2H) f32, the start
+    state's (dC, dn, dm) f32, or None without a start state). Given f64
+    inputs it works, and returns everything, in f64: a witness of the f32
+    sums' rounding."""
+    B, S, H, hd = q.shape
+    dev = q.device
+    wd = torch.float64 if q.dtype == torch.float64 else torch.float32
+    C, n, m = (t.to(wd) for t in (_zero_state(B, H, hd, dev) if state is None else state))
+    c = max(1, min(chunk, S))
+    pad = (-S) % c
+    inv = 1.0 / math.sqrt(hd)
+    qf, kf, vf = q.to(wd), k.to(wd) * inv, v.to(wd)
+    hf, dhf = h.to(wd), dh.to(wd)
+    ig, fg = gates[..., :H].to(wd), gates[..., H:].to(wd)
+    if pad:
+        z = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        qf, kf, vf, hf, dhf = z(qf), z(kf), z(vf), z(hf), z(dhf)
+        ig = torch.nn.functional.pad(ig, (0, 0, 0, pad), value=NEG)
+        fg = torch.nn.functional.pad(fg, (0, 0, 0, pad))
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=dev))
+    sl = lambda x, c0: x[:, c0:c0 + c]
+
+    # forward sweep: each chunk's start state and per-step stabilizer and n·q
+    kept = []
+    for c0 in range(0, S + pad, c):
+        qt, kt, vt = sl(qf, c0), sl(kf, c0), sl(vf, c0)
+        b = torch.cumsum(sl(fg, c0), dim=1)
+        a = sl(ig, c0) - b
+        M = torch.maximum(m[:, None, :], torch.cummax(a, dim=1).values)      # (B,c,H)
+        D = torch.where(tri[None, :, :, None],
+                        torch.exp(a[:, None, :, :] - M[:, :, None, :]), 0.0)  # (B,t,s,H)
+        PD = torch.einsum("bthd,bshd->btsh", qt, kt) * D
+        cw = torch.exp(m[:, None, :] - M)
+        nq = PD.sum(2) + cw * torch.einsum("bthd,bhd->bth", qt, n)
+        kept.append((C, n, m, a, M, D, PD, cw, nq))
+        M_c = M[:, -1]
+        w = torch.exp(a - M_c[:, None, :])
+        cscale = torch.exp(m - M_c)
+        C = cscale[..., None, None] * C + torch.einsum("bshd,bshe->bhde", vt * w[..., None], kt)
+        n = cscale[..., None] * n + (kt * w[..., None]).sum(1)
+        m = b[:, -1] + M_c
+
+    dhh = (dhf * hf).sum(-1)                                                  # (B,Sp,H)
+    nq_all = torch.cat([x[-1] for x in kept], dim=1)
+    den = torch.clamp(nq_all.abs(), min=1.0)
+    free = nq_all.abs() > 1.0
+    phi = torch.where(free, -torch.sign(nq_all) * dhh / den, 0.0)
+    delta = dhf / den[..., None]
+
+    dC = torch.zeros_like(C)
+    dn = torch.zeros_like(n)
+    e_last = torch.zeros((B, H), dtype=wd, device=dev)
+    if dstate is not None:
+        dCf, dnf, dmf = dstate
+        if dCf is not None:
+            dC = dCf.to(wd).clone()
+            e_last = e_last - (dC * C).sum((-1, -2))
+        if dnf is not None:
+            dn = dnf.to(wd).clone()
+            e_last = e_last - (dn * n).sum(-1)
+        if dmf is not None:
+            e_last = e_last + dmf.to(wd)
+
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    di, df = torch.zeros_like(ig), torch.zeros_like(fg)
+    dm0 = torch.zeros((B, H), dtype=wd, device=dev)
+    for ci in reversed(range(len(kept))):
+        c0 = ci * c
+        C_in, n_in, m_in, a, M, D, PD, cw, nq = kept[ci]
+        qt, kt, vt = sl(qf, c0), sl(kf, c0), sl(vf, c0)
+        dl, ph, hh = sl(delta, c0), sl(phi, c0), sl(dhh, c0)
+        dP = torch.einsum("bthd,bshd->btsh", dl, vt) + ph[:, :, None, :]
+        G = dP * D
+        gD = dP * PD
+        w = torch.exp(a - M[:, -1:, :])
+        cscale = torch.exp(m_in - M[:, -1])
+        U = torch.einsum("bshe,bhde->bshd", kt, dC)                          # dC k̂_s
+        dq[:, c0:c0 + c] = torch.einsum("btsh,bshd->bthd", G, kt) + cw[..., None] * (
+            torch.einsum("bthe,bhed->bthd", dl, C_in) + ph[..., None] * n_in[:, None])
+        dk[:, c0:c0 + c] = torch.einsum("btsh,bthd->bshd", G, qt) + w[..., None] * (
+            torch.einsum("bshe,bhed->bshd", vt, dC) + dn[:, None])
+        dv[:, c0:c0 + c] = torch.einsum("btsh,bthd->bshd", PD, dl) + w[..., None] * U
+        gw = w * ((vt * U).sum(-1) + torch.einsum("bshd,bhd->bsh", kt, dn))
+        gcs = cscale * ((dC * C_in).sum((-1, -2)) + (dn * n_in).sum(-1))
+        d_i = gD.sum(1) + gw
+        c0_t = hh + ph * nq
+        db = c0_t - d_i
+        db[:, -1] += gw.sum(1) + gcs
+        di[:, c0:c0 + c] = d_i
+        df[:, c0:c0 + c] = torch.flip(torch.cumsum(torch.flip(db, [1]), 1), [1])
+        if ci == 0:
+            dm0 = c0_t.sum(1) - gD.sum((1, 2)) + gcs
+        dC = cscale[..., None, None] * dC + torch.einsum("bthd,bthe->bhde", dl * cw[..., None], qt)
+        dn = cscale[..., None] * dn + torch.einsum("bth,bthe->bhe", ph * cw, qt)
+
+    # (b): ĩ_t won the stabilizer's max where a_t > M_{t−1} (M_{−1} = m_in)
+    won = torch.cat([x[3] > torch.cat([x[2][:, None], x[4][:, :-1]], 1) for x in kept], 1)
+    e = torch.where(free, 0.0, -dhh)[:, :S].clone()
+    e[:, S - 1] += e_last
+    b_i, b_f, b_m = _stabilizer_chain(won[:, :S], e)
+    di[:, :S] += b_i
+    df[:, :S] += b_f
+    dm0 = dm0 + b_m
+
+    dgates = torch.cat([di, df], dim=-1)[:, :S]
+    dstate0 = None if state is None else (dC, dn, dm0)
+    return (dq[:, :S].to(q.dtype), (dk[:, :S] * inv).to(q.dtype), dv[:, :S].to(q.dtype),
+            dgates, dstate0)

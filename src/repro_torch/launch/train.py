@@ -5,9 +5,10 @@
         [--spot-mode none|siwoft|checkpoint|hybrid] [--trace PATH]
 
 Trains on one device (``cuda`` unless ``--device cpu``), attending through
-the flash kernels' autograd Function (and a hybrid model's Mamba blocks
-scanning through the selective scan's): the CUDA kernels on the card,
-their plain versions on the CPU. An encoder-decoder (whisper) is refused:
+the flash kernels' autograd Function (a hybrid model's Mamba blocks
+scanning through the selective scan's, an xLSTM's mLSTM blocks through
+the mLSTM's): the CUDA kernels on the card, their plain versions on the
+CPU. An encoder-decoder (whisper) is refused:
 the data path makes no frames. ``--reduced`` (the default, as in the
 reference) runs the family-preserving tiny config; ``--no-reduced`` the
 full one. With ``--spot-mode none`` the run is one ``run_segment``; with

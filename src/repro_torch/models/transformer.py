@@ -18,9 +18,10 @@ sliding-window attention, and ENCDEC (whisper: a LayerNorm encoder over
 ``memory``, every decoder block cross-attends to after its self-attention;
 the cache keeps it under ``memory``) with full attention, at every entry
 point but the paged decode (DENSE text only, as in the reference); and
-MLSTM (xLSTM: ``groups`` of mLSTM blocks and one sLSTM, no attention) for
-serving only (``prefill``, ``decode_step``): the mLSTM kernel has no
-gradient yet, so the training forwards refuse it. Either KV cache may be
+MLSTM (xLSTM: ``groups`` of mLSTM blocks and one sLSTM, no attention) at
+every entry point but the paged decode: trained through the mLSTM's
+autograd Function (its backward kernel) and autograd through the sLSTM's
+per-step loop, each group under ``_maybe_remat``. Either KV cache may be
 int8 (``RunOpts.int8_kv_cache``). Embeddings may be tied (the LM head is
 ``embed.T``, a view) and scaled by sqrt(d_model) as a float32 scalar, which
 makes the residual stream f32 whatever the compute dtype, as in the
@@ -87,17 +88,6 @@ def _require_dense(cfg: ModelConfig, what: str) -> None:
     if cfg.block != BlockKind.DENSE:
         raise NotImplementedError(
             f"repro_torch: {what} supports DENSE blocks only, got {cfg.block.value}")
-
-
-def _require_trainable(cfg: ModelConfig) -> None:
-    """The training forwards take every ported block but MLSTM: an xLSTM
-    step needs the mLSTM kernel's gradient and autograd through the sLSTM
-    loop, the next slice."""
-    if cfg.block == BlockKind.MLSTM:
-        raise NotImplementedError(
-            f"repro_torch: training supports DENSE, MOE, HYBRID_PARALLEL and ENCDEC blocks; "
-            f"{cfg.name} ({cfg.block.value}) needs the mLSTM's gradient and the sLSTM loop's, "
-            f"the next slice")
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +239,9 @@ def layer_slice(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 def per_layer(params: Dict[str, Any], n: int, fn: Callable = lambda t: t) -> Dict[str, Any]:
     """``params`` with ``fn`` applied to each top-level leaf and to each
-    layer slice of the stacked ``blocks``, which become a list of n trees.
+    layer slice of the stacked ``blocks``, which become a list of n trees;
+    an xLSTM's ``groups`` become a list of its groups, each with its
+    ``mlstm`` blocks as a list of per-layer trees and its ``slstm`` block.
 
     The train step differentiates ``per_layer(params, n, lambda t:
     t.detach().requires_grad_())``: leaves that share the stacked storage,
@@ -257,8 +249,18 @@ def per_layer(params: Dict[str, Any], n: int, fn: Callable = lambda t: t) -> Dic
     a stacked leaf instead would add a zero-filled gradient of the WHOLE
     leaf for every layer.
     """
-    out = {k: common.tree_map(fn, v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = [common.tree_map(fn, layer_slice(params["blocks"], i)) for i in range(n)]
+    out = {k: common.tree_map(fn, v) for k, v in params.items() if k not in ("blocks", "groups")}
+    if "groups" in params:
+        out["groups"] = []
+        for g in range(common.tree_leaves(params["groups"])[0].shape[0]):
+            grp = layer_slice(params["groups"], g)
+            one = {"mlstm": [common.tree_map(fn, layer_slice(grp["mlstm"], i))
+                             for i in range(common.tree_leaves(grp["mlstm"])[0].shape[0])]}
+            if "slstm" in grp:
+                one["slstm"] = common.tree_map(fn, grp["slstm"])
+            out["groups"].append(one)
+    else:
+        out["blocks"] = [common.tree_map(fn, layer_slice(params["blocks"], i)) for i in range(n)]
     return out
 
 
@@ -340,7 +342,9 @@ def _copy_into(dst: Any, src: Any) -> None:
 
 def _xlstm_group(p, x: torch.Tensor, cfg: ModelConfig, cache=None):
     """One xLSTM super-block: its mLSTM blocks, then its sLSTM block if it
-    has one, each added to the residual stream after an RMSNorm.
+    has one, each added to the residual stream after an RMSNorm. ``p`` is
+    the group's slice of ``groups``, or ``per_layer``'s form of it (its
+    ``mlstm`` a list of per-layer trees).
 
     ``cache`` is the group's slice of the cache (decode: each block starts
     from its state there, and its new state is written back IN PLACE), or
@@ -348,8 +352,11 @@ def _xlstm_group(p, x: torch.Tensor, cfg: ModelConfig, cache=None):
     new states stacked over its mLSTM blocks as the cache is; None in
     decode, where they are in ``cache``)."""
     new_m, new_s = [], None
-    for i in range(common.tree_leaves(p["mlstm"])[0].shape[0]):
-        pi = layer_slice(p["mlstm"], i)
+    m_layers = p["mlstm"]
+    if not isinstance(m_layers, list):
+        m_layers = [layer_slice(m_layers, i)
+                    for i in range(common.tree_leaves(m_layers)[0].shape[0])]
+    for i, pi in enumerate(m_layers):
         st = None if cache is None else layer_slice(cache["mlstm"], i)
         h, state = xlstm.mlstm_block(pi["block"], layers.rmsnorm(pi["ln"], x, cfg.norm_eps),
                                      cfg, st)
@@ -487,17 +494,26 @@ def forward_hidden(params, batch, cfg: ModelConfig, opts: RunOpts):
     Returns (normed hidden states over the TEXT positions (B, S, d),
     aux_loss) — the fused
     cross-entropy in ``train/steps.py`` consumes this and never materializes
-    the full (B, S, vocab) logits. ``params["blocks"]`` is the stacked tree
-    or, to differentiate, a list of per-layer trees (see ``per_layer``).
-    Each decoder layer runs under ``_maybe_remat``; an encoder runs once,
+    the full (B, S, vocab) logits. ``params["blocks"]`` (an xLSTM's
+    ``groups``) is the stacked tree or, to differentiate, ``per_layer``'s
+    lists of per-layer trees. Each decoder layer (each xLSTM group, as the
+    reference remats it) runs under ``_maybe_remat``; an encoder runs once,
     before them, outside it (as in the reference).
     """
     _check_supported(cfg, opts)
-    _require_trainable(cfg)
+    x, positions, memory, n_prefix = _embed_inputs(params, batch, cfg)
+    if cfg.block == BlockKind.MLSTM:
+        groups = params["groups"]
+        if not isinstance(groups, list):
+            groups = [layer_slice(groups, g) for g in range(_xlstm_group_layout(cfg)[0])]
+        group = _maybe_remat(lambda xx, p: _xlstm_group(p, xx, cfg)[0], opts)
+        for p in groups:
+            x = group(x, p)
+        x = layers.norm(params["final_norm"], x[:, n_prefix:], cfg)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     blocks = params["blocks"]
     if not isinstance(blocks, list):
         blocks = [layer_slice(blocks, i) for i in range(cfg.num_layers)]
-    x, positions, memory, n_prefix = _embed_inputs(params, batch, cfg)
 
     def body(xx, p):
         xx, aux, _ = _block(p, xx, positions, cfg, opts, memory)

@@ -335,11 +335,11 @@ def test_serve_launcher_refuses_missing_cuda(monkeypatch):
 # what the port refuses, and the serving dtypes
 # ---------------------------------------------------------------------------
 
-def test_hybrid_training_and_paged_decode_refuse():
+def test_hybrid_forwards_run_paged_decode_refuses():
     """Hybrid training runs since the scan has a gradient (held in
-    tests/test_torch_hybrid_train.py); what stays refused: xLSTM training
-    (the mLSTM's gradient is the next slice) and the paged decode of every
-    block but DENSE, as in the reference."""
+    tests/test_torch_hybrid_train.py), and xLSTM training since the mLSTM
+    has one (held in tests/test_torch_xlstm_train.py); what stays refused:
+    the paged decode of every block but DENSE, as in the reference."""
     cfg = get_arch(HYMBA).reduced()
     m = build_model(cfg)
     params = m.init(torch.Generator().manual_seed(0), "cpu")
@@ -349,10 +349,8 @@ def test_hybrid_training_and_paged_decode_refuse():
     xcfg = get_arch("xlstm-350m").reduced()
     xm = build_model(xcfg)
     xparams = xm.init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        xm.forward_hidden(xparams, batch)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        xm.forward(xparams, batch)
+    assert tuple(xm.forward_hidden(xparams, batch)[0].shape) == (1, 8, xcfg.d_model)
+    assert tuple(xm.forward(xparams, batch)[0].shape) == (1, 8, xcfg.vocab_size)
     with pytest.raises(NotImplementedError, match="DENSE"):
         m.paged_cache_specs(8)
     with pytest.raises(NotImplementedError):

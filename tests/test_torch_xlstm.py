@@ -312,14 +312,37 @@ def test_host_main_serves_xlstm_on_cpu(capsys):
     assert '"serve done"' in capsys.readouterr().out
 
 
-def test_xlstm_training_and_paged_decode_refuse():
+def test_xlstm_forwards_run_paged_decode_and_slstm_refuse():
+    """The training forwards run for xLSTM since the mLSTM has a gradient
+    (``test_forward_matches_jax_f32`` holds them against the JAX package);
+    the paged decode (DENSE only, as in the reference) and a model of
+    BlockKind.SLSTM blocks still refuse."""
     cfg = get_arch(XLSTM).reduced()
     m = build_model(cfg)
     params = m.init(torch.Generator().manual_seed(0), "cpu")
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
-    for call in (lambda: m.forward_hidden(params, batch), lambda: m.forward(params, batch),
-                 lambda: m.paged_cache_specs(8)):
-        with pytest.raises(NotImplementedError, match="DENSE"):
-            call()
+    x, aux = m.forward_hidden(params, batch)
+    assert tuple(x.shape) == (1, 8, cfg.d_model) and float(aux) == 0.0
+    assert tuple(m.forward(params, batch)[0].shape) == (1, 8, cfg.vocab_size)
+    with pytest.raises(NotImplementedError, match="DENSE"):
+        m.paged_cache_specs(8)
     with pytest.raises(NotImplementedError):
         build_model(dataclasses.replace(cfg, block=BlockKind.SLSTM))
+
+
+@pytest.mark.parametrize("S", [16, 12])
+def test_forward_matches_jax_f32(S):
+    """``forward_hidden`` (the normed hidden states and the aux loss, 0) and
+    ``forward`` (the logits) over every position against the JAX Model's,
+    f32, S=16 two whole chunks of 8, S=12 ragged (JAX's chunk 1)."""
+    cfg, jcfg = _cfgs()
+    params = params_from_jax(_jax_params(), cfg, "cpu")
+    jm, m = jax_build_model(jcfg), build_model(cfg)
+    tokens = _prompt(cfg.vocab_size, 2, S, seed=S)
+    jx, jaux = jm.forward_hidden(_jax_params(), {"tokens": jnp.asarray(tokens)})
+    x, aux = m.forward_hidden(params, {"tokens": torch.as_tensor(tokens)})
+    np.testing.assert_allclose(_np(x), _np(jx), **TOL)
+    assert float(aux) == float(jaux) == 0.0
+    jl, _ = jm.forward(_jax_params(), {"tokens": jnp.asarray(tokens)})
+    tl, _ = m.forward(params, {"tokens": torch.as_tensor(tokens)})
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
