@@ -10,7 +10,7 @@
     python3 chip_smoke.py --gemma-only    # build + the kernels at head dim 256 + phase 12
     python3 chip_smoke.py --whisper-only  # build + the flash kernels at whisper's shapes + phase 13
     python3 chip_smoke.py --hybrid-train-only  # build + hymba's training kernels + phase 14
-    python3 chip_smoke.py --xlstm-train-only   # build + the mLSTM's backward + phase 15
+    python3 chip_smoke.py --xlstm-train-only   # build + the mLSTM's backward, the sLSTM + phase 15
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
@@ -19,7 +19,8 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    one nvcc per source, all in parallel;
 3. kernels: each hand-written kernel (flash forward, paged decode, the two
    flash backward kernels, the selective scan and its backward, the
-   chunkwise mLSTM and its backward) against
+   chunkwise mLSTM and its backward, the sLSTM recurrence and its
+   backward) against
    its plain PyTorch version on the card, on the reference's test shapes
    and at the main paths' shapes, with times (CUDA events, L2 flushed
    between launches) beside the bound. The flash forward, dk/dv and dq
@@ -42,8 +43,18 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    Two calls on the same inputs give the
    same bits for the bf16 dq, the f32 forward, dk/dv and dq (hd 128 and
    256), the paged kernel, the scan and its backward (over many segments
-   too), both chunkwise mLSTM kernels and the step; the kernels NO_SPILL_KERNELS
-   names build with no spilled registers;
+   too), both chunkwise mLSTM kernels and the step, and both sLSTM kernels;
+   the kernels NO_SPILL_KERNELS names build with no spilled registers. The
+   sLSTM's forward and backward (one persistent cooperative grid each, a
+   grid barrier between steps) are held against ``slstm_ref`` and
+   ``slstm_bwd_ref`` in f32 at d 128 (atol 1e-5, rtol 1e-4; the
+   backward's dr, and all its outputs at S 200, against an f64 witness,
+   within 2x the plain f32 version's own error), at decode's shape (B8 S1
+   d1024 from a start state) at atol 1e-5, rtol 1e-4, and at xlstm-350m's
+   other shapes (prefill B8 S4096, training B1 S4096) against an f64
+   witness, within 2x the plain f32 version's own error; keeping what
+   the gradient needs leaves the forward's bits as they are, and a grid
+   that cannot be resident at once is refused at launch;
 4. serving: full-width qwen3-4b (random bf16 weights from a seeded
    generator) through ``DecodeEngine`` on 16 requests; launch counters
    prove prefill went through the flash kernel (36 launches per prefill)
@@ -62,15 +73,16 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    blocks' f32 leaves kept f32) through the serve launcher's loop, 8
    prompts x 4096 tokens and 32 new tokens each; launch counters prove
    the prefill went through the tensor-core mLSTM (20 launches) and every
-   decode step through the one-pass step (20 x 31), and nothing else; on
+   decode step through the one-pass step (20 x 31), the prefill and every
+   decode step through the sLSTM kernel (4 x 32), and nothing else; on
    one prompt, every mLSTM call of the bf16 prefill gives the same h and
    state as the plain chunkwise form on its own inputs; the bf16 prefill
    of all 8 prompts' first 32 tokens is no farther from an f32 reference
    than 1.5 x two plain bf16 orders are, and its mLSTM h no farther from
    an f64 recurrence than the plain form's (``compare_xlstm_paths``; the
    split-TF32 kernel's path is measured beside it); f32 prefill logits on 4096
-   tokens agree with the plain path's; a reduced model's f32 streams on
-   the card equal the CPU's;
+   tokens agree with the plain path's (every plain route runs ``slstm_ref``);
+   a reduced model's f32 streams on the card equal the CPU's;
 7. training: full-width qwen3-4b (f32 params from a seeded generator,
    AdamW, seq 4096, global batch 2 in 2 microbatches, remat per layer)
    through ``run_segment`` for 4 steps: finite losses and grad norms, no
@@ -203,12 +215,13 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    without;
 15. xlstm-350m trained at full width and depth (24 layers, 0.527 B f32
    params + AdamW, global batch 2 in 2 microbatches, each group under
-   remat) for 2 steps at seq 2048 (the sLSTM's per-step loop makes a step
-   at seq 4096 ~80 s of host launches): per layer and microbatch two
+   remat) for 3 steps at seq 4096: per layer and microbatch a step two
    tensor-core mLSTM forwards keeping their chunk states (the pass and its
-   recompute) and one mLSTM backward a step, and nothing else; one step
-   profiled at seq 256; reduced f32 xlstm's 3 steps on the card (the
-   split-TF32 forward keeping its states, the backward) equal the CPU's.
+   recompute) and one mLSTM backward, two sLSTM forwards keeping their
+   steps' gates and states and one sLSTM backward, and nothing else; one
+   more step profiled; reduced f32 xlstm's 3 steps on the card (the
+   split-TF32 forward keeping its states, the backward, both sLSTM kernels)
+   equal the CPU's.
    The kernel phase holds the mLSTM's backward (``csrc/mlstm_bwd.cu``: a
    reverse pass over chunks carrying dC, a pass parallel over (chunk,
    value-row tile, b.h), fixed-order sums) against
@@ -271,14 +284,15 @@ SRC = REPO / "src"
 # split-TF32 chunkwise kernel, the scan's prefill and decode kernels and its
 # backward's, the f32 (split-TF32) flash forward and backward, every
 # instantiation at head dim 256 (a template argument of 256 in its mangled
-# name), and the mLSTM backward's three kernels
+# name), the mLSTM backward's three kernels and the sLSTM's two
 NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_merge_kernel",
                     "mlstm_step_kernel", "mlstm_tc_kernel", "mlstm_tf32_kernel",
                     "ssm_scan_kernel", "ssm_step_kernel",
                     "ssm_scan_bwd_kernel", "ssm_scan_bwd_carry_kernel", "ssm_sum_parts_kernel",
                     "flash_fwd_tf32_kernel", "flash_bwd_dkdv_tf32_kernel",
                     "flash_bwd_dq_tf32_kernel", "Li256E", "mlstm_bwd_kernel",
-                    "mlstm_bwd_carry_kernel", "mlstm_bwd_sum_kernel")
+                    "mlstm_bwd_carry_kernel", "mlstm_bwd_sum_kernel", "slstm_fwd_kernel",
+                    "slstm_bwd_kernel")
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
@@ -399,6 +413,45 @@ MLSTM_BWD_TOL = dict(atol=5e-5, rtol=1e-4)
 XLSTM_TRAIN_MLSTM = dict(B=1, S=4096, H=4, hd=512)
 # calls the mLSTM backward is timed over at that shape
 MLSTM_BWD_REPS = 20
+# the sLSTM kernels against their plain versions in f32 at the small shapes
+# (the reduced width, d = 128): the same f32 function in another order of
+# each step's product (h r: 128 terms; dpre r^T: 512)
+SLSTM_TOL = dict(atol=1e-5, rtol=1e-4)
+# The backward's small shapes are held against an f64 witness (the plain
+# version on the same inputs made f64), within SLSTM_MAIN_MARGIN x the plain
+# f32 version's own error, as the main shapes are, where two right f32
+# orders cannot meet SLSTM_TOL: dr (h dpre summed over the B S steps) at
+# every shape, and every output at S >= SLSTM_WITNESS_S (a long reverse
+# recurrence from a start state). ``tools/slstm_holds.py --draws 3`` on an
+# H100 (4 draws of SLSTM_CASES): dr up to 3.1x SLSTM_TOL's limit off the
+# plain version, dwx and dm0 1.6x at B2 S200 with a state, where the kernel
+# and the plain f32 were both 2.8e-4 off the witness; the kernel's error at
+# most 1.26x the plain's for dr and 1.15x at S200. Elsewhere SLSTM_TOL
+# (every other output at S <= 64 within 0.16 of its limit), since at
+# S <= 5, where both err by 1-2 ulps, the kernel's came up to 1.74x the
+# plain's.
+SLSTM_WITNESS_S = 200
+SLSTM_D = 128
+# (B, S) at SLSTM_D, each with and without a start state; B10 takes two of
+# the forward's 8-row passes over r and five of the backward's 2-row ones
+SLSTM_CASES = [(1, 1), (3, 1), (2, 5), (3, 64), (1, 200), (2, 200), (10, 20)]
+# xlstm-350m's sLSTM at the main path's shapes (d 1024): prefill B8 S4096,
+# training's microbatch B1 S4096. There each output is held against an f64
+# witness (the plain version on the same inputs made f64): the kernel's
+# largest error at most SLSTM_MAIN_MARGIN x the plain f32 version's own
+SLSTM_MAIN = {"prefill": (8, 4096), "training": (1, 4096)}
+SLSTM_MAIN_D = 1024
+SLSTM_MAIN_MARGIN = 2.0
+# In those witness holds the plain f32 version's error counts as at least
+# SLSTM_ULP_FLOOR f32 ulps of the output's largest |value|: where both err
+# by an ulp or two (a step or two), their ratio is noise (an H100 run: the
+# kernel's dr 1.75x the plain's at B1 S1 with a state, 2.1 ulps against 1.2)
+SLSTM_ULP_FLOOR = 2
+# decode's step (B8 S1 d1024) from a start state, both a drawn one and the
+# prefill's final state, at SLSTM_TOL against the plain version
+SLSTM_DECODE = (8, 1)
+# calls each sLSTM kernel is timed over at the main path's shapes
+SLSTM_REPS = 20
 # the JAX test's tolerance for the scan's final state (y takes tol(dtype))
 SSM_H_TOL = dict(atol=1e-4, rtol=1e-4)
 # hymba's main-path shapes (u bf16, dt/B_/C_ f32), held tighter than the
@@ -519,6 +572,7 @@ def _counters() -> dict:
     from repro_torch.kernels.flash_attention import kernel, kernel_bwd
     from repro_torch.kernels.mlstm import kernel as mlstm
     from repro_torch.kernels.paged_attention import kernel as paged
+    from repro_torch.kernels.slstm import kernel as slstm
     from repro_torch.kernels.ssm_scan import kernel as scan
 
     return {"flash_attention_tc": (kernel, "launches_tc"),
@@ -531,7 +585,8 @@ def _counters() -> dict:
             "flash_attention_bwd_dq_tf32": (kernel_bwd, "launches_dq_tf32"),
             "ssm_scan": (scan, "launches"), "mlstm_tc": (mlstm, "launches_tc"),
             "mlstm_tf32": (mlstm, "launches_tf32"), "mlstm_step": (mlstm, "launches_step"),
-            "ssm_scan_bwd": (scan, "launches_bwd"), "mlstm_bwd": (mlstm, "launches_bwd")}
+            "ssm_scan_bwd": (scan, "launches_bwd"), "mlstm_bwd": (mlstm, "launches_bwd"),
+            "slstm": (slstm, "launches"), "slstm_bwd": (slstm, "launches_bwd")}
 
 
 def reset_launches() -> None:
@@ -1788,6 +1843,256 @@ def check_mlstm_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
                 **recs[torch.bfloat16])
 
 
+def _slstm_inputs(gen, B, S, d, with_state):
+    """The model's distributions: wx = x w_gates (x RMS-normed, w_gates
+    fan-in scaled) normal; r_gates 0.5 / sqrt(d) normal; a start state c
+    normal, n |normal|, h and m 0.5 x normal."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    wx, r = rnd(B, S, 4 * d), rnd(d, 4 * d) * (0.5 / math.sqrt(d))
+    state = (rnd(B, d), rnd(B, d).abs(), 0.5 * rnd(B, d), 0.5 * rnd(B, d)) if with_state else None
+    return wx, r, state
+
+
+def _slstm_vs_witness(tag, got, plain, witness, names, failed) -> float:
+    """Each output's largest error against the f64 witness, the kernel's
+    and the plain f32 version's; a kernel error above SLSTM_MAIN_MARGIN x
+    the plain one's (taken as at least SLSTM_ULP_FLOOR ulps of the largest
+    |value|) is listed in ``failed``. Returns the kernel's largest."""
+    worst = 0.0
+    for name, a, b, w in zip(names, got, plain, witness):
+        if a.shape != w.shape or a.dtype != torch.float32:
+            raise AssertionError(f"{tag} {name}: {a.dtype}{tuple(a.shape)}, expected "
+                                 f"float32{tuple(w.shape)}")
+        ek = float((a.double() - w).abs().max())
+        ep = float((b.double() - w).abs().max())
+        top = float(w.abs().max())
+        ulp = math.ldexp(1.0, math.frexp(top)[1] - 24) if top else 0.0
+        limit = SLSTM_MAIN_MARGIN * max(ep, SLSTM_ULP_FLOOR * ulp)
+        ok = bool(torch.isfinite(a).all()) and ek <= limit
+        ratio = ek / ep if ep else (0.0 if ek == 0 else float("inf"))
+        log(f"  {tag} {name}: kernel {ek:.3e}, plain f32 {ep:.3e} off the f64 witness "
+            f"({ratio:.3f} of plain's; limit {limit:.3e}, {SLSTM_MAIN_MARGIN} x max(plain's, "
+            f"{SLSTM_ULP_FLOOR} ulps of {top:.3e})) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{tag} {name}")
+        worst = max(worst, ek)
+    return worst
+
+
+def _slstm_same_bits(name, fn) -> None:
+    a, b = fn(), fn()
+    flat = lambda out: [t for x in out if x is not None
+                        for t in (x if isinstance(x, tuple) else (x,))]
+    same = all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+    log(f"  {name}: two calls give the same bits: {same}")
+    if not same:
+        raise AssertionError(f"{name}: two calls on the same inputs gave different bits")
+
+
+def check_slstm(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """The sLSTM's forward kernel (``csrc/slstm.cu``, ``slstm_fwd_kernel``:
+    a persistent cooperative grid, a block per 8 units, r in shared memory,
+    a grid barrier between steps) against ``slstm_ref``: at d = 128 on
+    SLSTM_CASES with and without a start state, hs, the final state and
+    what it keeps at SLSTM_TOL; at xlstm-350m's prefill (B8 S4096) and
+    training (B1 S4096) shapes against an f64 witness, within
+    SLSTM_MAIN_MARGIN x the plain f32 version's own error. Two calls give the
+    same bits, and keeping what the gradient needs leaves hs's bits as they
+    are. Decode's step (SLSTM_DECODE at d 1024, 128 blocks) from a drawn
+    start state and from the prefill's final state: hs and the final state
+    at SLSTM_TOL. A grid that cannot be resident at once (d = 1152: 144
+    blocks of one an SM) is refused at launch, and the next launch runs.
+    Timed at the three main shapes beside the plain version and the bound
+    (f32 FMAs)."""
+    from repro_torch.kernels.slstm import kernel
+    from repro_torch.kernels.slstm.ref import slstm_ref
+
+    names = ("hs", "c", "n", "h", "m")
+    log("[kernels] slstm (forward) vs slstm_ref in f32 (hs, the final c, n, h, m; kept pre, "
+        "c, n, m)")
+    err = 0.0
+    for B, S in SLSTM_CASES:
+        for with_state in (False, True):
+            tag = f"slstm B{B} S{S} d{SLSTM_D}{' with state' if with_state else ''}"
+            wx, r, state = _slstm_inputs(gen, B, S, SLSTM_D, with_state)
+            hs, fin, kept = kernel.slstm(wx, r, state, keep=True)
+            hs2, fin2 = kernel.slstm(wx, r, state)
+            rhs, rfin, rkept = slstm_ref(wx, r, state, keep=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(hs, hs2) and all(torch.equal(a, b) for a, b in zip(fin, fin2))):
+                raise AssertionError(f"{tag}: keeping gave other bits")
+            for n, a, b in zip(names + ("kept pre", "kept c", "kept n", "kept m"),
+                               (hs, *fin, *kept), (rhs, *rfin, *rkept)):
+                err = max(err, hold(f"{tag} {n}", a, b, SLSTM_TOL))
+
+    # a grid that cannot be co-resident is refused, not deadlocked
+    d_big = 1152
+    wx, r, _ = _slstm_inputs(gen, 1, 2, d_big, False)
+    try:
+        kernel.slstm(wx, r)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"  slstm at d {d_big} ({d_big // kernel.UNITS} blocks): refused at launch: {e}")
+    else:
+        raise AssertionError(f"slstm at d {d_big}: a grid of {d_big // kernel.UNITS} blocks "
+                             f"launched")
+    wx, r, state = _slstm_inputs(gen, 2, 5, SLSTM_D, True)
+    hold("slstm B2 S5 after the refused launch hs", kernel.slstm(wx, r, state)[0],
+         slstm_ref(wx, r, state)[0], SLSTM_TOL)
+
+    failed, recs = [], {}
+    d = SLSTM_MAIN_D
+    for path, (B, S) in SLSTM_MAIN.items():
+        tag = f"slstm main-path {path} B{B} S{S} d{d}"
+        wx, r, _ = _slstm_inputs(gen, B, S, d, False)
+        hs, fin, kept = kernel.slstm(wx, r, None, keep=True)
+        out = (hs, *fin)
+        if not torch.equal(hs, kernel.slstm(wx, r)[0]):
+            raise AssertionError(f"{tag}: keeping gave other bits")
+        _slstm_same_bits(tag, lambda: kernel.slstm(wx, r))
+        plain_out = slstm_ref(wx, r)
+        wit = slstm_ref(wx.double(), r.double())
+        err = max(err, _slstm_vs_witness(tag, out, (plain_out[0], *plain_out[1]),
+                                         (wit[0], *wit[1]), names, failed))
+        if path == "prefill":
+            prefill_r, prefill_fin = r, fin
+        del plain_out, wit, out, fin, kept
+        flops = 2.0 * B * S * d * 4 * d
+        nbytes = 4.0 * (B * S * 4 * d + B * S * d + d * 4 * d + 8 * B * d)
+        b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+        times = time_each(lambda: kernel.slstm(wx, r), flush, reps=SLSTM_REPS)
+        ms = spread(times)[1]
+        plain_ms = time_ms(lambda: slstm_ref(wx, r), flush, reps=1, warmup=1)
+        dev = sum(_device_ms_per_launch(lambda: kernel.slstm(wx, r), flush, "slstm_fwd",
+                                        reps=3).values())
+        log(f"  slstm main path {path} (B{B} S{S} d{d}): kernel {fmt_spread(times)} "
+            f"({SLSTM_REPS} calls; slstm_fwd_kernel's device time {dev:.4f} ms), plain slstm_ref "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {flops:.4e} f32 operations at "
+            f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e9:.4f} GB read and written); "
+            f"{1e3 * ms / S:.3f} us a step at the median, {ms / b_ms:.1f}x the bound")
+        recs[path] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        del wx, r, hs
+    if failed:
+        raise AssertionError(f"slstm disagrees with its f64 witness in {len(failed)} holds: "
+                             + "; ".join(failed))
+
+    # decode: one step at d 1024 from the cached state, the serving path's
+    # most frequent call
+    B, S = SLSTM_DECODE
+    starts = {"a drawn state": _slstm_inputs(gen, B, S, d, True),
+              "the prefill's final state": (_slstm_inputs(gen, B, S, d, False)[0], prefill_r,
+                                            prefill_fin)}
+    for start, (wx, r, state) in starts.items():
+        tag = f"slstm main-path decode B{B} S{S} d{d} from {start}"
+        hs, fin, kept = kernel.slstm(wx, r, state, keep=True)
+        if not torch.equal(hs, kernel.slstm(wx, r, state)[0]):
+            raise AssertionError(f"{tag}: keeping gave other bits")
+        _slstm_same_bits(tag, lambda: kernel.slstm(wx, r, state))
+        rhs, rfin = slstm_ref(wx, r, state)
+        for n, a, b in zip(names, (hs, *fin), (rhs, *rfin)):
+            err = max(err, hold(f"{tag} {n}", a, b, SLSTM_TOL))
+    flops = 2.0 * B * S * d * 4 * d
+    nbytes = 4.0 * (B * S * 4 * d + B * S * d + d * 4 * d + 8 * B * d)
+    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    times = time_each(lambda: kernel.slstm(wx, r, state), flush, reps=SLSTM_REPS)
+    plain_ms = time_ms(lambda: slstm_ref(wx, r, state), flush, reps=SLSTM_REPS)
+    log(f"  slstm main path decode (B{B} S{S} d{d} from a state): kernel {fmt_spread(times)} "
+        f"({SLSTM_REPS} calls), plain slstm_ref {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{flops:.4e} f32 operations, {nbytes / 1e9:.4f} GB read and written), "
+        f"{spread(times)[1] / b_ms:.1f}x the bound")
+    del starts, prefill_r, prefill_fin, wx, r, state, hs, fin, kept
+    # the record carries the serving path's shape, the prefill
+    return dict(name="slstm", route="cuda", source="src/repro_torch/csrc/slstm.cu",
+                replaces="src/repro/models/xlstm.py:226", max_abs_err=err, library_ms=None,
+                **recs["prefill"])
+
+
+def check_slstm_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """The sLSTM's backward kernel (``slstm_bwd_kernel``: the forward's
+    grid in reverse time, the rows of r of a block's units in shared
+    memory, dpre exchanged behind the grid barrier; dr one product in the
+    wrapper) against ``slstm_bwd_ref`` on what the forward kernel kept: at
+    d = 128 on SLSTM_CASES with and without a start state (and then the
+    final state's gradient) at SLSTM_TOL, dr (and at S >= SLSTM_WITNESS_S
+    every output) against an f64 witness within SLSTM_MAIN_MARGIN x the
+    plain f32 version's own error; at xlstm-350m's training
+    microbatch (B1 S4096 d1024) against an f64 witness within
+    SLSTM_MAIN_MARGIN x the plain f32 version's own error, the same bits
+    twice. Timed there beside the plain version and the bound."""
+    from repro_torch.kernels.slstm import kernel
+    from repro_torch.kernels.slstm.ref import slstm_bwd_ref
+
+    names = ("dwx", "dr", "dc0", "dn0", "dh0", "dm0")
+    log("[kernels] slstm_bwd vs slstm_bwd_ref in f32 on the forward kernel's kept tensors "
+        "(dwx, dr; dc0, dn0, dh0, dm0 with a start state)")
+    err = 0.0
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    f64 = lambda ts: None if ts is None else tuple(t.double() for t in ts)
+    failed = []
+    for B, S in SLSTM_CASES:
+        for with_state in (False, True):
+            tag = f"slstm bwd B{B} S{S} d{SLSTM_D}{' with state' if with_state else ''}"
+            wx, r, state = _slstm_inputs(gen, B, S, SLSTM_D, with_state)
+            hs, _, kept = kernel.slstm(wx, r, state, keep=True)
+            dhs = rnd(B, S, SLSTM_D)
+            dfin = tuple(rnd(B, SLSTM_D) for _ in range(4)) if with_state else None
+            got = kernel.slstm_bwd(r, state, hs, kept, dhs, dfin)
+            want = slstm_bwd_ref(r, state, hs, kept, dhs, dfin)
+            wit = slstm_bwd_ref(r.double(), f64(state), hs.double(), f64(kept), dhs.double(),
+                                f64(dfin))
+            torch.cuda.synchronize()
+            if (got[2] is None) != (want[2] is None):
+                raise AssertionError(f"{tag}: the start state's gradient missing on one side")
+            flat = lambda out: (out[0], out[1], *(out[2] or ()))
+            for n, a, b, w in zip(names, flat(got), flat(want), flat(wit)):
+                if n == "dr" or S >= SLSTM_WITNESS_S:
+                    err = max(err, _slstm_vs_witness(tag, (a,), (b,), (w,), (n,), failed))
+                else:
+                    err = max(err, hold(f"{tag} {n}", a, b, SLSTM_TOL))
+            _slstm_same_bits(tag, lambda: kernel.slstm_bwd(r, state, hs, kept, dhs, dfin))
+    if failed:
+        raise AssertionError("slstm_bwd disagrees with its f64 witness: " + "; ".join(failed))
+
+    B, S = SLSTM_MAIN["training"]
+    d = SLSTM_MAIN_D
+    tag = f"slstm bwd main-path training B{B} S{S} d{d}"
+    wx, r, _ = _slstm_inputs(gen, B, S, d, False)
+    hs, _, kept = kernel.slstm(wx, r, None, keep=True)
+    dhs = rnd(B, S, d)
+    del wx
+    fn = lambda: kernel.slstm_bwd(r, None, hs, kept, dhs)
+    got = fn()
+    _slstm_same_bits(tag, fn)
+    plain = slstm_bwd_ref(r, None, hs, kept, dhs, None)
+    wit = slstm_bwd_ref(r.double(), None, hs.double(), f64(kept), dhs.double(), None)
+    err = max(err, _slstm_vs_witness(tag, got[:2], plain[:2], wit[:2], names, failed))
+    del got, plain, wit
+    if failed:
+        raise AssertionError("slstm_bwd disagrees with its f64 witness: " + "; ".join(failed))
+
+    # the gradient's least work: dpre r^T (the recurrent dh) and dr = h_prev^T
+    # dpre, 2 B S d 4d flops each, at the f32 FMA rate; bytes: r, hs, dhs and
+    # what the forward kept (pre, c, n, m) read, dpre and dr written, once each
+    flops = 2 * 2.0 * B * S * d * 4 * d
+    nbytes = 4.0 * (d * 4 * d + B * S * (d + d + 4 * d + 3 * d) + B * S * 4 * d + d * 4 * d)
+    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    times = time_each(fn, flush, reps=SLSTM_REPS)
+    ms = spread(times)[1]
+    plain_ms = time_ms(lambda: slstm_bwd_ref(r, None, hs, kept, dhs, None), flush, reps=1,
+                       warmup=1)
+    dev = sum(_device_ms_per_launch(fn, flush, "slstm_bwd", reps=3).values())
+    log(f"  slstm_bwd main path (B{B} S{S} d{d}): kernel and the wrapper's dr product "
+        f"{fmt_spread(times)} ({SLSTM_REPS} calls; slstm_bwd_kernel's device time {dev:.4f} ms), "
+        f"plain slstm_bwd_ref {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {flops:.4e} f32 "
+        f"operations at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e9:.4f} GB read and "
+        f"written); {1e3 * ms / S:.3f} us a step at the median, {ms / b_ms:.1f}x the bound")
+    del r, hs, kept, dhs
+    return dict(name="slstm_bwd", route="cuda", source="src/repro_torch/csrc/slstm.cu",
+                replaces="src/repro/models/xlstm.py:226", max_abs_err=err, library_ms=None,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width serving
 # ---------------------------------------------------------------------------
@@ -2196,7 +2501,7 @@ def serve_xlstm_full_width() -> dict:
     cfg = get_arch("xlstm-350m")
     model = build_model(cfg)
     groups, m_per, has_s = transformer._xlstm_group_layout(cfg)
-    n_mlstm = groups * m_per
+    n_mlstm, n_slstm = groups * m_per, groups * has_s
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
     torch.cuda.synchronize()
@@ -2220,7 +2525,8 @@ def serve_xlstm_full_width() -> dict:
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    want = expect_launches(mlstm_tc=n_mlstm, mlstm_step=n_mlstm * res.decode_steps)
+    want = expect_launches(mlstm_tc=n_mlstm, mlstm_step=n_mlstm * res.decode_steps,
+                           slstm=n_slstm * (1 + res.decode_steps))
     out = res.tokens
     log(f"[xlstm] {B} prompts x {S} tokens, {new} new tokens each; first row "
         f"{out[0].tolist()}")
@@ -2246,7 +2552,9 @@ def serve_xlstm_full_width() -> dict:
 def _xlstm_prefill(model, params, rows, chunk=None, held=None, perturb=0.0, route=None):
     """Prefill ``rows`` with the mLSTM kernels (``chunk`` None: as the model
     calls them, or with ``route`` "tf32" or "tc" that chunkwise kernel where
-    S > ``STEP_MAX``) or with the plain chunkwise form at ``chunk``; with
+    S > ``STEP_MAX``) and the sLSTM kernel, or with the plain chunkwise form
+    at ``chunk`` and the plain ``slstm_ref`` (the kernels' wrappers never
+    fall back: a plain route on the card calls the plain versions); with
     ``perturb``, the plain form's h is multiplied by (1 + perturb x a
     standard normal draw) before its rounding to q's dtype. With ``held``
     (a dict), every kernel call's h and final (C, n, m) are held against the
@@ -2257,6 +2565,8 @@ def _xlstm_prefill(model, params, rows, chunk=None, held=None, perturb=0.0, rout
 
     from repro_torch.kernels.mlstm import kernel, ops
     from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
+    from repro_torch.kernels.slstm import kernel as slstm_kernel
+    from repro_torch.kernels.slstm.ref import slstm_ref
     from repro_torch.models import xlstm
 
     noise = torch.Generator(device="cuda").manual_seed(1) if perturb else None
@@ -2285,13 +2595,18 @@ def _xlstm_prefill(model, params, rows, chunk=None, held=None, perturb=0.0, rout
 
     mlstm_launches = lambda: sum(n for name, n in read_launches().items()
                                  if name.startswith("mlstm_"))
-    before = mlstm_launches()
-    with mock.patch.object(xlstm, "mlstm", mlstm):
+    before, s_before = mlstm_launches(), slstm_kernel.launches
+    plain_s = chunk is not None
+    with mock.patch.object(xlstm, "mlstm", mlstm), \
+            mock.patch.object(xlstm, "slstm", slstm_ref if plain_s else xlstm.slstm):
         logits, _ = model.prefill(params, {"tokens": rows}, rows.shape[1])
     torch.cuda.synchronize()
-    launched = mlstm_launches() - before
+    launched, s_launched = mlstm_launches() - before, slstm_kernel.launches - s_before
     if launched != (_n_mlstm(model.cfg) if chunk is None else 0):
         raise AssertionError(f"prefill launched the mLSTM kernel {launched} times")
+    n_slstm = model.cfg.num_layers // model.cfg.slstm_every
+    if s_launched != (0 if plain_s else n_slstm):
+        raise AssertionError(f"prefill launched the sLSTM kernel {s_launched} times")
     return logits[:, -1].float()
 
 
@@ -2335,11 +2650,13 @@ def _h_vs_f64(model, params, rows) -> dict:
     inputs): the share of h's bf16 elements that differ from the f64
     recurrence rounded to bf16, for the split-TF32 kernel, the tensor-core kernel
     and the plain form at chunk 256 (how far each is from exact where the
-    end-to-end check compares them)."""
+    end-to-end check compares them). The sLSTM runs its plain ``slstm_ref``
+    (the plain path's inputs)."""
     from unittest import mock
 
     from repro_torch.kernels.mlstm import kernel
     from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
+    from repro_torch.kernels.slstm.ref import slstm_ref
     from repro_torch.models import xlstm
 
     differ = {"tf32": 0, "tc": 0, "plain 256": 0}
@@ -2356,7 +2673,7 @@ def _h_vs_f64(model, params, rows) -> dict:
         total += exact.numel()
         return plain
 
-    with mock.patch.object(xlstm, "mlstm", mlstm):
+    with mock.patch.object(xlstm, "mlstm", mlstm), mock.patch.object(xlstm, "slstm", slstm_ref):
         model.prefill(params, {"tokens": rows}, rows.shape[1])
     return {name: n / total for name, n in differ.items()}
 
@@ -2708,7 +3025,7 @@ def train_reduced_matches_cpu(arch: str = "qwen3-4b", tag: str = "train",
             raise AssertionError("the triangular schedule launched a kernel")
         return launches
     if cfg.block.value == "mlstm":
-        return hold_f32_launches(tag, launches, "mlstm_tf32", "mlstm_bwd")
+        return hold_f32_launches(tag, launches, "mlstm_tf32", "mlstm_bwd", "slstm", "slstm_bwd")
     scan = ("ssm_scan", "ssm_scan_bwd") if cfg.ssm is not None else ()
     return hold_f32_launches(tag, launches, "flash_attention_tf32",
                              "flash_attention_bwd_dkdv_tf32", "flash_attention_bwd_dq_tf32", *scan)
@@ -4732,14 +5049,11 @@ def hybrid_train_phase() -> dict:
 # phase 15: xlstm-350m trained at full width and depth (the mLSTM's backward)
 # ---------------------------------------------------------------------------
 
-# phase 15's sequence and steps (the first at learning rate 0), and the
-# sequence of its profiled step. Every sLSTM step is ~20 host-launched ops,
-# in the forward, the recompute and the backward: a step at seq 4096 took
-# 77.5-91.5 s on the H100's host (~2.9 M launches), so the phase runs the
-# two steps its holds need, at seq 2048 (the mLSTM backward is held at seq
-# 4096 in the kernel phase), and profiles one at seq 256, whose events the
-# profiler sorts in seconds
-XLSTM_TRAIN = dict(seq=2048, batch=2, steps=2, profile_seq=256)
+# phase 15's sequence and steps (the first at learning rate 0); one more
+# step at that sequence is profiled. The sLSTM runs as one forward and one
+# backward kernel a layer (a step at seq 4096 took 77.5-91.5 s while it was
+# a per-step loop of host-launched ops)
+XLSTM_TRAIN = dict(seq=4096, batch=2, steps=3)
 
 
 def _probe_xlstm(state) -> list:
@@ -4760,9 +5074,10 @@ def xlstm_train_full_width() -> dict:
     XLSTM_TRAIN's steps: finite losses, params unmoved at step 0 (learning
     rate 0) and moved after; per step and microbatch each mLSTM layer's
     tensor-core forward twice (the pass and its recompute, both keeping
-    their states) and its backward once, and no other kernel; the step's
-    time and spread, peak memory and, from one profiled step at a shorter
-    sequence, where the time goes."""
+    their states) and its backward once, each sLSTM layer's forward kernel
+    twice (keeping) and its backward kernel once, and no other kernel; the
+    step's time and spread, peak memory and, from one more profiled step,
+    where the time goes."""
     from repro_torch.config import ShardingLayout, TrainConfig, get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model, transformer
@@ -4802,7 +5117,9 @@ def xlstm_train_full_width() -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     moved = [float((a - b).abs().max()) for a, b in zip(before, _probe_xlstm(res1.state))]
     per_mb = groups * m_per * tc.microbatches * n_steps
-    want = expect_launches(mlstm_tc=2 * per_mb, mlstm_bwd=per_mb)
+    per_s = groups * has_s * tc.microbatches * n_steps
+    want = expect_launches(mlstm_tc=2 * per_mb, mlstm_bwd=per_mb, slstm=2 * per_s,
+                           slstm_bwd=per_s)
     secs = res0.step_seconds + res1.step_seconds
     for i, (m, dt) in enumerate(zip(metrics, secs)):
         log(f"[xlstm_train] step {i}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
@@ -4818,10 +5135,7 @@ def xlstm_train_full_width() -> dict:
         raise AssertionError("a probed param did not move after step 1")
     if launches != want:
         raise AssertionError("the xLSTM training path did not go through the kernels as expected")
-    p_seq = XLSTM_TRAIN["profile_seq"]
-    p_batch = {k: torch.from_numpy(v).to("cuda")
-               for k, v in SyntheticLM(cfg.vocab_size, p_seq, batch, seed=1).batch(0).items()}
-    profile_training(model, step_fn, res1.state, None, f"seq {p_seq} (not {seq})", p_batch)
+    profile_training(model, step_fn, res1.state, ds, f"seq {seq}")
     return launches
 
 
@@ -4862,8 +5176,8 @@ def main() -> int:
                     help="only build the kernels, hold the flash kernels at hymba-1.5b's "
                          "training shape and the scan's backward, and run hymba's training phase")
     ap.add_argument("--xlstm-train-only", action="store_true",
-                    help="only build the kernels, hold the mLSTM's backward and run xlstm-350m's "
-                         "training phase")
+                    help="only build the kernels, hold the mLSTM's backward and the sLSTM's "
+                         "kernels and run xlstm-350m's training phase")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
                          "of the kernel paths and plain orders agree, by prompt length")
@@ -4980,9 +5294,10 @@ def main() -> int:
         return 0
     if args.xlstm_train_only:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-        rec = check_mlstm_bwd(torch.Generator(device="cuda").manual_seed(0), flush)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        recs = [check_mlstm_bwd(gen, flush), check_slstm(gen, flush), check_slstm_bwd(gen, flush)]
         del flush
-        log(json.dumps({"kernels": [rec]}))
+        log(json.dumps({"kernels": recs}))
         log("[phase 15/15] xlstm-350m training")
         paths = xlstm_train_phase()
         log(f"chip_smoke: --xlstm-train-only, launches by path {paths}; "
@@ -4994,7 +5309,8 @@ def main() -> int:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [*check_flash(gen, flush), *check_paged(gen, flush), *check_flash_bwd(gen, flush),
                check_ssm_scan(gen, flush), check_ssm_scan_bwd(gen, flush),
-               *check_mlstm(gen, flush), check_mlstm_bwd(gen, flush)]
+               *check_mlstm(gen, flush), check_mlstm_bwd(gen, flush), check_slstm(gen, flush),
+               check_slstm_bwd(gen, flush)]
     bwd_digests()
     fwd_digests()
     for more in (check_flash_window_8192(gen, flush), check_dense_variant_kernels(gen, flush),
@@ -5022,7 +5338,7 @@ def main() -> int:
     log("[phase 6/15] xLSTM serving")
     paths["xlstm"] = serve_xlstm_full_width()
     paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_tf32",
-                                                    "mlstm_step")
+                                                    "mlstm_step", "slstm")
     gc.collect()
     torch.cuda.empty_cache()
     log("[phase 7/15] training")

@@ -102,6 +102,19 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _P,          # dtype, B, S, H, hd, stream
     ],                                   # (the fourth: 17 strides)
     "repro_mlstm_bwd_tile": [_I],
+    "repro_slstm_fwd": [
+        _P, _P, _P, _P, _P, _P,          # wx, r, c0, n0, h0, m0 (NULL = zeros)
+        _P, _P, _P, _P, _P,              # hs, the final c, n, h, m
+        _P, _P, _P, _P,                  # kept pre, c, n, m (NULL = not kept)
+        _P, _I, _I, _I, _P,              # barrier counter, B, S, d, stream
+    ],
+    "repro_slstm_bwd": [
+        _P, _P, _P, _P, _P, _P,          # r, hs, kept pre, c, n, m
+        _P, _P, _P, _P,                  # c0, n0, m0 (NULL = zeros), dhs (NULL = zeros)
+        _P, _P, _P, _P,                  # the final state's dc, dn, dh, dm (NULL = zeros)
+        _P, _P, _P, _P, _P,              # dpre, the start state's dc, dn, dh, dm (NULL = none)
+        _P, _I, _I, _I, _P,              # barrier counter, B, S, d, stream
+    ],
 }
 
 _lib = None

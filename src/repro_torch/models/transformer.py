@@ -19,9 +19,9 @@ sliding-window attention, and ENCDEC (whisper: a LayerNorm encoder over
 the cache keeps it under ``memory``) with full attention, at every entry
 point but the paged decode (DENSE text only, as in the reference); and
 MLSTM (xLSTM: ``groups`` of mLSTM blocks and one sLSTM, no attention) at
-every entry point but the paged decode: trained through the mLSTM's
-autograd Function (its backward kernel) and autograd through the sLSTM's
-per-step loop, each group under ``_maybe_remat``. Either KV cache may be
+every entry point but the paged decode: trained through the mLSTM's and
+the sLSTM's autograd Functions (their backward kernels), each group under
+``_maybe_remat``. Either KV cache may be
 int8 (``RunOpts.int8_kv_cache``). Embeddings may be tied (the LM head is
 ``embed.T``, a view) and scaled by sqrt(d_model) as a float32 scalar, which
 makes the residual stream f32 whatever the compute dtype, as in the

@@ -4,8 +4,11 @@ and sLSTM (scalar memory), after arXiv:2405.04517.
 The mLSTM recurrence goes through ``kernels.mlstm.ops.mlstm``: the CUDA
 kernel on a GPU tensor, the plain chunkwise form on the CPU, in prefill
 (the whole sequence from a zero state) and in every decode step (S=1 from
-the cached state). The sLSTM is a plain per-step loop, as in the JAX
-package, which has no kernel for it.
+the cached state). The sLSTM recurrence goes through
+``kernels.slstm.ops.slstm`` the same way: the CUDA kernel (one launch for
+the whole sequence, a backward kernel for its gradient) on a GPU tensor,
+the plain per-step loop ``slstm_ref`` on the CPU; the reference runs it as
+a ``lax.scan``.
 
 Decode state per mLSTM layer: ``{"C": (B,H,hd,hd), "n": (B,H,hd), "m":
 (B,H)}``; per sLSTM layer: ``{"c","n","h","m": (B,d)}``, all f32 and
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.mlstm.ops import mlstm
+from repro_torch.kernels.slstm.ops import slstm
 from repro_torch.models import common
 from repro_torch.models.common import ParamSpec
 
@@ -108,30 +112,11 @@ def slstm_block(
 ) -> Tuple[torch.Tensor, Dict]:
     """sLSTM with exponential gating and recurrent connections.
     x: (B,S,d) -> (y (B,S,d), new state {"c", "n", "h", "m"} f32)."""
-    B, S, d = x.shape
     ct = common.torch_dtype(cfg.dtype)
-    if state is None:
-        zero = torch.zeros((B, d), dtype=torch.float32, device=x.device)
-        c, n, h, m = zero, zero, zero, zero
-    else:
-        c, n, h, m = (state[key].float() for key in ("c", "n", "h", "m"))
+    st = None if state is None else tuple(state[key].float() for key in ("c", "n", "h", "m"))
     wx = common.dense(x, params["w_gates"], "float32") + params["b_gates"].float()  # (B,S,4d)
-    r = params["r_gates"].float()
-    hs = []
-    for t in range(S):
-        pre = wx[:, t] + torch.matmul(h, r)
-        zt, it, ft, ot = pre.chunk(4, dim=-1)
-        zt = torch.tanh(zt)
-        ot = torch.sigmoid(ot)
-        m_new = torch.maximum(ft + m, it)
-        i_ = torch.exp(it - m_new)
-        f_ = torch.exp(ft + m - m_new)
-        c = f_ * c + i_ * zt
-        n = f_ * n + i_
-        h = ot * c / torch.clamp(n, min=1.0)
-        m = m_new
-        hs.append(h)
-    y = torch.stack(hs, dim=1).to(ct)                            # (B,S,d)
+    hs, (c, n, h, m) = slstm(wx, params["r_gates"].float(), st)
+    y = hs.to(ct)                                                # (B,S,d)
     a, b = common.dense(y, params["up_proj"], cfg.dtype).chunk(2, dim=-1)
     out = common.dense(F.gelu(a, approximate="tanh") * b, params["down_proj"], cfg.dtype)
     return out, {"c": c, "n": n, "h": h, "m": m}

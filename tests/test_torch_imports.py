@@ -43,6 +43,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.paged_attention.ops\n"
         "import repro_torch.kernels.ssm_scan.ops, repro_torch.models.ssm\n"
         "import repro_torch.kernels.mlstm.ops, repro_torch.kernels.mlstm.kernel\n"
+        "import repro_torch.kernels.slstm.ops, repro_torch.kernels.slstm.kernel\n"
         "import repro_torch.models.xlstm, repro_torch.configs.xlstm_350m\n"
         "import repro_torch.launch.serve\n"
         "import repro_torch.train.loop, repro_torch.train.steps, repro_torch.launch.train\n"
