@@ -45,9 +45,9 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    256), the paged kernel, the scan and its backward (over many segments
    too), both chunkwise mLSTM kernels and the step, and both sLSTM kernels;
    the kernels NO_SPILL_KERNELS names build with no spilled registers. The
-   sLSTM's forward and backward (one persistent cooperative grid each, a
-   grid barrier between steps) are held against ``slstm_ref`` and
-   ``slstm_bwd_ref`` in f32 at d 128 (atol 1e-5, rtol 1e-4; the
+   sLSTM's forward and backward (one persistent cooperative grid each; h
+   exchanged step-tagged, dpre behind a grid barrier) are held against
+   ``slstm_ref`` and ``slstm_bwd_ref`` in f32 at d 128 (atol 1e-5, rtol 1e-4; the
    backward's dr, and all its outputs at S 200, against an f64 witness,
    within 2x the plain f32 version's own error), at decode's shape (B8 S1
    d1024 from a start state) at atol 1e-5, rtol 1e-4, and at xlstm-350m's
@@ -284,15 +284,15 @@ SRC = REPO / "src"
 # split-TF32 chunkwise kernel, the scan's prefill and decode kernels and its
 # backward's, the f32 (split-TF32) flash forward and backward, every
 # instantiation at head dim 256 (a template argument of 256 in its mangled
-# name), the mLSTM backward's three kernels and the sLSTM's two
+# name), the mLSTM backward's four kernels and the sLSTM's two
 NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_merge_kernel",
                     "mlstm_step_kernel", "mlstm_tc_kernel", "mlstm_tf32_kernel",
                     "ssm_scan_kernel", "ssm_step_kernel",
                     "ssm_scan_bwd_kernel", "ssm_scan_bwd_carry_kernel", "ssm_sum_parts_kernel",
                     "flash_fwd_tf32_kernel", "flash_bwd_dkdv_tf32_kernel",
                     "flash_bwd_dq_tf32_kernel", "Li256E", "mlstm_bwd_kernel",
-                    "mlstm_bwd_carry_kernel", "mlstm_bwd_sum_kernel", "slstm_fwd_kernel",
-                    "slstm_bwd_kernel")
+                    "mlstm_bwd_prep_kernel", "mlstm_bwd_carry_kernel", "mlstm_bwd_sum_kernel",
+                    "slstm_fwd_kernel", "slstm_bwd_kernel")
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
@@ -1679,8 +1679,9 @@ def _clamped_share(kept) -> float:
 
 
 def check_mlstm_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
-    """The mLSTM's gradient (``csrc/mlstm_bwd.cu``: the carry pass, the
-    parallel pass and the sums, from what the forward kernel kept) against
+    """The mLSTM's gradient (``csrc/mlstm_bwd.cu``: the per-step scalars,
+    the carry pass over dC's tiles, the parallel pass and the sums, from
+    what the forward kernel kept) against
     ``mlstm_chunkwise_bwd_ref`` in f64 on the same inputs and the forward
     kernel's h: on every MLSTM_CASES row in f32 and in bf16, with and without
     a start state (and then the final state's gradient too), ragged S, a
@@ -1756,8 +1757,8 @@ def check_mlstm_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
         if not same:
             raise AssertionError(f"{name}: two calls on the same inputs gave different bits")
 
-    log("[kernels] mlstm_bwd (carry pass, parallel pass, sums) vs mlstm_chunkwise_bwd_ref in "
-        "f64 (dq, dk, dv, dgates; dC0, dn0, dm0 with a start state)")
+    log("[kernels] mlstm_bwd (prep, carry pass, parallel pass, sums) vs "
+        "mlstm_chunkwise_bwd_ref in f64 (dq, dk, dv, dgates; dC0, dn0, dm0 with a start state)")
     err = 0.0
     for B, H, S, hd, _ in MLSTM_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1892,8 +1893,8 @@ def _slstm_same_bits(name, fn) -> None:
 
 def check_slstm(gen: torch.Generator, flush: torch.Tensor) -> dict:
     """The sLSTM's forward kernel (``csrc/slstm.cu``, ``slstm_fwd_kernel``:
-    a persistent cooperative grid, a block per 8 units, r in shared memory,
-    a grid barrier between steps) against ``slstm_ref``: at d = 128 on
+    a persistent cooperative grid, a block per 8 units, r in registers, h
+    exchanged as step-tagged words) against ``slstm_ref``: at d = 128 on
     SLSTM_CASES with and without a start state, hs, the final state and
     what it keeps at SLSTM_TOL; at xlstm-350m's prefill (B8 S4096) and
     training (B1 S4096) shapes against an f64 witness, within

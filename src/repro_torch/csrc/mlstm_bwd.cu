@@ -21,34 +21,49 @@
 // a = i~ - b, M_t = max(m_in, cummax a)) are recomputed here with the
 // forward's own code.
 //
-// Three launches, one call:
-// * `mlstm_bwd_carry_kernel`, the reverse pass over chunks, grid (hd / VT +
-//   1, B * H). Block x < hd / VT owns VT value rows of dC (VT x hd f32 in
-//   shared memory, 132 KB at hd 512): per chunk, last to first, it writes
-//   dC (the gradient of the chunk's end state) out and steps it back,
-//   dC <- cscale dC + sum_t carry_t delta_t q_t^T, on the tensor cores.
-//   The last block owns the n row: dh_t.h_t, phi_t, dn the same way on
-//   FMAs, and the stabilizer chain (b), one thread, writing its share of
-//   dgates and of the start state's dm.
+// What bounds it: its least work (the four hd^2 products a token and head)
+// takes 0.04 ms at B1 S4096 H4 hd512 in bf16; what holds it is latency:
+// the step back over chunks is serial, and the chunked form reads and
+// writes each chunk's dC. Four launches, one call:
+// * `mlstm_bwd_prep_kernel`, parallel over (chunk, b.h): the per-step
+//   scalars everything after it reads: dh_t.h_t, phi_t, the carry's
+//   coefficients carry_t / den_t and carry_t phi_t, the chain's inputs,
+//   and each chunk's cscale.
+// * `mlstm_bwd_carry_kernel`, the reverse pass over chunks, split over
+//   dC's (value row, column) tiles: the step back dC <- cscale dC +
+//   sum_t carry_t delta_t q_t^T is independent across dC's columns, so a
+//   block owns a VT x VT tile of dC in registers (8 x 8 tiles a head at hd
+//   512: 256 blocks for B1 H4, where one block a 64-row strip gave 36) and
+//   walks the chunks last to first, writing each chunk end's dC, with the
+//   chunk's q and dh tiles streamed through a 3-stage cp.async ring. The
+//   tiles of value rows 0.. also step the n row's columns back (carry_t
+//   phi_t in place of delta_t). One more block a head carries the
+//   stabilizer chain (b) back, a chunk's inputs staged in shared memory.
 // * `mlstm_bwd_kernel`, parallel over (chunk, value-row tile, b.h): from
-//   C_in and the end state's dC of its chunk, P = q k^T and dP = delta_tile
-//   V_tile^T (+ phi on tile 0), it computes the tile's share of dq and dk
-//   and of the gate gradient (both linear in dP), and dv of its rows whole.
-//   Per 32-column key slice: dq = G K + carry (delta C_in), dk = G^T Q +
-//   w (V dC), U += K dC^T (for dv and the gates), G = dP . D.
+//   C_in and the end state's dC of its chunk, dP = delta_tile V_tile^T
+//   (+ phi on tile 0) and G = dP . D first; then one walk over 32-column
+//   key slices (q, k, C_in, dC through a 3-stage cp.async ring) takes P =
+//   q k^T and the tile's shares of dq = G k^ + carry (delta C_in), dk =
+//   G^T q + w (V dC) and U = k^ dC^T; last P . D, the gates' terms and dv
+//   of the tile's rows whole. k^ = k / sqrt(hd) is scaled after each
+//   product, so k enters the products as loaded.
 // * `mlstm_bwd_sum_kernel`: dq and dk summed over the tiles in tile order,
 //   and per (b, h, chunk) the gates': di~ = sum X, db_t = dh_t.h_t +
 //   phi_t n_t.q_t - X_t (+ the end terms at the chunk's last step), df~ its
 //   reverse cumsum, added to (b)'s share. No atomics: two calls give the
 //   same bits.
 //
-// Every product is split TF32 on mma.sync (csrc/tf32.cuh: hi + lo halves,
-// three products); bf16 inputs become f32 on load (exact), so one design
-// serves both dtypes. Tiles lie in shared memory as rows padded by 4
-// floats; a sum over more than one 32-column slice adds each slice's share,
+// Products are split TF32 on mma.sync (csrc/tf32.cuh: hi + lo halves):
+// a_lo b_hi + a_hi b_lo + a_hi b_hi. A bf16 input as loaded (q, k, v) is
+// TF32-exact, its lo half zero, so the product against that half adds
+// exactly zero and is left out (`mmas`): the same bits with one or two
+// products in place of three. Every f32 intermediate (delta, dC, G, P . D,
+// C_in) keeps its lo half. Tiles lie in shared memory as rows padded by 16
+// bytes; a sum over more than one 32-column slice adds each slice's share,
 // from zero, in f32 (the tensor cores' accumulator rounds toward zero).
-// Loads are plain and synchronous: a right kernel first.
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "common.cuh"
 #include "tf32.cuh"
@@ -57,14 +72,19 @@ namespace {
 
 using repro::FULL_MASK;
 using repro::NEG_INF;
+using repro::to_float;
 using repro::tf32::Frag;
-using repro::tf32::mma3;
+using repro::tf32::mma;
 using repro::tf32::split;
 
-constexpr int NT = 256;   // threads: 8 warps
-constexpr int CH = 64;    // timesteps per chunk (the forward kernels')
-constexpr int KS = 32;    // key columns per slice
-constexpr int PAD = 4;    // floats of padding after a shared tile's row
+constexpr int NT = 256;     // threads: 8 warps
+constexpr int CH = 64;      // timesteps per chunk (the forward kernels')
+constexpr int KS = 32;      // key columns per slice
+constexpr int PAD = 4;      // floats of padding after an f32 tile's row
+constexpr int STAGES = 3;   // tiles in flight: a stage is refilled a step after its last reader
+
+// bf16 inputs as loaded are TF32-exact (their lo halves are zero)
+template <typename T> constexpr bool kLoZero = sizeof(T) == 2;
 
 struct Strides {
   long long b, s, h;
@@ -74,39 +94,66 @@ struct Ln {
   int g, t;
 };
 
+// d += a b in split TF32, leaving out a product against a lo half known to
+// be zero (ALO, BLO false): it would add exactly zero.
+template <bool ALO, bool BLO>
+__device__ __forceinline__ void mmas(float (&d)[4], const Frag& a, const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  if constexpr (ALO) mma(d, a.lo, bh[0], bh[1]);
+  if constexpr (BLO) mma(d, a.hi, bl[0], bl[1]);
+  mma(d, a.hi, bh[0], bh[1]);
+}
+
 // A operand (16 x 8) from X stored [m][k] (leading dimension ld)
-__device__ __forceinline__ Frag a_rm(const float* X, int ld, int m0, int k0, Ln l) {
-  const float* p = X + (m0 + l.g) * ld + k0 + l.t;
+template <typename X_t>
+__device__ __forceinline__ Frag a_rm(const X_t* X, int ld, int m0, int k0, Ln l) {
+  const X_t* p = X + (m0 + l.g) * ld + k0 + l.t;
   Frag f;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[8 * ld], f.hi[1], f.lo[1]);
-  split(p[4], f.hi[2], f.lo[2]);
-  split(p[8 * ld + 4], f.hi[3], f.lo[3]);
+  split(to_float(p[0]), f.hi[0], f.lo[0]);
+  split(to_float(p[8 * ld]), f.hi[1], f.lo[1]);
+  split(to_float(p[4]), f.hi[2], f.lo[2]);
+  split(to_float(p[8 * ld + 4]), f.hi[3], f.lo[3]);
   return f;
 }
 // A operand from X stored [k][m]
-__device__ __forceinline__ Frag a_cm(const float* X, int ld, int m0, int k0, Ln l) {
-  const float* p = X + (k0 + l.t) * ld + m0 + l.g;
+template <typename X_t>
+__device__ __forceinline__ Frag a_cm(const X_t* X, int ld, int m0, int k0, Ln l) {
+  const X_t* p = X + (k0 + l.t) * ld + m0 + l.g;
   Frag f;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[8], f.hi[1], f.lo[1]);
-  split(p[4 * ld], f.hi[2], f.lo[2]);
-  split(p[4 * ld + 8], f.hi[3], f.lo[3]);
+  split(to_float(p[0]), f.hi[0], f.lo[0]);
+  split(to_float(p[8]), f.hi[1], f.lo[1]);
+  split(to_float(p[4 * ld]), f.hi[2], f.lo[2]);
+  split(to_float(p[4 * ld + 8]), f.hi[3], f.lo[3]);
+  return f;
+}
+// A operand from X stored [k][m], row k times s[k]
+template <typename X_t>
+__device__ __forceinline__ Frag a_cm_scaled(const X_t* X, int ld, int m0, int k0, Ln l,
+                                            const float* s) {
+  const X_t* p = X + (k0 + l.t) * ld + m0 + l.g;
+  const float s0 = s[k0 + l.t], s1 = s[k0 + l.t + 4];
+  Frag f;
+  split(to_float(p[0]) * s0, f.hi[0], f.lo[0]);
+  split(to_float(p[8]) * s0, f.hi[1], f.lo[1]);
+  split(to_float(p[4 * ld]) * s1, f.hi[2], f.lo[2]);
+  split(to_float(p[4 * ld + 8]) * s1, f.hi[3], f.lo[3]);
   return f;
 }
 // B operand (8 x 8, k x n) from Y stored [k][n]
-__device__ __forceinline__ void b_km(const float* Y, int ld, int k0, int n0, Ln l,
+template <typename Y_t>
+__device__ __forceinline__ void b_km(const Y_t* Y, int ld, int k0, int n0, Ln l,
                                      uint32_t (&bh)[2], uint32_t (&bl)[2]) {
-  const float* p = Y + (k0 + l.t) * ld + n0 + l.g;
-  split(p[0], bh[0], bl[0]);
-  split(p[4 * ld], bh[1], bl[1]);
+  const Y_t* p = Y + (k0 + l.t) * ld + n0 + l.g;
+  split(to_float(p[0]), bh[0], bl[0]);
+  split(to_float(p[4 * ld]), bh[1], bl[1]);
 }
 // B operand from Y stored [n][k]
-__device__ __forceinline__ void b_nm(const float* Y, int ld, int k0, int n0, Ln l,
+template <typename Y_t>
+__device__ __forceinline__ void b_nm(const Y_t* Y, int ld, int k0, int n0, Ln l,
                                      uint32_t (&bh)[2], uint32_t (&bl)[2]) {
-  const float* p = Y + (n0 + l.g) * ld + k0 + l.t;
-  split(p[0], bh[0], bl[0]);
-  split(p[4], bh[1], bl[1]);
+  const Y_t* p = Y + (n0 + l.g) * ld + k0 + l.t;
+  split(to_float(p[0]), bh[0], bl[0]);
+  split(to_float(p[4]), bh[1], bl[1]);
 }
 
 template <int N>
@@ -117,14 +164,28 @@ __device__ __forceinline__ void zero(float (&d)[N][4]) {
     for (int e = 0; e < 4; ++e) d[n][e] = 0.f;
 }
 
-// Rows [0, CH) x columns [0, W) of a strided slab into a padded f32 tile,
-// times `scale`; rows at or past `rows` land as zeros.
+// The padded row pitch of a streamed tile W elements wide: rows start on 16
+// bytes, and consecutive rows shift by 16 bytes of banks
 template <int W, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, long long stride,
-                                          int rows, float scale) {
-  for (int e = threadIdx.x; e < CH * W; e += NT) {
-    const int r = e / W, c = e % W;
-    dst[r * (W + PAD) + c] = r < rows ? repro::to_float(src[r * stride + c]) * scale : 0.f;
+__host__ __device__ constexpr int pitch() { return W + 16 / int(sizeof(T)); }
+
+// Rows [0, ROWS) x columns [0, W) of a strided slab into a tile of T with
+// pitch<W, T>(), rows at or past `rows` as zeros: 16-byte cp.async copies
+// when `vec` (the slab's base and row stride on 16 bytes), else plain loads.
+template <int ROWS, int W, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src, long long stride,
+                                           int rows, bool vec) {
+  constexpr int PER = 16 / int(sizeof(T)), LDT = pitch<W, T>();
+  for (int e = threadIdx.x; e < ROWS * W / PER; e += NT) {
+    const int r = e / (W / PER), c = (e % (W / PER)) * PER;
+    T* d = dst + r * LDT + c;
+    const bool ok = r < rows;
+    if (vec) {
+      repro::cp_async16_zfill(d, src + (ok ? r * stride + c : 0), ok);
+    } else {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) d[i] = ok ? src[r * stride + c + i] : repro::from_float<T>(0.f);
+    }
   }
 }
 
@@ -182,126 +243,189 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return s;
 }
 
+// ---- the per-step scalars ------------------------------------------------------------
+
+template <typename T>
+struct PrepArgs {
+  const T* h; const T* dh; const float* g;
+  const float* nq;                     // (B, S, H) kept n_t . q_t
+  const float* km;                     // (B, H, NC) kept m_in
+  float* phi; float* dhh;              // (B, S, H)
+  float* co;                           // (B H, 4, NC CH): carry_t / den_t, carry_t phi_t, the
+                                       // chain's e_t and won_t, 0 past S
+  float* cs;                           // (B H, NC): cscale
+  int H, S, hd, NC;
+  Strides sh, sdh;
+  long long gb, gs;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NT) mlstm_bwd_prep_kernel(const PrepArgs<T> a) {
+  __shared__ float a_s[CH], M_s[CH], x_s[CH], misc[8];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ci = blockIdx.x, bh = blockIdx.y, b = bh / a.H, hh = bh % a.H;
+  const int t0 = ci * CH, Lc = min(CH, a.S - t0);
+  const float m_in = a.km[(long long)bh * a.NC + ci];
+  if (warp == 0) chunk_scalars(a.g + b * a.gb, a.gs, a.H, hh, t0, Lc, m_in, a_s, M_s, misc);
+  const T* hb = a.h + b * a.sh.b + hh * a.sh.h;
+  const T* dhb = a.dh + b * a.sdh.b + hh * a.sdh.h;
+  for (int t = warp; t < CH; t += NT / 32) {      // dh_t . h_t, a warp a step
+    float s = 0.f;
+    if (t < Lc)
+      for (int c = lane; c < a.hd; c += 32)
+        s = fmaf(to_float(dhb[(t0 + t) * a.sdh.s + c]), to_float(hb[(t0 + t) * a.sh.s + c]), s);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL_MASK, s, o);
+    if (lane == 0) x_s[t] = s;
+  }
+  __syncthreads();
+  if (tid < CH) {
+    const int t = tid;
+    float cd = 0.f, cph = 0.f, e = 0.f, won = 0.f;
+    if (t < Lc) {
+      const long long o = ((long long)b * a.S + t0 + t) * a.H + hh;
+      const float nqv = a.nq[o];
+      float ph = 0.f;
+      if (fabsf(nqv) > 1.f) ph = -x_s[t] / nqv;   // -sign(n.q) (dh.h) / den
+      a.phi[o] = ph;
+      a.dhh[o] = x_s[t];
+      const float cw = expf(m_in - M_s[t]);
+      cd = cw / fmaxf(fabsf(nqv), 1.f);
+      cph = cw * ph;
+      e = fabsf(nqv) > 1.f ? 0.f : -x_s[t];
+      won = a_s[t] > (t > 0 ? M_s[t - 1] : m_in) ? 1.f : 0.f;
+    }
+    const long long NP = (long long)a.NC * CH;
+    float* co = a.co + (long long)bh * 4 * NP + t0 + t;
+    co[0] = cd;
+    co[NP] = cph;
+    co[2 * NP] = e;
+    co[3 * NP] = won;
+  }
+  if (tid == 0) a.cs[(long long)bh * a.NC + ci] = expf(m_in - misc[0]);
+}
+
 // ---- the reverse pass over chunks ------------------------------------------------
 
 template <typename T>
 struct CarryArgs {
-  const T* q; const T* h; const T* dh; const float* g;
-  const float* nq;                     // (B, S, H) kept n_t . q_t
-  const float* km;                     // (B, H, NC) kept m_in
+  const T* q; const T* dh;
+  const float* co; const float* cs;    // the prep's
   const float* dCf; const float* dnf; const float* dmf;   // the final state's gradient (NULL: 0)
   const float* Cf; const float* nf;    // the final state (read with dCf, dnf)
   float* dCk; float* dnk;              // (B, H, NC, hd, hd), (B, H, NC, hd): each chunk end's
-  float* phi; float* dhh;              // (B, S, H)
   float* dg;                           // (B, S, 2H): the chain's share
   float* dC0; float* dn0; float* dm0;  // the start state's (NULL: not wanted)
   int H, S, hd, NC;
-  Strides sq, sh, sdh;
-  long long gb, gs;
+  Strides sq, sdh;
+  bool vec;                            // q, dh rows on 16 bytes: cp.async
 };
 
-template <int VT>
-size_t carry_smem(int hd) {
-  const size_t rows = size_t(VT) * (hd + PAD) + CH * (KS + PAD) + CH * (VT + PAD);
-  const size_t nrow = size_t(hd) + CH;
-  return 4 * (5 * CH + 16 + (rows > nrow ? rows : nrow));
+template <typename T, int VT>
+size_t carry_smem() {
+  return STAGES * (2 * CH * pitch<VT, T>() * sizeof(T) + 2 * CH * sizeof(float));
 }
 
 template <typename T, int VT>
-__global__ void __launch_bounds__(NT, 1) mlstm_bwd_carry_kernel(const CarryArgs<T> a) {
+__global__ void __launch_bounds__(NT, 2) mlstm_bwd_carry_kernel(const CarryArgs<T> a) {
   extern __shared__ float4 smem4[];
-  float* a_s = reinterpret_cast<float*>(smem4);   // [CH] a_s
-  float* M_s = a_s + CH;                          // [CH] M_t
-  float* cw_s = M_s + CH;                         // [CH] carry_t = exp(m_in - M_t), 0 past Lc
-  float* den_s = cw_s + CH;                       // [CH] den_t
-  float* x_s = den_s + CH;                        // [CH] dh_t . h_t (the n row's block)
-  float* misc = x_s + CH;                         // [0] M at the chunk's end
-  float* red = misc + 8;                          // [8]
-  float* big = red + 8;
-  const int hd = a.hd, NSL = hd / KS, NTILE = hd / VT;
+  const int hd = a.hd, ntiles = (hd / VT) * (hd / VT);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const Ln l{lane >> 2, lane & 3};
   const int bh = blockIdx.y, b = bh / a.H, hh = bh % a.H;
-  const long long bhc = (long long)bh * a.NC;
-  const float* gp = a.g + b * a.gb;
-  const T* qb = a.q + b * a.sq.b + hh * a.sq.h;
-  const auto o3 = [&](int t) { return ((long long)b * a.S + t) * a.H + hh; };
+  const long long bhc = (long long)bh * a.NC, NP = (long long)a.NC * CH;
+  const float* co = a.co + bh * 4 * NP;
 
-  if (int(blockIdx.x) < NTILE) {
-    // ---- VT value rows of dC on the tensor cores ----
-    constexpr int LD = KS + PAD, LDD = VT + PAD;
-    constexpr int RG = VT / 16, WPR = 8 / RG, NB = 4 / WPR;
-    const int LDC = hd + PAD, v0 = blockIdx.x * VT;
-    float* dCs = big;                             // [VT][hd + PAD]
-    float* Qs = dCs + VT * LDC;                   // [CH][KS + PAD] a q slice
-    float* Ds = Qs + CH * LD;                     // [CH][VT + PAD] carry_t delta_t
+  if (int(blockIdx.x) < ntiles) {
+    // ---- a VT x VT tile of dC (rows v0.., columns c0..) on the tensor cores ----
+    constexpr int LDT = pitch<VT, T>();
+    constexpr int RG = VT / 16, WPR = 8 / RG, NB = VT / 8 / WPR;
+    const int v0 = (blockIdx.x / (hd / VT)) * VT, c0 = (blockIdx.x % (hd / VT)) * VT;
+    const Ln l{lane >> 2, lane & 3};
     const int rg = warp / WPR, nb0 = (warp % WPR) * NB;
+    const bool nrow = v0 == 0;                    // the tile also steps the n row's columns back
+    T* ring = reinterpret_cast<T*>(smem4);        // stage s: q [CH][LDT], dh [CH][LDT]
+    float* cring = reinterpret_cast<float*>(ring + STAGES * 2 * CH * LDT);   // [CH] x2 a stage
+    const T* qb = a.q + b * a.sq.b + hh * a.sq.h + c0;
     const T* db = a.dh + b * a.sdh.b + hh * a.sdh.h + v0;
-    for (int e = tid; e < VT * hd; e += NT) {
-      const int r = e / hd, c = e % hd;
-      dCs[r * LDC + c] =
-          a.dCf != nullptr ? a.dCf[((long long)bh * hd + v0 + r) * hd + c] : 0.f;
-    }
-    for (int ci = a.NC - 1; ci >= 0; --ci) {
-      const int t0 = ci * CH, Lc = min(CH, a.S - t0);
-      const float m_in = a.km[bhc + ci];
-      __syncthreads();                            // the last chunk's readers are done
-      if (warp == 0) chunk_scalars(gp, a.gs, a.H, hh, t0, Lc, m_in, a_s, M_s, misc);
-      __syncthreads();
-      if (tid < CH) {
-        const bool in = tid < Lc;
-        cw_s[tid] = in ? expf(m_in - M_s[tid]) : 0.f;
-        den_s[tid] = in ? fmaxf(fabsf(a.nq[o3(t0 + tid)]), 1.f) : 1.f;
+    auto issue = [&](int i) {                     // chunk NC - 1 - i into stage i % STAGES
+      if (i < a.NC) {
+        const int ci = a.NC - 1 - i, t0 = ci * CH, Lc = min(CH, a.S - t0);
+        T* st = ring + (i % STAGES) * 2 * CH * LDT;
+        stage_tile<CH, VT>(st, qb + t0 * a.sq.s, a.sq.s, Lc, a.vec);
+        stage_tile<CH, VT>(st + CH * LDT, db + t0 * a.sdh.s, a.sdh.s, Lc, a.vec);
+        float* cst = cring + (i % STAGES) * 2 * CH;
+        if (tid < 2 * CH / 4)                     // carry_t / den_t, carry_t phi_t
+          repro::cp_async16(cst + 4 * tid, co + (tid >= CH / 4 ? NP - CH : 0) + t0 + 4 * tid);
       }
-      __syncthreads();
-      const float cscale = expf(m_in - misc[0]);
-      for (int e = tid; e < CH * VT; e += NT) {
-        const int t = e / VT, i = e % VT;
-        Ds[t * LDD + i] =
-            t < Lc ? repro::to_float(db[(t0 + t) * a.sdh.s + i]) * (cw_s[t] / den_s[t]) : 0.f;
+      repro::cp_async_commit();
+    };
+    issue(0);
+    float dC[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * rg + l.g + 8 * (e >> 1), c = 8 * (nb0 + n) + 2 * l.t + (e & 1);
+        dC[n][e] = a.dCf != nullptr ? a.dCf[((long long)bh * hd + v0 + r) * hd + c0 + c] : 0.f;
       }
-      for (int j = 0; j < NSL; ++j) {
-        __syncthreads();                          // Ds written; the last slice's readers done
-        load_tile<KS>(Qs, qb + t0 * a.sq.s + j * KS, a.sq.s, Lc, 1.f);
-        __syncthreads();
-        float d[NB][4];
-        zero(d);
+    float dn = nrow && tid < VT && a.dnf != nullptr ? a.dnf[(long long)bh * hd + c0 + tid] : 0.f;
+    for (int i = 0; i < a.NC; ++i) {
+      const int ci = a.NC - 1 - i, Lc = min(CH, a.S - ci * CH);
+      const float cscale = a.cs[bhc + ci];
+      issue(i + 1);
+      repro::cp_async_wait<1>();                  // chunk i: this thread's copies
+      __syncthreads();                            // and every thread's
+      const T* Qs = ring + (i % STAGES) * 2 * CH * LDT;
+      const T* Dh = Qs + CH * LDT;
+      const float* cd_s = cring + (i % STAGES) * 2 * CH;
+      float d[NB][4];
+      zero(d);
 #pragma unroll
-        for (int ks = 0; ks < CH / 8; ++ks) {     // (carry delta)^T Q over the chunk's steps
-          const Frag fa = a_cm(Ds, LDD, 16 * rg, 8 * ks, l);
+      for (int ks = 0; ks < CH / 8; ++ks) {       // (carry delta)^T Q over the chunk's steps
+        const Frag fa = a_cm_scaled(Dh, LDT, 16 * rg, 8 * ks, l, cd_s);
 #pragma unroll
-          for (int n = 0; n < NB; ++n) {
-            uint32_t fh[2], fl[2];
-            b_km(Qs, LD, 8 * ks, 8 * (nb0 + n), l, fh, fl);
-            mma3(d[n], fa, fh, fl);
-          }
+        for (int n = 0; n < NB; ++n) {
+          uint32_t fh[2], fl[2];
+          b_km(Qs, LDT, 8 * ks, 8 * (nb0 + n), l, fh, fl);
+          mmas<true, !kLoZero<T>>(d[n], fa, fh, fl);
         }
+      }
 #pragma unroll
-        for (int n = 0; n < NB; ++n)
+      for (int n = 0; n < NB; ++n)
 #pragma unroll
-          for (int i2 = 0; i2 < 2; ++i2) {
-            const int r = 16 * rg + l.g + 8 * i2, c = j * KS + 8 * (nb0 + n) + 2 * l.t;
-            float2* cp = reinterpret_cast<float2*>(dCs + r * LDC + c);
-            const float2 old = *cp;
-            *reinterpret_cast<float2*>(a.dCk + ((bhc + ci) * hd + v0 + r) * hd + c) = old;
-            *cp = make_float2(fmaf(cscale, old.x, d[n][2 * i2]),
-                              fmaf(cscale, old.y, d[n][2 * i2 + 1]));
-          }
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const int r = 16 * rg + l.g + 8 * i2, c = 8 * (nb0 + n) + 2 * l.t;
+          *reinterpret_cast<float2*>(a.dCk + ((bhc + ci) * hd + v0 + r) * hd + c0 + c) =
+              make_float2(dC[n][2 * i2], dC[n][2 * i2 + 1]);
+          dC[n][2 * i2] = fmaf(cscale, dC[n][2 * i2], d[n][2 * i2]);
+          dC[n][2 * i2 + 1] = fmaf(cscale, dC[n][2 * i2 + 1], d[n][2 * i2 + 1]);
+        }
+      if (nrow && tid < VT) {                     // dn <- cscale dn + sum_t carry_t phi_t q_t
+        const float* cph = cd_s + CH;
+        float acc = 0.f;
+        for (int t = 0; t < Lc; ++t) acc = fmaf(cph[t], to_float(Qs[t * LDT + tid]), acc);
+        a.dnk[(bhc + ci) * hd + c0 + tid] = dn;
+        dn = fmaf(cscale, dn, acc);
       }
     }
-    if (a.dC0 != nullptr) {
-      __syncthreads();
-      for (int e = tid; e < VT * hd; e += NT) {
-        const int r = e / hd, c = e % hd;
-        a.dC0[((long long)bh * hd + v0 + r) * hd + c] = dCs[r * LDC + c];
-      }
-    }
+    repro::cp_async_wait<0>();
+    if (a.dC0 != nullptr)
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const int r = 16 * rg + l.g + 8 * i2, c = 8 * (nb0 + n) + 2 * l.t;
+          *reinterpret_cast<float2*>(a.dC0 + ((long long)bh * hd + v0 + r) * hd + c0 + c) =
+              make_float2(dC[n][2 * i2], dC[n][2 * i2 + 1]);
+        }
+    if (nrow && tid < VT && a.dn0 != nullptr) a.dn0[(long long)bh * hd + c0 + tid] = dn;
     return;
   }
 
-  // ---- the n row, dh . h, phi and the stabilizer chain ----
-  float* dn_s = big;                              // [hd]
-  float* phi_s = dn_s + hd;                       // [CH] carry_t phi_t
+  // ---- the stabilizer chain (b), from the prep's e_t and won_t ----
+  float* e_s = reinterpret_cast<float*>(smem4);   // [CH]
+  float* won_s = e_s + CH;                        // [CH]
+  float* red = won_s + CH;                        // [8]
   float e_last = 0.f;                             // the final state's term at step S - 1
   if (a.dCf != nullptr || a.dnf != nullptr || a.dmf != nullptr) {
     float part = 0.f;
@@ -313,52 +437,19 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_carry_kernel(const CarryArgs<
         part = fmaf(a.dnf[(long long)bh * hd + e], a.nf[(long long)bh * hd + e], part);
     e_last = (a.dmf != nullptr ? a.dmf[bh] : 0.f) - block_sum(part, red);
   }
-  for (int c = tid; c < hd; c += NT) dn_s[c] = a.dnf != nullptr ? a.dnf[(long long)bh * hd + c] : 0.f;
-  const T* hb = a.h + b * a.sh.b + hh * a.sh.h;
-  const T* dhb = a.dh + b * a.sdh.b + hh * a.sdh.h;
   float g = 0.f;                                  // thread 0: the chain's carry
   for (int ci = a.NC - 1; ci >= 0; --ci) {
     const int t0 = ci * CH, Lc = min(CH, a.S - t0);
-    const float m_in = a.km[bhc + ci];
-    __syncthreads();
-    if (warp == 0) chunk_scalars(gp, a.gs, a.H, hh, t0, Lc, m_in, a_s, M_s, misc);
-    for (int t = warp; t < CH; t += NT / 32) {    // dh_t . h_t, a warp a step
-      float s = 0.f;
-      if (t < Lc)
-        for (int c = lane; c < hd; c += 32)
-          s = fmaf(repro::to_float(dhb[(t0 + t) * a.sdh.s + c]),
-                   repro::to_float(hb[(t0 + t) * a.sh.s + c]), s);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL_MASK, s, o);
-      if (lane == 0) x_s[t] = s;
-    }
-    __syncthreads();
+    __syncthreads();                              // the last chunk's reads are done
     if (tid < CH) {
-      float ph = 0.f, cw = 0.f;
-      if (tid < Lc) {
-        const float nqv = a.nq[o3(t0 + tid)];
-        if (fabsf(nqv) > 1.f) ph = -x_s[tid] / nqv;   // -sign(n.q) (dh.h) / den
-        a.phi[o3(t0 + tid)] = ph;
-        a.dhh[o3(t0 + tid)] = x_s[tid];
-        cw = expf(m_in - M_s[tid]);
-      }
-      phi_s[tid] = cw * ph;
+      e_s[tid] = co[2 * NP + t0 + tid];
+      won_s[tid] = co[3 * NP + t0 + tid];
     }
     __syncthreads();
-    const float cscale = expf(m_in - misc[0]);
-    for (int c = tid; c < hd; c += NT) {          // dn <- cscale dn + sum_t carry_t phi_t q_t
-      float acc = 0.f;
-      for (int t = 0; t < Lc; ++t)
-        acc = fmaf(phi_s[t], repro::to_float(qb[(t0 + t) * a.sq.s + c]), acc);
-      const float old = dn_s[c];
-      a.dnk[(bhc + ci) * hd + c] = old;
-      dn_s[c] = fmaf(cscale, old, acc);
-    }
     if (tid == 0) {
-      for (int t = Lc - 1; t >= 0; --t) {         // (b): the argmax chain
-        const float nqv = a.nq[o3(t0 + t)];
-        g += (fabsf(nqv) > 1.f ? 0.f : -x_s[t]) + (t0 + t == a.S - 1 ? e_last : 0.f);
-        const bool won = a_s[t] > (t > 0 ? M_s[t - 1] : m_in);
+      for (int t = Lc - 1; t >= 0; --t) {
+        g += e_s[t] + (t0 + t == a.S - 1 ? e_last : 0.f);
+        const bool won = won_s[t] != 0.f;
         const long long o = ((long long)b * a.S + t0 + t) * 2 * a.H + hh;
         a.dg[o] = won ? g : 0.f;
         a.dg[o + a.H] = won ? 0.f : g;
@@ -366,9 +457,6 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_carry_kernel(const CarryArgs<
       }
     }
   }
-  __syncthreads();
-  if (a.dn0 != nullptr)
-    for (int c = tid; c < hd; c += NT) a.dn0[(long long)bh * hd + c] = dn_s[c];
   if (tid == 0 && a.dm0 != nullptr) a.dm0[bh] = g;
 }
 
@@ -386,24 +474,26 @@ struct MainArgs {
   int B, H, S, hd, NC;
   Strides sq, sk, sv, sdh;
   long long gb, gs;
+  bool vec;                            // q, k rows on 16 bytes: cp.async
 };
 
-template <int VT>
+template <typename T, int VT>
 size_t main_smem() {
-  return 4 * (size_t(2 * CH + 2 * VT) * (KS + PAD) + 2 * CH * (VT + PAD) + 2 * CH * (CH + PAD) +
-              13 * CH + 16);
+  const size_t stage = 2 * CH * pitch<KS, T>() * sizeof(T) + 2 * VT * (KS + PAD) * sizeof(float);
+  return STAGES * stage +
+         4 * (size_t(2 * CH * (VT + PAD)) + 2 * CH * (CH + PAD) + 13 * CH + 16);
 }
 
 template <typename T, int VT>
 __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
-  constexpr int LD = KS + PAD, LDV = VT + PAD, LDP = CH + PAD;
+  constexpr int LD = KS + PAD, LDT = pitch<KS, T>(), LDV = VT + PAD, LDP = CH + PAD;
   constexpr int NU = VT / 16;          // 8-column blocks of a warp's half of U and dv
+  constexpr bool QLO = !kLoZero<T>;    // a q, k or v operand's lo half can be nonzero
+  constexpr size_t STAGE = 2 * CH * LDT * sizeof(T) + 2 * VT * LD * sizeof(float);
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);    // [CH][LD] q slice
-  float* Ks = Qs + CH * LD;                       // [CH][LD] k^ slice (k / sqrt(hd))
-  float* Cs = Ks + CH * LD;                       // [VT][LD] C_in slice
-  float* dCs = Cs + VT * LD;                      // [VT][LD] the end state's dC slice
-  float* Ds = dCs + VT * LD;                      // [CH][LDV] delta = dh / den
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem4);   // stage s: q, k [CH][LDT]
+                                                                   // (T), C_in, dC [VT][LD]
+  float* Ds = reinterpret_cast<float*>(ring + STAGES * STAGE);     // [CH][LDV] delta = dh / den
   float* Vs = Ds + CH * LDV;                      // [CH][LDV] v
   float* Gs = Vs + CH * LDV;                      // [CH][LDP] G = dP . D
   float* PDs = Gs + CH * LDP;                     // [CH][LDP] P . D
@@ -417,7 +507,7 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
   float* gwp = colp + 4 * CH;                     // [2][CH] v_s . U_s by column half
   float* kdn = gwp + 2 * CH;                      // [CH] k^_s . dn (tile 0)
   float* red = kdn + CH;                          // [8]
-  float* misc = red + 8;                          // [0] M_end, [1..2] sums
+  float* misc = red + 8;                          // [0] M_end
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const Ln l{lane >> 2, lane & 3};
@@ -437,6 +527,19 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
   const float* nin = a.nk + bhc * hd;
   const float* dno = a.dnk + bhc * hd;
   const auto o3 = [&](int t) { return ((long long)b * a.S + t0 + t) * a.H + hh; };
+  auto issue = [&](int j) {                       // key slice j into stage j % STAGES
+    if (j < NSL) {
+      unsigned char* st = ring + (j % STAGES) * STAGE;
+      T* qs = reinterpret_cast<T*>(st);
+      float* cst = reinterpret_cast<float*>(st + 2 * CH * LDT * sizeof(T));
+      stage_tile<CH, KS>(qs, qb + j * KS, a.sq.s, Lc, a.vec);
+      stage_tile<CH, KS>(qs + CH * LDT, kb + j * KS, a.sk.s, Lc, a.vec);
+      stage_tile<VT, KS>(cst, Cin + j * KS, hd, VT, true);
+      stage_tile<VT, KS>(cst + VT * LD, dCo + j * KS, hd, VT, true);
+    }
+    repro::cp_async_commit();
+  };
+  issue(0);
 
   if (warp == 0) chunk_scalars(a.g + b * a.gb, a.gs, a.H, hh, t0, Lc, m_in, a_s, M_s, misc);
   __syncthreads();
@@ -453,38 +556,15 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
   for (int e = tid; e < CH * VT; e += NT) {
     const int t = e / VT, i = e % VT;
     const bool in = t < Lc;
-    Ds[t * LDV + i] = in ? repro::to_float(dhb[t * a.sdh.s + i]) / den_s[t] : 0.f;
-    Vs[t * LDV + i] = in ? repro::to_float(vb[t * a.sv.s + i]) : 0.f;
+    Ds[t * LDV + i] = in ? to_float(dhb[t * a.sdh.s + i]) / den_s[t] : 0.f;
+    Vs[t * LDV + i] = in ? to_float(vb[t * a.sv.s + i]) : 0.f;
   }
+  __syncthreads();
 
-  // P = Q K^T over the key slices; warp (rg, half): rows 16 rg.., columns 32 half..
+  // dP = delta_tile V_tile^T (+ phi_t on tile 0), G = dP . D; warp (rg, half):
+  // rows 16 rg.., columns 32 half..
   const int rg = warp >> 1, half = warp & 1;
   const bool p_live = 32 * half <= 16 * rg + 15;  // else the causal mask covers the block
-  float P[4][4];
-  zero(P);
-  for (int j = 0; j < NSL; ++j) {
-    __syncthreads();
-    load_tile<KS>(Qs, qb + j * KS, a.sq.s, Lc, 1.f);
-    load_tile<KS>(Ks, kb + j * KS, a.sk.s, Lc, inv_sqrt_hd);
-    __syncthreads();
-    if (p_live) {
-      float Pt[4][4];
-      zero(Pt);
-#pragma unroll
-      for (int kc = 0; kc < KS; kc += 8) {
-        const Frag fq = a_rm(Qs, LD, 16 * rg, kc, l);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          uint32_t fh[2], fl[2];
-          b_nm(Ks, LD, kc, 32 * half + 8 * n, l, fh, fl);
-          mma3(Pt[n], fq, fh, fl);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 4; ++n) repro::tf32::add(P[n], Pt[n]);
-    }
-  }
-  // dP = delta_tile V_tile^T (+ phi_t on tile 0); G = dP . D; P . D; gD's column sums
   float dP[4][4];
   zero(dP);
   if (p_live) {
@@ -495,53 +575,38 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
       for (int n = 0; n < 4; ++n) {
         uint32_t fh[2], fl[2];
         b_nm(Vs, LDV, kc, 32 * half + 8 * n, l, fh, fl);
-        mma3(dP[n], fd, fh, fl);
+        mmas<true, QLO>(dP[n], fd, fh, fl);
       }
-    }
-  }
-  float cs[4][2];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    cs[n][0] = cs[n][1] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int t = 16 * rg + l.g + 8 * (e >> 1), s = 32 * half + 8 * n + 2 * l.t + (e & 1);
-      const float D = s <= t && t < Lc ? expf(a_s[s] - M_s[t]) : 0.f;
-      const float dp = dP[n][e] + phi_s[t];
-      const float pd = P[n][e] * D;
-      Gs[t * LDP + s] = dp * D;
-      PDs[t * LDP + s] = pd;
-      cs[n][e & 1] = fmaf(dp, pd, cs[n][e & 1]);
     }
   }
 #pragma unroll
   for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float x = cs[n][c];
-      x += __shfl_xor_sync(FULL_MASK, x, 4);
-      x += __shfl_xor_sync(FULL_MASK, x, 8);
-      x += __shfl_xor_sync(FULL_MASK, x, 16);
-      if (l.g == 0) colp[rg * CH + 32 * half + 8 * n + 2 * l.t + c] = x;
+    for (int e = 0; e < 4; ++e) {
+      const int t = 16 * rg + l.g + 8 * (e >> 1), s = 32 * half + 8 * n + 2 * l.t + (e & 1);
+      const float D = s <= t && t < Lc ? expf(a_s[s] - M_s[t]) : 0.f;
+      dP[n][e] += phi_s[t];
+      Gs[t * LDP + s] = dP[n][e] * D;
     }
 
-  // per key slice: dq and dk (rows 16 rq.., columns cq.. of the slice), U (rows
-  // 16 rq.., columns cu.. of the tile)
+  // one walk over the key slices: P (rows 16 rg.., columns 32 half..), dq
+  // and dk (rows 16 rq.., columns cq.. of the slice), U (rows 16 rq..,
+  // columns cu.. of the tile)
   const int rq = warp >> 1, cq = (warp & 1) * 16, cu = (warp & 1) * (VT / 2);
-  float U[NU][4];
+  float P[4][4], U[NU][4];
+  zero(P);
   zero(U);
   float gcs = 0.f, kd = 0.f;
-  const int ks_row = tid >> 2, ks_q = tid & 3;   // k^ . dn: row ks_row, columns 8 ks_q..
+  const int ks_row = tid >> 2, ks_q = tid & 3;   // k . dn: row ks_row, columns 8 ks_q..
   for (int j = 0; j < NSL; ++j) {
-    __syncthreads();                              // Gs, PDs, colp written; last slice's readers done
-    load_tile<KS>(Qs, qb + j * KS, a.sq.s, Lc, 1.f);
-    load_tile<KS>(Ks, kb + j * KS, a.sk.s, Lc, inv_sqrt_hd);
-    for (int e = tid; e < VT * KS; e += NT) {
-      const int r = e / KS, c = e % KS;
-      Cs[r * LD + c] = Cin[(long long)r * hd + j * KS + c];
-      dCs[r * LD + c] = dCo[(long long)r * hd + j * KS + c];
-    }
-    __syncthreads();
+    issue(j + 1);
+    repro::cp_async_wait<1>();                    // slice j: this thread's copies
+    __syncthreads();                              // and every thread's; Gs is written
+    const unsigned char* st = ring + (j % STAGES) * STAGE;
+    const T* Qs = reinterpret_cast<const T*>(st);
+    const T* Ks = Qs + CH * LDT;
+    const float* Cs = reinterpret_cast<const float*>(st + 2 * CH * LDT * sizeof(T));
+    const float* dCs = Cs + VT * LD;
     for (int e = tid; e < VT * KS; e += NT) {
       const int r = e / KS, c = e % KS;
       gcs = fmaf(Cs[r * LD + c], dCs[r * LD + c], gcs);
@@ -549,9 +614,25 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
     if (tile == 0)
 #pragma unroll
       for (int c = 8 * ks_q; c < 8 * ks_q + 8; ++c)
-        kd = fmaf(Ks[ks_row * LD + c], dno[j * KS + c], kd);
+        kd = fmaf(to_float(Ks[ks_row * LDT + c]), dno[j * KS + c], kd);
+    if (p_live) {                                 // P += q k^T over the slice
+      float Pt[4][4];
+      zero(Pt);
+#pragma unroll
+      for (int kc = 0; kc < KS; kc += 8) {
+        const Frag fq = a_rm(Qs, LDT, 16 * rg, kc, l);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          uint32_t fh[2], fl[2];
+          b_nm(Ks, LDT, kc, 32 * half + 8 * n, l, fh, fl);
+          mmas<QLO, QLO>(Pt[n], fq, fh, fl);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) repro::tf32::add(P[n], Pt[n]);
+    }
 
-    float x1[2][4], x2[2][4];                     // dq: G K^, delta C_in
+    float x1[2][4], x2[2][4];                     // dq: G k, delta C_in
     zero(x1);
     zero(x2);
     for (int kc = 0; kc < 16 * rq + 16; kc += 8) {   // G_ts = 0 for s > t
@@ -559,8 +640,8 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         uint32_t fh[2], fl[2];
-        b_km(Ks, LD, kc, cq + 8 * n, l, fh, fl);
-        mma3(x1[n], fg, fh, fl);
+        b_km(Ks, LDT, kc, cq + 8 * n, l, fh, fl);
+        mmas<true, QLO>(x1[n], fg, fh, fl);
       }
     }
 #pragma unroll
@@ -570,10 +651,10 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
       for (int n = 0; n < 2; ++n) {
         uint32_t fh[2], fl[2];
         b_km(Cs, LD, kc, cq + 8 * n, l, fh, fl);
-        mma3(x2[n], fd, fh, fl);
+        mmas<true, true>(x2[n], fd, fh, fl);
       }
     }
-    float y1[2][4], y2[2][4];                     // dk^: G^T Q, V dC
+    float y1[2][4], y2[2][4];                     // dk^: G^T q, V dC
     zero(y1);
     zero(y2);
     for (int kc = 16 * rq; kc < CH; kc += 8) {    // G_ts = 0 for t < s
@@ -581,8 +662,8 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         uint32_t fh[2], fl[2];
-        b_km(Qs, LD, kc, cq + 8 * n, l, fh, fl);
-        mma3(y1[n], fg, fh, fl);
+        b_km(Qs, LDT, kc, cq + 8 * n, l, fh, fl);
+        mmas<true, QLO>(y1[n], fg, fh, fl);
       }
     }
 #pragma unroll
@@ -592,7 +673,7 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
       for (int n = 0; n < 2; ++n) {
         uint32_t fh[2], fl[2];
         b_km(dCs, LD, kc, cq + 8 * n, l, fh, fl);
-        mma3(y2[n], fv, fh, fl);
+        mmas<QLO, true>(y2[n], fv, fh, fl);
       }
     }
 #pragma unroll
@@ -612,26 +693,58 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
         }
         const float cw = cw_s[t], w = w_s[t];
         *reinterpret_cast<float2*>(a.dq_p + o) =
-            make_float2(fmaf(cw, e0, x1[n][2 * i2]), fmaf(cw, e1, x1[n][2 * i2 + 1]));
+            make_float2(fmaf(cw, e0, x1[n][2 * i2] * inv_sqrt_hd),
+                        fmaf(cw, e1, x1[n][2 * i2 + 1] * inv_sqrt_hd));
         *reinterpret_cast<float2*>(a.dk_p + o) =
             make_float2(fmaf(w, f0, y1[n][2 * i2]) * inv_sqrt_hd,
                         fmaf(w, f1, y1[n][2 * i2 + 1]) * inv_sqrt_hd);
       }
-    float Ut[NU][4];                              // U += K^ dC^T
+    float Ut[NU][4];                              // U += k dC^T
     zero(Ut);
 #pragma unroll
     for (int kc = 0; kc < KS; kc += 8) {
-      const Frag fk = a_rm(Ks, LD, 16 * rq, kc, l);
+      const Frag fk = a_rm(Ks, LDT, 16 * rq, kc, l);
 #pragma unroll
       for (int n = 0; n < NU; ++n) {
         uint32_t fh[2], fl[2];
         b_nm(dCs, LD, kc, cu + 8 * n, l, fh, fl);
-        mma3(Ut[n], fk, fh, fl);
+        mmas<QLO, true>(Ut[n], fk, fh, fl);
       }
     }
 #pragma unroll
     for (int n = 0; n < NU; ++n) repro::tf32::add(U[n], Ut[n]);
   }
+  repro::cp_async_wait<0>();
+
+  // P . D and gD's column sums, now that P is whole (P^ = P / sqrt(hd))
+  float cs[4][2];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    cs[n][0] = cs[n][1] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = 16 * rg + l.g + 8 * (e >> 1), s = 32 * half + 8 * n + 2 * l.t + (e & 1);
+      const float D = s <= t && t < Lc ? expf(a_s[s] - M_s[t]) : 0.f;
+      const float pd = P[n][e] * inv_sqrt_hd * D;
+      PDs[t * LDP + s] = pd;
+      cs[n][e & 1] = fmaf(dP[n][e], pd, cs[n][e & 1]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float x = cs[n][c];
+      x += __shfl_xor_sync(FULL_MASK, x, 4);
+      x += __shfl_xor_sync(FULL_MASK, x, 8);
+      x += __shfl_xor_sync(FULL_MASK, x, 16);
+      if (l.g == 0) colp[rg * CH + 32 * half + 8 * n + 2 * l.t + c] = x;
+    }
+#pragma unroll
+  for (int n = 0; n < NU; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) U[n][e] *= inv_sqrt_hd;
+  __syncthreads();                                // PDs written
 
   // dv = (P . D)^T delta + w_s U_s, whole for the tile's rows; v_s . U_s
   float o[NU][4];
@@ -642,7 +755,7 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
     for (int n = 0; n < NU; ++n) {
       uint32_t fh[2], fl[2];
       b_km(Ds, LDV, kc, cu + 8 * n, l, fh, fl);
-      mma3(o[n], fp, fh, fl);
+      mmas<true, true>(o[n], fp, fh, fl);
     }
   }
   float vu[2] = {0.f, 0.f};
@@ -674,7 +787,7 @@ __global__ void __launch_bounds__(NT, 1) mlstm_bwd_kernel(const MainArgs<T> a) {
   }
   kd += __shfl_xor_sync(FULL_MASK, kd, 1);
   kd += __shfl_xor_sync(FULL_MASK, kd, 2);
-  if (ks_q == 0) kdn[ks_row] = tile == 0 ? kd : 0.f;
+  if (ks_q == 0) kdn[ks_row] = tile == 0 ? kd * inv_sqrt_hd : 0.f;
   if (tile == 0)
     for (int c = tid; c < hd; c += NT) gcs = fmaf(nin[c], dno[c], gcs);
   const float gc = cscale * block_sum(gcs, red);  // syncs: gwp, kdn written
@@ -758,17 +871,19 @@ __global__ void __launch_bounds__(NT) mlstm_bwd_sum_kernel(const SumArgs<T> a) {
 }
 
 template <typename T, int VT>
-cudaError_t launch_bwd(const CarryArgs<T>& ca, const MainArgs<T>& ma, SumArgs<T> sa, int B,
-                       cudaStream_t stream) {
+cudaError_t launch_bwd(const PrepArgs<T>& pa, const CarryArgs<T>& ca, const MainArgs<T>& ma,
+                       SumArgs<T> sa, int B, cudaStream_t stream) {
   const int hd = ca.hd, NTILE = hd / VT, BH = B * ca.H;
-  const int c_smem = int(carry_smem<VT>(hd)), m_smem = int(main_smem<VT>());
+  const int c_smem = int(carry_smem<T, VT>()), m_smem = int(main_smem<T, VT>());
   cudaError_t err = cudaFuncSetAttribute(mlstm_bwd_carry_kernel<T, VT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, c_smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(mlstm_bwd_kernel<T, VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              m_smem);
   if (err != cudaSuccess) return err;
-  mlstm_bwd_carry_kernel<T, VT><<<dim3(NTILE + 1, BH), NT, c_smem, stream>>>(ca);
+  mlstm_bwd_prep_kernel<T><<<dim3(ca.NC, BH), NT, 0, stream>>>(pa);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_bwd_carry_kernel<T, VT><<<dim3(NTILE * NTILE + 1, BH), NT, c_smem, stream>>>(ca);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   mlstm_bwd_kernel<T, VT><<<dim3(ca.NC * NTILE, BH), NT, m_smem, stream>>>(ma);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -779,6 +894,14 @@ cudaError_t launch_bwd(const CarryArgs<T>& ca, const MainArgs<T>& ma, SumArgs<T>
   const int g_blocks = int(((long long)BH * ca.NC + NT - 1) / NT);
   mlstm_bwd_sum_kernel<T><<<sa.a_blocks + g_blocks, NT, 0, stream>>>(sa);
   return cudaGetLastError();
+}
+
+template <typename T>
+bool on16(const void* p, std::initializer_list<long long> strides) {
+  if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  for (long long s : strides)
+    if (s % (16 / static_cast<long long>(sizeof(T)))) return false;
+  return true;
 }
 
 template <typename T>
@@ -795,24 +918,28 @@ cudaError_t run_bwd(const void* const* in, void* const* out, float* const* ws, c
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
       sh{st[9], st[10], st[11]}, sdh{st[12], st[13], st[14]};
   const long long gb = st[15], gs = st[16];
+  const bool vec = on16<T>(q, {sq.b, sq.s, sq.h}) && on16<T>(k, {sk.b, sk.s, sk.h}) &&
+                   on16<T>(dh, {sdh.b, sdh.s, sdh.h});
   float* dg = static_cast<float*>(out[3]);
   float* dm0 = static_cast<float*>(out[6]);
-  const CarryArgs<T> ca{q, h, dh, g, f(9), f(8), f(10), f(11), f(12), f(13), f(14),
-                        ws[0], ws[1], ws[2], ws[3], dg, static_cast<float*>(out[4]),
-                        static_cast<float*>(out[5]), dm0, H, S, hd, NC, sq, sh, sdh, gb, gs};
+  const PrepArgs<T> pa{h, dh, g, f(9), f(8), ws[2], ws[3], ws[8], ws[9], H, S, hd, NC, sh, sdh,
+                       gb, gs};
+  const CarryArgs<T> ca{q, dh, ws[8], ws[9], f(10), f(11), f(12), f(13), f(14), ws[0], ws[1], dg,
+                        static_cast<float*>(out[4]), static_cast<float*>(out[5]), dm0, H, S, hd,
+                        NC, sq, sdh, vec};
   const MainArgs<T> ma{q, k, v, dh, g, f(6), f(7), f(8), f(9), ws[0], ws[1], ws[2],
                        static_cast<T*>(out[2]), ws[4], ws[5], ws[6], ws[7], B, H, S, hd, NC,
-                       sq, sk, sv, sdh, gb, gs};
+                       sq, sk, sv, sdh, gb, gs, vec};
   const SumArgs<T> sa{ws[4], ws[5], ws[6], ws[7], ws[3], ws[2], f(9), static_cast<T*>(out[0]),
                       static_cast<T*>(out[1]), dg, dm0, B, H, S, hd, NC, 0, 0};
-  return hd % 64 == 0 ? launch_bwd<T, 64>(ca, ma, sa, B, stream)
-                      : launch_bwd<T, 32>(ca, ma, sa, B, stream);
+  return hd % 64 == 0 ? launch_bwd<T, 64>(pa, ca, ma, sa, B, stream)
+                      : launch_bwd<T, 32>(pa, ca, ma, sa, B, stream);
 }
 
 }  // namespace
 
-// The chunkwise mLSTM's gradient: the carry pass, the parallel pass and the
-// sums, on one stream.
+// The chunkwise mLSTM's gradient: the per-step scalars, the carry pass, the
+// parallel pass and the sums, on one stream.
 // in (15): q, k, v (B, S, H, hd) in `dtype`, rows contiguous; gates (B, S, 2H)
 //   f32; h, dh (B, S, H, hd) in `dtype`, rows contiguous; the forward's kept
 //   C_in (B, H, NC, hd, hd), n_in (B, H, NC, hd), m_in (B, H, NC) and n.q
@@ -820,10 +947,11 @@ cudaError_t run_bwd(const void* const* in, void* const* out, float* const* ws, c
 //   dm and the final C, n (f32 contiguous; dC, dn, dm NULL for none).
 // out (7): dq, dk, dv (B, S, H, hd) in `dtype` contiguous; dgates (B, S, 2H)
 //   f32 contiguous; the start state's dC0, dn0, dm0 (NULL: not wanted).
-// ws (8), f32: dC at each chunk's end (B, H, NC, hd, hd), dn (B, H, NC, hd),
+// ws (10), f32: dC at each chunk's end (B, H, NC, hd, hd), dn (B, H, NC, hd),
 //   phi (B, S, H), dh.h (B, S, H), the tiles' dq and dk (hd / VT, B, S, H,
-//   hd), X (hd / VT, B, S, H) and the end terms (hd / VT, B, H, NC, 2), VT
-//   = 64 where hd % 64 == 0, else 32.
+//   hd), X (hd / VT, B, S, H), the end terms (hd / VT, B, H, NC, 2), the
+//   per-step coefficients (B, H, 4, NC * 64) and cscale (B, H, NC), VT = 64
+//   where hd % 64 == 0, else 32.
 // strides (17): (b, s, h) of q, k, v, h, dh; (b, s) of gates.
 extern "C" int repro_mlstm_bwd(const void* const* in, void* const* out, void* const* ws,
                                const long long* strides, int dtype, int B, int S, int H, int hd,

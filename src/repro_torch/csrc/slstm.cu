@@ -16,32 +16,49 @@
 // h_{t-1} feeds every unit's four gates, so a whole step has to cross the
 // grid before the next one starts. Its work is 2 B d 4d f32 flops a step
 // (0.51 ms at B1 S4096 d1024 at the f32 FMA rate, 4.1 ms at B8); its bytes
-// (wx, hs, r once) take less. The S grid exchanges, ~1-2 us each, are in no
-// bound, and at small B they are most of the time.
+// (wx, hs, r once) take less. The S exchanges of h between blocks, each a
+// trip through L2, are in no bound, and at small B they are most of the
+// time.
 //
-// Design (right and simple first):
-// * A persistent grid of one block per U = 8 hidden units (128 blocks at
-//   d = 1024), all resident at once: cudaLaunchCooperativeKernel refuses a
-//   grid that cannot be, where a plain launch would deadlock. Each block
-//   loads its slice of r once into shared memory (the forward: the 4U
-//   columns of its units, one per lane; the backward: the U rows of its
-//   units, 4d floats each; 128 KB at d = 1024) and keeps it for all S steps,
-//   so r is read from device memory once a launch.
-// * Per step only h (forward) or dpre (backward) crosses the grid, through
-//   L2: each block writes its units' share, then one thread fences
-//   (__threadfence) and adds one to a counter; readers spin on an acquire
-//   load of it (ld.acquire.gpu) and read the shared vector with
-//   L1-bypassing loads (__ldcg: L1 is not coherent between SMs). The counter
-//   only grows within a launch (zeroed by the wrapper on the stream): the
-//   k-th exchange is done at k * gridDim.x. No exchange after the last step,
-//   so a decode step (S = 1) crosses none. Every block runs every step.
-// * Products are f32 FMAs in a fixed order (the reference computes them in
-//   f32, not TF32): k ascending within a warp's slice of h, then the warps'
-//   sums in warp order. No atomics in any sum: the same inputs give the
-//   same bits every run.
-// * The forward keeps, when asked (the wrapper's `keep`, a null pointer
-//   otherwise), each step's pre-activations and c, n, m: 7 (B, S, d) f32,
-//   117 MB at B1 S4096 d1024. The backward recomputes the gates from them.
+// Both kernels are persistent grids of one block per U = 8 hidden units
+// (128 blocks at d = 1024), all resident at once: cudaLaunchCooperativeKernel
+// refuses a grid that cannot be, where a plain launch would deadlock. A
+// wait that outlasts ~10 s traps. Products are f32 FMAs in a fixed order
+// (the reference computes them in f32, not TF32), with no atomics in any
+// sum: the same inputs give the same bits every run.
+//
+// The forward (`slstm_fwd_kernel`):
+// * Lane l of warp w owns column l of the block's 32 (gate l / 8, unit
+//   l % 8) over rows k of its warp's slice of r (d / 8 rows), and keeps
+//   them in registers for all S steps (128 floats at d = 1024; a slice
+//   longer than the largest power of two <= 128 in it keeps the rest in
+//   shared memory), so r is read from device memory once a launch.
+// * h crosses the grid step-tagged: each cell thread stores (step + 1,
+//   h) as one 64-bit word (single-copy atomic) into one of two slots by the
+//   step's parity; a warp reads the words of its slice of h_{t-1} with
+//   64-bit relaxed loads, reloading only those whose tag is not its step's
+//   yet, until all are. So
+//   the wait and the staging are one L2 trip, with no counter, no fence
+//   and no block barrier before the product, and each warp waits only on
+//   the 16 blocks whose units it reads. Two slots suffice: a block writes
+//   step t + 1 into step t - 1's slot only after reading all of h_t, which
+//   every block wrote after reading all of h_{t-1}. The buffer is zeroed by
+//   the wrapper (tag 0 is no step); a decode step (S = 1) crosses none.
+// * A batch row's product sums k mod 4 in four independent partial sums
+//   (at B1 a chain of 128 FMAs is the product's latency), then the four
+//   in a fixed order, then the warps' sums in warp order; rows go one at a
+//   time, so a tile of fewer than 8 issues no work for the missing ones.
+//   One block barrier a tile of 8 batch rows, the warps' sums
+//   double-buffered.
+// * Each tile's cell threads fetch their wx before the wait.
+// * It keeps, when asked (the wrapper's `keep`, a null pointer otherwise),
+//   each step's pre-activations and c, n, m: 7 (B, S, d) f32, 117 MB at B1
+//   S4096 d1024. The backward recomputes the gates from them.
+//
+// The backward (`slstm_bwd_kernel`): the rows of r of a block's units in
+// shared memory; per step dpre crosses the grid behind a barrier (a counter
+// one thread per block adds to after a fence, an acquire spin) and is read
+// with L1-bypassing loads (__ldcg: L1 is not coherent between SMs).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -55,6 +72,7 @@ constexpr int G = 4;          // gates z, i, f, o
 constexpr int C = G * U;      // the forward's columns of r a block owns: one a lane
 constexpr int BT = 8;         // batch rows one forward pass over r takes
 constexpr int BTB = 2;        // batch rows one backward pass over r takes
+constexpr int NP = 4;         // the forward's partial sums a batch row (k mod NP)
 
 static_assert(C == 32, "the forward maps one column of r to one lane");
 
@@ -64,8 +82,9 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   return v;
 }
 
-// The grid barrier: a block's arrival publishes every write its threads
-// made before it; the wait returns once `target` arrivals have been made.
+// The backward's grid barrier: a block's arrival publishes every write its
+// threads made before it; the wait returns once `target` arrivals have been
+// made.
 __device__ __forceinline__ void grid_arrive(unsigned* counter) {
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -88,6 +107,18 @@ __device__ __forceinline__ void grid_wait(const unsigned* counter, unsigned targ
   __syncthreads();
 }
 
+// The forward's exchange: (tag, h) as one 64-bit word, tag in the high half
+__device__ __forceinline__ void put_tagged(unsigned long long* p, float h, unsigned tag) {
+  const unsigned long long v = (static_cast<unsigned long long>(tag) << 32) | __float_as_uint(h);
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" :: "l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ ulonglong2 get_tagged2(const unsigned long long* p) {
+  ulonglong2 v;
+  asm volatile("ld.relaxed.gpu.global.v2.b64 {%0, %1}, [%2];\n"
+               : "=l"(v.x), "=l"(v.y) : "l"(p) : "memory");
+  return v;
+}
+
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
 struct Fwd {
@@ -97,107 +128,193 @@ struct Fwd {
   float* hs;                                        // (B, S, d)
   float *c, *n, *h, *m;                             // the final state (B, d)
   float *kpre, *kc, *kn, *km;                       // kept (B, S, 4d), (B, S, d) x3, or null
-  unsigned* counter;
+  unsigned long long* x;                            // the exchange (2, B, d), zeroed
   int B, S, d;
 };
 
-// Shared memory: R [d][C], the staged h [BT][d], the warps' partial sums
-// [NW][BT][C], the state [4][B][U] (c, n, h, m).
-size_t fwd_smem(int B, int d) {
-  return sizeof(float) * (size_t(d) * C + size_t(BT) * d + NW * BT * C + 4 * size_t(B) * U);
+// Shared memory: the warps' rows of r past the registers' KR [NW][ks - KR][C],
+// the warps' staged h [NW][BT][ks], the warps' sums [2][NW][BT][C], the
+// state [4][B][U] (c, n, h, m).
+size_t fwd_smem(int B, int d, int kr) {
+  const size_t ks = d / NW;
+  return sizeof(float) *
+         (NW * (ks - kr) * C + NW * BT * ks + 2 * NW * BT * C + 4 * size_t(B) * U);
 }
 
+// The largest power of two <= min(ks, 128) (ks = d / 8 is a multiple of 4):
+// the rows of a warp's slice of r each lane keeps in registers.
+int pick_kr(int ks) {
+  int kr = 4;
+  while (kr < 128 && 2 * kr <= ks) kr *= 2;
+  return kr;
+}
+
+// The exchange words of a warp's slice of h_{t-1}, rows b0 .. b0 + nb: a
+// lane's LB lines (16 bytes, two units each) of a round. A line's row and
+// pair of units are stepped from the round's first (r0, c0), with no
+// division a line (a division a line cost ~1.7 us a step at B8 on an H100).
+template <int LB>
+struct Lines {
+  ulonglong2 v[LB];
+};
+
+__device__ __forceinline__ void next_line(int& r, int& c, int per_row) {
+  c += 32;
+  while (c >= per_row) {
+    c -= per_row;
+    ++r;
+  }
+}
+
+template <int LB>
+__device__ __forceinline__ void load_lines(Lines<LB>& L, const unsigned long long* src, int d,
+                                           int r0, int c0, int per_row, unsigned pending) {
+  int r = r0, c = c0;
+#pragma unroll
+  for (int i = 0; i < LB; ++i) {
+    if (pending >> i & 1u) L.v[i] = get_tagged2(src + (long long)r * d + 2 * c);
+    next_line(r, c, per_row);
+  }
+}
+
+__device__ __forceinline__ bool tagged(const ulonglong2& v, unsigned long long want) {
+  return (v.x >> 32) == want && (v.y >> 32) == want;
+}
+
+// The lines of `pending` whose two words do not carry step `want`'s tag yet
+template <int LB>
+__device__ __forceinline__ unsigned untagged(const Lines<LB>& L, unsigned pending,
+                                             unsigned long long want) {
+#pragma unroll
+  for (int i = 0; i < LB; ++i)
+    if ((pending >> i & 1u) && tagged(L.v[i], want)) pending &= ~(1u << i);
+  return pending;
+}
+
+template <int KR, int LB>
 __global__ void __launch_bounds__(NT, 1) slstm_fwd_kernel(const Fwd a) {
   extern __shared__ __align__(16) float smem[];
-  const int B = a.B, S = a.S, d = a.d, d4 = 4 * d;
-  float* R = smem;
-  float* Hs = R + d * C;
-  float* part = Hs + BT * d;
-  float* st = part + NW * BT * C;
-  const int BU = B * U;
+  const int B = a.B, S = a.S, d = a.d, d4 = 4 * d, ks = d / NW;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* Ro = smem;                                 // [NW][ks - KR][C]
+  float* Hs = Ro + NW * (ks - KR) * C;              // [NW][BT][ks]
+  float* part = Hs + NW * BT * ks;                  // [2][NW][BT][C]
+  float* st = part + 2 * NW * BT * C;               // [4][B][U]
+  float* Rw = Ro + warp * (ks - KR) * C;
+  float* Hw = Hs + warp * BT * ks;
+  const int BU = B * U;
   const int u0 = blockIdx.x * U;
-  const int nu = min(U, d - u0);
+  const int kb = warp * ks;                         // the warp's rows of r, of h
+  const int col = (lane / U) * d + u0 + lane % U;   // the lane's column of r
 
-  // r's columns of this block's units: lane g U + u holds column g d + u0 + u
-  for (int i = tid; i < d * C; i += NT) {
-    const int k = i / C, g = (i % C) / U, u = i % U;
-    R[i] = u < nu ? a.r[(long long)k * d4 + g * d + u0 + u] : 0.f;
-  }
+  // r's columns of this block's units over the warp's rows: registers, then
+  // shared memory past KR
+  float rr[KR];
+#pragma unroll
+  for (int i = 0; i < KR; ++i) rr[i] = a.r[(long long)(kb + i) * d4 + col];
+  for (int i = KR; i < ks; ++i) Rw[(i - KR) * C + lane] = a.r[(long long)(kb + i) * d4 + col];
   for (int i = tid; i < BU; i += NT) {
     const int b = i / U, u = i % U;
     const long long at = (long long)b * d + u0 + u;
-    const bool ok = u < nu;
-    st[i] = ok && a.c0 ? a.c0[at] : 0.f;
-    st[BU + i] = ok && a.n0 ? a.n0[at] : 0.f;
-    st[2 * BU + i] = ok && a.h0 ? a.h0[at] : 0.f;
-    st[3 * BU + i] = ok && a.m0 ? a.m0[at] : 0.f;
+    st[i] = a.c0 ? a.c0[at] : 0.f;
+    st[BU + i] = a.n0 ? a.n0[at] : 0.f;
+    st[2 * BU + i] = a.h0 ? a.h0[at] : 0.f;
+    st[3 * BU + i] = a.m0 ? a.m0[at] : 0.f;
   }
 
-  const int ks = d / NW;            // a warp's slice of h (a multiple of 4)
-  const int kb = warp * ks;
-  const int cj = tid / U, cu = tid % U;   // a cell thread's batch row in the tile, unit
-  const bool cell0 = tid < min(BT, B) * U && cu < nu;
-  unsigned phase = 0;
+  const int cj = tid / U, cu = tid % U;             // a cell thread's batch row in the tile, unit
+  const int per_row = ks / 2;                       // exchange lines of a row of the warp's slice
+  int buf = 0;
   for (int t = 0; t < S; ++t) {
-    // the first tile's cell threads fetch their wx ahead of the barrier
-    float w0[G] = {0.f, 0.f, 0.f, 0.f};
-    if (cell0) {
-      const float* p = a.wx + ((long long)cj * S + t) * d4 + u0 + cu;
-#pragma unroll
-      for (int g = 0; g < G; ++g) w0[g] = p[g * d];
-    }
-    if (t > 0) grid_wait(a.counter, phase * gridDim.x);
     for (int b0 = 0; b0 < B; b0 += BT) {
       const int nb = min(BT, B - b0);
-      if (t == 0) {
-        for (int i = tid; i < nb * d; i += NT)
-          Hs[i] = a.h0 ? __ldcg(a.h0 + (long long)b0 * d + i) : 0.f;
-      } else {
-        const int dq = d / 4;
-        for (int i = tid; i < nb * dq; i += NT) {
-          const int j = i / dq, q = i % dq;
-          const float4* src = reinterpret_cast<const float4*>(
-              a.hs + ((long long)(b0 + j) * S + t - 1) * d);
-          reinterpret_cast<float4*>(Hs)[i] = __ldcg(src + q);
-        }
+      const bool cell = tid < nb * U;
+      const long long row = (long long)(b0 + cj) * S + t;
+      // the cell thread's wx, fetched before the wait
+      float w[G];
+      if (cell) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) w[g] = a.wx[row * d4 + g * d + u0 + cu];
       }
-      __syncthreads();
-
-      float acc[BT];
+      // the warp's slice of h_{t-1}, rows b0 .. b0 + nb, into Hw [nb][ks]
+      if (t == 0) {
+        for (int e = lane; e < nb * ks; e += 32) {
+          const int j = e / ks, k = e % ks;
+          Hw[j * ks + k] = a.h0 ? a.h0[(long long)(b0 + j) * d + kb + k] : 0.f;
+        }
+      } else {
+        const unsigned long long* src = a.x + ((long long)((t - 1) & 1) * B + b0) * d + kb;
+        const unsigned long long want = unsigned(t);   // h_{t-1} carries tag t
+        const int total = nb * per_row;
+        for (int base = 0; base < total; base += 32 * LB) {
+          // load the round's lines, then reload only those not yet tagged
+          Lines<LB> lines;
+          const int r0 = (base + lane) / per_row, c0 = base + lane - r0 * per_row;
+          unsigned pending = 0;
 #pragma unroll
-      for (int j = 0; j < BT; ++j) acc[j] = 0.f;
-      for (int k = kb; k < kb + ks; k += 4) {
-        const float r0 = R[(k + 0) * C + lane], r1 = R[(k + 1) * C + lane];
-        const float r2 = R[(k + 2) * C + lane], r3 = R[(k + 3) * C + lane];
+          for (int i = 0; i < LB; ++i)
+            if (base + i * 32 + lane < total) pending |= 1u << i;
+          const unsigned mine = pending;
+          const long long t0 = clock64();
+          while (pending) {
+            load_lines(lines, src, d, r0, c0, per_row, pending);
+            pending = untagged(lines, pending, want);
+            if (pending && clock64() - t0 > STALL_CYCLES) __trap();
+          }
+          int r = r0, c = c0;
 #pragma unroll
-        for (int j = 0; j < BT; ++j) {
-          if (j < nb) {
-            const float4 hv = *reinterpret_cast<const float4*>(Hs + j * d + k);
-            acc[j] = fmaf(hv.x, r0, acc[j]);
-            acc[j] = fmaf(hv.y, r1, acc[j]);
-            acc[j] = fmaf(hv.z, r2, acc[j]);
-            acc[j] = fmaf(hv.w, r3, acc[j]);
+          for (int i = 0; i < LB; ++i) {
+            if (mine >> i & 1u)
+              *reinterpret_cast<float2*>(Hw + r * ks + 2 * c) =
+                  make_float2(__uint_as_float(unsigned(lines.v[i].x)),
+                              __uint_as_float(unsigned(lines.v[i].y)));
+            next_line(r, c, per_row);
           }
         }
       }
-#pragma unroll
-      for (int j = 0; j < BT; ++j)
-        if (j < nb) part[(warp * BT + j) * C + lane] = acc[j];
-      __syncthreads();
+      __syncwarp();
 
-      if (tid < nb * U && cu < nu) {
+      // the warp's share of h r for the lane's column, a batch row at a time
+      // (no predicated work for rows past nb): NP partial sums, k mod NP
+      float* pw = part + buf * NW * BT * C;
+      for (int j = 0; j < nb; ++j) {
+        const float* hj = Hw + j * ks;
+        float acc[NP];
+#pragma unroll
+        for (int p = 0; p < NP; ++p) acc[p] = 0.f;
+#pragma unroll
+        for (int i = 0; i < KR; i += 4) {
+          const float4 hv = *reinterpret_cast<const float4*>(hj + i);
+          acc[0 % NP] = fmaf(hv.x, rr[i], acc[0 % NP]);
+          acc[1 % NP] = fmaf(hv.y, rr[i + 1], acc[1 % NP]);
+          acc[2 % NP] = fmaf(hv.z, rr[i + 2], acc[2 % NP]);
+          acc[3 % NP] = fmaf(hv.w, rr[i + 3], acc[3 % NP]);
+        }
+        for (int k = KR; k < ks; k += 4) {
+          const float* rk = Rw + (k - KR) * C + lane;
+          const float4 hv = *reinterpret_cast<const float4*>(hj + k);
+          acc[0 % NP] = fmaf(hv.x, rk[0], acc[0 % NP]);
+          acc[1 % NP] = fmaf(hv.y, rk[C], acc[1 % NP]);
+          acc[2 % NP] = fmaf(hv.z, rk[2 * C], acc[2 % NP]);
+          acc[3 % NP] = fmaf(hv.w, rk[3 * C], acc[3 % NP]);
+        }
+        float s = acc[0];
+#pragma unroll
+        for (int p = 1; p < NP; ++p) s += acc[p];
+        pw[(warp * BT + j) * C + lane] = s;
+      }
+      __syncthreads();   // the warps' sums are written
+
+      if (cell) {
         const int b = b0 + cj;
-        const long long row = (long long)b * S + t;
         float pre[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          const int col = g * U + cu;
-          float s = part[cj * C + col];
+          const int cc = g * U + cu;
+          float s = pw[cj * C + cc];
 #pragma unroll
-          for (int w = 1; w < NW; ++w) s += part[(w * BT + cj) * C + col];
-          const float x = b0 == 0 ? w0[g] : a.wx[row * d4 + g * d + u0 + cu];
-          pre[g] = x + s;
+          for (int w2 = 1; w2 < NW; ++w2) s += pw[(w2 * BT + cj) * C + cc];
+          pre[g] = w[g] + s;
         }
         const int si = b * U + cu;
         float c = st[si], n = st[BU + si], m = st[3 * BU + si];
@@ -215,6 +332,7 @@ __global__ void __launch_bounds__(NT, 1) slstm_fwd_kernel(const Fwd a) {
         st[2 * BU + si] = h;
         st[3 * BU + si] = mn;
         const long long at = row * d + u0 + cu;
+        if (t + 1 < S) put_tagged(a.x + ((long long)(t & 1) * B + b) * d + u0 + cu, h, t + 1);
         a.hs[at] = h;
         if (a.kpre) {
 #pragma unroll
@@ -224,22 +342,17 @@ __global__ void __launch_bounds__(NT, 1) slstm_fwd_kernel(const Fwd a) {
           a.km[at] = mn;
         }
       }
-      __syncthreads();   // the staged h, the partial sums and the state are the next tile's
-    }
-    if (t + 1 < S) {
-      grid_arrive(a.counter);
-      ++phase;
+      buf ^= 1;
     }
   }
+  __syncthreads();   // every cell thread's state is written
   for (int i = tid; i < BU; i += NT) {
     const int b = i / U, u = i % U;
-    if (u < nu) {
-      const long long at = (long long)b * d + u0 + u;
-      a.c[at] = st[i];
-      a.n[at] = st[BU + i];
-      a.h[at] = st[2 * BU + i];
-      a.m[at] = st[3 * BU + i];
-    }
+    const long long at = (long long)b * d + u0 + u;
+    a.c[at] = st[i];
+    a.n[at] = st[BU + i];
+    a.h[at] = st[2 * BU + i];
+    a.m[at] = st[3 * BU + i];
   }
 }
 
@@ -478,17 +591,48 @@ cudaError_t launch_coop(void (*kernel)(const A), const A& args, int blocks, size
 
 bool bad_shape(int B, int S, int d) { return B < 1 || S < 1 || d < 32 || d % 32; }
 
+
+// The exchange loads a lane keeps in flight (a round): enough for a tile's
+// lines (min(B, 8) rows of the warp's d / 8 units, two a line), at most 16.
+int pick_lb(int B, int d) {
+  const int lines = ((B < BT ? B : BT) * (d / NW / 2) + 31) / 32;
+  return lines <= 2 ? 2 : lines <= 4 ? 4 : lines <= 8 ? 8 : 16;
+}
+
+template <int KR, int LB>
+cudaError_t launch_fwd(const Fwd& a, cudaStream_t stream) {
+  return launch_coop(slstm_fwd_kernel<KR, LB>, a, a.d / U, fwd_smem(a.B, a.d, KR), stream);
+}
+
+template <int KR>
+cudaError_t launch_lb(const Fwd& a, cudaStream_t stream) {
+  switch (pick_lb(a.B, a.d)) {
+    case 2: return launch_fwd<KR, 2>(a, stream);
+    case 4: return launch_fwd<KR, 4>(a, stream);
+    case 8: return launch_fwd<KR, 8>(a, stream);
+    default: return launch_fwd<KR, 16>(a, stream);
+  }
+}
+
 }  // namespace
 
+// `exchange`: the forward's (2, B, d) 64-bit words, zeroed (unread at S = 1)
 extern "C" int repro_slstm_fwd(const float* wx, const float* r, const float* c0, const float* n0,
                                const float* h0, const float* m0, float* hs, float* c, float* n,
                                float* h, float* m, float* kpre, float* kc, float* kn, float* km,
-                               void* counter, int B, int S, int d, void* stream) {
+                               void* exchange, int B, int S, int d, void* stream) {
   if (bad_shape(B, S, d)) return cudaErrorInvalidValue;
   const Fwd a{wx, r, c0, n0, h0, m0, hs, c, n, h, m, kpre, kc, kn, km,
-              static_cast<unsigned*>(counter), B, S, d};
-  return launch_coop(slstm_fwd_kernel, a, (d + U - 1) / U, fwd_smem(B, d),
-                     static_cast<cudaStream_t>(stream));
+              static_cast<unsigned long long*>(exchange), B, S, d};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (pick_kr(d / NW)) {
+    case 4: return launch_lb<4>(a, s);
+    case 8: return launch_lb<8>(a, s);
+    case 16: return launch_lb<16>(a, s);
+    case 32: return launch_lb<32>(a, s);
+    case 64: return launch_lb<64>(a, s);
+    default: return launch_lb<128>(a, s);
+  }
 }
 
 extern "C" int repro_slstm_bwd(const float* r, const float* hs, const float* kpre,

@@ -106,7 +106,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P,          # wx, r, c0, n0, h0, m0 (NULL = zeros)
         _P, _P, _P, _P, _P,              # hs, the final c, n, h, m
         _P, _P, _P, _P,                  # kept pre, c, n, m (NULL = not kept)
-        _P, _I, _I, _I, _P,              # barrier counter, B, S, d, stream
+        _P, _I, _I, _I, _P,              # exchange (NULL at S = 1), B, S, d, stream
     ],
     "repro_slstm_bwd": [
         _P, _P, _P, _P, _P, _P,          # r, hs, kept pre, c, n, m

@@ -18,8 +18,9 @@ each case has exactly one kernel):
 ``mlstm_tc`` and ``mlstm_tf32`` call one chunkwise kernel each whatever the
 inputs, for the checks on the card; with ``keep=True`` they also return what
 the gradient starts from (each 64-step chunk's start state and each step's
-n·q). ``mlstm_bwd`` launches the gradient (``csrc/mlstm_bwd.cu``: its carry
-pass, its parallel pass and the sums, one call in ``launches_bwd``).
+n·q). ``mlstm_bwd`` launches the gradient (``csrc/mlstm_bwd.cu``: its
+per-step scalars, its carry pass, its parallel pass and the sums, one call
+in ``launches_bwd``).
 """
 from __future__ import annotations
 
@@ -239,7 +240,8 @@ def mlstm_bwd(
     dg = e(B, S, 2 * H)
     dstate = (e(B, H, hd, hd), e(B, H, hd), e(B, H)) if want_dstate else None
     ws = (e(B, H, nc, hd, hd), e(B, H, nc, hd), e(B, S, H), e(B, S, H),
-          e(tiles, B, S, H, hd), e(tiles, B, S, H, hd), e(tiles, B, S, H), e(tiles, B, H, nc, 2))
+          e(tiles, B, S, H, hd), e(tiles, B, S, H, hd), e(tiles, B, S, H), e(tiles, B, H, nc, 2),
+          e(B, H, 4, nc * CHUNK), e(B, H, nc))
     ptr = lambda t: None if t is None else t.data_ptr()
     ins = (q, k, v, gates, h, dh, *kept, *dfinal, *final)
     outs = (dq, dk, dv, dg, *(dstate if dstate is not None else (None,) * 3))

@@ -230,6 +230,64 @@ def _stabilizer_chain(won: torch.Tensor, e: torch.Tensor):
     return d_i, d_f, g
 
 
+def _sweep(q, k, v, gates, state, chunk):
+    """The forward sweep of ``mlstm_chunkwise_bwd_ref``: the inputs in its
+    working type (f64 given f64, else f32), padded to whole chunks (ĩ = NEG
+    past S), k scaled by 1/√hd, and each chunk's (C_in, n_in, m_in, a, M,
+    D, P ⊙ D, carry, n·q); returns (working type, chunk, pad, 1/√hd, q, k̂,
+    v, ĩ, f̃, the chunks' list, the final (C, n, m))."""
+    B, S, H, hd = q.shape
+    dev = q.device
+    wd = torch.float64 if q.dtype == torch.float64 else torch.float32
+    C, n, m = (t.to(wd) for t in (_zero_state(B, H, hd, dev) if state is None else state))
+    c = max(1, min(chunk, S))
+    pad = (-S) % c
+    inv = 1.0 / math.sqrt(hd)
+    qf, kf, vf = q.to(wd), k.to(wd) * inv, v.to(wd)
+    ig, fg = gates[..., :H].to(wd), gates[..., H:].to(wd)
+    if pad:
+        z = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        qf, kf, vf = z(qf), z(kf), z(vf)
+        ig = torch.nn.functional.pad(ig, (0, 0, 0, pad), value=NEG)
+        fg = torch.nn.functional.pad(fg, (0, 0, 0, pad))
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=dev))
+    sl = lambda x, c0: x[:, c0:c0 + c]
+    kept = []
+    for c0 in range(0, S + pad, c):
+        qt, kt, vt = sl(qf, c0), sl(kf, c0), sl(vf, c0)
+        b = torch.cumsum(sl(fg, c0), dim=1)
+        a = sl(ig, c0) - b
+        M = torch.maximum(m[:, None, :], torch.cummax(a, dim=1).values)      # (B,c,H)
+        D = torch.where(tri[None, :, :, None],
+                        torch.exp(a[:, None, :, :] - M[:, :, None, :]), 0.0)  # (B,t,s,H)
+        PD = torch.einsum("bthd,bshd->btsh", qt, kt) * D
+        cw = torch.exp(m[:, None, :] - M)
+        nq = PD.sum(2) + cw * torch.einsum("bthd,bhd->bth", qt, n)
+        kept.append((C, n, m, a, M, D, PD, cw, nq))
+        M_c = M[:, -1]
+        w = torch.exp(a - M_c[:, None, :])
+        cscale = torch.exp(m - M_c)
+        C = cscale[..., None, None] * C + torch.einsum("bshd,bshe->bhde", vt * w[..., None], kt)
+        n = cscale[..., None] * n + (kt * w[..., None]).sum(1)
+        m = b[:, -1] + M_c
+    return wd, c, pad, inv, qf, kf, vf, ig, fg, kept, (C, n, m)
+
+
+def _step_terms(kept, h, dh, pad, wd):
+    """Each step's dh·h, whether its denominator is free (|n·q| > 1), φ and
+    δ = dh / den (padded as the sweep's inputs)."""
+    hf, dhf = h.to(wd), dh.to(wd)
+    if pad:
+        z = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        hf, dhf = z(hf), z(dhf)
+    dhh = (dhf * hf).sum(-1)                                                  # (B,Sp,H)
+    nq_all = torch.cat([x[-1] for x in kept], dim=1)
+    den = torch.clamp(nq_all.abs(), min=1.0)
+    free = nq_all.abs() > 1.0
+    phi = torch.where(free, -torch.sign(nq_all) * dhh / den, 0.0)
+    return dhh, free, phi, dhf / den[..., None]
+
+
 def mlstm_chunkwise_bwd_ref(
     q: torch.Tensor,       # (B, S, H, hd)
     k: torch.Tensor,
@@ -280,48 +338,9 @@ def mlstm_chunkwise_bwd_ref(
     sums' rounding."""
     B, S, H, hd = q.shape
     dev = q.device
-    wd = torch.float64 if q.dtype == torch.float64 else torch.float32
-    C, n, m = (t.to(wd) for t in (_zero_state(B, H, hd, dev) if state is None else state))
-    c = max(1, min(chunk, S))
-    pad = (-S) % c
-    inv = 1.0 / math.sqrt(hd)
-    qf, kf, vf = q.to(wd), k.to(wd) * inv, v.to(wd)
-    hf, dhf = h.to(wd), dh.to(wd)
-    ig, fg = gates[..., :H].to(wd), gates[..., H:].to(wd)
-    if pad:
-        z = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
-        qf, kf, vf, hf, dhf = z(qf), z(kf), z(vf), z(hf), z(dhf)
-        ig = torch.nn.functional.pad(ig, (0, 0, 0, pad), value=NEG)
-        fg = torch.nn.functional.pad(fg, (0, 0, 0, pad))
-    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=dev))
+    wd, c, pad, inv, qf, kf, vf, ig, fg, kept, (C, n, m) = _sweep(q, k, v, gates, state, chunk)
     sl = lambda x, c0: x[:, c0:c0 + c]
-
-    # forward sweep: each chunk's start state and per-step stabilizer and n·q
-    kept = []
-    for c0 in range(0, S + pad, c):
-        qt, kt, vt = sl(qf, c0), sl(kf, c0), sl(vf, c0)
-        b = torch.cumsum(sl(fg, c0), dim=1)
-        a = sl(ig, c0) - b
-        M = torch.maximum(m[:, None, :], torch.cummax(a, dim=1).values)      # (B,c,H)
-        D = torch.where(tri[None, :, :, None],
-                        torch.exp(a[:, None, :, :] - M[:, :, None, :]), 0.0)  # (B,t,s,H)
-        PD = torch.einsum("bthd,bshd->btsh", qt, kt) * D
-        cw = torch.exp(m[:, None, :] - M)
-        nq = PD.sum(2) + cw * torch.einsum("bthd,bhd->bth", qt, n)
-        kept.append((C, n, m, a, M, D, PD, cw, nq))
-        M_c = M[:, -1]
-        w = torch.exp(a - M_c[:, None, :])
-        cscale = torch.exp(m - M_c)
-        C = cscale[..., None, None] * C + torch.einsum("bshd,bshe->bhde", vt * w[..., None], kt)
-        n = cscale[..., None] * n + (kt * w[..., None]).sum(1)
-        m = b[:, -1] + M_c
-
-    dhh = (dhf * hf).sum(-1)                                                  # (B,Sp,H)
-    nq_all = torch.cat([x[-1] for x in kept], dim=1)
-    den = torch.clamp(nq_all.abs(), min=1.0)
-    free = nq_all.abs() > 1.0
-    phi = torch.where(free, -torch.sign(nq_all) * dhh / den, 0.0)
-    delta = dhf / den[..., None]
+    dhh, free, phi, delta = _step_terms(kept, h, dh, pad, wd)
 
     dC = torch.zeros_like(C)
     dn = torch.zeros_like(n)
@@ -382,3 +401,70 @@ def mlstm_chunkwise_bwd_ref(
     dstate0 = None if state is None else (dC, dn, dm0)
     return (dq[:, :S].to(q.dtype), (dk[:, :S] * inv).to(q.dtype), dv[:, :S].to(q.dtype),
             dgates, dstate0)
+
+
+def mlstm_bwd_carry_tiles_ref(
+    q: torch.Tensor,       # (B, S, H, hd)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    gates: torch.Tensor,   # (B, S, 2H)
+    state: Optional[State],
+    h: torch.Tensor,       # (B, S, H, hd): the forward's output
+    dh: torch.Tensor,      # (B, S, H, hd)
+    dstate: Optional[Tuple[Optional[torch.Tensor], ...]] = None,   # (dC, dn, dm) of the final state
+    chunk: int = 64,
+    tile: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The carry pass of ``csrc/mlstm_bwd.cu`` as the kernel splits it, in
+    plain PyTorch: the per-step coefficients its prep writes (carry_t /
+    den_t and carry_t φ_t, and each chunk's cscale), then each (value-row
+    tile, column tile) of dC, ``tile`` x ``tile``, stepped back over the
+    chunks on its own, dC ← cscale dC + Σ_t (carry_t / den_t) dh_t q_tᵀ;
+    the tiles of value rows 0.. also step the n row's columns back with
+    carry_t φ_t. Returns the gradient of each chunk's end state, dC (B, H,
+    NC, hd, hd) and dn (B, H, NC, hd), and of the start state, dC0 and dn0,
+    in the working type of ``mlstm_chunkwise_bwd_ref`` (whose dC0 and dn0
+    these are, summed in the kernel's order)."""
+    B, S, H, hd = q.shape
+    if hd % tile:
+        raise ValueError(f"mlstm_bwd_carry_tiles_ref: hd {hd} is not a multiple of tile {tile}")
+    wd, c, pad, _, qf, _, _, _, _, kept, _ = _sweep(q, k, v, gates, state, chunk)
+    _, _, phi, _ = _step_terms(kept, h, dh, pad, wd)
+    dhf = dh.to(wd)
+    if pad:
+        dhf = torch.nn.functional.pad(dhf, (0, 0, 0, 0, 0, pad))
+    nc = len(kept)
+    # the prep: per chunk, carry_t / den_t and carry_t φ_t (B, c, H), cscale (B, H)
+    coef = []
+    for ci, (_, _, m_in, _, M, _, _, cw, nq) in enumerate(kept):
+        den = torch.clamp(nq.abs(), min=1.0)
+        coef.append((cw / den, cw * phi[:, ci * c:(ci + 1) * c], torch.exp(m_in - M[:, -1])))
+    dCf, dnf = (dstate[0], dstate[1]) if dstate is not None else (None, None)
+    dC_end = torch.zeros((B, H, nc, hd, hd), dtype=wd, device=q.device)
+    dn_end = torch.zeros((B, H, nc, hd), dtype=wd, device=q.device)
+    dC0 = torch.zeros((B, H, hd, hd), dtype=wd, device=q.device)
+    dn0 = torch.zeros((B, H, hd), dtype=wd, device=q.device)
+    for c0 in range(0, hd, tile):
+        cols = slice(c0, c0 + tile)
+        for r0 in range(0, hd, tile):
+            rows = slice(r0, r0 + tile)
+            dC = (dCf[:, :, rows, cols].to(wd).clone() if dCf is not None
+                  else torch.zeros((B, H, tile, tile), dtype=wd, device=q.device))
+            for ci in reversed(range(nc)):
+                cd, _, cscale = coef[ci]
+                t0 = ci * c
+                dC_end[:, :, ci, rows, cols] = dC
+                dC = cscale[..., None, None] * dC + torch.einsum(
+                    "bthd,bthe->bhde", dhf[:, t0:t0 + c, :, rows] * cd[..., None],
+                    qf[:, t0:t0 + c, :, cols])
+            dC0[:, :, rows, cols] = dC
+        dn = (dnf[:, :, cols].to(wd).clone() if dnf is not None
+              else torch.zeros((B, H, tile), dtype=wd, device=q.device))
+        for ci in reversed(range(nc)):
+            _, cph, cscale = coef[ci]
+            t0 = ci * c
+            dn_end[:, :, ci, cols] = dn
+            dn = cscale[..., None] * dn + torch.einsum("bth,bthe->bhe", cph,
+                                                       qf[:, t0:t0 + c, :, cols])
+        dn0[:, :, cols] = dn
+    return dC_end, dn_end, dC0, dn0

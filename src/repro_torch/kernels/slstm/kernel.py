@@ -6,10 +6,11 @@ replaces no Pallas kernel but the reference's ``lax.scan`` over the steps
 ``slstm_bwd`` launches ``slstm_bwd_kernel`` (``launches_bwd``), each once a
 call: a persistent grid of one block per 8 hidden units, all resident at
 once (a cooperative launch, refused rather than deadlocked when they do not
-fit), crossing a grid barrier between steps. Each wrapper validates what its
-kernel takes, allocates the outputs, the kept tensors and the barrier's
-counter (zeroed on the current stream) and launches on PyTorch's current
-stream; anything the kernel does not take raises.
+fit), exchanging h (the forward: step-tagged words) or dpre (the backward:
+behind a grid barrier) between steps. Each wrapper validates what its
+kernel takes, allocates the outputs, the kept tensors and the exchange
+buffer or the barrier's counter (zeroed on the current stream) and launches
+on PyTorch's current stream; anything the kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -60,6 +61,12 @@ def _counter(dev) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.int32, device=dev)
 
 
+def _exchange(B: int, S: int, d: int, dev) -> Optional[torch.Tensor]:
+    """The forward's two slots of step-tagged h, zeroed (no step's tag); a
+    single step exchanges nothing."""
+    return torch.zeros((2, B, d), dtype=torch.int64, device=dev) if S > 1 else None
+
+
 def slstm(
     wx: torch.Tensor,                 # (B, S, 4d) f32: x w_gates + b_gates
     r: torch.Tensor,                  # (d, 4d) f32
@@ -76,11 +83,11 @@ def slstm(
     final = (e(B, d), e(B, d), e(B, d), e(B, d))
     kept = (e(B, S, 4 * d), e(B, S, d), e(B, S, d), e(B, S, d)) if keep else (None,) * 4
     st = state if state is not None else (None,) * 4
-    counter = _counter(dev)
+    exchange = _exchange(B, S, d, dev)
     with torch.cuda.device(dev):
         err = _build.load().repro_slstm_fwd(
             wx.data_ptr(), r.data_ptr(), *(_ptr(t) for t in st), hs.data_ptr(),
-            *(t.data_ptr() for t in final), *(_ptr(t) for t in kept), counter.data_ptr(),
+            *(t.data_ptr() for t in final), *(_ptr(t) for t in kept), _ptr(exchange),
             B, S, d, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "slstm")
     launches += 1

@@ -231,3 +231,16 @@ def test_slstm_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         kernel.slstm_bwd(r.detach(), None, hs, kept, dhs)
     assert (kernel.launches, kernel.launches_bwd) == (0, 0)
+
+
+@pytest.mark.parametrize("B,S,d", [(1, 1, 128), (8, 1, 1024), (1, 2, 128), (3, 64, 96)])
+def test_slstm_exchange_buffer(B, S, d):
+    """The forward kernel's exchange: two slots (by the step's parity) of (B,
+    d) 64-bit words, zeroed, since the kernel tags step t's h with t + 1 and
+    a zero tag is no step's; a single step crosses no exchange and gets
+    none."""
+    x = kernel._exchange(B, S, d, torch.device("cpu"))
+    if S == 1:
+        assert x is None
+    else:
+        assert x.shape == (2, B, d) and x.dtype == torch.int64 and not bool(x.any())

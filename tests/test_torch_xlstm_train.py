@@ -38,6 +38,7 @@ from repro_torch.config import ShardingLayout, TrainConfig, get_arch
 from repro_torch.data import SyntheticLM
 from repro_torch.kernels.mlstm import kernel, mlstm, mlstm_chunkwise_bwd_ref, mlstm_chunkwise_ref
 from repro_torch.kernels.mlstm import ref as mlstm_ref_module
+from repro_torch.kernels.mlstm.ref import mlstm_bwd_carry_tiles_ref
 from repro_torch.launch import train as train_launcher
 from repro_torch.models import build_model, transformer, xlstm
 from repro_torch.models.convert import params_from_jax, train_state_from_jax, train_state_to_numpy
@@ -197,6 +198,52 @@ def test_mlstm_bwd_ref_in_f64(case):
     for name, x, w, f in zip(NAMES, wit, _jax_grads(a, chunk, scan=True), _bwd_ref(a, 64)):
         np.testing.assert_allclose(x.numpy(), w, **GRAD_TOL, err_msg=f"{name} vs jax.grad")
         np.testing.assert_allclose(f, x.numpy(), **GRAD_TOL, err_msg=f"{name} f32 vs f64")
+
+
+@pytest.mark.parametrize("case", MLSTM_CASES, ids=[str(c) for c in MLSTM_CASES])
+def test_carry_tiles_ref_matches_bwd_ref_and_jax_grad(case):
+    """The carry pass as the CUDA kernel splits it (``mlstm_bwd_carry_tiles_ref``:
+    the prep's per-step coefficients, then each (value-row tile, column tile)
+    of dC and each column tile of the n row stepped back over the chunks on
+    its own, at the kernel's tile: 64 where hd % 64 == 0, else 32) gives the
+    start state's dC0 and dn0 of ``mlstm_chunkwise_bwd_ref`` (GRAD_TOL) and
+    of ``jax.grad`` through the model's scan (GRAD_TOL, the absolute part at
+    least LEAF_ATOL_SCALE of the largest value, as for the blocks' leaves:
+    dn0 sums S terms up to ~400, and the plain backward itself is 6.3e-4
+    off ``jax.grad`` there); the last chunk's end takes the final state's
+    gradient, and tiles of 32 give what one tile gives."""
+    B, H, S, hd, chunk = case
+    a = _inputs(B, H, S, hd, seed=S + hd + 7, with_state=True)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    q, k, v, g, dh = (t(a[x]) for x in ("q", "k", "v", "g", "dh"))
+    state, dstate = tuple(t(x) for x in a["state"]), tuple(t(x) for x in a["dstate"])
+    h, _ = mlstm_chunkwise_ref(q, k, v, g, state, 64)
+    tile = 64 if hd % 64 == 0 else 32
+    dC_end, dn_end, dC0, dn0 = mlstm_bwd_carry_tiles_ref(q, k, v, g, state, h, dh, dstate, 64,
+                                                         tile)
+    assert dC_end.shape == (B, H, -(-S // 64), hd, hd) and dn_end.shape == (B, H, -(-S // 64), hd)
+    assert torch.equal(dC_end[:, :, -1], dstate[0]) and torch.equal(dn_end[:, :, -1], dstate[1])
+    want = mlstm_chunkwise_bwd_ref(q, k, v, g, state, h, dh, dstate, 64)[4]
+    jax_want = _jax_grads(a, chunk, scan=True)
+    for name, x, w, j in (("dC0", dC0, want[0], jax_want[4]), ("dn0", dn0, want[1], jax_want[5])):
+        np.testing.assert_allclose(x.numpy(), w.numpy(), **GRAD_TOL, err_msg=f"{name} vs the ref")
+        atol = max(GRAD_TOL["atol"], LEAF_ATOL_SCALE * float(np.abs(j).max()))
+        np.testing.assert_allclose(x.numpy(), j, atol=atol, rtol=GRAD_TOL["rtol"],
+                                   err_msg=f"{name} vs jax.grad")
+    whole = mlstm_bwd_carry_tiles_ref(q, k, v, g, state, h, dh, dstate, 64, hd)
+    small = mlstm_bwd_carry_tiles_ref(q, k, v, g, state, h, dh, dstate, 64, 32)
+    for x, y in zip(small, whole):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-5)
+
+
+def test_carry_tiles_ref_refuses_a_ragged_tile():
+    """A tile that does not divide the head dim is refused, not cut."""
+    a = _inputs(1, 1, 20, 64, seed=1, with_state=False)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    q, k, v, g, dh = (t(a[x]) for x in ("q", "k", "v", "g", "dh"))
+    h, _ = mlstm_chunkwise_ref(q, k, v, g, None, 64)
+    with pytest.raises(ValueError, match="multiple of tile 48"):
+        mlstm_bwd_carry_tiles_ref(q, k, v, g, None, h, dh, None, 64, 48)
 
 
 def test_dropping_the_stabilizer_term_fails(monkeypatch):

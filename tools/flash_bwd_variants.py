@@ -77,16 +77,18 @@ SHAPES = [(1, 1000, 32, 8, 128, 0), (1, 1000, 16, 16, 256, 0), (4, 448, 6, 6, 64
 
 def build(out: Path, names, source: str = "flash_attention_bwd.cu", variants=None,
           entries=("repro_flash_attention_bwd_dkdv", "repro_flash_attention_bwd_dq"),
-          tag: str = "_tf32_") -> dict:
+          tag: str = "_tf32_", csrc: Path = None) -> dict:
     """Compile the variants of ``source`` (in parallel; a patch applies to the
-    source or to the header ``tf32.cuh``, whichever holds its text); return
-    {name: loaded library with ``entries`` bound}. ptxas of the entry
-    functions whose name holds ``tag`` is printed."""
+    source or to the header ``tf32.cuh``, whichever holds its text), from
+    ``csrc`` (default: this checkout's sources); return {name: loaded library
+    with ``entries`` bound}. ptxas of the entry functions whose name holds
+    ``tag`` is printed."""
     from repro_torch.kernels import _build
 
     variants = VARIANTS if variants is None else variants
+    csrc = _build.CSRC if csrc is None else Path(csrc)
     headers = ("common.cuh", "hopper.cuh", "tf32.cuh")
-    texts = {f: (_build.CSRC / f).read_text() for f in (source, *headers)}
+    texts = {f: (csrc / f).read_text() for f in (source, *headers)}
     procs = {}
     for name in names:
         d = out / name
@@ -99,7 +101,7 @@ def build(out: Path, names, source: str = "flash_attention_bwd.cu", variants=Non
             files[where[0]] = files[where[0]].replace(old, new)
         for f, text in files.items():
             (d / f).write_text(text)
-        shutil.copy(_build.CSRC / "errors.cu", d / "errors.cu")
+        shutil.copy(csrc / "errors.cu", d / "errors.cu")
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
                str(d / source), str(d / "errors.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

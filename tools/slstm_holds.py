@@ -13,7 +13,10 @@ against an f64 witness with their ratio; then the largest share and ratio
 by sequence length and output.
 
 ``--mutant NAME``: copies ``src/`` and ``chip_smoke.py`` to a temporary
-directory, patches one line of ``csrc/slstm.cu`` (``MUTANTS``), builds
+directory, patches one line of ``csrc/slstm.cu`` (``MUTANTS``: ``dm``, the
+backward without its dm chain; ``h0``, the forward staging only 128 units
+of the start state's h; ``wait``, the forward reading the exchanged h
+without waiting for its step's tag), builds
 there and runs ``check_slstm`` and ``check_slstm_bwd`` with every hold
 counted instead of raising. Prints each failed hold and the count.
 
@@ -35,8 +38,11 @@ MUTANTS = {
     # the backward drops the dm chain
     "dm": ("        st[2 * BU + si] = da;", "        st[2 * BU + si] = 0.f;"),
     # the forward stages only the first 128 units of the start state's h
-    "h0": ("          Hs[i] = a.h0 ? __ldcg(a.h0 + (long long)b0 * d + i) : 0.f;",
-           "          Hs[i] = a.h0 && i % d < 128 ? __ldcg(a.h0 + (long long)b0 * d + i) : 0.f;"),
+    "h0": ("          Hw[j * ks + k] = a.h0 ? a.h0[(long long)(b0 + j) * d + kb + k] : 0.f;",
+           "          Hw[j * ks + k] = a.h0 && kb + k < 128 ? a.h0[(long long)(b0 + j) * d + kb + k]"
+           " : 0.f;"),
+    # the forward reads the exchanged h without waiting for its step's tag
+    "wait": ("  return (v.x >> 32) == want && (v.y >> 32) == want;", "  return true;"),
 }
 NAMES = ("dwx", "dr", "dc0", "dn0", "dh0", "dm0")
 
