@@ -46,7 +46,7 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    too), both chunkwise mLSTM kernels and the step, and both sLSTM kernels;
    the kernels NO_SPILL_KERNELS names build with no spilled registers. The
    sLSTM's forward and backward (one persistent cooperative grid each; h
-   exchanged step-tagged, dpre behind a grid barrier) are held against
+   and dpre exchanged as step-tagged words) are held against
    ``slstm_ref`` and ``slstm_bwd_ref`` in f32 at d 128 (atol 1e-5, rtol 1e-4; the
    backward's dr, and all its outputs at S 200, against an f64 witness,
    within 2x the plain f32 version's own error), at decode's shape (B8 S1
@@ -432,8 +432,12 @@ SLSTM_TOL = dict(atol=1e-5, rtol=1e-4)
 # plain's.
 SLSTM_WITNESS_S = 200
 SLSTM_D = 128
+# a width at which the backward keeps a thread's third unit's r in shared
+# memory (640 / 256 units a thread, two in registers), held against the
+# f64 witness as the main shapes are
+SLSTM_SMEM_D = 640
 # (B, S) at SLSTM_D, each with and without a start state; B10 takes two of
-# the forward's 8-row passes over r and five of the backward's 2-row ones
+# the forward's 8-row passes over r and three of the backward's 4-row tiles
 SLSTM_CASES = [(1, 1), (3, 1), (2, 5), (3, 64), (1, 200), (2, 200), (10, 20)]
 # xlstm-350m's sLSTM at the main path's shapes (d 1024): prefill B8 S4096,
 # training's microbatch B1 S4096. There each output is held against an f64
@@ -2011,18 +2015,21 @@ def check_slstm(gen: torch.Generator, flush: torch.Tensor) -> dict:
 
 def check_slstm_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
     """The sLSTM's backward kernel (``slstm_bwd_kernel``: the forward's
-    grid in reverse time, the rows of r of a block's units in shared
-    memory, dpre exchanged behind the grid barrier; dr one product in the
-    wrapper) against ``slstm_bwd_ref`` on what the forward kernel kept: at
-    d = 128 on SLSTM_CASES with and without a start state (and then the
-    final state's gradient) at SLSTM_TOL, dr (and at S >= SLSTM_WITNESS_S
-    every output) against an f64 witness within SLSTM_MAIN_MARGIN x the
-    plain f32 version's own error; at xlstm-350m's training
-    microbatch (B1 S4096 d1024) against an f64 witness within
-    SLSTM_MAIN_MARGIN x the plain f32 version's own error, the same bits
-    twice. Timed there beside the plain version and the bound."""
+    grid in reverse time, each block's share of dpre r^T for every unit
+    exchanged as step-tagged words; dr one product in the wrapper)
+    against ``slstm_bwd_ref`` on what the forward kernel kept: at d = 128
+    on SLSTM_CASES with and without a start state (and then the final
+    state's gradient) at SLSTM_TOL, dr (and at S >= SLSTM_WITNESS_S every
+    output) against an f64 witness within SLSTM_MAIN_MARGIN x the plain
+    f32 version's own error; a grid that cannot be resident at once (d =
+    1152) refused at launch, and a B2 S5 call with a start state after it
+    at SLSTM_TOL; B2 S5 at SLSTM_SMEM_D against the f64 witness; at
+    xlstm-350m's training microbatch (B1 S4096 d1024)
+    against an f64 witness within SLSTM_MAIN_MARGIN x the plain f32
+    version's own error, the same bits twice. Timed there beside the plain
+    version and the bound."""
     from repro_torch.kernels.slstm import kernel
-    from repro_torch.kernels.slstm.ref import slstm_bwd_ref
+    from repro_torch.kernels.slstm.ref import slstm_bwd_ref, slstm_ref
 
     names = ("dwx", "dr", "dc0", "dn0", "dh0", "dm0")
     log("[kernels] slstm_bwd vs slstm_bwd_ref in f32 on the forward kernel's kept tensors "
@@ -2052,6 +2059,37 @@ def check_slstm_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
                 else:
                     err = max(err, hold(f"{tag} {n}", a, b, SLSTM_TOL))
             _slstm_same_bits(tag, lambda: kernel.slstm_bwd(r, state, hs, kept, dhs, dfin))
+    if failed:
+        raise AssertionError("slstm_bwd disagrees with its f64 witness: " + "; ".join(failed))
+
+    # a grid that cannot be co-resident is refused, not deadlocked
+    d_big = 1152
+    wx, r, _ = _slstm_inputs(gen, 1, 2, d_big, False)
+    hs, _, kept = slstm_ref(wx, r, None, keep=True)
+    try:
+        kernel.slstm_bwd(r, None, hs, kept, rnd(1, 2, d_big))
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"  slstm_bwd at d {d_big} ({d_big // kernel.UNITS} blocks): refused at launch: {e}")
+    else:
+        raise AssertionError(f"slstm_bwd at d {d_big}: a grid of {d_big // kernel.UNITS} blocks "
+                             f"launched")
+    wx, r, state = _slstm_inputs(gen, 2, 5, SLSTM_D, True)
+    hs, _, kept = kernel.slstm(wx, r, state, keep=True)
+    dhs, dfin = rnd(2, 5, SLSTM_D), tuple(rnd(2, SLSTM_D) for _ in range(4))
+    got = kernel.slstm_bwd(r, state, hs, kept, dhs, dfin)
+    want = slstm_bwd_ref(r, state, hs, kept, dhs, dfin)
+    for n, a, b in zip(names[:1] + names[2:], (got[0], *got[2]), (want[0], *want[2])):
+        err = max(err, hold(f"slstm bwd B2 S5 after the refused launch {n}", a, b, SLSTM_TOL))
+    # SLSTM_SMEM_D: a thread's third unit keeps r's values in shared memory
+    d = SLSTM_SMEM_D
+    wx, r, state = _slstm_inputs(gen, 2, 5, d, True)
+    hs, _, kept = kernel.slstm(wx, r, state, keep=True)
+    dhs, dfin = rnd(2, 5, d), tuple(rnd(2, d) for _ in range(4))
+    wit = slstm_bwd_ref(r.double(), f64(state), hs.double(), f64(kept), dhs.double(), f64(dfin))
+    err = max(err, _slstm_vs_witness(
+        f"slstm bwd B2 S5 d{d} with state", flat(kernel.slstm_bwd(r, state, hs, kept, dhs, dfin)),
+        flat(slstm_bwd_ref(r, state, hs, kept, dhs, dfin)), flat(wit), names, failed))
     if failed:
         raise AssertionError("slstm_bwd disagrees with its f64 witness: " + "; ".join(failed))
 

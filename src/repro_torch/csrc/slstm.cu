@@ -55,10 +55,43 @@
 //   each step's pre-activations and c, n, m: 7 (B, S, d) f32, 117 MB at B1
 //   S4096 d1024. The backward recomputes the gates from them.
 //
-// The backward (`slstm_bwd_kernel`): the rows of r of a block's units in
-// shared memory; per step dpre crosses the grid behind a barrier (a counter
-// one thread per block adds to after a fence, an acquire spin) and is read
-// with L1-bypassing loads (__ldcg: L1 is not coherent between SMs).
+// The backward (`slstm_bwd_kernel<JM>`): per step t from S - 1 down to 0,
+// dh = dhs_t + dpre_{t+1} r^T, then the cell stepped back with dc, dn, dm
+// carried, writing dpre_t (= dwx); with a start state, dh0 = dpre_0 r^T
+// and the carries last. dh's product is a dot 4d long for each unit, so
+// the 4d dpre values that every block would read each step are four
+// times the forward's h (at B1 S4096 d1024 on an H100, gathering them as
+// step-tagged words took 3.5 us a step: 32 KB a block through L2). So each
+// block instead scatters its own 32 columns' share of the product:
+// * Thread tid owns units j = tid + 256 m of the whole d and keeps r's
+//   values of the block's 32 columns (4 gates x its 8 units) for them in
+//   registers for m < JM (4 units at d = 1024: 128 floats; further units
+//   in shared memory), so r is read from device memory once a launch.
+//   After a step's cell it adds up its units' partial sums over the 32
+//   columns, p_P[j] = sum_c dpre_t[c] r[j, c] (two sums over alternate
+//   groups of 4 columns, each in column order, then added), and stores
+//   them for every j: a block writes d words a batch row a step.
+// * The partial sums cross the grid step-tagged as the forward's h does:
+//   (S - s, p_P[j]) as 64-bit words into slot s & 1 of a (2, B, d / 8, d)
+//   buffer the wrapper zeroes (tag 0 is no step); a block reads, for its 8
+//   units, the d / 8 producers' words of a row (d words, 8 KB at d 1024,
+//   each word read by one block only), reloading those not tagged yet; no
+//   counter, no fence, no block barrier before the sum. Two slots suffice
+//   in reverse time: a block overwrites step s + 2's words with step s's
+//   only after reading step s + 1's words of every block, each written
+//   after its block read step s + 2's. A tag that is not yet the step's is
+//   read again, never used. The dh0 pass reads step 0's words the same
+//   way; one step without a start state crosses nothing and gets no buffer.
+// * Thread tid reads 4 units' words of one producer (a chunk; two at d
+//   above 1024), the warp sums its 16 producers' chunks a unit (xor 16
+//   and 8 each hand over the half of the units a lane does not keep, xor
+//   4 and 2 finish: 5 shuffles), and the warps' sums go through shared
+//   memory behind the step's one block barrier. Every warp then steps all
+//   of the block's cells itself (lane = batch row % 4, unit), so that it
+//   holds the 32 dpre values its products need with no second barrier;
+//   warp 0 writes the outputs. Every sum has a fixed order: the same inputs
+//   give the same bits.
+// * A cell lane fetches step t - 1's 11 inputs before step t's wait.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -69,45 +102,19 @@ constexpr int NT = 256;       // threads: 8 warps
 constexpr int NW = NT / 32;
 constexpr int U = 8;          // hidden units a block owns
 constexpr int G = 4;          // gates z, i, f, o
-constexpr int C = G * U;      // the forward's columns of r a block owns: one a lane
+constexpr int C = G * U;      // columns of r a block's units own (the forward: one a lane)
 constexpr int BT = 8;         // batch rows one forward pass over r takes
-constexpr int BTB = 2;        // batch rows one backward pass over r takes
+constexpr int BTB = 32 / U;   // batch rows a backward tile takes: a lane a (row, unit)
 constexpr int NP = 4;         // the forward's partial sums a batch row (k mod NP)
+constexpr int NPB = 2;        // the backward's sums a unit's share (4-column groups mod NPB)
 
 static_assert(C == 32, "the forward maps one column of r to one lane");
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// The backward's grid barrier: a block's arrival publishes every write its
-// threads made before it; the wait returns once `target` arrivals have been
-// made.
-__device__ __forceinline__ void grid_arrive(unsigned* counter) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-  }
-}
 
 // A wait that outlasts STALL_CYCLES (~10 s) traps: a grid whose blocks were
 // not all resident fails the launch with an error instead of hanging.
 constexpr long long STALL_CYCLES = 20000000000LL;
 
-__device__ __forceinline__ void grid_wait(const unsigned* counter, unsigned target) {
-  if (threadIdx.x == 0) {
-    const long long t0 = clock64();
-    while (ld_acquire(counter) < target) {
-      if (clock64() - t0 > STALL_CYCLES) __trap();
-    }
-  }
-  __syncthreads();
-}
-
-// The forward's exchange: (tag, h) as one 64-bit word, tag in the high half
+// The exchange: (tag, value) as one 64-bit word, tag in the high half
 __device__ __forceinline__ void put_tagged(unsigned long long* p, float h, unsigned tag) {
   const unsigned long long v = (static_cast<unsigned long long>(tag) << 32) | __float_as_uint(h);
   asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" :: "l"(p), "l"(v) : "memory");
@@ -365,16 +372,28 @@ struct Bwd {
   const float *dcT, *dnT, *dhT, *dmT;               // the final state's gradient, or null
   float* dpre;                                      // (B, S, 4d): dwx
   float *dc0, *dn0, *dh0, *dm0;                     // the start state's gradient, or null
-  unsigned* counter;
+  unsigned long long* x;                            // the exchange (2, B, d / 8, d) or null
   int B, S, d;
 };
 
-// Shared memory: RT [U][4d] (the rows of r of the block's units), the
-// staged dpre [BTB][4d], the warps' sums [NW][BTB][U], the carries [3][B][U]
-// (dc, dn, dm).
-size_t bwd_smem(int B, int d) {
-  return sizeof(float) * (size_t(U) * 4 * d + size_t(BTB) * 4 * d + NW * BTB * U +
-                          3 * size_t(B) * U);
+// A thread's units of the whole d (fewer than one a thread at d < 256)
+int unit_slots(int d) { return (d + NT - 1) / NT; }
+
+// The units a thread keeps r's values of in registers: the largest power
+// of two <= min(its units, 4)
+int pick_jm(int d) {
+  const int js = unit_slots(d);
+  int jm = 1;
+  while (jm < 4 && 2 * jm <= js) jm *= 2;
+  return jm;
+}
+
+// Shared memory: r's values of a thread's units past the registers' JM
+// [js - JM][G U][NT], the warps' sums [2][BTB][NW][U], each warp's dpre
+// [NW][BTB][G U] and carries [NW][3][B][U] (dc, dn, dm).
+size_t bwd_smem(int B, int d, int jm) {
+  return sizeof(float) * (size_t(unit_slots(d) - jm) * C * NT + 2 * BTB * NW * U +
+                          NW * BTB * C + NW * 3 * size_t(B) * U);
 }
 
 // What one unit's step of the backward reads of the forward.
@@ -406,112 +425,132 @@ __device__ __forceinline__ CellIn load_cell(const Bwd& a, int b, int t, int unit
   return x;
 }
 
-// dh of the block's units from the staged dpre (rows b0.. of the tile):
-// each thread sums its float4 columns in order, the warp by a fixed
-// butterfly, lane 0 writes the warp's sum.
-__device__ __forceinline__ void dot_rows(const float* RT, const float* DP, float* part, int nb,
-                                         int d) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float acc[BTB][U];
-#pragma unroll
-  for (int j = 0; j < BTB; ++j)
-#pragma unroll
-    for (int u = 0; u < U; ++u) acc[j][u] = 0.f;
-  const float4* RT4 = reinterpret_cast<const float4*>(RT);
-  const float4* DP4 = reinterpret_cast<const float4*>(DP);
-  for (int q = tid; q < d; q += NT) {      // 4d columns = d float4s
-    float4 dp[BTB];
-#pragma unroll
-    for (int j = 0; j < BTB; ++j) dp[j] = j < nb ? DP4[j * d + q] : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const float4 rr = RT4[u * d + q];
-#pragma unroll
-      for (int j = 0; j < BTB; ++j) {
-        acc[j][u] = fmaf(dp[j].x, rr.x, acc[j][u]);
-        acc[j][u] = fmaf(dp[j].y, rr.y, acc[j][u]);
-        acc[j][u] = fmaf(dp[j].z, rr.z, acc[j][u]);
-        acc[j][u] = fmaf(dp[j].w, rr.w, acc[j][u]);
+// The warps' sums of step s's partial sums for rows b0 .. b0 + nb of the
+// block's units (dpre_s r^T), into pw [BTB][NW][U]: thread tid's chunks
+// ch = tid + NT i (producer ch / 2, units 4 (ch % 2) ..), waited for
+__device__ __forceinline__ void gather_tile(const Bwd& a, float* pw, int b0, int nb, int s) {
+  const int d = a.d, nch = d / 4, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int u0 = blockIdx.x * U;
+  const unsigned long long want = unsigned(a.S - s);   // step s's words carry tag S - s
+  for (int j = 0; j < nb; ++j) {
+    const unsigned long long* row = a.x + ((long long)(s & 1) * a.B + b0 + j) * (d / U) * d;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ch = tid; ch < nch; ch += NT) {
+      const unsigned long long* src = row + (long long)(ch >> 1) * d + u0 + 4 * (ch & 1);
+      Lines<2> L;
+      unsigned pending = 3;
+      const long long t0 = clock64();
+      while (pending) {
+        if (pending & 1u) L.v[0] = get_tagged2(src);
+        if (pending & 2u) L.v[1] = get_tagged2(src + 2);
+        pending = untagged(L, pending, want);
+        if (pending && clock64() - t0 > STALL_CYCLES) __trap();
       }
+      acc[0] += __uint_as_float(unsigned(L.v[0].x));
+      acc[1] += __uint_as_float(unsigned(L.v[0].y));
+      acc[2] += __uint_as_float(unsigned(L.v[1].x));
+      acc[3] += __uint_as_float(unsigned(L.v[1].y));
     }
+    // over the 16 lanes of the same unit half (lane bit 0): xor 16 and 8
+    // hand over half of the units a lane does not keep, xor 4 and 2 finish;
+    // lane l ends with unit 4 (l & 1) + 2 (l >> 4 & 1) + (l >> 3 & 1)
+    const bool b4 = lane & 16, b3 = lane & 8;
+    float h2[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      h2[k] = (b4 ? acc[k + 2] : acc[k]) +
+              __shfl_xor_sync(repro::FULL_MASK, b4 ? acc[k] : acc[k + 2], 16);
+    float v = (b3 ? h2[1] : h2[0]) + __shfl_xor_sync(repro::FULL_MASK, b3 ? h2[0] : h2[1], 8);
+    v += __shfl_xor_sync(repro::FULL_MASK, v, 4);
+    v += __shfl_xor_sync(repro::FULL_MASK, v, 2);
+    if ((lane & 6) == 0)
+      pw[(j * NW + warp) * U + 4 * (lane & 1) + 2 * (lane >> 4 & 1) + (lane >> 3 & 1)] = v;
   }
-#pragma unroll
-  for (int j = 0; j < BTB; ++j)
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float v = acc[j][u];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(repro::FULL_MASK, v, off);
-      if (lane == 0) part[(warp * BTB + j) * U + u] = v;
-    }
 }
 
-__device__ __forceinline__ void stage_dpre(const Bwd& a, float* DP, int b0, int nb, int t) {
-  const int d = a.d, S = a.S;
-  for (int i = threadIdx.x; i < nb * d; i += NT) {     // d float4s a row
-    const int j = i / d, q = i % d;
-    const float4* src = reinterpret_cast<const float4*>(
-        a.dpre + ((long long)(b0 + j) * S + t) * 4 * d);
-    reinterpret_cast<float4*>(DP)[i] = __ldcg(src + q);
-  }
-}
-
-__device__ __forceinline__ float warp_sums(const float* part, int j, int u) {
-  float s = part[j * U + u];
+__device__ __forceinline__ float warp_sums(const float* pw, int j, int u) {
+  float s = pw[j * NW * U + u];
 #pragma unroll
-  for (int w = 1; w < NW; ++w) s += part[(w * BTB + j) * U + u];
+  for (int w = 1; w < NW; ++w) s += pw[(j * NW + w) * U + u];
   return s;
 }
 
+template <int JM>
 __global__ void __launch_bounds__(NT, 1) slstm_bwd_kernel(const Bwd a) {
   extern __shared__ __align__(16) float smem[];
   const int B = a.B, S = a.S, d = a.d, d4 = 4 * d;
-  float* RT = smem;
-  float* DP = RT + U * d4;
-  float* part = DP + BTB * d4;
-  float* st = part + NW * BTB * U;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int js = (d + NT - 1) / NT;
+  float* Rs = smem;                                 // [js - JM][C][NT]
+  float* part = Rs + (js - JM) * C * NT;            // [2][BTB][NW][U]
+  float* Dw = part + 2 * BTB * NW * U + warp * BTB * C;             // this warp's [BTB][C]
+  float* stw = part + 2 * BTB * NW * U + NW * BTB * C + warp * 3 * B * U;   // [3][B][U]
   const int BU = B * U;
-  const int tid = threadIdx.x;
   const int u0 = blockIdx.x * U;
-  const int nu = min(U, d - u0);
   const bool has_state = a.dc0 != nullptr;
 
-  for (int i = tid; i < U * d4; i += NT) {
-    const int u = i / d4, col = i % d4;
-    RT[i] = u < nu ? a.r[(long long)(u0 + u) * d4 + col] : 0.f;
+  // r's values of the block's 32 columns (c = 8 g + u: column g d + u0 + u)
+  // for the thread's units j = tid + NT m: registers, then shared memory
+  // past JM. Only this thread reads them: no barrier.
+  float rr[JM][C];
+#pragma unroll
+  for (int m = 0; m < JM; ++m) {
+    const int j = tid + NT * m;
+#pragma unroll
+    for (int c = 0; c < C; c += 4) {
+      const float4 v = j < d ? *reinterpret_cast<const float4*>(a.r + (long long)j * d4 +
+                                                                (c / U) * d + u0 + c % U)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      rr[m][c] = v.x;
+      rr[m][c + 1] = v.y;
+      rr[m][c + 2] = v.z;
+      rr[m][c + 3] = v.w;
+    }
   }
-  for (int i = tid; i < BU; i += NT) {
-    const int b = i / U, u = i % U;
-    const long long at = (long long)b * d + u0 + u;
-    const bool ok = u < nu;
-    st[i] = ok && a.dcT ? a.dcT[at] : 0.f;
-    st[BU + i] = ok && a.dnT ? a.dnT[at] : 0.f;
-    st[2 * BU + i] = ok && a.dmT ? a.dmT[at] : 0.f;
+  for (int m = JM; m < js; ++m) {
+    const int j = tid + NT * m;
+    for (int c = 0; c < C; ++c)
+      Rs[((m - JM) * C + c) * NT + tid] = j < d ? a.r[(long long)j * d4 + (c / U) * d + u0 + c % U]
+                                                : 0.f;
   }
-  __syncthreads();
+  // each warp's carries; a lane reads and writes only those of its (row, unit)
+  const int cj = lane / U, cu = lane % U;           // a cell lane's batch row in the tile, unit
+  const int unit = u0 + cu;
+  for (int b = cj; b < B; b += BTB) {
+    const long long at = (long long)b * d + unit;
+    stw[b * U + cu] = a.dcT ? a.dcT[at] : 0.f;
+    stw[BU + b * U + cu] = a.dnT ? a.dnT[at] : 0.f;
+    stw[2 * BU + b * U + cu] = a.dmT ? a.dmT[at] : 0.f;
+  }
 
-  const int cj = tid / U, cu = tid % U;
-  const bool cell0 = tid < min(BTB, B) * U && cu < nu;
-  unsigned phase = 0;
+  CellIn nx;                                        // the first tile's inputs of the next step
+  if (cj < B) nx = load_cell(a, cj, S - 1, unit);
+  int buf = 0;
   for (int t = S - 1; t >= 0; --t) {
-    CellIn x0;
-    if (cell0) x0 = load_cell(a, cj, t, u0 + cu);
-    if (t < S - 1) grid_wait(a.counter, phase * gridDim.x);
     for (int b0 = 0; b0 < B; b0 += BTB) {
       const int nb = min(BTB, B - b0);
-      if (t < S - 1) {
-        stage_dpre(a, DP, b0, nb, t + 1);
-        __syncthreads();
-        dot_rows(RT, DP, part, nb, d);
-        __syncthreads();
+      const bool cell = cj < nb;
+      const int b = b0 + cj;
+      CellIn x;
+      if (cell) {
+        if (b0 == 0) {
+          x = nx;
+          if (t > 0) nx = load_cell(a, cj, t - 1, unit);   // step t - 1's, before step t's wait
+        } else {
+          x = load_cell(a, b, t, unit);
+        }
       }
-      if (tid < nb * U && cu < nu) {
-        const int b = b0 + cj, unit = u0 + cu;
-        const CellIn x = b0 == 0 ? x0 : load_cell(a, b, t, unit);
-        const float rec = t < S - 1 ? warp_sums(part, cj, cu)
+      float* pw = part + buf * BTB * NW * U;
+      if (t < S - 1) {
+        gather_tile(a, pw, b0, nb, t + 1);
+        __syncthreads();   // the warps' sums are written
+      }
+      __syncwarp();        // this warp's products of the last tile have read Dw
+      if (cell) {
+        const float rec = t < S - 1 ? warp_sums(pw, cj, cu)
                                     : (a.dhT ? a.dhT[(long long)b * d + unit] : 0.f);
         const int si = b * U + cu;
-        float dc = st[si], dn = st[BU + si], dm = st[2 * BU + si];
+        float dc = stw[si], dn = stw[BU + si], dm = stw[2 * BU + si];
         const float z = tanhf(x.pre[0]);
         const float o = sigmoid(x.pre[3]);
         const float fm = x.pre[2] + x.mp;
@@ -533,41 +572,80 @@ __global__ void __launch_bounds__(NT, 1) slstm_bwd_kernel(const Bwd a) {
         float da = fm == x.pre[1] ? dm / 2.f : (fm > x.pre[1] ? dm : 0.f);
         const float dit = di * i_ + (dm - da);
         da = df * f_ + da;
-        float* out = a.dpre + ((long long)b * S + t) * d4 + unit;
-        out[0] = dz;
-        out[d] = dit;
-        out[2 * d] = da;
-        out[3 * d] = dot;
-        st[si] = dc * f_;
-        st[BU + si] = dn * f_;
-        st[2 * BU + si] = da;
+        const float g4[G] = {dz, dit, da, dot};
+#pragma unroll
+        for (int g = 0; g < G; ++g) Dw[cj * C + g * U + cu] = g4[g];
+        if (warp == 0) {
+          float* out = a.dpre + ((long long)b * S + t) * d4 + unit;
+#pragma unroll
+          for (int g = 0; g < G; ++g) out[g * d] = g4[g];
+        }
+        stw[si] = dc * f_;
+        stw[BU + si] = dn * f_;
+        stw[2 * BU + si] = da;
       }
-      __syncthreads();   // the staged dpre, the sums and the carries are the next tile's
-    }
-    if (t > 0 || has_state) {
-      grid_arrive(a.counter);
-      ++phase;
+      __syncwarp();        // this warp's dpre of the tile is in Dw
+      buf ^= 1;
+      if (t == 0 && !has_state) continue;
+      // this block's share of dpre_t r^T for each of the thread's units:
+      // the 32 columns in order, step-tagged
+      for (int j = 0; j < nb; ++j) {
+        const float* D = Dw + j * C;
+        unsigned long long* xo =
+            a.x + (((long long)(t & 1) * B + b0 + j) * (d / U) + blockIdx.x) * d + tid;
+        float p[NPB][JM];
+#pragma unroll
+        for (int k = 0; k < NPB; ++k)
+#pragma unroll
+          for (int m = 0; m < JM; ++m) p[k][m] = 0.f;
+#pragma unroll
+        for (int c = 0; c < C; c += 4 * NPB)
+#pragma unroll
+          for (int k = 0; k < NPB; ++k) {
+            const int e = c + 4 * k;
+            const float4 dv = *reinterpret_cast<const float4*>(D + e);
+#pragma unroll
+            for (int m = 0; m < JM; ++m) {
+              p[k][m] = fmaf(dv.x, rr[m][e], p[k][m]);
+              p[k][m] = fmaf(dv.y, rr[m][e + 1], p[k][m]);
+              p[k][m] = fmaf(dv.z, rr[m][e + 2], p[k][m]);
+              p[k][m] = fmaf(dv.w, rr[m][e + 3], p[k][m]);
+            }
+          }
+#pragma unroll
+        for (int m = 0; m < JM; ++m) {
+          float v = p[0][m];
+#pragma unroll
+          for (int k = 1; k < NPB; ++k) v += p[k][m];
+          if (tid + NT * m < d) put_tagged(xo + NT * m, v, S - t);
+        }
+        for (int m = JM; m < js; ++m) {
+          if (tid + NT * m >= d) continue;
+          const float* rs = Rs + (m - JM) * C * NT + tid;
+          float q = 0.f;
+          for (int c = 0; c < C; ++c) q = fmaf(D[c], rs[c * NT], q);
+          put_tagged(xo + NT * m, q, S - t);
+        }
+      }
     }
   }
   if (!has_state) return;
-  // the start state's gradient: dh0 = dpre_0 r^T, and the carries
-  grid_wait(a.counter, phase * gridDim.x);
+  // the start state's gradient: dh0 = dpre_0 r^T, and warp 0's carries
   for (int b0 = 0; b0 < B; b0 += BTB) {
     const int nb = min(BTB, B - b0);
-    stage_dpre(a, DP, b0, nb, 0);
-    __syncthreads();
-    dot_rows(RT, DP, part, nb, d);
-    __syncthreads();
-    if (tid < nb * U && cu < nu) {
+    float* pw = part + buf * BTB * NW * U;
+    gather_tile(a, pw, b0, nb, 0);
+    __syncthreads();   // the warps' sums are written
+    if (warp == 0 && cj < nb) {
       const int b = b0 + cj;
-      const long long at = (long long)b * d + u0 + cu;
+      const long long at = (long long)b * d + unit;
       const int si = b * U + cu;
-      a.dh0[at] = warp_sums(part, cj, cu);
-      a.dc0[at] = st[si];
-      a.dn0[at] = st[BU + si];
-      a.dm0[at] = st[2 * BU + si];
+      a.dh0[at] = warp_sums(pw, cj, cu);
+      a.dc0[at] = stw[si];
+      a.dn0[at] = stw[BU + si];
+      a.dm0[at] = stw[2 * BU + si];
     }
-    __syncthreads();
+    buf ^= 1;
   }
 }
 
@@ -614,6 +692,11 @@ cudaError_t launch_lb(const Fwd& a, cudaStream_t stream) {
   }
 }
 
+template <int JM>
+cudaError_t launch_bwd(const Bwd& a, cudaStream_t stream) {
+  return launch_coop(slstm_bwd_kernel<JM>, a, a.d / U, bwd_smem(a.B, a.d, JM), stream);
+}
+
 }  // namespace
 
 // `exchange`: the forward's (2, B, d) 64-bit words, zeroed (unread at S = 1)
@@ -635,16 +718,22 @@ extern "C" int repro_slstm_fwd(const float* wx, const float* r, const float* c0,
   }
 }
 
+// `exchange`: the backward's (2, B, d / 8, d) 64-bit words, zeroed; null
+// only at S = 1 without a start state (nothing crosses the grid)
 extern "C" int repro_slstm_bwd(const float* r, const float* hs, const float* kpre,
                                const float* kc, const float* kn, const float* km,
                                const float* c0, const float* n0, const float* m0,
                                const float* dhs, const float* dcT, const float* dnT,
                                const float* dhT, const float* dmT, float* dpre, float* dc0,
-                               float* dn0, float* dh0, float* dm0, void* counter, int B, int S,
+                               float* dn0, float* dh0, float* dm0, void* exchange, int B, int S,
                                int d, void* stream) {
-  if (bad_shape(B, S, d)) return cudaErrorInvalidValue;
+  if (bad_shape(B, S, d) || (!exchange && (S > 1 || dc0))) return cudaErrorInvalidValue;
   const Bwd a{r, hs, kpre, kc, kn, km, c0, n0, m0, dhs, dcT, dnT, dhT, dmT, dpre,
-              dc0, dn0, dh0, dm0, static_cast<unsigned*>(counter), B, S, d};
-  return launch_coop(slstm_bwd_kernel, a, (d + U - 1) / U, bwd_smem(B, d),
-                     static_cast<cudaStream_t>(stream));
+              dc0, dn0, dh0, dm0, static_cast<unsigned long long*>(exchange), B, S, d};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (pick_jm(d)) {
+    case 1: return launch_bwd<1>(a, s);
+    case 2: return launch_bwd<2>(a, s);
+    default: return launch_bwd<4>(a, s);
+  }
 }

@@ -113,7 +113,7 @@ SIGNATURES = {
         _P, _P, _P, _P,                  # c0, n0, m0 (NULL = zeros), dhs (NULL = zeros)
         _P, _P, _P, _P,                  # the final state's dc, dn, dh, dm (NULL = zeros)
         _P, _P, _P, _P, _P,              # dpre, the start state's dc, dn, dh, dm (NULL = none)
-        _P, _I, _I, _I, _P,              # barrier counter, B, S, d, stream
+        _P, _I, _I, _I, _P,              # exchange (NULL at S = 1 without c0), B, S, d, stream
     ],
 }
 

@@ -6,11 +6,11 @@ replaces no Pallas kernel but the reference's ``lax.scan`` over the steps
 ``slstm_bwd`` launches ``slstm_bwd_kernel`` (``launches_bwd``), each once a
 call: a persistent grid of one block per 8 hidden units, all resident at
 once (a cooperative launch, refused rather than deadlocked when they do not
-fit), exchanging h (the forward: step-tagged words) or dpre (the backward:
-behind a grid barrier) between steps. Each wrapper validates what its
-kernel takes, allocates the outputs, the kept tensors and the exchange
-buffer or the barrier's counter (zeroed on the current stream) and launches
-on PyTorch's current stream; anything the kernel does not take raises.
+fit), exchanging h (the forward) or each block's share of dpre r^T (the
+backward) between steps as step-tagged words. Each wrapper validates what
+its kernel takes, allocates the outputs, the kept tensors and the exchange
+buffer (zeroed on the current stream) and launches on PyTorch's current
+stream; anything the kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -48,8 +48,6 @@ def _check(wx: torch.Tensor, r: torch.Tensor, state: Optional[State]) -> Tuple[i
     B, S, d = wx.shape[0], wx.shape[1], wx.shape[2] // 4
     if d % 32 or S < 1 or B < 1:
         raise ValueError(f"slstm kernel: d {d} (a multiple of 32), S {S} and B {B} (at least 1)")
-    if S * -(-d // UNITS) >= 2**31:
-        raise ValueError(f"slstm kernel: S {S} steps overflow the barrier's counter")
     _check_f32("wx", wx, (B, S, 4 * d), wx.device)
     _check_f32("r", r, (d, 4 * d), wx.device)
     for name, t in zip("cnhm", state or ()):
@@ -57,14 +55,20 @@ def _check(wx: torch.Tensor, r: torch.Tensor, state: Optional[State]) -> Tuple[i
     return B, S, d
 
 
-def _counter(dev) -> torch.Tensor:
-    return torch.zeros(1, dtype=torch.int32, device=dev)
-
-
 def _exchange(B: int, S: int, d: int, dev) -> Optional[torch.Tensor]:
     """The forward's two slots of step-tagged h, zeroed (no step's tag); a
     single step exchanges nothing."""
     return torch.zeros((2, B, d), dtype=torch.int64, device=dev) if S > 1 else None
+
+
+def _bwd_exchange(B: int, S: int, d: int, with_state: bool, dev) -> Optional[torch.Tensor]:
+    """The backward's two slots of step-tagged partial sums of dpre r^T, (B,
+    d / 8, d): each block's share for every unit, zeroed; nothing crosses the
+    grid at one step without a start state (with one, dh0 reads step 0's
+    shares), and that call gets none."""
+    if S == 1 and not with_state:
+        return None
+    return torch.zeros((2, B, d // UNITS, d), dtype=torch.int64, device=dev)
 
 
 def slstm(
@@ -122,12 +126,12 @@ def slstm_bwd(
     dpre = e(B, S, 4 * d)
     d0 = (e(B, d), e(B, d), e(B, d), e(B, d)) if state is not None else (None,) * 4
     st = state if state is not None else (None,) * 4
-    counter = _counter(dev)
+    exchange = _bwd_exchange(B, S, d, state is not None, dev)
     with torch.cuda.device(dev):
         err = _build.load().repro_slstm_bwd(
             r.data_ptr(), hs.data_ptr(), *(t.data_ptr() for t in kept),
             _ptr(st[0]), _ptr(st[1]), _ptr(st[3]), _ptr(dhs), *(_ptr(t) for t in dstate),
-            dpre.data_ptr(), *(_ptr(t) for t in d0), counter.data_ptr(),
+            dpre.data_ptr(), *(_ptr(t) for t in d0), _ptr(exchange),
             B, S, d, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "slstm_bwd")
     launches_bwd += 1

@@ -233,14 +233,29 @@ def test_slstm_refuses_what_it_does_not_take():
     assert (kernel.launches, kernel.launches_bwd) == (0, 0)
 
 
-@pytest.mark.parametrize("B,S,d", [(1, 1, 128), (8, 1, 1024), (1, 2, 128), (3, 64, 96)])
-def test_slstm_exchange_buffer(B, S, d):
-    """The forward kernel's exchange: two slots (by the step's parity) of (B,
-    d) 64-bit words, zeroed, since the kernel tags step t's h with t + 1 and
-    a zero tag is no step's; a single step crosses no exchange and gets
-    none."""
-    x = kernel._exchange(B, S, d, torch.device("cpu"))
-    if S == 1:
+_FWD_CASES = [(1, 1, 128), (8, 1, 1024), (1, 2, 128), (3, 64, 96)]
+
+
+@pytest.mark.parametrize("which,B,S,d", [
+    *(pytest.param("fwd", *c, id="-".join(map(str, c))) for c in _FWD_CASES),
+    *(pytest.param(w, *c, id=f"{w}-" + "-".join(map(str, c)))
+      for w in ("bwd", "bwd-state") for c in _FWD_CASES)])
+def test_slstm_exchange_buffer(which, B, S, d):
+    """The kernels' exchanges, each two slots (by the step's parity) of
+    64-bit words, zeroed, since a kernel tags each step's words with a
+    nonzero count and a zero tag is no step's: the forward's (B, d) of h
+    (tag t + 1), the backward's (B, d / 8, d) of each block's share of
+    dpre r^T for every unit (tag S - t). A single step crosses no exchange
+    and gets none, except in the backward from a start state, whose dh0
+    reads step 0's shares."""
+    cpu = torch.device("cpu")
+    if which == "fwd":
+        x, shape, crosses = kernel._exchange(B, S, d, cpu), (2, B, d), S > 1
+    else:
+        state = which == "bwd-state"
+        x = kernel._bwd_exchange(B, S, d, state, cpu)
+        shape, crosses = (2, B, d // kernel.UNITS, d), S > 1 or state
+    if not crosses:
         assert x is None
     else:
-        assert x.shape == (2, B, d) and x.dtype == torch.int64 and not bool(x.any())
+        assert x.shape == shape and x.dtype == torch.int64 and not bool(x.any())

@@ -16,9 +16,11 @@ by sequence length and output.
 directory, patches one line of ``csrc/slstm.cu`` (``MUTANTS``: ``dm``, the
 backward without its dm chain; ``h0``, the forward staging only 128 units
 of the start state's h; ``wait``, the forward reading the exchanged h
-without waiting for its step's tag), builds
-there and runs ``check_slstm`` and ``check_slstm_bwd`` with every hold
-counted instead of raising. Prints each failed hold and the count.
+without waiting for its step's tag; ``bwait``, the backward reading the
+exchanged shares of dpre r^T without waiting for their tag), builds there
+and runs
+``check_slstm`` and ``check_slstm_bwd`` with every hold counted instead of
+raising. Prints each failed hold and the count.
 
 Either prints the card's name and power limit first.
 """
@@ -36,13 +38,17 @@ import tempfile
 ROOT = Path(__file__).resolve().parents[1]
 MUTANTS = {
     # the backward drops the dm chain
-    "dm": ("        st[2 * BU + si] = da;", "        st[2 * BU + si] = 0.f;"),
+    "dm": ("        stw[2 * BU + si] = da;", "        stw[2 * BU + si] = 0.f;"),
     # the forward stages only the first 128 units of the start state's h
     "h0": ("          Hw[j * ks + k] = a.h0 ? a.h0[(long long)(b0 + j) * d + kb + k] : 0.f;",
            "          Hw[j * ks + k] = a.h0 && kb + k < 128 ? a.h0[(long long)(b0 + j) * d + kb + k]"
            " : 0.f;"),
     # the forward reads the exchanged h without waiting for its step's tag
-    "wait": ("  return (v.x >> 32) == want && (v.y >> 32) == want;", "  return true;"),
+    "wait": ("            pending = untagged(lines, pending, want);",
+             "            pending = 0;"),
+    # the backward reads the exchanged shares of dpre_{t+1} r^T (and dh0's of
+    # dpre_0 r^T) without waiting for their tag
+    "bwait": ("        pending = untagged(L, pending, want);", "        pending = 0;"),
 }
 NAMES = ("dwx", "dr", "dc0", "dn0", "dh0", "dm0")
 
