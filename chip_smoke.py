@@ -11,6 +11,9 @@
     python3 chip_smoke.py --whisper-only  # build + the flash kernels at whisper's shapes + phase 13
     python3 chip_smoke.py --hybrid-train-only  # build + hymba's training kernels + phase 14
     python3 chip_smoke.py --xlstm-train-only   # build + the mLSTM's backward, the sLSTM + phase 15
+    python3 chip_smoke.py --whisper-plan-only  # build + the flash kernels at whisper's + phase 16
+    python3 chip_smoke.py --vlm-train-only     # build + the flash kernels at S3073 G6 + phase 17
+    python3 chip_smoke.py --xlstm-dots-only    # build + phase 18
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
@@ -228,7 +231,36 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    ``mlstm_chunkwise_bwd_ref`` on the reference's cases in both dtypes,
    with and without a start state, ragged, mostly and rarely clamped, and
    at xlstm's training microbatch (B1 S4096 H4 hd512) in both dtypes, the
-   same bits twice.
+   same bits twice;
+16. whisper-tiny on the serve launcher's dense plans (``serve_plan`` with
+   frames; f32 params, biases and norms drawn off their defaults), full
+   width and depth: phase 13's 16 prompts x 64 tokens with their frames,
+   128 new tokens, uninterrupted and revoked after 32 steps (plans 8 -> 4)
+   under drop (the re-prefill re-runs the encoder) and migrate (the cache
+   moves with the encoder's memory in it): 4 flash forwards a prefill;
+   the byte columns equal the CPU's prediction (``whisper_plan_predicted``,
+   which tests/test_torch_whisper_plan.py holds to the reference's
+   placement arithmetic), the memory's share of ``cache_bytes`` printed;
+   the migrate stream equals the uninterrupted one, drop's rows are equal
+   or first diverge after the revocation at a near-tie (phase 9's rule);
+   reduced f32 runs on the card equal the CPU's in every column but the
+   timings;
+17. internvl2-26b's training step at full width with VLM_TRAIN_LAYERS of
+   its 48 layers (f32 params + AdamW): 2 rows of 1025 patch rows + 2048
+   tokens (the flash kernels see S = 3073, G = 6) in 2 microbatches,
+   ``remat="full"``, through ``build_train_step`` for 3 steps: finite
+   losses and grad norms, params (vision_proj included) unmoved at step 0
+   and moved after, 2 flash forwards and 1 of each backward kernel a layer
+   and microbatch; reduced f32 training with patches on the card equals
+   the CPU's (loss and grad norm rtol 1e-4, params atol 1e-5). The kernel
+   phase holds the forward, dk/dv and dq at B1 S3073 H48/8 hd128 in both
+   dtypes;
+18. xlstm-350m as in 15 under ``remat="dots"`` (each group keeps its
+   projections' outputs) beside ``remat="full"``, in turns from one start
+   state (full, dots, dots, full): ms a step, peak memory and launches a
+   step per turn; every turn launches phase 15's kernels, and the dots
+   turns' losses and grad norms equal the full turns' bit for bit; reduced
+   f32 xlstm under dots on the card equals the CPU's.
 
 A kernel variant's ``launches_by_path`` in the JSON record holds its count
 on each path (``serve``, ``hybrid``, ``xlstm``, ``train``, ``spot`` at full width
@@ -243,7 +275,10 @@ full width and ``dense_int8_f32``, ``dense_q4_train_f32``,
 gemma-7b's ``gemma``, ``gemma_train`` at full width and ``gemma_f32``,
 ``gemma_train_f32`` reduced; whisper-tiny's ``whisper``, ``whisper_train``
 and ``whisper_f32``, ``whisper_train_f32``; hymba's ``hybrid_train`` and
-``hybrid_train_f32``; xlstm's ``xlstm_train`` and ``xlstm_train_f32``), each
+``hybrid_train_f32``; xlstm's ``xlstm_train`` and ``xlstm_train_f32``;
+``whisper_plan`` and ``whisper_plan_f32``; ``vlm_train`` and
+``vlm_train_f32``; ``xlstm_train_dots`` (its dots turns) and
+``xlstm_train_dots_f32``), each
 counted from 0
 just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
@@ -3007,18 +3042,20 @@ def _copy_state(state, device):
     from repro_torch.optim import OptState
     from repro_torch.train.steps import TrainState
 
-    to = lambda tree: tree_map(lambda t: t.to(device), tree)
+    to = lambda tree: tree_map(lambda t: t.to(device, copy=True), tree)
     return TrainState(to(state.params), OptState(to(state.opt.m), to(state.opt.v),
                                                  state.opt.count), state.step)
 
 
 def train_reduced_matches_cpu(arch: str = "qwen3-4b", tag: str = "train",
-                              n_steps: int = 5, attn_impl: str = "flash") -> dict:
+                              n_steps: int = 5, attn_impl: str = "flash",
+                              remat: str = "full") -> dict:
     """A reduced f32 model: ``n_steps`` training steps on the card (the f32
     variants of the flash kernels; with ``attn_impl="triangular"`` the
     plain causal chunk schedule, no kernel) against the plain CPU trainer,
     from the same state and data (a MoE model's aux loss too; attention
-    biases drawn nonzero). Returns the card run's launches."""
+    biases drawn nonzero), both under ``remat``. Returns the card run's
+    launches."""
     from repro_torch.config import ShardingLayout, TrainConfig, get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
@@ -3029,7 +3066,7 @@ def train_reduced_matches_cpu(arch: str = "qwen3-4b", tag: str = "train",
     cfg = reduced_f32(get_arch(arch))
     model = build_model(cfg)
     tc = TrainConfig(total_steps=10, warmup_steps=2, microbatches=2)
-    layout = ShardingLayout(attn_impl=attn_impl, q_chunk=32, kv_chunk=32)
+    layout = ShardingLayout(attn_impl=attn_impl, q_chunk=32, kv_chunk=32, remat=remat)
     ds = SyntheticLM(cfg.vocab_size, 100, 4, seed=0)   # 100: ragged against 64-row tiles
     gen = torch.Generator().manual_seed(0)
     state_cpu = init_train_state(model, gen, "cpu")
@@ -3345,6 +3382,39 @@ def serve_plan_predicted(model) -> dict:
             "train_path_bytes": train_state_bytes(model)}
 
 
+# whisper-tiny under the launcher's dense plans (whisper_plan): phase 13's
+# 16 prompts x 64 tokens with their 1500 stub frames, 128 new tokens, plans
+# 8 -> 4 slots revoked after 32 decode steps, under drop and migrate
+WHISPER_PLAN = dict(B=16, S=64, new=128, revoke=32)
+
+
+def whisper_plan_predicted(model) -> dict:
+    """The byte columns the revoked full-width whisper runs must report, from
+    the specs alone on the CPU (before any run): the f32 params (the plan
+    modes hold them in ``param_dtype``, as the reference's do) moved 8 -> 4
+    slots, the bf16 dense cache at 16 x (64 + 128) positions with the
+    encoder's ``memory`` (16 x 1500 x 384), and the training path's state;
+    ``memory_bytes`` is the memory's share of ``cache_bytes``, ``memory_size``
+    the whole leaf."""
+    from repro_torch.dist import (ElasticMeshManager, cache_shardings, param_shardings,
+                                  reshard_bytes, train_state_bytes)
+    from repro_torch.launch.serve import PLAN_LAYOUT as layout
+    from repro_torch.models.common import param_bytes
+
+    man = ElasticMeshManager([torch.device("cpu")] * 8)
+    old, new = man.plan_for(8).mesh, man.plan_for(4).mesh
+    w = WHISPER_PLAN
+    c_specs = model.cache_specs(w["B"], w["S"] + w["new"])
+    c_old, c_new = cache_shardings(c_specs, old, layout), cache_shardings(c_specs, new, layout)
+    mem = lambda tree: {"memory": tree["memory"]}
+    return {"params_bytes": reshard_bytes(model.specs, param_shardings(model.specs, old, layout),
+                                          param_shardings(model.specs, new, layout)),
+            "cache_bytes": reshard_bytes(c_specs, c_old, c_new),
+            "train_path_bytes": train_state_bytes(model),
+            "memory_bytes": reshard_bytes(mem(c_specs), mem(c_old), mem(c_new)),
+            "memory_size": param_bytes(mem(c_specs))}
+
+
 class _DecodeLogits:
     """Keep, on the card, the last-position logits of every paged decode
     call of the engines built inside the block (a copy: 8 x vocab f32 a
@@ -3490,9 +3560,11 @@ def _hold_serve_launches(name, out, launches, layers) -> None:
                              f"as expected")
 
 
-def hold_engine_streams(ref: dict, got: dict, ref_logits: list, got_logits: list) -> list:
-    """The revoked engine run's streams against the uninterrupted one's:
-    equal through the revocation; after it each row is equal or first
+def hold_engine_streams(ref: dict, got: dict, ref_logits: list, got_logits: list,
+                        revoke: int = SERVE_REVOKE, tag: str = "engine") -> list:
+    """The revoked engine run's streams (or, by ``tag``, another revoked
+    run's) against the uninterrupted one's: equal through the revocation
+    after ``revoke`` decode steps; after it each row is equal or first
     diverges at a near-tie (ENGINE_GAP_ULPS, ENGINE_MIN_CORR). Token j >= 1
     of a row comes from decode call j - 1 in both runs. Returns the
     divergences as (row, token, gap, allowed gap, correlation)."""
@@ -3501,17 +3573,17 @@ def hold_engine_streams(ref: dict, got: dict, ref_logits: list, got_logits: list
         if r == g:
             continue
         j = next(k for k, (x, y) in enumerate(zip(r, g)) if x != y)
-        if j <= SERVE_REVOKE:
-            raise AssertionError(f"engine row {b} diverges at token {j}, before the revocation")
+        if j <= revoke:
+            raise AssertionError(f"{tag} row {b} diverges at token {j}, before the revocation")
         a, c = ref_logits[j - 1][b], got_logits[j - 1][b]
         top = torch.topk(a, 2).values
         gap, allowed = float(top[0] - top[1]), ENGINE_GAP_ULPS * abs(float(top[0])) * 2 ** -7
         corr = float(torch.corrcoef(torch.stack([a, c]))[0, 1])
         out.append((b, j, gap, allowed, corr))
-        log(f"[serve-plan] engine row {b}: first divergence at token {j}: uninterrupted top-2 "
+        log(f"[serve-plan] {tag} row {b}: first divergence at token {j}: uninterrupted top-2 "
             f"gap {gap:.5f} (allowed {allowed:.5f}), logits correlation {corr:.6f}")
         if not (gap <= allowed and corr > ENGINE_MIN_CORR):
-            raise AssertionError(f"engine row {b}: the resumed stream diverges at token {j} "
+            raise AssertionError(f"{tag} row {b}: the resumed stream diverges at token {j} "
                                  f"where the uninterrupted run has no near-tie")
     return out
 
@@ -3597,49 +3669,59 @@ def serve_plan_full_width() -> tuple:
     return total, runs["engine"]["engine_tokens_per_sec"], tracker, model, params
 
 
-def serve_plan_reduced_matches_cpu() -> dict:
-    """Reduced f32 qwen3-4b through the five runs on the card and on the
-    CPU, the same weights and prompts: every PLAN_JSON column but the
-    timings equal, and every revoked stream equal to the uninterrupted
-    one. Returns the card's launches."""
+def serve_plan_reduced_matches_cpu(arch: str = "qwen3-4b", runs: dict = SERVE_RUNS,
+                                   tag: str = "serve-plan",
+                                   kernels: tuple = ("flash_attention_tf32",
+                                                     "paged_attention_fma")) -> dict:
+    """Reduced f32 ``arch`` through ``runs`` on the card and on the CPU,
+    the same weights and prompts (an encoder-decoder's biases and norms
+    drawn off their defaults, and its frames): every PLAN_JSON column but
+    the timings equal, and every revoked stream equal to the uninterrupted
+    run of its kind (dense or engine). Returns the card's launches, which
+    must include ``kernels``."""
     from repro_torch.config import get_arch
     from repro_torch.launch.serve import serve_plan
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
 
-    cfg = dataclasses.replace(get_arch("qwen3-4b").reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
     model = build_model(cfg)
-    params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
-    params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
     r = SERVE_F32
+    gen = torch.Generator().manual_seed(0)
+    params_cpu = model.init(gen, "cpu")
+    frames = None
+    if cfg.encoder_layers:
+        draw_off_defaults(params_cpu, gen)
+        frames = torch.randn((r["batch"], cfg.encoder_seq_len, cfg.d_model), generator=gen)
+    params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
     prompts = np.random.RandomState(0).randint(
         0, cfg.vocab_size, (r["batch"], r["prompt_len"])).astype(np.int32)
     launches = dict.fromkeys(read_launches(), 0)
     outs = {}
-    for name, (counts, revoke, policy, engine) in SERVE_RUNS.items():
+    for name, (counts, revoke, policy, engine) in runs.items():
         for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
             if device == "cuda":
                 reset_launches()
             outs[name, device] = serve_plan(
                 model, params, prompts, r["new_tokens"], counts,
                 revoke_after=r["revoke_after"] if revoke else 0, cache_policy=policy,
-                engine=engine, device=device)
+                engine=engine, device=device,
+                frames=None if frames is None else frames.to(device))
             if device == "cuda":
                 launches = {k: launches[k] + v for k, v in read_launches().items()}
         gpu, cpu = (outs[name, d] for d in ("cuda", "cpu"))
         differ = [k for k in gpu if k not in PLAN_TIMINGS and gpu[k] != cpu[k]]
-        log(f"[serve-plan] reduced f32 {name}: columns other than timings equal to the CPU's: "
+        log(f"[{tag}] reduced f32 {name}: columns other than timings equal to the CPU's: "
             f"{not differ}; migrated_at {gpu['migrated_at']}, params_bytes "
             f"{gpu['params_bytes']}, cache_bytes {gpu['cache_bytes']}")
         if differ or set(gpu) != set(cpu):
             raise AssertionError(f"reduced f32 {name} on the card differs from the CPU: {differ}")
-    for name in ("dense_drop", "dense_migrate"):
-        if outs[name, "cuda"]["tokens"] != outs["dense", "cuda"]["tokens"]:
-            raise AssertionError(f"reduced f32 {name}: stream differs from the uninterrupted")
-    if outs["engine_revoked", "cuda"]["tokens"] != outs["engine", "cuda"]["tokens"]:
-        raise AssertionError("reduced f32 engine round trip differs from the uninterrupted run")
-    return hold_f32_launches("serve-plan", launches, "flash_attention_tf32",
-                             "paged_attention_fma")
+    for name, (_, revoke, _, engine) in runs.items():
+        whole = next(n for n, run in runs.items() if not run[1] and run[3] == engine)
+        if revoke and outs[name, "cuda"]["tokens"] != outs[whole, "cuda"]["tokens"]:
+            raise AssertionError(f"reduced f32 {name}: stream differs from the uninterrupted "
+                                 f"{whole}")
+    return hold_f32_launches(tag, launches, *kernels)
 
 
 def _fleet_row(scenario, policy, rep) -> str:
@@ -4736,13 +4818,18 @@ def gemma_phase() -> dict:
 # prefill (B16 S64) and training microbatch (4 rows of 448), G=1 hd 64;
 # hymba's training microbatch (B1 S4096 H25/5, G=5, window 1024); the f32
 # variants (the reduced runs' route) at whisper's training shape and at G=5
-# under the window at S=1500
+# under the window at S=1500; internvl2-26b's training microbatch in both
+# dtypes
 SLICE14_ATTN = [
     ("whisper prefill", 16, 64, 6, 6, 64, 0, torch.bfloat16, False),
     ("whisper training", 4, 448, 6, 6, 64, 0, torch.bfloat16, True),
     ("hymba training", 1, 4096, 25, 5, 64, 1024, torch.bfloat16, True),
     ("whisper training", 4, 448, 6, 6, 64, 0, torch.float32, True),
     ("hymba training", 1, 1500, 25, 5, 64, 1024, torch.float32, True),
+    # internvl2-26b's training microbatch (phase 17): 1025 patch rows + 2048
+    # tokens, G=6 hd 128; the last 64-row tile of the backward holds one row
+    ("internvl2 training", 1, 3073, 48, 8, 128, 0, torch.bfloat16, True),
+    ("internvl2 training", 1, 3073, 48, 8, 128, 0, torch.float32, True),
 ]
 
 
@@ -5002,27 +5089,34 @@ def whisper_train_full_width() -> dict:
     return launches
 
 
-def whisper_train_reduced_matches_cpu(n_steps: int = 3) -> dict:
-    """Reduced f32 whisper (biases and norms drawn off their defaults):
-    ``n_steps`` of ``build_train_step`` (4 rows of 100 tokens with frames,
-    2 microbatches) on the card against the CPU: loss and grad norm rtol
-    1e-4, params atol 1e-5 but cross-attention's key bias, whose gradient
-    is 0 up to rounding (no RoPE: it shifts a query row's scores alike),
-    held by its first moment below 1e-9 on both. Returns the card's
-    launches."""
+def step_reduced_matches_cpu(arch: str, tag: str, n_steps: int = 3) -> dict:
+    """Reduced f32 ``arch``: ``n_steps`` of ``build_train_step`` (4 rows of
+    100 tokens, 2 microbatches; whisper's with frames, biases and norms
+    drawn off their defaults; a VLM's after 8 patch rows, attention biases
+    drawn) on the card against the CPU: loss and grad norm rtol 1e-4,
+    params atol 1e-5 but whisper's cross-attention key bias, whose
+    gradient is 0 up to rounding (no RoPE: it shifts a query row's scores
+    alike), held by its first moment below 1e-9 on both. Returns the
+    card's launches."""
     from repro_torch.config import ShardingLayout, TrainConfig, get_arch
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_flatten
     from repro_torch.train.steps import build_train_step, init_train_state
 
-    cfg = reduced_f32(get_arch("whisper-tiny"))
+    cfg = reduced_f32(get_arch(arch))
     model = build_model(cfg)
     tc = TrainConfig(total_steps=10, warmup_steps=2, microbatches=2)
     layout = ShardingLayout(attn_impl="flash", q_chunk=32, kv_chunk=32)
     gen = torch.Generator().manual_seed(0)
     state_cpu = init_train_state(model, gen, "cpu")
-    draw_off_defaults(state_cpu.params, gen)
-    batches = [_whisper_batch(cfg, 4, 100, gen, "cpu", seed=i, labels=True) for i in range(n_steps)]
+    if cfg.encoder_layers:
+        draw_off_defaults(state_cpu.params, gen)
+        batches = [_whisper_batch(cfg, 4, 100, gen, "cpu", seed=i, labels=True)
+                   for i in range(n_steps)]
+    else:
+        draw_biases(state_cpu.params, gen)
+        batches = [_vlm_batch(cfg, 4, 100, gen, "cpu", seed=i, dtype=torch.float32)
+                   for i in range(n_steps)]
     runs = {}
     for device, state in (("cuda", _copy_state(state_cpu, "cuda")), ("cpu", state_cpu)):
         step_fn = build_train_step(model, tc, layout)
@@ -5037,19 +5131,23 @@ def whisper_train_reduced_matches_cpu(n_steps: int = 3) -> dict:
     (m_gpu, s_gpu), (m_cpu, s_cpu) = runs["cuda"], runs["cpu"]
     for key in ("loss", "grad_norm"):
         a, b = np.array([m[key] for m in m_gpu]), np.array([m[key] for m in m_cpu])
-        log(f"[whisper_train] reduced f32 {key}, card {a.tolist()} vs CPU {b.tolist()}; largest "
+        log(f"[{tag}] reduced f32 {key}, card {a.tolist()} vs CPU {b.tolist()}; largest "
             f"relative difference {float(np.max(np.abs(a - b) / np.abs(b))):.3e}")
         if not np.allclose(a, b, rtol=1e-4, atol=0):
-            raise AssertionError(f"reduced whisper training {key} on the card differs from the CPU's")
-    noise = s_cpu.params["blocks"]["cross"]["bk"]
+            raise AssertionError(f"reduced {arch} training {key} on the card differs from the "
+                                 f"CPU's")
+    cross = "cross" in s_cpu.params["blocks"]
+    noise = s_cpu.params["blocks"]["cross"]["bk"] if cross else None
     err = max(float((a.cpu() - b).abs().max()) for a, b in
               zip(tree_flatten(s_gpu.params)[0], tree_flatten(s_cpu.params)[0]) if b is not noise)
-    first = max(float(s.opt.m["blocks"]["cross"]["bk"].abs().max()) for s in (s_gpu, s_cpu))
-    log(f"[whisper_train] reduced f32 params after {n_steps} steps, card vs CPU: max abs diff "
-        f"{err:.3e} (atol 1e-5); cross-attention bk's largest first moment {first:.3e}")
+    first = max(float(s.opt.m["blocks"]["cross"]["bk"].abs().max()) for s in (s_gpu, s_cpu)) \
+        if cross else 0.0
+    log(f"[{tag}] reduced f32 params after {n_steps} steps, card vs CPU: max abs diff {err:.3e} "
+        f"(atol 1e-5)" + (f"; cross-attention bk's largest first moment {first:.3e}"
+                          if cross else ""))
     if not (err <= 1e-5 and first < 1e-9):
-        raise AssertionError("reduced whisper training params on the card differ from the CPU's")
-    return hold_f32_launches("whisper_train", launches, "flash_attention_tf32",
+        raise AssertionError(f"reduced {arch} training params on the card differ from the CPU's")
+    return hold_f32_launches(tag, launches, "flash_attention_tf32",
                              "flash_attention_bwd_dkdv_tf32", "flash_attention_bwd_dq_tf32")
 
 
@@ -5064,7 +5162,7 @@ def whisper_phase() -> dict:
                                                       "flash_attention_tf32")
     paths["whisper_train"] = whisper_train_full_width()
     _free_cuda()
-    paths["whisper_train_f32"] = whisper_train_reduced_matches_cpu()
+    paths["whisper_train_f32"] = step_reduced_matches_cpu("whisper-tiny", "whisper_train")
     return paths
 
 
@@ -5190,6 +5288,343 @@ def xlstm_train_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: whisper-tiny on the serve launcher's dense plans (whisper_plan)
+# ---------------------------------------------------------------------------
+
+# the three runs, as SERVE_RUNS: (counts, revoke_after, cache_policy, engine)
+WHISPER_PLAN_RUNS = {"dense": ([8], 0, "drop", False),
+                     "drop": ([8, 4], WHISPER_PLAN["revoke"], "drop", False),
+                     "migrate": ([8, 4], WHISPER_PLAN["revoke"], "migrate", False)}
+
+
+class _PlanLogits:
+    """Keep, on the card, the last-position logits of every decode call of
+    the launcher's dense paths inside the block (a copy each), by wrapping
+    the launcher module's decode-step builder."""
+
+    def __enter__(self):
+        from repro_torch.launch import serve
+
+        self.logits: list = []
+        self._build = build = serve.build_decode_step
+
+        def wrapped(model, layout):
+            step = build(model, layout)
+
+            def keep(params, cache, tokens, pos):
+                logits, cache = step(params, cache, tokens, pos)
+                self.logits.append(logits[:, -1].float().clone())
+                return logits, cache
+            return keep
+
+        serve.build_decode_step = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import serve
+
+        serve.build_decode_step = self._build
+
+
+def whisper_plan_full_width() -> dict:
+    """whisper-tiny at full width and depth through ``serve_plan``: f32
+    params (as the plan modes hold them; biases and norms drawn off their
+    defaults), phase 13's 16 prompts x 64 tokens with their frames, 128 new
+    tokens, uninterrupted and revoked after 32 steps (plans 8 -> 4) under
+    drop and migrate. Held: one flash forward a layer a prefill (two
+    prefills under drop: the re-prefill re-runs the encoder and the
+    decoder); the byte columns equal ``whisper_plan_predicted``; the
+    migrate stream equals the uninterrupted one; drop's rows are equal or
+    first diverge after the revocation at a near-tie (phase 9's engine
+    rule). Returns the launches summed over the runs."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import serve_plan
+    from repro_torch.models import build_model
+
+    cfg = get_arch("whisper-tiny")
+    model = build_model(cfg)
+    predicted = whisper_plan_predicted(model)
+    w = WHISPER_PLAN
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, "cuda")
+    draw_off_defaults(params, gen)
+    batch = _whisper_batch(cfg, w["B"], w["S"], gen, "cuda")
+    prompts = batch["tokens"].cpu().numpy()
+    log(f"[whisper_plan] {cfg.name} at full width and depth ({model.param_count():,} f32 params), "
+        f"{w['B']} prompts x {w['S']} tokens with {cfg.encoder_seq_len} frames each, {w['new']} "
+        f"new tokens, revoked after {w['revoke']} steps, plans 8 -> 4 slots on cuda:0; "
+        f"predicted {predicted}")
+    total = dict.fromkeys(read_launches(), 0)
+    runs, logits = {}, {}
+    for name, (counts, revoke, policy, _) in WHISPER_PLAN_RUNS.items():
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with _PlanLogits() as keep:
+            out = serve_plan(model, params, prompts, w["new"], counts, revoke_after=revoke,
+                             cache_policy=policy, device="cuda", frames=batch["frames"])
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = expect_launches(flash_attention_tc=cfg.num_layers * (2 if name == "drop" else 1))
+        steps = max(out["decode_steps"], 1)
+        log(f"[whisper_plan] {name}: plans {counts}, prefill {out['prefill_seconds']:.4f} s, "
+            f"decode {1e3 * out['decode_seconds'] / steps:.3f} ms a step ({out['decode_steps']} "
+            f"steps), steps/s by plan {out['measured_steps_per_sec']}, time to recover "
+            f"{out['recover_seconds']} s, params_bytes {out['params_bytes']}, cache_bytes "
+            f"{out['cache_bytes']} (the encoder memory's share "
+            f"{predicted['memory_bytes'] if policy == 'migrate' and revoke else 0} of its "
+            f"{predicted['memory_size']} B), train_path_bytes {out['train_path_bytes']}, "
+            f"migrated_at {out['migrated_at']}, peak device memory {peak_gb:.3f} GB; launches "
+            f"{launches}, expected {want}")
+        if launches != want:
+            raise AssertionError(f"whisper_plan {name}: the path did not go through the kernels "
+                                 f"as expected")
+        toks = np.asarray(out["tokens"])
+        if toks.shape != (w["B"], w["new"]) or not ((toks >= 0) & (toks < cfg.vocab_size)).all() \
+                or not all(bool(torch.isfinite(lg).all()) for lg in keep.logits):
+            raise AssertionError(f"whisper_plan {name}: tokens of the wrong shape or non-finite "
+                                 f"logits")
+        runs[name], logits[name] = out, keep.logits
+        total = {k: total[k] + v for k, v in launches.items()}
+    for name in ("drop", "migrate"):
+        r = runs[name]
+        want_cache = predicted["cache_bytes"] if name == "migrate" else 0
+        sps = r["measured_steps_per_sec"]
+        if not (r["migrated_at"] == w["revoke"]
+                and r["params_bytes"] == predicted["params_bytes"]
+                and 0 < r["params_bytes"] < r["train_path_bytes"]
+                and r["train_path_bytes"] == predicted["train_path_bytes"]
+                and r["cache_bytes"] == want_cache
+                and set(sps) == {"4x2", "2x2"} and min(sps.values()) > 0
+                and r["recover_seconds"] > 0):
+            raise AssertionError(f"whisper_plan {name}: migration columns {r} against {predicted}")
+    ref = runs["dense"]["tokens"]
+    if runs["migrate"]["tokens"] != ref:
+        raise AssertionError("whisper_plan migrate: the stream differs from the uninterrupted one")
+    div = hold_engine_streams(runs["dense"], runs["drop"], logits["dense"], logits["drop"],
+                              w["revoke"], "whisper drop")
+    log(f"[whisper_plan] migrate: stream equal to the uninterrupted run's; drop: "
+        f"{w['B'] - len(div)} of {w['B']} rows equal in full, divergences {div}")
+    del params, logits
+    _free_cuda()
+    return total
+
+
+def whisper_plan_phase() -> dict:
+    """Phase 16: whisper-tiny on the launcher's dense plans at full width
+    and depth, then reduced f32 (tests/test_torch_whisper_plan.py's sizes)
+    against the CPU. Returns launches by path."""
+    _free_cuda()
+    paths = {"whisper_plan": whisper_plan_full_width()}
+    paths["whisper_plan_f32"] = serve_plan_reduced_matches_cpu(
+        "whisper-tiny", WHISPER_PLAN_RUNS, "whisper_plan", ("flash_attention_tf32",))
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 17: internvl2-26b's training step (vlm_train)
+# ---------------------------------------------------------------------------
+
+# text tokens a row (after the 1025 patch rows: the flash kernels see S =
+# 3073), global batch, steps (the first at learning rate 0)
+VLM_TRAIN = dict(S=2048, batch=2, steps=3)
+# internvl2-26b trained at full width with VLM_TRAIN_LAYERS of its 48
+# layers: f32 params, grads and AdamW moments are 16 B a param, 18.5 GB for
+# the embedding, the LM head and vision_proj (1.157 B params) and 6.24 GB a
+# layer (0.390 B), so all 48 (318 GB) do not fit; 8 layers hold 68.4 GB of
+# state (qwen3-4b's 70.6 GB peaked at 75.48 GB of the card's 85.0)
+VLM_TRAIN_LAYERS = 8
+
+
+def _vlm_batch(cfg, B: int, S: int, gen: torch.Generator, device, seed: int,
+               dtype=torch.bfloat16) -> dict:
+    """Prompts from RandomState(seed) with next-token labels (never equal to
+    the tokens), and standard-normal patch embeddings from ``gen`` in
+    ``dtype``: the stub projector's input."""
+    rows = np.random.RandomState(seed).randint(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    return {"tokens": torch.as_tensor(rows[:, :S], device=device),
+            "labels": torch.as_tensor(rows[:, 1:], device=device),
+            "patches": torch.randn((B, cfg.vision_tokens, cfg.vision_width), generator=gen,
+                                   device=device).to(dtype)}
+
+
+def vlm_train_full_width() -> dict:
+    """internvl2-26b at full width with VLM_TRAIN_LAYERS of its 48 layers,
+    f32 params (attention biases drawn nonzero) + AdamW, 2 rows of 1025
+    patch rows + 2048 tokens in 2 microbatches, ``remat="full"``, through
+    ``build_train_step`` for 3 steps (``run_segment`` refuses a VLM: the data
+    path makes no patches): finite losses and grad norms, params unmoved at
+    step 0 (learning rate 0) and moved after, vision_proj included; per
+    layer and microbatch two flash forwards and one of each backward kernel
+    at S = 3073, and no other kernel. Returns the launches."""
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import build_train_step, init_train_state
+
+    full = get_arch("internvl2-26b")
+    cfg = dataclasses.replace(full, num_layers=VLM_TRAIN_LAYERS)
+    model = build_model(cfg)
+    S, B, n_steps = VLM_TRAIN["S"], VLM_TRAIN["batch"], VLM_TRAIN["steps"]
+    tc = TrainConfig(total_steps=n_steps, warmup_steps=1, microbatches=2)
+    layout = ShardingLayout(attn_impl="flash")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_train_state(model, gen, "cuda")
+    draw_biases(state.params, gen)
+    torch.cuda.synchronize()
+    log(f"[vlm_train] {cfg.name}: {cfg.num_layers} of {full.num_layers} layers (depth cut, width "
+        f"full), d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.num_heads}/{cfg.num_kv_heads} "
+        f"heads, {cfg.vision_tokens} patch rows of width {cfg.vision_width}; "
+        f"{model.param_count() / 1e9:.3f} B f32 params; params + AdamW moments "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; {cfg.vision_tokens} + {S} rows, global batch {B} in "
+        f"{tc.microbatches} microbatches, remat {layout.remat}")
+    step_fn = build_train_step(model, tc, layout)
+    probe = lambda st: [t.detach().clone() for t in (
+        st.params["embed"][:4, :8], st.params["vision_proj"][:8, :4],
+        st.params["lm_head"][:8, :4], st.params["blocks"]["attn"]["wq"][0, :8, :4],
+        st.params["blocks"]["mlp"]["wo"][-1, :8, :4])]
+    before = probe(state)
+    reset_launches()
+    metrics, secs = [], []
+    for i in range(n_steps):
+        batch = _vlm_batch(cfg, B, S, gen, "cuda", seed=100 + i)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})   # the device sync
+        secs.append(time.perf_counter() - t0)
+        if i == 0 and not all(torch.equal(a, b) for a, b in zip(before, probe(state))):
+            raise AssertionError("VLM params moved at step 0, where the learning rate is 0")
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = [float((a - b).abs().max()) for a, b in zip(before, probe(state))]
+    per = cfg.num_layers * tc.microbatches * n_steps
+    want = expect_launches(flash_attention_tc=2 * per, flash_attention_bwd_dkdv_tc=per,
+                           flash_attention_bwd_dq_tc=per)
+    for i, (m, dt) in enumerate(zip(metrics, secs)):
+        log(f"[vlm_train] step {i}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+            f"lr {m['lr']:.3e}, {dt * 1e3:.1f} ms, {B * S / dt:.1f} text tokens/s "
+            f"({B * (S + cfg.vision_tokens) / dt:.1f} rows/s)")
+    log(f"[vlm_train] step time {fmt_spread([1e3 * s for s in secs])} over {n_steps} steps (the "
+        f"first includes the first calls' set-up); peak memory {peak_gb:.2f} GB; largest change "
+        f"of the probed params after step 1 (embed, vision_proj, lm_head, wq, wo): "
+        f"{[f'{x:.3e}' for x in moved]}; launches {launches}, expected {want}")
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
+        raise AssertionError(f"non-finite VLM training metrics: {metrics}")
+    if not min(moved) > 0:
+        raise AssertionError("a probed VLM param did not move after step 1")
+    if launches != want:
+        raise AssertionError("VLM training did not go through the kernels as expected")
+    profile_training(model, step_fn, state, None,
+                     f"internvl2 {B} x ({cfg.vision_tokens} patch rows + {S} tokens)",
+                     _vlm_batch(cfg, B, S, gen, "cuda", seed=100 + n_steps))
+    del state, step_fn
+    _free_cuda()
+    return launches
+
+
+def vlm_train_phase() -> dict:
+    """Phase 17: internvl2-26b's training step at full width (depth cut),
+    then reduced f32 against the CPU. Returns launches by path."""
+    _free_cuda()
+    paths = {"vlm_train": vlm_train_full_width()}
+    paths["vlm_train_f32"] = step_reduced_matches_cpu("internvl2-26b", "vlm_train")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 18: xlstm-350m trained under remat="dots" beside "full"
+# ---------------------------------------------------------------------------
+
+# the turns, each from the same start state and data (A B B A)
+XLSTM_DOTS_TURNS = ("full", "dots", "dots", "full")
+
+
+def xlstm_train_dots() -> dict:
+    """xlstm-350m at full width and depth (phase 15's model, sequence,
+    batch and steps) through ``run_segment`` under ``remat="dots"`` (each
+    group keeping its projections' outputs) and ``"full"``, in turns from
+    one start state (kept in host memory) and the same data: per turn the
+    ms a step, peak device memory and launches a step of each kernel. Held:
+    finite metrics; every turn's launches those of phase 15 (the kernels'
+    autograd Functions recompute under both); the dots turns' losses and
+    grad norms equal the full turns' bit for bit (dots saves the products
+    that full recomputes, and each kernel gives the same bits twice).
+    Returns the dots turns' launches."""
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model, transformer
+    from repro_torch.train.loop import make_step, run_segment
+    from repro_torch.train.steps import init_train_state
+
+    cfg = get_arch("xlstm-350m")
+    model = build_model(cfg)
+    groups, m_per, has_s = transformer._xlstm_group_layout(cfg)
+    seq, batch, n_steps = XLSTM_TRAIN["seq"], XLSTM_TRAIN["batch"], XLSTM_TRAIN["steps"]
+    tc = TrainConfig(total_steps=n_steps, warmup_steps=1, microbatches=2)
+    ds = SyntheticLM(cfg.vocab_size, seq, batch, seed=0)
+    start = _copy_state(init_train_state(model, torch.Generator(device="cuda").manual_seed(0),
+                                         "cuda"), "cpu")
+    _free_cuda()
+    per_mb = groups * m_per * tc.microbatches
+    per_s = groups * has_s * tc.microbatches
+    want = expect_launches(mlstm_tc=2 * per_mb * n_steps, mlstm_bwd=per_mb * n_steps,
+                           slstm=2 * per_s * n_steps, slstm_bwd=per_s * n_steps)
+    turns, dots_launches = [], dict.fromkeys(read_launches(), 0)
+    for remat in XLSTM_DOTS_TURNS:
+        layout = ShardingLayout(attn_impl="flash", remat=remat)
+        state = _copy_state(start, "cuda")
+        metrics: list = []
+        step_fn = _recording(make_step(model, tc, layout), metrics)
+        torch.cuda.synchronize()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = run_segment(model, state, ds, "cuda", tc, layout, num_steps=n_steps,
+                          jitted=step_fn)
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        secs = [1e3 * s for s in res.step_seconds]
+        turns.append((remat, metrics, secs, peak_gb, launches))
+        log(f"[xlstm_dots] remat {remat}: losses {[m['loss'] for m in metrics]}, grad norms "
+            f"{[m['grad_norm'] for m in metrics]}; step time {fmt_spread(secs)} (steps "
+            f"{[round(x, 1) for x in secs]} ms, the first with the first calls' set-up); peak "
+            f"device memory {peak_gb:.2f} GB (params + moments {base_gb:.2f} GB); launches a "
+            f"step {({k: v / n_steps for k, v in launches.items() if v})}")
+        if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
+            raise AssertionError(f"non-finite xlstm training metrics under remat {remat}")
+        if launches != want:
+            raise AssertionError(f"xlstm training under remat {remat} did not go through the "
+                                 f"kernels as expected: {launches} against {want}")
+        if remat == "dots":
+            dots_launches = {k: dots_launches[k] + v for k, v in launches.items()}
+        del state, res, step_fn
+        _free_cuda()
+    ref = [(m["loss"], m["grad_norm"]) for m in turns[0][1]]
+    same = {i: [(m["loss"], m["grad_norm"]) for m in t[1]] == ref for i, t in enumerate(turns)}
+    steps = {r: [ms for t in turns if t[0] == r for ms in t[2][1:]] for r in ("full", "dots")}
+    peaks = {r: [round(t[3], 3) for t in turns if t[0] == r] for r in ("full", "dots")}
+    log(f"[xlstm_dots] losses and grad norms equal to the first full turn's, by turn: {same}; "
+        f"steps after the first, full {fmt_spread(steps['full'])}, dots "
+        f"{fmt_spread(steps['dots'])}; peak GB {peaks}")
+    if not all(same.values()):
+        raise AssertionError("remat dots gives other losses or grad norms than full on the card")
+    return dots_launches
+
+
+def xlstm_dots_phase() -> dict:
+    """Phase 18: xlstm-350m trained under remat="dots" beside "full" at full
+    width and depth, then reduced f32 xlstm's 3 steps under dots on the
+    card against the CPU. Returns launches by path."""
+    _free_cuda()
+    paths = {"xlstm_train_dots": xlstm_train_dots()}
+    paths["xlstm_train_dots_f32"] = train_reduced_matches_cpu("xlstm-350m", "xlstm_train_dots",
+                                                              3, remat="dots")
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5217,6 +5652,15 @@ def main() -> int:
     ap.add_argument("--xlstm-train-only", action="store_true",
                     help="only build the kernels, hold the mLSTM's backward and the sLSTM's "
                          "kernels and run xlstm-350m's training phase")
+    ap.add_argument("--whisper-plan-only", action="store_true",
+                    help="only build the kernels, hold the flash kernels at whisper-tiny's shapes "
+                         "and run whisper-tiny on the launcher's dense plans")
+    ap.add_argument("--vlm-train-only", action="store_true",
+                    help="only build the kernels, hold the flash kernels at internvl2-26b's "
+                         "training shape and run its training phase")
+    ap.add_argument("--xlstm-dots-only", action="store_true",
+                    help="only build the kernels and run xlstm-350m's training under remat "
+                         "'dots' beside 'full'")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
                          "of the kernel paths and plain orders agree, by prompt length")
@@ -5238,10 +5682,10 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[phase 1/15] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
+    log(f"[phase 1/18] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    log("[phase 2/15] build")
+    log("[phase 2/18] build")
     _build.build()
     ptxas = _build.last_build["log"]
     per_source = {}
@@ -5272,14 +5716,14 @@ def main() -> int:
         xlstm_orders()
         return 0
     if args.spot_only:
-        log("[phase 8/15] the spot provisioner")
+        log("[phase 8/18] the spot provisioner")
         spot = {"spot": spot_full_width(), "spot_f32": spot_reduced_matches_cpu(),
                 "spot_launch": spot_launcher()}
         log(f"chip_smoke: --spot-only, launches by path {spot}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.serve_plan_only:
-        log("[phase 9/15] spot serving")
+        log("[phase 9/18] spot serving")
         paths = spot_serving()
         log(f"chip_smoke: --serve-plan-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5288,7 +5732,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_flash_window_8192(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 10/15] the MoE family")
+        log("[phase 10/18] the MoE family")
         paths = moe_phase()
         log(f"chip_smoke: --moe-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5297,7 +5741,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_dense_variant_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 11/15] the dense variants")
+        log("[phase 11/18] the dense variants")
         paths = dense_variants_phase()
         log(f"chip_smoke: --dense-variants-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5306,7 +5750,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_gemma_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 12/15] gemma-7b")
+        log("[phase 12/18] gemma-7b")
         paths = gemma_phase()
         log(f"chip_smoke: --gemma-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5315,7 +5759,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush, "whisper")
         del flush
-        log("[phase 13/15] whisper-tiny")
+        log("[phase 13/18] whisper-tiny")
         paths = whisper_phase()
         log(f"chip_smoke: --whisper-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5326,7 +5770,7 @@ def main() -> int:
         check_slice14_attention(gen, flush, "hymba")
         check_ssm_scan_bwd(gen, flush)
         del flush
-        log("[phase 14/15] hymba-1.5b training")
+        log("[phase 14/18] hymba-1.5b training")
         paths = hybrid_train_phase()
         log(f"chip_smoke: --hybrid-train-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5337,13 +5781,39 @@ def main() -> int:
         recs = [check_mlstm_bwd(gen, flush), check_slstm(gen, flush), check_slstm_bwd(gen, flush)]
         del flush
         log(json.dumps({"kernels": recs}))
-        log("[phase 15/15] xlstm-350m training")
+        log("[phase 15/18] xlstm-350m training")
         paths = xlstm_train_phase()
         log(f"chip_smoke: --xlstm-train-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
 
-    log("[phase 3/15] kernels against their plain versions")
+    if args.whisper_plan_only:
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush, "whisper")
+        del flush
+        log("[phase 16/18] whisper-tiny on the launcher's plans")
+        paths = whisper_plan_phase()
+        log(f"chip_smoke: --whisper-plan-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
+    if args.vlm_train_only:
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush,
+                                "internvl2")
+        del flush
+        log("[phase 17/18] internvl2-26b training")
+        paths = vlm_train_phase()
+        log(f"chip_smoke: --vlm-train-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
+    if args.xlstm_dots_only:
+        log("[phase 18/18] xlstm-350m training under remat dots")
+        paths = xlstm_dots_phase()
+        log(f"chip_smoke: --xlstm-dots-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
+
+    log("[phase 3/18] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [*check_flash(gen, flush), *check_paged(gen, flush), *check_flash_bwd(gen, flush),
@@ -5363,29 +5833,29 @@ def main() -> int:
         log("chip_smoke: --kernels-only, stopped before serving")
         return 0
 
-    log("[phase 4/15] serving")
+    log("[phase 4/18] serving")
     paths = {"serve": serve_full_width()}
     paths["serve_f32"] = serve_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 5/15] hybrid serving")
+    log("[phase 5/18] hybrid serving")
     paths["hybrid"] = serve_hybrid_full_width()
     paths["hybrid_f32"] = greedy_reduced_matches_cpu("hymba-1.5b", "hybrid",
                                                      "flash_attention_tf32", "ssm_scan")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 6/15] xLSTM serving")
+    log("[phase 6/18] xLSTM serving")
     paths["xlstm"] = serve_xlstm_full_width()
     paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_tf32",
                                                     "mlstm_step", "slstm")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 7/15] training")
+    log("[phase 7/18] training")
     paths["train"] = train_full_width()
     paths["train_f32"] = train_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 8/15] the spot provisioner")
+    log("[phase 8/18] the spot provisioner")
     paths["spot"] = spot_full_width()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5393,32 +5863,44 @@ def main() -> int:
     paths["spot_launch"] = spot_launcher()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 9/15] spot serving")
+    log("[phase 9/18] spot serving")
     paths.update(spot_serving())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 10/15] the MoE family")
+    log("[phase 10/18] the MoE family")
     paths.update(moe_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 11/15] the dense variants")
+    log("[phase 11/18] the dense variants")
     paths.update(dense_variants_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 12/15] gemma-7b")
+    log("[phase 12/18] gemma-7b")
     paths.update(gemma_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 13/15] whisper-tiny")
+    log("[phase 13/18] whisper-tiny")
     paths.update(whisper_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 14/15] hymba-1.5b training")
+    log("[phase 14/18] hymba-1.5b training")
     paths.update(hybrid_train_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 15/15] xlstm-350m training")
+    log("[phase 15/18] xlstm-350m training")
     paths.update(xlstm_train_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 16/18] whisper-tiny on the launcher's plans")
+    paths.update(whisper_plan_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 17/18] internvl2-26b training")
+    paths.update(vlm_train_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 18/18] xlstm-350m training under remat dots")
+    paths.update(xlstm_dots_phase())
     for r in records:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -62,9 +62,14 @@ the params: the reference draws them with ``jax.random`` (frames from key
 2, patches from key 3), whose numbers the port cannot reproduce, so the
 two launchers serve different inputs. A VLM serves in the host and the
 dense ``--plan`` paths; the engine serves text only. An encoder-decoder
-(``--arch whisper-tiny``) serves in the host path only: ``--plan`` and
-``--engine`` refuse it (its memory under a plan migration is a later
-slice).
+(``--arch whisper-tiny``) serves in the host and the dense ``--plan``
+paths: its encoder's output, the ``memory``, is a leaf of the dense cache,
+so ``--cache-policy migrate`` moves it with the KV cache (``cache_bytes``
+counts it) and ``drop`` re-runs the encoder over the frames in the
+re-prefill, as the reference's ``plan_main`` does, e.g.
+``--arch whisper-tiny --plan 8,4 --revoke-after 3 --device cpu``.
+``--engine`` refuses it: the paged pool takes DENSE blocks only, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -177,29 +182,32 @@ def _no_migration(cache_policy: str) -> dict:
             "migrated_at": None, "cache_policy": cache_policy}
 
 
-def _refuse_encoder(cfg) -> None:
-    """The plan modes serve decoder-only models: an encoder-decoder's
-    memory under a plan migration (and in the paged engine, which the
-    reference gives DENSE blocks only) is a later slice."""
-    if cfg.encoder_layers:
+def _refuse_encoder(cfg, engine: bool) -> None:
+    """``--engine`` pages its KV pool, and the reference pages DENSE blocks
+    only (its ``paged_cache_specs`` refuses any other kind, reached from
+    its engine): an encoder-decoder serves on the dense plans, where its
+    encoder's ``memory`` rides in the cache, not in the engine."""
+    if engine and cfg.encoder_layers:
         raise NotImplementedError(
-            f"--plan / --engine serve decoder-only models; {cfg.name}'s encoder memory under "
-            f"a plan migration is a later slice (serve it on the host path)")
+            f"--engine pages DENSE blocks only, as the reference's paged cache does; "
+            f"{cfg.name} is {cfg.block.value}: serve it with --plan without --engine")
 
 
 def serve_plan(model: Model, params, prompts: np.ndarray, new_tokens: int,
                counts: Sequence[int], *, revoke_after: int = 0, cache_policy: str = "drop",
                engine: bool = False, device="cuda",
                tracker: Optional[ThroughputTracker] = None, int8_cache: bool = False,
-               patches: Optional[torch.Tensor] = None) -> dict:
-    """Serve ``prompts`` (B, S) (after a VLM's ``patches``, dense only) on
-    the plans for ``counts`` (a pool of ``max(counts)`` slots on
-    ``device``); with a second count, revoke the first plan after
-    ``revoke_after`` decode steps and migrate to the second. Each decode
-    step is timed into ``tracker`` (a fresh ``ThroughputTracker`` by
-    default) under its plan's key. ``int8_cache``: the int8 KV cache.
-    Returns the ``PLAN_JSON`` object."""
-    _refuse_encoder(model.cfg)
+               patches: Optional[torch.Tensor] = None,
+               frames: Optional[torch.Tensor] = None) -> dict:
+    """Serve ``prompts`` (B, S) (after a VLM's ``patches``; an
+    encoder-decoder encodes its ``frames`` first; both dense only) on the
+    plans for ``counts`` (a pool of ``max(counts)`` slots on ``device``);
+    with a second count, revoke the first plan after ``revoke_after``
+    decode steps and migrate to the second. Each decode step is timed into
+    ``tracker`` (a fresh ``ThroughputTracker`` by default) under its plan's
+    key. ``int8_cache``: the int8 KV cache. Returns the ``PLAN_JSON``
+    object."""
+    _refuse_encoder(model.cfg, engine)
     if engine and cache_policy != "drop":
         raise SystemExit("--engine supports --cache-policy drop only "
                          "(pool pages die with the instance)")
@@ -213,13 +221,16 @@ def serve_plan(model: Model, params, prompts: np.ndarray, new_tokens: int,
         return _engine_plan(model, params, prompts, new_tokens, list(counts), revoke_after,
                             man, layout, tracker)
     return _dense_plan(model, params, prompts, new_tokens, list(counts), revoke_after,
-                       cache_policy, man, layout, tracker, patches)
+                       cache_policy, man, layout, tracker, patches, frames)
 
 
 def _dense_plan(model, params, prompts, new_tokens, counts, revoke_after, cache_policy,
-                man, layout, tracker, patches) -> dict:
+                man, layout, tracker, patches, frames) -> dict:
     """Lock-step prefill + greedy decode on the dense cache, with a live
-    shape migration at ``revoke_after``."""
+    shape migration at ``revoke_after``. An encoder-decoder's ``memory``
+    is a leaf of the cache: ``migrate`` moves it with the KV cache (and
+    prices its bytes with theirs), ``drop`` loses it with them and the
+    re-prefill runs the encoder over the frames again."""
     B, S = prompts.shape
     total = S + new_tokens
     c_specs = model.cache_specs(B, total, int8=layout.int8_kv_cache)
@@ -233,7 +244,7 @@ def _dense_plan(model, params, prompts, new_tokens, counts, revoke_after, cache_
 
     migrated = _no_migration(cache_policy)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, _batch(tokens, patches))
+    logits, cache = prefill(params, _batch(tokens, patches, frames))
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     toks = [tok.cpu()]
     prefill_s = time.perf_counter() - t0
@@ -266,7 +277,7 @@ def _dense_plan(model, params, prompts, new_tokens, counts, revoke_after, cache_
                 # as recompute on the replacement
                 t1 = time.perf_counter()
                 refill = torch.cat([tokens, gen[:, :i].to(tokens.device)], dim=1)
-                _, cache = prefill(params, _batch(refill, patches))
+                _, cache = prefill(params, _batch(refill, patches, frames))
                 _sync(tokens.device)
                 prefill_s += time.perf_counter() - t1
             log.info("revoked: migrated to replacement plan", token=i,
@@ -387,13 +398,14 @@ def plan_main(args) -> dict:
     """``--plan`` (and ``--engine``): print the ``first row:`` and
     ``PLAN_JSON`` lines; returns the ``PLAN_JSON`` object."""
     model, prompts, device = _model_and_prompts(args)
-    _refuse_encoder(model.cfg)
+    _refuse_encoder(model.cfg, args.engine)
     # param_dtype (f32) storage, as the reference's plan modes hold the params
     params, inputs = _params_and_inputs(model, args, device)
     out = serve_plan(model, params, prompts, args.new_tokens,
                      [int(x) for x in args.plan.split(",")], revoke_after=args.revoke_after,
                      cache_policy=args.cache_policy, engine=args.engine, device=device,
-                     int8_cache=args.int8_cache, patches=inputs.get("patches"))
+                     int8_cache=args.int8_cache, patches=inputs.get("patches"),
+                     frames=inputs.get("frames"))
     print("first row:", out["tokens"][0], flush=True)
     print("PLAN_JSON " + json.dumps(out), flush=True)
     return out

@@ -8,10 +8,12 @@ Trains on one device (``cuda`` unless ``--device cpu``), attending through
 the flash kernels' autograd Function (a hybrid model's Mamba blocks
 scanning through the selective scan's, an xLSTM's mLSTM blocks through
 the mLSTM's): the CUDA kernels on the card, their plain versions on the
-CPU. An encoder-decoder (whisper) is refused:
-the data path makes no frames. ``--reduced`` (the default, as in the
-reference) runs the family-preserving tiny config; ``--no-reduced`` the
-full one. With ``--spot-mode none`` the run is one ``run_segment``; with
+CPU. An encoder-decoder (whisper) and a VLM (internvl2-26b) are refused:
+the data path makes no frames and no patches (train them through
+``train.steps.build_train_step`` with a batch that carries them).
+``--reduced`` (the default, as in the reference) runs the
+family-preserving tiny config; ``--no-reduced`` the full one. With
+``--spot-mode none`` the run is one ``run_segment``; with
 ``siwoft|checkpoint|hybrid`` it goes through the provisioner
 (``SpotTrainingOrchestrator``) as the reference's launcher drives it: the
 market set of ``generate_markets(seed=3)`` (90 days of history, 30 of
@@ -41,10 +43,11 @@ def _run(args) -> dict:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.encoder_layers:
-        raise SystemExit(f"launch.train: {cfg.name} trains on frames, which the data path does "
+    needs = "frames" if cfg.encoder_layers else "patches" if cfg.vision_tokens else ""
+    if needs:
+        raise SystemExit(f"launch.train: {cfg.name} trains on {needs}, which the data path does "
                          f"not make (neither does the reference's); train it through "
-                         f"build_train_step with a batch that carries frames")
+                         f"build_train_step with a batch that carries {needs}")
     model = build_model(cfg)
     ds = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
     tc = TrainConfig(total_steps=args.steps, warmup_steps=min(20, args.steps // 10 + 1))

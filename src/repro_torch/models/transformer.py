@@ -1,6 +1,7 @@
 """The decoder's entry points (port of ``repro.models.transformer``):
 ``forward_hidden`` / ``forward_train`` (full-sequence training forward,
-each layer under ``torch.utils.checkpoint`` when ``remat="full"``),
+each layer under ``torch.utils.checkpoint`` when ``remat="full"``, and
+keeping its projections' outputs when ``remat="dots"``),
 ``prefill`` (full-sequence forward that builds the dense KV cache, and
 the SSM state of hybrid blocks), ``decode_step`` (one lock-step token
 against that cache) and ``decode_step_paged`` (one continuous-batching
@@ -18,11 +19,11 @@ sliding-window attention, and ENCDEC (whisper: a LayerNorm encoder over
 ``memory``, every decoder block cross-attends to after its self-attention;
 the cache keeps it under ``memory``) with full attention, at every entry
 point but the paged decode (DENSE text only, as in the reference); and
-MLSTM (xLSTM: ``groups`` of mLSTM blocks and one sLSTM, no attention) at
-every entry point but the paged decode: trained through the mLSTM's and
-the sLSTM's autograd Functions (their backward kernels), each group under
-``_maybe_remat``. Either KV cache may be
-int8 (``RunOpts.int8_kv_cache``). Embeddings may be tied (the LM head is
+MLSTM or SLSTM (xLSTM, laid out alike as in the reference: ``groups`` of
+mLSTM blocks and one sLSTM, no attention) at every entry point but the
+paged decode: trained through the mLSTM's and the sLSTM's autograd
+Functions (their backward kernels), each group under ``_maybe_remat``.
+Either KV cache may be int8 (``RunOpts.int8_kv_cache``). Embeddings may be tied (the LM head is
 ``embed.T``, a view) and scaled by sqrt(d_model) as a float32 scalar, which
 makes the residual stream f32 whatever the compute dtype, as in the
 reference (gemma). Norms are LayerNorm for the ``audio`` family (whisper)
@@ -31,6 +32,7 @@ and RMSNorm otherwise. The other families raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
@@ -50,7 +52,7 @@ class RunOpts:
     attn_impl: str = "masked"      # masked | triangular | flash
     q_chunk: int = 512
     kv_chunk: int = 1024
-    remat: str = "full"            # none | full ("dots" is not ported)
+    remat: str = "full"            # none | full | dots
     int8_kv_cache: bool = False
 
 
@@ -59,14 +61,20 @@ _SERVED = {(BlockKind.DENSE, AttentionKind.FULL),
            (BlockKind.MOE, AttentionKind.SLIDING),
            (BlockKind.HYBRID_PARALLEL, AttentionKind.SLIDING),
            (BlockKind.MLSTM, AttentionKind.NONE),
+           (BlockKind.SLSTM, AttentionKind.NONE),
            (BlockKind.ENCDEC, AttentionKind.FULL)}
+
+
+# the xLSTM kinds: an SLSTM model is laid out as an MLSTM one (groups of
+# mLSTM blocks, each group closed by an sLSTM block when ``slstm_every``)
+_XLSTM = (BlockKind.MLSTM, BlockKind.SLSTM)
 
 
 def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
     if (cfg.block, cfg.attention) not in _SERVED:
         raise NotImplementedError(
             f"repro_torch serves DENSE full-attention, MOE full or sliding-window, "
-            f"HYBRID_PARALLEL sliding-window, MLSTM and ENCDEC full-attention models only, "
+            f"HYBRID_PARALLEL sliding-window, MLSTM, SLSTM and ENCDEC full-attention models only, "
             f"got {cfg.block.value}/{cfg.attention.value}"
         )
     if cfg.block == BlockKind.MOE and cfg.moe is None:
@@ -76,8 +84,8 @@ def _check_supported(cfg: ModelConfig, opts: RunOpts | None = None) -> None:
     if opts is not None:
         if opts.attn_impl not in ("masked", "triangular", "flash"):
             raise NotImplementedError(f"repro_torch: attn_impl {opts.attn_impl!r}")
-        if opts.remat not in ("none", "full"):
-            raise NotImplementedError(f"repro_torch: remat {opts.remat!r} is not ported yet")
+        if opts.remat not in ("none", "full", "dots"):
+            raise NotImplementedError(f"repro_torch: remat {opts.remat!r}")
 
 
 def _require_dense(cfg: ModelConfig, what: str) -> None:
@@ -147,7 +155,7 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = ParamSpec((d, cfg.vocab_size), ("embed", "vocab"))
-    if cfg.block == BlockKind.MLSTM:
+    if cfg.block in _XLSTM:
         spec["groups"] = _xlstm_groups(
             cfg, {"block": xlstm.mlstm_spec(cfg), "ln": layers.rmsnorm_spec(d)},
             {"block": xlstm.slstm_spec(cfg), "ln": layers.rmsnorm_spec(d)})
@@ -182,7 +190,7 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, int8: bool = False) 
     the recurrent states under ``groups`` (``seq_len`` and ``int8`` unused:
     the state is constant per token)."""
     _check_supported(cfg)
-    if cfg.block == BlockKind.MLSTM:
+    if cfg.block in _XLSTM:
         return {"groups": _xlstm_groups(cfg, xlstm.mlstm_state_spec(cfg, batch),
                                         xlstm.slstm_state_spec(cfg, batch))}
     one: Dict[str, Any] = layers.make_cache_specs(cfg, batch, cache_len_for(cfg, seq_len),
@@ -447,11 +455,38 @@ def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return common.dense(x, unembed_weight(params, cfg), cfg.dtype)
 
 
+# the products that ``dense`` (``torch.matmul`` of a 2-D weight, folded to
+# one matrix product) dispatches on either device: no batch dimension
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``'s policy, the counterpart of JAX's
+    ``checkpoint_dots_with_no_batch_dims``: keep the outputs of the matrix
+    products with no batch dimension (the projections) and recompute
+    everything else: batched products (``bmm``: attention's scores and
+    the experts'), every elementwise op, and the kernels' autograd
+    Functions, whose forwards run with grad mode off (a product inside
+    one, the plain versions' on the CPU, is theirs, not a projection)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in _DOTS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _maybe_remat(fn, opts: RunOpts):
     """``remat="full"``: keep only each call's inputs and recompute the
-    rest in backward (``jax.checkpoint``'s counterpart)."""
+    rest in backward (``jax.checkpoint``'s counterpart); ``"dots"``: keep
+    the projections' outputs too (``_save_dots``)."""
     if opts.remat == "none":
         return fn
+    if opts.remat == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        context = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return lambda *args: torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, context_fn=context)
     return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
@@ -502,7 +537,7 @@ def forward_hidden(params, batch, cfg: ModelConfig, opts: RunOpts):
     """
     _check_supported(cfg, opts)
     x, positions, memory, n_prefix = _embed_inputs(params, batch, cfg)
-    if cfg.block == BlockKind.MLSTM:
+    if cfg.block in _XLSTM:
         groups = params["groups"]
         if not isinstance(groups, list):
             groups = [layer_slice(groups, g) for g in range(_xlstm_group_layout(cfg)[0])]
@@ -556,7 +591,7 @@ def prefill(params, batch, cfg: ModelConfig, opts: RunOpts, cache_seq_len: int):
     the recurrent states under ``groups``."""
     _check_supported(cfg, opts)
     x, positions, memory, _ = _embed_inputs(params, batch, cfg)
-    if cfg.block == BlockKind.MLSTM:
+    if cfg.block in _XLSTM:
         states = []
         for g in range(_xlstm_group_layout(cfg)[0]):
             x, st = _xlstm_group(layer_slice(params["groups"], g), x, cfg)
@@ -589,7 +624,7 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig, opts: RunOpts
     _check_supported(cfg, opts)
     pos = int(pos) + cfg.vision_tokens
     x = _embed_tokens(params, tokens, cfg)
-    if cfg.block == BlockKind.MLSTM:
+    if cfg.block in _XLSTM:
         for g in range(_xlstm_group_layout(cfg)[0]):
             x, _ = _xlstm_group(layer_slice(params["groups"], g), x, cfg,
                                 layer_slice(cache["groups"], g))

@@ -68,11 +68,13 @@ def run_segment(
 ) -> SegmentResult:
     """``jitted`` keeps the reference's name: a step from :func:`make_step`.
     The data path makes tokens and labels only, so an encoder-decoder
-    (whose batches carry ``frames``) is refused: train it through
-    ``build_train_step`` with its frames, as the reference can."""
-    if model.cfg.encoder_layers:
+    (whose batches carry ``frames``) and a VLM (whose batches carry
+    ``patches``) are refused: train them through ``build_train_step`` with
+    their frames or patches, as the reference can."""
+    needs = "frames" if model.cfg.encoder_layers else "patches" if model.cfg.vision_tokens else ""
+    if needs:
         raise NotImplementedError(
-            f"run_segment: {model.cfg.name} needs frames, which the data path does not make; "
+            f"run_segment: {model.cfg.name} needs {needs}, which the data path does not make; "
             f"train it step by step through build_train_step")
     dev = resolve_device(device)
     step_fn = jitted if jitted is not None else make_step(model, tc, layout)

@@ -485,26 +485,32 @@ def test_later_slices_still_refuse(field):
     """Tied and scaled embeddings (ported with gemma-7b) build and match the
     reference. Encoders (whisper-tiny, held in tests/test_torch_whisper.py)
     build too; what an encoder-decoder still may not do is page its cache,
-    as in the reference, and serve under ``--plan`` (a later slice)."""
+    as in the reference, so the plan modes' engine refuses it (its dense
+    ``--plan``, held in tests/test_torch_whisper_plan.py, serves it)."""
     if field == "encoder_layers":
         cfg = get_arch("whisper-tiny").reduced()
         assert "encoder" in build_model(cfg).specs
         with pytest.raises(NotImplementedError, match="DENSE"):
             build_model(cfg).paged_cache_specs(8)
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(NotImplementedError, match="DENSE"):
             from repro_torch.launch.serve import serve_plan
-            serve_plan(build_model(cfg), None, np.zeros((1, 4), np.int32), 2, [1])
+            serve_plan(build_model(cfg), None, np.zeros((1, 4), np.int32), 2, [1], engine=True)
     else:
         _variant_prefill_matches_jax(**{field: True})
 
 
 def test_geglu_and_dots_remat_still_refuse():
-    """``remat="dots"`` still refuses (GeGLU, ported with gemma-7b, is held
-    by ``test_geglu_matches_jax``)."""
+    """``remat="dots"`` runs since it was ported (held against the
+    reference's policy by ``tests/test_torch_remat_dots.py``) and gives the
+    logits ``full`` gives; a remat the reference lacks still refuses
+    (GeGLU, ported with gemma-7b, is held by ``test_geglu_matches_jax``)."""
     _, _, m, p = _models(Q4)
     tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="dots"):
-        m.forward(p, tokens, RunOpts(remat="dots"))
+    full, _ = m.forward(p, tokens, RunOpts(remat="full"))
+    dots, _ = m.forward(p, tokens, RunOpts(remat="dots"))
+    assert torch.equal(full, dots)
+    with pytest.raises(NotImplementedError, match="remat"):
+        m.forward(p, tokens, RunOpts(remat="offload"))
 
 
 def test_geglu_matches_jax():

@@ -193,13 +193,13 @@ def test_forward_train_matches_jax(jax_state, attn_impl):
         JaxRunOpts(attn_impl=attn_impl))
     model = build_model(cfg)
     params = params_from_jax(jax_state.params, cfg, "cpu")
-    for remat in ("full", "none"):
+    for remat in ("full", "none", "dots"):
         logits, aux = model.forward(params, {"tokens": torch.from_numpy(tokens)},
                                     RunOpts(attn_impl=attn_impl, remat=remat))
         assert float(aux) == 0.0
         np.testing.assert_allclose(_np(logits), np.asarray(want), rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="dots"):
-        model.forward(params, {"tokens": torch.from_numpy(tokens)}, RunOpts(remat="dots"))
+    with pytest.raises(NotImplementedError, match="remat"):
+        model.forward(params, {"tokens": torch.from_numpy(tokens)}, RunOpts(remat="offload"))
 
 
 def _run_jax(jax_state, attn_impl, microbatches, compress, n_steps=3):

@@ -315,8 +315,10 @@ def test_host_main_serves_xlstm_on_cpu(capsys):
 def test_xlstm_forwards_run_paged_decode_and_slstm_refuse():
     """The training forwards run for xLSTM since the mLSTM has a gradient
     (``test_forward_matches_jax_f32`` holds them against the JAX package);
-    the paged decode (DENSE only, as in the reference) and a model of
-    BlockKind.SLSTM blocks still refuse."""
+    the paged decode (DENSE only, as in the reference) still refuses. A
+    model of BlockKind.SLSTM blocks builds since it was ported, laid out
+    as this one (``tests/test_torch_slstm_kind.py``); a MAMBA one, which
+    no config uses, still refuses."""
     cfg = get_arch(XLSTM).reduced()
     m = build_model(cfg)
     params = m.init(torch.Generator().manual_seed(0), "cpu")
@@ -326,8 +328,10 @@ def test_xlstm_forwards_run_paged_decode_and_slstm_refuse():
     assert tuple(m.forward(params, batch)[0].shape) == (1, 8, cfg.vocab_size)
     with pytest.raises(NotImplementedError, match="DENSE"):
         m.paged_cache_specs(8)
+    slstm = build_model(dataclasses.replace(cfg, block=BlockKind.SLSTM))
+    assert _spec_fields(slstm.specs) == _spec_fields(m.specs)
     with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, block=BlockKind.SLSTM))
+        build_model(dataclasses.replace(cfg, block=BlockKind.MAMBA))
 
 
 @pytest.mark.parametrize("S", [16, 12])
