@@ -10,10 +10,12 @@
     python3 chip_smoke.py --gemma-only    # build + the kernels at head dim 256 + phase 12
     python3 chip_smoke.py --whisper-only  # build + the flash kernels at whisper's shapes + phase 13
     python3 chip_smoke.py --hybrid-train-only  # build + hymba's training kernels + phase 14
-    python3 chip_smoke.py --xlstm-train-only   # build + the mLSTM's backward, the sLSTM + phase 15
+    python3 chip_smoke.py --xlstm-train-only   # build + the mLSTM's backward, the sLSTM (wide too)
+                                               # + phase 15
     python3 chip_smoke.py --whisper-plan-only  # build + the flash kernels at whisper's + phase 16
     python3 chip_smoke.py --vlm-train-only     # build + the flash kernels at S3073 G6 + phase 17
     python3 chip_smoke.py --xlstm-dots-only    # build + phase 18
+    python3 chip_smoke.py --dryrun-only        # build + phase 19
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
@@ -56,8 +58,15 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    d1024 from a start state) at atol 1e-5, rtol 1e-4, and at xlstm-350m's
    other shapes (prefill B8 S4096, training B1 S4096) against an f64
    witness, within 2x the plain f32 version's own error; keeping what
-   the gradient needs leaves the forward's bits as they are, and a grid
-   that cannot be resident at once is refused at launch;
+   the gradient needs leaves the forward's bits as they are. Past d 1056,
+   where d / 8 blocks cannot all be resident, the wide grids (16-64
+   units a block, r's share in registers, shared memory and the rest read
+   from device memory each step) and at a d that 32 does not divide the
+   padded path are held the same way at d 200, 1152, 2048 and 4096
+   (SLSTM_WIDE_CASES; the units each launch takes equal the dry run's
+   H100 rule) and timed beside their bounds; a 4-layer ``BlockKind.SLSTM``
+   model at d 1152 in f32 gives the CPU's prefill logits and 16-token
+   greedy stream on the card;
 4. serving: full-width qwen3-4b (random bf16 weights from a seeded
    generator) through ``DecodeEngine`` on 16 requests; launch counters
    prove prefill went through the flash kernel (36 launches per prefill)
@@ -260,7 +269,17 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    state (full, dots, dots, full): ms a step, peak memory and launches a
    step per turn; every turn launches phase 15's kernels, and the dots
    turns' losses and grad norms equal the full turns' bit for bit; reduced
-   f32 xlstm under dots on the card equals the CPU's.
+   f32 xlstm under dots on the card equals the CPU's;
+19. the dry run against the card (``launch/dryrun.py`` on the meta
+   device, ``launch/roofline.py``'s H100 terms): at phase 7's qwen3-4b
+   training step (B2 in 2 microbatches, seq 4096, remat full) and phase
+   15's xlstm-350m step, each traced on meta and then run on the card
+   (a step to set up, one measured, one under ``FlopCounterMode``): the
+   kernels' calls a step the trace predicts equal the launch counters,
+   the predicted peak is within DRYRUN_PEAK_MARGIN of
+   ``max_memory_allocated`` over the step, the roofline's time
+   max(t_compute, t_memory) is no more than the step's device time (CUDA
+   events), and the trace's aten product FLOPs equal ``FlopCounterMode``'s.
 
 A kernel variant's ``launches_by_path`` in the JSON record holds its count
 on each path (``serve``, ``hybrid``, ``xlstm``, ``train``, ``spot`` at full width
@@ -278,7 +297,8 @@ and ``whisper_f32``, ``whisper_train_f32``; hymba's ``hybrid_train`` and
 ``hybrid_train_f32``; xlstm's ``xlstm_train`` and ``xlstm_train_f32``;
 ``whisper_plan`` and ``whisper_plan_f32``; ``vlm_train`` and
 ``vlm_train_f32``; ``xlstm_train_dots`` (its dots turns) and
-``xlstm_train_dots_f32``), each
+``xlstm_train_dots_f32``; ``slstm_wide_f32``, the d-1152 model; phase 19's
+measured steps ``dryrun_train`` and ``dryrun_xlstm_train``), each
 counted from 0
 just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
@@ -327,7 +347,8 @@ NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_me
                     "flash_fwd_tf32_kernel", "flash_bwd_dkdv_tf32_kernel",
                     "flash_bwd_dq_tf32_kernel", "Li256E", "mlstm_bwd_kernel",
                     "mlstm_bwd_prep_kernel", "mlstm_bwd_carry_kernel", "mlstm_bwd_sum_kernel",
-                    "slstm_fwd_kernel", "slstm_bwd_kernel")
+                    "slstm_fwd_kernel", "slstm_bwd_kernel", "slstm_fwd_wide_kernel",
+                    "slstm_bwd_wide_kernel")
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 outside the tensor cores
@@ -491,6 +512,22 @@ SLSTM_ULP_FLOOR = 2
 SLSTM_DECODE = (8, 1)
 # calls each sLSTM kernel is timed over at the main path's shapes
 SLSTM_REPS = 20
+# the sLSTM at a width that 32 does not divide (200: padded to 224, 28
+# blocks of 8 units) and past d 1056, where the wide grids run (16 units a
+# block at d 1152 and 2048, 32 at 4096): (d, B, S, with a start state),
+# held as the d-128 cases are (SLSTM_TOL; against the f64 witness at S >=
+# SLSTM_WITNESS_S and for dr); timed at SLSTM_WIDE_TIMED (d, B, S)
+SLSTM_WIDE_CASES = ([(d, B, 256, st) for d in (200, 1152, 2048) for B in (1, 8)
+                     for st in (False, True)]
+                    + [(1152, 1, 4096, False), (4096, 1, 64, False), (4096, 1, 64, True)])
+SLSTM_WIDE_TIMED = [(200, 8, 256), (1152, 1, 256), (1152, 8, 256), (1152, 1, 4096),
+                    (2048, 1, 256), (2048, 8, 256), (4096, 1, 64)]
+SLSTM_WIDE_REPS = 5
+# the model-level hold at a wide d: xlstm-350m laid out as BlockKind.SLSTM
+# at d 1152 (6 heads: the mLSTM's head dim 384, within its kernels' 512), 4
+# layers (2 groups of an mLSTM and an sLSTM block), f32
+SLSTM_WIDE_MODEL = dict(d_model=1152, num_heads=6, num_kv_heads=6, num_layers=4,
+                        slstm_every=2)
 # the JAX test's tolerance for the scan's final state (y takes tol(dtype))
 SSM_H_TOL = dict(atol=1e-4, rtol=1e-4)
 # hymba's main-path shapes (u bf16, dt/B_/C_ f32), held tighter than the
@@ -671,13 +708,21 @@ def hold_fwd(name: str, o, lse, q, k, v, kw: dict, t: dict) -> float:
     return err
 
 
-def _flash_fwd_work(B, S, H, KVH, hd, window=0, el=2) -> tuple:
-    """(flop, bytes) the causal forward needs: QK^T and PV over the live
-    (q, k) pairs, 2 flops per multiply-add; q, k, v read and o written once
-    (``el`` bytes an element: bf16 unless told), lse written once (f32)."""
-    pairs = S * (S + 1) // 2 if not window else \
-        window * (window + 1) // 2 + (S - window) * window
-    return 4.0 * pairs * hd * H * B, el * (2 * B * S * H * hd + 2 * B * S * KVH * hd) + 4.0 * B * H * S
+def flash_work(B, S, H, KVH, hd, window=0, el=2) -> dict:
+    """(flop, bytes) the causal self-attention's kernels need at this shape,
+    by the cost functions beside them (``kernels/flash_attention/ops.py``):
+    the forward's QK^T and PV, dk/dv's s, dp, dv, dk and dq's own product
+    over the live (q, k) pairs; each input read and each output written
+    once (``el`` bytes an element: bf16 unless told; lse and delta f32).
+    The backward's 5 products are split over dkdv and dq so that their
+    bounds add up to the whole backward's: that dq computes s and dp again
+    (7 products in all, no atomics), and that the tensor-core kernels
+    multiply hi and lo halves of p and ds, is each design's overhead, in
+    its ms."""
+    from repro_torch.kernels.flash_attention import ops
+
+    kw = dict(B=B, Sq=S, Skv=S, H=H, KVH=KVH, hd=hd, window=window, el=el)
+    return {"fwd": ops.fwd_cost(**kw), "dkdv": ops.dkdv_cost(**kw), "dq": ops.dq_cost(**kw)}
 
 
 # the f32 forward's timed shapes (PERF.md row 1f): (tag, B, S, H, KVH, hd,
@@ -718,7 +763,7 @@ def check_flash_f32(gen: torch.Generator, flush: torch.Tensor) -> tuple:
         log(f"  flash f32 {tag}: two calls give the same bits: {same}")
         if not same:
             raise AssertionError(f"the f32 forward gave different bits at {tag}")
-        flops, nbytes = _flash_fwd_work(B, S, H, KVH, hd, window, el=4)
+        flops, nbytes = flash_work(B, S, H, KVH, hd, window, el=4)["fwd"]
         b_ms, b_by = bound(flops, nbytes, PEAK_SPLIT_TF32_FLOPS)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_kw = dict(attn_mask=_mask(S, S, True, window, 0, q.device)) if window else \
@@ -785,7 +830,7 @@ def check_flash(gen: torch.Generator, flush: torch.Tensor) -> list:
     def timed(args, peak, tag):
         q, k, v, kw = args
         B, S, H, hd = q.shape
-        flops, nbytes = _flash_fwd_work(B, S, H, k.shape[2], hd)
+        flops, nbytes = flash_work(B, S, H, k.shape[2], hd)["fwd"]
         b_ms, b_by = bound(flops, nbytes, peak)
         ms = time_ms(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush)
         plain_ms = time_ms(lambda: attention_fwd_ref(q, k, v, **kw), flush)
@@ -825,7 +870,7 @@ def check_flash_hymba(gen: torch.Generator, flush: torch.Tensor) -> float:
                        o[b:b + 1], lse[b:b + 1], q[b:b + 1], k[b:b + 1], v[b:b + 1], kw,
                        FLASH_MAIN_BF16_TOL) for b in range(B))
     del o, lse
-    flops, nbytes = _flash_fwd_work(B, S, H, KVH, hd, window)
+    flops, nbytes = flash_work(B, S, H, KVH, hd, window)["fwd"]
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     ms = time_ms(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush)
     band = _mask(S, S, True, window, 0, q.device)
@@ -902,19 +947,10 @@ def check_flash_bwd(gen: torch.Generator, flush: torch.Tensor) -> list:
     del dq_a, dq_b
 
     def work(q, k):
-        """The function's least work: 5 products (s, dp, dv, dk, dq), each
-        input read once, each output written once. It is split over the
-        dkdv and dq rows so that their bounds add up to it: dkdv carries s,
-        dp, dv, dk, the inputs and dk, dv; dq its own product and dq. That dq
-        computes s and dp again (7 products in all, no atomics), and that
-        the tensor-core kernels multiply hi and lo halves of p and ds, is
-        each design's overhead, in its ms."""
+        """The function's least work (``flash_work``): 5 products split over
+        the dkdv and dq rows."""
         B, S, H, hd = q.shape
-        KVH, el = k.shape[2], q.element_size()
-        prod = 2.0 * S * (S + 1) // 2 * hd * H * B      # one causal (S x S x hd) product
-        in_bytes = el * (2 * B * S * H * hd + 2 * B * S * KVH * hd) + 2 * 4.0 * B * H * S
-        return {"dkdv": (4 * prod, in_bytes + el * 2 * B * S * KVH * hd),
-                "dq": (prod, el * B * S * H * hd)}
+        return flash_work(B, S, H, k.shape[2], hd, el=q.element_size())
 
     o, _ = kernel.flash_attention_fwd(q, k, v, **kw)
     plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw), flush, reps=3)
@@ -1072,14 +1108,6 @@ def sdpa_backward_ms(q, k, v, do, flush, mask=None) -> float:
     return both - fwd
 
 
-def _pairs(S: int, window: int) -> int:
-    """The live (q, k) pairs of causal attention over S positions, within
-    ``window`` positions when it is set."""
-    if not window:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
-
-
 # mixtral-8x7b's training shape: B1 S8192 H32/8 hd128, window 4096, bf16
 MOE_ATTN = dict(B=1, S=8192, H=32, KVH=8, hd=128, window=4096)
 
@@ -1132,13 +1160,9 @@ def check_flash_window_8192(gen: torch.Generator, flush: torch.Tensor) -> dict:
 
     # bounds: the forward's 2 products over the live pairs; the backward's
     # 5 split as check_flash_bwd splits them (dkdv: s, dp, dv, dk; dq: dq)
-    prod = 2.0 * _pairs(S, window) * hd * H * B
-    el = 2.0
-    qkv_bytes = el * (2 * B * S * H * hd + 2 * B * S * KVH * hd)
-    work = {"flash_attention_tc": (2 * prod, qkv_bytes + 4.0 * B * H * S),
-            "flash_attention_bwd_dkdv_tc": (4 * prod, qkv_bytes + 2 * 4.0 * B * H * S
-                                            + el * 2 * B * S * KVH * hd),
-            "flash_attention_bwd_dq_tc": (prod, el * B * S * H * hd)}
+    w = flash_work(B, S, H, KVH, hd, window)
+    work = {"flash_attention_tc": w["fwd"], "flash_attention_bwd_dkdv_tc": w["dkdv"],
+            "flash_attention_bwd_dq_tc": w["dq"]}
     fns = {"flash_attention_tc": lambda: kernel.flash_attention_fwd(q, k, v, **kw),
            "flash_attention_bwd_dkdv_tc": lambda: kernel_bwd.flash_attention_bwd_dkdv(
                q, k, v, do, lse, delta, **kw),
@@ -1185,6 +1209,7 @@ def check_paged(gen: torch.Generator, flush: torch.Tensor) -> list:
     shape also against the plain split form, and two calls giving the same
     bits. One record per dtype."""
     from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
                                                          paged_attention_split_ref)
 
@@ -1242,8 +1267,7 @@ def check_paged(gen: torch.Generator, flush: torch.Tensor) -> list:
     for dtype in (torch.bfloat16, torch.float32):
         args = main[dtype]
         el = args[0].element_size()
-        flops = 4.0 * n_tok * 32 * 128
-        nbytes = el * (2 * 8 * 32 * 128 + 2 * n_tok * 8 * 128) + 4.0 * (n_pages + 8)
+        flops, nbytes = paged_ops.cost(8, 32, 8, 128, n_tok, n_pages, el=el)
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS if el == 2 else PEAK_F32_FLOPS)
         ms = time_ms(lambda: kernel.paged_attention(*args), flush)
         clean_ms = time_ms(lambda: kernel.paged_attention(*args), flush, clean=True)
@@ -1352,13 +1376,8 @@ def check_ssm_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
         del one, two
 
     def work(u, dt, B_, C_, A, D, h0):
-        """(flop, bytes): each input read once (h0 too), y and h written once."""
-        B, S, inner = u.shape
-        N = A.shape[1]
-        nbytes = (u.numel() * u.element_size() * 2 + 4.0 * (dt.numel() + B_.numel()
-                  + C_.numel() + A.numel() + D.numel() + 2 * h0.numel()))
-        # per (b, t, i, n): dt*A, exp, dt*B, da*h, db*u, +, h*C, + (8); per (b, t, i): D*u, +
-        return 8.0 * B * S * inner * N + 2.0 * B * S * inner, nbytes
+        """(flop, bytes) by the scan's cost function (``ops.cost``)."""
+        return ops.cost(*u.shape, A.shape[1], el=u.element_size(), h0=h0 is not None)
 
     B, S, inner = args[0].shape
     N = args[4].shape[1]
@@ -1403,7 +1422,7 @@ def check_ssm_scan_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
     forward with the kept states gives the bits it gives without them; its
     time at the training shape, with and without; the backward's time
     there with its spread."""
-    from repro_torch.kernels.ssm_scan import kernel
+    from repro_torch.kernels.ssm_scan import kernel, ops
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
 
     names = ("du", "ddt", "dB_", "dC_", "dA", "dD", "dh0")
@@ -1480,9 +1499,7 @@ def check_ssm_scan_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
     # the gradient's least work: each input (u, dt, B_, C_, A, D, dy) read and
     # each output (du, ddt, dB_, dC_, dA, dD) written once; per (b, t, i, n)
     # the state (4 flops) and the adjoint (16), and one exponential
-    el = u.element_size()
-    nbytes = (2 * el + 4.0 * 2) * B * S * inner + 4.0 * 4 * B * S * N + 4.0 * 2 * (inner * N + inner)
-    flops = 20.0 * B * S * inner * N
+    flops, nbytes = ops.bwd_cost(B, S, inner, N, el=u.element_size())
     b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
     sfu_ms = B * S * inner * N / SFU_EXP_PER_S * 1e3
     times = time_each(lambda: kernel.ssm_scan_bwd(*args), flush, reps=30)
@@ -1659,16 +1676,9 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
               ops.mlstm(dq, dk, dv, dg, dstate))
 
     def work(B, S, H, hd, el):
-        """(flop, bytes) the function needs: per token and head q C^T and the
-        C update (2 hd^2 flop each) and the recurrence's O(hd) rest (n,
-        n . q: 4 hd; a chunked form's intra-chunk products are its own
-        overhead, not the function's); q, k, v read and h written once (el
-        bytes), the gates read and the state (C, n, m) written once (read
-        too where it is carried: S = 1)."""
-        flops = (4.0 * hd * hd + 4.0 * hd) * B * S * H
-        state = 4.0 * B * H * (hd * hd + hd + 1)
-        nbytes = el * B * S * H * hd * 4 + 4.0 * B * S * 2 * H + state * (1 if S > 1 else 2)
-        return flops, nbytes
+        """(flop, bytes) by the mLSTM's cost function (``ops.cost``); the
+        decode step (S = 1) carries a state in."""
+        return ops.cost(B, S, H, hd, el=el, state=S == 1)
 
     flops, nbytes = work(B, S, H, hd, 2)
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
@@ -1841,9 +1851,9 @@ def check_mlstm_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
     # step) is left out, as the scan backward's kept states are: a backward
     # could recompute it; its bytes and the bound with them are logged.
     def work(el):
-        flops = (8.0 * hd * hd + 16.0 * hd) * B * S * H
-        nbytes = el * 8.0 * B * S * H * hd + 4.0 * 2 * B * S * 2 * H
-        return flops, nbytes
+        from repro_torch.kernels.mlstm import ops
+
+        return ops.bwd_cost(B, S, H, hd, el=el)
 
     recs = {}
     for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOPS), (torch.float32, PEAK_SPLIT_TF32_FLOPS)):
@@ -1941,11 +1951,9 @@ def check_slstm(gen: torch.Generator, flush: torch.Tensor) -> dict:
     same bits, and keeping what the gradient needs leaves hs's bits as they
     are. Decode's step (SLSTM_DECODE at d 1024, 128 blocks) from a drawn
     start state and from the prefill's final state: hs and the final state
-    at SLSTM_TOL. A grid that cannot be resident at once (d = 1152: 144
-    blocks of one an SM) is refused at launch, and the next launch runs.
-    Timed at the three main shapes beside the plain version and the bound
-    (f32 FMAs)."""
-    from repro_torch.kernels.slstm import kernel
+    at SLSTM_TOL. Timed at the three main shapes beside the plain version
+    and the bound (f32 FMAs). Wider d: ``check_slstm_wide``."""
+    from repro_torch.kernels.slstm import kernel, ops
     from repro_torch.kernels.slstm.ref import slstm_ref
 
     names = ("hs", "c", "n", "h", "m")
@@ -1966,21 +1974,6 @@ def check_slstm(gen: torch.Generator, flush: torch.Tensor) -> dict:
                                (hs, *fin, *kept), (rhs, *rfin, *rkept)):
                 err = max(err, hold(f"{tag} {n}", a, b, SLSTM_TOL))
 
-    # a grid that cannot be co-resident is refused, not deadlocked
-    d_big = 1152
-    wx, r, _ = _slstm_inputs(gen, 1, 2, d_big, False)
-    try:
-        kernel.slstm(wx, r)
-        torch.cuda.synchronize()
-    except RuntimeError as e:
-        log(f"  slstm at d {d_big} ({d_big // kernel.UNITS} blocks): refused at launch: {e}")
-    else:
-        raise AssertionError(f"slstm at d {d_big}: a grid of {d_big // kernel.UNITS} blocks "
-                             f"launched")
-    wx, r, state = _slstm_inputs(gen, 2, 5, SLSTM_D, True)
-    hold("slstm B2 S5 after the refused launch hs", kernel.slstm(wx, r, state)[0],
-         slstm_ref(wx, r, state)[0], SLSTM_TOL)
-
     failed, recs = [], {}
     d = SLSTM_MAIN_D
     for path, (B, S) in SLSTM_MAIN.items():
@@ -1998,8 +1991,7 @@ def check_slstm(gen: torch.Generator, flush: torch.Tensor) -> dict:
         if path == "prefill":
             prefill_r, prefill_fin = r, fin
         del plain_out, wit, out, fin, kept
-        flops = 2.0 * B * S * d * 4 * d
-        nbytes = 4.0 * (B * S * 4 * d + B * S * d + d * 4 * d + 8 * B * d)
+        flops, nbytes = ops.cost(B, S, d)
         b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
         times = time_each(lambda: kernel.slstm(wx, r), flush, reps=SLSTM_REPS)
         ms = spread(times)[1]
@@ -2032,8 +2024,7 @@ def check_slstm(gen: torch.Generator, flush: torch.Tensor) -> dict:
         rhs, rfin = slstm_ref(wx, r, state)
         for n, a, b in zip(names, (hs, *fin), (rhs, *rfin)):
             err = max(err, hold(f"{tag} {n}", a, b, SLSTM_TOL))
-    flops = 2.0 * B * S * d * 4 * d
-    nbytes = 4.0 * (B * S * 4 * d + B * S * d + d * 4 * d + 8 * B * d)
+    flops, nbytes = ops.cost(B, S, d)
     b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
     times = time_each(lambda: kernel.slstm(wx, r, state), flush, reps=SLSTM_REPS)
     plain_ms = time_ms(lambda: slstm_ref(wx, r, state), flush, reps=SLSTM_REPS)
@@ -2056,14 +2047,12 @@ def check_slstm_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
     on SLSTM_CASES with and without a start state (and then the final
     state's gradient) at SLSTM_TOL, dr (and at S >= SLSTM_WITNESS_S every
     output) against an f64 witness within SLSTM_MAIN_MARGIN x the plain
-    f32 version's own error; a grid that cannot be resident at once (d =
-    1152) refused at launch, and a B2 S5 call with a start state after it
-    at SLSTM_TOL; B2 S5 at SLSTM_SMEM_D against the f64 witness; at
+    f32 version's own error; B2 S5 at SLSTM_SMEM_D against the f64 witness; at
     xlstm-350m's training microbatch (B1 S4096 d1024)
     against an f64 witness within SLSTM_MAIN_MARGIN x the plain f32
     version's own error, the same bits twice. Timed there beside the plain
     version and the bound."""
-    from repro_torch.kernels.slstm import kernel
+    from repro_torch.kernels.slstm import kernel, ops
     from repro_torch.kernels.slstm.ref import slstm_bwd_ref, slstm_ref
 
     names = ("dwx", "dr", "dc0", "dn0", "dh0", "dm0")
@@ -2097,25 +2086,6 @@ def check_slstm_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
     if failed:
         raise AssertionError("slstm_bwd disagrees with its f64 witness: " + "; ".join(failed))
 
-    # a grid that cannot be co-resident is refused, not deadlocked
-    d_big = 1152
-    wx, r, _ = _slstm_inputs(gen, 1, 2, d_big, False)
-    hs, _, kept = slstm_ref(wx, r, None, keep=True)
-    try:
-        kernel.slstm_bwd(r, None, hs, kept, rnd(1, 2, d_big))
-        torch.cuda.synchronize()
-    except RuntimeError as e:
-        log(f"  slstm_bwd at d {d_big} ({d_big // kernel.UNITS} blocks): refused at launch: {e}")
-    else:
-        raise AssertionError(f"slstm_bwd at d {d_big}: a grid of {d_big // kernel.UNITS} blocks "
-                             f"launched")
-    wx, r, state = _slstm_inputs(gen, 2, 5, SLSTM_D, True)
-    hs, _, kept = kernel.slstm(wx, r, state, keep=True)
-    dhs, dfin = rnd(2, 5, SLSTM_D), tuple(rnd(2, SLSTM_D) for _ in range(4))
-    got = kernel.slstm_bwd(r, state, hs, kept, dhs, dfin)
-    want = slstm_bwd_ref(r, state, hs, kept, dhs, dfin)
-    for n, a, b in zip(names[:1] + names[2:], (got[0], *got[2]), (want[0], *want[2])):
-        err = max(err, hold(f"slstm bwd B2 S5 after the refused launch {n}", a, b, SLSTM_TOL))
     # SLSTM_SMEM_D: a thread's third unit keeps r's values in shared memory
     d = SLSTM_SMEM_D
     wx, r, state = _slstm_inputs(gen, 2, 5, d, True)
@@ -2145,11 +2115,9 @@ def check_slstm_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
     if failed:
         raise AssertionError("slstm_bwd disagrees with its f64 witness: " + "; ".join(failed))
 
-    # the gradient's least work: dpre r^T (the recurrent dh) and dr = h_prev^T
-    # dpre, 2 B S d 4d flops each, at the f32 FMA rate; bytes: r, hs, dhs and
-    # what the forward kept (pre, c, n, m) read, dpre and dr written, once each
-    flops = 2 * 2.0 * B * S * d * 4 * d
-    nbytes = 4.0 * (d * 4 * d + B * S * (d + d + 4 * d + 3 * d) + B * S * 4 * d + d * 4 * d)
+    # the gradient's least work (``ops.bwd_cost``): dpre r^T (the recurrent
+    # dh) and dr = h_prev^T dpre at the f32 FMA rate
+    flops, nbytes = ops.bwd_cost(B, S, d)
     b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
     times = time_each(fn, flush, reps=SLSTM_REPS)
     ms = spread(times)[1]
@@ -2165,6 +2133,106 @@ def check_slstm_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
     return dict(name="slstm_bwd", route="cuda", source="src/repro_torch/csrc/slstm.cu",
                 replaces="src/repro/models/xlstm.py:226", max_abs_err=err, library_ms=None,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_slstm_wide(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """Both sLSTM kernels at SLSTM_WIDE_CASES' widths: d 200 (padded to a
+    multiple of 32 by the wrapper and sliced back) and d 1152, 2048 and
+    4096, where d / 8 blocks cannot all be resident and the wide grids run.
+    At each launch the units a block the library picks equal
+    ``kernel.h100_units`` (the meta route's rule: the dry run allocates the
+    backward's exchange by it). The forward against ``slstm_ref``: its
+    final state is the last step of hs and of what it keeps, bit for bit;
+    hs, the final state and what it keeps at SLSTM_TOL, or at S >=
+    SLSTM_WITNESS_S hs and what it keeps (every step's pre, c, n, m)
+    against the f64 witness within SLSTM_MAIN_MARGIN x the plain f32
+    version's own error. The backward on the kernel's kept tensors against
+    ``slstm_bwd_ref``: at SLSTM_TOL, but dr, and every output at S >=
+    SLSTM_WITNESS_S, against the f64 witness the same way;
+    keeping leaves the forward's bits as they are; two calls of each give
+    the same bits. Timed at SLSTM_WIDE_TIMED beside the plain versions and
+    the bounds (``ops.cost``, ``ops.bwd_cost``: f32 FMAs). Returns each
+    kernel's largest error."""
+    from repro_torch.kernels.slstm import kernel, ops
+    from repro_torch.kernels.slstm.ref import slstm_bwd_ref, slstm_ref
+
+    log("[kernels] slstm and slstm_bwd at wide and unaligned d (the wide grids, the padding)")
+    fwd_names, bwd_names = ("hs", "c", "n", "h", "m"), ("dwx", "dr", "dc0", "dn0", "dh0", "dm0")
+    kept_names = ("hs", "kept pre", "kept c", "kept n", "kept m")
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    f64 = lambda ts: None if ts is None else tuple(t.double() for t in ts)
+    flat = lambda out: (out[0], out[1], *(out[2] or ()))
+    errs = {"slstm": 0.0, "slstm_bwd": 0.0}
+    failed = []
+    for d, B, S, with_state in SLSTM_WIDE_CASES:
+        dp = kernel.padded(d)
+        picked = (kernel.units(B, dp), kernel.units(B, dp, backward=True))
+        tag = (f"slstm wide d{d} B{B} S{S}{' with state' if with_state else ''} "
+               f"(units a block {picked[0]} / {picked[1]})")
+        if picked != (kernel.h100_units(dp),) * 2:
+            raise AssertionError(f"{tag}: the library picked {picked} units a block, the dry "
+                                 f"run's rule {kernel.h100_units(dp)}")
+        wx, r, state = _slstm_inputs(gen, B, S, d, with_state)
+        hs, fin, kept = kernel.slstm(wx, r, state, keep=True)
+        if not torch.equal(hs, kernel.slstm(wx, r, state)[0]):
+            raise AssertionError(f"{tag}: keeping gave other bits")
+        last = (kept[1][:, -1], kept[2][:, -1], hs[:, -1], kept[3][:, -1])
+        if not all(torch.equal(a, b) for a, b in zip(fin, last)):
+            raise AssertionError(f"{tag}: the final state is not the last step's c, n, h, m")
+        _slstm_same_bits(tag, lambda: kernel.slstm(wx, r, state))
+        plain = slstm_ref(wx, r, state, keep=True)
+        if S >= SLSTM_WITNESS_S:
+            # every step's h, pre-activations and c, n, m (the final state is
+            # their last step, bit for bit): a B x d slice alone is too few
+            # values for a ratio of two largest errors
+            wit = slstm_ref(wx.double(), r.double(), f64(state), keep=True)
+            errs["slstm"] = max(errs["slstm"], _slstm_vs_witness(
+                tag, (hs, *kept), (plain[0], *plain[2]), (wit[0], *wit[2]), kept_names, failed))
+            del wit
+        else:
+            for n, a, b in zip(fwd_names + ("kept pre", "kept c", "kept n", "kept m"),
+                               (hs, *fin, *kept), (plain[0], *plain[1], *plain[2])):
+                errs["slstm"] = max(errs["slstm"], hold(f"{tag} {n}", a, b, SLSTM_TOL))
+        del plain
+        dhs = rnd(B, S, d)
+        dfin = tuple(rnd(B, d) for _ in range(4)) if with_state else None
+        bwd = lambda: kernel.slstm_bwd(r, state, hs, kept, dhs, dfin)
+        got = bwd()
+        want = slstm_bwd_ref(r, state, hs, kept, dhs, dfin)
+        wit = slstm_bwd_ref(r.double(), f64(state), hs.double(), f64(kept), dhs.double(),
+                            f64(dfin))
+        for n, a, b, w in zip(bwd_names, flat(got), flat(want), flat(wit)):
+            if n == "dr" or S >= SLSTM_WITNESS_S:
+                errs["slstm_bwd"] = max(errs["slstm_bwd"], _slstm_vs_witness(
+                    f"{tag} bwd", (a,), (b,), (w,), (n,), failed))
+            else:
+                errs["slstm_bwd"] = max(errs["slstm_bwd"], hold(f"{tag} bwd {n}", a, b, SLSTM_TOL))
+        _slstm_same_bits(f"{tag} bwd", bwd)
+        del got, want, wit, wx, r, state, hs, fin, kept, dhs, dfin
+    if failed:
+        raise AssertionError("the wide sLSTM disagrees with its f64 witness: " + "; ".join(failed))
+
+    for d, B, S in SLSTM_WIDE_TIMED:
+        wx, r, _ = _slstm_inputs(gen, B, S, d, False)
+        hs, _, kept = kernel.slstm(wx, r, None, keep=True)
+        dhs = rnd(B, S, d)
+        reps = 2 if S > 1024 else SLSTM_WIDE_REPS
+        fwd_t = time_each(lambda: kernel.slstm(wx, r), flush, reps=reps)
+        bwd_t = time_each(lambda: kernel.slstm_bwd(r, None, hs, kept, dhs), flush, reps=reps)
+        fwd_plain = time_ms(lambda: slstm_ref(wx, r), flush, reps=1, warmup=1)
+        bwd_plain = time_ms(lambda: slstm_bwd_ref(r, None, hs, kept, dhs, None), flush, reps=1,
+                            warmup=1)
+        fb, fby = bound(*ops.cost(B, S, d), PEAK_F32_FLOPS)
+        bb, bby = bound(*ops.bwd_cost(B, S, d), PEAK_F32_FLOPS)
+        log(f"  slstm wide d{d} B{B} S{S} ({kernel.units(B, kernel.padded(d))} units a block): "
+            f"forward {fmt_spread(fwd_t)} ({reps} calls), plain slstm_ref {fwd_plain:.4f} ms, "
+            f"bound {fb:.4f} ms ({fby}), {1e3 * spread(fwd_t)[1] / S:.3f} us a step, "
+            f"{spread(fwd_t)[1] / fb:.1f}x the bound; backward with the wrapper's dr "
+            f"{fmt_spread(bwd_t)}, plain slstm_bwd_ref {bwd_plain:.4f} ms, bound {bb:.4f} ms "
+            f"({bby}), {1e3 * spread(bwd_t)[1] / S:.3f} us a step, "
+            f"{spread(bwd_t)[1] / bb:.1f}x the bound")
+        del wx, r, hs, kept, dhs
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -2497,19 +2565,20 @@ def profile_greedy(tag: str, model, params, tokens, cache, new: int, frames=None
     log(f"[profile] three {tag} decode steps, {B} rows:\n{_device_breakdown(prof, wall)}")
 
 
-def greedy_reduced_matches_cpu(arch: str, tag: str, *kernels: str) -> dict:
-    """A reduced model at f32: the serve launcher's loop on the card (the
-    kernels) against the same loop on the CPU (their plain versions), and a
-    MoE model's expert counters equal. The prompt, 20 tokens, is longer
-    than hymba's and mixtral's 16-slot rings (16 new tokens wrap them) and
-    ragged against the mLSTM's chunks (8 on the CPU, 64 in the kernel).
-    Returns the card run's launches, which must include ``kernels``."""
+def greedy_reduced_matches_cpu(arch: str, tag: str, *kernels: str, cfg=None) -> dict:
+    """A reduced model at f32 (or ``cfg``): the serve launcher's loop on the
+    card (the kernels) against the same loop on the CPU (their plain
+    versions), and a MoE model's expert counters equal. The prompt, 20
+    tokens, is longer than hymba's and mixtral's 16-slot rings (16 new
+    tokens wrap them) and ragged against the mLSTM's chunks (8 on the CPU,
+    64 in the kernel). Returns the card run's launches, which must include
+    ``kernels``."""
     from repro_torch.config import get_arch
     from repro_torch.launch.serve import greedy_serve
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
 
-    cfg = reduced_f32(get_arch(arch))
+    cfg = cfg or reduced_f32(get_arch(arch))
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
     params_cpu = model.init(gen, "cpu")
@@ -4144,6 +4213,7 @@ def check_dense_variant_kernels(gen: torch.Generator, flush: torch.Tensor) -> di
     from repro_torch.kernels.flash_attention import kernel, kernel_bwd
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_ref
     from repro_torch.kernels.paged_attention import kernel as paged
+    from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     log("[kernels] the dense variants' shapes: flash forward at G=1 and G=6 (S=3073), the "
@@ -4164,7 +4234,7 @@ def check_dense_variant_kernels(gen: torch.Generator, flush: torch.Tensor) -> di
                          FLASH_MAIN_BF16_TOL)
             errs["flash_attention_tc"] = max(errs["flash_attention_tc"], e)
         del o, lse
-        flops, nbytes = _flash_fwd_work(B, S, H, KVH, 128)
+        flops, nbytes = flash_work(B, S, H, KVH, 128)["fwd"]
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
         ms = time_ms(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush)
         plain_ms = time_ms(lambda: attention_fwd_ref(q[:1], k[:1], v[:1], **kw), flush, reps=3)
@@ -4193,12 +4263,9 @@ def check_dense_variant_kernels(gen: torch.Generator, flush: torch.Tensor) -> di
     errs["flash_attention_bwd_dq_tc"] = hold(f"bwd {tag} dq", dq, rq, FLASH_BWD_MAIN_BF16_TOL)
     del rq, rk, rv, dk, dv, dq
     torch.cuda.empty_cache()
-    prod = 2.0 * _pairs(S, 0) * hd * H * B
-    qkv_bytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KVH * hd)
-    work = {"flash_attention_tc": (2 * prod, qkv_bytes + 4.0 * B * H * S),
-            "flash_attention_bwd_dkdv_tc": (4 * prod, qkv_bytes + 2 * 4.0 * B * H * S
-                                            + 2.0 * 2 * B * S * KVH * hd),
-            "flash_attention_bwd_dq_tc": (prod, 2.0 * B * S * H * hd)}
+    w = flash_work(B, S, H, KVH, hd)
+    work = {"flash_attention_tc": w["fwd"], "flash_attention_bwd_dkdv_tc": w["dkdv"],
+            "flash_attention_bwd_dq_tc": w["dq"]}
     fns = {"flash_attention_tc": lambda: kernel.flash_attention_fwd(q, k, v, **kw),
            "flash_attention_bwd_dkdv_tc": lambda: kernel_bwd.flash_attention_bwd_dkdv(
                q, k, v, do, lse, delta, **kw),
@@ -4229,8 +4296,7 @@ def check_dense_variant_kernels(gen: torch.Generator, flush: torch.Tensor) -> di
         out = paged.paged_attention(*args)
         errs["paged_attention_tc"] = max(errs["paged_attention_tc"], hold(
             name, out, paged_attention_ref(*args), PAGED_MAIN_BF16_TOL))
-        flops = 4.0 * n_tok * H * 128
-        nbytes = 2.0 * (2 * 8 * H * 128 + 2 * n_tok * H * 128) + 4.0 * (n_pages + 8)
+        flops, nbytes = paged_ops.cost(8, H, H, 128, n_tok, n_pages)
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
         ms = time_ms(lambda: paged.paged_attention(*args), flush)
         plain_ms = time_ms(lambda: paged_attention_ref(*args), flush)
@@ -4283,6 +4349,7 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
     from repro_torch.kernels.flash_attention import kernel, kernel_bwd
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_ref
     from repro_torch.kernels.paged_attention import kernel as paged
+    from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     hd = GEMMA_ATTN["hd"]
@@ -4348,7 +4415,7 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
         vr = variant(dtype)
         errs[f"flash_attention_{vr}"] = max(errs[f"flash_attention_{vr}"],
                                             hold_fwd(f"flash {tag}", o, lse, q, k, v, kw, t))
-        flops, nbytes = _flash_fwd_work(1, S, H, KVH, hd, el=q.element_size())
+        flops, nbytes = flash_work(1, S, H, KVH, hd, el=q.element_size())["fwd"]
         peak = peak_flops(f"flash_attention_{vr}")
         b_ms, b_by = bound(flops, nbytes, peak)
         ms = time_ms(lambda: kernel.flash_attention_fwd(q, k, v, **kw), flush)
@@ -4379,13 +4446,9 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
             del dq_a, dq_b
         else:
             hold_same_bits(tag, q, k, v, do, lse, delta, kw)
-        el = q.element_size()
-        prod = 2.0 * _pairs(S, 0) * hd * H
-        qkv_bytes = el * (2 * S * H * hd + 2 * S * KVH * hd)
-        work = {f"flash_attention_{vr}": (2 * prod, qkv_bytes + 4.0 * H * S),
-                f"flash_attention_bwd_dkdv_{vb}": (4 * prod, qkv_bytes + 2 * 4.0 * H * S
-                                                   + el * 2 * S * KVH * hd),
-                f"flash_attention_bwd_dq_{vb}": (prod, el * S * H * hd)}
+        w = flash_work(1, S, H, KVH, hd, el=q.element_size())
+        work = {f"flash_attention_{vr}": w["fwd"], f"flash_attention_bwd_dkdv_{vb}": w["dkdv"],
+                f"flash_attention_bwd_dq_{vb}": w["dq"]}
         fns = {f"flash_attention_{vr}": lambda: kernel.flash_attention_fwd(q, k, v, **kw),
                f"flash_attention_bwd_dkdv_{vb}": lambda: kernel_bwd.flash_attention_bwd_dkdv(
                    q, k, v, do, lse, delta, **kw),
@@ -4425,8 +4488,7 @@ def check_gemma_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
         if not same:
             raise AssertionError("the paged kernel gave different bits at hd 256")
         el = args[0].element_size()
-        flops = 4.0 * n_tok * H * hd
-        nbytes = el * (2 * 8 * H * hd + 2 * n_tok * KVH * hd) + 4.0 * (n_pages + 8)
+        flops, nbytes = paged_ops.cost(8, H, KVH, hd, n_tok, n_pages, el=el)
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS if el == 2 else PEAK_F32_FLOPS)
         ms = time_ms(lambda: paged.paged_attention(*args), flush)
         plain_ms = time_ms(lambda: paged_attention_ref(*args), flush)
@@ -4889,17 +4951,15 @@ def check_slice14_attention(gen: torch.Generator, flush: torch.Tensor, which: st
 
         # bounds: the forward's 2 products over the live pairs; the
         # backward's 5 split as check_flash_bwd splits them
-        el = q.element_size()
-        prod = 2.0 * _pairs(S, window) * hd * H * B
-        qkv_bytes = el * (2 * B * S * H * hd + 2 * B * S * KVH * hd)
-        work = {f"flash_attention_{vr}": (2 * prod, qkv_bytes + 4.0 * B * H * S,
+        w = flash_work(B, S, H, KVH, hd, window, el=q.element_size())
+        work = {f"flash_attention_{vr}": (*w["fwd"],
                                           lambda: kernel.flash_attention_fwd(q, k, v, **kw))}
         if backward:
             work[f"flash_attention_bwd_dkdv_{vb}"] = (
-                4 * prod, qkv_bytes + 2 * 4.0 * B * H * S + el * 2 * B * S * KVH * hd,
+                *w["dkdv"],
                 lambda: kernel_bwd.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw))
             work[f"flash_attention_bwd_dq_{vb}"] = (
-                prod, el * B * S * H * hd,
+                *w["dq"],
                 lambda: kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
         for rec, (flops, nbytes, fn) in work.items():
             peak = peak_flops(rec)
@@ -5276,6 +5336,22 @@ def xlstm_train_full_width() -> dict:
     return launches
 
 
+def slstm_wide_model_matches_cpu() -> dict:
+    """Part of phase 3: xlstm-350m laid out as ``BlockKind.SLSTM`` at
+    SLSTM_WIDE_MODEL's d 1152 (the sLSTM on the wide grid, 16 units a
+    block), f32: its prefill logits and 16-token greedy stream on the card
+    equal the CPU's (``greedy_reduced_matches_cpu``'s holds); the mLSTM runs
+    the split-TF32 kernel and the step, the sLSTM its forward kernel."""
+    from repro_torch.config import BlockKind, get_arch
+
+    cfg = dataclasses.replace(get_arch("xlstm-350m"), name="xlstm-slstm-d1152",
+                              block=BlockKind.SLSTM, dtype="float32", **SLSTM_WIDE_MODEL)
+    log(f"[slstm_wide] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads, block {cfg.block.value}, f32")
+    return greedy_reduced_matches_cpu(cfg.name, "slstm_wide", "mlstm_tf32", "mlstm_step",
+                                      "slstm", cfg=cfg)
+
+
 def xlstm_train_phase() -> dict:
     """Phase 15: xlstm-350m trained at full width and depth, then reduced f32
     xlstm's 3 steps on the card (the split-TF32 forward keeping its states,
@@ -5625,6 +5701,107 @@ def xlstm_dots_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the dry run's estimate against the card
+# ---------------------------------------------------------------------------
+
+# phase 7's and phase 15's training steps: (arch, global batch, seq,
+# microbatches), remat "full", the flash layout
+DRYRUN_PATHS = {"dryrun_train": ("qwen3-4b", 2, 4096, 2),
+                "dryrun_xlstm_train": ("xlstm-350m", 2, 4096, 2)}
+# the predicted peak against max_memory_allocated over the step: the
+# caching allocator rounds each block up (512 B at least) and keeps
+# cuBLAS's workspaces, which the trace does not count
+DRYRUN_PEAK_MARGIN = 0.10
+
+
+def dryrun_step(tag: str, arch: str, batch: int, seq: int, microbatches: int) -> dict:
+    """One training step of ``arch`` at full width, traced on the meta
+    device by ``launch/dryrun.py`` (no allocation), then run on the card
+    from a seeded init: a first step (set-up), a measured one (launch
+    counters from 0, the allocator's peak reset, CUDA events around it) and
+    one under ``FlopCounterMode``. Held: the trace's kernel calls equal the
+    counters, its peak within DRYRUN_PEAK_MARGIN of the measured one, the
+    roofline's time (``roofline.compute_seconds``, bytes at 3.35 TB/s) no
+    more than the measured step, its aten product FLOPs equal
+    ``FlopCounterMode``'s. Returns the measured step's launches."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.config import InputShape, ShardingLayout, TrainConfig, get_arch
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import build_train_step, init_train_state
+
+    cfg = get_arch(arch)
+    layout = ShardingLayout(attn_impl="flash")
+    t0 = time.perf_counter()
+    pred = dryrun.trace_step(cfg, InputShape(tag, seq, batch, "train"), layout, microbatches)
+    t_compute = roofline.compute_seconds(pred["flops_by_dtype"])
+    t_memory = pred["hbm_bytes"] / roofline.HBM_BANDWIDTH
+    t_roof = max(t_compute, t_memory)
+    log(f"[{tag}] {arch} traced on meta in {time.perf_counter() - t0:.1f} s: "
+        f"{pred['flops']:.4e} FLOPs {pred['flops_by_dtype']}, {pred['hbm_bytes']:.4e} bytes, "
+        f"peak {pred['peak_bytes_per_device'] / 1e9:.3f} GB, kernel calls "
+        f"{pred['kernel_calls']}; roofline t_compute {1e3 * t_compute:.2f} ms, t_memory "
+        f"{1e3 * t_memory:.2f} ms")
+
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    step = build_train_step(model, TrainConfig(total_steps=4, warmup_steps=1,
+                                               microbatches=microbatches), layout)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    data = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+    del tokens
+    state, _ = step(state, data)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    state, metrics = step(state, data)
+    ev[1].record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = ev[0].elapsed_time(ev[1])
+    with FlopCounterMode(display=False) as fc:
+        step(state, data)
+        torch.cuda.synchronize()
+    aten = fc.get_total_flops()
+    calls = {k: v for k, v in launches.items() if v}
+    peak_off = pred["peak_bytes_per_device"] / peak - 1
+    log(f"[{tag}] measured step {step_ms:.2f} ms (loss {float(metrics['loss']):.6f}); peak "
+        f"{peak / 1e9:.3f} GB against the predicted {pred['peak_bytes_per_device'] / 1e9:.3f} "
+        f"({100 * peak_off:+.2f}%; limit {100 * DRYRUN_PEAK_MARGIN:.0f}%); roofline "
+        f"{1e3 * t_roof:.2f} ms ({'compute' if t_compute >= t_memory else 'memory'}), "
+        f"{100 * 1e3 * t_roof / step_ms:.1f}% of the step; launches {calls} against the "
+        f"trace's {pred['kernel_calls']}; aten product FLOPs {pred['product_flops']:.6e} "
+        f"traced, {aten:.6e} by FlopCounterMode")
+    if calls != pred["kernel_calls"]:
+        raise AssertionError(f"{tag}: launches {calls} != the dry run's {pred['kernel_calls']}")
+    if abs(peak_off) > DRYRUN_PEAK_MARGIN:
+        raise AssertionError(f"{tag}: predicted peak {pred['peak_bytes_per_device']} B is "
+                             f"{100 * peak_off:+.2f}% off the measured {peak} B")
+    if 1e3 * t_roof > step_ms:
+        raise AssertionError(f"{tag}: the roofline's {1e3 * t_roof:.2f} ms exceeds the "
+                             f"measured step's {step_ms:.2f} ms")
+    if pred["product_flops"] != aten:
+        raise AssertionError(f"{tag}: traced product FLOPs {pred['product_flops']} != "
+                             f"FlopCounterMode's {aten}")
+    del state, step, data, model
+    _free_cuda()
+    return launches
+
+
+def dryrun_phase() -> dict:
+    """Phase 19: the dry run's estimate held against the card at phase 7's
+    and phase 15's training steps. Returns launches by path."""
+    _free_cuda()
+    return {tag: dryrun_step(tag, *args) for tag, args in DRYRUN_PATHS.items()}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5661,6 +5838,9 @@ def main() -> int:
     ap.add_argument("--xlstm-dots-only", action="store_true",
                     help="only build the kernels and run xlstm-350m's training under remat "
                          "'dots' beside 'full'")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="only build the kernels and hold the dry run's estimate against two "
+                         "training steps on the card")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
                          "of the kernel paths and plain orders agree, by prompt length")
@@ -5682,10 +5862,10 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[phase 1/18] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
+    log(f"[phase 1/19] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    log("[phase 2/18] build")
+    log("[phase 2/19] build")
     _build.build()
     ptxas = _build.last_build["log"]
     per_source = {}
@@ -5716,14 +5896,14 @@ def main() -> int:
         xlstm_orders()
         return 0
     if args.spot_only:
-        log("[phase 8/18] the spot provisioner")
+        log("[phase 8/19] the spot provisioner")
         spot = {"spot": spot_full_width(), "spot_f32": spot_reduced_matches_cpu(),
                 "spot_launch": spot_launcher()}
         log(f"chip_smoke: --spot-only, launches by path {spot}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.serve_plan_only:
-        log("[phase 9/18] spot serving")
+        log("[phase 9/19] spot serving")
         paths = spot_serving()
         log(f"chip_smoke: --serve-plan-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5732,7 +5912,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_flash_window_8192(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 10/18] the MoE family")
+        log("[phase 10/19] the MoE family")
         paths = moe_phase()
         log(f"chip_smoke: --moe-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5741,7 +5921,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_dense_variant_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 11/18] the dense variants")
+        log("[phase 11/19] the dense variants")
         paths = dense_variants_phase()
         log(f"chip_smoke: --dense-variants-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5750,7 +5930,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_gemma_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 12/18] gemma-7b")
+        log("[phase 12/19] gemma-7b")
         paths = gemma_phase()
         log(f"chip_smoke: --gemma-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5759,7 +5939,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush, "whisper")
         del flush
-        log("[phase 13/18] whisper-tiny")
+        log("[phase 13/19] whisper-tiny")
         paths = whisper_phase()
         log(f"chip_smoke: --whisper-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5770,7 +5950,7 @@ def main() -> int:
         check_slice14_attention(gen, flush, "hymba")
         check_ssm_scan_bwd(gen, flush)
         del flush
-        log("[phase 14/18] hymba-1.5b training")
+        log("[phase 14/19] hymba-1.5b training")
         paths = hybrid_train_phase()
         log(f"chip_smoke: --hybrid-train-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5779,9 +5959,12 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(0)
         recs = [check_mlstm_bwd(gen, flush), check_slstm(gen, flush), check_slstm_bwd(gen, flush)]
+        for r, err in zip(recs[1:], check_slstm_wide(gen, flush).values()):
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        slstm_wide_model_matches_cpu()
         del flush
         log(json.dumps({"kernels": recs}))
-        log("[phase 15/18] xlstm-350m training")
+        log("[phase 15/19] xlstm-350m training")
         paths = xlstm_train_phase()
         log(f"chip_smoke: --xlstm-train-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5791,7 +5974,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush, "whisper")
         del flush
-        log("[phase 16/18] whisper-tiny on the launcher's plans")
+        log("[phase 16/19] whisper-tiny on the launcher's plans")
         paths = whisper_plan_phase()
         log(f"chip_smoke: --whisper-plan-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -5801,25 +5984,34 @@ def main() -> int:
         check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush,
                                 "internvl2")
         del flush
-        log("[phase 17/18] internvl2-26b training")
+        log("[phase 17/19] internvl2-26b training")
         paths = vlm_train_phase()
         log(f"chip_smoke: --vlm-train-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
+    if args.dryrun_only:
+        log("[phase 19/19] the dry run against the card")
+        paths = dryrun_phase()
+        log(f"chip_smoke: --dryrun-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
     if args.xlstm_dots_only:
-        log("[phase 18/18] xlstm-350m training under remat dots")
+        log("[phase 18/19] xlstm-350m training under remat dots")
         paths = xlstm_dots_phase()
         log(f"chip_smoke: --xlstm-dots-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
 
-    log("[phase 3/18] kernels against their plain versions")
+    log("[phase 3/19] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [*check_flash(gen, flush), *check_paged(gen, flush), *check_flash_bwd(gen, flush),
                check_ssm_scan(gen, flush), check_ssm_scan_bwd(gen, flush),
                *check_mlstm(gen, flush), check_mlstm_bwd(gen, flush), check_slstm(gen, flush),
                check_slstm_bwd(gen, flush)]
+    for kernel_name, err in check_slstm_wide(gen, flush).items():
+        rec = next(r for r in records if r["name"] == kernel_name)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
     bwd_digests()
     fwd_digests()
     for more in (check_flash_window_8192(gen, flush), check_dense_variant_kernels(gen, flush),
@@ -5832,30 +6024,31 @@ def main() -> int:
         log(json.dumps({"kernels": records}))
         log("chip_smoke: --kernels-only, stopped before serving")
         return 0
+    paths = {"slstm_wide_f32": slstm_wide_model_matches_cpu()}
 
-    log("[phase 4/18] serving")
-    paths = {"serve": serve_full_width()}
+    log("[phase 4/19] serving")
+    paths["serve"] = serve_full_width()
     paths["serve_f32"] = serve_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 5/18] hybrid serving")
+    log("[phase 5/19] hybrid serving")
     paths["hybrid"] = serve_hybrid_full_width()
     paths["hybrid_f32"] = greedy_reduced_matches_cpu("hymba-1.5b", "hybrid",
                                                      "flash_attention_tf32", "ssm_scan")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 6/18] xLSTM serving")
+    log("[phase 6/19] xLSTM serving")
     paths["xlstm"] = serve_xlstm_full_width()
     paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_tf32",
                                                     "mlstm_step", "slstm")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 7/18] training")
+    log("[phase 7/19] training")
     paths["train"] = train_full_width()
     paths["train_f32"] = train_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 8/18] the spot provisioner")
+    log("[phase 8/19] the spot provisioner")
     paths["spot"] = spot_full_width()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5863,44 +6056,48 @@ def main() -> int:
     paths["spot_launch"] = spot_launcher()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 9/18] spot serving")
+    log("[phase 9/19] spot serving")
     paths.update(spot_serving())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 10/18] the MoE family")
+    log("[phase 10/19] the MoE family")
     paths.update(moe_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 11/18] the dense variants")
+    log("[phase 11/19] the dense variants")
     paths.update(dense_variants_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 12/18] gemma-7b")
+    log("[phase 12/19] gemma-7b")
     paths.update(gemma_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 13/18] whisper-tiny")
+    log("[phase 13/19] whisper-tiny")
     paths.update(whisper_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 14/18] hymba-1.5b training")
+    log("[phase 14/19] hymba-1.5b training")
     paths.update(hybrid_train_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 15/18] xlstm-350m training")
+    log("[phase 15/19] xlstm-350m training")
     paths.update(xlstm_train_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 16/18] whisper-tiny on the launcher's plans")
+    log("[phase 16/19] whisper-tiny on the launcher's plans")
     paths.update(whisper_plan_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 17/18] internvl2-26b training")
+    log("[phase 17/19] internvl2-26b training")
     paths.update(vlm_train_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 18/18] xlstm-350m training under remat dots")
+    log("[phase 18/19] xlstm-350m training under remat dots")
     paths.update(xlstm_dots_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 19/19] the dry run against the card")
+    paths.update(dryrun_phase())
     for r in records:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -24,6 +24,6 @@ def resolve_device(device) -> torch.device:
             "repro_torch: CUDA device requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run the plain versions on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):   # meta: shapes only, the dry run's
         raise ValueError(f"repro_torch: unsupported device {dev}")
     return dev

@@ -3,23 +3,37 @@
 from repro_torch.config.base import (
     AttentionKind,
     BlockKind,
+    InputShape,
     ModelConfig,
     MoEConfig,
     ShardingLayout,
     SSMConfig,
     TrainConfig,
 )
-from repro_torch.config.registry import get_arch, list_archs, register_arch
+from repro_torch.config.registry import (
+    SHAPES,
+    get_arch,
+    get_shape,
+    list_archs,
+    list_shapes,
+    register_arch,
+    runnable_cells,
+)
 
 __all__ = [
     "AttentionKind",
     "BlockKind",
+    "InputShape",
     "ModelConfig",
     "MoEConfig",
     "SSMConfig",
     "ShardingLayout",
     "TrainConfig",
+    "SHAPES",
     "get_arch",
+    "get_shape",
     "list_archs",
+    "list_shapes",
     "register_arch",
+    "runnable_cells",
 ]

@@ -1,15 +1,17 @@
 """Core config dataclasses: the port's own copy of ``repro.config.base``.
 
 Only the pieces the port reads are kept: ``ModelConfig`` (with the family
-sub-configs its fields name), ``AttentionKind``, ``BlockKind``,
-``ShardingLayout`` and ``TrainConfig``. Field names, defaults and ``reduced()`` are the
-reference's, so a config built here compares field for field with the
-JAX package's.
+sub-configs its fields name, and the analytic ``param_count`` and
+``active_param_count`` the dry run reads), ``AttentionKind``, ``BlockKind``,
+``InputShape``, ``ShardingLayout`` and ``TrainConfig``. Field names,
+defaults and ``reduced()`` are the reference's, so a config built here
+compares field for field with the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Optional
 
 
@@ -94,6 +96,76 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.resolved_head_dim
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when the arch can decode with O(1)/O(window) state per token."""
+        return self.attention in (AttentionKind.SLIDING, AttentionKind.NONE) or (
+            self.block in (BlockKind.MAMBA, BlockKind.MLSTM, BlockKind.SLSTM)
+        )
+
+    def param_count(self) -> int:
+        """Analytic parameter count (matches init within embedding ties): the
+        reference's formula, which the dry run and the roofline read."""
+        hd = self.resolved_head_dim
+        d = self.d_model
+        attn = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) + (
+            self.num_heads * hd
+        ) * d
+        if self.qkv_bias:
+            attn += self.num_heads * hd + 2 * self.num_kv_heads * hd
+        if self.block == BlockKind.MOE:
+            assert self.moe is not None
+            n_mat = 3 if self.gated_mlp else 2
+            mlp = self.moe.num_experts * n_mat * d * self.d_ff + d * self.moe.num_experts
+        elif self.block in (BlockKind.MAMBA, BlockKind.MLSTM, BlockKind.SLSTM):
+            mlp = 0  # folded into block_params below
+        else:
+            n_mat = 3 if self.gated_mlp else 2
+            mlp = n_mat * d * self.d_ff
+        block_params = attn + mlp + 2 * d  # two RMSNorm scales
+        if self.block == BlockKind.HYBRID_PARALLEL:
+            assert self.ssm is not None
+            inner = self.ssm.expand * d
+            block_params += (
+                2 * d * inner                      # in_proj (x and z)
+                + inner * self.ssm.conv_width      # depthwise conv
+                + inner * (2 * self.ssm.state_dim + self._dt_rank())
+                + self._dt_rank() * inner          # dt proj
+                + inner * self.ssm.state_dim       # A_log
+                + inner                            # D
+                + inner * d                        # out proj
+            )
+        if self.block in (BlockKind.MLSTM, BlockKind.SLSTM):
+            inner = 2 * d
+            block_params = 2 * d + (
+                3 * d * inner + inner * d + 3 * inner  # up/gate/out + i,f,o gates
+            )
+        total = self.num_layers * block_params
+        total += self.vocab_size * d  # embed
+        if not self.tie_embeddings:
+            total += self.vocab_size * d  # lm head
+        total += d  # final norm
+        if self.encoder_layers:
+            enc_block = attn + (3 if self.gated_mlp else 2) * d * self.d_ff + 2 * d
+            total += self.encoder_layers * (enc_block + attn + d)  # + cross-attn
+        if self.vision_tokens:
+            total += self.vision_width * d  # projector
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top_k experts count)."""
+        if self.block != BlockKind.MOE:
+            return self.param_count()
+        assert self.moe is not None
+        n_mat = 3 if self.gated_mlp else 2
+        per_expert = n_mat * self.d_model * self.d_ff
+        inactive = (self.moe.num_experts - self.moe.top_k) * per_expert
+        return int(self.param_count() - self.num_layers * inactive)
+
+    def _dt_rank(self) -> int:
+        assert self.ssm is not None
+        return self.ssm.dt_rank or math.ceil(self.d_model / 16)
+
     def reduced(self) -> "ModelConfig":
         """Family-preserving tiny config for CPU tests (the reference's)."""
         kw = dict(
@@ -123,6 +195,20 @@ class ModelConfig:
         if self.window:
             kw["window"] = 8
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One assigned input-shape row. ``mode`` decides which step is traced."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.mode == "decode"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -967,7 +967,3 @@ extern "C" int repro_mlstm_bwd(const void* const* in, void* const* out, void* co
     default: return cudaErrorInvalidValue;
   }
 }
-
-// The columns VT of the value-row tiles the gradient splits C into (the
-// caller sizes the tile workspaces with it).
-extern "C" int repro_mlstm_bwd_tile(int hd) { return hd % 64 == 0 ? 64 : 32; }

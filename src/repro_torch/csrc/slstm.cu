@@ -94,6 +94,8 @@
 // * A cell lane fetches step t - 1's 11 inputs before step t's wait.
 #include <stdint.h>
 
+#include <mutex>
+
 #include "common.cuh"
 
 namespace {
@@ -372,8 +374,9 @@ struct Bwd {
   const float *dcT, *dnT, *dhT, *dmT;               // the final state's gradient, or null
   float* dpre;                                      // (B, S, 4d): dwx
   float *dc0, *dn0, *dh0, *dm0;                     // the start state's gradient, or null
-  unsigned long long* x;                            // the exchange (2, B, d / 8, d) or null
+  unsigned long long* x;                            // the exchange (2, B, d / U, d) or null
   int B, S, d;
+  const float* rT;                                  // r^T (4d, d): the wide path only
 };
 
 // A thread's units of the whole d (fewer than one a thread at d < 256)
@@ -649,6 +652,400 @@ __global__ void __launch_bounds__(NT, 1) slstm_bwd_kernel(const Bwd a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide path: UW = 16, 32 or 64 units a block, for a d whose d / 8 blocks
+// cannot all be resident. A block's share of r is 4 UW d f32 (288 KB at d
+// 1152, UW 16; 2 MB at d 4096, UW 32): registers take KRW rows a thread,
+// shared memory what it has room for, and the rest is read from device
+// memory (L2 where it fits) every step, inside the same kernel.
+// ---------------------------------------------------------------------------
+
+constexpr int KRW = 128;                // the forward's rows of r a thread keeps in registers
+constexpr int HS_MAX = 16384;           // the forward's staged h, floats (64 KB)
+constexpr size_t SMEM_MAX = 232448;     // dynamic shared memory a block may have
+
+__host__ __device__ constexpr int wide_tile(int uw) { return uw >= 32 ? NT / uw : 8; }
+__host__ __device__ constexpr int wide_jm(int uw) { return 128 / (G * uw); }
+
+// The forward (`slstm_fwd_wide_kernel<UW>`): thread tid owns column c = tid
+// % (4 UW) of the block's (gate c / UW, unit c % UW) over rows g rg .. (g +
+// 1) rg of r (g = tid / (4 UW), rg = d / KG, KG = NT / (4 UW) groups), KRW of
+// them in registers, `nsm` in shared memory, the rest from device memory.
+// A tile of `bt` batch rows at a time: the block stages all of h_{t-1}'s
+// rows (step-tagged words, reloaded until tagged), each thread sums its
+// rows in 4 partial sums (k mod 4), the KG groups' sums in group order.
+template <int UW>
+__global__ void __launch_bounds__(NT, 1) slstm_fwd_wide_kernel(const Fwd a, int bt, int nsm) {
+  constexpr int CW = G * UW, KG = NT / CW;
+  extern __shared__ __align__(16) float smem[];
+  const int B = a.B, S = a.S, d = a.d, d4 = 4 * d, rg = d / KG, ng = rg - KRW - nsm;
+  const int tid = threadIdx.x, c = tid % CW, g = tid / CW;
+  float* Rs = smem;                                 // [nsm][NT]
+  float* Hs = Rs + nsm * NT;                        // [bt][d]
+  float* part = Hs + bt * d;                        // [KG][bt][CW]
+  float* st = part + KG * bt * CW;                  // [4][B][UW]
+  const int BU = B * UW;
+  const int u0 = blockIdx.x * UW;
+  const int kb = g * rg;
+  const long long col = (long long)(c / UW) * d + u0 + c % UW;
+  const float* rg_ = a.r + (long long)(kb + KRW + nsm) * d4 + col;   // the rows read each step
+
+  float rr[KRW];
+#pragma unroll
+  for (int i = 0; i < KRW; ++i) rr[i] = a.r[(long long)(kb + i) * d4 + col];
+  for (int i = 0; i < nsm; ++i) Rs[i * NT + tid] = a.r[(long long)(kb + KRW + i) * d4 + col];
+  for (int i = tid; i < BU; i += NT) {
+    const int b = i / UW, u = i % UW;
+    const long long at = (long long)b * d + u0 + u;
+    st[i] = a.c0 ? a.c0[at] : 0.f;
+    st[BU + i] = a.n0 ? a.n0[at] : 0.f;
+    st[2 * BU + i] = a.h0 ? a.h0[at] : 0.f;
+    st[3 * BU + i] = a.m0 ? a.m0[at] : 0.f;
+  }
+
+  const int cj = tid / UW, cu = tid % UW;           // a cell thread's batch row in the tile, unit
+  const int per_row = d / 2;                        // exchange lines of a row
+  for (int t = 0; t < S; ++t) {
+    for (int b0 = 0; b0 < B; b0 += bt) {
+      const int nb = min(bt, B - b0);
+      const bool cell = tid < nb * UW;
+      const long long row = (long long)(b0 + cj) * S + t;
+      float w[G];
+      if (cell) {
+#pragma unroll
+        for (int q = 0; q < G; ++q) w[q] = a.wx[row * d4 + q * d + u0 + cu];
+      }
+      // h_{t-1}, rows b0 .. b0 + nb, into Hs [nb][d]
+      if (t == 0) {
+        for (int e = tid; e < nb * d; e += NT) {
+          const int j = e / d, k = e % d;
+          Hs[e] = a.h0 ? a.h0[(long long)(b0 + j) * d + k] : 0.f;
+        }
+      } else {
+        const unsigned long long* src = a.x + ((long long)((t - 1) & 1) * B + b0) * d;
+        const unsigned long long want = unsigned(t);
+        const int total = nb * per_row;
+        for (int base = 0; base < total; base += 4 * NT) {
+          Lines<4> L;
+          unsigned pending = 0;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (base + i * NT + tid < total) pending |= 1u << i;
+          const unsigned mine = pending;
+          const long long t0 = clock64();
+          while (pending) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (pending >> i & 1u) {
+                const int e = base + i * NT + tid, j = e / per_row;
+                L.v[i] = get_tagged2(src + (long long)j * d + 2 * (e - j * per_row));
+              }
+            pending = untagged(L, pending, want);
+            if (pending && clock64() - t0 > STALL_CYCLES) __trap();
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (mine >> i & 1u) {
+              const int e = base + i * NT + tid, j = e / per_row;
+              *reinterpret_cast<float2*>(Hs + j * d + 2 * (e - j * per_row)) =
+                  make_float2(__uint_as_float(unsigned(L.v[i].x)),
+                              __uint_as_float(unsigned(L.v[i].y)));
+            }
+        }
+      }
+      __syncthreads();   // h_{t-1} is staged
+
+      for (int j = 0; j < nb; ++j) {
+        const float* hj = Hs + j * d + kb;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < KRW; i += 4) {
+          const float4 hv = *reinterpret_cast<const float4*>(hj + i);
+          acc[0] = fmaf(hv.x, rr[i], acc[0]);
+          acc[1] = fmaf(hv.y, rr[i + 1], acc[1]);
+          acc[2] = fmaf(hv.z, rr[i + 2], acc[2]);
+          acc[3] = fmaf(hv.w, rr[i + 3], acc[3]);
+        }
+        for (int i = 0; i < nsm; i += 4) {
+          const float4 hv = *reinterpret_cast<const float4*>(hj + KRW + i);
+          const float* rs = Rs + i * NT + tid;
+          acc[0] = fmaf(hv.x, rs[0], acc[0]);
+          acc[1] = fmaf(hv.y, rs[NT], acc[1]);
+          acc[2] = fmaf(hv.z, rs[2 * NT], acc[2]);
+          acc[3] = fmaf(hv.w, rs[3 * NT], acc[3]);
+        }
+#pragma unroll 2
+        for (int i = 0; i < ng; i += 4) {
+          const float4 hv = *reinterpret_cast<const float4*>(hj + KRW + nsm + i);
+          const float* rk = rg_ + (long long)i * d4;
+          acc[0] = fmaf(hv.x, __ldg(rk), acc[0]);
+          acc[1] = fmaf(hv.y, __ldg(rk + d4), acc[1]);
+          acc[2] = fmaf(hv.z, __ldg(rk + 2 * d4), acc[2]);
+          acc[3] = fmaf(hv.w, __ldg(rk + 3 * (long long)d4), acc[3]);
+        }
+        part[(g * bt + j) * CW + c] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      }
+      __syncthreads();   // the groups' sums are written, Hs is read
+
+      if (cell) {
+        const int b = b0 + cj;
+        float pre[G];
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          const int cc = q * UW + cu;
+          float s = part[cj * CW + cc];
+#pragma unroll
+          for (int g2 = 1; g2 < KG; ++g2) s += part[(g2 * bt + cj) * CW + cc];
+          pre[q] = w[q] + s;
+        }
+        const int si = b * UW + cu;
+        float cs = st[si], n = st[BU + si], m = st[3 * BU + si];
+        const float z = tanhf(pre[0]);
+        const float o = sigmoid(pre[3]);
+        const float fm = pre[2] + m;
+        const float mn = fmaxf(fm, pre[1]);
+        const float i_ = expf(pre[1] - mn);
+        const float f_ = expf(fm - mn);
+        cs = f_ * cs + i_ * z;
+        n = f_ * n + i_;
+        const float h = o * cs / fmaxf(n, 1.f);
+        st[si] = cs;
+        st[BU + si] = n;
+        st[2 * BU + si] = h;
+        st[3 * BU + si] = mn;
+        const long long at = row * d + u0 + cu;
+        if (t + 1 < S) put_tagged(a.x + ((long long)(t & 1) * B + b) * d + u0 + cu, h, t + 1);
+        a.hs[at] = h;
+        if (a.kpre) {
+#pragma unroll
+          for (int q = 0; q < G; ++q) a.kpre[row * d4 + q * d + u0 + cu] = pre[q];
+          a.kc[at] = cs;
+          a.kn[at] = n;
+          a.km[at] = mn;
+        }
+      }
+    }
+  }
+  __syncthreads();   // every cell thread's state is written
+  for (int i = tid; i < BU; i += NT) {
+    const int b = i / UW, u = i % UW;
+    const long long at = (long long)b * d + u0 + u;
+    a.c[at] = st[i];
+    a.n[at] = st[BU + i];
+    a.h[at] = st[2 * BU + i];
+    a.m[at] = st[3 * BU + i];
+  }
+}
+
+// The backward's gather on the wide path: step s's partial sums of the
+// block's UW units over the d / UW producers, rows b0 .. b0 + nb, into pw
+// [bt][NW][UW]. Thread tid takes chunks ch = tid + NT i of 4 units
+// (producer ch / (UW / 4), units 4 (ch % (UW / 4)) ..); the lanes that hold
+// the same units sum by xor shuffles, then the warps' sums in warp order.
+template <int UW>
+__device__ __forceinline__ void gather_wide(const Bwd& a, float* pw, int b0, int nb, int s) {
+  constexpr int QB = UW / 4;
+  const int d = a.d, nch = d / 4, P = d / UW, tid = threadIdx.x, lane = tid & 31,
+            warp = tid >> 5;
+  const int u0 = blockIdx.x * UW;
+  const unsigned long long want = unsigned(a.S - s);
+  for (int j = 0; j < nb; ++j) {
+    const unsigned long long* row = a.x + ((long long)(s & 1) * a.B + b0 + j) * P * d;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ch = tid; ch < nch; ch += NT) {
+      const unsigned long long* src = row + (long long)(ch / QB) * d + u0 + 4 * (ch % QB);
+      Lines<2> L;
+      unsigned pending = 3;
+      const long long t0 = clock64();
+      while (pending) {
+        if (pending & 1u) L.v[0] = get_tagged2(src);
+        if (pending & 2u) L.v[1] = get_tagged2(src + 2);
+        pending = untagged(L, pending, want);
+        if (pending && clock64() - t0 > STALL_CYCLES) __trap();
+      }
+      acc[0] += __uint_as_float(unsigned(L.v[0].x));
+      acc[1] += __uint_as_float(unsigned(L.v[0].y));
+      acc[2] += __uint_as_float(unsigned(L.v[1].x));
+      acc[3] += __uint_as_float(unsigned(L.v[1].y));
+    }
+#pragma unroll
+    for (int m = QB; m < 32; m <<= 1)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[k] += __shfl_xor_sync(repro::FULL_MASK, acc[k], m);
+    if (lane < QB) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pw[(j * NW + warp) * UW + 4 * lane + k] = acc[k];
+    }
+  }
+}
+
+// The backward (`slstm_bwd_wide_kernel<UW>`): thread tid owns units j = tid
+// + NT m of the whole d and r's values of the block's 4 UW columns for them,
+// read from r^T (4d, d) so that neighbouring threads read neighbouring
+// words: wide_jm(UW) units in registers, `nsm` in shared memory, the rest
+// from device memory each step. Per step and tile of batch rows: the
+// gather, one block barrier, the cells (a thread a (row, unit)), a second
+// barrier, then each thread's share of dpre r^T for its units, stored
+// step-tagged as on the 8-unit path.
+template <int UW>
+__global__ void __launch_bounds__(NT, 1) slstm_bwd_wide_kernel(const Bwd a, int nsm) {
+  constexpr int CW = G * UW, BTW = wide_tile(UW), JMW = wide_jm(UW), JR = JMW > 0 ? JMW : 1;
+  extern __shared__ __align__(16) float smem[];
+  const int B = a.B, S = a.S, d = a.d, d4 = 4 * d, P = d / UW;
+  const int tid = threadIdx.x;
+  const int js = (d + NT - 1) / NT;
+  float* Rs = smem;                                 // [nsm][CW][NT]
+  float* pw = Rs + nsm * CW * NT;                   // [BTW][NW][UW]
+  float* Dp = pw + BTW * NW * UW;                   // [BTW][CW]
+  float* st = Dp + BTW * CW;                        // [3][B][UW]
+  const int BU = B * UW;
+  const int u0 = blockIdx.x * UW;
+  const bool has_state = a.dc0 != nullptr;
+  const float* rT = a.rT;
+  auto rcol = [&](int c) { return (long long)((c / UW) * d + u0 + c % UW) * d; };
+
+  float rr[JR][CW];
+#pragma unroll
+  for (int m = 0; m < JMW; ++m) {
+    const int j = tid + NT * m;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) rr[m][c] = j < d ? rT[rcol(c) + j] : 0.f;
+  }
+  for (int m = 0; m < nsm; ++m) {
+    const int j = tid + NT * (JMW + m);
+    for (int c = 0; c < CW; ++c) Rs[(m * CW + c) * NT + tid] = j < d ? rT[rcol(c) + j] : 0.f;
+  }
+  for (int i = tid; i < BU; i += NT) {
+    const int b = i / UW, u = i % UW;
+    const long long at = (long long)b * d + u0 + u;
+    st[i] = a.dcT ? a.dcT[at] : 0.f;
+    st[BU + i] = a.dnT ? a.dnT[at] : 0.f;
+    st[2 * BU + i] = a.dmT ? a.dmT[at] : 0.f;
+  }
+  const int cj = tid / UW, cu = tid % UW;
+  const int unit = u0 + cu;
+  __syncthreads();   // the carries are in place
+
+  for (int t = S - 1; t >= 0; --t) {
+    for (int b0 = 0; b0 < B; b0 += BTW) {
+      const int nb = min(BTW, B - b0);
+      const bool cell = cj < nb;
+      const int b = b0 + cj;
+      CellIn x;
+      if (cell) x = load_cell(a, b, t, unit);
+      if (t < S - 1) gather_wide<UW>(a, pw, b0, nb, t + 1);
+      __syncthreads();   // the warps' sums are written; the last tile's products read Dp
+      if (cell) {
+        float rec;
+        if (t < S - 1) {
+          rec = pw[cj * NW * UW + cu];
+#pragma unroll
+          for (int w = 1; w < NW; ++w) rec += pw[(cj * NW + w) * UW + cu];
+        } else {
+          rec = a.dhT ? a.dhT[(long long)b * d + unit] : 0.f;
+        }
+        const int si = b * UW + cu;
+        float dc = st[si], dn = st[BU + si], dm = st[2 * BU + si];
+        const float z = tanhf(x.pre[0]);
+        const float o = sigmoid(x.pre[3]);
+        const float fm = x.pre[2] + x.mp;
+        const float i_ = expf(x.pre[1] - x.m);
+        const float f_ = expf(fm - x.m);
+        const float nc = fmaxf(x.n, 1.f);
+        const float dh = x.dh + rec;
+        const float gq = dh / nc;
+        const float d_o = gq * x.c;
+        dc = dc + gq * o;
+        dn = dn + (x.n >= 1.f ? -dh * (x.h / nc) : 0.f);
+        const float dz = dc * i_ * (1.f - z * z);
+        const float dot = d_o * (1.f - o) * o;
+        const float di = dc * z + dn;
+        const float df = dc * x.cp + dn * x.np;
+        dm = dm - di * i_ - df * f_;
+        float da = fm == x.pre[1] ? dm / 2.f : (fm > x.pre[1] ? dm : 0.f);
+        const float dit = di * i_ + (dm - da);
+        da = df * f_ + da;
+        const float g4[G] = {dz, dit, da, dot};
+        float* out = a.dpre + ((long long)b * S + t) * d4 + unit;
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          Dp[cj * CW + q * UW + cu] = g4[q];
+          out[q * d] = g4[q];
+        }
+        st[si] = dc * f_;
+        st[BU + si] = dn * f_;
+        st[2 * BU + si] = da;
+      }
+      __syncthreads();   // the tile's dpre is in Dp; the cells have read pw
+      if (t == 0 && !has_state) continue;
+      for (int j = 0; j < nb; ++j) {
+        const float* D = Dp + j * CW;
+        unsigned long long* xo =
+            a.x + (((long long)(t & 1) * B + b0 + j) * P + blockIdx.x) * d;
+#pragma unroll
+        for (int m = 0; m < JMW; ++m) {
+          float p[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int c = 0; c < CW; c += 4) {
+            const float4 dv = *reinterpret_cast<const float4*>(D + c);
+            p[0] = fmaf(dv.x, rr[m][c], p[0]);
+            p[1] = fmaf(dv.y, rr[m][c + 1], p[1]);
+            p[2] = fmaf(dv.z, rr[m][c + 2], p[2]);
+            p[3] = fmaf(dv.w, rr[m][c + 3], p[3]);
+          }
+          const int jj = tid + NT * m;
+          if (jj < d) put_tagged(xo + jj, (p[0] + p[1]) + (p[2] + p[3]), S - t);
+        }
+        for (int m = JMW; m < js; ++m) {
+          const int jj = tid + NT * m;
+          if (jj >= d) continue;
+          float p[4] = {0.f, 0.f, 0.f, 0.f};
+          if (m < JMW + nsm) {
+            const float* rs = Rs + (m - JMW) * CW * NT + tid;
+            for (int c = 0; c < CW; c += 4) {
+              const float4 dv = *reinterpret_cast<const float4*>(D + c);
+              p[0] = fmaf(dv.x, rs[c * NT], p[0]);
+              p[1] = fmaf(dv.y, rs[(c + 1) * NT], p[1]);
+              p[2] = fmaf(dv.z, rs[(c + 2) * NT], p[2]);
+              p[3] = fmaf(dv.w, rs[(c + 3) * NT], p[3]);
+            }
+          } else {
+#pragma unroll 4
+            for (int c = 0; c < CW; c += 4) {
+              const float4 dv = *reinterpret_cast<const float4*>(D + c);
+              p[0] = fmaf(dv.x, __ldg(rT + rcol(c) + jj), p[0]);
+              p[1] = fmaf(dv.y, __ldg(rT + rcol(c + 1) + jj), p[1]);
+              p[2] = fmaf(dv.z, __ldg(rT + rcol(c + 2) + jj), p[2]);
+              p[3] = fmaf(dv.w, __ldg(rT + rcol(c + 3) + jj), p[3]);
+            }
+          }
+          put_tagged(xo + jj, (p[0] + p[1]) + (p[2] + p[3]), S - t);
+        }
+      }
+    }
+  }
+  if (!has_state) return;
+  // the start state's gradient: dh0 = dpre_0 r^T, and the carries
+  for (int b0 = 0; b0 < B; b0 += BTW) {
+    const int nb = min(BTW, B - b0);
+    gather_wide<UW>(a, pw, b0, nb, 0);
+    __syncthreads();   // the warps' sums are written
+    if (cj < nb) {
+      const int b = b0 + cj;
+      const long long at = (long long)b * d + unit;
+      const int si = b * UW + cu;
+      float s = pw[cj * NW * UW + cu];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) s += pw[(cj * NW + w) * UW + cu];
+      a.dh0[at] = s;
+      a.dc0[at] = st[si];
+      a.dn0[at] = st[BU + si];
+      a.dm0[at] = st[2 * BU + si];
+    }
+    __syncthreads();   // pw is read before the next tile's gather
+  }
+}
+
 template <typename A>
 cudaError_t launch_coop(void (*kernel)(const A), const A& args, int blocks, size_t smem,
                         cudaStream_t stream) {
@@ -677,6 +1074,147 @@ int pick_lb(int B, int d) {
   return lines <= 2 ? 2 : lines <= 4 ? 4 : lines <= 8 ? 8 : 16;
 }
 
+// The 8-unit forward's instantiation for (B, d)
+template <int KR>
+const void* fwd_lb(int B, int d) {
+  switch (pick_lb(B, d)) {
+    case 2: return reinterpret_cast<const void*>(slstm_fwd_kernel<KR, 2>);
+    case 4: return reinterpret_cast<const void*>(slstm_fwd_kernel<KR, 4>);
+    case 8: return reinterpret_cast<const void*>(slstm_fwd_kernel<KR, 8>);
+    default: return reinterpret_cast<const void*>(slstm_fwd_kernel<KR, 16>);
+  }
+}
+const void* fwd_kernel8(int B, int d) {
+  switch (pick_kr(d / NW)) {
+    case 4: return fwd_lb<4>(B, d);
+    case 8: return fwd_lb<8>(B, d);
+    case 16: return fwd_lb<16>(B, d);
+    case 32: return fwd_lb<32>(B, d);
+    case 64: return fwd_lb<64>(B, d);
+    default: return fwd_lb<128>(B, d);
+  }
+}
+const void* bwd_kernel8(int d) {
+  switch (pick_jm(d)) {
+    case 1: return reinterpret_cast<const void*>(slstm_bwd_kernel<1>);
+    case 2: return reinterpret_cast<const void*>(slstm_bwd_kernel<2>);
+    default: return reinterpret_cast<const void*>(slstm_bwd_kernel<4>);
+  }
+}
+
+// What a launch at (B, d) with U units a block needs: the instantiation,
+// its dynamic shared memory, and on the wide path the forward's tile of
+// batch rows and either kernel's rows or units of r in shared memory. False
+// where U does not divide d or the block's fixed share does not fit.
+struct Plan {
+  const void* fn;
+  size_t smem;
+  int bt, nsm;
+};
+
+template <int UW>
+bool wide_plan(int B, int d, bool bwd, Plan* p) {
+  constexpr int CW = G * UW;
+  if (bwd) {
+    const int js = (d + NT - 1) / NT;
+    const size_t fixed =
+        sizeof(float) * (size_t(wide_tile(UW)) * NW * UW + size_t(wide_tile(UW)) * CW +
+                         3 * size_t(B) * UW);
+    if (fixed > SMEM_MAX) return false;
+    const int room = int((SMEM_MAX - fixed) / (sizeof(float) * CW * NT));
+    const int nsm = max(0, min(js - wide_jm(UW), room));
+    *p = {reinterpret_cast<const void*>(slstm_bwd_wide_kernel<UW>),
+          fixed + sizeof(float) * size_t(nsm) * CW * NT, 0, nsm};
+    return true;
+  }
+  const int rg = d / (NT / CW);
+  if (rg < KRW) return false;
+  int bt = min(min(8, NT / UW), B);
+  while (bt > 1 && bt * d > HS_MAX) --bt;
+  const size_t fixed =
+      sizeof(float) * (size_t(bt) * d + size_t(NT) * bt + 4 * size_t(B) * UW);
+  if (fixed > SMEM_MAX) return false;
+  const int nsm = min(rg - KRW, int((SMEM_MAX - fixed) / (sizeof(float) * NT))) & ~3;
+  *p = {reinterpret_cast<const void*>(slstm_fwd_wide_kernel<UW>),
+        fixed + sizeof(float) * size_t(nsm) * NT, bt, nsm};
+  return true;
+}
+
+bool plan(int B, int d, int u, bool bwd, Plan* p) {
+  if (d % u) return false;
+  switch (u) {
+    case 8:
+      *p = bwd ? Plan{bwd_kernel8(d), bwd_smem(B, d, pick_jm(d)), 0, 0}
+               : Plan{fwd_kernel8(B, d), fwd_smem(B, d, pick_kr(d / NW)), 0, 0};
+      return p->smem <= SMEM_MAX;
+    case 16: return wide_plan<16>(B, d, bwd, p);
+    case 32: return wide_plan<32>(B, d, bwd, p);
+    case 64: return wide_plan<64>(B, d, bwd, p);
+    default: return false;
+  }
+}
+
+// The fewest units a block (8, 16, 32, 64) whose d / U blocks are all
+// resident at once on the current device, by the SM count and the
+// instantiation's occupancy at its shared memory; 0 if none. Chosen from
+// the shape before any launch, and kept for the next call at the same
+// (device, B, d, direction): a decode step asks every token.
+struct Picked {
+  int dev, B, d, bwd, u;
+  Plan p;
+};
+constexpr int PICKS = 32;
+Picked picks[PICKS];
+int n_picks = 0, next_pick = 0;
+std::mutex picks_mu;
+
+int pick_units_uncached(int dev, int B, int d, bool bwd, Plan* chosen) {
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  for (int u = 8; u <= 64; u *= 2) {
+    Plan p;
+    if (!plan(B, d, u, bwd, &p)) continue;
+    int per_sm = 0;
+    if (cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(p.smem)) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p.fn, NT, p.smem) != cudaSuccess) {
+      cudaGetLastError();
+      continue;
+    }
+    if ((long long)per_sm * sms >= d / u) {
+      *chosen = p;
+      return u;
+    }
+  }
+  return 0;
+}
+
+int pick_units(int B, int d, bool bwd, Plan* chosen) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  std::lock_guard<std::mutex> lock(picks_mu);
+  for (int i = 0; i < n_picks; ++i) {
+    const Picked& k = picks[i];
+    if (k.dev == dev && k.B == B && k.d == d && k.bwd == int(bwd)) {
+      *chosen = k.p;
+      return k.u;
+    }
+  }
+  Plan p{};
+  const int u = pick_units_uncached(dev, B, d, bwd, &p);
+  picks[next_pick] = Picked{dev, B, d, int(bwd), u, p};
+  next_pick = (next_pick + 1) % PICKS;
+  n_picks = n_picks < PICKS ? n_picks + 1 : PICKS;
+  *chosen = p;
+  return u;
+}
+
 template <int KR, int LB>
 cudaError_t launch_fwd(const Fwd& a, cudaStream_t stream) {
   return launch_coop(slstm_fwd_kernel<KR, LB>, a, a.d / U, fwd_smem(a.B, a.d, KR), stream);
@@ -697,7 +1235,36 @@ cudaError_t launch_bwd(const Bwd& a, cudaStream_t stream) {
   return launch_coop(slstm_bwd_kernel<JM>, a, a.d / U, bwd_smem(a.B, a.d, JM), stream);
 }
 
+// A wide kernel's cooperative launch: the arguments struct, then ints
+template <typename A, typename... I>
+cudaError_t launch_wide(const Plan& p, const A& args, int blocks, cudaStream_t stream,
+                        I... ints) {
+  A copy = args;
+  void* params[] = {&copy, &ints...};
+  // the kernel's shared-memory limit is the function's, and another (B, d)
+  // may have set it lower since this plan was made
+  cudaError_t err = cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(p.smem));
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel(p.fn, dim3(blocks), dim3(NT), params, p.smem, stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Units a block for the forward (backward = 0) or the backward at (B, d):
+// 8 (one 8-unit block an SM, d <= 8 x the SM count on one a block), 16,
+// 32 or 64; 0 where no grid fits. The backward's exchange is (2, B, d / U,
+// d) words.
+extern "C" int repro_slstm_units(int B, int d, int backward) {
+  if (bad_shape(B, 1, d)) return 0;
+  Plan p;
+  return pick_units(B, d, backward != 0, &p);
+}
 
 // `exchange`: the forward's (2, B, d) 64-bit words, zeroed (unread at S = 1)
 extern "C" int repro_slstm_fwd(const float* wx, const float* r, const float* c0, const float* n0,
@@ -708,6 +1275,10 @@ extern "C" int repro_slstm_fwd(const float* wx, const float* r, const float* c0,
   const Fwd a{wx, r, c0, n0, h0, m0, hs, c, n, h, m, kpre, kc, kn, km,
               static_cast<unsigned long long*>(exchange), B, S, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Plan p;
+  const int u = pick_units(B, d, false, &p);
+  if (u == 0) return cudaErrorCooperativeLaunchTooLarge;
+  if (u > 8) return launch_wide(p, a, d / u, s, p.bt, p.nsm);
   switch (pick_kr(d / NW)) {
     case 4: return launch_lb<4>(a, s);
     case 8: return launch_lb<8>(a, s);
@@ -718,19 +1289,28 @@ extern "C" int repro_slstm_fwd(const float* wx, const float* r, const float* c0,
   }
 }
 
-// `exchange`: the backward's (2, B, d / 8, d) 64-bit words, zeroed; null
-// only at S = 1 without a start state (nothing crosses the grid)
+// `exchange`: the backward's (2, B, d / U, d) 64-bit words, zeroed; null
+// only at S = 1 without a start state (nothing crosses the grid). `rT`:
+// r^T (4d, d), read on the wide path (U > 8) only; last, so that a library
+// built before it ignores it.
 extern "C" int repro_slstm_bwd(const float* r, const float* hs, const float* kpre,
                                const float* kc, const float* kn, const float* km,
                                const float* c0, const float* n0, const float* m0,
                                const float* dhs, const float* dcT, const float* dnT,
                                const float* dhT, const float* dmT, float* dpre, float* dc0,
                                float* dn0, float* dh0, float* dm0, void* exchange, int B, int S,
-                               int d, void* stream) {
+                               int d, void* stream, const float* rT) {
   if (bad_shape(B, S, d) || (!exchange && (S > 1 || dc0))) return cudaErrorInvalidValue;
   const Bwd a{r, hs, kpre, kc, kn, km, c0, n0, m0, dhs, dcT, dnT, dhT, dmT, dpre,
-              dc0, dn0, dh0, dm0, static_cast<unsigned long long*>(exchange), B, S, d};
+              dc0, dn0, dh0, dm0, static_cast<unsigned long long*>(exchange), B, S, d, rT};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Plan p;
+  const int u = pick_units(B, d, true, &p);
+  if (u == 0) return cudaErrorCooperativeLaunchTooLarge;
+  if (u > 8) {
+    if (!rT) return cudaErrorInvalidValue;
+    return launch_wide(p, a, d / u, s, p.nsm);
+  }
   switch (pick_jm(d)) {
     case 1: return launch_bwd<1>(a, s);
     case 2: return launch_bwd<2>(a, s);

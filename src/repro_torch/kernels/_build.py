@@ -9,7 +9,9 @@ import every module on machines without ``nvcc``.
 
 Each C entry point takes device pointers and the stream as ``void*``
 (``ctypes.c_void_p``) and returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises on anything but 0.
+:func:`check` raises on anything but 0. The wrappers call them through
+:func:`launch`, which on the ``meta`` device launches nothing and hands the
+call to the dry run's counters instead (``meta_sinks``).
 """
 from __future__ import annotations
 
@@ -101,7 +103,6 @@ SIGNATURES = {
         _P, _P, _P, _P,                  # 15 inputs, 7 outputs, 8 workspaces (pointer arrays)
         _I, _I, _I, _I, _I, _P,          # dtype, B, S, H, hd, stream
     ],                                   # (the fourth: 17 strides)
-    "repro_mlstm_bwd_tile": [_I],
     "repro_slstm_fwd": [
         _P, _P, _P, _P, _P, _P,          # wx, r, c0, n0, h0, m0 (NULL = zeros)
         _P, _P, _P, _P, _P,              # hs, the final c, n, h, m
@@ -114,11 +115,18 @@ SIGNATURES = {
         _P, _P, _P, _P,                  # the final state's dc, dn, dh, dm (NULL = zeros)
         _P, _P, _P, _P, _P,              # dpre, the start state's dc, dn, dh, dm (NULL = none)
         _P, _I, _I, _I, _P,              # exchange (NULL at S = 1 without c0), B, S, d, stream
+        _P,                              # r^T (4d, d), read by the wide grid only (NULL: unused)
     ],
+    "repro_slstm_units": [_I, _I, _I],   # B, d, backward: units a block, 0 where no grid fits
 }
 
 _lib = None
 last_build: dict = {}   # what the last build did: seconds, path, ptxas log
+
+STREAM = object()       # stands for the current stream among a launch's arguments
+# the counters of the dry runs that are on (``launch/op_cost.py``): each is
+# called as sink(kernel, **shape) for a call on the meta device
+meta_sinks: list = []
 
 
 def nvcc_path() -> str:
@@ -197,6 +205,24 @@ def load() -> ctypes.CDLL:
         lib.repro_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def launch(entry: str, kernel: str, dev: torch.device, args: tuple, **shape) -> bool:
+    """Launch C entry point ``entry`` with ``args`` (``STREAM`` replaced by
+    ``dev``'s current stream) and raise on a CUDA error; True: the caller
+    counts the launch. On the meta device nothing is built or launched: the
+    call of ``kernel`` (a launch counter's name, ``shape`` what its cost
+    function in the kernel's ``ops.py`` reads) goes to ``meta_sinks``, and
+    False is returned."""
+    if dev.type == "meta":
+        for sink in meta_sinks:
+            sink(kernel, **shape)
+        return False
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(load(), entry)(*(stream if a is STREAM else a for a in args))
+    check(err, kernel)
+    return True
 
 
 def check(err: int, what: str) -> None:

@@ -2,8 +2,8 @@
 (``csrc/flash_attention.cu``, replacing the Pallas ``_flash_kernel``).
 
 ``flash_attention_fwd`` validates what the kernels take, allocates the
-outputs, launches on PyTorch's current stream and counts the launch by
-variant: bf16 runs the tensor-core kernel (``launches_tc``), f32 the
+outputs, launches on PyTorch's current stream (on the meta device it
+launches nothing: ``_build.launch``) and counts the launch by variant: bf16 runs the tensor-core kernel (``launches_tc``), f32 the
 split-TF32 kernel (``launches_tf32``: both products on the tensor cores as
 hi + lo halves, ``mma.sync``). It never falls back: anything the kernels do
 not take raises.
@@ -25,8 +25,8 @@ HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention kernel: q, k, v must be on one CUDA device")
+    if q.device.type not in ("cuda", "meta") or k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention kernel: q, k, v must be on one CUDA (or meta) device")
     if q.dtype not in _build.DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel: dtype {q.dtype}/{k.dtype}/{v.dtype} "
                          f"(one of float32, bfloat16)")
@@ -63,18 +63,17 @@ def flash_attention_fwd(
     scale = sm_scale if sm_scale is not None else float(1.0 / np.sqrt(hd))
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq, 1), dtype=torch.float32, device=q.device)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        err = lib.repro_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            _build.DTYPE_CODE[q.dtype], B, Sq, Skv, H, KVH, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            int(causal), int(window), int(q_offset), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(err, "flash_attention")
-    if q.dtype == torch.bfloat16:
+    tc = q.dtype == torch.bfloat16
+    launched = _build.launch(
+        "repro_flash_attention_fwd", "flash_attention_tc" if tc else "flash_attention_tf32",
+        q.device, (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                   _build.DTYPE_CODE[q.dtype], B, Sq, Skv, H, KVH, hd,
+                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                   int(causal), int(window), int(q_offset), float(scale), _build.STREAM),
+        B=B, Sq=Sq, Skv=Skv, H=H, KVH=KVH, hd=hd, causal=causal, window=window,
+        q_offset=q_offset, el=q.element_size())
+    if launched and tc:
         launches_tc += 1
-    else:
+    elif launched:
         launches_tf32 += 1
     return o, lse

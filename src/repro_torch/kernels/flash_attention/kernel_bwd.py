@@ -2,7 +2,8 @@
 (``csrc/flash_attention_bwd.cu``, replacing the Pallas ``_dkdv_kernel``
 and ``_dq_kernel`` of ``repro/kernels/flash_attention/kernel_bwd.py``).
 
-``flash_attention_bwd`` validates what the kernels take, computes
+``flash_attention_bwd`` validates what the kernels take (a meta tensor
+launches nothing: ``_build.launch``), computes
 ``delta = sum(do * o)`` per row (a torch reduction, as the JAX package
 computes it outside both kernels), allocates the gradients, launches both
 kernels on PyTorch's current stream and counts each launch by variant:
@@ -47,14 +48,13 @@ def _check(q, k, v, do, lse, delta) -> None:
             raise ValueError(f"flash_attention_bwd: {name} must be contiguous f32 {shape}, "
                              f"got {tuple(t.shape)} {t.dtype}")
     if not all(t.device == q.device for t in (do, lse, delta)):
-        raise ValueError("flash_attention_bwd: every input must be on q's CUDA device")
+        raise ValueError("flash_attention_bwd: every input must be on q's device")
 
 
-def _launch(what, q, k, v, do, lse, delta, outs, causal, window, q_offset, sm_scale):
+def _launch(what, q, k, v, do, lse, delta, outs, causal, window, q_offset, sm_scale) -> bool:
     """C entry point ``repro_<what>``; ``outs`` are the gradients it writes,
-    in its order."""
+    in its order. True where it launched (not on the meta device)."""
     _check(q, k, v, do, lse, delta)
-    fn = getattr(_build.load(), "repro_" + what)
     B, Sq, H, hd = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     dq, dk, dv = outs.get("dq", q), outs.get("dk", k), outs.get("dv", v)
@@ -62,16 +62,16 @@ def _launch(what, q, k, v, do, lse, delta, outs, causal, window, q_offset, sm_sc
         *(s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3])
     )
     scale = sm_scale if sm_scale is not None else float(1.0 / np.sqrt(hd))
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *(t.data_ptr() for t in outs.values()),
-            _build.DTYPE_CODE[q.dtype], B, Sq, Skv, H, KVH, hd,
-            ctypes.cast(strides, ctypes.c_void_p),
-            int(causal), int(window), int(q_offset), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(err, what)
+    variant = "_tc" if q.dtype == torch.bfloat16 else "_tf32"
+    return _build.launch(
+        "repro_" + what, what + variant, q.device,
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+         delta.data_ptr(), *(t.data_ptr() for t in outs.values()),
+         _build.DTYPE_CODE[q.dtype], B, Sq, Skv, H, KVH, hd,
+         ctypes.cast(strides, ctypes.c_void_p),
+         int(causal), int(window), int(q_offset), float(scale), _build.STREAM),
+        B=B, Sq=Sq, Skv=Skv, H=H, KVH=KVH, hd=hd, causal=causal, window=window,
+        q_offset=q_offset, el=q.element_size())
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True, window=0, q_offset=0,
@@ -80,11 +80,11 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True, window=0, 
     global launches_dkdv_tc, launches_dkdv_tf32
     outs = {"dk": torch.empty(k.shape, dtype=k.dtype, device=k.device),
             "dv": torch.empty(v.shape, dtype=v.dtype, device=v.device)}
-    _launch("flash_attention_bwd_dkdv", q, k, v, do, lse, delta, outs,
-            causal, window, q_offset, sm_scale)
-    if k.dtype == torch.bfloat16:
+    launched = _launch("flash_attention_bwd_dkdv", q, k, v, do, lse, delta, outs,
+                       causal, window, q_offset, sm_scale)
+    if launched and k.dtype == torch.bfloat16:
         launches_dkdv_tc += 1
-    else:
+    elif launched:
         launches_dkdv_tf32 += 1
     return outs["dk"], outs["dv"]
 
@@ -94,11 +94,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True, window=0, q_
     """dq (B, Sq, H, hd) in q's dtype: the ``_dq_kernel`` port."""
     global launches_dq_tc, launches_dq_tf32
     outs = {"dq": torch.empty(q.shape, dtype=q.dtype, device=q.device)}
-    _launch("flash_attention_bwd_dq", q, k, v, do, lse, delta, outs,
-            causal, window, q_offset, sm_scale)
-    if q.dtype == torch.bfloat16:
+    launched = _launch("flash_attention_bwd_dq", q, k, v, do, lse, delta, outs,
+                       causal, window, q_offset, sm_scale)
+    if launched and q.dtype == torch.bfloat16:
         launches_dq_tc += 1
-    else:
+    elif launched:
         launches_dq_tf32 += 1
     return outs["dq"]
 

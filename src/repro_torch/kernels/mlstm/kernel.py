@@ -49,8 +49,8 @@ Kept = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 def _check(q, k, v, gates, state) -> None:
     dev = q.device
     f32 = [gates, *(state or ())]
-    if not q.is_cuda or any(t.device != dev for t in (k, v, *f32)):
-        raise ValueError("mlstm kernel: all inputs must be on one CUDA device")
+    if dev.type not in ("cuda", "meta") or any(t.device != dev for t in (k, v, *f32)):
+        raise ValueError("mlstm kernel: all inputs must be on one CUDA (or meta) device")
     if q.dtype not in _build.DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"mlstm kernel: q/k/v dtype {q.dtype}/{k.dtype}/{v.dtype} "
                          f"(one of float32, bfloat16)")
@@ -101,35 +101,40 @@ def _kept(B, S, H, hd, device) -> Kept:
     return f32(B, H, nc, hd, hd), f32(B, H, nc, hd), f32(B, H, nc), f32(B, S, H)
 
 
-def _launch(fn, what, extra, q, k, v, gates, state):
-    """Allocates h and the final state, launches ``fn`` with ``extra`` (the
-    arguments between the outputs' pointers and the shape) and raises on a
-    CUDA error."""
+def bwd_tile(hd: int) -> int:
+    """The columns of the value-row tiles the gradient splits C into
+    (csrc/mlstm_bwd.cu's VT): it sizes the tile workspaces."""
+    return 64 if hd % 64 == 0 else 32
+
+
+def _launch(entry, what, extra, q, k, v, gates, state):
+    """Allocates h and the final state, launches C entry point ``entry``
+    with ``extra`` (the arguments between the outputs' pointers and the
+    shape), raises on a CUDA error, and returns (h, (C, n, m), launched)."""
     B, S, H, hd = q.shape
     h = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     C = torch.empty((B, H, hd, hd), dtype=torch.float32, device=q.device)
     n = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     C0, n0, m0 = (t.data_ptr() for t in state) if state is not None else (None, None, None)
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), gates.data_ptr(), C0, n0, m0,
-            h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(), *extra, B, S, H, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *h.stride()[:3],
-            *gates.stride()[:2], torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(err, what)
-    return h, (C, n, m)
+    launched = _build.launch(
+        entry, what, q.device,
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), gates.data_ptr(), C0, n0, m0,
+         h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(), *extra, B, S, H, hd,
+         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *h.stride()[:3],
+         *gates.stride()[:2], _build.STREAM),
+        B=B, S=S, H=H, hd=hd, el=q.element_size(), state=state is not None)
+    return h, (C, n, m), launched
 
 
-def _launch_chunkwise(fn, what, extra, q, k, v, gates, state, keep: bool):
+def _launch_chunkwise(entry, what, extra, q, k, v, gates, state, keep: bool):
     """``_launch`` of a chunkwise kernel, which takes four pointers for what
     the gradient starts from before ``extra`` (NULL: keep nothing); with
-    ``keep`` they are allocated and returned as a third element."""
+    ``keep`` they are allocated and returned after the state."""
     kept = _kept(*q.shape, q.device) if keep else None
     ptrs = tuple(t.data_ptr() for t in kept) if keep else (None,) * 4
-    out = _launch(fn, what, (*ptrs, *extra), q, k, v, gates, state)
-    return (*out, kept) if keep else out
+    h, st, launched = _launch(entry, what, (*ptrs, *extra), q, k, v, gates, state)
+    return ((h, st, kept) if keep else (h, st)), launched
 
 
 def mlstm(
@@ -145,10 +150,10 @@ def mlstm(
     _check(q, k, v, gates, state)
     if q.shape[1] > STEP_MAX:
         return mlstm_chunkwise(q, k, v, gates, state)
-    out = _launch(_build.load().repro_mlstm_step, "mlstm (step)",
-                  (_build.DTYPE_CODE[q.dtype],), q, k, v, gates, state)
-    launches_step += 1
-    return out
+    h, st, launched = _launch("repro_mlstm_step", "mlstm_step", (_build.DTYPE_CODE[q.dtype],),
+                              q, k, v, gates, state)
+    launches_step += launched
+    return h, st
 
 
 def mlstm_tf32(
@@ -163,9 +168,9 @@ def mlstm_tf32(
     with ``keep`` also what the gradient starts from, a third element."""
     global launches_tf32
     _check(q, k, v, gates, state)
-    out = _launch_chunkwise(_build.load().repro_mlstm, "mlstm (tf32)",
-                            (_build.DTYPE_CODE[q.dtype],), q, k, v, gates, state, keep)
-    launches_tf32 += 1
+    out, launched = _launch_chunkwise("repro_mlstm", "mlstm_tf32", (_build.DTYPE_CODE[q.dtype],),
+                                      q, k, v, gates, state, keep)
+    launches_tf32 += launched
     return out
 
 
@@ -182,9 +187,9 @@ def mlstm_tc(
     global launches_tc
     _check(q, k, v, gates, state)
     _check_tc(q, k, v)
-    out = _launch_chunkwise(_build.load().repro_mlstm_tc, "mlstm (tc)", (), q, k, v, gates,
-                            state, keep)
-    launches_tc += 1
+    out, launched = _launch_chunkwise("repro_mlstm_tc", "mlstm_tc", (), q, k, v, gates, state,
+                                      keep)
+    launches_tc += launched
     return out
 
 
@@ -232,9 +237,7 @@ def mlstm_bwd(
     final = tuple(f32(t) for t in final) if final is not None else (None, None)
     dev = q.device
     e = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)
-    lib = _build.load()
-    vt = lib.repro_mlstm_bwd_tile(hd)
-    tiles = hd // vt
+    tiles = hd // bwd_tile(hd)
     dq, dk, dv = e(B, S, H, hd, dtype=q.dtype), e(B, S, H, hd, dtype=q.dtype), e(
         B, S, H, hd, dtype=q.dtype)
     dg = e(B, S, 2 * H)
@@ -248,11 +251,11 @@ def mlstm_bwd(
     arr = lambda ts: (ctypes.c_void_p * len(ts))(*(ptr(t) for t in ts))
     strides = (ctypes.c_longlong * 17)(*(st for t in (q, k, v, h, dh) for st in t.stride()[:3]),
                                        *gates.stride()[:2])
-    with torch.cuda.device(dev):
-        err = lib.repro_mlstm_bwd(
-            ctypes.cast(arr(ins), ctypes.c_void_p), ctypes.cast(arr(outs), ctypes.c_void_p),
-            ctypes.cast(arr(ws), ctypes.c_void_p), ctypes.cast(strides, ctypes.c_void_p),
-            _build.DTYPE_CODE[q.dtype], B, S, H, hd, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "mlstm_bwd")
-    launches_bwd += 1
+    if _build.launch(
+            "repro_mlstm_bwd", "mlstm_bwd", dev,
+            (ctypes.cast(arr(ins), ctypes.c_void_p), ctypes.cast(arr(outs), ctypes.c_void_p),
+             ctypes.cast(arr(ws), ctypes.c_void_p), ctypes.cast(strides, ctypes.c_void_p),
+             _build.DTYPE_CODE[q.dtype], B, S, H, hd, _build.STREAM),
+            B=B, S=S, H=H, hd=hd, el=q.element_size()):
+        launches_bwd += 1
     return dq, dk, dv, dg, dstate

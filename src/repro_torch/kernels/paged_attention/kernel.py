@@ -31,8 +31,9 @@ GROUPS_HD256 = (1, 2, 4)   # the f32 kernel's P.V phase gives each (head, 8 colu
 def _check(q, k_pages, v_pages, block_table, seq_lens) -> None:
     dev = q.device
     tensors = (q, k_pages, v_pages, block_table, seq_lens)
-    if not q.is_cuda or any(t.device != dev for t in tensors):
-        raise ValueError("paged_attention kernel: all inputs must be on one CUDA device")
+    if dev.type not in ("cuda", "meta") or any(t.device != dev for t in tensors):
+        raise ValueError("paged_attention kernel: all inputs must be on one CUDA (or meta) "
+                         "device")
     if q.dtype not in _build.DTYPE_CODE or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError(f"paged_attention kernel: dtype {q.dtype}/{k_pages.dtype} "
                          f"(one of float32, bfloat16; int8 pools take the gather path)")
@@ -78,17 +79,18 @@ def paged_attention(
     # per (lane, kv head, segment, query head): acc[hd], then m, then l
     ws = torch.empty(B * KVH * n_seg * (H // KVH) * (hd + 2), dtype=torch.float32,
                      device=q.device)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        err = lib.repro_paged_attention(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            _build.DTYPE_CODE[q.dtype], B, H, KVH, hd, P, ps, nb, n_seg,
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(err, "paged_attention")
-    if q.dtype == torch.bfloat16:
+    tc = q.dtype == torch.bfloat16
+    # the meta device has no seq_lens to read: its cost counts every slot of
+    # the block table (the most a call can read)
+    launched = _build.launch(
+        "repro_paged_attention", "paged_attention_tc" if tc else "paged_attention_fma", q.device,
+        (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+         block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+         _build.DTYPE_CODE[q.dtype], B, H, KVH, hd, P, ps, nb, n_seg,
+         float(scale), _build.STREAM),
+        B=B, H=H, KVH=KVH, hd=hd, tokens=B * nb * ps, pages=B * nb, el=q.element_size())
+    if launched and tc:
         launches_tc += 1
-    else:
+    elif launched:
         launches_fma += 1
     return out

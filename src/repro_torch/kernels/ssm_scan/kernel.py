@@ -64,8 +64,8 @@ def bwd_segments(S: int, seg: int) -> int:
 def _check(u, dt, B_, C_, A, D, h0, extra=()) -> None:
     dev = u.device
     f32 = [t for t in (dt, B_, C_, A, D, h0, *extra) if t is not None]
-    if not u.is_cuda or any(t.device != dev for t in f32):
-        raise ValueError("ssm_scan kernel: all inputs must be on one CUDA device")
+    if dev.type not in ("cuda", "meta") or any(t.device != dev for t in f32):
+        raise ValueError("ssm_scan kernel: all inputs must be on one CUDA (or meta) device")
     if u.dtype not in _build.DTYPE_CODE or any(t.dtype != torch.float32 for t in f32):
         raise ValueError(f"ssm_scan kernel: u {u.dtype} (float32 or bfloat16); dt, B_, C_, "
                          f"A, D, h0 must be float32, got {[t.dtype for t in f32]}")
@@ -115,17 +115,15 @@ def ssm_scan(
     h_out = torch.empty((Bb, inner, N), dtype=torch.float32, device=u.device)
     chunks = (torch.empty((Bb, n_chunks(S), inner, N), dtype=torch.float32, device=u.device)
               if keep_chunks else None)
-    lib = _build.load()
-    with torch.cuda.device(u.device):
-        err = lib.repro_ssm_scan(
-            u.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(), A.data_ptr(),
-            D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_out.data_ptr(), None if chunks is None or chunks.numel() == 0 else chunks.data_ptr(),
-            _build.DTYPE_CODE[u.dtype], Bb, S, inner, N,
-            torch.cuda.current_stream(u.device).cuda_stream,
-        )
-    _build.check(err, "ssm_scan")
-    launches += 1
+    if _build.launch(
+            "repro_ssm_scan", "ssm_scan", u.device,
+            (u.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(), A.data_ptr(),
+             D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
+             h_out.data_ptr(),
+             None if chunks is None or chunks.numel() == 0 else chunks.data_ptr(),
+             _build.DTYPE_CODE[u.dtype], Bb, S, inner, N, _build.STREAM),
+            B=Bb, S=S, inner=inner, N=N, el=u.element_size(), h0=h0 is not None):
+        launches += 1
     return (y, h_out) if not keep_chunks else (y, h_out, chunks)
 
 
@@ -165,15 +163,13 @@ def ssm_scan_bwd(
     part_bc = torch.empty((blocks, 2, Bb, S, N), **f32)
     part_ad = torch.empty((Bb, NS, inner * N + inner), **f32)
     ptr = lambda t: None if t is None or t.numel() == 0 else t.data_ptr()
-    lib = _build.load()
-    with torch.cuda.device(u.device):
-        err = lib.repro_ssm_scan_bwd(
-            u.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(), A.data_ptr(),
-            D.data_ptr(), ptr(h0), ptr(chunks), dy.data_ptr(), ptr(dh), du.data_ptr(),
-            ddt.data_ptr(), dBC.data_ptr(), dAD.data_ptr(), ptr(dh0), ptr(carry), ptr(part_bc),
-            part_ad.data_ptr(), _build.DTYPE_CODE[u.dtype], Bb, S, inner, N, seg,
-            torch.cuda.current_stream(u.device).cuda_stream,
-        )
-    _build.check(err, "ssm_scan_bwd")
-    launches_bwd += 1
+    if _build.launch(
+            "repro_ssm_scan_bwd", "ssm_scan_bwd", u.device,
+            (u.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(), A.data_ptr(),
+             D.data_ptr(), ptr(h0), ptr(chunks), dy.data_ptr(), ptr(dh), du.data_ptr(),
+             ddt.data_ptr(), dBC.data_ptr(), dAD.data_ptr(), ptr(dh0), ptr(carry),
+             ptr(part_bc), part_ad.data_ptr(), _build.DTYPE_CODE[u.dtype], Bb, S, inner, N,
+             seg, _build.STREAM),
+            B=Bb, S=S, inner=inner, N=N, el=u.element_size()):
+        launches_bwd += 1
     return (du, ddt, dBC[0], dBC[1], dAD[:inner * N].view(inner, N), dAD[inner * N:], dh0)

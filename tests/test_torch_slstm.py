@@ -18,6 +18,7 @@ torch sum the products in other orders); against autograd in f64, 1e-10
 relative (the same arithmetic in another order).
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -214,15 +215,19 @@ def test_slstm_autograd_on_cpu_runs_the_plain_versions(with_state):
 
 
 def test_slstm_refuses_what_it_does_not_take():
-    """On a device that is neither CUDA nor the CPU the entry point raises,
-    and the kernel wrappers never take a CPU tensor: no fallback to the
-    plain versions."""
+    """On a device that is none of CUDA, the meta device (the dry run's
+    route: the kernels' allocations, no launch, no plain version) and the
+    CPU the entry point raises, and the kernel wrappers never take a CPU
+    tensor: no fallback to the plain versions."""
     wx, r, state, dhs, _ = _leaves(4, True)
     meta = lambda x: x.detach().to("meta")
+    other = types.SimpleNamespace(device=torch.device("xpu"), requires_grad=False)
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.slstm(meta(wx), meta(r))
-    with pytest.raises(ValueError, match="unsupported device"):
-        ops.slstm(meta(wx).requires_grad_(), meta(r))
+        ops.slstm(other, meta(r))
+    hs, fin = ops.slstm(meta(wx), meta(r))
+    hs2, _ = ops.slstm(meta(wx).requires_grad_(), meta(r))
+    assert hs.device.type == hs2.device.type == "meta" and hs.shape == (*wx.shape[:2], wx.shape[2] // 4)
+    assert (kernel.launches, kernel.launches_bwd) == (0, 0)
     with pytest.raises(ValueError, match="CUDA"):
         kernel.slstm(wx.detach(), r.detach())
     with pytest.raises(ValueError, match="CUDA"):

@@ -127,7 +127,7 @@ def main() -> int:
         print("mlstm_bwd_variants: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    entries = ("repro_mlstm_bwd", "repro_mlstm_bwd_tile")
+    entries = ("repro_mlstm_bwd",)
     only = set(args.only.split(",")) if args.only else None
     pick = lambda names, pre: [n for n in names if only is None or pre + n in only]
     this_lib = _build.load()             # the forward kernels that keep the states

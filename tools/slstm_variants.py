@@ -204,7 +204,7 @@ def _bwd_call(lib, r, hs, kept, dhs):
     err = lib.repro_slstm_bwd(r.data_ptr(), hs.data_ptr(), *(t.data_ptr() for t in kept),
                               None, None, None, dhs.data_ptr(), None, None, None, None,
                               dpre.data_ptr(), None, None, None, None, x.data_ptr(), B, S, d,
-                              torch.cuda.current_stream().cuda_stream)
+                              torch.cuda.current_stream().cuda_stream, None)
     _build.check(err, "slstm_bwd variant")
     return dpre
 
@@ -244,6 +244,11 @@ def main() -> int:
         libs.update({f"parent:{n}": lib for n, lib in build(
             _build.BUILD_DIR / "slstm_variants" / "parent", pick(theirs, "parent:"),
             "slstm.cu", theirs, entries, "slstm_", csrc).items()})
+    for lib in libs.values():
+        try:
+            lib.repro_slstm_units
+        except AttributeError:   # a library built before the wide grids: 8 units a block
+            lib.repro_slstm_units = lambda B, d, backward: 8
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     if args.backward:
