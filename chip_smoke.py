@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # the whole check, one card
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
+    python3 chip_smoke.py --paged-only    # build + the paged kernels' checks only (its int8 too)
     python3 chip_smoke.py --spot-only     # build + the spot provisioner's phase only
     python3 chip_smoke.py --serve-plan-only  # build + the spot serving phase only
     python3 chip_smoke.py --moe-only      # build + the flash kernels at mixtral's shape + phase 10
@@ -36,7 +37,15 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    its spread beside SDPA's f32 forward, and the f32 forward's and
    backward's outputs at S1000 hd 128 and 256 are logged as digests. The paged
    kernel (split over positions, then merged) has two: bf16 scores and P.V
-   on tensor cores (mma.sync), f32 on FMAs. The scan has a prefill kernel
+   on tensor cores (mma.sync), f32 on FMAs; in bf16 at the main path its
+   mean error against f32 on the same inputs is within
+   PAGED_MEAN_ERR_MARGIN of the plain split form's (p's lo half shows
+   there). Its int8 variants (one per dtype; int8 codes staged by cp.async
+   and dequantized a tile at a time) give, on the same cases, at the main
+   path and at qwen1.5-32b's decode, the bits of the bf16 or f32 kernel on
+   the pool ``_dequantize_kv`` makes, twice, within tolerance of the plain
+   gather path on live lanes, exact zeros on dead lanes, and the same mean
+   error hold; timed at qwen1.5-32b's shape. The scan has a prefill kernel
    and a decode kernel (S <= 4), picked by S. The mLSTM's model calls go
    to a one-pass decode step (S <= 8) or a chunkwise kernel: bf16 on
    tensor cores, f32 (and what the tensor-core kernel does not take) on
@@ -167,9 +176,12 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    does): qwen1.5-32b (64 layers, 70.39 GB of bf16 weights, QKV bias)
    through ``DecodeEngine`` with the int8 pool (769 pages, 8.19 GB; the
    bf16 pool of that size would not fit, which is held) on phase 4's
-   requests: one flash forward a layer a prefill and no paged kernel (the
-   int8 pool decodes in plain PyTorch, as the reference's does); on one
-   layer the scoped dequantization equals the whole pool's bit for bit;
+   requests: one flash forward a layer a prefill and one int8 paged launch
+   a layer a decode step, and nothing else; on one layer the int8 kernel's
+   attention equals the bf16 kernel's on the dequantized pool bit for bit
+   and the plain gather path's within PAGED_MAIN_BF16_TOL, the plain path's
+   scoped dequantization equals the whole pool's bit for bit, and the
+   kernel, the plain attend and the bf16 kernel there are timed;
    then its first 2 requests through a bf16 pool (64 paged launches a
    step), fed the int8 streams, held by the reference's rule (top-1 equal
    or correlation > 0.98) at every step; qwen1.5-4b trained 4 steps as in
@@ -180,7 +192,8 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    none in decode; the flash prefill against the masked one, the last
    decode step against a fresh prefill over patches, prompt and fed
    tokens (top-1 equal or phase 9's near-tie), ``pos_ids`` without a
-   hole; reduced f32 int8 qwen1.5-32b serving, qwen1.5-4b training and
+   hole; reduced f32 int8 qwen1.5-32b serving (the int8 FMA variant
+   launched), qwen1.5-4b training and
    serving, internvl2 serving and the ``triangular`` schedule's prefill
    and 3 training steps on the card equal the CPU's. The kernel phase
    holds the forward at G=1 (B1 S2000 H40/40) and G=6 (B4 S3073 H48/8,
@@ -303,8 +316,8 @@ counted from 0
 just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
 bf16 tensor-core variants (``_tc``), the f32 runs only the f32 ones (the
-flash forward's and backward's split-TF32 kernels, the paged and mLSTM FMA
-kernels). The last three
+flash forward's and backward's split-TF32 kernels, the paged kernel's FMA
+variants (its int8 one on ``dense_int8_f32``) and the mLSTM's FMA kernels). The last three
 lines of stdout are the card's name and power limit, the
 per-kernel JSON record and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside this file, the script prints no result and exits 2.
@@ -405,6 +418,16 @@ REDUCED_LOGITS_TOL = dict(atol=1e-4, rtol=1e-4)
 # last page gave 3.7e-2 and 1.3e-1.
 FLASH_MAIN_BF16_TOL = dict(atol=4e-3, rtol=1e-2)
 PAGED_MAIN_BF16_TOL = dict(atol=1e-3, rtol=1e-2)
+# The bf16 paged kernels keep p as hi + lo bf16 halves in P.V. Without the
+# lo half each weight moves by up to 2^-9 of itself, which
+# PAGED_MAIN_BF16_TOL cannot see, but the mean error over a main-path
+# call's outputs can: against the f32 version on the same bf16 inputs the
+# kernel's mean |error| must stay within PAGED_MEAN_ERR_MARGIN x that of the
+# plain split form in bf16 (which rounds only its output). An emulation of
+# the kernel's arithmetic on the CPU at 8 lanes, H32/8 and H40/40
+# (tools/paged_holds.py --emulate), gives 1.000005x with the lo half and
+# 1.478x without it.
+PAGED_MEAN_ERR_MARGIN = 1.1
 # Backward main path, bf16 at S=4096: the largest |dq|, |dk|, |dv| there are
 # ~4, 5.5 and 10. rtol 1e-2 covers one bf16 ulp of the output (at most
 # 2^-7 |g|); atol the values near 0. Largest errors of the tensor-core
@@ -655,6 +678,8 @@ def _counters() -> dict:
             "flash_attention_tf32": (kernel, "launches_tf32"),
             "paged_attention_tc": (paged, "launches_tc"),
             "paged_attention_fma": (paged, "launches_fma"),
+            "paged_attention_int8_tc": (paged, "launches_int8_tc"),
+            "paged_attention_int8_fma": (paged, "launches_int8_fma"),
             "flash_attention_bwd_dkdv_tc": (kernel_bwd, "launches_dkdv_tc"),
             "flash_attention_bwd_dkdv_tf32": (kernel_bwd, "launches_dkdv_tf32"),
             "flash_attention_bwd_dq_tc": (kernel_bwd, "launches_dq_tc"),
@@ -1202,12 +1227,45 @@ def _paged_inputs(gen, B, H, KVH, hd, ps, mb, lens, dtype, seed):
             torch.as_tensor(np.asarray(lens, np.int32), device="cuda"))
 
 
+def hold_mean_err(name: str, out: torch.Tensor, ref32: torch.Tensor,
+                  plain: torch.Tensor) -> float:
+    """Raise unless the bf16 ``out``'s mean |error| against the f32
+    ``ref32`` is within PAGED_MEAN_ERR_MARGIN x the bf16 ``plain``'s; return
+    the ratio."""
+    e_out = float((out.float() - ref32).abs().mean())
+    e_plain = float((plain.float() - ref32).abs().mean())
+    ratio = e_out / e_plain
+    ok = ratio <= PAGED_MEAN_ERR_MARGIN
+    log(f"  {name}: mean abs error against f32 on the same inputs {e_out:.6e}, the plain split "
+        f"form's in bf16 {e_plain:.6e}: {ratio:.6f}x (limit {PAGED_MEAN_ERR_MARGIN}x) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the mean error is {ratio:.4f}x the plain version's")
+    return ratio
+
+
+def hold_no_farther(name: str, out: torch.Tensor, other: torch.Tensor,
+                    exact32: torch.Tensor) -> None:
+    """Raise unless ``out`` is no farther from the f32 ``exact32`` than
+    ``other`` is, in its largest and in its mean |error|."""
+    e_out, e_other = (out.float() - exact32).abs(), (other.float() - exact32).abs()
+    worst, mean = (float(e_out.max()), float(e_other.max())), (float(e_out.mean()),
+                                                               float(e_other.mean()))
+    ok = worst[0] <= worst[1] and mean[0] <= mean[1]
+    log(f"  {name}: against f32 on the same inputs, largest |error| {worst[0]:.6e} against the "
+        f"gather path's {worst[1]:.6e}, mean {mean[0]:.6e} against {mean[1]:.6e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: farther from the f32 attention than the gather path")
+
+
 def check_paged(gen: torch.Generator, flush: torch.Tensor) -> list:
     """The split-and-merge paged kernel in both dtypes (bf16 on tensor
     cores, f32 on FMAs) against ``paged_attention_ref`` on the reference's cases, the
     split's edges, a dead lane and the serving main path's shape; at that
-    shape also against the plain split form, and two calls giving the same
-    bits. One record per dtype."""
+    shape also against the plain split form, two calls giving the same
+    bits and, in bf16, the mean error (``hold_mean_err``). One record per
+    dtype."""
     from repro_torch.kernels.paged_attention import kernel
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
@@ -1260,6 +1318,10 @@ def check_paged(gen: torch.Generator, flush: torch.Tensor) -> list:
         log(f"  {name}: two calls give the same bits: {same}")
         if not same:
             raise AssertionError("the paged kernel gave different bits on the same inputs")
+        if dtype == torch.bfloat16:
+            q, kp, vp, table, sl = args
+            hold_mean_err(name, out, paged_attention_ref(q.float(), kp.float(), vp.float(), table,
+                                                         sl), paged_attention_split_ref(*args))
 
     n_tok = sum(lens)
     n_pages = sum(-(-n // 16) for n in lens)
@@ -1306,6 +1368,156 @@ def _device_ms_per_launch(fn, flush: torch.Tensor, key: str, reps: int = 5) -> d
             name = re.sub(r"^.*::", "", e.key.split("<")[0])
             out[name] = e.self_device_time_total / e.count / 1e3
     return out
+
+
+def phase11_lens() -> list:
+    """The 8 lanes' attended lengths of phase 11's int8 attend
+    (``scoped_equals_whole_pool``): one at 2048 positions, seven shorter."""
+    return [n + 1 for n in [2047] + np.random.RandomState(5).randint(1, 1500, 7).tolist()]
+
+
+def _int8_pools(args) -> tuple:
+    """From ``_paged_inputs``' pools: the int8 call's arguments (q, codes and
+    scales of k and v by ``layers._quantize_kv``, the scales in q's dtype as
+    the engine writes them, table, lengths) and the bf16 or f32 call's on
+    the pools ``layers._dequantize_kv`` makes of them."""
+    from repro_torch.models import layers
+
+    q, kp, vp, table, sl = args
+    codes, deq = [], []
+    for pool in (kp, vp):
+        c, scale = layers._quantize_kv(pool)
+        scale = scale.to(q.dtype)
+        codes.append((c, scale))
+        deq.append(layers._dequantize_kv(c, scale, q.dtype))
+    (kc, ks), (vc, vs) = codes
+    return (q, kc, vc, ks, vs, table, sl), (q, *deq, table, sl)
+
+
+def check_paged_int8(gen: torch.Generator, flush: torch.Tensor) -> list:
+    """The int8 pool's variants of the split kernel (bf16 on tensor cores,
+    f32 on FMAs) on the reference's cases, the split's edges, a dead lane,
+    the serving main path's shape and qwen1.5-32b's (phase 11's lengths),
+    in both dtypes: the same bits as the bf16 or f32 kernel on the pool
+    dequantized by ``_dequantize_kv``, and twice; live lanes within
+    tolerance of ``paged_attention_ref`` on that pool (the exact attention,
+    as the bf16 and f32 kernel is held) and of ``paged_attention_int8_ref``
+    (the reference's gather path, whose dead lanes average page 0's rows;
+    in bf16 at the reference's kernel tolerance, as it rounds p to bf16
+    before P.V); dead lanes exact zeros; in bf16 at the two main shapes,
+    ``hold_mean_err`` and no farther from the f32 attention than the gather
+    path (``hold_no_farther``). Timed at qwen1.5-32b's shape beside the
+    plain version, the bf16 or f32 kernel on the dequantized pool and the
+    bound. One record per dtype."""
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention.ref import (paged_attention_int8_ref,
+                                                         paged_attention_ref,
+                                                         paged_attention_split_ref)
+
+    log("[kernels] paged_attention_int8 (the split kernel staging int8 codes, dequantized a "
+        "tile at a time) vs the bf16 / f32 kernel on the dequantized pool and "
+        "paged_attention_int8_ref")
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+
+    def held(name, args, t, mean=False):
+        i8, deq = _int8_pools(args)
+        dtype, lens = i8[0].dtype, i8[-1].tolist()
+        name = f"{name} {str(dtype)[6:]}"
+        out = kernel.paged_attention_int8(*i8)
+        live = [b for b, n in enumerate(lens) if n > 0]
+        dead = [b for b, n in enumerate(lens) if n == 0]
+        gather = paged_attention_int8_ref(*i8)
+        if live:
+            errs[dtype] = max(errs[dtype], hold(
+                f"{name} live lanes vs paged_attention_ref on the dequantized pool", out[live],
+                paged_attention_ref(*deq)[live], t))
+            hold(f"{name} live lanes vs paged_attention_int8_ref", out[live], gather[live],
+                 t if dtype == torch.float32 else tol(dtype))
+        as_row2 = torch.equal(out, kernel.paged_attention(*deq))
+        twice = torch.equal(out, kernel.paged_attention_int8(*i8))
+        zeros = all(bool((out[b] == 0).all()) for b in dead)
+        log(f"  {name}: the bits of the {'tc' if dtype == torch.bfloat16 else 'fma'} kernel on "
+            f"the dequantized pool: {as_row2}; two calls the same bits: {twice}; dead lanes "
+            f"{dead} exact zeros: {zeros}")
+        if not (as_row2 and twice and zeros):
+            raise AssertionError(f"{name}: the int8 kernel differs from the kernel on the "
+                                 "dequantized pool, from itself, or a dead lane is not zeros")
+        if mean:
+            q, kd, vd, table, sl = deq
+            exact32 = paged_attention_ref(q.float(), kd.float(), vd.float(), table, sl)
+            hold_mean_err(name, out, exact32, paged_attention_split_ref(*deq))
+            hold_no_farther(name, out, gather, exact32)
+        return i8, deq
+
+    for B, H, KVH, hd, ps, mb, lens, _ in PAGED_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            held(f"paged int8 B{B} H{H}/{KVH} hd{hd} ps{ps} lens{lens}",
+                 _paged_inputs(gen, B, H, KVH, hd, ps, mb, lens, dtype, seed=0), tol(dtype))
+    # check_paged's edges of the split: lengths 0 and 1, one and two segments,
+    # every lane dead, pages of 8, 24 (straddling segments) and 256
+    for ps, mb, lens in ((16, 20, [0, 1, 128, 129]), (16, 20, [0, 0, 0, 0]),
+                         (16, 20, [256, 257, 127, 5]), (8, 40, [128, 129, 0, 1]),
+                         (24, 14, [128, 150, 143, 1]), (256, 2, [129, 300, 256, 0])):
+        for dtype in (torch.float32, torch.bfloat16):
+            held(f"paged int8 split edges ps{ps} lens{lens}",
+                 _paged_inputs(gen, 4, 8, 2, 64, ps, mb, lens, dtype, seed=2), tol(dtype))
+
+    args = _paged_inputs(gen, 3, 4, 2, 32, 16, 3, [40, 17, 25], torch.float32, 0)
+    i8, _ = _int8_pools(args)
+    full = kernel.paged_attention_int8(*i8)
+    dead_sl = i8[-1].clone()
+    dead_sl[1] = 0
+    out = kernel.paged_attention_int8(*i8[:-1], dead_sl)
+    if not (bool((out[1] == 0).all()) and torch.equal(out[0], full[0])
+            and torch.equal(out[2], full[2])):
+        raise AssertionError("paged int8 dead lane: not exact zeros, or live lanes changed")
+    log("  paged int8 dead lane: exact zeros, live lanes bit-identical")
+
+    main_lens = [2048] + np.random.RandomState(1).randint(1, 2049, 7).tolist()
+    q32_lens = phase11_lens()
+    timed = {}
+    for dtype, t in ((torch.float32, F32_TOL), (torch.bfloat16, PAGED_MAIN_BF16_TOL)):
+        held(f"paged int8 main-path 8 lanes H32/8 hd128 ps16 lens{main_lens}",
+             _paged_inputs(gen, 8, 32, 8, 128, 16, 128, main_lens, dtype, seed=1), t,
+             mean=dtype == torch.bfloat16)
+        timed[dtype] = held(f"paged int8 qwen1.5-32b 8 lanes H40/40 hd128 ps16 lens{q32_lens}",
+                            _paged_inputs(gen, 8, 40, 40, 128, 16, 128, q32_lens, dtype, seed=3),
+                            t, mean=dtype == torch.bfloat16)
+        torch.cuda.empty_cache()
+
+    n_tok = sum(q32_lens)
+    n_pages = sum(-(-n // 16) for n in q32_lens)
+    records = []
+    for dtype in (torch.bfloat16, torch.float32):
+        i8, deq = timed[dtype]
+        el = i8[0].element_size()
+        variant = "tc" if el == 2 else "fma"
+        flops, nbytes = paged_ops.int8_cost(8, 40, 40, 128, n_tok, n_pages, el=el)
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS if el == 2 else PEAK_F32_FLOPS)
+        times = time_each(lambda: kernel.paged_attention_int8(*i8), flush, reps=20)
+        ms = sum(times) / len(times)
+        row2_ms = time_ms(lambda: kernel.paged_attention(*deq), flush, reps=20)
+        plain_ms = time_ms(lambda: paged_attention_int8_ref(*i8), flush)
+        row2_b_ms, _ = bound(*paged_ops.cost(8, 40, 40, 128, n_tok, n_pages, el=el),
+                             PEAK_BF16_FLOPS if el == 2 else PEAK_F32_FLOPS)
+        log(f"  paged int8 at qwen1.5-32b's decode (8 lanes, H40/40, {n_tok} cached tokens, "
+            f"{str(dtype)[6:]}): kernel {ms:.4f} ms ({fmt_spread(times)}), plain (gather, "
+            f"dequantize, masked softmax) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{nbytes / ms / 1e6:.1f} GB/s achieved; the {variant} kernel on the dequantized "
+            f"pool {row2_ms:.4f} ms (bound {row2_b_ms:.4f}); device time per launch "
+            f"(profiler): " + ", ".join(
+                f"{name} {t:.4f} ms" for name, t in _device_ms_per_launch(
+                    lambda: kernel.paged_attention_int8(*i8), flush, "paged_").items()))
+        records.append(dict(
+            name=f"paged_attention_int8_{variant}", route="cuda",
+            source="src/repro_torch/csrc/paged_attention.cu",
+            replaces="src/repro/models/layers.py:629",
+            max_abs_err=errs[dtype], ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+    del timed
+    torch.cuda.empty_cache()
+    return records
 
 
 def _ssm_inputs(gen, B, S, inner, N, dtype, dt_dtype):
@@ -2410,9 +2622,9 @@ def profile_serving(model, params) -> None:
 def serve_reduced_matches_cpu(arch: str = "qwen3-4b", int8: bool = False,
                               tag: str = "serve") -> dict:
     """A reduced f32 model: the engine on the card (the f32 flash variant and
-    the paged kernel; with ``int8`` the int8 pool, which decodes in plain
-    PyTorch) must give the plain CPU engine's greedy streams token for
-    token. Returns the card run's launches."""
+    the paged kernel; with ``int8`` the int8 pool, which decodes through the
+    paged kernel's int8 FMA variant) must give the plain CPU engine's greedy
+    streams token for token. Returns the card run's launches."""
     from repro_torch.config import ShardingLayout, get_arch
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
@@ -2442,8 +2654,8 @@ def serve_reduced_matches_cpu(arch: str = "qwen3-4b", int8: bool = False,
         raise AssertionError(f"card streams {streams['cuda']} != CPU {streams['cpu']}")
     if int8:
         if launches["paged_attention_fma"] or launches["paged_attention_tc"]:
-            raise AssertionError("the int8 pool launched a paged kernel")
-        return hold_f32_launches(tag, launches, "flash_attention_tf32")
+            raise AssertionError("the int8 pool launched the bf16 or f32 paged kernel")
+        return hold_f32_launches(tag, launches, "flash_attention_tf32", "paged_attention_int8_fma")
     return hold_f32_launches(tag, launches, "flash_attention_tf32", "paged_attention_fma")
 
 
@@ -4543,10 +4755,18 @@ def _recorded(eng, rids, out: dict, force: dict = None):
 
 def scoped_equals_whole_pool(cfg, params, pool_layer) -> None:
     """On one layer of the int8 pool at this shape (8 lanes, up to 2048
-    positions, the pool's own pages): the scoped dequantization of
-    ``decode_attention_paged`` gives the bits that dequantizing the WHOLE
-    pool before the same gather and masked attention gives (the
-    reference's tests/test_serve_engine.py property)."""
+    positions, the pool's own pages): ``decode_attention_paged`` attends
+    through the int8 kernel, whose output equals the bf16 kernel's on the
+    whole pool dequantized, bit for bit, and is within PAGED_MAIN_BF16_TOL
+    of the plain gather path; that path's scoped dequantization gives the
+    bits that dequantizing the WHOLE pool before the same gather and masked
+    attention gives (the reference's tests/test_serve_engine.py property).
+    Then the int8 kernel, the plain attend and the bf16 kernel on the
+    dequantized pool are timed here."""
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention.ref import (paged_attention_int8_ref,
+                                                         paged_attention_ref)
     from repro_torch.models import common, layers
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -4558,6 +4778,7 @@ def scoped_equals_whole_pool(cfg, params, pool_layer) -> None:
     # tokens, seven shorter
     lens = torch.as_tensor([2047] + rng.randint(1, 1500, 7).tolist(), dtype=torch.int32,
                            device="cuda")
+    assert (lens + 1).tolist() == phase11_lens()
     table = np.full((8, mb), -1, np.int32)
     perm, at = rng.permutation(P - 1), 0
     for b, n in enumerate(lens.tolist()):
@@ -4567,33 +4788,83 @@ def scoped_equals_whole_pool(cfg, params, pool_layer) -> None:
     table = torch.as_tensor(table, device="cuda")
     x = torch.randn((8, 1, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
     p = {k: v[0] for k, v in params["blocks"]["attn"].items()}
-    y_scoped = layers.decode_attention_paged(p, c, x, lens, table, cfg)
+    y_kernel = layers.decode_attention_paged(p, c, x, lens, table, cfg)
     q, _, _ = layers._project_qkv(p, x, x, cfg)
-    q = layers.rope(q, lens[:, None].float(), cfg.rope_theta)
+    q = layers.rope(q, lens[:, None].float(), cfg.rope_theta)[:, 0]
+    out = lambda att: common.dense(att.reshape(8, 1, cfg.q_dim), p["wo"], cfg.dtype)
+    i8 = (q, c["k_pages"], c["v_pages"], c["k_scale"], c["v_scale"], table, lens + 1)
+    att_kernel = kernel.paged_attention_int8(*i8)
+    att_scoped = paged_attention_int8_ref(*i8)
     full_k = layers._dequantize_kv(c["k_pages"], c["k_scale"], x.dtype)
     full_v = layers._dequantize_kv(c["v_pages"], c["v_scale"], x.dtype)
     tbl = torch.clamp(table, min=0).long()
     kg = full_k[tbl].reshape(8, mb * ps, KVH, hd)
     vg = full_v[tbl].reshape(8, mb * ps, KVH, hd)
     mask = (torch.arange(mb * ps, device="cuda")[None, :] < (lens + 1)[:, None])[:, None, :]
-    att = layers._sdpa(q[:, 0].reshape(8, 1, KVH, -1, hd), kg, vg, mask, float(hd ** -0.5))
-    y_full = common.dense(att.reshape(8, 1, cfg.q_dim), p["wo"], cfg.dtype)
-    same = torch.equal(y_scoped, y_full)
-    log(f"[dense_int8] one layer at 8 lanes x up to {mb * ps} positions, H{KVH}: the scoped "
-        f"dequantization equals the whole pool's, bit for bit: {same}")
-    if not same:
-        raise AssertionError("the int8 pool's scoped dequantization differs from the whole "
-                             "pool's")
-    # the plain int8 attend alone (gather, dequantize, masked softmax) at this
-    # shape: the time an int8 paged kernel would replace, 64 times a step
+    att = layers._sdpa(q.reshape(8, 1, KVH, -1, hd), kg, vg, mask, float(hd ** -0.5))
+    del kg, vg
+    wired = torch.equal(y_kernel, out(att_kernel))
+    same = torch.equal(out(att_scoped), out(att))
+    deq = (q, full_k, full_v, table, lens + 1)
+    as_row2 = torch.equal(att_kernel, kernel.paged_attention(*deq))
+    log(f"[dense_int8] one layer at 8 lanes x up to {mb * ps} positions, H{KVH}: the layer "
+        f"went through the int8 kernel: {wired}; its attention = the bf16 kernel's on the "
+        f"dequantized pool, bit for bit: {as_row2}; the plain path's scoped dequantization "
+        f"equals the whole pool's, bit for bit: {same}")
+    hold("[dense_int8] the int8 kernel vs paged_attention_ref on the dequantized pool",
+         att_kernel, paged_attention_ref(*deq), PAGED_MAIN_BF16_TOL)
+    hold("[dense_int8] the int8 kernel vs the plain gather path", att_kernel, att_scoped,
+         tol(torch.bfloat16))
+    hold_no_farther("[dense_int8] the int8 kernel", att_kernel, att_scoped, paged_attention_ref(
+        q.float(), full_k.float(), full_v.float(), table, lens + 1))
+    if not (wired and same and as_row2):
+        raise AssertionError("the int8 layer did not go through the kernel, the kernel differs "
+                             "from the bf16 kernel on the dequantized pool, or the scoped "
+                             "dequantization differs from the whole pool's")
+    # the attend alone at this shape, 64 times a step: the int8 kernel, the
+    # plain gather path it replaces, the bf16 kernel on the dequantized pool
     n_tok = int((lens + 1).sum())
-    nbytes = 2.0 * n_tok * KVH * (hd + 2) + 2.0 * 8 * cfg.num_heads * hd * 2
-    b_ms, b_by = bound(4.0 * n_tok * cfg.num_heads * hd, nbytes, PEAK_BF16_FLOPS)
+    n_pages = sum(-(-n // ps) for n in (lens + 1).tolist())
+    el = q.element_size()
+    b_ms, b_by = bound(*paged_ops.int8_cost(8, cfg.num_heads, KVH, hd, n_tok, n_pages, el=el),
+                       PEAK_BF16_FLOPS)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    ms = time_ms(lambda: layers._paged_attend_int8(q[:, 0], c, table, lens + 1), flush)
-    log(f"[dense_int8] the plain int8 paged attend (one layer, {n_tok} cached tokens): "
-        f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); x {cfg.num_layers} layers = "
-        f"{ms * cfg.num_layers:.2f} ms a decode step")
+    times = time_each(lambda: kernel.paged_attention_int8(*i8), flush, reps=20)
+    ms = sum(times) / len(times)
+    row2_ms = time_ms(lambda: kernel.paged_attention(q, full_k, full_v, table, lens + 1), flush,
+                      reps=20)
+    plain_ms = time_ms(lambda: paged_attention_int8_ref(*i8), flush)
+    log(f"[dense_int8] the int8 paged attend (one layer, {n_tok} cached tokens): kernel "
+        f"{ms:.4f} ms ({fmt_spread(times)}), plain {plain_ms:.4f} ms, the bf16 kernel on the "
+        f"dequantized pool {row2_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); x {cfg.num_layers} "
+        f"layers = {ms * cfg.num_layers:.2f} ms a decode step (plain "
+        f"{plain_ms * cfg.num_layers:.2f})")
+
+
+def profile_int8_decode(eng, params) -> None:
+    """Where a decode step of the int8 pool goes: 8 lanes admitted with
+    1000-token prompts, two steps, then three under torch.profiler (after
+    the path's launches are read)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Request
+
+    rng = np.random.RandomState(3)
+    for i in range(8):
+        eng.submit(Request(rid=100 + i, max_new_tokens=8, prompt=rng.randint(
+            0, eng.model.cfg.vocab_size, 1000).astype(np.int32)))
+    eng.step(params)                                  # admits all 8 lanes, first decode
+    eng.step(params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.step(params)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    log(f"[dense_int8] three decode steps of the int8 pool, 8 lanes x ~1000 cached tokens:\n"
+        f"{_device_breakdown(prof, wall)}")
+    eng.run(params)                                   # drain the 8 lanes
 
 
 def dense_int8_full_width() -> dict:
@@ -4647,7 +4918,8 @@ def dense_int8_full_width() -> dict:
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = expect_launches(flash_attention_tc=cfg.num_layers * eng.prefills)
+    want = expect_launches(flash_attention_tc=cfg.num_layers * eng.prefills,
+                           paged_attention_int8_tc=cfg.num_layers * eng.decode_steps)
     log(f"[dense_int8] {len(done)} requests x 32 tokens in {wall:.2f} s; {eng.prefills} "
         f"prefills, {eng.decode_steps} decode steps; launches {launches}, expected {want}")
     if sorted(done) != list(range(len(reqs))) or not all(
@@ -4661,6 +4933,7 @@ def dense_int8_full_width() -> dict:
         f"{1e3 * eng.decode_seconds / eng.decode_steps:.2f} ms per step (bound "
         f"{weights / PEAK_BYTES * 1e3:.2f} ms: the weights read once); peak memory "
         f"{peak_gb:.2f} GB ({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    profile_int8_decode(eng, params)
     scoped_equals_whole_pool(cfg, params, {k: v[0] for k, v in eng.cache["blocks"].items()})
     del eng
     _free_cuda()
@@ -5807,6 +6080,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after building and checking the kernels")
+    ap.add_argument("--paged-only", action="store_true",
+                    help="only build the kernels and check the paged kernel and its int8 "
+                         "variants")
     ap.add_argument("--spot-only", action="store_true",
                     help="only build the kernels and run the spot provisioner's phase")
     ap.add_argument("--serve-plan-only", action="store_true",
@@ -5894,6 +6170,14 @@ def main() -> int:
     _build.load()
     if args.xlstm_orders:
         xlstm_orders()
+        return 0
+    if args.paged_only:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        recs = [*check_paged(gen, flush), *check_paged_int8(gen, flush)]
+        del flush
+        log(json.dumps({"kernels": recs}))
+        log(f"chip_smoke: --paged-only, {time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.spot_only:
         log("[phase 8/19] the spot provisioner")
@@ -6005,7 +6289,8 @@ def main() -> int:
     log("[phase 3/19] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    records = [*check_flash(gen, flush), *check_paged(gen, flush), *check_flash_bwd(gen, flush),
+    records = [*check_flash(gen, flush), *check_paged(gen, flush),
+               *check_paged_int8(gen, flush), *check_flash_bwd(gen, flush),
                check_ssm_scan(gen, flush), check_ssm_scan_bwd(gen, flush),
                *check_mlstm(gen, flush), check_mlstm_bwd(gen, flush), check_slstm(gen, flush),
                check_slstm_bwd(gen, flush)]

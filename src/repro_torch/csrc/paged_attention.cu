@@ -41,6 +41,26 @@
 //   zeros; no block reads another lane's data.
 // Head dims 32, 64, 128 and 256 (at 256 the ring is 64 KB in bf16, 128 KB
 // in f32, and the group size at most 4).
+//
+// The int8 variants (`repro_paged_attention_int8`; no Pallas site: the
+// reference's jnp gather path, src/repro/models/layers.py:629-638) attend
+// over a pool of int8 codes with one scale per (row, kv head) in q's type:
+// k = bf16 or f32 of (f32(code) * f32(scale)), as `_dequantize_kv` rounds
+// it, then the same exact attention. They read about half a bf16 pool's
+// bytes (1 byte an element, 2 or 4 a row's scale), so they are bound by
+// memory bandwidth as well. Only the tile loader differs from the kernels
+// above (the template argument KV = int8_t): the ring stages each row's
+// codes with 16-byte cp.async copies (hd / 16 of them), the segment's
+// scales are read once a segment with plain loads (a scale is 2 or 4 bytes
+// and the next row's is KVH elements away: no 16-byte copy covers two)
+// right after the ring's first copies are started, and each tile is then
+// dequantized by all threads in one extra pass through shared memory into
+// the same bf16 (swizzled for ldmatrix) or f32 tile the products read.
+// That pass costs a block barrier a tile, but it leaves the products, the
+// softmax and the merge the very code of the kernels above, so an int8
+// call gives the bits the bf16 or f32 kernel gives on the pool dequantized
+// by `_dequantize_kv` (converting while the fragments load would need a
+// second copy of the products, and the FMA kernel's loads, to hold that).
 #include <stdint.h>
 
 #include <type_traits>
@@ -65,13 +85,33 @@ struct PagedArgs {
   float* ws_acc; float* ws_m; float* ws_l;   // partials, (B, KVH, NS, G[, hd])
   int B, H, KVH, P, ps, nb, NS;
   float sm_scale;
+  const void* ks; const void* vs;            // int8 pools: scales (P, ps, KVH, 1) in q's type
 };
 
-template <int HD, int G>
+// The head of a split kernel's shared memory, for products in T over a pool
+// of KV (T, or int8 codes): the ring of KV tiles, then for int8 the
+// dequantized tile and the segment's k and v scales (f32). The kernel's
+// scores, m and l, pages and rows (and the FMA kernel's q) follow.
+template <typename T, typename KV, int HD>
+struct SmemRing {
+  static constexpr bool Q8 = std::is_same<KV, int8_t>::value;
+  static constexpr int RING = STAGES * TILE * HD * int(sizeof(KV));
+  static constexpr int DEQ = Q8 ? TILE * HD * int(sizeof(T)) : 0;
+  static constexpr int SCALES = Q8 ? 2 * SEG * 4 : 0;
+  static constexpr int HEAD = RING + DEQ + SCALES;
+};
+
+template <typename KV, int HD, int G>
 struct SmemFma {
+  using R = SmemRing<float, KV, HD>;
   static constexpr int QP = HD / SPLIT + 4;   // padded q piece: conflict-free float4 reads
-  static constexpr int RING = STAGES * TILE * HD * 4;
-  static constexpr int BYTES = RING + 4 * (G * SPLIT * QP + G * SEG + 2 * G + 2 * SEG);
+  static constexpr int BYTES = R::HEAD + 4 * (G * SPLIT * QP + G * SEG + 2 * G + 2 * SEG);
+};
+
+template <typename KV, int HD, int G>
+struct SmemTc {
+  using R = SmemRing<__nv_bfloat16, KV, HD>;
+  static constexpr int BYTES = R::HEAD + 4 * (G * SEG + 2 * G + 2 * SEG);
 };
 
 // Shared by both split kernels (all threads of the block call them).
@@ -109,6 +149,56 @@ __device__ __forceinline__ void empty_partial(const PagedArgs& a, long long part
   }
 }
 
+// int8 pools: the k and v scales of the segment's n live positions, as f32,
+// 0 past them (their codes land as zeros: 0 * 0 = +0, as a zero-filled row).
+// Plain loads; they land before the loop's first block barrier.
+template <typename T>
+__device__ __forceinline__ void segment_scales(const PagedArgs& a, int kvh, int n,
+                                               const int* rowoff, float* ksc, float* vsc) {
+  const T* ks = static_cast<const T*>(a.ks);
+  const T* vs = static_cast<const T*>(a.vs);
+  for (int pos = threadIdx.x; pos < SEG; pos += THREADS) {
+    const long long at = pos < n ? (long long)rowoff[pos] * a.KVH + kvh : 0;
+    ksc[pos] = pos < n ? repro::to_float(ks[at]) : 0.f;
+    vsc[pos] = pos < n ? repro::to_float(vs[at]) : 0.f;
+  }
+}
+
+// int8 pools: start the 16-byte copies of a tile's codes (rows t0 .. t0 + 15
+// of the segment, [TILE][HD] int8, zeros past the n live positions).
+template <int HD>
+__device__ __forceinline__ void load_codes(const int8_t* pool, long long row, int kvh,
+                                           const int* rowoff, int t0, int n, int8_t* dst) {
+  constexpr int CPR = HD / 16;                      // 16-byte copies a row
+  for (int c = threadIdx.x; c < TILE * CPR; c += THREADS) {
+    const int t = c / CPR, piece = c % CPR, pos = t0 + t;
+    const bool live = pos < n;
+    repro::cp_async16_zfill(dst + t * HD + piece * 16,
+                            pool + (live ? (long long)rowoff[pos] * row : 0) + kvh * HD + piece * 16,
+                            live);
+  }
+}
+
+// int8 pools: code i of the 16 in `raw` times its scale, in f32: the value
+// `_dequantize_kv` rounds once to q's type (i is a constant once unrolled).
+__device__ __forceinline__ float dequant(const uint4& raw, int i, float scale) {
+  const unsigned w = i < 4 ? raw.x : i < 8 ? raw.y : i < 12 ? raw.z : raw.w;
+  return __fmul_rn(float(int(w << (24 - 8 * (i & 3))) >> 24), scale);
+}
+
+// int8 pools: a landed tile of codes, 16 at a time: `store(t, piece, raw,
+// scale)` puts row t's columns 16 piece .. 16 piece + 15, dequantized, where
+// the products read them.
+template <int HD, typename Store>
+__device__ __forceinline__ void dequant_tile(const int8_t* codes, const float* scale,
+                                             Store store) {
+  constexpr int CPR = HD / 16;
+  for (int c = threadIdx.x; c < TILE * CPR; c += THREADS) {
+    const int t = c / CPR, piece = c % CPR;
+    store(t, piece, *reinterpret_cast<const uint4*>(codes + t * HD + piece * 16), scale[t]);
+  }
+}
+
 // Every score of the segment is in sc[g][0, n): its exact softmax, one warp
 // per head; p replaces the scores, ml gets each head's max and sum.
 template <int G>
@@ -140,11 +230,13 @@ __device__ __forceinline__ void segment_softmax(float* sc, float* ml, int n) {
 // each dotting hd/8 columns, joined by shuffles. In P.V a thread owns 8
 // output columns of one query head over a subset of the tile's positions
 // (every thread works whatever G and hd are); the subsets join in a fixed
-// order.
-template <int HD, int G>
+// order. KV: the pool's element (float, or int8 codes).
+template <int HD, int G, typename KV>
 __global__ void __launch_bounds__(THREADS) paged_split_fma_kernel(PagedArgs a) {
   using T = float;
-  using S = SmemFma<HD, G>;
+  using S = SmemFma<KV, HD, G>;
+  using R = typename S::R;
+  constexpr bool Q8 = R::Q8;
   constexpr int EPC = 16 / int(sizeof(T));          // elements per 16-byte copy
   constexpr int ROW_CHUNKS = HD / EPC;
   constexpr int PIECE = HD / SPLIT;                 // columns per thread in the score phase
@@ -153,8 +245,11 @@ __global__ void __launch_bounds__(THREADS) paged_split_fma_kernel(PagedArgs a) {
   constexpr int PSPLIT = THREADS / OWNERS;          // threads sharing an owner's positions
   static_assert(OWNERS <= THREADS, "every (head, 8 columns) pair needs a thread");
   extern __shared__ __align__(16) uint8_t smem[];
-  T* ring = reinterpret_cast<T*>(smem);             // [STAGES][TILE][HD]
-  float* qs = reinterpret_cast<float*>(smem + S::RING);   // [G][SPLIT][QP], scaled
+  KV* ring = reinterpret_cast<KV*>(smem);           // [STAGES][TILE][HD]
+  T* deq = reinterpret_cast<T*>(smem + R::RING);    // int8: [TILE][HD], dequantized
+  float* ksc = reinterpret_cast<float*>(smem + R::RING + R::DEQ);   // int8: [SEG] k scales
+  float* vsc = ksc + SEG;                           // int8: [SEG] v scales
+  float* qs = reinterpret_cast<float*>(smem + R::HEAD);   // [G][SPLIT][QP], scaled
   float* sc = qs + G * SPLIT * S::QP;               // [G][SEG]: scores, then p
   float* ml = sc + G * SEG;                         // [G] m, [G] l
   int* pages = reinterpret_cast<int*>(ml + 2 * G);  // [SEG] the pages the segment touches
@@ -176,19 +271,22 @@ __global__ void __launch_bounds__(THREADS) paged_split_fma_kernel(PagedArgs a) {
   }
   segment_rows(a, b, seg, n, pages, rowoff);
 
-  const T* kp = static_cast<const T*>(a.k);
-  const T* vp = static_cast<const T*>(a.v);
   const long long row = (long long)a.KVH * HD;     // elements between positions in a page
   const int nt = (n + TILE - 1) / TILE;             // tiles of k, then as many of v
   auto load_tile = [&](int item) {
-    const T* pool = item < nt ? kp : vp;
     const int t0 = (item < nt ? item : item - nt) * TILE;
-    T* dst = ring + (item % STAGES) * TILE * HD;
-    for (int c = tid; c < TILE * ROW_CHUNKS; c += THREADS) {
-      const int t = c / ROW_CHUNKS, piece = c % ROW_CHUNKS, pos = t0 + t;
-      if (pos < n) {
-        const T* src = pool + (long long)rowoff[pos] * row + kvh * HD + piece * EPC;
-        repro::cp_async16(dst + t * HD + piece * EPC, src);
+    KV* dst = ring + (item % STAGES) * TILE * HD;
+    if constexpr (Q8) {
+      load_codes<HD>(static_cast<const int8_t*>(item < nt ? a.k : a.v), row, kvh, rowoff, t0,
+                     n, dst);
+    } else {
+      const T* pool = static_cast<const T*>(item < nt ? a.k : a.v);
+      for (int c = tid; c < TILE * ROW_CHUNKS; c += THREADS) {
+        const int t = c / ROW_CHUNKS, piece = c % ROW_CHUNKS, pos = t0 + t;
+        if (pos < n) {
+          const T* src = pool + (long long)rowoff[pos] * row + kvh * HD + piece * EPC;
+          repro::cp_async16(dst + t * HD + piece * EPC, src);
+        }
       }
     }
   };
@@ -205,12 +303,29 @@ __global__ void __launch_bounds__(THREADS) paged_split_fma_kernel(PagedArgs a) {
     if (i < 2 * nt) load_tile(i);
     repro::cp_async_commit();
   }
+  if constexpr (Q8) segment_scales<T>(a, kvh, n, rowoff, ksc, vsc);
   for (int item = 0; item < 2 * nt; ++item) {
     repro::cp_async_wait<STAGES - 2>();
     __syncthreads();   // `item` landed for every thread; the stage refilled below is free
     if (item + STAGES - 1 < 2 * nt) load_tile(item + STAGES - 1);
     repro::cp_async_commit();
-    const T* tile = ring + (item % STAGES) * TILE * HD;
+    const T* tile;
+    if constexpr (Q8) {                             // codes -> the f32 tile, rows as in the pool
+      const int t0 = (item < nt ? item : item - nt) * TILE;
+      dequant_tile<HD>(ring + (item % STAGES) * TILE * HD, (item < nt ? ksc : vsc) + t0,
+                       [&](int t, int piece, const uint4& raw, float sc) {
+                         float4* d = reinterpret_cast<float4*>(deq + t * HD + piece * 16);
+#pragma unroll
+                         for (int i = 0; i < 4; ++i)
+                           d[i] = make_float4(dequant(raw, 4 * i, sc), dequant(raw, 4 * i + 1, sc),
+                                              dequant(raw, 4 * i + 2, sc),
+                                              dequant(raw, 4 * i + 3, sc));
+                       });
+      __syncthreads();
+      tile = deq;
+    } else {
+      tile = ring + (item % STAGES) * TILE * HD;
+    }
     if (item == nt) segment_softmax<G>(sc, ml, n);   // every score is in
     if (item < nt) {
       const int pos = item * TILE + tpos;
@@ -310,17 +425,23 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 // * P.V: each warp owns HD / 4 output columns for all G heads: O += P V
 //   with P as hi + lo bf16 halves (two products: p is not rounded once) and
 //   V from the tile by a transposing ldmatrix; O stays in registers.
-template <int HD, int G>
+// KV: the pool's element (bf16, or int8 codes).
+template <int HD, int G, typename KV>
 __global__ void __launch_bounds__(THREADS) paged_split_tc_kernel(PagedArgs a) {
   using T = __nv_bfloat16;
+  using R = typename SmemTc<KV, HD, G>::R;
+  constexpr bool Q8 = R::Q8;
   constexpr int CPR = HD / 8;                       // 16-byte chunks of a row
   constexpr int SW_M = CPR < 8 ? CPR : 8, SW_R = CPR < 8 ? 8 / CPR : 1;
   constexpr int KSTEPS = HD / 16;
   constexpr int NTW = HD / 32;                      // 8-column output tiles per warp
   static_assert(G <= 8, "the query heads fill at most the 8 live rows of an m16 tile");
   extern __shared__ __align__(16) uint8_t smem[];
-  T* ring = reinterpret_cast<T*>(smem);             // [STAGES][TILE][HD], chunks swizzled
-  float* sc = reinterpret_cast<float*>(smem + STAGES * TILE * HD * 2);   // [G][SEG]
+  KV* ring = reinterpret_cast<KV*>(smem);           // [STAGES][TILE][HD], bf16 chunks swizzled
+  T* deq = reinterpret_cast<T*>(smem + R::RING);    // int8: [TILE][HD] dequantized, swizzled
+  float* ksc = reinterpret_cast<float*>(smem + R::RING + R::DEQ);   // int8: [SEG] k scales
+  float* vsc = ksc + SEG;                           // int8: [SEG] v scales
+  float* sc = reinterpret_cast<float*>(smem + R::HEAD);   // [G][SEG]
   float* ml = sc + G * SEG;                         // [G] m, [G] l
   int* pages = reinterpret_cast<int*>(ml + 2 * G);  // [SEG]
   int* rowoff = pages + SEG;                        // [SEG]
@@ -347,19 +468,22 @@ __global__ void __launch_bounds__(THREADS) paged_split_tc_kernel(PagedArgs a) {
     qa[ks][1] = gq < G ? *reinterpret_cast<const uint32_t*>(qb + ks * 16 + 8 + cq) : 0u;
   }
 
-  const T* kp = static_cast<const T*>(a.k);
-  const T* vp = static_cast<const T*>(a.v);
   const long long row = (long long)a.KVH * HD;
   const int nt = (n + TILE - 1) / TILE;
   auto load_tile = [&](int item) {
-    const T* pool = item < nt ? kp : vp;
     const int t0 = (item < nt ? item : item - nt) * TILE;
-    T* dst = ring + (item % STAGES) * TILE * HD;
-    for (int c = tid; c < TILE * CPR; c += THREADS) {
-      const int t = c / CPR, piece = c % CPR, pos = t0 + t;
-      const bool live = pos < n;
-      repro::cp_async16_zfill(dst + chunk_at(t, piece),
-                              pool + (live ? (long long)rowoff[pos] * row : 0) + kvh * HD + piece * 8, live);
+    KV* dst = ring + (item % STAGES) * TILE * HD;
+    if constexpr (Q8) {
+      load_codes<HD>(static_cast<const int8_t*>(item < nt ? a.k : a.v), row, kvh, rowoff, t0,
+                     n, dst);
+    } else {
+      const T* pool = static_cast<const T*>(item < nt ? a.k : a.v);
+      for (int c = tid; c < TILE * CPR; c += THREADS) {
+        const int t = c / CPR, piece = c % CPR, pos = t0 + t;
+        const bool live = pos < n;
+        repro::cp_async16_zfill(dst + chunk_at(t, piece),
+                                pool + (live ? (long long)rowoff[pos] * row : 0) + kvh * HD + piece * 8, live);
+      }
     }
   };
 
@@ -374,12 +498,31 @@ __global__ void __launch_bounds__(THREADS) paged_split_tc_kernel(PagedArgs a) {
     if (i < 2 * nt) load_tile(i);
     repro::cp_async_commit();
   }
+  if constexpr (Q8) segment_scales<T>(a, kvh, n, rowoff, ksc, vsc);
   for (int item = 0; item < 2 * nt; ++item) {
     repro::cp_async_wait<STAGES - 2>();
     __syncthreads();
     if (item + STAGES - 1 < 2 * nt) load_tile(item + STAGES - 1);
     repro::cp_async_commit();
-    const T* tile = ring + (item % STAGES) * TILE * HD;
+    const T* tile;
+    if constexpr (Q8) {                             // codes -> the bf16 tile, in ldmatrix's swizzle
+      const int t0 = (item < nt ? item : item - nt) * TILE;
+      dequant_tile<HD>(ring + (item % STAGES) * TILE * HD, (item < nt ? ksc : vsc) + t0,
+                       [&](int t, int piece, const uint4& raw, float sc) {
+                         uint32_t w[8];                 // bf16 pairs, each rounded once
+#pragma unroll
+                         for (int i = 0; i < 8; ++i)
+                           w[i] = pack2(dequant(raw, 2 * i, sc), dequant(raw, 2 * i + 1, sc));
+                         *reinterpret_cast<uint4*>(deq + chunk_at(t, 2 * piece)) =
+                             make_uint4(w[0], w[1], w[2], w[3]);
+                         *reinterpret_cast<uint4*>(deq + chunk_at(t, 2 * piece + 1)) =
+                             make_uint4(w[4], w[5], w[6], w[7]);
+                       });
+      __syncthreads();
+      tile = deq;
+    } else {
+      tile = ring + (item % STAGES) * TILE * HD;
+    }
     if (item == nt) segment_softmax<G>(sc, ml, n);
     if (item < nt) {
       if (warp < 2) {                                 // positions 8 warp .. 8 warp + 7
@@ -459,22 +602,23 @@ __global__ void __launch_bounds__(HD) paged_merge_kernel(PagedArgs a) {
   ob[d] = repro::from_float<T>(O / fmaxf(L, 1e-37f));   // dead lane: 0 / 1e-37 = 0
 }
 
-template <typename T, int HD, int G>
+// T: q's type; KV: the pool's (T, or int8 codes).
+template <typename T, typename KV, int HD, int G>
 cudaError_t launch(const PagedArgs& a, cudaStream_t stream) {
   const dim3 grid(a.NS, a.KVH, a.B);
   cudaError_t err;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    constexpr int smem = STAGES * TILE * HD * 2 + 4 * (G * SEG + 2 * G + 2 * SEG);
-    err = cudaFuncSetAttribute(paged_split_tc_kernel<HD, G>,
+    constexpr int smem = SmemTc<KV, HD, G>::BYTES;
+    err = cudaFuncSetAttribute(paged_split_tc_kernel<HD, G, KV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    paged_split_tc_kernel<HD, G><<<grid, THREADS, smem, stream>>>(a);
+    paged_split_tc_kernel<HD, G, KV><<<grid, THREADS, smem, stream>>>(a);
   } else {
-    constexpr int smem = SmemFma<HD, G>::BYTES;
-    err = cudaFuncSetAttribute(paged_split_fma_kernel<HD, G>,
+    constexpr int smem = SmemFma<KV, HD, G>::BYTES;
+    err = cudaFuncSetAttribute(paged_split_fma_kernel<HD, G, KV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    paged_split_fma_kernel<HD, G><<<grid, THREADS, smem, stream>>>(a);
+    paged_split_fma_kernel<HD, G, KV><<<grid, THREADS, smem, stream>>>(a);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   paged_merge_kernel<T, HD, G><<<dim3(G, a.KVH, a.B), HD, 0, stream>>>(a);
@@ -483,26 +627,55 @@ cudaError_t launch(const PagedArgs& a, cudaStream_t stream) {
 
 // Group sizes 1, 2, 4 and 8; at hd 256 up to 4 (the FMA kernel's P.V phase
 // gives each (head, 8 columns) pair a thread of its 128).
-template <typename T, int HD>
+template <typename T, typename KV, int HD>
 cudaError_t dispatch_g(const PagedArgs& a, cudaStream_t stream) {
   switch (a.H / a.KVH) {
-    case 1: return launch<T, HD, 1>(a, stream);
-    case 2: return launch<T, HD, 2>(a, stream);
-    case 4: return launch<T, HD, 4>(a, stream);
+    case 1: return launch<T, KV, HD, 1>(a, stream);
+    case 2: return launch<T, KV, HD, 2>(a, stream);
+    case 4: return launch<T, KV, HD, 4>(a, stream);
     case 8:
-      if constexpr (HD <= 128) return launch<T, HD, 8>(a, stream);
+      if constexpr (HD <= 128) return launch<T, KV, HD, 8>(a, stream);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t dispatch_hd(const PagedArgs& a, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 32: return dispatch_g<T, 32>(a, stream);
-    case 64: return dispatch_g<T, 64>(a, stream);
-    case 128: return dispatch_g<T, 128>(a, stream);
-    case 256: return dispatch_g<T, 256>(a, stream);
+    case 32: return dispatch_g<T, KV, 32>(a, stream);
+    case 64: return dispatch_g<T, KV, 64>(a, stream);
+    case 128: return dispatch_g<T, KV, 128>(a, stream);
+    case 256: return dispatch_g<T, KV, 256>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Both entry points: the shapes checked, the workspace cut, the variant
+// picked by q's type (and the pool's: Q8 for int8 codes with scales).
+template <bool Q8>
+cudaError_t paged_entry(const void* q, const void* k, const void* v, const void* ks,
+                        const void* vs, const void* block_table, const void* seq_lens, void* out,
+                        void* workspace, int dtype, int B, int H, int KVH, int hd, int P,
+                        int page_size, int max_blocks, int n_seg, float sm_scale, void* stream) {
+  if (B == 0) return cudaSuccess;
+  if (KVH <= 0 || H % KVH != 0 || P <= 0 || page_size <= 0 || max_blocks <= 0 ||
+      (long long)max_blocks * page_size > (1 << 30) || B > 65535)
+    return cudaErrorInvalidValue;
+  const int NS = (max_blocks * page_size + SEG - 1) / SEG;
+  if (n_seg != NS) return cudaErrorInvalidValue;
+  const long long parts = (long long)B * KVH * NS * (H / KVH);
+  float* ws = static_cast<float*>(workspace);
+  PagedArgs a{q, k, v, static_cast<const int*>(block_table),
+              static_cast<const int*>(seq_lens), out, ws, ws + parts * hd,
+              ws + parts * hd + parts, B, H, KVH, P, page_size, max_blocks, NS,
+              sm_scale, ks, vs};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using KVF = typename std::conditional<Q8, int8_t, float>::type;
+  using KVB = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
+  switch (dtype) {
+    case repro::kFloat32: return dispatch_hd<float, KVF>(a, hd, s);
+    case repro::kBFloat16: return dispatch_hd<__nv_bfloat16, KVB>(a, hd, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -517,22 +690,20 @@ extern "C" int repro_paged_attention(
     const void* block_table, const void* seq_lens, void* out, void* workspace,
     int dtype, int B, int H, int KVH, int hd, int P, int page_size, int max_blocks,
     int n_seg, float sm_scale, void* stream) {
-  if (B == 0) return cudaSuccess;
-  if (KVH <= 0 || H % KVH != 0 || P <= 0 || page_size <= 0 || max_blocks <= 0 ||
-      (long long)max_blocks * page_size > (1 << 30) || B > 65535)
-    return cudaErrorInvalidValue;
-  const int NS = (max_blocks * page_size + SEG - 1) / SEG;
-  if (n_seg != NS) return cudaErrorInvalidValue;
-  const long long parts = (long long)B * KVH * NS * (H / KVH);
-  float* ws = static_cast<float*>(workspace);
-  PagedArgs a{q, k_pages, v_pages, static_cast<const int*>(block_table),
-              static_cast<const int*>(seq_lens), out, ws, ws + parts * hd,
-              ws + parts * hd + parts, B, H, KVH, P, page_size, max_blocks, NS,
-              sm_scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case repro::kFloat32: return dispatch_hd<float>(a, hd, s);
-    case repro::kBFloat16: return dispatch_hd<__nv_bfloat16>(a, hd, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return paged_entry<false>(q, k_pages, v_pages, nullptr, nullptr, block_table, seq_lens, out,
+                            workspace, dtype, B, H, KVH, hd, P, page_size, max_blocks, n_seg,
+                            sm_scale, stream);
+}
+
+// The int8 pool: k_codes and v_codes int8 (P, page_size, KVH, hd), 16-byte
+// aligned; k_scale and v_scale (P, page_size, KVH, 1) in q's type (dtype);
+// the rest as repro_paged_attention.
+extern "C" int repro_paged_attention_int8(
+    const void* q, const void* k_codes, const void* v_codes, const void* k_scale,
+    const void* v_scale, const void* block_table, const void* seq_lens, void* out,
+    void* workspace, int dtype, int B, int H, int KVH, int hd, int P, int page_size,
+    int max_blocks, int n_seg, float sm_scale, void* stream) {
+  return paged_entry<true>(q, k_codes, v_codes, k_scale, v_scale, block_table, seq_lens, out,
+                           workspace, dtype, B, H, KVH, hd, P, page_size, max_blocks, n_seg,
+                           sm_scale, stream);
 }

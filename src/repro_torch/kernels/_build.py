@@ -82,6 +82,12 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I,  # dtype, B, H, KVH, hd, P, page_size, max_blocks
         _I, _F, _P,                      # segments, sm_scale, stream
     ],
+    "repro_paged_attention_int8": [
+        _P, _P, _P, _P, _P,              # q, k_codes, v_codes, k_scale, v_scale,
+        _P, _P, _P, _P,                  # block_table, seq_lens, out, workspace
+        _I, _I, _I, _I, _I, _I, _I, _I,  # dtype, B, H, KVH, hd, P, page_size, max_blocks
+        _I, _F, _P,                      # segments, sm_scale, stream
+    ],
     "repro_ssm_scan": [
         _P, _P, _P, _P, _P, _P, _P,      # u, dt, B_, C_, A, D, h0 (NULL = zeros)
         _P, _P, _P,                      # y, h_final, h_chunks (NULL = not kept)

@@ -6,7 +6,10 @@ and runs exact masked softmax attention over the gathered positions, in
 f32. ``paged_attention_split_ref`` computes the same thing the way the
 CUDA kernel does: per segment of ``SEGMENT_POSITIONS`` consecutive
 positions a partial (max m, sum l, unnormalised acc), then a merge of the
-partials in segment order.
+partials in segment order. ``paged_attention_int8_ref`` is the reference's
+int8 gather path (``repro/models/layers.py::decode_attention_paged``): an
+int8 pool's gathered pages dequantized to q's dtype, then masked softmax
+attention with p cast to q's dtype before P V, as the model's ``_sdpa``.
 
 Layout contract (shared with kernel.py / ops.py and the CUDA source):
 
@@ -117,3 +120,33 @@ def paged_attention_split_ref(
             acc = acc + a * w[..., None]
         out[b] = acc / torch.clamp(l_sum, min=1e-37)[..., None]
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_attention_int8_ref(
+    q: torch.Tensor,            # (B, H, hd)
+    k_codes: torch.Tensor,      # (P, page_size, KVH, hd) int8
+    v_codes: torch.Tensor,      # (P, page_size, KVH, hd) int8
+    k_scale: torch.Tensor,      # (P, page_size, KVH, 1) in q's dtype
+    v_scale: torch.Tensor,      # (P, page_size, KVH, 1) in q's dtype
+    block_table: torch.Tensor,  # (B, max_blocks) int32
+    seq_lens: torch.Tensor,     # (B,) int32
+) -> torch.Tensor:
+    """One token per lane against an int8 pool, exactly as the reference's
+    gather path: the table's pages (``-1`` read as page 0, masked by
+    ``seq_lens``) gathered, dequantized to q's dtype, then masked softmax
+    attention. A dead lane gives the mean of its gathered rows, which the
+    engine never reads (the kernel writes zeros there). -> (B, H, hd)."""
+    from repro_torch.models.layers import _dequantize_kv, _sdpa
+
+    B, H, hd = q.shape
+    P, ps, KVH = k_codes.shape[:3]
+    tbl = torch.clamp(block_table, min=0).long()
+    T = tbl.shape[1] * ps
+    k = _dequantize_kv(k_codes[tbl], k_scale[tbl], q.dtype)
+    v = _dequantize_kv(v_codes[tbl], v_scale[tbl], q.dtype)
+    qg = q.reshape(B, 1, KVH, H // KVH, hd)
+    kv_pos = torch.arange(T, dtype=torch.int32, device=q.device)
+    mask = (kv_pos[None, :] < seq_lens[:, None])[:, None, :]      # (B, 1, T)
+    out = _sdpa(qg, k.reshape(B, T, KVH, hd), v.reshape(B, T, KVH, hd), mask,
+                float(1.0 / np.sqrt(hd)))
+    return out.reshape(B, H, hd)

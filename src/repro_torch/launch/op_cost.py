@@ -61,6 +61,8 @@ KERNELS: Dict[str, Tuple[Callable[..., tuple], Callable[[dict], str]]] = {
     "flash_attention_bwd_dq_tf32": (flash_ops.dq_cost, lambda s: SPLIT_TF32),
     "paged_attention_tc": (paged_ops.cost, lambda s: "bf16"),
     "paged_attention_fma": (paged_ops.cost, lambda s: "f32"),
+    "paged_attention_int8_tc": (paged_ops.int8_cost, lambda s: "bf16"),
+    "paged_attention_int8_fma": (paged_ops.int8_cost, lambda s: "f32"),
     "ssm_scan": (scan_ops.cost, lambda s: "f32"),
     "ssm_scan_bwd": (scan_ops.bwd_cost, lambda s: "f32"),
     "mlstm_tc": (mlstm_ops.cost, lambda s: "bf16"),

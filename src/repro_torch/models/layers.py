@@ -498,14 +498,16 @@ def decode_attention_paged(
     index) writes to the trash page and attends over zero positions.
     A bf16 or f32 pool attends through ``paged_decode_attention``: the CUDA
     kernel on a GPU tensor, the plain ``paged_attention_ref`` on the CPU.
-    An int8 pool (the reference has no kernel for it) attends in plain
-    PyTorch on every device: its codes and scales are written through
-    ``_paged_write``, then the block table's pages (``max(table, 0)``) are
-    gathered and only those dequantized, and the token attends over the
-    gathered rows under its length mask (the reference's
-    ``_paged_attend_gathered``).
+    An int8 pool has its codes and scales written through ``_paged_write``,
+    then attends through ``paged_decode_attention_int8``: on a GPU tensor the
+    int8 variant of the CUDA kernel, which dequantizes each tile as it
+    stages it; on the CPU the plain ``paged_attention_int8_ref``, the
+    reference's gather path (the block table's pages, ``max(table, 0)``,
+    gathered and only those dequantized, then masked attention over the
+    gathered rows, as its ``_paged_attend_gathered``).
     """
-    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.paged_attention import (paged_decode_attention,
+                                                     paged_decode_attention_int8)
 
     B = x.shape[0]
     hd = cfg.resolved_head_dim
@@ -528,7 +530,8 @@ def decode_attention_paged(
             codes, scale = _quantize_kv(new[:, 0])
             _paged_write(cache[key + "_pages"], codes, rows)
             _paged_write(cache[key + "_scale"], scale, rows)
-        out = _paged_attend_int8(q[:, 0], cache, block_table, lens_att)
+        out = paged_decode_attention_int8(q[:, 0], k_pages, v_pages, cache["k_scale"],
+                                          cache["v_scale"], block_table, lens_att)
     else:
         _paged_write(k_pages, k_new[:, 0], rows)
         _paged_write(v_pages, v_new[:, 0], rows)
@@ -536,23 +539,3 @@ def decode_attention_paged(
     out = out.reshape(B, 1, cfg.num_heads * hd)
     return common.dense(out, params["wo"], cfg.dtype)
 
-
-def _paged_attend_int8(
-    q: torch.Tensor, cache: Dict, block_table: torch.Tensor, lens: torch.Tensor,
-) -> torch.Tensor:
-    """One token per lane against an int8 pool, exactly as the reference's
-    gather path: the table's pages (``-1`` read as page 0, masked by
-    ``lens``) gathered, dequantized to q's dtype, then masked softmax
-    attention. q: (B, H, hd); lens: (B,) valid positions. -> (B, H, hd)."""
-    B, H, hd = q.shape
-    P, ps, KVH = cache["k_pages"].shape[:3]
-    tbl = torch.clamp(block_table, min=0).long()
-    T = tbl.shape[1] * ps
-    k = _dequantize_kv(cache["k_pages"][tbl], cache["k_scale"][tbl], q.dtype)
-    v = _dequantize_kv(cache["v_pages"][tbl], cache["v_scale"][tbl], q.dtype)
-    qg = q.reshape(B, 1, KVH, H // KVH, hd)
-    kv_pos = torch.arange(T, dtype=torch.int32, device=q.device)
-    mask = (kv_pos[None, :] < lens[:, None])[:, None, :]      # (B, 1, T)
-    out = _sdpa(qg, k.reshape(B, T, KVH, hd), v.reshape(B, T, KVH, hd), mask,
-                float(1.0 / np.sqrt(hd)))
-    return out.reshape(B, H, hd)

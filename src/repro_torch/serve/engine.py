@@ -26,9 +26,11 @@ attention the paged kernel; no argument turns them off there.
 ``layout.int8_kv_cache`` makes the pool int8: k and v pages hold codes,
 ``k_scale`` / ``v_scale`` pages one scale per (row, kv head), half the
 bytes of a bf16 pool and a little more. The prefill quantizes its dense
-cache and the codes and scales are packed alike. An int8 pool decodes in
-plain PyTorch on every device (the reference has no kernel for it:
-``layers.decode_attention_paged``). The engine serves text: a VLM's
+cache and the codes and scales are packed alike. An int8 pool decodes
+through the int8 variant of the paged kernel on a CUDA device, which
+dequantizes each tile as it stages it, and through the reference's plain
+gather path on the CPU (``layers.decode_attention_paged``; the reference
+has no kernel for it). The engine serves text: a VLM's
 vision prefix is refused, as the reference's paged decode has none.
 """
 from __future__ import annotations

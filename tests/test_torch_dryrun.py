@@ -192,6 +192,11 @@ BOUNDS = [
      "bf16", 0.4169),
     ("1f", flash_ops.fwd_cost(**FLASH_F32), "tf32x3", 0.0497),
     ("2", paged_ops.cost(B=8, H=32, KVH=8, hd=128, tokens=9790, pages=616), "bf16", 0.0120),
+    # the int8 pool at qwen1.5-32b's decode (8 lanes, 7804 cached tokens in 491 pages)
+    ("2i", paged_ops.int8_cost(B=8, H=40, KVH=40, hd=128, tokens=7804, pages=491), "bf16",
+     0.0243),
+    ("2if", paged_ops.int8_cost(B=8, H=40, KVH=40, hd=128, tokens=7804, pages=491, el=4), "f32",
+     0.0247),
     ("3a", flash_ops.dkdv_cost(**FLASH_S4096), "bf16", 0.2780),
     ("3af", flash_ops.dkdv_cost(**FLASH_F32), "tf32x3", 0.0994),
     ("3b", flash_ops.dq_cost(**FLASH_S4096), "bf16", 0.0695),
