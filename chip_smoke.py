@@ -17,6 +17,7 @@
     python3 chip_smoke.py --vlm-train-only     # build + the flash kernels at S3073 G6 + phase 17
     python3 chip_smoke.py --xlstm-dots-only    # build + phase 18
     python3 chip_smoke.py --dryrun-only        # build + phase 19
+    python3 chip_smoke.py --multi-device-only  # build + phase 20 on 4 cards (fails on fewer)
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
@@ -292,7 +293,28 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    the predicted peak is within DRYRUN_PEAK_MARGIN of
    ``max_memory_allocated`` over the step, the roofline's time
    max(t_compute, t_memory) is no more than the step's device time (CUDA
-   events), and the trace's aten product FLOPs equal ``FlopCounterMode``'s.
+   events), and the trace's aten product FLOPs equal ``FlopCounterMode``'s;
+20. multi-device execution: the script spawns one rank per card
+   (``torch.cuda.device_count()``, NCCL, ``launch/mesh.py::run_world``) and
+   drives ``SpotTrainingOrchestrator`` in siwoft mode over the world's ranks
+   on a shrink scenario (markets of 4, 2, 1 and 4 devices; on 4 cards the
+   plans are (2, 2), (2, 1), (1, 1), (2, 2)): full-width qwen3-4b, f32 +
+   AdamW, seq 4096, global batch 2 (36 layers on 4 cards; on fewer every
+   plan caps to the world, nothing moves, and the depth is cut to
+   MULTI_ONE_CARD_LAYERS). Each rank runs the sharded step on its slices;
+   every revocation moves the live params and both moments between cards.
+   Held: every move's bytes received, summed over ranks, equal the bytes
+   it was priced at (``reshard_bytes``); re-executed steps give the first
+   attempt's loss bit for bit (and grad norm, where they ran on the same
+   plan), and reduced f32's sharded step run twice from one state on each
+   plan gives the same bits on every rank; every rank launches the flash
+   forward, dk/dv and dq for each step it ran; each rank's peak memory
+   under 80 GB; then reduced f32 qwen3-4b in the three modes and siwoft on
+   phase 8's split scenario (on 4 ranks a one-leg repair: the lost leg's
+   slices rebuilt, received ``==`` ``leg_state_bytes``) over the same world
+   equals a gloo world of as many ranks on the CPU (columns ``==``, losses
+   at rtol 1e-4). Logs ms a step by plan, each rank's peak, each
+   move's bytes and seconds beside its priced hours.
 
 A kernel variant's ``launches_by_path`` in the JSON record holds its count
 on each path (``serve``, ``hybrid``, ``xlstm``, ``train``, ``spot`` at full width
@@ -311,7 +333,8 @@ and ``whisper_f32``, ``whisper_train_f32``; hymba's ``hybrid_train`` and
 ``whisper_plan`` and ``whisper_plan_f32``; ``vlm_train`` and
 ``vlm_train_f32``; ``xlstm_train_dots`` (its dots turns) and
 ``xlstm_train_dots_f32``; ``slstm_wide_f32``, the d-1152 model; phase 19's
-measured steps ``dryrun_train`` and ``dryrun_xlstm_train``), each
+measured steps ``dryrun_train`` and ``dryrun_xlstm_train``; phase 20's
+``multi`` and ``multi_f32``, summed over ranks), each
 counted from 0
 just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
@@ -6076,6 +6099,351 @@ def dryrun_phase() -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 20: multi-device execution over torch.distributed
+# ---------------------------------------------------------------------------
+
+# four markets of 4, 2, 1 and 4 devices (80 GB each, explicit relative
+# rates, so no measured time enters a decision); history ranks them by
+# lifetime A > B > C > D, and A, B, C revoke at future hours 4, 8, 12:
+# siwoft trains on (2, 2), shrinks to (2, 1) and (1, 1), grows back to
+# (2, 2) on a world of 4 (tests/torch_world_workers.py's scenario)
+SHRINK_MARKETS = [
+    ("quad.a", "us-east-1", "us-east-1a", 80, 1.2, 4, 100.0),
+    ("pair.b", "eu-west-1", "eu-west-1a", 80, 1.2, 2, 100.0),
+    ("one.c", "ap-southeast-1", "ap-southeast-1a", 80, 1.2, 1, 100.0),
+    ("quad.d", "us-west-2", "us-west-2a", 80, 1.2, 4, 100.0),
+]
+# 12 steps in segments of 3 at one step a trace hour; the full-width run
+# takes phase 7's settings (f32 + AdamW, seq 4096, global batch 2 in 2
+# microbatches); the reduced f32 run the three modes, as tests do
+MULTI = dict(steps=12, segment_steps=3, seq=4096, batch=2, microbatches=2)
+MULTI_REDUCED = dict(steps=12, segment_steps=3, ckpt_every=2, ft_revocations=2)
+# the world of 4 trains all 36 layers; a world of one card, which moves
+# nothing (every plan caps to one rank), cuts the depth to keep the whole
+# script's time
+MULTI_ONE_CARD_LAYERS = 4
+MULTI_RANKS = 4
+MULTI_TIMEOUT = 480
+
+
+def _shrink_markets():
+    from repro_torch.core.market import Market, MarketSet
+
+    markets = [Market(i, *m[:5], device_count=m[5], interconnect_gbps=m[6], steps_per_hour=1.0)
+               for i, m in enumerate(SHRINK_MARKETS)]
+    hp = np.full((4, 90), 0.35)
+    hp[1, 45] = 1.5
+    hp[2, 30::30] = 1.5
+    hp[3, 15::15] = 1.5
+    fp = np.full((4, 48), 0.35)
+    for i, h in enumerate((4, 8, 12)):
+        fp[i, h] = 1.5
+    return MarketSet(markets, hp), MarketSet(markets, fp, start_hour=90)
+
+
+def _multi_reduced(device) -> dict:
+    """The shrink scenario's three modes and siwoft on the split scenario,
+    reduced f32 qwen3-4b from one CPU-made start state, on this rank's
+    ``device``: columns, losses and moves by run."""
+    import tempfile
+
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.core.orchestrator import SpotTrainingOrchestrator
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import init_train_state
+
+    cfg = dataclasses.replace(get_arch("qwen3-4b").reduced(), dtype="float32")
+    model = build_model(cfg)
+    start = init_train_state(model, torch.Generator().manual_seed(0), "cpu")
+    r = MULTI_REDUCED
+    out = {}
+    for mode in ("siwoft", "checkpoint", "hybrid"):
+        with tempfile.TemporaryDirectory() as d:
+            o = SpotTrainingOrchestrator(
+                model, SyntheticLM(cfg.vocab_size, 32, 4, seed=0), device, *_shrink_markets(),
+                mode=mode, tc=TrainConfig(total_steps=2 * r["steps"], warmup_steps=2),
+                layout=ShardingLayout(attn_impl="flash"), segment_steps=r["segment_steps"],
+                steps_per_trace_hour=1, seed=0, job_memory_gb=40.0, ckpt_dir=d,
+                ckpt_every=r["ckpt_every"], ft_revocations=r["ft_revocations"],
+                init_state=lambda: _copy_state(start, device))
+            rep = o.run(r["steps"])
+            if o.ckpt is not None:
+                o.ckpt.close()
+        out[mode] = ({k: getattr(rep, k) for k in SPOT_COLUMNS}, rep.losses, rep.moves)
+    # phase 8's split scenario in siwoft: over 4 ranks two legs of 2, and
+    # leg B's revocation repaired by rebuilding that leg alone
+    rep = SpotTrainingOrchestrator(
+        model, SyntheticLM(cfg.vocab_size, 32, 4, seed=0), device, *_split_markets(),
+        mode="siwoft", tc=TrainConfig(total_steps=80, warmup_steps=2),
+        layout=ShardingLayout(attn_impl="flash"), segment_steps=10, steps_per_trace_hour=1,
+        seed=0, job_memory_gb=400.0, init_state=lambda: _copy_state(start, device)).run(40)
+    out["split"] = ({k: getattr(rep, k) for k in SPOT_COLUMNS}, rep.losses, rep.moves)
+    return out
+
+
+def _step_twice(step, state, batch):
+    """Run ``step`` from ``state``, put the state back (the step updates it
+    in place) and run it again: whether the two runs' metrics and slices
+    have the same bits."""
+    from repro_torch.models.common import tree_flatten
+
+    leaves, unflatten = tree_flatten(state)
+    kept = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
+    state, first = step(state, batch)
+    first = {k: v.clone() for k, v in first.items()}
+    after = [x.clone() if isinstance(x, torch.Tensor) else x for x in tree_flatten(state)[0]]
+    with torch.no_grad():
+        state = unflatten([x.copy_(k) if isinstance(x, torch.Tensor) else k
+                           for x, k in zip(tree_flatten(state)[0], kept)])
+    state, second = step(state, batch)
+    return all(torch.equal(first[k], second[k]) for k in first) and all(
+        torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        for a, b in zip(after, tree_flatten(state)[0]))
+
+
+def _multi_twice(w) -> dict:
+    """Reduced f32 qwen3-4b's sharded step on each plan the world holds
+    ((2, 2), (2, 1), (1, 1) on 4 ranks), run twice from one state on its
+    ranks: plan shape -> whether every rank got the same bits."""
+    import torch.distributed as dist
+
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import ElasticMeshManager, elastic, reshard_tree
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import make_step, state_shardings
+    from repro_torch.train.steps import init_train_state
+
+    cfg = dataclasses.replace(get_arch("qwen3-4b").reduced(), dtype="float32")
+    model = build_model(cfg)
+    layout = ShardingLayout(attn_impl="flash")
+    man = ElasticMeshManager()
+    batch = {k: torch.from_numpy(v).to(w.device)
+             for k, v in SyntheticLM(cfg.vocab_size, 32, 4, seed=0).batch(0).items()}
+    out = {}
+    for n in sorted({w.size, min(2, w.size), 1}, reverse=True):
+        plan = man.plan_for(n)
+        state = _copy_state(init_train_state(model, torch.Generator().manual_seed(0), "cpu"),
+                            w.device)
+        state = reshard_tree(state, state_shardings(model, plan.mesh, layout),
+                             elastic.everywhere(state))
+        step = make_step(model, TrainConfig(total_steps=10, warmup_steps=2), layout, plan.mesh)
+        same = _step_twice(step, state, batch) if w.rank in plan.mesh.slots else True
+        agree = torch.tensor([int(same)], device=w.device)
+        dist.all_reduce(agree, op=dist.ReduceOp.MIN)
+        out[plan.mesh_shape] = bool(agree.item())
+    return out
+
+
+def _multi_card_rank(w, layers: int) -> list:
+    """One rank of phase 20's world on the cards: full-width qwen3-4b
+    through siwoft on the shrink scenario, then the reduced f32 modes.
+    Returns every rank's record (gathered to all)."""
+    import torch.distributed as dist
+
+    from repro_torch.config import ShardingLayout, TrainConfig, get_arch
+    from repro_torch.core import orchestrator as orch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_arch("qwen3-4b")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = build_model(cfg)
+    m = MULTI
+    tc = TrainConfig(total_steps=2 * m["steps"], warmup_steps=1, microbatches=m["microbatches"])
+    steps: list = []
+    peak = [0]          # over the run; each step's own peak is reset at its start
+    make_step = orch.make_step
+
+    def recording_step(model_, tc_, layout_, mesh=None):
+        inner = make_step(model_, tc_, layout_, mesh)
+        shape = mesh.grid_shape if mesh is not None else (1, 1)
+
+        def step(state, batch):
+            i, t0 = state.step, time.perf_counter()
+            peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            state, metrics = inner(state, batch)
+            loss = float(metrics["loss"])
+            steps.append({"step": i, "plan": shape, "loss": loss,
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "seconds": time.perf_counter() - t0,
+                          "peak": torch.cuda.max_memory_allocated()})
+            return state, metrics
+        return step
+
+    orch.make_step = recording_step
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rep = orch.SpotTrainingOrchestrator(
+            model, SyntheticLM(cfg.vocab_size, m["seq"], m["batch"], seed=0), w.device,
+            *_shrink_markets(), mode="siwoft", tc=tc, layout=ShardingLayout(attn_impl="flash"),
+            segment_steps=m["segment_steps"], steps_per_trace_hour=1, seed=0,
+            job_memory_gb=40.0).run(m["steps"])
+    finally:
+        orch.make_step = make_step
+    wall = time.perf_counter() - t0
+    mine = {"rank": w.rank, "launches": read_launches(), "steps": steps,
+            "peak": max(peak[0], torch.cuda.max_memory_allocated()), "wall": wall,
+            "report": {k: getattr(rep, k) for k in SPOT_COLUMNS}, "moves": rep.moves,
+            "snapshots": [{k: v for k, v in snap.items() if k != "leaves"}
+                          for snap in rep.snapshots],
+            "useful": rep.useful_steps, "wasted": rep.wasted_steps}
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    mine["twice"] = _multi_twice(w)
+    mine["reduced"] = _multi_reduced(w.device)
+    mine["reduced_launches"] = read_launches()
+    every = [None] * w.size
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def _multi_cpu_rank(w) -> dict:
+    """One rank of phase 20's gloo world on the CPU: the reduced modes."""
+    return _multi_reduced(w.device)
+
+
+def multi_device_phase() -> dict:
+    """Phase 20: the spot path over ``torch.cuda.device_count()`` ranks,
+    one process and card each (NCCL), spawned here. Returns launches by
+    path, summed over ranks."""
+    from repro_torch.launch.mesh import run_world
+
+    n = torch.cuda.device_count()
+    layers = 0 if n >= MULTI_RANKS else MULTI_ONE_CARD_LAYERS
+    log(f"[multi] torch.distributed: nccl available {torch.distributed.is_nccl_available()}, "
+        f"gloo {torch.distributed.is_gloo_available()}; a world of {n} rank(s), one card each")
+    if n < MULTI_RANKS:
+        log(f"[multi] the {MULTI_RANKS}-rank part (qwen3-4b trained on (2, 2), (2, 1) and (1, 1), "
+            f"the state moved between cards) needs {MULTI_RANKS} cards; this machine has {n}, "
+            f"so every plan caps to {n} rank(s) and the depth is cut to {layers} layers "
+            f"(python3 chip_smoke.py --multi-device-only on {MULTI_RANKS} cards)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_world(_multi_card_rank, n, "cuda", (layers,), timeout=MULTI_TIMEOUT)
+    t_card = time.perf_counter() - t0
+    cpu = run_world(_multi_cpu_rank, n, "cpu", (), timeout=MULTI_TIMEOUT, threads=2)
+    log(f"[multi] worlds: the cards' {t_card:.1f} s, the CPU's {time.perf_counter() - t0 - t_card:.1f} s")
+    zero = ranks[0]
+    depth = layers or 36
+    log(f"[multi] qwen3-4b at full width, {depth} layers, f32 params + AdamW, seq {MULTI['seq']}, "
+        f"global batch {MULTI['batch']} in {MULTI['microbatches']} microbatches; siwoft on the "
+        f"shrink scenario, {MULTI['steps']} steps in segments of {MULTI['segment_steps']}: "
+        f"report {zero['report']}")
+    failed = []
+    for r in ranks:
+        if r["report"] != zero["report"]:
+            failed.append(f"rank {r['rank']}'s report differs from rank 0's")
+    by_plan: dict = {}
+    for rec in zero["steps"]:
+        by_plan.setdefault(rec["plan"], []).append(rec)
+    for plan, recs in sorted(by_plan.items(), reverse=True):
+        ms = [x["seconds"] * 1e3 for x in recs]
+        log(f"[multi] plan {plan}: {len(recs)} steps on rank 0, ms a step "
+            + ", ".join(f"{t:.1f}" for t in ms) + "; each rank's peak over its steps on it (GB) "
+            + ", ".join(f"rank {r['rank']}: {max((x['peak'] for x in r['steps'] if x['plan'] == plan), default=0) / 1e9:.2f}"
+                        for r in ranks))
+    for r in ranks:
+        log(f"[multi] rank {r['rank']}: peak device memory over the run "
+            f"{r['peak'] / 1e9:.2f} GB, {len(r['steps'])} steps, launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }, run {r['wall']:.1f} s")
+    for mv in zero["moves"]:
+        gbps = mv["received"] / mv["seconds"] / 1e9 if mv["seconds"] else float("nan")
+        log(f"[multi] move {mv['kind']} to {tuple(mv['to'])}: received {mv['received']} B "
+            f"(priced {mv['priced']}) in {mv['seconds']:.3f} s ({gbps:.1f} GB/s summed over "
+            f"ranks), priced {mv['hours'] * 3600:.3f} s on the trace clock")
+    for snap in zero["snapshots"]:
+        log(f"[multi] rank 0's segment-start snapshot at step {snap['step']}: "
+            f"{snap['bytes'] / 1e9:.3f} GB in {snap['seconds']:.2f} s, written back in "
+            f"{snap['restore_seconds']}")
+    # every move of the live state received the bytes it was priced at
+    for mv in zero["moves"]:
+        if mv["kind"] in ("reshard", "leg") and mv["received"] != mv["priced"]:
+            failed.append(f"move {mv}: received != priced")
+    if sum(mv["priced"] for mv in zero["moves"] if mv["kind"] in ("reshard", "leg")) \
+            != zero["report"]["reshard_bytes"]:
+        failed.append("the moves' priced bytes do not sum to the report's reshard_bytes")
+    # re-executed steps give the first attempt's loss bits (a revocation
+    # re-runs them on the next market's plan: each row is one microbatch
+    # on every plan, so the loss's sum is the same; the grad norm's sums
+    # follow the plan, and are the same bits where the plan is)
+    firsts, repeats = {}, []
+    for rec in zero["steps"]:
+        if rec["step"] in firsts:
+            repeats.append((rec["step"], firsts[rec["step"]], rec))
+        else:
+            firsts[rec["step"]] = rec
+    log("[multi] re-executed steps, loss and grad norm of the first attempt vs the second: "
+        + ", ".join(f"step {i}: {a['loss']!r} vs {b['loss']!r}, {a['grad_norm']!r} on "
+                    f"{a['plan']} vs {b['grad_norm']!r} on {b['plan']}"
+                    for i, a, b in repeats))
+    if not repeats or any(a["loss"] != b["loss"] or (
+            a["plan"] == b["plan"] and a["grad_norm"] != b["grad_norm"]) for _, a, b in repeats):
+        failed.append("re-executed steps did not reproduce the first attempt's bits")
+    log(f"[multi] reduced f32 sharded step run twice from one state, same bits on every rank "
+        f"by plan: {zero['twice']}")
+    if not all(zero["twice"].values()):
+        failed.append(f"a step run twice from one state gave other bits: {zero['twice']}")
+    if zero["useful"] != MULTI["steps"] or not all(
+            np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]) for x in zero["steps"]):
+        failed.append("the run did not finish its steps with finite metrics")
+    if n >= MULTI_RANKS:
+        shapes = [tuple(s) for s in zero["report"]["mesh_shapes"]]
+        if not {(2, 2), (2, 1), (1, 1)} <= set(shapes) or not zero["moves"]:
+            failed.append(f"the world of {n} did not train on (2, 2), (2, 1) and (1, 1): {shapes}")
+    # every rank launched the flash forward, dk/dv and dq for each step it ran
+    launches = dict.fromkeys(read_launches(), 0)
+    for r in ranks:
+        fwd = dkdv = 0
+        for rec in r["steps"]:
+            data = rec["plan"][0]
+            mb = max(1, MULTI["microbatches"] * (MULTI["batch"] // data) // MULTI["batch"])
+            fwd, dkdv = fwd + 2 * depth * mb, dkdv + depth * mb
+        want = expect_launches(flash_attention_tc=fwd, flash_attention_bwd_dkdv_tc=dkdv,
+                               flash_attention_bwd_dq_tc=dkdv)
+        if r["launches"] != want or not r["steps"] or not fwd:
+            failed.append(f"rank {r['rank']}: launches {r['launches']}, expected {want}")
+        launches = {k: launches[k] + v for k, v in r["launches"].items()}
+        if not r["peak"] < 80e9:
+            failed.append(f"rank {r['rank']}: peak device memory {r['peak'] / 1e9:.2f} GB")
+    # the reduced f32 modes on the cards equal the same world on the CPU
+    reduced = dict.fromkeys(launches, 0)
+    for mode, (cols, losses, moves) in zero["reduced"].items():
+        c_cols, c_losses, c_moves = cpu[mode]
+        a, b = np.array(losses), np.array(c_losses)
+        rel = float(np.max(np.abs(a - b) / np.abs(b))) if len(a) == len(b) else float("nan")
+        log(f"[multi] reduced f32 {mode} over {n} rank(s): mesh shapes {cols['mesh_shapes']}, "
+            f"reshard_bytes {cols['reshard_bytes']}, restore_bytes {cols['restore_bytes']}; "
+            f"columns equal to the CPU world's: {cols == c_cols}; losses, largest relative "
+            f"difference {rel}; moves received/priced "
+            + ", ".join(f"{mv['kind']} {mv['received']}/{mv['priced']}" for mv in moves))
+        if cols != c_cols or not np.allclose(a, b, rtol=1e-4, atol=0):
+            failed.append(f"reduced {mode}: the cards' world differs from the CPU's")
+        if any(mv["kind"] in ("reshard", "leg") and mv["received"] != mv["priced"]
+               for mv in moves):
+            failed.append(f"reduced {mode}: a move received other bytes than priced")
+    if n >= MULTI_RANKS and not any(mv["kind"] == "leg" for mv in zero["reduced"]["split"][2]):
+        failed.append("reduced split: no leg was rebuilt")
+    for r in ranks:
+        reduced = {k: reduced[k] + v for k, v in r["reduced_launches"].items()}
+    hold_f32_launches("multi", reduced, "flash_attention_tf32",
+                      "flash_attention_bwd_dkdv_tf32", "flash_attention_bwd_dq_tf32")
+    if failed:
+        raise AssertionError("phase 20: " + "; ".join(failed))
+    return {"multi": launches, "multi_f32": reduced}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -6117,6 +6485,9 @@ def main() -> int:
     ap.add_argument("--dryrun-only", action="store_true",
                     help="only build the kernels and hold the dry run's estimate against two "
                          "training steps on the card")
+    ap.add_argument("--multi-device-only", action="store_true",
+                    help="only build the kernels and run phase 20 over 4 cards or more "
+                         "(exits non-zero with fewer)")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
                          "of the kernel paths and plain orders agree, by prompt length")
@@ -6138,10 +6509,10 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[phase 1/19] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
+    log(f"[phase 1/20] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    log("[phase 2/19] build")
+    log("[phase 2/20] build")
     _build.build()
     ptxas = _build.last_build["log"]
     per_source = {}
@@ -6180,14 +6551,14 @@ def main() -> int:
         log(f"chip_smoke: --paged-only, {time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.spot_only:
-        log("[phase 8/19] the spot provisioner")
+        log("[phase 8/20] the spot provisioner")
         spot = {"spot": spot_full_width(), "spot_f32": spot_reduced_matches_cpu(),
                 "spot_launch": spot_launcher()}
         log(f"chip_smoke: --spot-only, launches by path {spot}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.serve_plan_only:
-        log("[phase 9/19] spot serving")
+        log("[phase 9/20] spot serving")
         paths = spot_serving()
         log(f"chip_smoke: --serve-plan-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6196,7 +6567,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_flash_window_8192(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 10/19] the MoE family")
+        log("[phase 10/20] the MoE family")
         paths = moe_phase()
         log(f"chip_smoke: --moe-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6205,7 +6576,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_dense_variant_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 11/19] the dense variants")
+        log("[phase 11/20] the dense variants")
         paths = dense_variants_phase()
         log(f"chip_smoke: --dense-variants-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6214,7 +6585,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_gemma_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 12/19] gemma-7b")
+        log("[phase 12/20] gemma-7b")
         paths = gemma_phase()
         log(f"chip_smoke: --gemma-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6223,7 +6594,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush, "whisper")
         del flush
-        log("[phase 13/19] whisper-tiny")
+        log("[phase 13/20] whisper-tiny")
         paths = whisper_phase()
         log(f"chip_smoke: --whisper-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6234,7 +6605,7 @@ def main() -> int:
         check_slice14_attention(gen, flush, "hymba")
         check_ssm_scan_bwd(gen, flush)
         del flush
-        log("[phase 14/19] hymba-1.5b training")
+        log("[phase 14/20] hymba-1.5b training")
         paths = hybrid_train_phase()
         log(f"chip_smoke: --hybrid-train-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6248,7 +6619,7 @@ def main() -> int:
         slstm_wide_model_matches_cpu()
         del flush
         log(json.dumps({"kernels": recs}))
-        log("[phase 15/19] xlstm-350m training")
+        log("[phase 15/20] xlstm-350m training")
         paths = xlstm_train_phase()
         log(f"chip_smoke: --xlstm-train-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6258,7 +6629,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush, "whisper")
         del flush
-        log("[phase 16/19] whisper-tiny on the launcher's plans")
+        log("[phase 16/20] whisper-tiny on the launcher's plans")
         paths = whisper_plan_phase()
         log(f"chip_smoke: --whisper-plan-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6268,25 +6639,35 @@ def main() -> int:
         check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush,
                                 "internvl2")
         del flush
-        log("[phase 17/19] internvl2-26b training")
+        log("[phase 17/20] internvl2-26b training")
         paths = vlm_train_phase()
         log(f"chip_smoke: --vlm-train-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.dryrun_only:
-        log("[phase 19/19] the dry run against the card")
+        log("[phase 19/20] the dry run against the card")
         paths = dryrun_phase()
         log(f"chip_smoke: --dryrun-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
+    if args.multi_device_only:
+        if torch.cuda.device_count() < MULTI_RANKS:
+            print(f"chip_smoke: --multi-device-only needs {MULTI_RANKS} cards, "
+                  f"{torch.cuda.device_count()} present", file=sys.stderr)
+            return 2
+        log("[phase 20/20] multi-device execution")
+        paths = multi_device_phase()
+        log(f"chip_smoke: --multi-device-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
     if args.xlstm_dots_only:
-        log("[phase 18/19] xlstm-350m training under remat dots")
+        log("[phase 18/20] xlstm-350m training under remat dots")
         paths = xlstm_dots_phase()
         log(f"chip_smoke: --xlstm-dots-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
 
-    log("[phase 3/19] kernels against their plain versions")
+    log("[phase 3/20] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [*check_flash(gen, flush), *check_paged(gen, flush),
@@ -6311,29 +6692,29 @@ def main() -> int:
         return 0
     paths = {"slstm_wide_f32": slstm_wide_model_matches_cpu()}
 
-    log("[phase 4/19] serving")
+    log("[phase 4/20] serving")
     paths["serve"] = serve_full_width()
     paths["serve_f32"] = serve_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 5/19] hybrid serving")
+    log("[phase 5/20] hybrid serving")
     paths["hybrid"] = serve_hybrid_full_width()
     paths["hybrid_f32"] = greedy_reduced_matches_cpu("hymba-1.5b", "hybrid",
                                                      "flash_attention_tf32", "ssm_scan")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 6/19] xLSTM serving")
+    log("[phase 6/20] xLSTM serving")
     paths["xlstm"] = serve_xlstm_full_width()
     paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_tf32",
                                                     "mlstm_step", "slstm")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 7/19] training")
+    log("[phase 7/20] training")
     paths["train"] = train_full_width()
     paths["train_f32"] = train_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 8/19] the spot provisioner")
+    log("[phase 8/20] the spot provisioner")
     paths["spot"] = spot_full_width()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6341,48 +6722,52 @@ def main() -> int:
     paths["spot_launch"] = spot_launcher()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 9/19] spot serving")
+    log("[phase 9/20] spot serving")
     paths.update(spot_serving())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 10/19] the MoE family")
+    log("[phase 10/20] the MoE family")
     paths.update(moe_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 11/19] the dense variants")
+    log("[phase 11/20] the dense variants")
     paths.update(dense_variants_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 12/19] gemma-7b")
+    log("[phase 12/20] gemma-7b")
     paths.update(gemma_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 13/19] whisper-tiny")
+    log("[phase 13/20] whisper-tiny")
     paths.update(whisper_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 14/19] hymba-1.5b training")
+    log("[phase 14/20] hymba-1.5b training")
     paths.update(hybrid_train_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 15/19] xlstm-350m training")
+    log("[phase 15/20] xlstm-350m training")
     paths.update(xlstm_train_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 16/19] whisper-tiny on the launcher's plans")
+    log("[phase 16/20] whisper-tiny on the launcher's plans")
     paths.update(whisper_plan_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 17/19] internvl2-26b training")
+    log("[phase 17/20] internvl2-26b training")
     paths.update(vlm_train_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 18/19] xlstm-350m training under remat dots")
+    log("[phase 18/20] xlstm-350m training under remat dots")
     paths.update(xlstm_dots_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 19/19] the dry run against the card")
+    log("[phase 19/20] the dry run against the card")
     paths.update(dryrun_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 20/20] multi-device execution")
+    paths.update(multi_device_phase())
     for r in records:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

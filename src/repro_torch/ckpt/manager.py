@@ -21,6 +21,14 @@ as ``ml_dtypes.bfloat16``.
   directory is renamed into place (``os.replace``) after fsync.
 * **keep-last-k** — the newest k commits survive.
 * **restore** — onto a device, into the structure of a ``like`` tree.
+
+In a ``torch.distributed`` world (``repro_torch.launch.mesh``) rank 0 is
+the one writer: ``save`` with the state's ``shardings`` gathers every
+slice to it over the plan's ranks (``dist.elastic.move_leaves``) and only
+it writes; ``restore`` reads on rank 0, whose whole tree the caller then
+scatters onto the next plan (``reshard_tree`` from
+:func:`writer_shardings`); ``latest_step`` is rank 0's, broadcast, so all
+ranks decide alike.
 """
 from __future__ import annotations
 
@@ -37,6 +45,21 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import tree_flatten
+
+
+def _world():
+    from repro_torch.launch.mesh import world
+
+    return world()
+
+
+def writer_shardings(like: Any) -> Any:
+    """The placement tree of a tree that the writer (rank 0) holds whole."""
+    from repro_torch.dist.sharding import rank_mesh, replicated
+
+    w = _world()
+    leaves, unflatten = tree_flatten(like)
+    return unflatten([replicated(rank_mesh(0, w.devices[0]))] * len(leaves))
 
 
 def _to_host(x: Any) -> np.ndarray:
@@ -63,8 +86,23 @@ class CheckpointManager:
         self._thread.start()
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree: Any, block: bool = False) -> None:
-        """Snapshot to host memory now; write + commit in the background."""
+    def save(self, step: int, tree: Any, block: bool = False, shardings: Any = None) -> None:
+        """Snapshot to host memory now; write + commit in the background.
+        ``shardings``: the distributed placements ``tree``'s slices are laid
+        out by; every rank of their mesh calls ``save``, the slices are
+        gathered to the writer, and only it writes."""
+        if shardings is not None:
+            from repro_torch.dist.elastic import move_leaves
+            from repro_torch.launch.mesh import group_for
+
+            placements = tree_flatten(shardings)[0]
+            leaves, unflatten = tree_flatten(tree)
+            whole, _ = move_leaves(leaves, placements,
+                                   tree_flatten(writer_shardings(tree))[0],
+                                   group=group_for(placements[0].mesh.slots))
+            if _world().rank != 0:
+                return
+            tree = unflatten(whole)
         leaves, _ = tree_flatten(tree)
         dtypes = [str(x.dtype).replace("torch.", "") if isinstance(x, torch.Tensor)
                   else None for x in leaves]
@@ -142,8 +180,20 @@ class CheckpointManager:
         return sorted(out)
 
     def latest_step(self) -> Optional[int]:
-        steps = self.all_steps()
-        return steps[-1] if steps else None
+        """The newest committed step; in a world rank 0's, broadcast (every
+        rank calls it alike)."""
+        w = _world()
+        if w is None:
+            steps = self.all_steps()
+            return steps[-1] if steps else None
+        import torch.distributed as dist
+
+        box = [None]
+        if w.rank == 0:
+            steps = self.all_steps()
+            box = [steps[-1] if steps else None]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
 
     def restore(
         self,
@@ -155,9 +205,16 @@ class CheckpointManager:
         ``device``, as tensors there (bf16 leaves as bf16 tensors). ``like``
         is a structure template (e.g. a ``TrainState``) to unflatten into;
         where its leaf is a Python int, the restored leaf is one too.
-        Without ``like`` the leaf list is returned."""
+        Without ``like`` the leaf list is returned. In a world only rank 0
+        reads; every other rank gets ``like``'s structure with ``None``
+        leaves (it holds nothing until the scatter)."""
+        w = _world()
+        if w is not None and w.rank != 0 and like is not None:
+            like_leaves, unflatten = tree_flatten(like)
+            return step, unflatten([None] * len(like_leaves))
         if step is None:
-            step = self.latest_step()
+            steps = self.all_steps()
+            step = steps[-1] if steps else None
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
         d = self.root / f"step_{step:010d}"

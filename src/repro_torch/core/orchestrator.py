@@ -23,6 +23,19 @@ JAX arrays are immutable:
   ``init_train_state`` from ``tc.seed``), called anew each time;
 * a checkpoint restores onto the plan's device.
 
+Over the ranks of a ``torch.distributed`` world (``repro_torch.launch.
+mesh``; the default pool once a world is joined) every rank runs this same
+host logic, with the same trace, seeds and decisions: a plan's ranks hold
+the state's slices and train it together (``train.loop.run_segment`` on
+the plan's mesh), the others wait, and a migration MOVES the live slices
+between ranks (``dist.elastic.reshard_tree``; a one-leg repair evacuates
+and rebuilds the lost leg's distinct slices, ``dist.elastic.
+rebuild_legs``). Rank 0's measured step times and losses are shared, so
+the throughput correction decides alike everywhere. The bill is the
+reference's, priced on the trace clock at the market's interconnect; the
+report's ``moves`` holds each move's bytes received (summed over ranks)
+and measured wall seconds beside the bytes and hours it was priced at.
+
 * ``mode="siwoft"``      — Algorithm 1 picks the market (highest MTTR ≥ 2×
   the segment's expected duration); NO checkpoints are written. On a
   revocation the current segment's steps are lost and re-executed on a new
@@ -101,6 +114,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.ckpt import CheckpointManager
+from repro_torch.ckpt.manager import writer_shardings
 from repro_torch.config.base import ShardingLayout, TrainConfig
 from repro_torch.core import provisioner as alg
 from repro_torch.core.accounting import (
@@ -119,7 +133,8 @@ from repro_torch.core.market import (
 from repro_torch.core.policies import Job, OverheadModel, SiwoftPolicy
 from repro_torch.core.units import BYTES_PER_GIB, SECONDS_PER_HOUR
 from repro_torch.data import SyntheticLM
-from repro_torch.dist.elastic import placement_device, reshard_tree
+from repro_torch.dist import elastic
+from repro_torch.dist.elastic import placement_device, rebuild_legs, reshard_tree
 from repro_torch.dist.meshplan import (
     ElasticMeshManager,
     MeshPlan,
@@ -129,13 +144,13 @@ from repro_torch.dist.meshplan import (
     train_state_bytes,
     tree_bytes,
 )
-from repro_torch.dist.sharding import param_shardings, replicated
+from repro_torch.launch.mesh import world
 from repro_torch.models import zoo
 from repro_torch.models.common import tree_flatten
 from repro_torch.obs import events as obs_ev
 from repro_torch.obs.recorder import current as obs_current
 from repro_torch.optim import OptState
-from repro_torch.train.loop import Revoked, make_step, run_segment
+from repro_torch.train.loop import Revoked, make_step, run_segment, state_shardings
 from repro_torch.train.steps import TrainState, init_train_state
 
 
@@ -175,6 +190,11 @@ class OrchestratorReport:
     # it back or None) and each provisioning decision's seconds
     snapshots: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
     decision_seconds: List[float] = dataclasses.field(default_factory=list)
+    # over the ranks of a world: each move of the live state between ranks
+    # (kind "reshard", "leg", "restore" or "place"), the bytes it was priced
+    # at (None where nothing billed it), the bytes received summed over
+    # ranks, the wall seconds (the slowest rank's) and the priced hours
+    moves: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
     @property
     def goodput(self) -> float:
@@ -211,8 +231,11 @@ class SpotTrainingOrchestrator:
         # ``device`` is the pool the menu shapes are built from when no
         # ``mesh_manager`` is given (one slot); the plan per segment comes
         # from the provisioned market's device_count
-        self.device = resolve_device(device)
-        self.meshman = mesh_manager or ElasticMeshManager([self.device])
+        # over a world the pool is its ranks and the device this rank's
+        self.world = world()
+        self.device = self.world.device if self.world else resolve_device(device)
+        self.meshman = mesh_manager or ElasticMeshManager(
+            None if self.world is not None else [self.device])
         # a fresh train state, anew on every call (the run's start, and a
         # checkpoint-mode revocation before any checkpoint)
         self._init_state = init_state or (lambda: init_train_state(
@@ -269,14 +292,54 @@ class SpotTrainingOrchestrator:
         param rules, ``count`` and ``step`` replicated)."""
         entry = self._steps.get(plan.key)
         if entry is None:
-            p_sh = param_shardings(self.model.specs, plan.mesh, self.layout)
-            repl = replicated(plan.mesh)
-            state_sh = TrainState(
-                params=p_sh, opt=OptState(m=p_sh, v=p_sh, count=repl), step=repl
-            )
-            entry = (make_step(self.model, self.tc, self.layout), state_sh)
+            entry = (make_step(self.model, self.tc, self.layout, plan.mesh),
+                     state_shardings(self.model, plan.mesh, self.layout))
             self._steps[plan.key] = entry
         return entry
+
+    def _sized(self, state: TrainState) -> Any:
+        """The tree the byte counters price: the state itself in one
+        process; over ranks, which hold slices, the global one (the
+        model's ParamSpecs: f32 params and moments)."""
+        if self.world is None:
+            return state
+        specs = self.model.specs
+        return TrainState(params=specs, opt=OptState(m=specs, v=specs, count=0), step=0)
+
+    def _everywhere(self, state: TrainState) -> Any:
+        """Placements of a fresh state, which every rank made whole."""
+        return None if self.world is None else elastic.everywhere(state)
+
+    def _start_move(self) -> float:
+        """Line the ranks up (a rank outside the last plan arrives early)
+        and start the move's clock."""
+        import torch.distributed as dist
+
+        dist.barrier()
+        return time.perf_counter()  # repro-lint: disable=D001
+
+    def _moved(self, received: int, t0: float) -> Tuple[int, float]:
+        """(bytes received summed over ranks, the slowest rank's seconds)
+        of a move this rank started at ``t0`` and received ``received``
+        bytes in."""
+        import torch.distributed as dist
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        secs = time.perf_counter() - t0  # repro-lint: disable=D001
+        got = torch.tensor([received], dtype=torch.int64, device=self.device)
+        slow = torch.tensor([secs], dtype=torch.float64, device=self.device)
+        dist.all_reduce(got)
+        dist.all_reduce(slow, op=dist.ReduceOp.MAX)
+        return int(got.item()), float(slow.item())
+
+    def _share(self, losses: List[float], seconds: List[float]) -> Tuple[list, list]:
+        """Rank 0's losses and step seconds, on every rank."""
+        import torch.distributed as dist
+
+        box = [(losses, seconds)]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
 
     def _plan_key_for(self, market: int) -> Tuple:
         plan = self.meshman.plan_for(self.future.markets[market].device_count)
@@ -423,7 +486,8 @@ class SpotTrainingOrchestrator:
         state = self._init_state()
         # the placement tree the live state is laid out by (torch tensors
         # carry none: the reference reads ``live_shardings(state)``)
-        live_sh = None
+        live_sh = self._everywhere(state)
+        moves: List[Dict[str, Any]] = []
         snapshots: List[Dict[str, Any]] = []
         decision_seconds: List[float] = []
         job = self._segment_job(total_steps)
@@ -570,10 +634,25 @@ class SpotTrainingOrchestrator:
                         if alloc.markets[i] != prev_alloc.markets[i]
                     ] + list(range(len(prev_alloc.legs), len(alloc.legs)))
                     moved = sum(
-                        leg_state_bytes(state, state_sh, plan, i)
+                        leg_state_bytes(self._sized(state), state_sh, plan, i)
                         for i in changed
                         if i < len(plan.leg_spans)
                     )
+                if moved and self.world is not None:
+                    # the lost leg's instances are gone: its distinct slices
+                    # come back to the (same-position) ranks of the new leg
+                    lost = ([prev_alloc.markets.index(pending_repair[1])] if is_repair
+                            else [i for i in changed if i < len(plan.leg_spans)])
+                    t_move = self._start_move()
+                    leaves, unflatten = tree_flatten(state)
+                    leaves, got = rebuild_legs(leaves, tree_flatten(state_sh)[0],
+                                               [plan.leg_spans[i] for i in lost],
+                                               plan.mesh.slots)
+                    state = unflatten(leaves)
+                    received, secs = self._moved(got["rebuilt"], t_move)
+                    moves.append({"kind": "leg", "to": plan.mesh_shape, "priced": int(moved),
+                                  "received": received, "seconds": secs,
+                                  "hours": self.ov.reshard_hours(moved, alloc.dcn_gbps)})
                 if moved:
                     moved_total += moved
                     reshard_events += 1
@@ -591,9 +670,13 @@ class SpotTrainingOrchestrator:
             # live cross-mesh migration: the state's current layout differs
             # from the provisioned market's mesh -> move it, price it
             if active_key != plan.key:
+                priced: Optional[int] = None
+                reshard_h = 0.0
+                kind = "place" if active_key is None else "reshard"
                 if active_key is not None:
                     if self.mode in ("siwoft", "hybrid"):
-                        moved = reshard_bytes(state, live_sh, state_sh)
+                        moved = reshard_bytes(self._sized(state), live_sh, state_sh)
+                        priced = moved
                         moved_total += moved
                         reshard_events += 1
                         reshard_h = self.ov.reshard_hours(moved, m.interconnect_gbps)
@@ -615,9 +698,21 @@ class SpotTrainingOrchestrator:
                         # write + restore through remote storage, full
                         # state size (post-revocation restores skip this
                         # branch via active_key = None — already billed)
-                        restore_total += tree_bytes(state)
+                        kind = "restore"
+                        priced = tree_bytes(self._sized(state))
+                        restore_total += priced
                         session.add("recovery", self.ov.restore_hours(job.memory_gb))
-                state = reshard_tree(state, state_sh)
+                if self.world is None:
+                    state = reshard_tree(state, state_sh)
+                else:
+                    t_move = self._start_move()
+                    before = elastic.stats.bytes_received
+                    state = reshard_tree(state, state_sh, live_sh)
+                    received, secs = self._moved(elastic.stats.bytes_received - before,
+                                                 t_move)
+                    moves.append({"kind": kind, "to": plan.mesh_shape, "priced": priced,
+                                  "received": received, "seconds": secs,
+                                  "hours": reshard_h})
                 live_sh = state_sh
                 active_key = plan.key
 
@@ -660,8 +755,11 @@ class SpotTrainingOrchestrator:
                     ckpt_every=self.ckpt_every if self.mode in ("checkpoint", "hybrid") else 0,
                     revoke_at_step=(lambda s: rev_at is not None and s >= rev_at),
                     jitted=jitted,
+                    mesh=plan.mesh,
                 )
                 state = res.state
+                if self.world is not None:
+                    res.losses, res.step_seconds = self._share(res.losses, res.step_seconds)
                 losses.extend(res.losses)
                 useful += res.steps_done
                 session.add("execution", res.steps_done / rate)
@@ -685,10 +783,12 @@ class SpotTrainingOrchestrator:
                         _, state = self.ckpt.restore(
                             latest, device=dev, like=seg_state
                         )
-                        restore_total += tree_bytes(state)
+                        restore_total += tree_bytes(self._sized(state))
                         step = latest
+                        live_sh = writer_shardings(state) if self.world else None
                     else:
                         state = self._init_state()
+                        live_sh = self._everywhere(state)
                         step = 0
                     # the restored state is host-materialized: it must be
                     # re-laid-out for whatever mesh the next market brings
@@ -705,8 +805,9 @@ class SpotTrainingOrchestrator:
                         _, state = self.ckpt.restore(
                             latest, device=dev, like=seg_state
                         )
-                        restore_total += tree_bytes(state)
+                        restore_total += tree_bytes(self._sized(state))
                         step = latest
+                        live_sh = writer_shardings(state) if self.world else None
                         active_key = None
                         retained = max(0, step - seg_start)
                         useful += retained
@@ -735,7 +836,7 @@ class SpotTrainingOrchestrator:
                     leg_idx = alloc.markets.index(rev_market)
                     pending_repair = (alloc, rev_market)
                     pending_repair_bytes = leg_state_bytes(
-                        seg_state, state_sh, plan, leg_idx
+                        self._sized(seg_state), state_sh, plan, leg_idx
                     )
             if snap is not None:
                 # a copy no handoff used (a hybrid restore) frees its memory
@@ -806,6 +907,7 @@ class SpotTrainingOrchestrator:
             leg_repairs=leg_repairs,
             snapshots=snapshots,
             decision_seconds=decision_seconds,
+            moves=moves,
         )
 
 
@@ -820,7 +922,9 @@ def _snapshot(state: TrainState, step: int) -> Dict[str, Any]:
     ]
     return {
         "step": step,
-        "bytes": tree_bytes(state),
+        # what this process holds (a rank outside the plan: nothing)
+        "bytes": sum(x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+                     else 4 * isinstance(x, int) for x in leaves),
         "seconds": time.perf_counter() - t0,  # repro-lint: disable=D001
         "restore_seconds": None,
         "leaves": host,

@@ -5,21 +5,32 @@ Models describe every parameter with *logical* dim names and never name
 mesh axes; :mod:`repro_torch.dist.sharding` resolves logical dims to mesh
 axes through the reference's per-layout rule tables (``PARAM_RULES``),
 giving a :class:`Placement` per leaf over a :class:`SlotMesh`;
-:mod:`repro_torch.dist.elastic` moves live state onto a plan's device; and
+:mod:`repro_torch.dist.elastic` moves live state between placements; and
 :mod:`repro_torch.dist.meshplan` prices migrations: it turns the market's
 instance menu into slot grids (``ElasticMeshManager``) and computes
 ``reshard_bytes`` (slice-overlap bytes a live reshard moves) against
 ``tree_bytes`` (what a checkpoint restore pulls through storage), with the
 reference's numbers for the same shapes and placements.
 
-A pool of N slots on one device simulates N devices: the placements decide
-the byte accounting, execution is on the one device. Cache placements
+Two kinds of pool. Over the ranks of a ``torch.distributed`` world
+(``repro_torch.launch.mesh``; NCCL on the cards, gloo on the CPU) a slot
+is a process and a device, each rank holds its slices, and a reshard moves
+exactly the bytes ``reshard_bytes`` prices. In one process, a pool of N
+slots on one device simulates N devices: the placements decide the byte
+accounting, execution is on the one device. Cache placements
 (``cache_shardings``) price the dense cache a serving migration moves.
-Batch and activation shardings have no effect there and are not ported,
-nor are ``replicate`` and ``reshard_params``, which no caller of the port
-needs yet.
+Activation shardings (``make_activation_constrainer``) need
+tensor-parallel compute, which the port does not have, and are not
+ported.
 """
-from repro_torch.dist.elastic import placement_device, reshard_tree
+from repro_torch.dist.elastic import (
+    move_leaves,
+    placement_device,
+    rebuild_legs,
+    replicate,
+    reshard_params,
+    reshard_tree,
+)
 from repro_torch.dist.meshplan import (
     ElasticMeshManager,
     MeshPlan,
@@ -35,9 +46,11 @@ from repro_torch.dist.sharding import (
     PARAM_RULES,
     Placement,
     SlotMesh,
+    batch_shardings,
     cache_shardings,
     opt_state_shardings,
     param_shardings,
+    rank_mesh,
     replicated,
     resolve_pspec,
 )
@@ -49,14 +62,20 @@ __all__ = [
     "Placement",
     "SlotMesh",
     "ThroughputTracker",
+    "batch_shardings",
     "cache_shardings",
     "leg_state_bytes",
     "mesh_shape_for",
+    "move_leaves",
     "opt_state_shardings",
     "param_shardings",
     "placement_device",
+    "rank_mesh",
+    "rebuild_legs",
+    "replicate",
     "replicated",
     "reshard_bytes",
+    "reshard_params",
     "reshard_tree",
     "resolve_pspec",
     "serve_state_bytes",

@@ -10,10 +10,14 @@ stack can run on and *price*:
   device count (1→(1,1), 2→(2,1), 4→(2,2), 8→(4,2)),
 * :class:`MeshPlan` / :class:`ElasticMeshManager` — one slot grid
   (:class:`~repro_torch.dist.sharding.SlotMesh`) per honored device count,
-  from a pool of slots. The pool defaults to ``[cuda:0]``; a pool of N
-  slots on one card *simulates* N federated devices, as the reference's
-  forced host devices do. Placements over the grid decide the byte
-  accounting; execution is on the pool's one device,
+  from a pool of slots. In a ``torch.distributed`` world
+  (``repro_torch.launch.mesh``) the pool defaults to the world's ranks: a
+  plan's slots are ranks ``0 .. n-1``, each its own process and device,
+  and the state really moves between them (``dist.elastic``). Without a
+  world the pool defaults to ``[cuda:0]``; a pool of N slots on one card
+  *simulates* N federated devices, as the reference's forced host devices
+  do: placements decide the byte accounting, execution is on the one
+  device,
 * :func:`reshard_bytes` — the byte-level cost of a live cross-mesh
   reshard: for every leaf, every destination slot pays only for the slice
   elements it does not already hold under the source placement. Identical
@@ -22,9 +26,11 @@ stack can run on and *price*:
 
 Leaves only need ``.shape`` and ``.dtype`` (tensors, ``ParamSpec``s); a
 Python int leaf (the train state's ``step`` and moment ``count``) counts
-as the int32 scalar the reference and the checkpoint store. Torch tensors
-carry no placement, so the reference's ``live_shardings`` has no
-counterpart: the caller keeps the state's placement tree beside it.
+as the int32 scalar the reference and the checkpoint store. On ranks a
+leaf is a slice, so the counters take the global tree (the model's
+``ParamSpec``s). Torch tensors carry no placement, so the reference's
+``live_shardings`` is the placement tree a caller keeps beside its live
+state (the orchestrator's ``live_sh``).
 """
 from __future__ import annotations
 
@@ -81,19 +87,31 @@ class MeshPlan:
 class ElasticMeshManager:
     """Builds and caches one slot grid per honored device count.
 
-    The pool is a list of slots, each naming a torch device (default
-    ``[cuda:0]``); a menu shape asking for more devices than the pool holds
+    The pool is a list of slots, each naming a torch device: by default
+    the ranks of the world this process joined (``launch.mesh``), else
+    ``[cuda:0]``. A menu shape asking for more devices than the pool holds
     is capped — two menu shapes that cap to the same count share one plan,
-    so re-provisioning between them is a zero-byte reshard.
+    so re-provisioning between them is a zero-byte reshard. Over the world
+    each new plan makes its ranks' process group, so every rank must ask
+    for plans in the same order (the orchestrator's host logic does).
     """
 
     def __init__(self, devices: Optional[Sequence[Any]] = None):
-        pool = devices if devices is not None else [torch.device("cuda", 0)]
+        from repro_torch.launch.mesh import world
+
+        w = world() if devices is None else None
+        self.distributed = w is not None
+        pool = w.devices if w is not None else (
+            devices if devices is not None else [torch.device("cuda", 0)])
         self.devices: List[torch.device] = [torch.device(d) for d in pool]
         self._plans: Dict[int, MeshPlan] = {}
         self._alloc_plans: Dict[Tuple[int, ...], MeshPlan] = {}
 
     def _mesh(self, n: int, shape: Tuple[int, int]) -> SlotMesh:
+        if self.distributed:
+            from repro_torch.launch.mesh import world_mesh
+
+            return world_mesh(shape, ("data", "model"))
         return SlotMesh(grid_shape=shape, axis_names=("data", "model"),
                         slots=tuple(range(n)), devices=tuple(self.devices[:n]))
 

@@ -23,10 +23,18 @@ slots on one card simulate an 8-device instance), so slots are told apart
 by their index in the pool, never by the device object.
 :meth:`Placement.indices_map` gives each slot its slice of a tensor, as
 ``NamedSharding.devices_indices_map`` gives each device its slice.
-Placements decide the byte accounting (``repro_torch.dist.meshplan``);
-execution is on the pool's device. Cache placements price the dense cache
-a serving migration moves (:func:`cache_shardings`); batch and activation
-shardings have no effect on one device and are not ported.
+Placements decide the byte accounting (``repro_torch.dist.meshplan``).
+Cache placements price the dense cache a serving migration moves
+(:func:`cache_shardings`).
+
+A mesh built over the ranks of a ``torch.distributed`` world
+(``repro_torch.launch.mesh``) is ``distributed``: slot i is rank i, a
+process of its own on ``devices[i]``, and a rank holds only its slice of
+each tensor (:meth:`Placement.box`). There :func:`batch_shardings` gives
+each rank its rows of the batch, and ``repro_torch.dist.elastic`` moves
+slices between ranks. Activation shardings (``make_activation_constrainer``)
+need tensor-parallel compute, which the port does not have: they are not
+ported.
 """
 from __future__ import annotations
 
@@ -95,12 +103,15 @@ class SlotMesh:
     """The counterpart of ``jax.sharding.Mesh``: a row-major grid of slots.
 
     ``slots[i]`` is the pool index of the grid's i-th position and
-    ``devices[i]`` the torch device that slot names."""
+    ``devices[i]`` the torch device that slot names. In a ``distributed``
+    mesh the pool is the world: a slot is a rank, and its device lives in
+    that rank's process."""
 
     grid_shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     slots: Tuple[int, ...]
     devices: Tuple[torch.device, ...]
+    distributed: bool = False
 
     def __post_init__(self):
         assert len(self.grid_shape) == len(self.axis_names)
@@ -129,7 +140,8 @@ class Placement:
         sharded over axes ``(a, b)`` splits into ``size(a) * size(b)``
         equal blocks, ``a`` major; a replicated dim is ``slice(None)``."""
         shape = tuple(shape)
-        assert len(shape) == len(self.spec), (shape, self.spec)
+        spec = self.spec or ((),) * len(shape)    # P(): every dim replicated
+        assert len(shape) == len(spec), (shape, self.spec)
         sizes = self.mesh.shape
         names = self.mesh.axis_names
         out: Dict[int, Tuple[slice, ...]] = {}
@@ -137,7 +149,7 @@ class Placement:
         for slot, coord in zip(self.mesh.slots, coords):
             at = dict(zip(names, coord))
             idx = []
-            for dim, axes in zip(shape, self.spec):
+            for dim, axes in zip(shape, spec):
                 if not axes:
                     idx.append(slice(None))
                     continue
@@ -148,6 +160,14 @@ class Placement:
                 idx.append(slice(shard * block, (shard + 1) * block))
             out[slot] = tuple(idx)
         return out
+
+    def box(self, shape: Sequence[int], slot: int) -> Optional[Tuple[Tuple[int, int], ...]]:
+        """The ((start, stop), ...) box of a tensor of ``shape`` that
+        ``slot`` holds, or None where the slot is not in the mesh."""
+        idx = self.indices_map(shape).get(slot)
+        if idx is None:
+            return None
+        return tuple(sl.indices(dim)[:2] for sl, dim in zip(idx, tuple(shape)))
 
 
 def _fit_axes(dim: int, candidates, sizes: Dict[str, int], used: set):
@@ -197,8 +217,16 @@ def _rules_for(layout: Union[ShardingLayout, str, Rule], key: str = "param_rules
     return PARAM_RULES[name]
 
 
+def rank_mesh(rank: int, device: torch.device) -> SlotMesh:
+    """A one-slot distributed mesh: the placement of a tree that one rank
+    holds whole (a checkpoint's writer, a restore before its scatter)."""
+    return SlotMesh(grid_shape=(1, 1), axis_names=("data", "model"), slots=(rank,),
+                    devices=(torch.device(device),), distributed=True)
+
+
 def replicated(mesh: SlotMesh) -> Placement:
-    """The placement of a scalar every slot holds (``NamedSharding(mesh, P())``)."""
+    """The placement of a tensor every slot holds whole
+    (``NamedSharding(mesh, P())``)."""
     return Placement(mesh, ())
 
 
@@ -222,3 +250,17 @@ def cache_shardings(cache_specs: Any, mesh: SlotMesh, layout: ShardingLayout) ->
     the model axis — ``cache_len_for`` rounds it to a multiple of 16 so this
     always divides on the production mesh."""
     return _spec_shardings(cache_specs, mesh, _rules_for(layout))
+
+
+def batch_shardings(inputs: Dict[str, Any], mesh: SlotMesh) -> Dict[str, Placement]:
+    """Input-batch placements: the leading dim over the data axes, the rest
+    replicated; a batch the data axes do not divide replicates (the
+    divisibility fallback of :func:`resolve_pspec`). ``inputs`` maps names
+    to anything with a ``.shape``."""
+    rules = PARAM_RULES["baseline"]
+
+    def one(x) -> Placement:
+        names = ("batch",) + (None,) * (len(x.shape) - 1)
+        return Placement(mesh, resolve_pspec(x.shape, names, rules, mesh))
+
+    return {k: one(v) for k, v in inputs.items()}
