@@ -11,8 +11,8 @@
     python3 chip_smoke.py --gemma-only    # build + the kernels at head dim 256 + phase 12
     python3 chip_smoke.py --whisper-only  # build + the flash kernels at whisper's shapes + phase 13
     python3 chip_smoke.py --hybrid-train-only  # build + hymba's training kernels + phase 14
-    python3 chip_smoke.py --xlstm-train-only   # build + the mLSTM's backward, the sLSTM (wide too)
-                                               # + phase 15
+    python3 chip_smoke.py --xlstm-train-only   # build + the tensor-core mLSTM's designs, the
+                                               # mLSTM's backward, the sLSTM (wide too) + phase 15
     python3 chip_smoke.py --whisper-plan-only  # build + the flash kernels at whisper's + phase 16
     python3 chip_smoke.py --vlm-train-only     # build + the flash kernels at S3073 G6 + phase 17
     python3 chip_smoke.py --xlstm-dots-only    # build + phase 18
@@ -52,6 +52,12 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    tensor cores, f32 (and what the tensor-core kernel does not take) on
    tensor cores as split TF32, both held in both dtypes, the split-TF32
    one also in f32 at xlstm-350m's prefill shape and timed there. The
+   tensor-core kernel's two designs (a carry pass over C's tiles and an
+   output pass over chunks; the single pass) are each held on every case
+   and at xlstm-350m's prefill (B8) and training (B1) shapes keeping their
+   chunk states, each kept tensor against the plain split form, and timed
+   there in turns (``check_mlstm_tc_designs``; B1's record joins the
+   kernels line as ``mlstm_tc_train``). The
    flash forward, dk/dv and dq are
    also held at mixtral-8x7b's training shape (B1 S8192 H32/8 hd128,
    window 4096, bf16), timed beside SDPA with the band as a boolean mask.
@@ -349,6 +355,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -377,7 +384,8 @@ SRC = REPO / "src"
 # instantiation at head dim 256 (a template argument of 256 in its mangled
 # name), the mLSTM backward's four kernels and the sLSTM's two
 NO_SPILL_KERNELS = ("paged_split_fma_kernel", "paged_split_tc_kernel", "paged_merge_kernel",
-                    "mlstm_step_kernel", "mlstm_tc_kernel", "mlstm_tf32_kernel",
+                    "mlstm_step_kernel", "mlstm_tc_kernel", "mlstm_tc_carry_kernel",
+                    "mlstm_tc_out_kernel", "mlstm_tf32_kernel",
                     "ssm_scan_kernel", "ssm_step_kernel",
                     "ssm_scan_bwd_kernel", "ssm_scan_bwd_carry_kernel", "ssm_sum_parts_kernel",
                     "flash_fwd_tf32_kernel", "flash_bwd_dkdv_tf32_kernel",
@@ -1388,7 +1396,7 @@ def _device_ms_per_launch(fn, flush: torch.Tensor, key: str, reps: int = 5) -> d
     out = {}
     for e in prof.key_averages():
         if key in e.key and getattr(e, "self_device_time_total", 0) > 0:
-            name = re.sub(r"^.*::", "", e.key.split("<")[0])
+            name = re.search(r"(\w+)[<(]", e.key).group(1)   # the function's own name
             out[name] = e.self_device_time_total / e.count / 1e3
     return out
 
@@ -1785,6 +1793,96 @@ def _to_ref_layout(q, k, v, gates):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), g
 
 
+# xlstm-350m's two shapes of the tensor-core mLSTM: its serving prefill
+# (B8 S4096 H4 hd512, nothing kept) and its training microbatch (B1,
+# keeping the chunk states for the gradient); calls each design is timed over
+MLSTM_TC_SHAPES = {"prefill": (8, False), "training": (1, True)}
+MLSTM_TC_REPS = 10
+
+
+def check_mlstm_tc_designs(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """Both designs of the tensor-core mLSTM (``kernel.tc_call``: the split
+    design's carry pass over C's 64 x 64 tiles and output pass over chunks,
+    and the single pass) at xlstm-350m's two shapes (MLSTM_TC_SHAPES), each
+    keeping its chunk states: h and the final state against the plain
+    chunkwise form at chunk 256 (MLSTM_MAIN_TOLS), each kept tensor against
+    the plain split form (``mlstm_chunkwise_split_ref``: C_in and n_in at
+    MLSTM_MAIN_STATE_TOL, m_in at MLSTM_M_TOL, n.q at MLSTM_MAIN_STATE_TOL);
+    without keeping the same bits, and two calls the same bits. Then both
+    designs timed in turns (split, single, single, split; MLSTM_TC_REPS
+    calls a turn) with and without keeping, beside the bound and the kept
+    states' floor (their bytes written once), and the wrapper's pick
+    (``tc_design``). Returns the training shape's record for the kernels
+    line (the wrapper keeping, read from the counter ``mlstm_tc``; its error
+    the largest of every hold here). The kernel phase and
+    ``--xlstm-train-only`` run it."""
+    from repro_torch.kernels.mlstm import kernel, ops
+    from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref, mlstm_chunkwise_split_ref
+
+    err, rec = 0.0, None
+    H, S, hd = 4, 4096, 512
+    kept_tols = (MLSTM_MAIN_STATE_TOL, MLSTM_MAIN_STATE_TOL, MLSTM_M_TOL, MLSTM_MAIN_STATE_TOL)
+    log("[kernels] mlstm_tc, both designs (split: carry + output pass; single), at xlstm-350m's "
+        "prefill and training shapes, keeping: h and state vs mlstm_chunkwise_ref (chunk 256), "
+        "kept C_in, n_in, m_in, n.q vs mlstm_chunkwise_split_ref")
+    for tag, (B, keep) in MLSTM_TC_SHAPES.items():
+        q, k, v, gates, _ = _mlstm_inputs(gen, B, S, H, hd, torch.bfloat16)
+        hr, (Cr, nr, mr) = mlstm_chunkwise_ref(q, k, v, gates, None, 256)
+        plain_kept = mlstm_chunkwise_split_ref(q, k, v, gates)[2]
+        for design in ("split", "single"):
+            name = f"mlstm_tc [{design}] {tag} B{B} S{S} H{H} hd{hd} bf16 keeping"
+            h, (C, n, m), kept = kernel.tc_call(design, q, k, v, gates, keep=True)
+            torch.cuda.synchronize()
+            err = max(err, hold(f"{name} h", h, hr, MLSTM_MAIN_H_TOL),
+                      hold(f"{name} C", C, Cr, MLSTM_MAIN_STATE_TOL),
+                      hold(f"{name} n", n, nr, MLSTM_MAIN_STATE_TOL))
+            hold(f"{name} m", m, mr, MLSTM_M_TOL)
+            for key, x, r, t in zip(("C_in", "n_in", "m_in", "n.q"), kept, plain_kept, kept_tols):
+                err = max(err, hold(f"{name} kept {key}", x, r, t))
+            h2, st2 = kernel.tc_call(design, q, k, v, gates)
+            again = kernel.tc_call(design, q, k, v, gates, keep=True)
+            same_keep = torch.equal(h, h2) and all(map(torch.equal, (C, n, m), st2))
+            same_twice = all(map(torch.equal, (h, C, n, m, *kept),
+                                 (again[0], *again[1], *again[2])))
+            log(f"  {name}: without keeping the same bits: {same_keep}; two calls give the same "
+                f"bits: {same_twice}")
+            if not (same_keep and same_twice):
+                raise AssertionError(f"{name}: other bits without keeping or on a second call")
+            del h, C, n, m, kept, h2, st2, again
+        del hr, Cr, nr, mr, plain_kept
+
+        flops, nbytes = ops.cost(B, S, H, hd, el=2)
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        nc = -(-S // kernel.CHUNK)
+        kept_bytes = 4.0 * B * H * nc * (hd * hd + hd + 1) + 4.0 * B * S * H
+        times = {}
+        for design in ("split", "single", "single", "split"):
+            for kp in (False, True):
+                fn = lambda: kernel.tc_call(design, q, k, v, gates, keep=kp)
+                times.setdefault((design, kp), []).extend(
+                    time_each(fn, flush, reps=MLSTM_TC_REPS))
+        pick = kernel.tc_design(B, S, H, hd)
+        log(f"  mlstm_tc {tag} B{B} S{S} H{H} hd{hd} bf16, both designs in turns (split, single, "
+            f"single, split; {2 * MLSTM_TC_REPS} calls each): " + "; ".join(
+                f"{d}{' keeping' if kp else ''} {fmt_spread(ts)}"
+                for (d, kp), ts in times.items())
+            + f"; the wrapper takes {pick}; bound {b_ms:.4f} ms ({b_by}); the kept states, "
+            f"{kept_bytes / 1e9:.4f} GB, written once: {kept_bytes / PEAK_BYTES * 1e3:.4f} ms")
+        if keep:
+            plain_ms = time_ms(lambda: mlstm_chunkwise_ref(q, k, v, gates, None, 256), flush,
+                               reps=3)
+            rec = dict(name="mlstm_tc_train", counter="mlstm_tc", route="cuda",
+                       source="src/repro_torch/csrc/mlstm_tc.cu",
+                       replaces="src/repro/kernels/mlstm/kernel.py:31", library_ms=None,
+                       ms=spread(times[(pick, True)])[1], plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+            log(f"  mlstm_tc training record: {pick} keeping, median {rec['ms']:.4f} ms, plain "
+                f"(chunkwise, chunk 256) {plain_ms:.4f} ms, bound {b_ms:.4f} ms")
+        del q, k, v, gates
+    rec["max_abs_err"] = err
+    return rec
+
+
 def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
     """The chunkwise mLSTM's three kernels (S <= ``STEP_MAX``: the one-pass
     decode step; longer: the bf16 tensor-core kernel, and the split-TF32
@@ -1800,11 +1898,12 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
     from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref, mlstm_ref
 
     def variants(S, dtype):
-        """(name, function) of each kernel that takes these inputs."""
+        """(name, function) of each kernel that takes these inputs; the
+        tensor-core kernel in both its designs (``kernel.tc_call``)."""
         if S <= kernel.STEP_MAX:
             return [("step", ops.mlstm)]
-        return [("tf32", kernel.mlstm_tf32)] + ([("tc", kernel.mlstm_tc)]
-                                                if dtype == torch.bfloat16 else [])
+        tc = [(f"tc {d}", functools.partial(kernel.tc_call, d)) for d in ("split", "single")]
+        return [("tf32", kernel.mlstm_tf32)] + (tc if dtype == torch.bfloat16 else [])
 
     def same_bits(name, fn, args, out):
         again = fn(*args)
@@ -1832,7 +1931,7 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
                       hold(f"{full} C", C, Cr, MLSTM_STATE_TOL),
                       hold(f"{full} n", n, nr, MLSTM_STATE_TOL))
             hold(f"{full} m", m, mr, MLSTM_M_TOL)
-            errs[var] = max(errs[var], err)
+            errs[var.split()[0]] = max(errs[var.split()[0]], err)
             if twice:
                 same_bits(full, fn, (q, k, v, gates, state), (h, (C, n, m)))
 
@@ -1865,12 +1964,14 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
             hold(f"{name} h", torch.cat([h1, h2], 1), h_all, h_t)
             for key, a, b in zip("Cnm", st2, st_all):
                 hold(f"{name} {key}", a, b, MLSTM_STATE_TOL)
+    train_rec = check_mlstm_tc_designs(gen, flush)
+    errs["tc"] = max(errs["tc"], train_rec["max_abs_err"])
 
     # xlstm-350m's prefill shape, against the plain chunkwise form at chunk 256
     B, S, H, hd, chunk = 8, 4096, 4, 512, 256
     q, k, v, gates, _ = _mlstm_inputs(gen, B, S, H, hd, torch.bfloat16)
     hr, (Cr, nr, mr) = mlstm_chunkwise_ref(q, k, v, gates, None, chunk)
-    for var, fn in variants(S, torch.bfloat16):
+    for var, fn in [("tf32", kernel.mlstm_tf32), ("tc", kernel.mlstm_tc)]:
         h, (C, n, m) = fn(q, k, v, gates)
         torch.cuda.synchronize()
         name = f"mlstm main-path prefill B{B} S{S} H{H} hd{hd} bf16 [{var}]"
@@ -1921,9 +2022,10 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
     tc_ms = time_ms(lambda: kernel.mlstm_tc(q, k, v, gates), flush)
     plain_ms = time_ms(lambda: mlstm_chunkwise_ref(q, k, v, gates, None, chunk), flush, reps=3)
     log(f"  mlstm main path (B{B} S{S} H{H} hd{hd}, q/k/v bf16): tensor-core kernel (the "
-        f"path's) {tc_ms:.4f} ms, split-TF32 kernel {ms:.4f} ms, plain (chunkwise, chunk "
-        f"{chunk}) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {flops / tc_ms / 1e9:.1f} "
-        f"and {flops / ms / 1e9:.1f} TFLOP/s of the function's work achieved")
+        f"path's, {kernel.tc_design(B, S, H, hd)}) {tc_ms:.4f} ms, split-TF32 kernel {ms:.4f} "
+        f"ms, plain (chunkwise, chunk {chunk}) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"{flops / tc_ms / 1e9:.1f} and {flops / ms / 1e9:.1f} TFLOP/s of the function's work "
+        f"achieved")
     del q, k, v
     f_flops, f_bytes = work(B, S, H, hd, 4)
     f_b_ms, f_by = bound(f_flops, f_bytes, PEAK_SPLIT_TF32_FLOPS)
@@ -1950,6 +2052,7 @@ def check_mlstm(gen: torch.Generator, flush: torch.Tensor) -> list:
     return [dict(rec, name="mlstm_tc", source="src/repro_torch/csrc/mlstm_tc.cu",
                  max_abs_err=errs["tc"], ms=tc_ms, plain_ms=plain_ms, bound_ms=b_ms,
                  bound_by=b_by),
+            dict(train_rec, max_abs_err=errs["tc"]),
             dict(rec, name="mlstm_tf32", max_abs_err=errs["tf32"], ms=f_ms,
                  plain_ms=f_plain_ms, bound_ms=f_b_ms, bound_by=f_by),
             dict(rec, name="mlstm_step", max_abs_err=errs["step"], ms=d_ms,
@@ -6471,8 +6574,9 @@ def main() -> int:
                     help="only build the kernels, hold the flash kernels at hymba-1.5b's "
                          "training shape and the scan's backward, and run hymba's training phase")
     ap.add_argument("--xlstm-train-only", action="store_true",
-                    help="only build the kernels, hold the mLSTM's backward and the sLSTM's "
-                         "kernels and run xlstm-350m's training phase")
+                    help="only build the kernels, hold the tensor-core mLSTM's two designs, "
+                         "the mLSTM's backward and the sLSTM's kernels and run xlstm-350m's "
+                         "training phase")
     ap.add_argument("--whisper-plan-only", action="store_true",
                     help="only build the kernels, hold the flash kernels at whisper-tiny's shapes "
                          "and run whisper-tiny on the launcher's dense plans")
@@ -6613,8 +6717,9 @@ def main() -> int:
     if args.xlstm_train_only:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(0)
-        recs = [check_mlstm_bwd(gen, flush), check_slstm(gen, flush), check_slstm_bwd(gen, flush)]
-        for r, err in zip(recs[1:], check_slstm_wide(gen, flush).values()):
+        recs = [check_mlstm_tc_designs(gen, flush), check_mlstm_bwd(gen, flush),
+                check_slstm(gen, flush), check_slstm_bwd(gen, flush)]
+        for r, err in zip(recs[2:], check_slstm_wide(gen, flush).values()):
             r["max_abs_err"] = max(r["max_abs_err"], err)
         slstm_wide_model_matches_cpu()
         del flush
@@ -6768,8 +6873,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("[phase 20/20] multi-device execution")
     paths.update(multi_device_phase())
-    for r in records:
-        r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
+    for r in records:     # a record at a second shape reads its kernel's counter
+        r["launches_by_path"] = {path: counts[r.get("counter", r["name"])]
+                                 for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

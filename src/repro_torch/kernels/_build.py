@@ -105,6 +105,7 @@ SIGNATURES = {
     "repro_mlstm": _MLSTM_KEEP,          # split-TF32 chunkwise kernel
     "repro_mlstm_step": _MLSTM,          # one-pass decode step
     "repro_mlstm_tc": _MLSTM_KEEP[:15] + _MLSTM_KEEP[16:],   # tensor cores, bf16 only: no dtype
+    "repro_mlstm_tc_split": _MLSTM_KEEP[:15] + _MLSTM_KEEP[16:],   # the same, carry + output pass
     "repro_mlstm_bwd": [
         _P, _P, _P, _P,                  # 15 inputs, 7 outputs, 8 workspaces (pointer arrays)
         _I, _I, _I, _I, _I, _P,          # dtype, B, S, H, hd, stream

@@ -18,9 +18,12 @@ each case has exactly one kernel):
 ``mlstm_tc`` and ``mlstm_tf32`` call one chunkwise kernel each whatever the
 inputs, for the checks on the card; with ``keep=True`` they also return what
 the gradient starts from (each 64-step chunk's start state and each step's
-n·q). ``mlstm_bwd`` launches the gradient (``csrc/mlstm_bwd.cu``: its
-per-step scalars, its carry pass, its parallel pass and the sums, one call
-in ``launches_bwd``).
+n·q). The tensor-core kernel has two designs of one function:
+``tc_design`` picks by shape alone (the split's carry and output passes,
+or the single pass), and ``tc_call`` runs a named one for the checks.
+``mlstm_bwd`` launches the gradient (``csrc/mlstm_bwd.cu``: its per-step
+scalars, its carry pass, its parallel pass and the sums, one call in
+``launches_bwd``).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ launches_bwd = 0
 MAX_HEAD_DIM = 512   # the kernels keep a tile of C's rows (rows x hd f32) on chip
 STEP_MAX = 8         # up to this many timesteps run in one pass over C
 CHUNK = 64           # the chunkwise kernels' chunk: what they keep is per chunk of it
+TC_SPLIT_BELOW = 128   # single-pass blocks below which the split design runs (``tc_design``)
 
 # what a chunkwise forward keeps for the gradient: C, n, m at each chunk's
 # start and each step's n·q
@@ -174,6 +178,21 @@ def mlstm_tf32(
     return out
 
 
+def tc_design(B: int, S: int, H: int, hd: int) -> str:
+    """Which design of the tensor-core kernel takes a call of this shape
+    (``csrc/mlstm_tc.cu``): "split", a carry pass over C's 64 x 64 tiles
+    ((hd / 64)^2 blocks a (b, h)) and then an output pass parallel over
+    (chunk, 64 value rows, b·h), or "single", a block per 64 value rows of
+    C walking every chunk (hd / 64 blocks a (b, h), one an SM). The split
+    runs where the single pass's grid is under TC_SPLIT_BELOW blocks: it
+    writes and reads back C at every chunk's start, which the single pass
+    keeps on chip, and wins only where the single pass leaves most of the
+    card idle: on one H100 at S4096 H4 hd512 (``tools/mlstm_fwd_time.py``,
+    PERF.md row 5t) at B1 to B3 (32 to 96 single-pass blocks), not from B4
+    (128) up."""
+    return "split" if (hd // 64) * B * H < TC_SPLIT_BELOW else "single"
+
+
 def mlstm_tc(
     q: torch.Tensor,       # (B, S, H, hd) bf16, rows contiguous
     k: torch.Tensor,
@@ -182,13 +201,33 @@ def mlstm_tc(
     state: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
     keep: bool = False,
 ):
-    """The same function as ``mlstm`` on the tensor-core kernel; with
-    ``keep`` also what the gradient starts from, a third element."""
+    """The same function as ``mlstm`` on the tensor-core kernel, in the
+    design ``tc_design`` picks for the shape; with ``keep`` also what the
+    gradient starts from, a third element."""
+    return tc_call(tc_design(*q.shape), q, k, v, gates, state, keep)
+
+
+def tc_call(design: str, q, k, v, gates, state=None, keep: bool = False):
+    """``mlstm_tc`` in the given design ("split" or "single"), whatever the
+    shape: the model's calls go through ``mlstm_tc``; the checks and timings
+    on the card call each design here. The split's carry hands C, n and m
+    at each chunk's start to its output pass through the tensors kept for
+    the gradient, allocated without ``keep`` too (and then dropped). One
+    call counts one launch in ``launches_tc``, whatever it starts."""
     global launches_tc
+    if design not in ("split", "single"):
+        raise ValueError(f"mlstm_tc: design {design!r} (split or single)")
     _check(q, k, v, gates, state)
     _check_tc(q, k, v)
-    out, launched = _launch_chunkwise("repro_mlstm_tc", "mlstm_tc", (), q, k, v, gates, state,
-                                      keep)
+    if design == "single":
+        out, launched = _launch_chunkwise("repro_mlstm_tc", "mlstm_tc", (), q, k, v, gates,
+                                          state, keep)
+    else:
+        kept = _kept(*q.shape, q.device)
+        ptrs = (*(t.data_ptr() for t in kept[:3]), kept[3].data_ptr() if keep else None)
+        h, st, launched = _launch("repro_mlstm_tc_split", "mlstm_tc", ptrs, q, k, v, gates,
+                                  state)
+        out = (h, st, kept) if keep else (h, st)
     launches_tc += launched
     return out
 

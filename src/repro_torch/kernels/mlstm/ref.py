@@ -214,6 +214,102 @@ def mlstm_chunkwise_hilo_ref(
     return torch.cat(hs, dim=1)[:, :S].to(q.dtype), (C, n, m)
 
 
+def mlstm_chunkwise_split_ref(
+    q: torch.Tensor,       # (B, S, H, hd) bf16
+    k: torch.Tensor,
+    v: torch.Tensor,
+    gates: torch.Tensor,   # (B, S, 2H)
+    state: Optional[State] = None,
+    chunk: int = 64,
+    tile: int = 64,
+):
+    """The tensor-core kernel's split design (``csrc/mlstm_tc.cu``: a carry
+    pass, then an output pass), in plain PyTorch, with the rounding of
+    ``mlstm_chunkwise_hilo_ref``. The carry takes each ``tile`` x ``tile``
+    tile of C through the chunks on its own, C = cscale C + (V w/√hd)ᵀ K with
+    V w as hi + lo bf16 halves, n beside it, and keeps C, n, m at each
+    chunk's start. The output pass computes each chunk's h from those alone:
+    P' = (q Kᵀ/√hd) ⊙ D as three bf16 terms, C_in as hi + lo halves,
+
+        h_t = (P' V + exp(m_in − M_t) q C_inᵀ)_t / max(|n_t·q_t|, 1),
+        n_t·q_t = Σ_s P'_ts + exp(m_in − M_t) n_in·q_t.
+
+    A ragged S is padded as ``mlstm_chunkwise_ref`` pads it. Returns (h
+    (B,S,H,hd) in q's dtype, (C, n, m) f32, kept): what the kernel keeps for
+    the gradient (``kernel.Kept``), C_in (B,H,NC,hd,hd), n_in (B,H,NC,hd),
+    m_in (B,H,NC) and n_t·q_t (B,S,H)."""
+    B, S, H, hd = q.shape
+    if hd % tile:
+        raise ValueError(f"mlstm_chunkwise_split_ref: hd {hd} is not a multiple of tile {tile}")
+    C, n, m = (_zero_state(B, H, hd, q.device) if state is None
+               else tuple(t.float() for t in state))
+    c = max(1, min(chunk, S))
+    pad = (-S) % c
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ig, fg = gates[..., :H].float(), gates[..., H:].float()
+    if pad:
+        z = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        qf, kf, vf = z(qf), z(kf), z(vf)
+        ig = torch.nn.functional.pad(ig, (0, 0, 0, pad), value=NEG)
+        fg = torch.nn.functional.pad(fg, (0, 0, 0, pad))
+    inv = 1.0 / math.sqrt(hd)
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
+    two = lambda x, y, eq, terms=2: sum(torch.einsum(eq, t, y) for t in _hilo(x, terms))
+
+    def scalars(c0, m_in):
+        """The chunk's a_s, M_t and M at its last step, from m_in."""
+        b = torch.cumsum(fg[:, c0:c0 + c], dim=1)                           # (B,c,H)
+        a = ig[:, c0:c0 + c] - b
+        M = torch.maximum(m_in[:, None, :], torch.cummax(a, dim=1).values)
+        return b, a, M
+
+    # the carry: each chunk's w and cscale (every tile of a head the same),
+    # then each tile of C through the chunks, and n
+    steps, m_ins = [], []
+    for c0 in range(0, S + pad, c):
+        b, a, M = scalars(c0, m)
+        M_c = M[:, -1]
+        steps.append((c0, torch.exp(a - M_c[:, None, :]) * inv, torch.exp(m - M_c)))
+        m_ins.append(m)
+        m = b[:, -1] + M_c
+    nc = len(steps)
+    kC = torch.empty((B, H, nc, hd, hd), dtype=torch.float32, device=q.device)
+    kn = torch.empty((B, H, nc, hd), dtype=torch.float32, device=q.device)
+    C_end = torch.empty_like(C)
+    for r0 in range(0, hd, tile):
+        rows = slice(r0, r0 + tile)
+        for col0 in range(0, hd, tile):
+            cols = slice(col0, col0 + tile)
+            Ct = C[:, :, rows, cols]
+            for ci, (c0, w, cscale) in enumerate(steps):
+                kC[:, :, ci, rows, cols] = Ct
+                Ct = cscale[..., None, None] * Ct + two(
+                    vf[:, c0:c0 + c, :, rows] * w[..., None], kf[:, c0:c0 + c, :, cols],
+                    "bshd,bshe->bhde")
+            C_end[:, :, rows, cols] = Ct
+    for ci, (c0, w, cscale) in enumerate(steps):
+        kn[:, :, ci] = n
+        n = cscale[..., None] * n + (kf[:, c0:c0 + c] * w[..., None]).sum(1)
+    km = torch.stack(m_ins, dim=2)
+
+    # the output pass: each chunk from its C_in, n_in and m_in alone
+    hs, nqs = [], []
+    for ci, (c0, _, _) in enumerate(steps):
+        C_in, n_in, m_in = kC[:, :, ci], kn[:, :, ci], km[:, :, ci]
+        qt, kt, vt = qf[:, c0:c0 + c], kf[:, c0:c0 + c], vf[:, c0:c0 + c]
+        _, a, M = scalars(c0, m_in)
+        D = torch.where(tri[None, :, :, None],
+                        torch.exp(a[:, None, :, :] - M[:, :, None, :]), 0.0)   # (B,t,s,H)
+        P = torch.einsum("bthd,bshd->btsh", qt, kt) * inv * D
+        cw = torch.exp(m_in[:, None, :] - M)                                 # (B,c,H)
+        num = two(P, vt, "btsh,bshd->bthd", 3) + cw[..., None] * two(C_in, qt, "bhed,bthd->bthe")
+        nqt = P.sum(2) + cw * (qt * n_in[:, None]).sum(-1)                   # (B,c,H)
+        hs.append(num / torch.clamp(nqt.abs(), min=1.0)[..., None])
+        nqs.append(nqt)
+    kept = (kC, kn, km, torch.cat(nqs, dim=1)[:, :S])
+    return torch.cat(hs, dim=1)[:, :S].to(q.dtype), (C_end, n, m), kept
+
+
 def _stabilizer_chain(won: torch.Tensor, e: torch.Tensor):
     """Part (b) of ``mlstm_chunkwise_bwd_ref``: ``e`` (B, S, H), each step's
     gradient of the loss by its stabilizer m_t with the chunkwise form held

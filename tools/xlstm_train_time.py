@@ -10,8 +10,9 @@ and AdamW from seed 0, sequence 4096, global batch 2 in 2 microbatches,
 remat per group, ``SyntheticLM`` data from seed 0, through ``run_segment``.
 After one step that includes the first calls' set-up, ``--steps`` steps are
 each timed by the host clock up to the loss's read (a device sync); one
-more runs under torch.profiler for the device's busy time and each sLSTM
-kernel's. Prints one JSON line, then the card's name and power limit.
+more runs under torch.profiler for the device's busy time and the device
+time of the sLSTM's kernels, the tensor-core mLSTM forward's (all its
+kernels) and the mLSTM backward's. Prints one JSON line, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -70,7 +71,8 @@ def main() -> int:
         "min_median_max_ms": [ms[0], ms[len(ms) // 2], ms[-1]],
         "profiled_window_ms": window,
         "device_busy_ms": sum(e.self_device_time_total for e in dev) / 1e3,
-        "slstm_fwd_ms": kern("slstm_fwd_kernel"), "slstm_bwd_ms": kern("slstm_bwd_kernel")}))
+        "slstm_fwd_ms": kern("slstm_fwd_kernel"), "slstm_bwd_ms": kern("slstm_bwd_kernel"),
+        "mlstm_tc_ms": kern("mlstm_tc"), "mlstm_bwd_ms": kern("mlstm_bwd")}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     return 0
