@@ -18,6 +18,7 @@
     python3 chip_smoke.py --xlstm-dots-only    # build + phase 18
     python3 chip_smoke.py --dryrun-only        # build + phase 19
     python3 chip_smoke.py --multi-device-only  # build + phase 20 on 4 cards (fails on fewer)
+    python3 chip_smoke.py --multi-serve-only   # build + phase 21 on 4 cards (fails on fewer)
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
@@ -321,6 +322,30 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    equals a gloo world of as many ranks on the CPU (columns ``==``, losses
    at rtol 1e-4). Logs ms a step by plan, each rank's peak, each
    move's bytes and seconds beside its priced hours.
+21. serving over torch.distributed: phase 9's five runs (full-width
+   qwen3-4b, bf16 matrices, 8 prompts x 2000 tokens, 32 new, revoked after
+   16 steps) through ``serve_plan`` on every rank of a world of one rank a
+   card, plans of 4 -> 2 ranks ((2, 2) -> (2, 1) on 4 cards; on fewer every
+   plan caps to the world, nothing moves, and the depth is cut to
+   MSERVE_ONE_CARD_LAYERS): each rank holds its params slices, computes
+   with the whole params gathered once a plan, and serves the rows of its
+   ``data`` coordinate; a revocation moves the params, and under migrate
+   the cache, between cards. Held: each move's bytes received, summed over
+   ranks, equal its priced bytes, and the byte columns (with the moved
+   cache's gather to the new rows) equal ``serve_plan_predicted`` for 4 ->
+   2, made from the specs before the run; params below the training
+   path's; the ranks of a data coordinate give the same tokens; migrate's
+   stream equals the uninterrupted one, drop's and the engine's rows equal
+   theirs or first diverge at a near-tie after the revocation, and the
+   uninterrupted world's rows equal phase 9's one-card run's (batch 8 on
+   one card, run here) or first diverge at a near-tie; on every rank 36
+   flash forwards a prefill call and 36 paged launches an engine decode
+   step; each rank's peak under 80 GB; rates measured on both plans; then
+   reduced f32 in the same five runs over the cards equals a gloo world of
+   as many ranks on the CPU (every column but the timings, received bytes
+   ``==`` priced). Logs ms a decode step by plan, the time to recover,
+   each move's and the gather's bytes and seconds, prefill seconds, the
+   engine's tokens/s before and after, and each rank's peak.
 
 A kernel variant's ``launches_by_path`` in the JSON record holds its count
 on each path (``serve``, ``hybrid``, ``xlstm``, ``train``, ``spot`` at full width
@@ -340,7 +365,8 @@ and ``whisper_f32``, ``whisper_train_f32``; hymba's ``hybrid_train`` and
 ``vlm_train_f32``; ``xlstm_train_dots`` (its dots turns) and
 ``xlstm_train_dots_f32``; ``slstm_wide_f32``, the d-1152 model; phase 19's
 measured steps ``dryrun_train`` and ``dryrun_xlstm_train``; phase 20's
-``multi`` and ``multi_f32``, summed over ranks), each
+``multi`` and ``multi_f32`` and phase 21's ``serve_multi`` and
+``serve_multi_f32``, summed over ranks), each
 counted from 0
 just before each run of that path and read
 just after; ``launches`` is their sum. The full-width paths launch only the
@@ -3767,25 +3793,29 @@ FLEET_CSV = ("scenario,policy,cost_usd,slo_violation_s,served_mtok,shed_tok,queu
              "p99_delay_s,scale_ups,scale_downs,idle_headroom_mtok")
 
 
-def serve_plan_predicted(model) -> dict:
+def serve_plan_predicted(model, counts=(8, 4), slots: int = 8) -> dict:
     """The byte columns the revoked full-width runs must report, from the
-    specs alone on the CPU (before any run): params moved 8 -> 4 slots with
-    weight matrices in bf16 (the tree the card serves), the bf16 dense cache
-    at batch 8 x (2000 + 32), and the training path's state."""
+    specs alone on the CPU (before any run): params moved between the plans
+    of ``counts`` (on a pool of ``slots``, which caps them as a world of as
+    many ranks does) with weight matrices in bf16 (the tree the card
+    serves), the bf16 dense cache at batch 8 x (2000 + 32), the moved
+    cache's gather to the new plan's rows (phase 21), and the training
+    path's state."""
     from repro_torch.dist import (ElasticMeshManager, cache_shardings, param_shardings,
-                                  reshard_bytes, train_state_bytes)
+                                  reshard_bytes, rows_shardings, train_state_bytes)
     from repro_torch.launch.serve import PLAN_LAYOUT as layout
     from repro_torch.models.common import tree_map
 
-    man = ElasticMeshManager([torch.device("cpu")] * 8)
-    old, new = man.plan_for(8).mesh, man.plan_for(4).mesh
+    man = ElasticMeshManager([torch.device("cpu")] * slots)
+    old, new = man.plan_for(counts[0]).mesh, man.plan_for(counts[1]).mesh
     served = tree_map(lambda s: dataclasses.replace(s, dtype="bfloat16") if s.is_matrix else s,
                       model.specs)
     c_specs = model.cache_specs(SERVE_B, SERVE_S + SERVE_NEW)
+    c_new = cache_shardings(c_specs, new, layout)
     return {"params_bytes": reshard_bytes(served, param_shardings(model.specs, old, layout),
                                           param_shardings(model.specs, new, layout)),
-            "cache_bytes": reshard_bytes(c_specs, cache_shardings(c_specs, old, layout),
-                                         cache_shardings(c_specs, new, layout)),
+            "cache_bytes": reshard_bytes(c_specs, cache_shardings(c_specs, old, layout), c_new),
+            "cache_gather_bytes": reshard_bytes(c_specs, c_new, rows_shardings(c_specs, new)),
             "train_path_bytes": train_state_bytes(model)}
 
 
@@ -6547,6 +6577,386 @@ def multi_device_phase() -> dict:
     return {"multi": launches, "multi_f32": reduced}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: serving over torch.distributed
+# ---------------------------------------------------------------------------
+
+# phase 9's serving at full width (qwen3-4b, bf16 matrices, 8 prompts x 2000
+# tokens, 32 new tokens, revoked after 16 decode steps) over one rank a card:
+# plans of 4 and 2 ranks, (2, 2) -> (2, 1); the five runs as phase 9's
+MSERVE_RUNS = {
+    "dense": ([4], 0, "drop", False),
+    "dense_drop": ([4, 2], SERVE_REVOKE, "drop", False),
+    "dense_migrate": ([4, 2], SERVE_REVOKE, "migrate", False),
+    "engine": ([4], 0, "drop", True),
+    "engine_revoked": ([4, 2], SERVE_REVOKE, "drop", True),
+}
+MSERVE_RANKS = 4
+# a world of one card moves nothing (every plan caps to one rank): the depth
+# is cut to keep the whole script's time
+MSERVE_ONE_CARD_LAYERS = 4
+MSERVE_TIMEOUT = 600
+# PLAN_JSON columns of the runs over ranks that are timings
+MSERVE_TIMINGS = PLAN_TIMINGS + ("move_seconds",)
+
+
+class _RowLogits:
+    """Keep, on the card, the last-position logits a serving run computes
+    on this process: the first batched prefill's (key -1) and each decode
+    call's, dense or paged (key k: the call that gives token k + 1), by
+    wrapping the step builders. ``rows_of(k)`` is the slice of global rows
+    call k computed (None where none); :meth:`entries` gives the logits of
+    the (row, key) pairs asked for that this process computed."""
+
+    def __init__(self, rows_of):
+        self.rows_of = rows_of
+        self.prefill = None
+        self.calls: list = []
+
+    def __enter__(self):
+        from repro_torch.launch import serve
+        from repro_torch.serve import engine
+
+        self._saved = (serve.build_prefill_step, serve.build_decode_step,
+                       engine.build_paged_decode_step)
+        pre, dense, paged = self._saved
+
+        def keep_prefill(model, layout, total):
+            step = pre(model, layout, total)
+
+            def run(params, batch):
+                logits, cache = step(params, batch)
+                if self.prefill is None:
+                    self.prefill = logits[:, -1].float().clone()
+                return logits, cache
+            return run
+
+        def keep_decode(build):
+            def wrapped(model, layout):
+                step = build(model, layout)
+
+                def run(params, cache, *rest):
+                    logits, cache = step(params, cache, *rest)
+                    self.calls.append(logits[:, -1].float().clone())
+                    return logits, cache
+                return run
+            return wrapped
+
+        serve.build_prefill_step = keep_prefill
+        serve.build_decode_step = keep_decode(dense)
+        engine.build_paged_decode_step = keep_decode(paged)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import serve
+        from repro_torch.serve import engine
+
+        serve.build_prefill_step, serve.build_decode_step, \
+            engine.build_paged_decode_step = self._saved
+
+    def table(self) -> dict:
+        """Every key's logits, on the host: {k: (rows, vocab)}."""
+        out = {k: t.cpu() for k, t in enumerate(self.calls)}
+        if self.prefill is not None:
+            out[-1] = self.prefill.cpu()
+        return out
+
+    def entries(self, wanted) -> dict:
+        out = {}
+        for b, k in wanted:
+            rows = self.rows_of(k)
+            t = self.prefill if k < 0 else (self.calls[k] if k < len(self.calls) else None)
+            if rows is not None and t is not None and rows.start <= b < rows.stop:
+                out[(b, k)] = t[b - rows.start].cpu()
+        return out
+
+
+def _first_divergences(ref: list, got: list) -> list:
+    """(row, token) of each row's first token where ``got`` leaves ``ref``."""
+    return [(b, next(j for j, (x, y) in enumerate(zip(r, g)) if x != y))
+            for b, (r, g) in enumerate(zip(ref, got)) if r != g]
+
+
+def _plan_rows(size: int, rank: int, counts: list, revoke: int):
+    """``rows_of`` for a run over ``size`` ranks: the rows ``rank`` computes
+    at decode call k (the first plan's before the revocation, the second's
+    after), as ``batch_shardings`` places the prompts."""
+    from repro_torch.dist import ElasticMeshManager, batch_shardings
+
+    man = ElasticMeshManager([torch.device("cpu")] * size)
+
+    def rows(count):
+        p = batch_shardings({"t": np.zeros((SERVE_B, 1))}, man.plan_for(count).mesh)["t"]
+        box = p.box((SERVE_B, 1), rank)
+        return None if box is None else slice(*box[0])
+
+    first, second = rows(counts[0]), rows(counts[-1])
+    return lambda k: first if not revoke or k < revoke else second
+
+
+class _StepLog:
+    """A ``ThroughputTracker`` that also keeps each observed step's
+    (plan, seconds)."""
+
+    def __init__(self):
+        from repro_torch.dist import ThroughputTracker
+
+        self.inner, self.steps = ThroughputTracker(), []
+
+    def observe(self, key, steps, seconds):
+        self.steps.append((f"{key[1][0]}x{key[1][1]}", seconds / max(steps, 1)))
+        self.inner.observe(key, steps, seconds)
+
+    @property
+    def measured(self):
+        return self.inner.measured
+
+
+def _mserve_model(layers: int):
+    from repro_torch.config import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch("qwen3-4b")
+    return build_model(dataclasses.replace(cfg, num_layers=layers) if layers else cfg)
+
+
+def _mserve_prompts(cfg) -> np.ndarray:
+    return np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                            (SERVE_B, SERVE_S)).astype(np.int32)
+
+
+def _mserve_one_card(model) -> tuple:
+    """Phase 9's uninterrupted dense run in this process on cuda:0 (a pool
+    of 8 slots, batch 8): its PLAN_JSON and every token's logits."""
+    from repro_torch.launch.serve import serve_plan
+
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    with _RowLogits(lambda k: slice(0, SERVE_B)) as keep:
+        out = serve_plan(model, params, _mserve_prompts(model.cfg), SERVE_NEW, [8],
+                         device="cuda")
+    table = keep.table()
+    del keep, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, table
+
+
+def _mserve_reduced(device) -> dict:
+    """Reduced f32 qwen3-4b through MSERVE_RUNS over the world's ranks on
+    ``device``, at phase 9's reduced sizes, from one CPU-made start."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import serve_plan
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+
+    cfg = dataclasses.replace(get_arch("qwen3-4b").reduced(), dtype="float32")
+    model = build_model(cfg)
+    params = tree_map(lambda t: t.to(device), model.init(torch.Generator().manual_seed(0), "cpu"))
+    r = SERVE_F32
+    prompts = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (r["batch"], r["prompt_len"])).astype(np.int32)
+    return {name: serve_plan(model, params, prompts, r["new_tokens"], counts,
+                             revoke_after=r["revoke_after"] if revoke else 0,
+                             cache_policy=policy, engine=engine, device=device)
+            for name, (counts, revoke, policy, engine) in MSERVE_RUNS.items()}
+
+
+def _mserve_card_rank(w, layers: int, one_card_tokens: list) -> dict:
+    """One rank of phase 21's world on the cards: the five full-width runs,
+    then the reduced f32 ones. Returns, on every rank, rank 0's PLAN_JSON
+    of each run, every rank's launches, peaks and step times by run, the
+    logits of the rows where streams part (from whichever rank computed
+    them), and the reduced runs and their launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.serve import serve_plan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _mserve_model(layers)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    prompts = _mserve_prompts(model.cfg)
+    runs, kept = {}, {}
+    mine = {"rank": w.rank, "device": torch.cuda.get_device_name(w.device), "runs": {}}
+    for name, (counts, revoke, policy, engine) in MSERVE_RUNS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        steps = _StepLog()
+        t0 = time.perf_counter()
+        with _RowLogits(_plan_rows(w.size, w.rank, counts, revoke)) as keep:
+            runs[name] = serve_plan(model, params, prompts, SERVE_NEW, counts,
+                                    revoke_after=revoke, cache_policy=policy, engine=engine,
+                                    device="cuda", tracker=steps)
+        mine["runs"][name] = {"launches": read_launches(), "wall": time.perf_counter() - t0,
+                              "peak": torch.cuda.max_memory_allocated(w.device),
+                              "steps": steps.steps}
+        kept[name] = keep
+    # the logits where a run's rows part from the run they are held to
+    wanted: dict = {name: set() for name in MSERVE_RUNS}
+    for ref, got in (("dense", "dense_drop"), ("engine", "engine_revoked")):
+        for b, j in _first_divergences(runs[ref]["tokens"], runs[got]["tokens"]):
+            wanted[ref].add((b, j - 1))
+            wanted[got].add((b, j - 1))
+    for b, j in _first_divergences(one_card_tokens, runs["dense"]["tokens"]):
+        wanted["dense"].add((b, j - 1))
+    have = {name: kept[name].entries(wanted[name]) for name in MSERVE_RUNS}
+    del kept, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    reduced = _mserve_reduced(w.device)
+    mine["reduced_launches"] = read_launches()
+    every = [None] * w.size
+    dist.all_gather_object(every, {"mine": mine, "have": have})
+    logits: dict = {name: {} for name in MSERVE_RUNS}
+    for r in every:
+        for name, got in r["have"].items():
+            for (b, k), t in got.items():
+                logits[name].setdefault(k, {})[b] = t
+    return {"runs": runs, "ranks": [r["mine"] for r in every], "logits": logits,
+            "reduced": reduced}
+
+
+def _mserve_cpu_rank(w) -> dict:
+    """One rank of phase 21's gloo world on the CPU: the reduced runs."""
+    return _mserve_reduced(w.device)
+
+
+def multi_serve_phase() -> dict:
+    """Phase 21: the spot serving plans over ``torch.cuda.device_count()``
+    ranks, one process and card each (NCCL), spawned here. Returns
+    launches by path, summed over ranks."""
+    from repro_torch.launch.mesh import run_world
+
+    n = torch.cuda.device_count()
+    layers = 0 if n >= MSERVE_RANKS else MSERVE_ONE_CARD_LAYERS
+    depth = layers or 36
+    model = _mserve_model(layers)
+    predicted = serve_plan_predicted(model, (4, 2), n)
+    log(f"[mserve] a world of {n} rank(s), one card each; {model.cfg.name} at full width, "
+        f"{depth} layers, bf16 matrices, {SERVE_B} prompts x {SERVE_S} tokens, {SERVE_NEW} new "
+        f"tokens, plans of 4 -> 2 ranks (capped to {n}) revoked after {SERVE_REVOKE} steps; "
+        f"predicted from the specs {predicted}")
+    if n < MSERVE_RANKS:
+        log(f"[mserve] the {MSERVE_RANKS}-rank part (plans (2, 2) -> (2, 1), the params and "
+            f"the cache moved between cards) needs {MSERVE_RANKS} cards; this machine has {n}, "
+            f"so every plan caps to {n} rank(s) and the depth is cut to {layers} layers "
+            f"(python3 chip_smoke.py --multi-serve-only on {MSERVE_RANKS} cards)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_card, one_card_logits = _mserve_one_card(model)
+    t0 = time.perf_counter()
+    world = run_world(_mserve_card_rank, n, "cuda", (layers, one_card["tokens"]),
+                      timeout=MSERVE_TIMEOUT)
+    t_card = time.perf_counter() - t0
+    cpu = run_world(_mserve_cpu_rank, n, "cpu", (), timeout=MSERVE_TIMEOUT, threads=2)
+    log(f"[mserve] worlds: the cards' {t_card:.1f} s, the CPU's "
+        f"{time.perf_counter() - t0 - t_card:.1f} s")
+    runs, ranks, logits = world["runs"], world["ranks"], world["logits"]
+    failed = []
+    plans = {"2x2", "2x1"} if n >= MSERVE_RANKS else {"1x1"}
+    for name, out in runs.items():
+        counts, revoke, policy, engine = MSERVE_RUNS[name]
+        by_plan: dict = {}
+        for plan, secs in ranks[0]["runs"][name]["steps"]:
+            by_plan.setdefault(plan, []).append(secs * 1e3)
+        mv = out["move_seconds"]
+        log(f"[mserve] {name}: plans {counts}, prefill {out['prefill_seconds']:.3f} s, decode "
+            f"{1e3 * out['decode_seconds'] / max(out['decode_steps'], 1):.2f} ms a step "
+            f"({out['decode_steps']} steps); rank 0's ms a step by plan "
+            + "; ".join(f"{p}: {fmt_spread(t)} ({len(t)} steps)" for p, t in by_plan.items())
+            + f"; steps/s by plan {out['measured_steps_per_sec']}, "
+            + (f"engine tokens/s {out['engine_tokens_per_sec']} (before the revocation "
+               f"{out['engine_tokens_per_sec_before']}), " if engine else "")
+            + f"time to recover {out['recover_seconds']} s; params_bytes {out['params_bytes']} "
+            f"(received {out['params_received']}, in {mv.get('params')} s; gathered again "
+            f"{out['params_gather_bytes']} B in {mv.get('params_gather')} s), cache_bytes "
+            f"{out['cache_bytes']} (received {out['cache_received']}, in {mv.get('cache')} s), "
+            f"cache_gather_bytes {out['cache_gather_bytes']} (in {mv.get('cache_gather')} s), "
+            f"train_path_bytes {out['train_path_bytes']}, migrated_at {out['migrated_at']}; "
+            f"per rank {out['ranks']}; ranks of a data coordinate agree "
+            f"{out['data_ranks_agree']}")
+        for r in ranks:
+            rec = r["runs"][name]
+            log(f"[mserve] {name}: rank {r['rank']} ({r['device']}): peak device memory "
+                f"{rec['peak'] / 1e9:.2f} GB, run {rec['wall']:.1f} s, launches "
+                f"{ {k: v for k, v in rec['launches'].items() if v} }")
+        if not out["data_ranks_agree"]:
+            failed.append(f"{name}: the ranks of a data coordinate gave other tokens")
+        if revoke:
+            want_cache = predicted["cache_bytes"] if policy == "migrate" else 0
+            want_gather = predicted["cache_gather_bytes"] if policy == "migrate" else 0
+            sps = out["measured_steps_per_sec"]
+            if not (out["migrated_at"] == SERVE_REVOKE
+                    and out["params_bytes"] == out["params_received"] == predicted["params_bytes"]
+                    and out["params_bytes"] < out["train_path_bytes"]
+                    and out["train_path_bytes"] == predicted["train_path_bytes"]
+                    and out["cache_bytes"] == out["cache_received"] == want_cache
+                    and out["cache_gather_bytes"] == want_gather
+                    and set(sps) == plans and min(sps.values()) > 0
+                    and out["recover_seconds"] > 0
+                    and (n < MSERVE_RANKS or out["params_bytes"] > 0)
+                    and (n < MSERVE_RANKS or policy != "migrate" or out["cache_bytes"] > 0)):
+                failed.append(f"{name}: migration columns {out} against {predicted}")
+        # every rank: 36 flash forwards a prefill call, 36 paged launches an
+        # engine decode step
+        for r, stat in zip(ranks, out["ranks"]):
+            want = expect_launches(flash_attention_tc=depth * stat["prefills"],
+                                   paged_attention_tc=depth * stat["decode_steps"] * engine)
+            if r["runs"][name]["launches"] != want or not stat["prefills"]:
+                failed.append(f"{name}: rank {r['rank']} launches "
+                              f"{r['runs'][name]['launches']}, expected {want}")
+            if not r["runs"][name]["peak"] < 80e9:
+                failed.append(f"{name}: rank {r['rank']} peak {r['runs'][name]['peak']}")
+    if runs["dense_migrate"]["tokens"] != runs["dense"]["tokens"]:
+        failed.append("dense migrate: the stream differs from the uninterrupted run's")
+    for ref, got in (("dense", "dense_drop"), ("engine", "engine_revoked")):
+        try:
+            div = hold_engine_streams(runs[ref], runs[got], logits[ref], logits[got],
+                                      tag=f"mserve {got}")
+            log(f"[mserve] {got}: {SERVE_B - len(div)} of {SERVE_B} rows equal to {ref}'s in "
+                f"full, divergences {div}")
+        except AssertionError as e:
+            failed.append(str(e))
+    try:
+        div = hold_engine_streams(one_card, runs["dense"], one_card_logits, logits["dense"],
+                                  revoke=-1, tag="mserve dense against one card")
+        log(f"[mserve] dense over {n} rank(s) against phase 9's one-card run (batch "
+            f"{SERVE_B} on one card): {SERVE_B - len(div)} of {SERVE_B} rows equal in full, "
+            f"divergences {div}")
+    except AssertionError as e:
+        failed.append(str(e))
+    # the reduced f32 runs on the cards equal the same world on the CPU
+    for name, got in world["reduced"].items():
+        want = cpu[name]
+        differ = [k for k in got if k not in MSERVE_TIMINGS and got[k] != want.get(k)]
+        log(f"[mserve] reduced f32 {name} over {n} rank(s): columns other than timings equal "
+            f"to the CPU world's: {not differ and set(got) == set(want)}; params_bytes "
+            f"{got['params_bytes']} (received {got['params_received']}), cache_bytes "
+            f"{got['cache_bytes']} (received {got['cache_received']}), cache_gather_bytes "
+            f"{got['cache_gather_bytes']}")
+        if differ or set(got) != set(want):
+            failed.append(f"reduced f32 {name}: the cards' world differs from the CPU's: {differ}")
+        if got["params_received"] != got["params_bytes"] or \
+                got["cache_received"] != got["cache_bytes"]:
+            failed.append(f"reduced f32 {name}: a move received other bytes than priced")
+    launches = dict.fromkeys(read_launches(), 0)
+    reduced = dict.fromkeys(launches, 0)
+    for r in ranks:
+        for rec in r["runs"].values():
+            launches = {k: launches[k] + v for k, v in rec["launches"].items()}
+        reduced = {k: reduced[k] + v for k, v in r["reduced_launches"].items()}
+    try:
+        hold_f32_launches("mserve", reduced, "flash_attention_tf32", "paged_attention_fma")
+    except AssertionError as e:
+        failed.append(str(e))
+    if failed:
+        raise AssertionError("phase 21: " + "; ".join(failed))
+    return {"serve_multi": launches, "serve_multi_f32": reduced}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -6592,6 +7002,9 @@ def main() -> int:
     ap.add_argument("--multi-device-only", action="store_true",
                     help="only build the kernels and run phase 20 over 4 cards or more "
                          "(exits non-zero with fewer)")
+    ap.add_argument("--multi-serve-only", action="store_true",
+                    help="only build the kernels and run phase 21 over 4 cards or more "
+                         "(exits non-zero with fewer)")
     ap.add_argument("--xlstm-orders", action="store_true",
                     help="only build the kernels and report how bf16 xlstm prefill logits "
                          "of the kernel paths and plain orders agree, by prompt length")
@@ -6613,10 +7026,10 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[phase 1/20] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
+    log(f"[phase 1/21] [device] {device_name}; {smi_line}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    log("[phase 2/20] build")
+    log("[phase 2/21] build")
     _build.build()
     ptxas = _build.last_build["log"]
     per_source = {}
@@ -6655,14 +7068,14 @@ def main() -> int:
         log(f"chip_smoke: --paged-only, {time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.spot_only:
-        log("[phase 8/20] the spot provisioner")
+        log("[phase 8/21] the spot provisioner")
         spot = {"spot": spot_full_width(), "spot_f32": spot_reduced_matches_cpu(),
                 "spot_launch": spot_launcher()}
         log(f"chip_smoke: --spot-only, launches by path {spot}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.serve_plan_only:
-        log("[phase 9/20] spot serving")
+        log("[phase 9/21] spot serving")
         paths = spot_serving()
         log(f"chip_smoke: --serve-plan-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6671,7 +7084,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_flash_window_8192(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 10/20] the MoE family")
+        log("[phase 10/21] the MoE family")
         paths = moe_phase()
         log(f"chip_smoke: --moe-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6680,7 +7093,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_dense_variant_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 11/20] the dense variants")
+        log("[phase 11/21] the dense variants")
         paths = dense_variants_phase()
         log(f"chip_smoke: --dense-variants-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6689,7 +7102,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_gemma_kernels(torch.Generator(device="cuda").manual_seed(0), flush)
         del flush
-        log("[phase 12/20] gemma-7b")
+        log("[phase 12/21] gemma-7b")
         paths = gemma_phase()
         log(f"chip_smoke: --gemma-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6698,7 +7111,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush, "whisper")
         del flush
-        log("[phase 13/20] whisper-tiny")
+        log("[phase 13/21] whisper-tiny")
         paths = whisper_phase()
         log(f"chip_smoke: --whisper-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6709,7 +7122,7 @@ def main() -> int:
         check_slice14_attention(gen, flush, "hymba")
         check_ssm_scan_bwd(gen, flush)
         del flush
-        log("[phase 14/20] hymba-1.5b training")
+        log("[phase 14/21] hymba-1.5b training")
         paths = hybrid_train_phase()
         log(f"chip_smoke: --hybrid-train-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6724,7 +7137,7 @@ def main() -> int:
         slstm_wide_model_matches_cpu()
         del flush
         log(json.dumps({"kernels": recs}))
-        log("[phase 15/20] xlstm-350m training")
+        log("[phase 15/21] xlstm-350m training")
         paths = xlstm_train_phase()
         log(f"chip_smoke: --xlstm-train-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6734,7 +7147,7 @@ def main() -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush, "whisper")
         del flush
-        log("[phase 16/20] whisper-tiny on the launcher's plans")
+        log("[phase 16/21] whisper-tiny on the launcher's plans")
         paths = whisper_plan_phase()
         log(f"chip_smoke: --whisper-plan-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6744,13 +7157,13 @@ def main() -> int:
         check_slice14_attention(torch.Generator(device="cuda").manual_seed(0), flush,
                                 "internvl2")
         del flush
-        log("[phase 17/20] internvl2-26b training")
+        log("[phase 17/21] internvl2-26b training")
         paths = vlm_train_phase()
         log(f"chip_smoke: --vlm-train-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
     if args.dryrun_only:
-        log("[phase 19/20] the dry run against the card")
+        log("[phase 19/21] the dry run against the card")
         paths = dryrun_phase()
         log(f"chip_smoke: --dryrun-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6760,19 +7173,29 @@ def main() -> int:
             print(f"chip_smoke: --multi-device-only needs {MULTI_RANKS} cards, "
                   f"{torch.cuda.device_count()} present", file=sys.stderr)
             return 2
-        log("[phase 20/20] multi-device execution")
+        log("[phase 20/21] multi-device execution")
         paths = multi_device_phase()
         log(f"chip_smoke: --multi-device-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
+    if args.multi_serve_only:
+        if torch.cuda.device_count() < MSERVE_RANKS:
+            print(f"chip_smoke: --multi-serve-only needs {MSERVE_RANKS} cards, "
+                  f"{torch.cuda.device_count()} present", file=sys.stderr)
+            return 2
+        log("[phase 21/21] serving over torch.distributed")
+        paths = multi_serve_phase()
+        log(f"chip_smoke: --multi-serve-only, launches by path {paths}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
     if args.xlstm_dots_only:
-        log("[phase 18/20] xlstm-350m training under remat dots")
+        log("[phase 18/21] xlstm-350m training under remat dots")
         paths = xlstm_dots_phase()
         log(f"chip_smoke: --xlstm-dots-only, launches by path {paths}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
 
-    log("[phase 3/20] kernels against their plain versions")
+    log("[phase 3/21] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [*check_flash(gen, flush), *check_paged(gen, flush),
@@ -6797,29 +7220,29 @@ def main() -> int:
         return 0
     paths = {"slstm_wide_f32": slstm_wide_model_matches_cpu()}
 
-    log("[phase 4/20] serving")
+    log("[phase 4/21] serving")
     paths["serve"] = serve_full_width()
     paths["serve_f32"] = serve_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 5/20] hybrid serving")
+    log("[phase 5/21] hybrid serving")
     paths["hybrid"] = serve_hybrid_full_width()
     paths["hybrid_f32"] = greedy_reduced_matches_cpu("hymba-1.5b", "hybrid",
                                                      "flash_attention_tf32", "ssm_scan")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 6/20] xLSTM serving")
+    log("[phase 6/21] xLSTM serving")
     paths["xlstm"] = serve_xlstm_full_width()
     paths["xlstm_f32"] = greedy_reduced_matches_cpu("xlstm-350m", "xlstm", "mlstm_tf32",
                                                     "mlstm_step", "slstm")
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 7/20] training")
+    log("[phase 7/21] training")
     paths["train"] = train_full_width()
     paths["train_f32"] = train_reduced_matches_cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 8/20] the spot provisioner")
+    log("[phase 8/21] the spot provisioner")
     paths["spot"] = spot_full_width()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6827,52 +7250,56 @@ def main() -> int:
     paths["spot_launch"] = spot_launcher()
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 9/20] spot serving")
+    log("[phase 9/21] spot serving")
     paths.update(spot_serving())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 10/20] the MoE family")
+    log("[phase 10/21] the MoE family")
     paths.update(moe_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 11/20] the dense variants")
+    log("[phase 11/21] the dense variants")
     paths.update(dense_variants_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 12/20] gemma-7b")
+    log("[phase 12/21] gemma-7b")
     paths.update(gemma_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 13/20] whisper-tiny")
+    log("[phase 13/21] whisper-tiny")
     paths.update(whisper_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 14/20] hymba-1.5b training")
+    log("[phase 14/21] hymba-1.5b training")
     paths.update(hybrid_train_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 15/20] xlstm-350m training")
+    log("[phase 15/21] xlstm-350m training")
     paths.update(xlstm_train_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 16/20] whisper-tiny on the launcher's plans")
+    log("[phase 16/21] whisper-tiny on the launcher's plans")
     paths.update(whisper_plan_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 17/20] internvl2-26b training")
+    log("[phase 17/21] internvl2-26b training")
     paths.update(vlm_train_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 18/20] xlstm-350m training under remat dots")
+    log("[phase 18/21] xlstm-350m training under remat dots")
     paths.update(xlstm_dots_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 19/20] the dry run against the card")
+    log("[phase 19/21] the dry run against the card")
     paths.update(dryrun_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    log("[phase 20/20] multi-device execution")
+    log("[phase 20/21] multi-device execution")
     paths.update(multi_device_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[phase 21/21] serving over torch.distributed")
+    paths.update(multi_serve_phase())
     for r in records:     # a record at a second shape reads its kernel's counter
         r["launches_by_path"] = {path: counts[r.get("counter", r["name"])]
                                  for path, counts in paths.items()}

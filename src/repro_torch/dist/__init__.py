@@ -15,16 +15,21 @@ reference's numbers for the same shapes and placements.
 Two kinds of pool. Over the ranks of a ``torch.distributed`` world
 (``repro_torch.launch.mesh``; NCCL on the cards, gloo on the CPU) a slot
 is a process and a device, each rank holds its slices, and a reshard moves
-exactly the bytes ``reshard_bytes`` prices. In one process, a pool of N
-slots on one device simulates N devices: the placements decide the byte
-accounting, execution is on the one device. Cache placements
-(``cache_shardings``) price the dense cache a serving migration moves.
+exactly the bytes ``reshard_bytes`` prices: the training state between
+plans, and a serving replica's params and, under the ``migrate`` cache
+policy, its dense cache (``cache_shardings``), which a rank then gathers
+to the rows it decodes (``rows_shardings``, ``gather_tree``). In one
+process, a pool of N slots on one device simulates N devices: the
+placements decide the byte accounting, execution is on the one device,
+and a serving migration's cache is priced and copied on that device.
 Activation shardings (``make_activation_constrainer``) need
 tensor-parallel compute, which the port does not have, and are not
 ported.
 """
 from repro_torch.dist.elastic import (
+    gather_tree,
     move_leaves,
+    narrow_tree,
     placement_device,
     rebuild_legs,
     replicate,
@@ -53,6 +58,7 @@ from repro_torch.dist.sharding import (
     rank_mesh,
     replicated,
     resolve_pspec,
+    rows_shardings,
 )
 
 __all__ = [
@@ -64,9 +70,11 @@ __all__ = [
     "ThroughputTracker",
     "batch_shardings",
     "cache_shardings",
+    "gather_tree",
     "leg_state_bytes",
     "mesh_shape_for",
     "move_leaves",
+    "narrow_tree",
     "opt_state_shardings",
     "param_shardings",
     "placement_device",
@@ -78,6 +86,7 @@ __all__ = [
     "reshard_params",
     "reshard_tree",
     "resolve_pspec",
+    "rows_shardings",
     "serve_state_bytes",
     "train_state_bytes",
     "tree_bytes",

@@ -239,13 +239,15 @@ def move_leaves(leaves: list, old: Sequence[Placement], new: Sequence[Placement]
     return out, received
 
 
-def reshard_tree(tree: Any, shardings: Any, old: Any = None, *, group=None) -> Any:
+def reshard_tree(tree: Any, shardings: Any, old: Any = None, *, group=None,
+                 release: bool = True) -> Any:
     """Move every leaf of ``tree`` onto the matching placement of
     ``shardings``. On a pool in one process each tensor goes to its
     placement's device (other leaves pass). On distributed placements
     ``old`` is the placement tree the live slices are laid out by; the
-    slices move between ranks, the old ones are freed as they go, and
-    ``stats`` counts the bytes this rank received."""
+    slices move between ranks, the old ones are freed as they go (unless
+    ``release`` is False: a slice may share storage with a tree the caller
+    keeps), and ``stats`` counts the bytes this rank received."""
     leaves, unflatten = tree_flatten(tree)
     placements = tree_flatten(shardings)[0]
     assert len(leaves) == len(placements), (len(leaves), len(placements))
@@ -255,9 +257,48 @@ def reshard_tree(tree: Any, shardings: Any, old: Any = None, *, group=None) -> A
         raise ValueError("reshard_tree onto ranks needs the placements the slices hold (old)")
     old_leaves = tree_flatten(old)[0]
     assert len(old_leaves) == len(leaves), (len(old_leaves), len(leaves))
-    moved, received = move_leaves(leaves, old_leaves, placements, group=group, release=True)
+    moved, received = move_leaves(leaves, old_leaves, placements, group=group, release=release)
     stats.bytes_received += received
     return unflatten(moved)
+
+
+def narrow_tree(tree: Any, held: Any, to: Any) -> Any:
+    """Views of this rank's slices of ``tree`` (laid out by the placement
+    tree ``held``) cut to its boxes under ``to``: no byte moves. Each box
+    under ``to`` must lie inside the one held (a serving rank's rows of
+    the cache narrowed to its ``cache_shardings`` slice); a leaf this rank
+    holds nothing of under ``to`` is None."""
+    me = _world().rank
+    leaves, unflatten = tree_flatten(tree)
+    out = []
+    for x, p, q in zip(leaves, tree_flatten(held)[0], tree_flatten(to)[0]):
+        shape, _ = _leaf_meta(x, p)
+        outer, inner = _boxes(p, shape).get(me), _boxes(q, shape).get(me)
+        if inner is None:
+            out.append(None)
+            continue
+        if not isinstance(x, torch.Tensor):          # a Python int is whole
+            out.append(x)
+            continue
+        if outer is None or _meet(outer, inner) != inner:
+            raise ValueError(f"rank {me}: the box {inner} of a {shape} leaf is not inside "
+                             f"the held box {outer}")
+        out.append(_within(x, outer, inner))
+    return unflatten(out)
+
+
+def gather_tree(tree: Any, held: Any, to: Any, group) -> Tuple[Any, int]:
+    """This rank's slices of ``tree`` under ``to`` (a plan's compute
+    placement: the params replicated, the cache's rows) from its slices
+    under ``held``, within the plan's process ``group`` (its ranks call
+    this alike). A leaf this rank already holds as ``to`` lays it out is
+    returned as it is, with no copy, so a plan of one rank costs nothing;
+    the held slices are kept (a revocation moves them). Returns the tree
+    and the bytes this rank received."""
+    leaves, unflatten = tree_flatten(tree)
+    moved, received = move_leaves(leaves, tree_flatten(held)[0], tree_flatten(to)[0],
+                                  group=group)
+    return unflatten(moved), received
 
 
 def everywhere(tree: Any) -> Any:

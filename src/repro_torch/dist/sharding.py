@@ -31,10 +31,11 @@ A mesh built over the ranks of a ``torch.distributed`` world
 (``repro_torch.launch.mesh``) is ``distributed``: slot i is rank i, a
 process of its own on ``devices[i]``, and a rank holds only its slice of
 each tensor (:meth:`Placement.box`). There :func:`batch_shardings` gives
-each rank its rows of the batch, and ``repro_torch.dist.elastic`` moves
-slices between ranks. Activation shardings (``make_activation_constrainer``)
-need tensor-parallel compute, which the port does not have: they are not
-ported.
+each rank its rows of the batch, :func:`rows_shardings` a serving rank its
+rows of the cache at full length (what it computes on), and
+``repro_torch.dist.elastic`` moves slices between ranks. Activation
+shardings (``make_activation_constrainer``) need tensor-parallel compute,
+which the port does not have: they are not ported.
 """
 from __future__ import annotations
 
@@ -264,3 +265,15 @@ def batch_shardings(inputs: Dict[str, Any], mesh: SlotMesh) -> Dict[str, Placeme
         return Placement(mesh, resolve_pspec(x.shape, names, rules, mesh))
 
     return {k: one(v) for k, v in inputs.items()}
+
+
+def rows_shardings(specs: Any, mesh: SlotMesh) -> Any:
+    """The "rows" placement of a tree of specs (a decode cache): the batch
+    dim over the data axes as :func:`batch_shardings` places the inputs,
+    every other dim replicated. A serving rank computes on the rows of its
+    ``data`` coordinate at full sequence length, so this is where a cache
+    lives while it is decoded; :func:`cache_shardings` is where it is held
+    while it moves."""
+    rules = PARAM_RULES["baseline"]
+    return tree_map(lambda s: Placement(mesh, resolve_pspec(
+        s.shape, tuple(a if a == "batch" else None for a in s.axes), rules, mesh)), specs)

@@ -133,7 +133,8 @@ def make_host_mesh(model_parallel: int = 1, device="cuda") -> SlotMesh:
     """Mesh over every rank of the world (or this process's one device):
     (n / model_parallel, model_parallel) over ("data", "model")."""
     n = _WORLD.size if _WORLD is not None else 1
-    assert n % model_parallel == 0, (n, model_parallel)
+    if model_parallel < 1 or n % model_parallel:
+        raise ValueError(f"a model axis of {model_parallel} does not divide {n} rank(s)")
     return make_mesh((n // model_parallel, model_parallel), ("data", "model"), device)
 
 

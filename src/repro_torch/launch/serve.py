@@ -3,10 +3,19 @@ and serving on mesh plans through a spot revocation.
 
     python -m repro_torch.launch.serve --arch <id> [--batch 4] [--prompt-len 64]
         [--new-tokens 8] [--reduced | --no-reduced] [--device cuda|cpu] [--seed 0]
-        [--int8-cache] [--trace PATH]
+        [--devices N] [--model-parallel M] [--int8-cache] [--trace PATH]
 
-The host path is the counterpart of ``repro.launch.serve::host_main`` on
-one device (``cuda`` unless ``--device cpu``): one batched prefill over
+Every mode runs over ``--devices`` ranks, one process and one device each
+(by default every local card; one on the CPU): ``cuda`` with NCCL unless
+``--device cpu``, which spawns N gloo ranks; it never falls back to the CPU
+when the cards are missing, and a rank that fails fails the call. Rank 0
+prints and writes the trace.
+
+The host path is the counterpart of ``repro.launch.serve::host_main``
+(``cuda`` unless ``--device cpu``); over ranks each ``data`` coordinate of
+the ``make_host_mesh(--model-parallel)`` mesh serves its rows with the
+whole params (made alike on every rank from the seed), and rank 0 gathers
+them. On each device: one batched prefill over
 the prompts, then ``new_tokens - 1`` greedy ``decode_step`` calls against
 the dense cache (or, for xLSTM, the recurrent states), every row at the
 same position. Attention prefills through the flash kernel's entry point,
@@ -20,7 +29,8 @@ family-preserving tiny config, ``--no-reduced`` the full one: for example
 
 ``--plan`` mode (the counterpart of the reference's ``plan_main`` and, with
 ``--engine``, ``engine_plan_main``) serves on :class:`ElasticMeshManager`
-plans over a pool of ``max(counts)`` slots on the one device:
+plans over a pool of ``max(counts)`` slots on the one device, or over the
+world's ranks (below):
 
     python -m repro_torch.launch.serve --arch <id> --plan 8,4 --revoke-after 3
         [--cache-policy drop|migrate] [--engine]
@@ -43,6 +53,21 @@ decoded on the replacement, ended by a device sync) and the prefill and
 decode timings. The plan modes hold the params in ``param_dtype`` (f32),
 as the reference's plan modes hold them, so the byte columns equal the
 reference's; the host path stores weight matrices in the compute dtype.
+
+Over the ranks of a world the plans are the world's: each rank of a plan
+holds its slices of the params (``param_shardings``: what a revocation
+moves), computes with the whole params gathered once a plan within the
+plan's group, and prefills and decodes the rows of its ``data``
+coordinate (the cache at full length, ``rows_shardings``); the ``model``
+axis shards what moves, not what computes. The revocation moves the held
+slices to the new plan's placements; ``migrate`` moves each rank's
+``cache_shardings`` slice of the cache (its rows narrowed, a view) and
+gathers it to the new rows. ``PLAN_JSON`` adds ``params_received`` and
+``cache_received`` (bytes received, summed over ranks: the priced
+``params_bytes`` and ``cache_bytes``), ``params_gather_bytes`` and
+``cache_gather_bytes`` (the gathers to the compute placements),
+``move_seconds`` (each move's slowest rank, from a barrier to a device
+sync), ``data_ranks_agree`` and each rank's prefills and decode steps.
 
 ``--trace PATH`` (every mode) records the event timeline (engine lane
 events, drains) to a JSONL file: ``python -m repro_torch.obs.replay PATH``
@@ -76,6 +101,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import Any, List, Optional, Sequence
 
@@ -87,17 +113,26 @@ from repro_torch.config import ShardingLayout, get_arch, list_archs
 from repro_torch.dist import (
     ElasticMeshManager,
     ThroughputTracker,
+    batch_shardings,
     cache_shardings,
+    elastic,
+    gather_tree,
+    move_leaves,
+    narrow_tree,
     param_shardings,
     placement_device,
     replicated,
     reshard_bytes,
     reshard_tree,
+    rows_shardings,
 )
+from repro_torch.launch.mesh import local_world_size, make_host_mesh, run_world, world
 from repro_torch.models import build_model, common
 from repro_torch.models.layers import PAGE_SIZE
 from repro_torch.models.zoo import Model, input_specs
+from repro_torch.obs import events as obs_ev
 from repro_torch.obs import get_logger
+from repro_torch.obs.recorder import current as obs_current
 from repro_torch.serve.autoscale import drain_replica
 from repro_torch.serve.engine import DecodeEngine, Request
 from repro_torch.serve.migrate import assert_params_only, migrate_cache, replica_param_bytes_moved
@@ -201,27 +236,31 @@ def serve_plan(model: Model, params, prompts: np.ndarray, new_tokens: int,
                frames: Optional[torch.Tensor] = None) -> dict:
     """Serve ``prompts`` (B, S) (after a VLM's ``patches``; an
     encoder-decoder encodes its ``frames`` first; both dense only) on the
-    plans for ``counts`` (a pool of ``max(counts)`` slots on ``device``);
+    plans for ``counts`` (a pool of ``max(counts)`` slots on ``device``, or,
+    once this process has joined a world, the world's ranks, each on its
+    own device: every rank calls this alike with the whole params);
     with a second count, revoke the first plan after ``revoke_after``
     decode steps and migrate to the second. Each decode step is timed into
     ``tracker`` (a fresh ``ThroughputTracker`` by default) under its plan's
     key. ``int8_cache``: the int8 KV cache. Returns the ``PLAN_JSON``
-    object."""
+    object (on every rank of a world)."""
     _refuse_encoder(model.cfg, engine)
     if engine and cache_policy != "drop":
         raise SystemExit("--engine supports --cache-policy drop only "
                          "(pool pages die with the instance)")
-    dev = resolve_device(device)
-    man = ElasticMeshManager([dev] * max(counts))
+    on_ranks = world() is not None
+    man = ElasticMeshManager() if on_ranks else ElasticMeshManager(
+        [resolve_device(device)] * max(counts))
     revoke_after = revoke_after if len(counts) > 1 else 0
     layout = dataclasses.replace(PLAN_LAYOUT, int8_kv_cache=int8_cache)
     tracker = tracker if tracker is not None else ThroughputTracker()
     prompts = np.asarray(prompts, np.int32)
+    args = (model, params, prompts, new_tokens, list(counts), revoke_after)
     if engine:
-        return _engine_plan(model, params, prompts, new_tokens, list(counts), revoke_after,
-                            man, layout, tracker)
-    return _dense_plan(model, params, prompts, new_tokens, list(counts), revoke_after,
-                       cache_policy, man, layout, tracker, patches, frames)
+        run = _engine_ranks if on_ranks else _engine_plan
+        return run(*args, man, layout, tracker)
+    run = _dense_ranks if on_ranks else _dense_plan
+    return run(*args, cache_policy, man, layout, tracker, patches, frames)
 
 
 def _dense_plan(model, params, prompts, new_tokens, counts, revoke_after, cache_policy,
@@ -372,8 +411,429 @@ def _engine_plan(model, params, prompts, new_tokens, counts, revoke_after, man, 
                                              if len(engines) > 1 else None)}
 
 
+# ---------------------------------------------------------------------------
+# The plans over the ranks of a world
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Ranks:
+    """A plan over the world's ranks as this rank sees it: its process
+    group, the placement of the (B, S) prompts (rows over ``data``), and
+    this rank's rows (None outside the plan)."""
+
+    plan: Any
+    group: Any
+    tokens: Any
+    rows: Optional[slice]
+
+    @classmethod
+    def of(cls, man: ElasticMeshManager, count: int, prompts: np.ndarray) -> "_Ranks":
+        plan = man.plan_for(count)        # every rank, in the same order: new_group
+        return cls.on_mesh(plan.mesh, prompts, plan)
+
+    @classmethod
+    def on_mesh(cls, mesh, prompts: np.ndarray, plan=None) -> "_Ranks":
+        from repro_torch.launch.mesh import group_for
+
+        tokens = batch_shardings({"tokens": prompts}, mesh)["tokens"]
+        box = tokens.box(prompts.shape, world().rank)
+        return cls(plan, group_for(mesh.slots), tokens, None if box is None else slice(*box[0]))
+
+
+def _whole_rows(parts: Sequence[torch.Tensor], on: _Ranks, B: int) -> tuple:
+    """The (B, ...) rows that the plan's ranks computed, from every rank's
+    own rows (``parts``, in rank order): each taken from its data leader.
+    And whether every rank of a ``data`` coordinate gave its leader's bits."""
+    from repro_torch.dist.elastic import data_leaders
+
+    whole = parts[0].new_empty((B,) + tuple(parts[0].shape[1:]))
+    mesh = on.tokens.mesh
+    part = dict(zip(mesh.slots, parts))
+    boxes = {r: slice(*on.tokens.box((B, 1), r)[0]) for r in mesh.slots}
+    for r in data_leaders(mesh):
+        whole[boxes[r]] = part[r]
+    return whole, all(torch.equal(part[r], whole[boxes[r]]) for r in mesh.slots)
+
+
+def _gather_rows(rows: torch.Tensor, on: _Ranks, B: int) -> tuple:
+    """Every rank of the plan: the whole (B, n) matrix of the rows each
+    computed (``rows``, this rank's (rows, n)), on the host, by one
+    all-gather over the plan's group; and whether the ranks of each
+    ``data`` coordinate agreed bit for bit."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(rows) for _ in on.tokens.mesh.slots]
+    dist.all_gather(parts, rows.contiguous(), group=on.group)
+    return _whole_rows([p.cpu() for p in parts], on, B)
+
+
+def _start_move() -> float:
+    """Line up every rank of the world and start a move's clock."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    return time.perf_counter()
+
+
+def _moved(received: int, t0: float) -> tuple:
+    """(bytes received summed over the world's ranks, the slowest rank's
+    seconds) of a move every rank started at ``t0``."""
+    import torch.distributed as dist
+
+    dev = world().device
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    got = torch.tensor([received], dtype=torch.int64, device=dev)
+    slow = torch.tensor([secs], dtype=torch.float64, device=dev)
+    dist.all_reduce(got)
+    dist.all_reduce(slow, op=dist.ReduceOp.MAX)
+    return int(got.item()), float(slow.item())
+
+
+def _held(params, p_sh) -> Any:
+    """This rank's slices of the whole ``params`` (which every rank holds,
+    made alike) under the plan's ``p_sh``: what a revocation moves. No byte
+    moves; a leaf the rank holds whole stays the caller's tensor, so the
+    moves that follow never free it."""
+    leaves, unflatten = common.tree_flatten(params)
+    start = common.tree_flatten(elastic.everywhere(params))[0]
+    return unflatten(move_leaves(leaves, start, common.tree_flatten(p_sh)[0])[0])
+
+
+def _compute_params(held, p_sh, on: _Ranks) -> tuple:
+    """The whole params on each rank of the plan, gathered once from the
+    held slices within its group (serving never updates them), and the
+    bytes this rank received; (None, 0) outside the plan."""
+    if on.rows is None:
+        return None, 0
+    whole = common.tree_map(lambda _: replicated(on.plan.mesh), p_sh)
+    return gather_tree(held, p_sh, whole, on.group)
+
+
+def _sized(params) -> Any:
+    """Shape and dtype of every leaf (meta tensors): what the params moved
+    are priced by once each rank holds only its slices."""
+    return common.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                           params)
+
+
+def _all_ranks(mine: dict) -> list:
+    """Every rank's ``mine``, in rank order, on every rank."""
+    import torch.distributed as dist
+
+    every = [None] * world().size
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def _from_rank0(out: Any) -> Any:
+    """Rank 0's ``out`` on every rank."""
+    import torch.distributed as dist
+
+    box = [out]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _move_params(sized, held, on: _Ranks, p_sh_old, p_sh, migrated: dict, moves: dict):
+    """The revocation's params: the held slices move to the new plan's
+    placements over the world's group (a rank leaving the plan ends with
+    None), then the new plan's ranks gather the whole params again."""
+    migrated["params_bytes"] = replica_param_bytes_moved(sized, p_sh_old, p_sh)
+    t0 = _start_move()
+    before = elastic.stats.bytes_received
+    # the held leaves may share storage with the caller's params: kept, not freed
+    held = reshard_tree(held, p_sh, p_sh_old, release=False)
+    migrated["params_received"], moves["params"] = _moved(
+        elastic.stats.bytes_received - before, t0)
+    t0 = _start_move()
+    params, got = _compute_params(held, p_sh, on)
+    migrated["params_gather_bytes"], moves["params_gather"] = _moved(got, t0)
+    return held, params
+
+
+def _dense_ranks(model, params, prompts, new_tokens, counts, revoke_after, cache_policy,
+                 man, layout, tracker, patches, frames) -> dict:
+    """``_dense_plan`` over the world's ranks. Each rank holds its slices of
+    the params by ``param_shardings`` and computes with the whole params,
+    gathered once a plan within its group; each prefills and decodes the
+    rows of its ``data`` coordinate (the cache at full length: the rows
+    placement). Every rank keeps the whole (B, t) token matrix, each step's
+    rows all-gathered from the plan's data leaders; that collective ends
+    the step, so the step's clock is the slowest rank's. At the revocation
+    the held params move to the new plan, then are gathered again;
+    ``migrate`` narrows each rank's cache to its ``cache_shardings`` slice
+    (a view), moves those slices to the new plan's (the priced
+    ``cache_bytes``) and gathers them to the new rows (``cache_gather_bytes``);
+    ``drop`` re-prefills the new rows. A rank outside a plan joins every
+    move of the world and no step."""
+    import torch.distributed as dist
+
+    w = world()
+    dev = w.device
+    B, S = prompts.shape
+    total = S + new_tokens
+    c_specs = model.cache_specs(B, total, int8=layout.int8_kv_cache)
+    sized = _sized(params)
+    on = _Ranks.of(man, counts[0], prompts)
+    p_sh = param_shardings(model.specs, on.plan.mesh, layout)
+    held = _held(params, p_sh)
+    params, _ = _compute_params(held, p_sh, on)
+    prefill = build_prefill_step(model, layout, total)
+    decode = build_decode_step(model, layout)
+    tokens = torch.as_tensor(prompts, device=dev)
+
+    def inputs(rows, toks):
+        return _batch(toks[rows], None if patches is None else patches[rows],
+                      None if frames is None else frames[rows])
+
+    migrated = {**_no_migration(cache_policy), "params_received": 0, "cache_received": 0,
+                "params_gather_bytes": 0, "cache_gather_bytes": 0}
+    moves: dict = {}
+    agree, prefills, steps = True, 0, 0
+    cache, toks, prefill_s = None, [], 0.0
+    t0 = time.perf_counter()
+    if on.rows is not None:
+        logits, cache = prefill(params, inputs(on.rows, tokens))
+        prefills += 1
+        first, ok = _gather_rows(logits[:, -1].argmax(-1).to(torch.int32)[:, None], on, B)
+        toks, agree = [first], agree and ok
+        prefill_s = time.perf_counter() - t0
+    log.info("plan up", devices=on.plan.device_count, mesh=str(on.plan.mesh_shape),
+             rank=w.rank)
+
+    decode_s, recover_s, t_revoke = 0.0, None, None
+    i = 0
+    while i < new_tokens - 1:
+        if revoke_after and i == revoke_after:
+            # --- spot revocation: live shape migration over the ranks -------
+            t_revoke = time.perf_counter()
+            gen = torch.cat(toks, dim=1).to(dev) if toks else \
+                torch.empty((B, i + 1), dtype=torch.int32, device=dev)
+            dist.broadcast(gen, src=0)              # for a rank joining the plan
+            gen = gen.cpu()
+            old_on, old_p_sh = on, p_sh
+            old_c_sh = cache_shardings(c_specs, old_on.plan.mesh, layout)
+            on = _Ranks.of(man, counts[1], prompts)
+            p_sh = param_shardings(model.specs, on.plan.mesh, layout)
+            c_sh = cache_shardings(c_specs, on.plan.mesh, layout)
+            params = None
+            held, params = _move_params(sized, held, on, old_p_sh, p_sh, migrated, moves)
+            migrated["train_path_bytes"] = assert_params_only(migrated["params_bytes"], model)
+            migrated["migrated_at"] = i
+            if cache_policy == "migrate":
+                migrated["cache_bytes"] = reshard_bytes(c_specs, old_c_sh, c_sh)
+                held_c = common.tree_map(lambda _: None, c_specs) if cache is None else \
+                    narrow_tree(cache, rows_shardings(c_specs, old_on.plan.mesh), old_c_sh)
+                cache = None
+                t0 = _start_move()
+                before = elastic.stats.bytes_received
+                held_c = migrate_cache(held_c, c_sh, cache_policy, old=old_c_sh)
+                migrated["cache_received"], moves["cache"] = _moved(
+                    elastic.stats.bytes_received - before, t0)
+                t0 = _start_move()
+                got = 0
+                if on.rows is not None:
+                    cache, got = gather_tree(held_c, c_sh, rows_shardings(c_specs, on.plan.mesh),
+                                             on.group)
+                del held_c
+                migrated["cache_gather_bytes"], moves["cache_gather"] = _moved(got, t0)
+            else:
+                cache = None
+                if on.rows is not None:
+                    # re-prefill the prompt + every token already fed to the old
+                    # cache (the newest token rides the next decode call)
+                    t1 = time.perf_counter()
+                    refill = torch.cat([tokens, gen[:, :i].to(dev)], dim=1)
+                    _, cache = prefill(params, inputs(on.rows, refill))
+                    prefills += 1
+                    _sync(dev)
+                    prefill_s += time.perf_counter() - t1
+            toks = [gen]
+            log.info("revoked: migrated to replacement plan", token=i, rank=w.rank,
+                     devices=on.plan.device_count, mesh=str(on.plan.mesh_shape),
+                     **{k: migrated[k] for k in ("params_bytes", "params_received",
+                                                 "cache_bytes", "cache_received",
+                                                 "cache_gather_bytes")},
+                     cache_policy=cache_policy)
+        if on.rows is None:          # outside the plan: no step to take
+            if not revoke_after or i >= revoke_after:
+                break
+            i = revoke_after
+            continue
+        t0 = time.perf_counter()
+        tok = toks[-1][:, -1:][on.rows].to(dev)
+        logits, cache = decode(params, cache, tok, S + i)
+        nxt, ok = _gather_rows(logits[:, -1].argmax(-1).to(torch.int32)[:, None], on, B)
+        t1 = time.perf_counter()
+        agree = agree and ok
+        tracker.observe(on.plan.key, 1, t1 - t0)
+        decode_s += t1 - t0
+        steps += 1
+        if t_revoke is not None and recover_s is None:
+            recover_s = t1 - t_revoke
+        toks.append(nxt)
+        i += 1
+
+    mine = {"rank": w.rank, "prefills": prefills, "decode_steps": steps, "agree": agree}
+    ranks = _all_ranks(mine)
+    out = None
+    if w.rank == 0:
+        rows = torch.cat(toks, dim=1)
+        out = {"plans": counts, "tokens": rows.tolist(),
+               "measured_steps_per_sec": _steps_per_sec(tracker), **migrated,
+               "recover_seconds": recover_s, "prefill_seconds": prefill_s,
+               "decode_seconds": decode_s, "decode_steps": rows.shape[1] - 1,
+               "move_seconds": moves, "data_ranks_agree": all(r["agree"] for r in ranks),
+               "ranks": [{k: r[k] for k in ("rank", "prefills", "decode_steps")}
+                         for r in ranks]}
+    return _from_rank0(out)
+
+
+def _engine_ranks(model, params, prompts, new_tokens, counts, revoke_after, man, layout,
+                  tracker) -> dict:
+    """``_engine_plan`` over the world's ranks: each rank of the plan runs a
+    ``DecodeEngine`` on its card for the requests whose rows its ``data``
+    coordinate holds (``batch_shardings``), with a lane a row. At the
+    revocation every dying engine releases its pool (the pages die with the
+    instance) and sheds its streams; their host state (prompt, committed
+    tokens, ``max_new_tokens``) crosses the ranks by ``all_gather_object``,
+    the params move as on the dense plans, and each engine of the new plan
+    takes its rows' requests in rid order and resumes them by re-prefill.
+    Completions and rates are gathered to every rank; each row counts once
+    (the lowest rank holding it)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.elastic import first_holder
+
+    w = world()
+    dev = w.device
+    B, S = prompts.shape
+    total = S + new_tokens
+    pages_a_row = -(-total // PAGE_SIZE)
+    sized = _sized(params)
+
+    def replica(on):
+        if on.rows is None:
+            return None
+        n = on.rows.stop - on.rows.start
+        return DecodeEngine(model, layout, dev, lanes=n, num_pages=n * pages_a_row + 1,
+                            max_context=total, tracker=tracker, tracker_key=on.plan.key)
+
+    def world_in_flight(eng) -> int:
+        got = torch.tensor([eng.in_flight if eng is not None else 0], device=dev)
+        dist.all_reduce(got)
+        return int(got.item())
+
+    def summary(eng, k: int, counted: bool) -> dict:
+        """What the results need of an engine on plan k (0 before the
+        revocation, 1 after): a dying engine is dropped once summarized,
+        with the compute copy of the params its last step held."""
+        return {"plan": k, "counted": counted,
+                "done": {c.rid: c.tokens for c in eng.completions},
+                **{a: getattr(eng, a) for a in ("decoded_tokens", "decode_seconds", "prefills",
+                                                "decode_steps", "prefill_seconds")}}
+
+    on = _Ranks.of(man, counts[0], prompts)
+    p_sh = param_shardings(model.specs, on.plan.mesh, layout)
+    held = _held(params, p_sh)
+    params, _ = _compute_params(held, p_sh, on)
+    engine = replica(on)
+    if engine is not None:
+        for b in range(on.rows.start, on.rows.stop):
+            engine.submit(Request(rid=b, prompt=prompts[b], max_new_tokens=new_tokens))
+        log.info("engine plan up", devices=on.plan.device_count, mesh=str(on.plan.mesh_shape),
+                 rank=w.rank, lanes=engine.lanes, pages=engine.num_pages,
+                 pool_bytes=engine.pool_bytes, int8_cache=layout.int8_kv_cache)
+
+    migrated = {**_no_migration("drop"), "params_received": 0, "cache_received": 0,
+                "params_gather_bytes": 0, "cache_gather_bytes": 0}
+    moves: dict = {}
+    engines: list = []          # this rank's engines' summaries
+    recover_s, t_revoke = None, None
+    i = 0
+    in_flight = world_in_flight(engine)
+    while in_flight:
+        if revoke_after and i == revoke_after:
+            t_revoke = time.perf_counter()
+            shed = []
+            if engine is not None:
+                engine.release_pool()
+                shed = engine.shed()
+                engines.append(summary(engine, 0, first_holder(on.tokens, prompts.shape)))
+            resumed = {}
+            for reqs in _all_ranks([dataclasses.astuple(r) for r in shed]):
+                for r in reqs:
+                    resumed.setdefault(r[0], Request(*r))
+            rec = obs_current()
+            if rec.enabled and engine is not None:
+                rec.emit(obs_ev.Drain(t=float(engine.steps), moved_requests=len(resumed)))
+            engine = None
+            old_p_sh = p_sh
+            on = _Ranks.of(man, counts[1], prompts)
+            p_sh = param_shardings(model.specs, on.plan.mesh, layout)
+            params = None
+            held, params = _move_params(sized, held, on, old_p_sh, p_sh, migrated, moves)
+            migrated["train_path_bytes"] = assert_params_only(migrated["params_bytes"], model)
+            migrated["migrated_at"] = i
+            engine = replica(on)
+            if engine is not None:
+                for rid in sorted(resumed):
+                    if on.rows.start <= rid < on.rows.stop:
+                        engine.submit(resumed[rid])
+            log.info("revoked: streams drained to replacement", step=i, rank=w.rank,
+                     shed=len(resumed), devices=on.plan.device_count,
+                     mesh=str(on.plan.mesh_shape), params_bytes=migrated["params_bytes"],
+                     params_received=migrated["params_received"])
+        if engine is not None:
+            engine.step(params)          # ends with a device sync
+        in_flight = world_in_flight(engine)
+        if t_revoke is not None and recover_s is None:
+            recover_s = time.perf_counter() - t_revoke
+        i += 1
+
+    if engine is not None:
+        engines.append(summary(engine, int(t_revoke is not None),
+                               first_holder(on.tokens, prompts.shape)))
+    mine = {"rank": w.rank, "done": {rid: t for e in engines for rid, t in e["done"].items()},
+            "engines": [(e["plan"], e["decoded_tokens"], e["decode_seconds"])
+                        for e in engines if e["counted"]],
+            **{a: sum(e[a] for e in engines)
+               for a in ("prefills", "decode_steps", "prefill_seconds", "decode_seconds")}}
+    ranks = _all_ranks(mine)
+    done: dict = {}
+    for r in ranks:
+        for rid, toks in r["done"].items():
+            done.setdefault(rid, toks)
+    agree = all(done[rid] == toks for r in ranks for rid, toks in r["done"].items())
+
+    def rate(k: int) -> float:
+        """Tokens/s of plan k's engines: each row once, over the slowest
+        engine's decode seconds."""
+        parts = [(n, secs) for r in ranks for j, n, secs in r["engines"] if j == k]
+        secs = max((t for _, t in parts), default=0.0)
+        return round(sum(n for n, _ in parts) / secs, 3) if secs > 0 else 0.0
+
+    zero = ranks[0]
+    revoked = t_revoke is not None
+    sps, recover_s = _from_rank0((_steps_per_sec(tracker), recover_s) if w.rank == 0
+                                 else None)
+    return {"plans": counts, "engine": True,
+            "tokens": [done[b] for b in range(B)],
+            "measured_steps_per_sec": sps,
+            "engine_tokens_per_sec": rate(int(revoked)), **migrated,
+            "recover_seconds": recover_s,
+            "prefill_seconds": zero["prefill_seconds"],
+            "decode_seconds": zero["decode_seconds"], "decode_steps": zero["decode_steps"],
+            "prefills": zero["prefills"],
+            "engine_tokens_per_sec_before": rate(0) if revoked else None,
+            "move_seconds": moves, "data_ranks_agree": agree,
+            "ranks": [{k: r[k] for k in ("rank", "prefills", "decode_steps")} for r in ranks]}
+
+
 def _model_and_prompts(args):
-    device = resolve_device(args.device)
+    w = world()
+    device = w.device if w is not None else resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -394,9 +854,15 @@ def _params_and_inputs(model: Model, args, device, dtype=None):
                     for name, (shape, _) in specs.items() if name != "tokens"}
 
 
+def _say(*parts) -> None:
+    if world() is None or world().rank == 0:
+        print(*parts, flush=True)
+
+
 def plan_main(args) -> dict:
     """``--plan`` (and ``--engine``): print the ``first row:`` and
-    ``PLAN_JSON`` lines; returns the ``PLAN_JSON`` object."""
+    ``PLAN_JSON`` lines (rank 0 of a world); returns the ``PLAN_JSON``
+    object."""
     model, prompts, device = _model_and_prompts(args)
     _refuse_encoder(model.cfg, args.engine)
     # param_dtype (f32) storage, as the reference's plan modes hold the params
@@ -406,26 +872,40 @@ def plan_main(args) -> dict:
                      cache_policy=args.cache_policy, engine=args.engine, device=device,
                      int8_cache=args.int8_cache, patches=inputs.get("patches"),
                      frames=inputs.get("frames"))
-    print("first row:", out["tokens"][0], flush=True)
-    print("PLAN_JSON " + json.dumps(out), flush=True)
+    _say("first row:", out["tokens"][0])
+    _say("PLAN_JSON " + json.dumps(out))
     return out
 
 
 def host_main(args) -> dict:
-    """The host path: lock-step batched prefill + decode on one device."""
+    """The host path: lock-step batched prefill + decode on one device, or,
+    in a world, on every rank over ``make_host_mesh(--model-parallel)``:
+    each rank serves the rows of its ``data`` coordinate with the whole
+    params (made alike on every rank from the seed; nothing moves), and
+    rank 0 gathers every row."""
     model, prompt, device = _model_and_prompts(args)
     cfg = model.cfg
+    mesh = make_host_mesh(getattr(args, "model_parallel", 1), device)
     params, inputs = _params_and_inputs(model, args, device, common.torch_dtype(cfg.dtype))
     layout = ShardingLayout(attn_impl="flash", int8_kv_cache=args.int8_cache)
-    res = greedy_serve(model, params, torch.as_tensor(prompt, device=device), args.new_tokens,
-                       layout, **inputs)
+    tokens = torch.as_tensor(prompt, device=device)
     summary = {"event": "serve done", "arch": cfg.name, "device": str(device),
                "batch": args.batch, "prompt_len": args.prompt_len,
-               "int8_cache": args.int8_cache,
-               "prefill_ms": res.prefill_seconds * 1e3,
-               "ms_per_token": res.decode_seconds / max(res.decode_steps, 1) * 1e3,
-               "first_row": res.tokens[0].tolist()}
-    print(json.dumps(summary), flush=True)
+               "int8_cache": args.int8_cache}
+    if world() is None:
+        res = greedy_serve(model, params, tokens, args.new_tokens, layout, **inputs)
+        rows = res.tokens
+    else:
+        on = _Ranks.on_mesh(mesh, prompt)
+        res = greedy_serve(model, params, tokens[on.rows], args.new_tokens, layout,
+                           **{k: v[on.rows] for k, v in inputs.items()})
+        rows, agree = _gather_rows(res.tokens.to(device), on, args.batch)
+        summary.update(devices=world().size, mesh=list(mesh.grid_shape),
+                       tokens=rows.tolist(), data_ranks_agree=agree)
+    summary.update(prefill_ms=res.prefill_seconds * 1e3,
+                   ms_per_token=res.decode_seconds / max(res.decode_steps, 1) * 1e3,
+                   first_row=rows[0].tolist())
+    _say(json.dumps(summary))
     return summary
 
 
@@ -437,6 +917,24 @@ def _dispatch(args) -> dict:
     return host_main(args)
 
 
+def _traced(args) -> dict:
+    """``_dispatch``, recorded to ``--trace`` by rank 0 of a world (or the
+    one process)."""
+    if not args.trace or (world() is not None and world().rank != 0):
+        return _dispatch(args)
+    from repro_torch.obs.export import write_jsonl
+    from repro_torch.obs.recorder import recording
+
+    with recording() as rec:
+        out = _dispatch(args)
+    log.info("trace written", path=args.trace, events=write_jsonl(args.trace, rec.events))
+    return out
+
+
+def _rank(w, args) -> dict:
+    return _traced(args)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list_archs())
@@ -445,6 +943,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks, one device each (default: every local card; 1 on the CPU)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="host path: the model axis of the (ranks / M, M) mesh; rows are "
+                         "served over the data axis")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--int8-cache", action="store_true",
                     help="keep the KV cache (dense or paged) in int8 with a scale per row "
@@ -464,15 +967,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="record the event timeline to this JSONL path (replay with "
                          "python -m repro_torch.obs.replay)")
     args = ap.parse_args(argv)
-    if args.trace:
-        from repro_torch.obs.export import write_jsonl
-        from repro_torch.obs.recorder import recording
-
-        with recording() as rec:
-            out = _dispatch(args)
-        log.info("trace written", path=args.trace, events=write_jsonl(args.trace, rec.events))
-        return out
-    return _dispatch(args)
+    if args.plan and args.model_parallel != 1:
+        raise SystemExit("--model-parallel is the host path's; --plan takes its meshes "
+                         "from the plans")
+    n = args.devices or local_world_size(args.device)
+    w = world()
+    if w is not None:
+        if n != w.size:
+            raise ValueError(f"--devices {n} in a world of {w.size} ranks")
+        return _traced(args)
+    if n > 1:
+        threads = max(1, (os.cpu_count() or 1) // n) if args.device == "cpu" else 0
+        return run_world(_rank, n, args.device, (args,), timeout=None, threads=threads)
+    return _traced(args)
 
 
 if __name__ == "__main__":

@@ -137,18 +137,27 @@ def migrate_cache(
     cache: Any,
     new_shardings: Any,
     cache_policy: str,
+    old: Any = None,
 ) -> Optional[Any]:
     """Apply the cache policy to a live cache: move it onto the new
     placements (``migrate``) or drop it (``drop`` — caller re-prefills).
 
-    The moved cache is a fresh copy on the placements' device, so the
-    replacement shares no storage with the dying replica's cache, even
-    when both name the same device (decode writes the cache in place)."""
+    Over the ranks of a world (distributed placements) ``cache`` is this
+    rank's slices laid out by ``old`` (None where it holds none) and they
+    move by ``reshard_tree``: each rank of the new placements receives
+    exactly its share of ``reshard_bytes(cache, old, new_shardings)``.
+    In one process the moved cache is a fresh copy on the placements'
+    device, so the replacement shares no storage with the dying replica's
+    cache, even when both name the same device (decode writes the cache in
+    place)."""
     assert cache_policy in CACHE_POLICIES, cache_policy
     if cache_policy == "drop":
         return None
-    from repro_torch.dist.elastic import placement_device
+    from repro_torch.dist.elastic import placement_device, reshard_tree
     from repro_torch.models.common import tree_flatten
+
+    if any(p.mesh.distributed for p in tree_flatten(new_shardings)[0]):
+        return reshard_tree(cache, new_shardings, old)
 
     leaves, unflatten = tree_flatten(cache)
     placements = tree_flatten(new_shardings)[0]

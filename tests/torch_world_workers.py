@@ -206,3 +206,71 @@ def pair(w, init):
     """The world of 2: the 2 -> 1 -> 2 roundtrip and three sharded steps
     on (2, 1)."""
     return {"roundtrip": roundtrip(w, init, (2, 1, 2)), "steps": sharded_steps(w, init, 2)}
+
+
+# ---------------------------------------------------------------------------
+# Serving over ranks (tests/test_torch_serve_ranks.py)
+# ---------------------------------------------------------------------------
+
+SERVE_B, SERVE_S, SERVE_NEW, SERVE_REVOKE = 4, 16, 8, 3
+# run -> (arch case, counts, revoke_after, cache_policy, engine, int8 cache)
+SERVE_RUNS = {
+    "dense": ("qwen", [4], 0, "drop", False, False),
+    "drop": ("qwen", [4, 2], SERVE_REVOKE, "drop", False, False),
+    "migrate": ("qwen", [4, 2], SERVE_REVOKE, "migrate", False, False),
+    "migrate_4_1": ("qwen", [4, 1], SERVE_REVOKE, "migrate", False, False),
+    "engine": ("qwen", [4, 2], SERVE_REVOKE, "drop", True, False),
+    "grow": ("qwen", [2, 4], SERVE_REVOKE, "migrate", False, False),
+    "int8_migrate": ("qwen", [4, 2], SERVE_REVOKE, "migrate", False, True),
+    "whisper_migrate": ("whisper", [4, 2], SERVE_REVOKE, "migrate", False, False),
+}
+# the host path over ranks: the reduced bf16 model the launcher serves
+HOST_ARGV = ["--arch", "qwen3-4b", "--batch", str(SERVE_B), "--prompt-len", str(SERVE_S),
+             "--new-tokens", str(SERVE_NEW), "--device", "cpu", "--seed", "0"]
+
+
+def serve_case(case, qwen_params):
+    """(model, params, prompts, frames) of a serving case, alike on every
+    rank and in the test's process: reduced f32 qwen3-4b with the
+    reference's weights (numpy), or reduced f32 whisper-tiny from the
+    seeded torch generator with its frames drawn after the params."""
+    from repro_torch.models.convert import params_from_jax
+
+    arch = "qwen3-4b" if case == "qwen" else "whisper-tiny"
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    model = build_model(cfg)
+    prompts = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (SERVE_B, SERVE_S)).astype(np.int32)
+    if case == "qwen":
+        return model, params_from_jax(qwen_params, cfg, "cpu"), prompts, None
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, "cpu")
+    frames = torch.randn((SERVE_B, cfg.encoder_seq_len, cfg.d_model), generator=gen)
+    return model, params, prompts, frames
+
+
+def serve_one(run, qwen_params, cases=None):
+    """One of SERVE_RUNS through ``serve_plan``: over the world's ranks
+    when this process is a rank, else over a pool of 4 CPU slots."""
+    from repro_torch.launch import serve
+
+    case, counts, revoke, policy, engine, int8 = SERVE_RUNS[run]
+    model, params, prompts, frames = (cases or {}).get(case) or serve_case(case, qwen_params)
+    return serve.serve_plan(model, params, prompts, SERVE_NEW, counts, revoke_after=revoke,
+                            cache_policy=policy, engine=engine, device="cpu",
+                            int8_cache=int8, frames=frames)
+
+
+def serve_ranks(w, qwen_params, trace_path):
+    """The world of 4: every run of SERVE_RUNS, then the CLI: the host path
+    with ``--devices 4 --model-parallel 2``, and the engine on plans 4 -> 2
+    recording its trace to ``trace_path`` (rank 0 records)."""
+    from repro_torch.launch import serve
+
+    cases = {c: serve_case(c, qwen_params) for c in ("qwen", "whisper")}
+    out = {run: serve_one(run, qwen_params, cases) for run in SERVE_RUNS}
+    out["host"] = serve.main(HOST_ARGV + ["--devices", "4", "--model-parallel", "2"])
+    out["traced"] = serve.main(HOST_ARGV + ["--devices", "4", "--plan", "4,2", "--revoke-after",
+                                            str(SERVE_REVOKE), "--engine", "--trace",
+                                            trace_path])
+    return out
